@@ -1,0 +1,13 @@
+"""predictionio_tpu_torch: the PyTorch/CUDA port of predictionio_tpu.
+
+The JAX package ``predictionio_tpu`` stays the reference; this package is
+its counterpart for one NVIDIA Hopper GPU, slice by slice, and keeps the
+reference's module names so each counterpart is easy to find. It imports
+``torch``, numpy and the standard library only: never ``jax`` and never a
+module of ``predictionio_tpu`` (what it needs from there it copies).
+
+Slice 1 is recommendation serving: ``tools.cli deploy`` → engine server →
+micro-batching executor → ``ALSAlgorithm.batch_predict`` →
+``ALSModel.recommend_many`` → ``ServingFactors`` → the hand-written top-N
+kernel ``ops.topn`` (``csrc/topn.cu``).
+"""

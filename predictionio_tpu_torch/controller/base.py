@@ -1,0 +1,112 @@
+"""Algorithm and serving bases, the deploy-side subset of
+``predictionio_tpu/controller/base.py`` (reference
+core/BaseAlgorithm.scala:55-123, core/BaseServing.scala:28-51,
+controller/LFirstServing.scala:24-39).
+
+Where the reference hands a workflow context to ``prepare_serving``, the
+port hands the ``torch.device`` the deployment serves on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
+
+import torch
+
+from predictionio_tpu_torch.controller.params import (
+    EmptyParams,
+    Params,
+    params_from_json,
+)
+
+M = TypeVar("M")  # model
+Q = TypeVar("Q")  # query
+P = TypeVar("P")  # predicted result
+
+
+def doer(cls, params: Optional[Params] = None):
+    """Instantiate a controller class with its params (reference Doer.apply,
+    core/AbstractDoer.scala:33-66). An EmptyParams slot upgrades to the
+    class's declared params defaults."""
+    params = params if params is not None else EmptyParams()
+    if isinstance(params, EmptyParams) and getattr(cls, "params_class", None):
+        params = cls.params_class()
+    return cls(params)
+
+
+class Controller:
+    """Common base: ``self.params`` is always set; a declared
+    ``params_class`` supplies the default (all-defaults) instance."""
+
+    params_class: Optional[type] = None
+
+    def __init__(self, params: Optional[Params] = None):
+        if params is not None:
+            self.params = params
+        elif type(self).params_class is not None:
+            self.params = type(self).params_class()
+        else:
+            self.params = EmptyParams()
+
+
+class BaseAlgorithm(Controller, Generic[M, Q, P]):
+    """Predicts from a trained model (reference core/BaseAlgorithm.scala)."""
+
+    def predict(self, model: M, query: Q) -> P:
+        raise NotImplementedError
+
+    def batch_predict(
+        self, model: M, queries: Sequence[Tuple[int, Q]]
+    ) -> List[Tuple[int, P]]:
+        """Predict for indexed queries; override with a batched device
+        predict (reference P2LAlgorithm.batchPredict default)."""
+        return [(i, self.predict(model, q)) for i, q in queries]
+
+    def prepare_serving(self, device: torch.device, model: M) -> M:
+        """Deploy-time hook: bind the model's serving state to ``device``.
+        Default: model unchanged."""
+        return model
+
+    def warm(self, model: M) -> None:
+        """Deploy-time warm-up before the server takes traffic. Default:
+        nothing."""
+
+    def release_serving(self, model: M) -> None:
+        """Free the device-resident serving state a model holds. A query
+        racing past the release must still be servable. Default:
+        nothing."""
+
+    def query_from_json(self, json_obj: Any) -> Q:
+        """Build a query from a JSON payload: the declared ``query_class``
+        dataclass, or the raw value when none is declared."""
+        qcls = getattr(self, "query_class", None)
+        if qcls is not None:
+            return params_from_json(json_obj, qcls)
+        return json_obj
+
+    def result_to_json(self, result: P) -> Any:
+        """Serialize a predicted result: dataclasses field-wise, anything
+        else as it is."""
+        if dataclasses.is_dataclass(result) and not isinstance(result, type):
+            return dataclasses.asdict(result)
+        return result
+
+
+class BaseServing(Controller, Generic[Q, P]):
+    """Combines per-algorithm predictions into the served result
+    (reference core/BaseServing.scala:28-51)."""
+
+    def supplement(self, query: Q) -> Q:
+        return query
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        raise NotImplementedError
+
+
+class FirstServing(BaseServing[Q, P]):
+    """Serves the first algorithm's prediction
+    (reference controller/LFirstServing.scala:24-39)."""
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        return predictions[0]

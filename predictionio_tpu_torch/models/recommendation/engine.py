@@ -1,0 +1,254 @@
+"""Recommendation engine, serving side: the counterpart of
+``predictionio_tpu/models/recommendation/engine.py`` (reference
+examples/scala-parallel-recommendation/custom-query: Engine.scala,
+ALSAlgorithm.scala:79-105, Serving.scala).
+
+Queries, results and params keep the reference's fields and JSON names.
+``ALSModel.recommend_many`` serves a micro-batch with one K3 launch on the
+model's device. ``als_model_from_numpy`` builds a model from a trained
+model's arrays, which is how a model trained by the JAX package is carried
+across (as numpy: the port never imports the JAX package).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.controller import (
+    BaseAlgorithm,
+    Engine,
+    FirstServing,
+    Params,
+)
+from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.ops.als import (
+    ALSModelArrays,
+    ServingFactors,
+    validate_solver,
+)
+from predictionio_tpu_torch.utils.shapes import pow2_topk_width
+
+
+@dataclasses.dataclass(frozen=True)
+class Query:
+    user: str
+    num: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class ItemScore:
+    item: str
+    score: float
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictedResult:
+    item_scores: Tuple[ItemScore, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(
+            self,
+            "item_scores",
+            tuple(
+                s if isinstance(s, ItemScore) else ItemScore(**s)
+                for s in self.item_scores
+            ),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ALSAlgorithmParams(Params):
+    """The reference's ALSAlgorithmParams, field for field, so an
+    engine.json params block parses the same. The training fields are
+    carried, and used when training is ported."""
+
+    rank: int = 10
+    num_iterations: int = 10
+    lambda_: float = 0.01
+    alpha: float = 1.0
+    implicit_prefs: bool = False
+    seed: Optional[int] = 3
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 5
+    # deploy-time warm-up coverage: the largest query num and serving
+    # batch size run once before traffic
+    warm_num: int = 16
+    warm_max_batch: int = 128
+    delta_sweeps: int = 2
+    # resident catalog precision; only "float32" is ported
+    precision: str = "float32"
+    shortlist_mult: int = 4
+    solver: str = "exact"
+    block_size: int = 0
+
+    def __post_init__(self):
+        validate_solver(self.solver, self.block_size, self.rank)
+
+
+def _check_precision(params: Optional[ALSAlgorithmParams]) -> None:
+    if params is not None and params.precision != "float32":
+        raise NotImplementedError(
+            f"precision={params.precision!r} serving is not ported yet "
+            "(ROADMAP.md queue 1 item 5, quantized retrieval); only "
+            "'float32' is served"
+        )
+
+
+@dataclasses.dataclass
+class ALSModel:
+    """Trained factors, id indexes and the params they were trained with.
+    Device serving state is built lazily on the device attached at deploy
+    (``attach_device``) and is never saved."""
+
+    arrays: ALSModelArrays
+    user_index: BiMap
+    item_index: BiMap
+    params: Optional[ALSAlgorithmParams] = None
+    _device: Optional[torch.device] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    _serving: Optional[ServingFactors] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    _inv_item: Optional[BiMap] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    def attach_device(self, device: DeviceLike) -> None:
+        """Serve on ``device`` (drops serving state built elsewhere)."""
+        self._device = resolve_device(device)
+        self._serving = None
+
+    @property
+    def serving(self) -> ServingFactors:
+        if self._serving is None:
+            _check_precision(self.params)
+            self._serving = ServingFactors(
+                self.arrays.user_factors, self.arrays.item_factors,
+                device=self._device,
+            )
+        return self._serving
+
+    def recommend(self, user: str, num: int) -> PredictedResult:
+        [(_, result)] = self.recommend_many([(0, Query(user, num))])
+        return result
+
+    def recommend_many(self, queries) -> List[Tuple[int, PredictedResult]]:
+        """Top-N for a batch of indexed queries, one K3 launch. Unknown
+        users get an empty result; the top-k width is the batch's largest
+        ``num`` on the pow2 ladder (min 16, clamped to the catalog)."""
+        known = [
+            (qx, self.user_index[q.user], q.num)
+            for qx, q in queries
+            if q.user in self.user_index
+        ]
+        unknown = [
+            (qx, PredictedResult())
+            for qx, q in queries
+            if q.user not in self.user_index
+        ]
+        if not known:
+            return unknown
+        max_num = pow2_topk_width(
+            max(n for _, _, n in known), len(self.item_index)
+        )
+        scores, idx = self.serving.topn_by_user([u for _, u, _ in known], max_num)
+        # the inverse index is catalog-sized: built once, not per request
+        if self._inv_item is None:
+            self._inv_item = self.item_index.inverse()
+        inv_item = self._inv_item
+        out = list(unknown)
+        for row, (qx, _, num) in enumerate(known):
+            item_scores = tuple(
+                ItemScore(item=inv_item[int(idx[row, j])], score=float(scores[row, j]))
+                for j in range(min(num, max_num))
+            )
+            out.append((qx, PredictedResult(item_scores=item_scores)))
+        return out
+
+
+def als_model_from_numpy(
+    user_factors: np.ndarray,
+    item_factors: np.ndarray,
+    user_ids: Sequence[str],
+    item_ids: Sequence[str],
+    params: Optional[ALSAlgorithmParams] = None,
+) -> ALSModel:
+    """An ALSModel from a trained model's arrays: ``user_ids[r]`` is the id
+    of factor row ``r`` (likewise items). For a model trained by the JAX
+    package: ``model.arrays.user_factors``/``.item_factors`` and the ids
+    of ``user_index``/``item_index`` in row order."""
+    uf = np.asarray(user_factors, np.float32)
+    itf = np.asarray(item_factors, np.float32)
+    if uf.ndim != 2 or itf.ndim != 2 or uf.shape[1] != itf.shape[1]:
+        raise ValueError(
+            f"factor shapes {uf.shape} and {itf.shape} are not [U,k] and [I,k]"
+        )
+    if len(user_ids) != uf.shape[0] or len(item_ids) != itf.shape[0]:
+        raise ValueError(
+            f"{len(user_ids)} user ids for {uf.shape[0]} rows, "
+            f"{len(item_ids)} item ids for {itf.shape[0]} rows"
+        )
+    return ALSModel(
+        arrays=ALSModelArrays(user_factors=uf, item_factors=itf),
+        user_index=BiMap({str(u): r for r, u in enumerate(user_ids)}),
+        item_index=BiMap({str(i): r for r, i in enumerate(item_ids)}),
+        params=params,
+    )
+
+
+class ALSAlgorithm(BaseAlgorithm):
+    """ALS serving (reference ALSAlgorithm.scala:79-105)."""
+
+    params_class = ALSAlgorithmParams
+    query_class = Query
+
+    def prepare_serving(self, device: torch.device, model: ALSModel) -> ALSModel:
+        """Bind the model's serving state to ``device``."""
+        _check_precision(self.params)
+        model.attach_device(device)
+        return model
+
+    def predict(self, model: ALSModel, query: Query) -> PredictedResult:
+        return model.recommend(query.user, query.num)
+
+    def batch_predict(self, model: ALSModel, queries) -> List[Tuple[int, PredictedResult]]:
+        return model.recommend_many(queries)
+
+    def release_serving(self, model: ALSModel) -> None:
+        """Drop the device factors; they free once the last in-flight batch
+        lets go. A straggler query rebuilds them lazily."""
+        model._serving = None
+
+    def warm(self, model: ALSModel) -> None:
+        """Run every top-k tier up to warm_num and every padded batch size
+        up to warm_max_batch once, before the server takes traffic."""
+        p: ALSAlgorithmParams = self.params
+        n = 16
+        while True:
+            model.serving.warm(n=n, max_batch=p.warm_max_batch)
+            if n >= min(p.warm_num, len(model.item_index)):
+                break
+            n *= 2
+
+    def result_to_json(self, result: PredictedResult):
+        # reference wire format (Engine.scala PredictedResult(itemScores))
+        return {
+            "itemScores": [
+                {"item": s.item, "score": s.score}
+                for s in result.item_scores
+            ]
+        }
+
+
+class Serving(FirstServing):
+    """First-algorithm serving (reference Serving.scala)."""
+
+
+def recommendation_engine() -> Engine:
+    return Engine(algorithm_classes={"als": ALSAlgorithm}, serving_classes=Serving)

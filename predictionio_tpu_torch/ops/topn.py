@@ -1,0 +1,218 @@
+"""K3, the serving score + top-n, packed: the counterpart of the reference's
+jitted program ``predictionio_tpu/ops/als.py:2354 _topn_packed_impl``
+(``_topn_packed`` at :2365).
+
+``topn_packed(q, Y, n)`` returns ``[B, 2n]`` float32: per query row the n
+best item scores (``q·Yᵀ``), descending, then the n int32 item ids as raw
+bits. Ties break lowest index first, as ``lax.top_k`` does.
+
+Three forms, one function:
+- the hand-written CUDA kernel for Hopper, ``csrc/topn.cu`` (its header
+  states the bound on the card and the design), built with nvcc at first
+  use and called through ``ctypes``;
+- the plain PyTorch twin ``topn_packed_plain``: an f32 product and a
+  STABLE descending sort (``torch.topk`` does not fix the order of ties);
+- the wrapper ``topn_packed``, which routes a CPU tensor to the twin and a
+  CUDA tensor to the kernel. On a CUDA tensor it launches the kernel or
+  raises; it never falls back to the twin. ``LAUNCHES`` counts what it ran.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.ops import native
+
+SOURCE = "topn.cu"
+_MAX_B = 65535 * 8  # the kernel's grid holds 8 query rows per y-block
+
+
+class LaunchCounts:
+    """Integer launch counters, safe under concurrent serving threads."""
+
+    def __init__(self, *names: str):
+        self._lock = threading.Lock()
+        self._counts = {name: 0 for name in names}
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self._counts:
+                self._counts[name] = 0
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+
+# "topn_packed": kernel launches; "topn_packed_plain": CPU calls the
+# wrapper routed to the plain twin
+LAUNCHES = LaunchCounts("topn_packed", "topn_packed_plain")
+
+_lib_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path = native.build_sources([SOURCE])[SOURCE]
+            lib = ctypes.CDLL(str(path))
+            lib.topn_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.c_int
+            ] * 4 + [ctypes.c_void_p]
+            lib.topn_packed_f32.restype = ctypes.c_int
+            lib.topn_scratch_floats.argtypes = [ctypes.c_int] * 3
+            lib.topn_scratch_floats.restype = ctypes.c_longlong
+            lib.topn_error_string.argtypes = [ctypes.c_int]
+            lib.topn_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def pack_topn(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``[B, 2n]``: scores, then the int32 ids as raw float32 bits (a
+    bitcast, never a float cast, so ids >= 2^24 survive)."""
+    bits = idx.to(torch.int32).contiguous().view(torch.float32)
+    return torch.cat([scores.to(torch.float32), bits], dim=1)
+
+
+def topn_packed_plain(q: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
+    """The plain twin: f32 ``q @ Y.T``, a stable descending sort (ties keep
+    ascending index order), the first n, packed."""
+    scores = q @ Y.T
+    s, i = torch.sort(scores, dim=1, descending=True, stable=True)
+    return pack_topn(s[:, :n], i[:, :n])
+
+
+def _check(q: torch.Tensor, Y: torch.Tensor, n: int) -> None:
+    if q.dim() != 2 or Y.dim() != 2:
+        raise ValueError(
+            f"q and Y must be 2-D, got {tuple(q.shape)} and {tuple(Y.shape)}"
+        )
+    if q.dtype != torch.float32 or Y.dtype != torch.float32:
+        raise TypeError(f"q and Y must be float32, got {q.dtype} and {Y.dtype}")
+    if q.shape[1] != Y.shape[1] or q.shape[1] < 1:
+        raise ValueError(
+            f"rank mismatch: q is {tuple(q.shape)}, Y is {tuple(Y.shape)}"
+        )
+    B, N = q.shape[0], Y.shape[0]
+    if not 1 <= B <= _MAX_B:
+        raise ValueError(f"batch {B} out of range [1, {_MAX_B}]")
+    if not 1 <= N < 2**31:
+        raise ValueError(f"catalog size {N} out of range [1, 2^31)")
+    if not 1 <= n <= N:
+        raise ValueError(f"n={n} out of range [1, N={N}]")
+    if q.device != Y.device:
+        raise ValueError(f"q is on {q.device} but Y is on {Y.device}")
+
+
+def topn_packed(q: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
+    """K3 on ``q [B,k]`` and ``Y [N,k]`` float32 -> ``[B, 2n]`` float32.
+
+    CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
+    must build and launch or this raises."""
+    n = int(n)
+    _check(q, Y, n)
+    if q.device.type == "cpu":
+        LAUNCHES.add("topn_packed_plain")
+        return topn_packed_plain(q, Y, n)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if not (q.is_contiguous() and Y.is_contiguous()):
+        raise ValueError("q and Y must be contiguous (row-major)")
+    lib = load_library()
+    B, k = q.shape
+    N = Y.shape[0]
+    out = torch.empty((B, 2 * n), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(
+        int(lib.topn_scratch_floats(B, N, n)),
+        dtype=torch.float32, device=q.device,
+    )
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.topn_packed_f32(
+            q.data_ptr(), Y.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            B, N, k, n, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "topn_packed kernel launch failed: "
+            f"{lib.topn_error_string(err).decode()} (cudaError {err})"
+        )
+    LAUNCHES.add("topn_packed")
+    return out
+
+
+def check_topn_agreement(
+    scores: np.ndarray,
+    ids: np.ndarray,
+    ref_scores: np.ndarray,
+    ref_ids: np.ndarray,
+    rtol: float = 1e-5,
+    atol: float = 1e-6,
+    q: Optional[np.ndarray] = None,
+    Y: Optional[np.ndarray] = None,
+) -> float:
+    """Hold a top-n result against a reference computed with another
+    summation order; return the largest absolute score difference.
+
+    Scores must agree within ``atol + rtol·|ref|``. Ids must be unique per
+    row and equal to the reference's, except inside a run of consecutive
+    reference scores that lie within that tolerance of each other (a
+    near-tie the two summation orders may order differently): there the id
+    sets must agree. A run that reaches the end of the list may go on past
+    it, so there the ids may differ. Given the inputs ``q`` and ``Y``, each
+    reported score is also held against its id's float64 score. Raises
+    ``AssertionError`` on disagreement."""
+    scores, ids = np.atleast_2d(scores), np.atleast_2d(ids)
+    ref_scores, ref_ids = np.atleast_2d(ref_scores), np.atleast_2d(ref_ids)
+    if scores.shape != ref_scores.shape or ids.shape != ref_ids.shape:
+        raise AssertionError(
+            f"shape {scores.shape}/{ids.shape} != reference "
+            f"{ref_scores.shape}/{ref_ids.shape}"
+        )
+    s = scores.astype(np.float64)
+    r = ref_scores.astype(np.float64)
+    tol = atol + rtol * np.abs(r)
+    err = np.abs(s - r)
+    if not np.all(err <= tol):
+        row, col = np.argwhere(err > tol)[0]
+        raise AssertionError(
+            f"score mismatch at [{row}, {col}]: {s[row, col]!r} vs "
+            f"{r[row, col]!r}"
+        )
+    n = r.shape[1]
+    for row in range(r.shape[0]):
+        if len(set(ids[row].tolist())) != n:
+            raise AssertionError(f"row {row}: repeated ids {ids[row]}")
+        if q is not None and Y is not None:
+            exact = Y[ids[row]].astype(np.float64) @ q[row].astype(np.float64)
+            if not np.all(np.abs(s[row] - exact) <= atol + rtol * np.abs(exact)):
+                raise AssertionError(
+                    f"row {row}: reported scores {s[row]} are not the "
+                    f"scores {exact} of ids {ids[row]}"
+                )
+        start = 0
+        while start < n:
+            end = start + 1
+            while end < n and abs(r[row, end] - r[row, end - 1]) <= tol[row, end - 1]:
+                end += 1
+            a, b = ids[row, start:end], ref_ids[row, start:end]
+            if end < n and set(a.tolist()) != set(b.tolist()):
+                raise AssertionError(
+                    f"row {row}: ids {a} vs reference {b} in positions "
+                    f"[{start}, {end})"
+                )
+            start = end
+    return float(err.max()) if err.size else 0.0

@@ -1,0 +1,111 @@
+"""Command line for the port: ``pio``-style ``deploy`` of a saved model
+(the counterpart of ``predictionio_tpu/tools/cli.py cmd_deploy``).
+
+    python -m predictionio_tpu_torch.tools.cli deploy --model model.npz \\
+        [--ip localhost] [--port 8000] [--device cuda|cpu] \\
+        [--max-batch 128] [--batch-window-ms 2.0] [--pipeline-depth 1] \\
+        [--transport async|threaded]
+
+It loads the model (``utils/serialize.py``), prepares it on the device
+(CUDA unless ``--device cpu``), warms the serving kernel and serves
+``POST /queries.json`` until ``GET /stop``. The served ``modelVersion`` is
+the model file's name without its extension.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import Optional, Sequence
+
+from predictionio_tpu_torch.api.engine_server import (
+    DeployedEngine,
+    EngineServer,
+    ServerConfig,
+    create_server,
+)
+from predictionio_tpu_torch.controller.engine import EngineParams
+from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.models.recommendation.engine import (
+    ALSAlgorithmParams,
+    recommendation_engine,
+)
+from predictionio_tpu_torch.utils.serialize import load_model
+
+
+def deploy_model_file(
+    model_path: str, config: ServerConfig, device: DeviceLike = None
+) -> EngineServer:
+    """Load, prepare and warm the model at ``model_path`` on ``device`` and
+    bind a server for it (not yet serving)."""
+    dev = resolve_device(device)
+    model = load_model(model_path)
+    params = model.params if model.params is not None else ALSAlgorithmParams()
+    engine = recommendation_engine()
+    engine_params = EngineParams(algorithm_params_list=(("als", params),))
+    models = engine.prepare_deploy(dev, engine_params, [model])
+    version = os.path.splitext(os.path.basename(model_path))[0]
+    deployed = DeployedEngine(engine, engine_params, models, version=version)
+    return create_server(deployed, config)
+
+
+def cmd_deploy(args) -> int:
+    config = ServerConfig(
+        ip=args.ip,
+        port=args.port,
+        batch_window_ms=args.batch_window_ms,
+        max_batch=args.max_batch,
+        pipeline_depth=args.pipeline_depth,
+        transport=args.transport,
+    )
+    server = deploy_model_file(args.model, config, device=args.device)
+    print(f"Engine server serving on {args.ip}:{server.port}", flush=True)
+    server.serve_forever()
+    server.wait_stopped(timeout=30.0)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="predictionio_tpu_torch.tools.cli",
+        description="Serve PredictionIO engines with PyTorch on a GPU.",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    deploy = sub.add_parser("deploy", help="start the engine query server")
+    deploy.add_argument("--model", required=True, help="model file (.npz)")
+    deploy.add_argument("--ip", default="localhost")
+    deploy.add_argument("--port", type=int, default=8000)
+    deploy.add_argument(
+        "--device", default="cuda",
+        help="'cuda' (default; fails when no CUDA device is present), "
+        "'cuda:N' or 'cpu'",
+    )
+    deploy.add_argument(
+        "--batch-window-ms", type=float, default=2.0,
+        help="micro-batching window for concurrent queries",
+    )
+    deploy.add_argument(
+        "--max-batch", type=int, default=128,
+        help="max queries per device batch",
+    )
+    deploy.add_argument(
+        "--pipeline-depth", type=int, default=1,
+        help="batches in flight at once (1 = strictly serial serving)",
+    )
+    deploy.add_argument(
+        "--transport", choices=("async", "threaded"), default="async",
+        help="REST frontend: 'async' event loop or 'threaded' "
+        "thread-per-connection",
+    )
+    deploy.set_defaults(func=cmd_deploy)
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,127 @@
+"""The port's recommendation serving against the JAX package's, on a tiny
+model trained by JAX ``train_als`` on the CPU and carried across as numpy
+with ``als_model_from_numpy``.
+
+Tolerance: scores rtol 1e-5, atol 1e-6 (XLA and PyTorch sum the rank in
+different orders); item lists equal except inside near-tie runs
+(``check_topn_agreement``). Fed the same result, ``result_to_json`` is
+equal exactly.
+"""
+
+import numpy as np
+import pytest
+
+from predictionio_tpu.controller.params import params_to_json as jax_params_to_json
+from predictionio_tpu.data.bimap import BiMap as JaxBiMap
+from predictionio_tpu.models.recommendation import engine as jax_engine
+from predictionio_tpu.ops.als import ALSConfig, train_als
+from predictionio_tpu_torch.controller.params import params_from_json, params_to_json
+from predictionio_tpu_torch.models.recommendation import engine as port_engine
+from predictionio_tpu_torch.ops.topn import check_topn_agreement
+from predictionio_tpu_torch.utils.serialize import load_model, save_model
+
+RTOL, ATOL = 1e-5, 1e-6
+N_USERS, N_ITEMS, RANK = 60, 40, 8
+
+
+@pytest.fixture(scope="module")
+def models():
+    rng = np.random.default_rng(0)
+    nnz = 600
+    u = rng.integers(0, N_USERS, nnz).astype(np.int32)
+    i = rng.integers(0, N_ITEMS, nnz).astype(np.int32)
+    r = rng.integers(1, 6, nnz).astype(np.float32)
+    arrays = train_als(
+        u, i, r, n_users=N_USERS, n_items=N_ITEMS,
+        config=ALSConfig(rank=RANK, iterations=4, seed=1),
+    )
+    user_index = JaxBiMap.string_int(f"u{x}" for x in range(N_USERS))
+    item_index = JaxBiMap.string_int(f"i{x}" for x in range(N_ITEMS))
+    jax_model = jax_engine.ALSModel(
+        arrays=arrays, user_index=user_index, item_index=item_index
+    )
+    inv_u, inv_i = user_index.inverse(), item_index.inverse()
+    params = port_engine.ALSAlgorithmParams(rank=RANK)
+    port_model = port_engine.als_model_from_numpy(
+        np.asarray(arrays.user_factors),
+        np.asarray(arrays.item_factors),
+        [inv_u[r] for r in range(N_USERS)],
+        [inv_i[r] for r in range(N_ITEMS)],
+        params,
+    )
+    port_engine.ALSAlgorithm(params).prepare_serving("cpu", port_model)
+    return jax_model, port_model
+
+
+def _queries(module):
+    users = ["u0", "u17", "nobody", "u59", "u3", "u42", "u-1", "u8"]
+    nums = [10, 1, 5, 16, 25, 40, 3, 100]
+    return [(qx, module.Query(user=u, num=n)) for qx, (u, n) in enumerate(zip(users, nums))]
+
+
+def test_recommend_many_matches_jax(models):
+    jax_model, port_model = models
+    jax_out = dict(jax_model.recommend_many(_queries(jax_engine)))
+    port_out = dict(port_model.recommend_many(_queries(port_engine)))
+    assert sorted(jax_out) == sorted(port_out)
+    jax_alg = jax_engine.ALSAlgorithm(jax_engine.ALSAlgorithmParams(rank=RANK))
+    port_alg = port_engine.ALSAlgorithm(port_engine.ALSAlgorithmParams(rank=RANK))
+    item_row = port_model.item_index
+    for qx, (_, q) in enumerate(_queries(port_engine)):
+        j, p = jax_out[qx], port_out[qx]
+        assert len(p.item_scores) == len(j.item_scores)
+        if q.user not in port_model.user_index:
+            assert p.item_scores == ()
+            continue
+        assert len(p.item_scores) == min(q.num, N_ITEMS)
+        check_topn_agreement(
+            np.array([[s.score for s in p.item_scores]]),
+            np.array([[item_row[s.item] for s in p.item_scores]]),
+            np.array([[s.score for s in j.item_scores]]),
+            np.array([[item_row[s.item] for s in j.item_scores]]),
+            RTOL, ATOL,
+        )
+        pj, jj = port_alg.result_to_json(p), jax_alg.result_to_json(j)
+        assert [x["item"] for x in pj["itemScores"]] == [x["item"] for x in jj["itemScores"]]
+        np.testing.assert_allclose(
+            [x["score"] for x in pj["itemScores"]],
+            [x["score"] for x in jj["itemScores"]], rtol=RTOL, atol=ATOL,
+        )
+        # the same result serializes to the same JSON
+        same = port_engine.PredictedResult(
+            item_scores=[port_engine.ItemScore(s.item, s.score) for s in j.item_scores]
+        )
+        assert port_alg.result_to_json(same) == jj
+
+
+def test_params_json_matches_jax():
+    raw = {"rank": 12, "num_iterations": 3, "lambda_": 0.05, "warm_num": 32}
+    port = params_from_json(raw, port_engine.ALSAlgorithmParams)
+    jax_params = jax_engine.ALSAlgorithmParams(**raw)
+    assert params_to_json(port) == jax_params_to_json(jax_params)
+
+
+def test_save_load_round_trips_bit_for_bit(models, tmp_path):
+    _, port_model = models
+    path = tmp_path / "model.npz"
+    save_model(path, port_model)
+    loaded = load_model(path)
+    for a, b in [
+        (loaded.arrays.user_factors, port_model.arrays.user_factors),
+        (loaded.arrays.item_factors, port_model.arrays.item_factors),
+    ]:
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    assert loaded.user_index == port_model.user_index
+    assert loaded.item_index == port_model.item_index
+    assert loaded.params == port_model.params
+    loaded.attach_device("cpu")
+    qs = _queries(port_engine)
+    assert loaded.recommend_many(qs) == port_model.recommend_many(qs)
+
+
+def test_quantized_precision_is_not_served_as_float32(models):
+    _, port_model = models
+    alg = port_engine.ALSAlgorithm(port_engine.ALSAlgorithmParams(rank=RANK, precision="int8"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        alg.prepare_serving("cpu", port_model)
