@@ -1,12 +1,15 @@
-"""The deploy-side subset of the DASE controller API (the counterpart of
-``predictionio_tpu/controller``): params from JSON, the algorithm and
-serving bases, and an engine that builds them and prepares a deploy.
-Training and evaluation come with the training slice."""
+"""The subset of the DASE controller API the ported slices use (the
+counterpart of ``predictionio_tpu/controller``): params from JSON, the
+data check, the preparator, algorithm and serving bases, and an engine
+that builds them and prepares a deploy. Evaluation and the train workflow
+come with later slices."""
 
 from predictionio_tpu_torch.controller.base import (
     BaseAlgorithm,
+    BasePreparator,
     BaseServing,
     FirstServing,
+    SanityCheck,
 )
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.controller.params import (
@@ -19,6 +22,7 @@ from predictionio_tpu_torch.controller.params import (
 
 __all__ = [
     "BaseAlgorithm",
+    "BasePreparator",
     "BaseServing",
     "EmptyParams",
     "Engine",
@@ -26,6 +30,7 @@ __all__ = [
     "FirstServing",
     "Params",
     "ParamsError",
+    "SanityCheck",
     "params_from_json",
     "params_to_json",
 ]

@@ -1,14 +1,16 @@
-"""Algorithm and serving bases, the deploy-side subset of
-``predictionio_tpu/controller/base.py`` (reference
-core/BaseAlgorithm.scala:55-123, core/BaseServing.scala:28-51,
-controller/LFirstServing.scala:24-39).
+"""Controller bases, the subset of ``predictionio_tpu/controller/base.py``
+the ported slices use: the data check, the preparator, the algorithm and
+the serving bases (reference controller/SanityCheck.scala:30,
+core/BasePreparator.scala:32-42, core/BaseAlgorithm.scala:55-123,
+core/BaseServing.scala:28-51, controller/LFirstServing.scala:24-39).
 
-Where the reference hands a workflow context to ``prepare_serving``, the
-port hands the ``torch.device`` the deployment serves on.
+Where the reference hands a workflow context to ``prepare``, ``train`` and
+``prepare_serving``, the port hands the ``torch.device`` they run on.
 """
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
 
@@ -20,6 +22,8 @@ from predictionio_tpu_torch.controller.params import (
     params_from_json,
 )
 
+TD = TypeVar("TD")  # training data
+PD = TypeVar("PD")  # prepared data
 M = TypeVar("M")  # model
 Q = TypeVar("Q")  # query
 P = TypeVar("P")  # predicted result
@@ -50,8 +54,28 @@ class Controller:
             self.params = EmptyParams()
 
 
+class SanityCheck(abc.ABC):
+    """Data-validation hook (reference controller/SanityCheck.scala:30):
+    training data, prepared data and models implement ``sanity_check``."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None: ...
+
+
+class BasePreparator(Controller, Generic[TD, PD]):
+    """Transforms training data into prepared data
+    (reference core/BasePreparator.scala:32-42)."""
+
+    def prepare(self, device: torch.device, training_data: TD) -> PD:
+        raise NotImplementedError
+
+
 class BaseAlgorithm(Controller, Generic[M, Q, P]):
-    """Predicts from a trained model (reference core/BaseAlgorithm.scala)."""
+    """Trains a model and predicts from it (reference
+    core/BaseAlgorithm.scala)."""
+
+    def train(self, device: torch.device, prepared_data) -> M:
+        raise NotImplementedError
 
     def predict(self, model: M, query: Q) -> P:
         raise NotImplementedError

@@ -2,8 +2,9 @@
 (reference controller/Engine.scala:80 and prepareDeploy :196-265).
 
 It builds an engine's algorithms and serving from ``EngineParams`` and
-prepares loaded models for serving on one device. Train and eval come
-with the training slice.
+prepares loaded models for serving on one device. The train and eval
+workflows come with a later slice; an algorithm trains on its own
+(``BaseAlgorithm.train``).
 """
 
 from __future__ import annotations

@@ -1,0 +1,416 @@
+// K1: the per-row normal equations of an ALS half-step — the hand-written
+// Hopper kernel that replaces the reference's jitted loop body
+// predictionio_tpu/ops/als.py:481 _accumulate_systems (explicit ratings,
+// float32, precision="highest").
+//
+// What it computes. For every system row r: A[r] = Σ y yᵀ and
+// b[r] = Σ v·y over the row's observations, y = Y[col] (the counter-side
+// factor row), v the rating. The observations come in the packed segment
+// layout (cols/vals [S, L], valid slots a prefix of rem[s] per segment, a
+// row's segments consecutive). A [R, k, k] and b [R, k] are written in
+// full, zeros for rows without observations.
+//
+// Bound on an H100 SXM. A is symmetric, so a rating needs k(k+1)/2 + k
+// FMAs, 2 flops each: at ML-20M (20M ratings, k=32) ≈22.4 GFLOP per
+// half-step, ≈0.33 ms at the fp32 CUDA-core peak (67 TFLOP/s). The bytes
+// (packed planes plus A and b, ≈0.90 GB on the user side, ≈0.34 GB on the
+// item side) take ≈0.27 ms and ≈0.10 ms at 3.35 TB/s: it is bound by
+// operations. The gathered factor
+// matrices (3.7 MB and 18.9 MB) fit in the 50 MB L2. Products are fp32
+// FMAs on the CUDA cores, never TF32: the reference holds f32 parity.
+//
+// Design. Both forms walk a plan the host builds once per pack: groups of
+// up to GROUP_SEGMENTS (8) consecutive segments of one row. A row with one
+// group writes its A and b directly; a longer row (the skew: the most rated
+// ML-20M item has 8,531 segments, which one block would take ≈2 ms to
+// sum) writes one partial per group, so its work spreads over many blocks.
+//   normal_eq_groups32 (k <= 32, the main path's rank): one warp per group
+//     and no block barrier. The warp walks its group in chunks of 32 slots:
+//     it gathers a chunk's Y rows into one of its two shared tiles with
+//     cp.async (a row per request, lanes along k, zeros past k) while it
+//     multiplies the previous chunk, and loads the column ids of the chunk
+//     after. Every lane adds the slots' products to its 4x8 tile of the
+//     32x32 square (3 float4 shared reads per 32 FMAs) and its row of b.
+//     The tiles go back through shared memory, so A is stored coalesced.
+//   normal_eq_groups (k > 32): one block of 256 threads per group. It
+//     stages CH=64 gathered rows at a time (a warp per row, lanes along k);
+//     each thread owns a 4x4 tile of the lower triangle (A is symmetric;
+//     each tile is written to both triangles) for every SG-th staged slot,
+//     the tiles in column 0 also sum b, and the SG slot groups are summed
+//     in a fixed order through shared memory. Above k=88 the tiles split
+//     over blockIdx.y.
+//   normal_eq_combine: per multi-group row and 256-entry range of its k²+k
+//     outputs, the partials summed in slot order.
+// No atomics: every
+// sum has a fixed order, so a run is bit-for-bit repeatable. Slots past rem
+// are never read; groups without segments (empty, padding and sentinel
+// rows) write zeros. Products are fp32 FMAs, never TF32. Later work:
+// wgmma with 3xTF32 splitting, double-buffered gathers, fusing K2.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int CH = 64;  // gathered slots staged per round
+constexpr int COMBINE_THREADS = 256;
+constexpr int RED = 20;  // floats a thread hands over in the slot-group sum
+constexpr int WARPS32 = 4;  // warps (= groups) per block of the k <= 32 form
+constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t DEFAULT_SMEM = 48 * 1024;
+
+// The t-th 4x4 tile of the lower triangle, row by row: (0,0), (1,0),
+// (1,1), (2,0), ...
+__device__ __forceinline__ void lower_tile(int t, int& ti, int& tj) {
+  int i = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while ((i + 1) * (i + 2) / 2 <= t) ++i;
+  while (i * (i + 1) / 2 > t) --i;
+  ti = i;
+  tj = t - i * (i + 1) / 2;
+}
+
+__global__ void __launch_bounds__(THREADS) normal_eq_groups(
+    const float* __restrict__ Y, const int* __restrict__ cols,
+    const float* __restrict__ vals, const int* __restrict__ rem,
+    const int* __restrict__ groups, int n_groups,
+    float* __restrict__ partials, float* __restrict__ A,
+    float* __restrict__ b, int k, int L, int T, int tiles_per_block,
+    int SG) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int kp = 4 * T;               // staged row length, float4-aligned
+  float* ys = smem;                   // [CH][kp]
+  float* wb = ys + CH * kp;           // [CH] ratings
+  float* red = wb + CH;               // [(SG-1) * tiles_per_block * RED]
+
+  const int g = blockIdx.x;
+  const int row = groups[g];
+  const int seg0 = groups[n_groups + g];
+  const int nseg = groups[2 * n_groups + g];
+  const int slot = groups[3 * n_groups + g];
+  const int NT = T * (T + 1) / 2;
+  const int tile0 = blockIdx.y * tiles_per_block;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int tl = tid % tiles_per_block;
+  const int sg = tid / tiles_per_block;
+  const int tile = tile0 + tl;
+  const bool active = sg < SG && tile < NT;
+  int ti = 0, tj = 0;
+  if (active) lower_tile(tile, ti, tj);
+
+  float acc[4][4];
+  float bacc[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    bacc[x] = 0.f;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
+  }
+
+  for (int s = seg0; s < seg0 + nseg; ++s) {
+    const int n = rem[s];
+    const long long base = (long long)s * L;
+    for (int l0 = 0; l0 < n; l0 += CH) {
+      const int c = min(CH, n - l0);
+      __syncthreads();  // the previous round's readers are done
+      for (int r = warp; r < c; r += THREADS / 32) {
+        const float* src = Y + (long long)cols[base + l0 + r] * k;
+        for (int col = lane; col < kp; col += 32) ys[r * kp + col] = col < k ? src[col] : 0.f;
+      }
+      if (tid < c) wb[tid] = vals[base + l0 + tid];
+      __syncthreads();
+      if (active) {
+        for (int cc = sg; cc < c; cc += SG) {
+          const float4 a = *reinterpret_cast<const float4*>(ys + cc * kp + ti * 4);
+          const float4 y = *reinterpret_cast<const float4*>(ys + cc * kp + tj * 4);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+#pragma unroll
+            for (int z = 0; z < 4; ++z) acc[x][z] = fmaf(av[x], yv[z], acc[x][z]);
+          }
+          if (tj == 0) {
+            const float w = wb[cc];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) bacc[x] = fmaf(w, av[x], bacc[x]);
+          }
+        }
+      }
+    }
+  }
+
+  if (SG > 1) {  // sum the slot groups, in order, into slot group 0
+    if (active && sg > 0) {
+      float* r = red + ((sg - 1) * tiles_per_block + tl) * RED;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+#pragma unroll
+        for (int z = 0; z < 4; ++z) r[x * 4 + z] = acc[x][z];
+        r[16 + x] = bacc[x];
+      }
+    }
+    __syncthreads();
+    if (active && sg == 0) {
+      for (int q = 1; q < SG; ++q) {
+        const float* r = red + ((q - 1) * tiles_per_block + tl) * RED;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+#pragma unroll
+          for (int z = 0; z < 4; ++z) acc[x][z] += r[x * 4 + z];
+          bacc[x] += r[16 + x];
+        }
+      }
+    }
+  }
+
+  if (active && sg == 0) {
+    float* dA;
+    float* db;
+    if (slot < 0) {
+      dA = A + (long long)row * k * k;
+      db = b + (long long)row * k;
+    } else {
+      dA = partials + (long long)slot * (k * k + k);
+      db = dA + k * k;
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = ti * 4 + x;
+      if (i >= k) break;
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int j = tj * 4 + z;
+        if (j < k) {
+          dA[(long long)i * k + j] = acc[x][z];
+          if (ti != tj) dA[(long long)j * k + i] = acc[x][z];
+        }
+      }
+      if (tj == 0) db[i] = bacc[x];
+    }
+  }
+}
+
+// A chunk of up to 32 slots of one segment, as the k <= 32 form walks a
+// group: lane l holds slot l's column id and rating.
+struct Chunk {
+  int s, l0, c;  // segment, first slot, slot count (0: past the group)
+  int col;
+  float v;
+};
+
+__device__ __forceinline__ Chunk load_chunk(const int* __restrict__ cols,
+                                            const float* __restrict__ vals,
+                                            const int* __restrict__ rem,
+                                            int s, int l0, int s_end, int L,
+                                            int lane) {
+  Chunk ch{s, l0, 0, 0, 0.f};
+  if (s < s_end) {
+    ch.c = min(32, rem[s] - l0);
+    const long long at = (long long)s * L + l0 + lane;
+    if (lane < ch.c) {
+      ch.col = cols[at];
+      ch.v = vals[at];
+    }
+  }
+  return ch;
+}
+
+__device__ __forceinline__ void next_of(const Chunk& ch,
+                                        const int* __restrict__ rem, int& s,
+                                        int& l0) {
+  s = ch.s;
+  l0 = ch.l0 + 32;
+  if (l0 >= rem[s]) {
+    ++s;
+    l0 = 0;
+  }
+}
+
+// Gather a chunk's Y rows into a shared tile without staging them in
+// registers (cp.async, 4 bytes a lane, zero-filled past k).
+__device__ __forceinline__ void gather_async(float (*tile)[32],
+                                             const float* __restrict__ Y,
+                                             const Chunk& ch, int k,
+                                             int lane) {
+  for (int q = 0; q < ch.c; ++q) {
+    const int col = __shfl_sync(FULL, ch.col, q);
+    const float* src = Y + (long long)col * k + (lane < k ? lane : 0);
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(&tile[q][lane]);
+    const int bytes = lane < k ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// k <= 32: one warp per group, no block barrier. Rows are padded to 32
+// with zeros; lane l owns the 4x8 tile (rows 4·(l/4).., columns 8·(l%4)..)
+// of the 32x32 square and row l of b. Two shared tiles per warp: while the
+// warp multiplies one chunk, the next one's rows are in flight, and the
+// column ids of the one after are loading.
+__global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
+    const float* __restrict__ Y, const int* __restrict__ cols,
+    const float* __restrict__ vals, const int* __restrict__ rem,
+    const int* __restrict__ groups, int n_groups,
+    float* __restrict__ partials, float* __restrict__ A,
+    float* __restrict__ b, int k, int L) {
+  __shared__ __align__(16) float ys[WARPS32][2][32][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * WARPS32 + warp;
+  if (g >= n_groups) return;
+  const int row = groups[g];
+  const int seg0 = groups[n_groups + g];
+  const int s_end = seg0 + groups[2 * n_groups + g];
+  const int slot = groups[3 * n_groups + g];
+  const int ti = lane >> 2;
+  const int tj = lane & 3;
+
+  float acc[4][8];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+#pragma unroll
+    for (int z = 0; z < 8; ++z) acc[x][z] = 0.f;
+  }
+  float bl = 0.f;
+
+  int s = 0, l0 = 0;
+  Chunk cur = load_chunk(cols, vals, rem, seg0, 0, s_end, L, lane);
+  if (cur.c) gather_async(ys[warp][0], Y, cur, k, lane);
+  Chunk nxt{s_end, 0, 0, 0, 0.f};
+  if (cur.c) {
+    next_of(cur, rem, s, l0);
+    nxt = load_chunk(cols, vals, rem, s, l0, s_end, L, lane);
+  }
+  for (int n = 0; cur.c; ++n) {
+    Chunk after{s_end, 0, 0, 0, 0.f};
+    if (nxt.c) {
+      gather_async(ys[warp][(n + 1) & 1], Y, nxt, k, lane);
+      next_of(nxt, rem, s, l0);
+      after = load_chunk(cols, vals, rem, s, l0, s_end, L, lane);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncwarp();
+    float(*sy)[32] = ys[warp][n & 1];
+    for (int q = 0; q < cur.c; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(&sy[q][ti * 4]);
+      const float4 y0 = *reinterpret_cast<const float4*>(&sy[q][tj * 8]);
+      const float4 y1 = *reinterpret_cast<const float4*>(&sy[q][tj * 8 + 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+#pragma unroll
+        for (int z = 0; z < 8; ++z) acc[x][z] = fmaf(av[x], yv[z], acc[x][z]);
+      }
+      bl = fmaf(__shfl_sync(FULL, cur.v, q), sy[q][lane], bl);
+    }
+    __syncwarp();  // this tile's readers are done before it is refilled
+    cur = nxt;
+    nxt = after;
+  }
+
+  float* dA;
+  float* db;
+  if (slot < 0) {
+    dA = A + (long long)row * k * k;
+    db = b + (long long)row * k;
+  } else {
+    dA = partials + (long long)slot * (k * k + k);
+    db = dA + k * k;
+  }
+  // through a shared tile, so the stores to A are coalesced
+  float(*sy)[32] = ys[warp][0];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    float4* dst = reinterpret_cast<float4*>(&sy[ti * 4 + x][tj * 8]);
+    dst[0] = make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
+    dst[1] = make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
+  }
+  __syncwarp();
+  if (k == 32) {  // A's rows are the tile's rows: 256 float4, 8 a lane
+    const float4* src = reinterpret_cast<const float4*>(&sy[0][0]);
+    float4* out = reinterpret_cast<float4*>(dA);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) out[q * 32 + lane] = src[q * 32 + lane];
+  } else {
+    for (int e = lane; e < k * k; e += 32) dA[e] = sy[e / k][e % k];
+  }
+  if (lane < k) db[lane] = bl;
+}
+
+__global__ void __launch_bounds__(COMBINE_THREADS) normal_eq_combine(
+    const float* __restrict__ partials, const int* __restrict__ c_rows,
+    const int* __restrict__ c_start, float* __restrict__ A,
+    float* __restrict__ b, int k) {
+  const int m = blockIdx.x;
+  const int E = k * k + k;
+  const int e = blockIdx.y * COMBINE_THREADS + threadIdx.x;
+  if (e >= E) return;
+  const int p1 = c_start[m + 1];
+  float s = 0.f;
+#pragma unroll 8
+  for (int p = c_start[m]; p < p1; ++p) s += partials[(long long)p * E + e];
+  const long long row = c_rows[m];
+  if (e < k * k) {
+    A[row * k * k + e] = s;
+  } else {
+    b[row * k + (e - k * k)] = s;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches both kernels on `stream` and returns cudaGetLastError(). The
+// caller checks shapes, dtypes, devices, id ranges and 1 <= k <= 1024,
+// allocates A [R,k,k], b [R,k] and partials [max(P,1), k*k+k], and builds
+// the plan: groups [4, n_groups] int32 (row, first segment, segment
+// count, partial slot or -1), c_rows [n_combine], c_start [n_combine+1].
+int normal_eq_f32(const float* Y, const int* cols, const float* vals,
+                  const int* rem, const int* groups, int n_groups,
+                  const int* c_rows, const int* c_start, int n_combine,
+                  float* partials, float* A, float* b, int k, int L,
+                  cudaStream_t stream) {
+  cudaError_t err;
+  if (k <= 32) {
+    normal_eq_groups32<<<(n_groups + WARPS32 - 1) / WARPS32, 32 * WARPS32, 0,
+                         stream>>>(Y, cols, vals, rem, groups, n_groups,
+                                   partials, A, b, k, L);
+  } else {
+    const int T = (k + 3) / 4;
+    const int NT = T * (T + 1) / 2;
+    const int tpb = NT < THREADS ? NT : THREADS;
+    const int SG = THREADS / tpb;
+    const size_t smem = (size_t)(CH * 4 * T + CH) * sizeof(float) +
+                        (size_t)(SG - 1) * tpb * RED * sizeof(float);
+    if (smem > DEFAULT_SMEM) {
+      err = cudaFuncSetAttribute(normal_eq_groups,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    dim3 grid(n_groups, (NT + tpb - 1) / tpb);
+    normal_eq_groups<<<grid, THREADS, smem, stream>>>(
+        Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, T, tpb,
+        SG);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_combine == 0) return (int)err;
+  dim3 grid2(n_combine, (k * k + k + COMBINE_THREADS - 1) / COMBINE_THREADS);
+  normal_eq_combine<<<grid2, COMBINE_THREADS, 0, stream>>>(
+      partials, c_rows, c_start, A, b, k);
+  return (int)cudaGetLastError();
+}
+
+const char* normal_eq_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,13 +1,15 @@
-"""Recommendation engine, serving side: the counterpart of
+"""Recommendation engine: the counterpart of
 ``predictionio_tpu/models/recommendation/engine.py`` (reference
 examples/scala-parallel-recommendation/custom-query: Engine.scala,
-ALSAlgorithm.scala:79-105, Serving.scala).
+Preparator.scala, ALSAlgorithm.scala:24-105, Serving.scala).
 
-Queries, results and params keep the reference's fields and JSON names.
-``ALSModel.recommend_many`` serves a micro-batch with one K3 launch on the
-model's device. ``als_model_from_numpy`` builds a model from a trained
-model's arrays, which is how a model trained by the JAX package is carried
-across (as numpy: the port never imports the JAX package).
+Queries, results, training data and params keep the reference's fields and
+JSON names. ``ALSAlgorithm.train`` trains on a ``torch.device`` through
+``ops/als.train_als`` (K1 and K2 per half-step). ``ALSModel.recommend_many``
+serves a micro-batch with one K3 launch on the model's device.
+``als_model_from_numpy`` builds a model from a trained model's arrays,
+which is how a model trained by the JAX package is carried across (as
+numpy: the port never imports the JAX package).
 """
 
 from __future__ import annotations
@@ -20,15 +22,19 @@ import torch
 
 from predictionio_tpu_torch.controller import (
     BaseAlgorithm,
+    BasePreparator,
     Engine,
     FirstServing,
     Params,
+    SanityCheck,
 )
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops.als import (
+    ALSConfig,
     ALSModelArrays,
     ServingFactors,
+    train_als,
     validate_solver,
 )
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
@@ -61,11 +67,50 @@ class PredictedResult:
         )
 
 
+@dataclasses.dataclass
+class Rating:
+    user: str
+    item: str
+    rating: float
+
+
+@dataclasses.dataclass
+class TrainingData(SanityCheck):
+    """Dense-indexed rating columns: ``user_idx[n]``/``item_idx[n]`` are
+    rows of ``user_index``/``item_index``."""
+
+    user_idx: np.ndarray
+    item_idx: np.ndarray
+    ratings: np.ndarray
+    user_index: BiMap
+    item_index: BiMap
+
+    def sanity_check(self) -> None:
+        if len(self.ratings) == 0:
+            raise ValueError(
+                "ratings is empty — is the event store populated with "
+                "rate/buy events?"
+            )
+
+
+@dataclasses.dataclass
+class PreparedData:
+    td: TrainingData
+
+
+class Preparator(BasePreparator):
+    """Pass-through (reference Preparator.scala)."""
+
+    def prepare(self, device, td: TrainingData) -> PreparedData:
+        return PreparedData(td=td)
+
+
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
     """The reference's ALSAlgorithmParams, field for field, so an
-    engine.json params block parses the same. The training fields are
-    carried, and used when training is ported."""
+    engine.json params block parses the same. Training takes the explicit
+    exact-solver fields; ``implicit_prefs``, ``solver="subspace"`` and
+    ``checkpoint_dir`` raise ``NotImplementedError`` (ops/als.py)."""
 
     rank: int = 10
     num_iterations: int = 10
@@ -203,10 +248,40 @@ def als_model_from_numpy(
 
 
 class ALSAlgorithm(BaseAlgorithm):
-    """ALS serving (reference ALSAlgorithm.scala:79-105)."""
+    """ALS training and serving (replaces MLlib ALS.train, reference
+    ALSAlgorithm.scala:66-105)."""
 
     params_class = ALSAlgorithmParams
     query_class = Query
+
+    def train(self, device: DeviceLike, pd: PreparedData) -> ALSModel:
+        """Train on ``device`` (CUDA unless the CPU is asked for)."""
+        td = pd.td
+        p: ALSAlgorithmParams = self.params
+        config = ALSConfig(
+            rank=p.rank,
+            iterations=p.num_iterations,
+            reg=p.lambda_,
+            alpha=p.alpha,
+            implicit_prefs=p.implicit_prefs,
+            seed=p.seed if p.seed is not None else 0,
+            solver=p.solver,
+            block_size=p.block_size,
+        )
+        arrays = train_als(
+            td.user_idx,
+            td.item_idx,
+            td.ratings,
+            n_users=len(td.user_index),
+            n_items=len(td.item_index),
+            config=config,
+            device=device,
+            checkpoint_dir=p.checkpoint_dir,
+        )
+        return ALSModel(
+            arrays=arrays, user_index=td.user_index,
+            item_index=td.item_index, params=p,
+        )
 
     def prepare_serving(self, device: torch.device, model: ALSModel) -> ALSModel:
         """Bind the model's serving state to ``device``."""

@@ -1,24 +1,78 @@
-"""ALS serving: the serving section of ``predictionio_tpu/ops/als.py``
-(``ALSModelArrays`` :1233, ``ServingFactors`` :2402-2558,
-``recommend_batch`` :2560, ``_unpack_indices`` :2575).
+"""ALS training and serving: the counterpart of
+``predictionio_tpu/ops/als.py`` for one GPU, explicit ratings, exact
+solver.
 
+Training (slice 2) is the reference's host-pack route (its mesh branch,
+:1831-1897, which on one device gives the same factors bit for bit as its
+device-pack route). The host packing is copied as numpy and gives the same
+bytes as the reference's: ``ALSConfig`` :79, ``PackedSide`` /
+``pack_segments`` :196, ``_segment_geometry`` :258, ``_bucket_count``
+:1155, ``auto_segment_length`` :1172, ``_padded_rows`` :1385,
+``_factor_init_host`` :1392, ``_lam_obs_host`` :1405. The device loop
+(``_run_iterations``, the reference's fused program :837) is a host loop
+of two hand-written kernels per half-step: K1 (``ops/normal_eq.py``, the
+normal equations) and K2 (``ops/spd_solve.py``, the regularized solve,
+whose epilogue also sums the sweep telemetry). ``predict_ratings`` /
+``rmse`` run K7 (``ops/predict_pairs.py``). Implicit feedback, the
+subspace solver, bf16 compute, checkpoints and meshes raise
+``NotImplementedError``.
+
+Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
+:2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
 ``ServingFactors`` uploads the factor matrices to its device once. Each
 batch then pads its query rows to a power of two (min 8, the reference's
 bucketing), launches K3 (``ops/topn.py``) and makes ONE device→host copy
-of the packed ``[B, 2n]`` result. Training comes with the training slice.
+of the packed ``[B, 2n]`` result.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+import math
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.ops import normal_eq as _k1
+from predictionio_tpu_torch.ops import predict_pairs as _k7
+from predictionio_tpu_torch.ops import spd_solve as _k2
+from predictionio_tpu_torch.ops.normal_eq import SegmentPack, plan_groups, upload_pack
 from predictionio_tpu_torch.ops.topn import topn_packed
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
+
+
+@dataclasses.dataclass(frozen=True)
+class ALSConfig:
+    """The reference's training config, field for field (see its comments
+    at ``predictionio_tpu/ops/als.py:79``). The port trains
+    ``implicit_prefs=False``, ``solver="exact"``, ``compute_dtype="float32"``
+    and raises ``NotImplementedError`` for the rest."""
+
+    rank: int = 10
+    iterations: int = 10
+    reg: float = 0.01
+    alpha: float = 1.0
+    implicit_prefs: bool = False
+    # "weighted" scales reg by each row's observation count (ALS-WR)
+    reg_mode: str = "weighted"
+    seed: int = 0
+    compute_dtype: str = "float32"
+    # the largest segment width; each side takes the smallest power of two
+    # >= its mean observation count (min 8) up to this
+    segment_length: int = 128
+    # the most slots per chunk of the packed grid
+    chunk_slots: int = 4_194_304
+    sweep_telemetry: bool = True
+    solver: str = "exact"
+    block_size: int = 0
+
+    def __post_init__(self):
+        if self.reg_mode not in ("weighted", "plain"):
+            raise ValueError(f"reg_mode must be weighted|plain, got {self.reg_mode}")
+        validate_solver(self.solver, self.block_size, self.rank)
 
 
 def validate_solver(solver: str, block_size: int, rank: int) -> None:
@@ -127,3 +181,484 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def _unpack_indices(packed: np.ndarray, n: int) -> np.ndarray:
     """Recover int32 indices from their raw bits in the packed buffer."""
     return np.ascontiguousarray(packed[:, n:]).view(np.int32)
+
+
+# --- training: the host packing, copied from the reference as numpy ---
+
+
+@dataclasses.dataclass
+class PackedSide:
+    """Host-side fixed-width segment view of one solve side: segment arrays
+    are [C, Sc, L] with C·Sc >= #segments and Sc·L <= chunk_slots. Each
+    segment's valid slots are a prefix of ``rem`` slots."""
+
+    n_rows: int  # real (unpadded) row count
+    seg_rows: np.ndarray  # [C, Sc] row id of each segment (padding -> n_rows)
+    cols: np.ndarray  # [C, Sc, L] column ids (padding = 0, masked)
+    vals: np.ndarray  # [C, Sc, L] ratings
+    rem: np.ndarray  # [C, Sc] int32 valid slots per segment (prefix)
+    counts: np.ndarray  # [n_rows] observation counts
+
+
+def pack_segments(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_rows: int,
+    segment_length: int = 128,
+    pad_segments_to: int = 1,
+    chunk_slots: int = 4_194_304,
+) -> PackedSide:
+    """Pack COO observations into fixed-width row segments: each nonempty
+    row occupies ``ceil(count / L)`` consecutive segments of L slots (the
+    last one zero-padded); padding segments carry the sentinel row id
+    ``n_rows``."""
+    L = int(segment_length)
+    rows = np.asarray(rows, dtype=np.int32)
+    cols = np.asarray(cols, dtype=np.int32)
+    vals = np.asarray(vals, dtype=np.float32)
+    order = np.argsort(rows, kind="stable")
+    rows_s, cols_s, vals_s = rows[order], cols[order], vals[order]
+    counts = np.bincount(rows_s, minlength=n_rows).astype(np.int32)
+    g = _segment_geometry(counts, n_rows, L, pad_segments_to, chunk_slots)
+
+    p_cols = np.zeros((g.total, L), dtype=np.int32)
+    p_vals = np.zeros((g.total, L), dtype=np.float32)
+    if len(rows_s):
+        offset = np.arange(len(rows_s), dtype=np.int64) - g.starts[rows_s]
+        flat = (g.seg_base[rows_s] + offset // L) * L + offset % L
+        p_cols.reshape(-1)[flat] = cols_s
+        p_vals.reshape(-1)[flat] = vals_s
+    return PackedSide(
+        n_rows=n_rows,
+        seg_rows=g.seg_rows.reshape(g.n_chunks, g.sc),
+        cols=p_cols.reshape(g.n_chunks, g.sc, L),
+        vals=p_vals.reshape(g.n_chunks, g.sc, L),
+        rem=g.rem.reshape(g.n_chunks, g.sc),
+        counts=counts,
+    )
+
+
+@dataclasses.dataclass
+class _SegGeometry:
+    """Segment-grid geometry of one solve side, from per-row counts."""
+
+    n_rows: int
+    L: int
+    counts: np.ndarray  # [n_rows] int32
+    starts: np.ndarray  # [n_rows + 1] int64 CSR offsets of the sorted COO
+    seg_base: np.ndarray  # [n_rows + 1] int64 first segment of each row
+    n_segs: int
+    sc: int
+    n_chunks: int
+    total: int  # n_chunks * sc >= n_segs
+    seg_rows: np.ndarray  # [total] row of each segment (padding -> n_rows)
+    rem: np.ndarray  # [total] valid slots per segment
+
+
+def _segment_geometry(
+    counts: np.ndarray,
+    n_rows: int,
+    L: int,
+    pad_segments_to: int,
+    chunk_slots: int,
+) -> _SegGeometry:
+    starts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    segs_per_row = -(-counts // L)  # ceil; 0 for empty rows
+    seg_base = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(segs_per_row, out=seg_base[1:])
+    n_segs = int(seg_base[-1])
+
+    # Sc segments per chunk: Sc·L <= chunk_slots, a multiple of the shard
+    # count, and no larger than the data needs (bucketed, see _bucket_count)
+    sc = max(1, int(chunk_slots) // L)
+    sc = max(pad_segments_to, sc - sc % pad_segments_to)
+    per_pad = -(-max(n_segs, 1) // pad_segments_to)
+    sc_needed = pad_segments_to * _bucket_count(per_pad)
+    sc = min(sc, sc_needed)
+    n_chunks = max(1, -(-max(n_segs, 1) // sc))
+    total = n_chunks * sc
+
+    seg_rows = np.full(total, n_rows, dtype=np.int32)
+    rem = np.zeros(total, dtype=np.int32)
+    if n_segs:
+        seg_rows[:n_segs] = np.repeat(
+            np.arange(n_rows, dtype=np.int32), segs_per_row
+        )
+        # valid slots per segment: full L except each row's last segment
+        seg_ord = np.arange(n_segs, dtype=np.int64) - seg_base[seg_rows[:n_segs]]
+        rem[:n_segs] = np.minimum(
+            counts[seg_rows[:n_segs]].astype(np.int64) - seg_ord * L, L
+        )
+    return _SegGeometry(
+        n_rows=n_rows, L=L, counts=counts, starts=starts,
+        seg_base=seg_base, n_segs=n_segs, sc=sc, n_chunks=n_chunks,
+        total=total, seg_rows=seg_rows, rem=rem,
+    )
+
+
+def _bucket_count(n: int) -> int:
+    """Round a count up at 4-significant-bit granularity (at most 12.5 %
+    padding), so near-identical cardinalities share one shape."""
+    n = int(n)
+    granule = 1 << max(0, n.bit_length() - 4)
+    return -(-n // granule) * granule
+
+
+def auto_segment_length(
+    idx: Optional[np.ndarray], n_rows: int, cap: int,
+    counts: Optional[np.ndarray] = None,
+) -> int:
+    """Smallest power of two >= the side's mean observation count, within
+    [min(8, cap), cap]. ``counts`` (per row) skips the bincount; ``idx``
+    may then be None."""
+    floor = min(8, cap)
+    if counts is None:
+        counts = np.bincount(idx, minlength=n_rows)
+    nonempty = int((counts > 0).sum())
+    if nonempty == 0:
+        return floor
+    mean = (
+        len(idx) if idx is not None else int(counts.sum())
+    ) / nonempty
+    L = floor
+    while L < cap and L < mean:
+        L *= 2
+    return L
+
+
+def _pad_to_multiple(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _padded_rows(n: int, n_shards: int) -> int:
+    # +1 sentinel row for segment padding, bucketed, and a multiple of
+    # the shard count
+    return _pad_to_multiple(_bucket_count(n + 1), n_shards)
+
+
+def _factor_init_host(
+    n_users: int, n_items: int, config: ALSConfig, n_shards: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """MLlib-style init: nonnegative scaled normals on the item side;
+    sentinel/padding rows zero."""
+    k = config.rank
+    rng = np.random.default_rng(config.seed)
+    X0 = np.zeros((_padded_rows(n_users, n_shards), k), np.float32)
+    Y0 = np.zeros((_padded_rows(n_items, n_shards), k), np.float32)
+    Y0[:n_items] = np.abs(rng.standard_normal((n_items, k))) / math.sqrt(k)
+    return X0, Y0
+
+
+def _lam_obs_host(
+    counts: np.ndarray, n_real: int, n_sys_rows: int, config: ALSConfig
+) -> Tuple[np.ndarray, np.ndarray]:
+    padded = np.zeros(n_sys_rows, np.float32)
+    padded[:n_real] = counts
+    weighted = config.reg_mode == "weighted"
+    lam = config.reg * padded if weighted else np.full_like(padded, config.reg)
+    # guard zero-count/padding rows against singular systems (their
+    # solutions are discarded by the has_obs select anyway)
+    return np.maximum(lam, 1e-8).astype(np.float32), padded > 0
+
+
+# --- training: the device loop ---
+
+# sweeps the telemetry records per run (later sweeps are not recorded);
+# each row is [dx_rms, dy_rms, x_rms, y_rms] (the reference's fifth column,
+# the implicit objective, is not ported)
+TELEMETRY_SLOTS = 64
+
+
+def _check_ported(config: ALSConfig, mesh=None, checkpoint_dir=None) -> None:
+    if config.implicit_prefs:
+        raise NotImplementedError(
+            "implicit_prefs=True is not ported yet (ROADMAP.md queue 1 item 6: "
+            "needs K12, the Gramian and the implicit objective)"
+        )
+    if config.solver != "exact":
+        raise NotImplementedError(
+            f"solver={config.solver!r} is not ported yet (ROADMAP.md queue 1 "
+            "item 6: K11, the iALS++ subspace solver)"
+        )
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={config.compute_dtype!r} is not ported yet "
+            "(ROADMAP.md queue 1 item 12); the port trains in float32"
+        )
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpoint/resume is not ported yet (ROADMAP.md queue 1 item 12)"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "training on a multi-GPU mesh is not ported yet (ROADMAP.md "
+            "queue 1 item 11)"
+        )
+
+
+def device_pack(
+    side: PackedSide, n_sys_rows: int, n_cols: int, device: torch.device,
+) -> SegmentPack:
+    """A host-packed side on ``device`` with its K1 group plan, which is
+    built here on the host (``plan_groups``)."""
+    plan = plan_groups(side.seg_rows, side.rem, n_sys_rows)
+    return upload_pack(
+        side.seg_rows, side.cols, side.vals, side.rem, plan, n_sys_rows,
+        n_cols, device,
+    )
+
+
+def init_factor_state_single(
+    counts_u: np.ndarray,
+    counts_i: np.ndarray,
+    n_users: int,
+    n_items: int,
+    config: ALSConfig,
+    warm: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    device: DeviceLike = None,
+) -> tuple:
+    """The single-device factor/regularizer state on ``device``:
+    (X, Y, user_lam, item_lam, user_has_obs, item_has_obs). Cold: X zeros
+    and the seeded item init. ``warm``: ``([n_users, k], [n_items, k])``
+    host factor seeds in place of the init."""
+    dev = resolve_device(device)
+    k = config.rank
+    if warm is not None:
+        Xw, Yw = warm
+        if Xw.shape != (n_users, k) or Yw.shape != (n_items, k):
+            raise ValueError(
+                f"warm factor shapes {Xw.shape}/{Yw.shape} do not match "
+                f"({n_users}, {k})/({n_items}, {k})"
+            )
+        X0 = np.zeros((_padded_rows(n_users, 1), k), np.float32)
+        X0[:n_users] = Xw
+        Y0 = np.zeros((_padded_rows(n_items, 1), k), np.float32)
+        Y0[:n_items] = Yw
+        X = _upload(X0, dev).clone()
+    else:
+        _, Y0 = _factor_init_host(n_users, n_items, config, 1)
+        X = torch.zeros((_padded_rows(n_users, 1), k), dtype=torch.float32, device=dev)
+    # owned copies: the loop never writes them, but the caller's arrays
+    # must not alias device state
+    Y = _upload(Y0, dev).clone()
+    user_lam, user_obs = _lam_obs_host(counts_u, n_users, X.shape[0], config)
+    item_lam, item_obs = _lam_obs_host(counts_i, n_items, Y.shape[0], config)
+    return (
+        X, Y,
+        torch.from_numpy(user_lam).to(dev), torch.from_numpy(item_lam).to(dev),
+        torch.from_numpy(user_obs).to(dev), torch.from_numpy(item_obs).to(dev),
+    )
+
+
+def _solve_side(
+    X_prev: torch.Tensor,
+    Y: torch.Tensor,
+    pack: SegmentPack,
+    lam: torch.Tensor,
+    has_obs: torch.Tensor,
+    sums: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One half-step: K1 forms the systems, K2 solves them with the
+    regularizer and keeps ``X_prev`` for rows without observations
+    (writing the telemetry sums into ``sums`` when given)."""
+    A, b = _k1.normal_eq(Y, pack)
+    return _k2.spd_solve(A, b, lam, has_obs, X_prev, sums)
+
+
+def _run_iterations(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    user_pack: SegmentPack,
+    item_pack: SegmentPack,
+    user_lam: torch.Tensor,
+    item_lam: torch.Tensor,
+    user_has_obs: torch.Tensor,
+    item_has_obs: torch.Tensor,
+    n_iters: int,
+    telemetry: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The training loop: ``n_iters`` sweeps of (user half-step, item
+    half-step), two K1 and two K2 launches per sweep, with no host sync.
+    With ``telemetry``, sweep i's K2 launches write their raw sums into
+    ``tel[i]`` ([TELEMETRY_SLOTS, side, (Σ ΔX², Σ X²)]);
+    ``_telemetry_rows`` turns them into the reference's RMS rows."""
+    tel = (
+        torch.zeros((TELEMETRY_SLOTS, 2, 2), dtype=torch.float32, device=X.device)
+        if telemetry else None
+    )
+    for it in range(n_iters):
+        rec = tel is not None and it < TELEMETRY_SLOTS
+        X = _solve_side(X, Y, user_pack, user_lam, user_has_obs, tel[it, 0] if rec else None)
+        Y = _solve_side(Y, X, item_pack, item_lam, item_has_obs, tel[it, 1] if rec else None)
+    return X, Y, tel
+
+
+def _telemetry_rows(tel: torch.Tensor, n_sweeps: int, x_numel: int, y_numel: int) -> np.ndarray:
+    """[min(n_sweeps, TELEMETRY_SLOTS), 4] float32 rows
+    ``[RMS(ΔX), RMS(ΔY), RMS(X), RMS(Y)]``, the means over the padded
+    factor arrays, as the reference records them."""
+    s = tel.cpu().numpy()[: min(n_sweeps, TELEMETRY_SLOTS)]
+    rows = np.zeros((len(s), 4), np.float32)
+    nx, ny = np.float32(x_numel), np.float32(y_numel)
+    rows[:, 0] = np.sqrt(s[:, 0, 0] / nx)
+    rows[:, 1] = np.sqrt(s[:, 1, 0] / ny)
+    rows[:, 2] = np.sqrt(s[:, 0, 1] / nx)
+    rows[:, 3] = np.sqrt(s[:, 1, 1] / ny)
+    return rows
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _train_packed(
+    user_pack: SegmentPack,
+    item_pack: SegmentPack,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    user_lam: torch.Tensor,
+    item_lam: torch.Tensor,
+    user_has_obs: torch.Tensor,
+    item_has_obs: torch.Tensor,
+    *,
+    config: ALSConfig,
+    n_users: int,
+    n_items: int,
+    timings: Optional[dict] = None,
+) -> ALSModelArrays:
+    """The training tail: the loop and the factor fetch. With ``timings``
+    the kernels are built before the timed loop (``compile_s``: nvcc at a
+    process's first use, then a cached load) and the loop is timed to its
+    end (``device_loop_s``)."""
+    device = X.device
+    if timings is not None:
+        t = time.perf_counter()
+        if device.type == "cuda":
+            for kernel in (_k1, _k2):
+                kernel.load_library()
+        timings["compile_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    X, Y, tel = _run_iterations(
+        X, Y, user_pack, item_pack, user_lam, item_lam,
+        user_has_obs, item_has_obs, config.iterations,
+        telemetry=config.sweep_telemetry,
+    )
+    if timings is not None:
+        _sync(device)
+        timings["device_loop_s"] = time.perf_counter() - t
+    X_host = X.cpu().numpy()
+    Y_host = Y.cpu().numpy()
+    if tel is not None and config.iterations > 0 and timings is not None:
+        rows = _telemetry_rows(tel, config.iterations, X.numel(), Y.numel())
+        timings["sweep_telemetry"] = [
+            {
+                "dx": float(r[0]), "dy": float(r[1]),
+                "x_rms": float(r[2]), "y_rms": float(r[3]),
+            }
+            for r in rows
+        ]
+    return ALSModelArrays(X_host[:n_users].copy(), Y_host[:n_items].copy())
+
+
+def train_als(
+    user_idx: np.ndarray,
+    item_idx: np.ndarray,
+    ratings: np.ndarray,
+    n_users: int,
+    n_items: int,
+    config: ALSConfig = ALSConfig(),
+    device: DeviceLike = None,
+    mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    timings: Optional[dict] = None,
+) -> ALSModelArrays:
+    """Train ALS factors from COO ratings on ``device`` (CUDA unless the
+    CPU is asked for): the reference's ``train_als``, host-pack route.
+
+    ``timings``, if given, receives the reference's phase breakdown:
+    ``pack_s`` (host packing of both sides), ``device_put_s`` (the K1
+    group plans, built on the host, and the host->device copies of the
+    packs and the factor state), ``compile_s``, ``device_loop_s``, ``padded_slots`` (segment-grid
+    slots of both sides) and ``sweep_telemetry`` (per sweep ``dx``, ``dy``,
+    ``x_rms``, ``y_rms``)."""
+    _check_ported(config, mesh, checkpoint_dir)
+    dev = resolve_device(device)
+    t = time.perf_counter()
+    user_idx = np.asarray(user_idx, np.int32)
+    item_idx = np.asarray(item_idx, np.int32)
+    ratings_f = np.asarray(ratings, np.float32)
+    if len(user_idx) and (
+        user_idx.min() < 0 or user_idx.max() >= n_users
+        or item_idx.min() < 0 or item_idx.max() >= n_items
+    ):
+        raise ValueError("user or item ids out of range")
+    counts_u = np.bincount(user_idx, minlength=n_users).astype(np.int32)
+    counts_i = np.bincount(item_idx, minlength=n_items).astype(np.int32)
+    L_u = auto_segment_length(user_idx, n_users, config.segment_length, counts=counts_u)
+    L_i = auto_segment_length(item_idx, n_items, config.segment_length, counts=counts_i)
+    R_u, R_i = _padded_rows(n_users, 1), _padded_rows(n_items, 1)
+    user_side = pack_segments(
+        user_idx, item_idx, ratings_f, n_users, L_u, 1, config.chunk_slots
+    )
+    item_side = pack_segments(
+        item_idx, user_idx, ratings_f, n_items, L_i, 1, config.chunk_slots
+    )
+    if timings is not None:
+        timings["pack_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    user_pack = device_pack(user_side, R_u, R_i, dev)
+    item_pack = device_pack(item_side, R_i, R_u, dev)
+    state = init_factor_state_single(
+        counts_u, counts_i, n_users, n_items, config, device=dev
+    )
+    if timings is not None:
+        _sync(dev)
+        timings["device_put_s"] = time.perf_counter() - t
+        timings["padded_slots"] = user_side.cols.size + item_side.cols.size
+    return _train_packed(
+        user_pack, item_pack, *state,
+        config=config, n_users=n_users, n_items=n_items, timings=timings,
+    )
+
+
+# --- prediction / evaluation ---
+
+
+def predict_ratings(
+    model: ALSModelArrays,
+    user_idx,
+    item_idx,
+    chunk: int = 1_048_576,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Predicted rating for each (user, item) pair: K7 over chunks of
+    ``chunk`` pairs on ``device``."""
+    dev = resolve_device(device)
+    user_idx = np.ascontiguousarray(user_idx, np.int32)
+    item_idx = np.ascontiguousarray(item_idx, np.int32)
+    if len(user_idx) != len(item_idx):
+        raise ValueError("user_idx and item_idx must have one length")
+    # the ids are checked once here, so K7 launches without a sync
+    for name, ids, n in (("user", user_idx, model.user_factors.shape[0]),
+                         ("item", item_idx, model.item_factors.shape[0])):
+        if len(ids) and (ids.min() < 0 or ids.max() >= n):
+            raise ValueError(f"{name} ids out of range [0, {n})")
+    X = _upload(model.user_factors, dev)
+    Y = _upload(model.item_factors, dev)
+    u = torch.from_numpy(user_idx).to(dev)
+    i = torch.from_numpy(item_idx).to(dev)
+    outs: List[np.ndarray] = []
+    for s in range(0, len(u), chunk):
+        outs.append(_k7.predict_pairs(
+            X, Y, u[s : s + chunk], i[s : s + chunk], check_ids=False
+        ).cpu().numpy())
+    return np.concatenate(outs) if outs else np.zeros(0, np.float32)
+
+
+def rmse(model: ALSModelArrays, user_idx, item_idx, ratings, device: DeviceLike = None) -> float:
+    pred = predict_ratings(model, user_idx, item_idx, device=device)
+    err = pred - np.asarray(ratings, np.float32)
+    return float(np.sqrt(np.mean(err * err)))

@@ -1,6 +1,7 @@
 """Builds the port's CUDA sources (``predictionio_tpu_torch/csrc``) with
 ``nvcc`` into shared libraries with a plain C interface, which the kernel
-wrappers load with ``ctypes``.
+wrappers load with ``ctypes`` (``Library``), and counts the wrappers'
+launches (``LaunchCounts``).
 
 A library is built at first use, into ``predictionio_tpu_torch/_build``
 (listed in ``.gitignore``), under a name that carries a hash of its source
@@ -11,12 +12,14 @@ the module is imported.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -97,3 +100,62 @@ def build_log(source: str) -> str:
     """The compiler's output from the build of ``csrc/<source>``."""
     log = library_path(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+class Library:
+    """One kernel source's library, built (at first use) and loaded once per
+    process. ``declare`` sets the ``argtypes``/``restype`` of its launch
+    functions; ``error_string`` names its C function that turns the
+    ``cudaError_t`` they return into text."""
+
+    def __init__(
+        self,
+        source: str,
+        declare: Callable[[ctypes.CDLL], None],
+        error_string: str,
+    ):
+        self.source = source
+        self._declare = declare
+        self._error_string = error_string
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(build_sources([self.source])[self.source]))
+                self._declare(lib)
+                err = getattr(lib, self._error_string)
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def check(self, err: int, what: str) -> None:
+        """Raise if a launch function returned a CUDA error."""
+        if err != 0:
+            text = getattr(self.get(), self._error_string)(err).decode()
+            raise RuntimeError(
+                f"{what} kernel launch failed: {text} (cudaError {err})"
+            )
+
+
+class LaunchCounts:
+    """Integer launch counters, safe under concurrent serving threads."""
+
+    def __init__(self, *names: str):
+        self._lock = threading.Lock()
+        self._counts = {name: 0 for name in names}
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self._counts:
+                self._counts[name] = 0
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)

@@ -1,0 +1,173 @@
+"""K2, the batched SPD solve of an ALS half-step: the counterpart of the
+reference's ``predictionio_tpu/ops/als.py:549 _spd_solve`` with the
+epilogue of ``:612 _solve_side`` (regularizer on the diagonal, rows without
+observations keep their previous factors).
+
+``spd_solve(A, b, lam, has_obs, X_prev, sums)`` returns X [R, k]:
+``X[r] = has_obs[r] ? (A[r] + lam[r]·I)⁻¹ b[r] : X_prev[r]``. Given a
+2-float ``sums`` tensor it also writes ``[Σ (X − X_prev)², Σ X²]`` there,
+the sweep telemetry's raw sums (the reference's RMS over the padded
+arrays).
+
+Three forms, one function:
+- the hand-written CUDA kernel for Hopper, ``csrc/spd_solve.cu`` (its
+  header states the bound and the design): one warp per system, in
+  registers for k <= 32 and in shared memory above;
+- the plain PyTorch twin ``spd_solve_plain``: the reference's vectorized
+  in-place Cholesky with fused forward substitution, step by step over
+  the whole batch, then back substitution and the select;
+- the wrapper ``spd_solve``, which routes CPU tensors to the twin and CUDA
+  tensors to the kernel (launch or raise, no fallback). ``LAUNCHES``
+  counts what it ran.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from predictionio_tpu_torch.ops import native
+from predictionio_tpu_torch.ops.native import LaunchCounts
+
+SOURCE = "spd_solve.cu"
+_MAX_K = 200  # the largest k whose per-warp matrix fits in shared memory
+
+# "spd_solve": kernel launches; "spd_solve_plain": CPU calls the wrapper
+# routed to the plain twin
+LAUNCHES = LaunchCounts("spd_solve", "spd_solve_plain")
+
+
+def cholesky_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_spd_solve`` in PyTorch: k steps, each a column
+    rescale by the pivot's rsqrt, a forward-substitution step and a rank-1
+    update over the whole batch; then k back-substitution steps."""
+    n = A.shape[-1]
+    idx = torch.arange(n, device=A.device)
+    y = torch.zeros_like(b)
+    dinv = torch.zeros_like(b)
+    r = b.clone()
+    for j in range(n):
+        col = A[:, :, j]
+        d = torch.rsqrt(col[:, j])
+        col = torch.where(idx[None, :] >= j, col * d[:, None], 0.0)
+        yj = r[:, j] * d
+        r = r - col * yj[:, None]
+        y[:, j] = yj
+        dinv[:, j] = d
+        A = torch.where(
+            idx[None, None, :] == j,
+            col[:, :, None],
+            A - col[:, :, None] * col[:, None, :],
+        )
+    x = torch.zeros_like(b)
+    for j in range(n - 1, -1, -1):
+        s = torch.sum(A[:, :, j] * x, dim=-1)
+        x[:, j] = (y[:, j] - s) * dinv[:, j]
+    return x
+
+
+def spd_solve_plain(
+    A: torch.Tensor,
+    b: torch.Tensor,
+    lam: torch.Tensor,
+    has_obs: torch.Tensor,
+    X_prev: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin: (X, [Σ (X − X_prev)², Σ X²])."""
+    k = A.shape[-1]
+    eye = torch.eye(k, dtype=torch.float32, device=A.device)
+    x = cholesky_solve_plain(A + lam[:, None, None] * eye, b)
+    X = torch.where(has_obs[:, None], x, X_prev)
+    d = X - X_prev
+    return X, torch.stack([torch.sum(d * d), torch.sum(X * X)])
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.spd_solve_blocks.argtypes = [ctypes.c_int] * 2
+    lib.spd_solve_blocks.restype = ctypes.c_int
+    lib.spd_solve_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p
+    ]
+    lib.spd_solve_f32.restype = ctypes.c_int
+
+
+_LIBRARY = native.Library(SOURCE, _declare, "spd_solve_error_string")
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's library."""
+    return _LIBRARY.get()
+
+
+def _check(A, b, lam, has_obs, X_prev, sums) -> None:
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"A must be [R, k, k], got {tuple(A.shape)}")
+    R, k = A.shape[0], A.shape[1]
+    if not 1 <= R < 2**31 or not 1 <= k <= _MAX_K:
+        raise ValueError(f"R={R} or k={k} out of range (1 <= k <= {_MAX_K})")
+    for name, t, shape in (
+        ("b", b, (R, k)), ("lam", lam, (R,)), ("has_obs", has_obs, (R,)),
+        ("X_prev", X_prev, (R, k)),
+    ):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for name, t in (("A", A), ("b", b), ("lam", lam), ("X_prev", X_prev)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if has_obs.dtype != torch.bool:
+        raise TypeError(f"has_obs must be bool, got {has_obs.dtype}")
+    tensors = [A, b, lam, has_obs, X_prev] + ([sums] if sums is not None else [])
+    if any(t.device != A.device for t in tensors):
+        raise ValueError("all tensors must be on one device")
+    if sums is not None and (sums.shape != (2,) or sums.dtype != torch.float32):
+        raise ValueError("sums must be a float32 tensor of 2 elements")
+
+
+def spd_solve(
+    A: torch.Tensor,
+    b: torch.Tensor,
+    lam: torch.Tensor,
+    has_obs: torch.Tensor,
+    X_prev: torch.Tensor,
+    sums: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K2 on A [R, k, k], b [R, k], lam [R] float32, has_obs [R] bool and
+    X_prev [R, k] float32 -> X [R, k]; see the module docstring.
+
+    CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
+    must build and launch or this raises."""
+    _check(A, b, lam, has_obs, X_prev, sums)
+    if A.device.type == "cpu":
+        LAUNCHES.add("spd_solve_plain")
+        X, s = spd_solve_plain(A, b, lam, has_obs, X_prev)
+        if sums is not None:
+            sums.copy_(s)
+        return X
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    if not all(
+        t.is_contiguous() for t in (A, b, lam, has_obs, X_prev)
+    ) or (sums is not None and not sums.is_contiguous()):
+        raise ValueError("every tensor must be contiguous")
+    lib = load_library()
+    R, k = A.shape[0], A.shape[1]
+    X = torch.empty((R, k), dtype=torch.float32, device=A.device)
+    partials = None
+    if sums is not None:
+        partials = torch.empty(
+            2 * lib.spd_solve_blocks(R, k), dtype=torch.float32, device=A.device
+        )
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.spd_solve_f32(
+            A.data_ptr(), b.data_ptr(), lam.data_ptr(), has_obs.data_ptr(),
+            X_prev.data_ptr(), X.data_ptr(),
+            partials.data_ptr() if partials is not None else None,
+            sums.data_ptr() if sums is not None else None,
+            R, k, stream,
+        )
+    _LIBRARY.check(err, "spd_solve")
+    LAUNCHES.add("spd_solve")
+    return X

@@ -20,64 +20,38 @@ Three forms, one function:
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops import native
+from predictionio_tpu_torch.ops.native import LaunchCounts
 
 SOURCE = "topn.cu"
 _MAX_B = 65535 * 8  # the kernel's grid holds 8 query rows per y-block
-
-
-class LaunchCounts:
-    """Integer launch counters, safe under concurrent serving threads."""
-
-    def __init__(self, *names: str):
-        self._lock = threading.Lock()
-        self._counts = {name: 0 for name in names}
-
-    def add(self, name: str) -> None:
-        with self._lock:
-            self._counts[name] += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            for name in self._counts:
-                self._counts[name] = 0
-
-    def snapshot(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._counts)
 
 
 # "topn_packed": kernel launches; "topn_packed_plain": CPU calls the
 # wrapper routed to the plain twin
 LAUNCHES = LaunchCounts("topn_packed", "topn_packed_plain")
 
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.topn_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int
+    ] * 4 + [ctypes.c_void_p]
+    lib.topn_packed_f32.restype = ctypes.c_int
+    lib.topn_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.topn_scratch_floats.restype = ctypes.c_longlong
+
+
+_LIBRARY = native.Library(SOURCE, _declare, "topn_error_string")
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path = native.build_sources([SOURCE])[SOURCE]
-            lib = ctypes.CDLL(str(path))
-            lib.topn_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int
-            ] * 4 + [ctypes.c_void_p]
-            lib.topn_packed_f32.restype = ctypes.c_int
-            lib.topn_scratch_floats.argtypes = [ctypes.c_int] * 3
-            lib.topn_scratch_floats.restype = ctypes.c_longlong
-            lib.topn_error_string.argtypes = [ctypes.c_int]
-            lib.topn_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    return _LIBRARY.get()
 
 
 def pack_topn(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -145,11 +119,7 @@ def topn_packed(q: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
             q.data_ptr(), Y.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             B, N, k, n, stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            "topn_packed kernel launch failed: "
-            f"{lib.topn_error_string(err).decode()} (cudaError {err})"
-        )
+    _LIBRARY.check(err, "topn_packed")
     LAUNCHES.add("topn_packed")
     return out
 

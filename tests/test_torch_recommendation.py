@@ -5,7 +5,10 @@ with ``als_model_from_numpy``.
 Tolerance: scores rtol 1e-5, atol 1e-6 (XLA and PyTorch sum the rank in
 different orders); item lists equal except inside near-tie runs
 (``check_topn_agreement``). Fed the same result, ``result_to_json`` is
-equal exactly.
+equal exactly. Where each package trains its own model from the same
+ratings, the factors agree within 1e-4 of their largest entry (float32
+ALS, two summation orders; tests/test_torch_als_train.py), so scores are
+held at rtol 1e-4, atol 1e-5.
 """
 
 import numpy as np
@@ -125,3 +128,76 @@ def test_quantized_precision_is_not_served_as_float32(models):
     alg = port_engine.ALSAlgorithm(port_engine.ALSAlgorithmParams(rank=RANK, precision="int8"))
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         alg.prepare_serving("cpu", port_model)
+
+
+def test_trained_saved_loaded_model_serves_like_jax(tmp_path):
+    """Train → save → load → serve in the port against train → recommend
+    in the JAX package, from the same ratings and params (seed 3)."""
+    from predictionio_tpu_torch.data.bimap import BiMap as PortBiMap
+
+    rng = np.random.default_rng(3)
+    nnz = 900
+    u = rng.integers(0, N_USERS, nnz).astype(np.int32)
+    u[u == 17] = 18  # row 17 has no ratings: zero factors, exact ties
+    i = rng.integers(0, N_ITEMS, nnz).astype(np.int32)
+    r = (rng.integers(1, 11, nnz) / 2).astype(np.float32)
+    users = [f"u{x}" for x in range(N_USERS)]
+    items = [f"i{x}" for x in range(N_ITEMS)]
+    raw = {"rank": RANK, "num_iterations": 5, "lambda_": 0.05}
+
+    jax_td = jax_engine.TrainingData(
+        user_idx=u, item_idx=i, ratings=r,
+        user_index=JaxBiMap.string_int(users), item_index=JaxBiMap.string_int(items),
+    )
+    jax_alg = jax_engine.ALSAlgorithm(jax_engine.ALSAlgorithmParams(**raw))
+    jax_model = jax_alg.train(None, jax_engine.Preparator().prepare(None, jax_td))
+
+    port_td = port_engine.TrainingData(
+        user_idx=u, item_idx=i, ratings=r,
+        user_index=PortBiMap.string_int(users), item_index=PortBiMap.string_int(items),
+    )
+    assert dict(port_td.item_index.items()) == dict(jax_td.item_index.items())
+    port_td.sanity_check()
+    port_alg = port_engine.ALSAlgorithm(params_from_json(raw, port_engine.ALSAlgorithmParams))
+    trained = port_alg.train("cpu", port_engine.Preparator().prepare("cpu", port_td))
+    np.testing.assert_allclose(
+        trained.arrays.user_factors, jax_model.arrays.user_factors, rtol=0,
+        atol=1e-4 * np.abs(jax_model.arrays.user_factors).max(),
+    )
+    path = tmp_path / "trained.npz"
+    save_model(path, trained)
+    port_model = port_alg.prepare_serving("cpu", load_model(path))
+    assert port_model.params == port_alg.params
+
+    unrated = port_td.user_index.inverse()[17]
+    queries = _queries(port_engine) + [(8, port_engine.Query(user=unrated, num=5))]
+    jax_queries = _queries(jax_engine) + [(8, jax_engine.Query(user=unrated, num=5))]
+    port_out = dict(port_model.recommend_many(queries))
+    item_row = port_model.item_index
+    for qx, q in jax_queries:
+        j = jax_model.recommend(q.user, q.num)
+        p = port_out[qx]
+        assert len(p.item_scores) == len(j.item_scores)
+        if not p.item_scores:
+            continue
+        check_topn_agreement(
+            np.array([[s.score for s in p.item_scores]]),
+            np.array([[item_row[s.item] for s in p.item_scores]]),
+            np.array([[s.score for s in j.item_scores]]),
+            np.array([[item_row[s.item] for s in j.item_scores]]),
+            1e-4, 1e-5,
+        )
+    # zero factors: every score ties at 0, lowest item index first
+    inv = port_model.item_index.inverse()
+    assert [s.item for s in port_out[8].item_scores] == [inv[n] for n in range(5)]
+
+
+def test_empty_training_data_fails_its_sanity_check():
+    from predictionio_tpu_torch.data.bimap import BiMap as PortBiMap
+
+    td = port_engine.TrainingData(
+        user_idx=np.zeros(0, np.int32), item_idx=np.zeros(0, np.int32),
+        ratings=np.zeros(0, np.float32), user_index=PortBiMap({}), item_index=PortBiMap({}),
+    )
+    with pytest.raises(ValueError, match="empty"):
+        td.sanity_check()
