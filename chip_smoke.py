@@ -14,47 +14,67 @@ Phases; any failure exits non-zero:
    card, at the full-width serving shape (N=26,744 items, rank 32, B in
    {8, 32, 128}, n=16) and at edge shapes (n=1, n=N, n > the tile, ragged
    catalogs, rank above the staging chunk, exact ties from duplicated item
-   rows). Scores agree to rtol 1e-5 / atol 1e-6 (the two sum in different
-   orders); ids are equal except inside near-tie runs, where the id sets
-   agree; with exact ties ids and scores are equal. Times: the kernel, the
+   rows, zero query rows, whose top n must be items 0..n-1). Scores agree
+   to rtol 1e-5 / atol 1e-6 (the two sum in different orders); ids are
+   equal except inside near-tie runs, where the id sets agree; with exact
+   ties ids and scores are equal. Times: the kernel, the
    plain twin, and one library call for the same function
    (``torch.topk(q @ Y.T, n)``, a yardstick the port never calls), each by
    CUDA events over many calls, beside the bound.
-3. Training (slice 2) on ML-20M-shaped ratings (138,493 users x 26,744
-   items, 20,000,000 ratings from a copy of the bench's generator), rank
-   32, 10 sweeps, reg 0.05 weighted, float32:
-   a. K1 (``ops/normal_eq.py``) and K2 (``ops/spd_solve.py``) against their
-      twins on the real packed sides: the first half-step, then both
-      half-steps of sweep 4; K1 also on random packs and K2 on random SPD
-      batches at k in {1, 7, 32, 33, 64 or 70}, both forms of each (K2 also
-      against float64 numpy). Tolerances: K1 within
-      1e-4 of its row's scale (a row sums up to 1.09M products in float32,
-      the two forms in different orders); K2 within 1e-4 of the row's
-      largest entry (one algorithm, rounded in different places).
-   b. ``ALSAlgorithm.train(device)`` on the card, the main path, with every
-      launch count set to 0 just before and read just after, then RMSE on
-      the training ratings through K7: K1 = K2 = 2 x sweeps, K7 = one per
+3. Training on ML-20M-shaped ratings (138,493 users x 26,744 items,
+   20,000,000 ratings from a copy of the bench's generator), rank 32, 10
+   sweeps, reg 0.05 weighted, float32:
+   a. K4, K5a and K5b (``ops/device_pack.py``, ``csrc/device_pack.cu``)
+      against their twins on the card, every output bit for bit: on the
+      ML-20M wire (``build_host_wire``; uint16 ids, nibble-packed values,
+      uploaded in two chunks as the streaming trainer uploads it); on small
+      wires of the other tiers (int32 ids, float32 values, int8 values with
+      a negative rating, offsets lengthened by ``aux_pad``, an empty COO),
+      uploaded in three chunks so K4 writes at unaligned offsets; and K5b's
+      sort alone at 2, 3 and 4 passes, also against numpy's stable order.
+      Then K1 (``ops/normal_eq.py``) and K2 (``ops/spd_solve.py``) against
+      their twins on the real sides, packed on the card from the wire: the
+      first half-step, then both half-steps of sweep 4; K1 also on random
+      packs and K2 on random SPD batches at k in {1, 7, 32, 33, 64 or 70},
+      both forms of each (K2 also against float64 numpy). Tolerances: K1
+      within 1e-4 of its row's scale (a row sums up to 1.09M products in
+      float32, the two forms in different orders); K2 within 1e-4 of the
+      row's largest entry (one algorithm, rounded in different places).
+   b. The main path, with every launch count set to 0 just before and read
+      just after: ``ALSAlgorithm.train(device)`` on
+      ``StreamingTrainingData`` over a ``ColumnarStream`` of the ratings
+      (ids as strings, 20 batches of 1M events) → ``train_als_streaming``,
+      then RMSE on the training ratings through K7: K4 = 2 (one per upload
+      chunk), K5a = K5b = 1, K1 = K2 = 2 x sweeps, K7 = one per
       1,048,576-pair chunk, every twin 0.
-   c. ``train_als`` once more, with timings: the factors must be
-      bit-identical to (b)'s.
-   d. The same 10 sweeps with the twins, driven by this script: factors
-      within 2e-3 of the largest entry and telemetry rows within rtol 2e-3
-      of the kernels' (float32 rounding carried through 20 half-steps).
+   c. The streaming wire against ``build_host_wire`` over the relabelled
+      COO, byte for byte; a second streaming training, with its timings,
+      and the direct route (``train_als`` on the relabelled COO, with its
+      timings): factors bit-identical to (b)'s. The host-pack route
+      (``pack_segments``, ``device_pack``) on the same COO, timed beside
+      them; its user planes equal K5a's over the real segments.
+   d. The same 10 sweeps with the twins, driven by this script, against the
+      kernels' loop on the same packs: factors within 2e-3 of the largest
+      entry and telemetry rows within rtol 2e-3 (float32 rounding carried
+      through 20 half-steps).
    e. K7 against its twin on all 20M pairs (within 1e-5 of Σ|x·y|).
    f. Times: each kernel and twin at the main path's shapes by CUDA events,
-      each kernel's device time, the library call for
-      K2 (``torch.cholesky_solve`` after ``torch.linalg.cholesky``), bounds,
-      and the loop's device busy share (its time on the card alone over
-      its wall time). Device times are CUDA-event times of calls queued
-      behind a spin kernel, so the card runs them with no wait for the
-      host (``device_ms``).
+      each kernel's device time, the library call for K2
+      (``torch.cholesky_solve`` after ``torch.linalg.cholesky``) and, for
+      K5b, ``torch.sort(stable=True)`` of its keys (the sort only: no one
+      PyTorch call computes K4, K5a or K5b), bounds, and the loop's device
+      busy share (its time on the card alone over its wall time). Device
+      times are CUDA-event times of calls queued behind a spin kernel, so
+      the card runs them with no wait for the host (``device_ms``).
 4. Serving: the model just trained is saved with ``save_model`` and served
    by ``tools.cli deploy --device cuda`` (max_batch 128, 2 ms window). 32
    concurrent clients on keep-alive connections send 320
    ``POST /queries.json`` (mostly num=10, some num 1..40, 4 unknown users,
-   8 users without ratings, whose zero factors tie every item at 0); then
-   unknown users are sent one at a time. Every answer is held against the
-   plain twin on the card; users without ratings must get items 0..num-1.
+   and up to 8 users without ratings, whose zero factors tie every item at
+   0; a streamed model has none, so phase 2 holds that tie with zero query
+   rows); then unknown users are sent one at a time. Every answer is held
+   against the plain twin on the card; users without ratings must get
+   items 0..num-1.
    K3 must launch once per served batch that held a known user, never for
    a batch of unknown users only, and the plain twin's count must stay 0.
    Latency, qps and batch fill are printed for the record, beside the
@@ -212,6 +232,13 @@ def kernel_phase(rng, device):
     q_ties = rng.integers(-3, 4, size=(16, 8)).astype(np.float32)
     for n in (16, 300, len(ties)):
         errs.append(compare(f"exact ties n={n}", q_ties, ties, n, exact=True))
+    # a user without ratings: zero factors, every item ties at 0, so the
+    # top n are items 0..n-1
+    zero_q = np.zeros((8, RANK), np.float32)
+    errs.append(compare("zero query rows", zero_q, Y_full, 16, exact=True))
+    _, zi = unpack(topn_packed(torch.from_numpy(zero_q).to(device), torch.from_numpy(Y_full).to(device), 16), 16)
+    if not (zi == np.arange(16)).all():
+        raise AssertionError(f"zero query rows got items {zi[0]}, not 0..15")
 
     rows = []
     Yd = torch.from_numpy(Y_full).to(device)
@@ -417,21 +444,175 @@ def check_k2_sizes(rng, device, errs):
               f"float64 {np.abs(x1 - exact).max():.3g} ok", flush=True)
 
 
+STREAM_BATCH = 1_000_000  # events per batch of the columnar stream
+SHIP_CHUNKS = 2  # the streaming trainer's upload chunks: K4 launches
+
+
+def bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (float32 compared as its int32 bits)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def wire_bounds(wire):
+    """(bound_ms, bound_by) of K4, K5a and K5b on one wire: each input
+    read once and each output written once (they do no arithmetic to
+    speak of)."""
+    n = len(wire.iw)
+    v_bytes = n * (4 if wire.vw.dtype == "float32" else 1)  # the unpacked plane
+    aux_u = wire.aux["su"].nbytes + wire.aux["bu"].nbytes
+    aux_i = wire.aux["si"].nbytes + wire.aux["bi"].nbytes
+    return {
+        "unpack_nibbles": roofline(3 * wire.vw.nbytes, 0),
+        "device_pack_presorted": roofline(
+            wire.iw.nbytes + v_bytes + aux_u + 4 * n + 8 * wire.geo_u.total * wire.L_u, 0),
+        "device_scatter_pack": roofline(
+            wire.iw.nbytes + 4 * n + v_bytes + aux_i + 8 * wire.geo_i.total * wire.L_i, 0),
+    }
+
+
+def check_wire_kernels(wire, device, label, ship_chunks=1):
+    """K4 (through the chunked upload), K5a and K5b against their twins on
+    the card on one wire, every output bit for bit (the padding segments
+    the wire's sentinel tail lands in included). Returns the uploaded wire
+    and the user keys."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import device_pack as k5
+
+    i_dev, v_dev, aux = als.upload_wire(wire, device, n_chunks=ship_chunks)
+    if wire.nibble:
+        ref = k5.unpack_nibbles_plain(torch.from_numpy(wire.vw).to(device))
+        if not bits_equal(v_dev, ref):
+            raise AssertionError(f"K4 {label}: differs from its twin")
+        if not np.array_equal(v_dev.cpu().numpy(), als._unpack_nibbles_host(wire.vw)):
+            raise AssertionError(f"K4 {label}: differs from the host unpack")
+    args_u = (aux["su"], aux["bu"], wire.geo_u.total, wire.L_u, wire.v_scale)
+    args_i = (aux["si"], aux["bi"], wire.geo_i.total, wire.L_i, wire.v_scale)
+    keys, pcu, pvu = k5.device_pack_presorted(i_dev, v_dev, *args_u)
+    keys2, pcu2, pvu2 = k5.device_pack_presorted_plain(i_dev, v_dev, *args_u)
+    pci, pvi = k5.device_scatter_pack(i_dev, keys, v_dev, *args_i, key_bound=wire.n_items + 1)
+    pci2, pvi2 = k5.device_scatter_pack_plain(i_dev, keys2, v_dev, *args_i)
+    torch.cuda.synchronize()
+    for name, got, ref in (
+        ("K5a keys", keys, keys2), ("K5a cols", pcu, pcu2), ("K5a vals", pvu, pvu2),
+        ("K5b cols", pci, pci2), ("K5b vals", pvi, pvi2),
+    ):
+        if not bits_equal(got, ref):
+            raise AssertionError(f"{name} {label}: differs from its twin")
+    tail = len(wire.iw) - int(wire.counts_u.sum())
+    print(f"  {label}: n={len(wire.iw)} (tail {tail}), ids {wire.iw.dtype}, values "
+          f"{'nibbles' if wire.nibble else wire.vw.dtype}, {len(wire.aux['su'])} user offsets "
+          f"for {wire.n_users + 1}, {k5.radix_passes(wire.n_items + 1)} sort passes, "
+          f"{ship_chunks} upload chunks: K4/K5a/K5b bit-equal to their twins", flush=True)
+    return (i_dev, v_dev, aux), keys
+
+
+def check_wire_tiers(rng, device):
+    """K4, K5a and K5b on small wires that reach the tiers the ML-20M wire
+    does not: int32 ids, float32 values, int8 values with a negative
+    rating, offsets lengthened by aux_pad, an empty COO; uploaded in three
+    chunks, so K4 writes at offsets that are not 16-byte aligned."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops import als
+
+    cfg = als.ALSConfig(rank=RANK, segment_length=16, chunk_slots=65_536)
+
+    def half_steps(nnz):
+        return (rng.integers(1, 11, nnz) / 2).astype(np.float32)
+
+    cases = [
+        ("int32 ids", 800, 70_000, 60_000, half_steps),
+        ("float32 values", 1000, 300, 40_000,
+         lambda nnz: rng.uniform(0.0, 5.0, nnz).astype(np.float32)),
+        ("int8 with a negative rating", 1000, 300, 40_000,
+         lambda nnz: np.concatenate([[-1.0], half_steps(nnz - 1)]).astype(np.float32)),
+        ("aux_pad lengthens the offsets", 1000, 1000, 30_000, half_steps),
+        ("n = 0", 5, 3, 0, half_steps),
+    ]
+    for label, n_users, n_items, nnz, values in cases:
+        u = rng.integers(0, n_users, nnz).astype(np.int32)
+        i = rng.integers(0, n_items, nnz).astype(np.int32)
+        if nnz:
+            i[0] = n_items - 1
+        wire = als.build_host_wire(u, i, values(nnz), n_users, n_items, cfg)
+        check_wire_kernels(wire, device, label, ship_chunks=3)
+    return wire
+
+
+def check_radix_sort(rng, device):
+    """K5b's stable sort alone at 2, 3 and 4 passes: with one CSR row (S = 1)
+    and L = 1 the cols plane holds the cols in sorted order, here the
+    permutation, held against the twin and numpy's stable argsort."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import device_pack as k5
+
+    n = 1_000_003  # a ragged last tile
+    zero = torch.zeros(1, dtype=torch.int32, device=device)
+    dup = rng.integers(0, 50, n)  # long runs of equal keys: stability shows
+    cases = (
+        ("uint16 keys", np.uint16, None, rng.integers(0, 1 << 16, n)),
+        ("int32 keys below 2^17", np.int32, 1 << 17, np.where(dup < 25, dup, rng.integers(0, 1 << 17, n))),
+        ("int32 keys below 2^31", np.int32, None, np.where(dup < 25, dup << 24, rng.integers(0, 2**31 - 1, n))),
+    )
+    for label, dt, key_bound, keys in cases:
+        keys = keys.astype(dt)
+        kd = torch.from_numpy(keys).to(device)
+        cols = torch.arange(n, dtype=torch.int32, device=device)
+        vals = torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)).to(device)
+        got = k5.device_scatter_pack(kd, cols, vals, zero, zero, n, 1, 0.5, key_bound=key_bound)
+        ref = k5.device_scatter_pack_plain(kd, cols, vals, zero, zero, n, 1, 0.5)
+        if not (bits_equal(got[0], ref[0]) and bits_equal(got[1], ref[1])):
+            raise AssertionError(f"K5b sort, {label}: differs from its twin")
+        if not np.array_equal(got[0].cpu().numpy(), np.argsort(keys.astype(np.int64), kind="stable")):
+            raise AssertionError(f"K5b sort, {label}: not numpy's stable order")
+        print(f"  K5b sort, {label}: {k5.radix_passes(key_bound or (1 << 16 if dt == np.uint16 else 2**31))} "
+              f"passes, n={n}: stable, equal to its twin", flush=True)
+
+
+def ml20m_stream(u, i, r, names, n_users):
+    """The ratings as a ColumnarStream of STREAM_BATCH-event batches, in
+    one code space: code c < n_users is user "u<c>", the rest item
+    "i<c - n_users>" (``names``)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.storage.columnar import ColumnarStream
+
+    t = (i + np.int32(n_users)).astype(np.int32)
+    batches = [
+        (u[s:s + STREAM_BATCH], t[s:s + STREAM_BATCH], r[s:s + STREAM_BATCH])
+        for s in range(0, len(r), STREAM_BATCH)
+    ]
+    return ColumnarStream(iter(batches), lambda: names)
+
+
 def train_phase(rng, device):
-    """Train the ML-20M-shaped model through the main path, check every
-    kernel on it, and time them. Returns (trained ALSModel, kernel rows,
+    """Check K4, K5a and K5b on the ML-20M wire and small ones, train the
+    ML-20M-shaped model through the main path (``ALSAlgorithm.train`` on a
+    streaming scan), hold it against the direct route, check K1, K2 and K7
+    on it, and time every kernel. Returns (trained ALSModel, kernel rows,
     training stats)."""
     import numpy as np
     import torch
 
-    from predictionio_tpu_torch.data.bimap import BiMap
     from predictionio_tpu_torch.models.recommendation.engine import (
         ALSAlgorithm,
         ALSAlgorithmParams,
         Preparator,
-        TrainingData,
+        StreamingTrainingData,
     )
-    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import als, streaming
+    from predictionio_tpu_torch.ops import device_pack as k5
     from predictionio_tpu_torch.ops import normal_eq as k1
     from predictionio_tpu_torch.ops import predict_pairs as k7
     from predictionio_tpu_torch.ops import spd_solve as k2
@@ -444,25 +625,30 @@ def train_phase(rng, device):
     params = ALSAlgorithmParams(rank=k, num_iterations=SWEEPS, lambda_=REG)
     config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, seed=params.seed)
 
-    # the packed sides and the start, as train_als builds them
-    counts_u = np.bincount(u, minlength=n_users).astype(np.int32)
-    counts_i = np.bincount(i, minlength=n_items).astype(np.int32)
-    L_u = als.auto_segment_length(None, n_users, config.segment_length, counts=counts_u)
-    L_i = als.auto_segment_length(None, n_items, config.segment_length, counts=counts_i)
-    R_u, R_i = als._padded_rows(n_users, 1), als._padded_rows(n_items, 1)
-    user_side = als.pack_segments(u, i, r, n_users, L_u, 1, config.chunk_slots)
-    item_side = als.pack_segments(i, u, r, n_items, L_i, 1, config.chunk_slots)
-    up = als.device_pack(user_side, R_u, R_i, device)
-    ip = als.device_pack(item_side, R_i, R_u, device)
-    state = als.init_factor_state_single(counts_u, counts_i, n_users, n_items, config, device=device)
-    X0, Y0, lam_u, lam_i, obs_u, obs_i = state
-    print(f"  packed: users L={L_u} grid {tuple(user_side.cols.shape)} groups "
-          f"{up.plan.groups.shape[1]} partials {up.plan.n_partials}; items L={L_i} "
-          f"grid {tuple(item_side.cols.shape)} groups {ip.plan.groups.shape[1]} "
-          f"partials {ip.plan.n_partials}; heaviest item {int(counts_i.max())} ratings", flush=True)
-
-    # a. K1 and K2 against their twins on the real sides
+    # a. K4, K5a and K5b against their twins: the ML-20M wire, uploaded as
+    # the streaming trainer uploads it, small wires of the other tiers, and
+    # the sort alone at every pass count
     errs = {}
+    t = time.perf_counter()
+    wire0 = als.build_host_wire(u, i, r, n_users, n_items, config)
+    build_wire_s = time.perf_counter() - t
+    (i_dev, v_dev, aux), u_keys = check_wire_kernels(wire0, device, "ML-20M wire", SHIP_CHUNKS)
+    check_wire_tiers(rng, device)
+    check_radix_sort(rng, device)
+    for name in ("unpack_nibbles", "device_pack_presorted", "device_scatter_pack"):
+        errs[name] = 0.0  # every check above is bit for bit
+
+    # K1 and K2 against their twins on the real sides, packed on the card
+    up, ip = als.device_pack_from_wire(wire0, device)
+    R_u, R_i = up.n_sys_rows, ip.n_sys_rows
+    state = als.init_factor_state_single(
+        wire0.counts_u, wire0.counts_i, n_users, n_items, config, device=device)
+    X0, Y0, lam_u, lam_i, obs_u, obs_i = state
+    print(f"  packed on the card: users L={wire0.L_u} grid {tuple(up.cols.shape)} groups "
+          f"{up.plan.groups.shape[1]} partials {up.plan.n_partials}; items L={wire0.L_i} "
+          f"grid {tuple(ip.cols.shape)} groups {ip.plan.groups.shape[1]} partials "
+          f"{ip.plan.n_partials}; heaviest item {int(wire0.counts_i.max())} ratings; "
+          f"wire {wire0.wire_mb} MB", flush=True)
     check_half_step(X0, Y0, up, lam_u, obs_u, "user side, first half-step", errs)
     X3, Y3, _ = als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, 3)
     check_half_step(X3, Y3, up, lam_u, obs_u, "user side of sweep 4", errs)
@@ -471,49 +657,126 @@ def train_phase(rng, device):
     check_k1_sizes(rng, device, errs)
     check_k2_sizes(rng, device, errs)
 
-    # b. the main path, counted
-    user_index = BiMap.int_index(f"u{n}" for n in range(n_users))
-    item_index = BiMap.int_index(f"i{n}" for n in range(n_items))
-    td = TrainingData(u, i, r, user_index, item_index)
-    td.sanity_check()
+    # b. the main path, counted: ALSAlgorithm.train on a streaming scan of
+    # the ratings with string ids, then RMSE through K7
+    names = np.array([f"u{n}" for n in range(n_users)] + [f"i{n}" for n in range(n_items)], dtype=object)
+
+    def stream_factory():
+        return ml20m_stream(u, i, r, names, n_users)
+
+    def loader():
+        raise AssertionError("the streaming path materialized the training data")
+
     alg = ALSAlgorithm(params)
-    pd = Preparator().prepare(device, td)
-    counters = (k1.LAUNCHES, k2.LAUNCHES, k7.LAUNCHES, k3.LAUNCHES)
+    pd = Preparator().prepare(device, StreamingTrainingData(stream_factory, loader))
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k7.LAUNCHES, k3.LAUNCHES)
     for c in counters:
         c.reset()
     t = time.perf_counter()
     model = alg.train(device, pd)
     train_s = time.perf_counter() - t
+    # the streaming model's dense ids: sorted-name order
+    remap_u = np.array([model.user_index.get(f"u{n}", -1) for n in range(n_users)], np.int32)
+    remap_i = np.array([model.item_index.get(f"i{n}", -1) for n in range(n_items)], np.int32)
+    u_rel, i_rel = remap_u[u], remap_i[i]
+    n_u, n_i = len(model.user_index), len(model.item_index)
     t = time.perf_counter()
-    rmse = als.rmse(model.arrays, u, i, r, device=device)
+    rmse = als.rmse(model.arrays, u_rel, i_rel, r, device=device)
     rmse_s = time.perf_counter() - t
     counts = {}
     for c in counters:
         counts.update(c.snapshot())
     n_chunks = -(-len(r) // PAIR_CHUNK)
-    want = {"normal_eq": 2 * SWEEPS, "spd_solve": 2 * SWEEPS, "predict_pairs": n_chunks}
+    want = {
+        "unpack_nibbles": SHIP_CHUNKS, "device_pack_presorted": 1, "device_scatter_pack": 1,
+        "normal_eq": 2 * SWEEPS, "spd_solve": 2 * SWEEPS, "predict_pairs": n_chunks,
+    }
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"{name} launched {counts[name]} times on the main path, not {n}")
-    if any(counts[f"{name}_plain"] for name in ("normal_eq", "spd_solve", "predict_pairs", "topn_packed")):
+    if any(v for name, v in counts.items() if name.endswith("_plain")):
         raise AssertionError(f"a plain twin ran on the main path: {counts}")
     if not (np.isfinite(model.arrays.user_factors).all() and np.isfinite(model.arrays.item_factors).all()):
         raise AssertionError("trained factors are not finite")
-    if model.arrays.user_factors.shape != (n_users, k) or model.arrays.item_factors.shape != (n_items, k):
+    if model.arrays.user_factors.shape != (n_u, k) or model.arrays.item_factors.shape != (n_i, k):
         raise AssertionError("trained factors have the wrong shape")
+    if (remap_u[np.unique(u)] < 0).any() or (remap_i[np.unique(i)] < 0).any():
+        raise AssertionError("a rated user or item is missing from the streaming model's index")
     if not (0.0 < rmse < 1.5):
         raise AssertionError(f"training RMSE {rmse} out of range")
-    print(f"  ALSAlgorithm.train: {train_s:.2f} s, RMSE {rmse:.6f}, launches {counts}", flush=True)
+    print(f"  ALSAlgorithm.train (streaming): {train_s:.2f} s, {n_u} users x {n_i} items, "
+          f"RMSE {rmse:.6f}, launches {counts}", flush=True)
 
-    # c. again, with timings: bit-identical factors
+    # the streaming wire against build_host_wire over the relabelled COO
+    t_scan = {}
+    wait = None
+    try:
+        s_wire, _, _, wait = streaming._scan_and_pack(stream_factory(), config, t_scan, device)
+    finally:
+        if wait is not None:
+            wait()
+    t = time.perf_counter()
+    d_wire = als.build_host_wire(u_rel, i_rel, r, n_u, n_i, config)
+    build_rel_s = time.perf_counter() - t
+    same = (
+        s_wire.iw.dtype == d_wire.iw.dtype and s_wire.iw.tobytes() == d_wire.iw.tobytes()
+        and s_wire.vw.dtype == d_wire.vw.dtype and s_wire.vw.tobytes() == d_wire.vw.tobytes()
+        and (s_wire.nibble, s_wire.v_scale, s_wire.L_u, s_wire.L_i) == (d_wire.nibble, d_wire.v_scale, d_wire.L_u, d_wire.L_i)
+        and all(s_wire.aux[a].tobytes() == d_wire.aux[a].tobytes() for a in ("su", "bu", "si", "bi"))
+        and np.array_equal(s_wire.counts_u, d_wire.counts_u) and np.array_equal(s_wire.counts_i, d_wire.counts_i)
+    )
+    if not same:
+        raise AssertionError("the streaming wire differs from build_host_wire over the relabelled COO")
+    print(f"  streaming wire == build_host_wire(relabelled COO), byte for byte ({d_wire.wire_mb} MB)", flush=True)
+
+    def same_factors(a, b):
+        return all(
+            np.array_equal(x.view(np.uint32), y.view(np.uint32))
+            for x, y in ((a.user_factors, b.user_factors), (a.item_factors, b.item_factors))
+        )
+
+    # c. the streaming trainer again with its timings, and the direct
+    # route on the relabelled COO: the factors bit-identical to (b)'s
+    t_stream = {}
+    again = streaming.train_als_streaming(stream_factory(), config, device=device, timings=t_stream)
+    if not same_factors(again.arrays, model.arrays):
+        raise AssertionError("two streaming trainings from one seed differ")
     timings = {}
-    again = als.train_als(u, i, r, n_users, n_items, config, device=device, timings=timings)
-    for a, b_ in ((again.user_factors, model.arrays.user_factors), (again.item_factors, model.arrays.item_factors)):
-        if not np.array_equal(a.view(np.uint32), b_.view(np.uint32)):
-            raise AssertionError("two trainings from one seed differ")
-    print("  second training: bit-identical factors", flush=True)
+    direct = als.train_als(u_rel, i_rel, r, n_u, n_i, config, device=device, timings=timings)
+    if not same_factors(direct, model.arrays):
+        raise AssertionError("the direct route's factors differ from the streaming route's")
+    print("  second streaming training and the direct route: bit-identical factors", flush=True)
+    # the host-pack route (the reference's mesh-branch packer, kept in the
+    # port for the multi-GPU route), timed beside the wire route on the
+    # same COO; over the real segments its user planes equal K5a's
+    t = time.perf_counter()
+    hs_u = als.pack_segments(u_rel, i_rel, r, n_u, d_wire.L_u, 1, config.chunk_slots)
+    hs_i = als.pack_segments(i_rel, u_rel, r, n_i, d_wire.L_i, 1, config.chunk_slots)
+    host_pack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    R_u2, R_i2 = als._padded_rows(n_u, 1), als._padded_rows(n_i, 1)
+    hp_u = als.device_pack(hs_u, R_u2, R_i2, device)
+    als.device_pack(hs_i, R_i2, R_u2, device)
+    torch.cuda.synchronize()
+    host_put_s = time.perf_counter() - t
+    wp_u, _ = als.device_pack_from_wire(d_wire, device)
+    m = d_wire.geo_u.n_segs * d_wire.L_u
+    if not (bits_equal(hp_u.cols.reshape(-1)[:m], wp_u.cols.reshape(-1)[:m])
+            and bits_equal(hp_u.vals.reshape(-1)[:m], wp_u.vals.reshape(-1)[:m])):
+        raise AssertionError("K5a's user planes differ from pack_segments' over the real segments")
+    host_pack_route = {"pack_s": host_pack_s, "device_put_s": host_put_s}
+    print(f"  host-pack route on the same COO: pack {host_pack_s:.2f} s, upload {host_put_s:.3f} s; "
+          f"its user planes equal K5a's over the {d_wire.geo_u.n_segs} real segments", flush=True)
+    del hs_u, hs_i, hp_u, wp_u
+    stream_keys = ("scan_s", "fold_s", "pack_s", "pack_exposed_s", "device_put_exposed_s", "wire_mb",
+                   "compile_s", "compile_exposed_s", "device_pack_dispatch_s", "device_loop_s",
+                   "stream_wall_s", "pack_cache")
+    print("streaming_timings " + json.dumps({key: t_stream[key] for key in stream_keys}), flush=True)
 
-    # d. the same sweeps with the twins
+    # d. the same sweeps with the twins, driven by this script, against the
+    # kernels' loop on the same packs
+    Xk, Yk, tel_k = als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, SWEEPS)
+    rows = als._telemetry_rows(tel_k, SWEEPS, Xk.numel(), Yk.numel()).astype(np.float64)
     X, Y = X0, Y0
     tel = np.zeros((SWEEPS, 4), np.float64)
     t = time.perf_counter()
@@ -527,11 +790,10 @@ def train_phase(rng, device):
                    np.sqrt(sx[1] / X.numel()), np.sqrt(sy[1] / Y.numel())]
     twin_loop_s = time.perf_counter() - t
     Xt, Yt = X[:n_users].cpu().numpy(), Y[:n_items].cpu().numpy()
-    dX = np.abs(Xt - model.arrays.user_factors).max()
-    dY = np.abs(Yt - model.arrays.item_factors).max()
+    dX = np.abs(Xt - Xk[:n_users].cpu().numpy()).max()
+    dY = np.abs(Yt - Yk[:n_items].cpu().numpy()).max()
     if dX > TRAIN_RTOL * np.abs(Xt).max() or dY > TRAIN_RTOL * np.abs(Yt).max():
         raise AssertionError(f"twin training differs: max |dX| {dX}, |dY| {dY}")
-    rows = np.array([[s["dx"], s["dy"], s["x_rms"], s["y_rms"]] for s in timings["sweep_telemetry"]])
     np.testing.assert_allclose(rows, tel, rtol=TRAIN_RTOL)
     print(f"  twin-driven training ({twin_loop_s:.2f} s): max |dX| {dX:.3g}, |dY| {dY:.3g}, "
           f"telemetry max rel diff {np.abs(rows / tel - 1).max():.3g} ok", flush=True)
@@ -539,8 +801,8 @@ def train_phase(rng, device):
     # e. K7 on every training pair
     Xd = torch.from_numpy(model.arrays.user_factors).to(device)
     Yd = torch.from_numpy(model.arrays.item_factors).to(device)
-    ud = torch.from_numpy(u).to(device)
-    idd = torch.from_numpy(i).to(device)
+    ud = torch.from_numpy(u_rel).to(device)
+    idd = torch.from_numpy(i_rel).to(device)
     k7_err = 0.0
     for s in range(0, len(u), PAIR_CHUNK):
         uc, ic = ud[s:s + PAIR_CHUNK], idd[s:s + PAIR_CHUNK]
@@ -554,13 +816,22 @@ def train_phase(rng, device):
     errs["predict_pairs"] = k7_err
     print(f"  K7 on {len(u)} pairs: max |d| {k7_err:.3g} ok", flush=True)
 
-    # f. times at the main path's shapes, K2 with its telemetry sums
+    # f. times at the main path's shapes: K4, K5a and K5b on the ML-20M
+    # wire, K1 and K2 per side, K2 with its telemetry sums, K7 per chunk
+    raw_v = torch.from_numpy(wire0.vw).to(device)
+    args_u = (aux["su"], aux["bu"], wire0.geo_u.total, wire0.L_u, wire0.v_scale)
+    args_i = (aux["si"], aux["bi"], wire0.geo_i.total, wire0.L_i, wire0.v_scale)
     A_u, b_u = k1.normal_eq(Y3, up)
     A_i, b_i = k1.normal_eq(X3, ip)
     A_reg = A_u + lam_u[:, None, None] * torch.eye(k, device=device)
     sums = torch.zeros(2, dtype=torch.float32, device=device)
     uc, ic = ud[:PAIR_CHUNK], idd[:PAIR_CHUNK]
     calls = {
+        "unpack_nibbles": {"wire": lambda: k5.unpack_nibbles(raw_v)},
+        "device_pack_presorted": {"user": lambda: k5.device_pack_presorted(i_dev, v_dev, *args_u)},
+        "device_scatter_pack": {
+            "item": lambda: k5.device_scatter_pack(i_dev, u_keys, v_dev, *args_i, key_bound=n_items + 1),
+        },
         "normal_eq": {"user": lambda: k1.normal_eq(Y3, up), "item": lambda: k1.normal_eq(X3, ip)},
         "spd_solve": {
             "user": lambda: k2.spd_solve(A_u, b_u, lam_u, obs_u, X3, sums),
@@ -569,6 +840,11 @@ def train_phase(rng, device):
     }
     t_k = {n: {side: time_ms(f, iters=20, warmup=2) for side, f in c.items()} for n, c in calls.items()}
     dev = {n: {side: device_ms(f, calls=10) for side, f in c.items()} for n, c in calls.items()}
+    t_k4_plain = time_ms(lambda: k5.unpack_nibbles_plain(raw_v), iters=10, warmup=2)
+    t_k5a_plain = time_ms(lambda: k5.device_pack_presorted_plain(i_dev, v_dev, *args_u), iters=5, warmup=1)
+    t_k5b_plain = time_ms(lambda: k5.device_scatter_pack_plain(i_dev, u_keys, v_dev, *args_i), iters=5, warmup=1)
+    keys_i32 = i_dev.to(torch.int32)
+    t_sort_only = time_ms(lambda: torch.sort(keys_i32, stable=True), iters=10, warmup=2)
     t_k1_plain = time_ms(lambda: k1.normal_eq_plain(Y3, up.seg_rows, up.cols, up.vals, up.rem, R_u), iters=3, warmup=1)
     t_k2_plain = time_ms(lambda: k2.spd_solve_plain(A_u, b_u, lam_u, obs_u, X3), iters=3, warmup=1)
     t_k2_lib = time_ms(lambda: torch.cholesky_solve(b_u[..., None], torch.linalg.cholesky(A_reg)), iters=5, warmup=1)
@@ -579,13 +855,17 @@ def train_phase(rng, device):
     t_k["predict_pairs"] = time_ms(k7_call, iters=50, warmup=5)
     dev["predict_pairs"] = device_ms(k7_call, calls=50)
     t_k7_plain = time_ms(lambda: k7.predict_pairs_plain(Xd, Yd, uc, ic), iters=50, warmup=5)
+    wb = wire_bounds(wire0)
     bounds = {
+        "unpack_nibbles": {"wire": wb["unpack_nibbles"]},
+        "device_pack_presorted": {"user": wb["device_pack_presorted"]},
+        "device_scatter_pack": {"item": wb["device_scatter_pack"]},
         "normal_eq": {"user": k1_bound(up, len(r), R_i, k), "item": k1_bound(ip, len(r), R_u, k)},
         "spd_solve": {
             "user": k2_bound(R_u, int(obs_u.sum()), k),
             "item": k2_bound(R_i, int(obs_i.sum()), k),
         },
-        "predict_pairs": k7_bound(PAIR_CHUNK, n_users, n_items, k),
+        "predict_pairs": k7_bound(PAIR_CHUNK, n_u, n_i, k),
     }
 
     # the loop's device busy share: its time on the card alone over its
@@ -602,18 +882,26 @@ def train_phase(rng, device):
     loop_device_ms = device_ms(loop, calls=1)
     stats = {
         "card": card_line(),
-        "pack_s": timings["pack_s"], "device_put_s": timings["device_put_s"],
-        "compile_s": timings["compile_s"], "device_loop_s": timings["device_loop_s"],
+        "build_host_wire_s": build_wire_s, "build_host_wire_relabelled_s": build_rel_s,
+        "direct": {key: timings[key] for key in (
+            "pack_s", "device_put_s", "wire_mb", "device_pack_dispatch_s", "compile_s",
+            "device_loop_s", "padded_slots")},
+        "streaming": {key: t_stream[key] for key in stream_keys},
+        "host_pack_route": host_pack_route,
         "ms_per_sweep": timings["device_loop_s"] * 1e3 / SWEEPS,
-        "padded_slots": timings["padded_slots"], "train_s": train_s,
+        "train_s": train_s,
         "rmse": rmse, "rmse_s": rmse_s, "telemetry": timings["sweep_telemetry"],
         "launches": counts,
         "loop_wall_ms": loop_wall_ms,
         "loop_device_ms": loop_device_ms,
         "device_busy_share": loop_device_ms / loop_wall_ms,
         "kernel_ms": t_k,
-        "plain_ms": {"normal_eq_user": t_k1_plain, "spd_solve_user": t_k2_plain, "predict_pairs_chunk": t_k7_plain},
-        "library_ms": {"spd_solve_user": t_k2_lib},
+        "plain_ms": {
+            "unpack_nibbles": t_k4_plain, "device_pack_presorted": t_k5a_plain,
+            "device_scatter_pack": t_k5b_plain, "normal_eq_user": t_k1_plain,
+            "spd_solve_user": t_k2_plain, "predict_pairs_chunk": t_k7_plain,
+        },
+        "library_ms": {"spd_solve_user": t_k2_lib, "device_scatter_pack_sort_only": t_sort_only},
         "device_ms": dev, "bound": bounds,
         "bound_ms_per_sweep": sum(bounds[n][side][0] for n in ("normal_eq", "spd_solve") for side in ("user", "item")),
         "twin_loop_s": twin_loop_s,
@@ -629,6 +917,14 @@ def train_phase(rng, device):
         }
 
     kernels = [
+        row("unpack_nibbles", "device_pack.cu", "predictionio_tpu/ops/als.py:407",
+            t_k["unpack_nibbles"]["wire"], t_k4_plain, bounds["unpack_nibbles"]["wire"], None),
+        row("device_pack_presorted", "device_pack.cu", "predictionio_tpu/ops/als.py:416",
+            t_k["device_pack_presorted"]["user"], t_k5a_plain,
+            bounds["device_pack_presorted"]["user"], None),
+        row("device_scatter_pack", "device_pack.cu", "predictionio_tpu/ops/als.py:449",
+            t_k["device_scatter_pack"]["item"], t_k5b_plain,
+            bounds["device_scatter_pack"]["item"], None),
         row("normal_eq", "normal_eq.cu", "predictionio_tpu/ops/als.py:481",
             t_k["normal_eq"]["user"], t_k1_plain, bounds["normal_eq"]["user"], None),
         row("spd_solve", "spd_solve.cu", "predictionio_tpu/ops/als.py:549",
@@ -673,6 +969,7 @@ def slice_phase(rng, device, workdir, model):
     from predictionio_tpu_torch.utils.serialize import save_model
 
     uf, itf = model.arrays.user_factors, model.arrays.item_factors
+    user_of_row = model.user_index.inverse()
     unrated = np.flatnonzero(~uf.any(axis=1))
     path = os.path.join(workdir, "ml20m_trained.npz")
     save_model(path, model)
@@ -711,7 +1008,7 @@ def slice_phase(rng, device, workdir, model):
         # the main path: counts start at 0 here, after deploy's warm-up
         LAUNCHES.reset()
         n_queries, n_clients = 320, 32
-        users = [f"u{u}" for u in rng.integers(0, ML20M_USERS, size=n_queries)]
+        users = [user_of_row[int(row)] for row in rng.integers(0, len(uf), size=n_queries)]
         nums = np.where(rng.random(n_queries) < 0.85, 10, rng.integers(1, 41, size=n_queries))
         picked = rng.choice(n_queries, size=12, replace=False).tolist()
         unknown_at = set(picked[:4])
@@ -720,7 +1017,7 @@ def slice_phase(rng, device, workdir, model):
         # users without ratings: zero factors, every item ties at 0
         unrated_at = set(picked[4:4 + min(8, len(unrated))])
         for i, row in zip(sorted(unrated_at), unrated):
-            users[i] = f"u{row}"
+            users[i] = user_of_row[int(row)]
 
         def client(c):
             # one keep-alive connection per client, its queries in turn
@@ -786,7 +1083,7 @@ def slice_phase(rng, device, workdir, model):
 
     # every answer against the plain twin on the card
     Yd = torch.from_numpy(itf).to(device)
-    rows = [0 if i in unknown_at else int(users[i][1:]) for i in range(n_queries)]
+    rows = [0 if i in unknown_at else model.user_index[users[i]] for i in range(n_queries)]
     q_np = uf[rows]
     ref = topn_packed_plain(torch.from_numpy(q_np).to(device), Yd, 40).cpu().numpy()
     ref_s, ref_i = ref[:, :40], ref[:, 40:].copy().view(np.int32)
@@ -801,7 +1098,7 @@ def slice_phase(rng, device, workdir, model):
             continue
         if len(items) != num:
             raise AssertionError(f"query {i}: {len(items)} items for num={num}")
-        got_i = np.array([[int(x["item"][1:]) for x in items]])
+        got_i = np.array([[model.item_index[x["item"]] for x in items]])
         got_s = np.array([[x["score"] for x in items]])
         if i in unrated_at and got_i[0].tolist() != list(range(num)):
             raise AssertionError(f"user without ratings {users[i]!r} got {got_i[0]}")
@@ -835,7 +1132,14 @@ def main() -> int:
     import numpy as np
 
     from predictionio_tpu_torch.device import resolve_device
-    from predictionio_tpu_torch.ops import native, normal_eq, predict_pairs, spd_solve, topn
+    from predictionio_tpu_torch.ops import (
+        device_pack,
+        native,
+        normal_eq,
+        predict_pairs,
+        spd_solve,
+        topn,
+    )
 
     # the reference holds parity in full f32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -846,7 +1150,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} nvcc {native.nvcc_path()}", flush=True)
     t0 = time.perf_counter()
-    kernel_modules = (topn, normal_eq, spd_solve, predict_pairs)
+    kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)

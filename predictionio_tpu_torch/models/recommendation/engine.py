@@ -5,7 +5,9 @@ Preparator.scala, ALSAlgorithm.scala:24-105, Serving.scala).
 
 Queries, results, training data and params keep the reference's fields and
 JSON names. ``ALSAlgorithm.train`` trains on a ``torch.device`` through
-``ops/als.train_als`` (K1 and K2 per half-step). ``ALSModel.recommend_many``
+``ops/streaming.train_als_streaming`` when the training data streams
+(``StreamingTrainingData``), else through ``ops/als.train_als``: both take
+the wire route (K4 and K5 pack, then K1 and K2 per half-step). ``ALSModel.recommend_many``
 serves a micro-batch with one K3 launch on the model's device.
 ``als_model_from_numpy`` builds a model from a trained model's arrays,
 which is how a model trained by the JAX package is carried across (as
@@ -37,6 +39,7 @@ from predictionio_tpu_torch.ops.als import (
     train_als,
     validate_solver,
 )
+from predictionio_tpu_torch.ops.streaming import train_als_streaming
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
 
 
@@ -91,6 +94,48 @@ class TrainingData(SanityCheck):
                 "ratings is empty — is the event store populated with "
                 "rate/buy events?"
             )
+
+
+class StreamingTrainingData(TrainingData):
+    """Lazy TrainingData backed by a chunked store scan.
+
+    The ALS algorithm feeds ``stream_factory`` straight into the
+    streaming store→device pipeline (``ops/streaming``) without ever
+    materializing the rating columns on host; any other consumer that
+    touches the column attributes materializes them through ``loader``,
+    so the DASE contract is unchanged."""
+
+    def __init__(self, stream_factory, loader):
+        # no super().__init__: columns materialize on first attribute
+        # access through the class-level properties below
+        self._stream_factory = stream_factory
+        self._loader = loader
+        self._td: Optional[TrainingData] = None
+
+    @property
+    def stream_factory(self):
+        """() -> ColumnarStream for the streaming trainer (a FRESH stream
+        per call)."""
+        return self._stream_factory
+
+    def materialize(self) -> TrainingData:
+        if self._td is None:
+            self._td = self._loader()
+        return self._td
+
+    user_idx = property(lambda self: self.materialize().user_idx)
+    item_idx = property(lambda self: self.materialize().item_idx)
+    ratings = property(lambda self: self.materialize().ratings)
+    user_index = property(lambda self: self.materialize().user_index)
+    item_index = property(lambda self: self.materialize().item_index)
+
+    def sanity_check(self) -> None:
+        # deferred: materializing here would serialize the very scan the
+        # pipeline overlaps. The streaming trainer returns None on an
+        # empty scan and the algorithm falls back to the materialized
+        # path, whose sanity check raises the user-facing error.
+        if self._td is not None:
+            self._td.sanity_check()
 
 
 @dataclasses.dataclass
@@ -255,7 +300,10 @@ class ALSAlgorithm(BaseAlgorithm):
     query_class = Query
 
     def train(self, device: DeviceLike, pd: PreparedData) -> ALSModel:
-        """Train on ``device`` (CUDA unless the CPU is asked for)."""
+        """Train on ``device`` (CUDA unless the CPU is asked for): training
+        data that streams (``StreamingTrainingData``) goes through
+        ``ops/streaming.train_als_streaming``, the rest, and a stream that
+        comes up empty, through ``ops/als.train_als``."""
         td = pd.td
         p: ALSAlgorithmParams = self.params
         config = ALSConfig(
@@ -268,6 +316,20 @@ class ALSAlgorithm(BaseAlgorithm):
             solver=p.solver,
             block_size=p.block_size,
         )
+        stream_factory = getattr(td, "stream_factory", None)
+        if stream_factory is not None:
+            result = train_als_streaming(
+                stream_factory(), config, device=device,
+                checkpoint_dir=p.checkpoint_dir,
+            )
+            if result is not None:
+                return ALSModel(
+                    arrays=result.arrays, user_index=result.user_index,
+                    item_index=result.item_index, params=p,
+                )
+            # empty scan: the materialized path below owns the error
+            # reporting (TrainingData.sanity_check)
+            td.materialize().sanity_check()
         arrays = train_als(
             td.user_idx,
             td.item_idx,

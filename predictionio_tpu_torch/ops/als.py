@@ -2,19 +2,26 @@
 ``predictionio_tpu/ops/als.py`` for one GPU, explicit ratings, exact
 solver.
 
-Training (slice 2) is the reference's host-pack route (its mesh branch,
-:1831-1897, which on one device gives the same factors bit for bit as its
-device-pack route). The host packing is copied as numpy and gives the same
-bytes as the reference's: ``ALSConfig`` :79, ``PackedSide`` /
-``pack_segments`` :196, ``_segment_geometry`` :258, ``_bucket_count``
+Training is the reference's single-device route (``train_als`` with
+``mesh=None``, :1788-1815): ``build_host_wire`` :1306 / ``finish_wire``
+:1350 sort the COO by user and narrow it into a ``HostWire`` :1263,
+``device_pack_from_wire`` :1582 uploads it and builds both sides' padded
+segment planes on the card with K4 and K5 (``ops/device_pack.py``), and
+``train_from_wire`` :1653 runs the loop; ``ops/streaming.py`` builds the
+same wire from a stream. The host code is copied as numpy and gives the
+same bytes as the reference's: ``ALSConfig`` :79, ``_segment_geometry``
+:258, the wire helpers :332-399, ``aux_pad`` :1252, ``_bucket_count``
 :1155, ``auto_segment_length`` :1172, ``_padded_rows`` :1385,
-``_factor_init_host`` :1392, ``_lam_obs_host`` :1405. The device loop
-(``_run_iterations``, the reference's fused program :837) is a host loop
-of two hand-written kernels per half-step: K1 (``ops/normal_eq.py``, the
-normal equations) and K2 (``ops/spd_solve.py``, the regularized solve,
-whose epilogue also sums the sweep telemetry). ``predict_ratings`` /
-``rmse`` run K7 (``ops/predict_pairs.py``). Implicit feedback, the
-subspace solver, bf16 compute, checkpoints and meshes raise
+``_factor_init_host`` :1392, ``_lam_obs_host`` :1405. ``PackedSide`` /
+``pack_segments`` :196 and ``device_pack`` are the reference's host
+packer (its mesh branch, :1817-1897), kept for the multi-GPU route. The
+device loop (``_run_iterations``, the reference's fused program :837) is
+a host loop of two hand-written kernels per half-step: K1
+(``ops/normal_eq.py``, the normal equations) and K2
+(``ops/spd_solve.py``, the regularized solve, whose epilogue also sums
+the sweep telemetry). ``predict_ratings`` / ``rmse`` run K7
+(``ops/predict_pairs.py``). Implicit feedback, the subspace solver, bf16
+compute, checkpoints, the resident pack and meshes raise
 ``NotImplementedError``.
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -36,10 +44,17 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.ops import device_pack as _k5
+from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops import normal_eq as _k1
 from predictionio_tpu_torch.ops import predict_pairs as _k7
 from predictionio_tpu_torch.ops import spd_solve as _k2
-from predictionio_tpu_torch.ops.normal_eq import SegmentPack, plan_groups, upload_pack
+from predictionio_tpu_torch.ops.normal_eq import (
+    SegmentPack,
+    pack_from_planes,
+    plan_groups,
+    upload_pack,
+)
 from predictionio_tpu_torch.ops.topn import topn_packed
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 
@@ -332,6 +347,203 @@ def _pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+# --- training: the host wire, copied from the reference as numpy ---
+#
+# The single-device route ships the COO presorted by user, WITHOUT its
+# row-id plane (the CSR offsets encode it), with item ids narrowed to
+# uint16 when they fit and half-step ratings to int8, nibble-packed two
+# per byte when they lie in 0..7.5. K4 unpacks the nibbles on the device
+# and K5 (``ops/device_pack.py``) builds both sides' padded segment
+# layouts there. ML-20M: a 51.3 MB wire in place of ≈0.47 GB of planes.
+
+
+def _narrow_ids(idx: np.ndarray) -> np.ndarray:
+    """Ids as the narrowest lossless wire dtype (uint16 below 65,536)."""
+    return idx.astype(np.uint16) if idx.size and idx.max() < 65536 else idx
+
+
+def _narrow_vals(vals: np.ndarray) -> Tuple[np.ndarray, float]:
+    """(wire_array, scale): ratings on a half-step scale travel as int8
+    (doubled) with scale 0.5; anything else stays float32 with scale 1."""
+    if vals.size == 0:
+        return vals, 1.0
+    doubled = vals * 2.0
+    rounded = np.rint(doubled)
+    if (
+        np.abs(doubled - rounded).max() == 0.0
+        and np.abs(rounded).max() <= 127
+    ):
+        return rounded.astype(np.int8), 0.5
+    return vals, 1.0
+
+
+def _nibble_packable(vw: np.ndarray) -> bool:
+    """Doubled half-step ratings in 0..15 fit a nibble each, two per wire
+    byte: int8, an even element count, no negatives."""
+    return (
+        vw.dtype == np.int8
+        and vw.size > 0
+        and vw.size % 2 == 0
+        and vw.min() >= 0
+        and vw.max() <= 15
+    )
+
+
+def _pack_nibbles_host(vw: np.ndarray) -> np.ndarray:
+    return (
+        (vw[0::2].astype(np.uint8) & 0xF)
+        | (vw[1::2].astype(np.uint8) << 4)
+    )
+
+
+def _unpack_nibbles_host(packed: np.ndarray) -> np.ndarray:
+    """Host inverse of ``_pack_nibbles_host``: low nibble to the even
+    index, high nibble to the odd one."""
+    out = np.empty(packed.size * 2, np.int8)
+    out[0::2] = (packed & np.uint8(0xF)).astype(np.int8)
+    out[1::2] = (packed >> np.uint8(4)).astype(np.int8)
+    return out
+
+
+def wire_coo(wire: "HostWire") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The exact user-major (user, item, value) COO a wire was finished
+    from: every narrowing tier is lossless, so ``finish_wire`` of it gives
+    the wire back byte for byte."""
+    n = int(wire.counts_u.sum())
+    u = np.repeat(np.arange(wire.n_users, dtype=np.int32), wire.counts_u)
+    i = np.asarray(wire.iw[:n], dtype=np.int32)
+    if wire.nibble:
+        v = _unpack_nibbles_host(wire.vw)[:n].astype(np.float32)
+        v *= np.float32(wire.v_scale)
+    elif wire.vw.dtype == np.int8:
+        v = wire.vw[:n].astype(np.float32) * np.float32(wire.v_scale)
+    else:
+        v = np.asarray(wire.vw[:n], dtype=np.float32)
+    return u, i, v
+
+
+def aux_pad(arr: np.ndarray) -> np.ndarray:
+    """A CSR-offset array edge-padded to its bucketed length (it is only
+    indexed by row ids up to its last real entry, so the padding is
+    inert)."""
+    out = np.full(_bucket_count(len(arr)), arr[-1], np.int32)
+    out[: len(arr)] = arr
+    return out
+
+
+@dataclasses.dataclass
+class HostWire:
+    """The COO presorted by user and narrowed, plus both sides' segment
+    geometry: everything the single-device route ships to the card."""
+
+    n_users: int
+    n_items: int
+    L_u: int
+    L_i: int
+    geo_u: _SegGeometry
+    geo_i: _SegGeometry
+    iw: np.ndarray  # item ids, user-sorted, sentinel-padded, narrowed
+    vw: np.ndarray  # values (nibble-packed uint8, int8, or float32)
+    nibble: bool
+    v_scale: float
+    aux: dict  # su/bu/si/bi int32 CSR offsets + segment bases (aux_pad'd)
+    counts_u: np.ndarray  # [n_users] int32 observation counts
+    counts_i: np.ndarray  # [n_items]
+
+    @property
+    def wire_mb(self) -> float:
+        return round(
+            (
+                self.iw.nbytes
+                + self.vw.nbytes
+                + sum(int(a.nbytes) for a in self.aux.values())
+            )
+            / 2**20,
+            1,
+        )
+
+    @property
+    def padded_slots(self) -> int:
+        return self.geo_u.total * self.L_u + self.geo_i.total * self.L_i
+
+    def identity_bytes(self) -> bytes:
+        """The wire's data identity (the reference fingerprints
+        checkpoints with it)."""
+        return self.iw.tobytes() + self.vw.tobytes()
+
+
+def build_host_wire(
+    user_idx: np.ndarray,
+    item_idx: np.ndarray,
+    ratings: np.ndarray,
+    n_users: int,
+    n_items: int,
+    config: ALSConfig,
+    counts_u: Optional[np.ndarray] = None,
+    counts_i: Optional[np.ndarray] = None,
+) -> HostWire:
+    """The wire of a COO batch: one stable sort by user, the COO length
+    bucketed with sentinel padding (item id ``n_items``, value 0), then
+    ``finish_wire``."""
+    user_idx = np.asarray(user_idx, np.int32)
+    item_idx = np.asarray(item_idx, np.int32)
+    ratings_f = np.asarray(ratings, np.float32)
+    if counts_u is None:
+        counts_u = np.bincount(user_idx, minlength=n_users).astype(np.int32)
+    if counts_i is None:
+        counts_i = np.bincount(item_idx, minlength=n_items).astype(np.int32)
+    L_u = auto_segment_length(
+        user_idx, n_users, config.segment_length, counts=counts_u
+    )
+    L_i = auto_segment_length(
+        item_idx, n_items, config.segment_length, counts=counts_i
+    )
+    geo_u = _segment_geometry(counts_u, n_users, L_u, 1, config.chunk_slots)
+    geo_i = _segment_geometry(counts_i, n_items, L_i, 1, config.chunk_slots)
+    n = len(ratings_f)
+    order = np.argsort(user_idx, kind="stable")
+    # padding elements land in masked padding segments or past the grid
+    pad = (_bucket_count(n) - n) if n else 1
+    iw = np.concatenate([item_idx[order], np.full(pad, n_items, np.int32)])
+    vw = np.concatenate([ratings_f[order], np.zeros(pad, np.float32)])
+    return finish_wire(
+        iw, vw, n_users, n_items, L_u, L_i, geo_u, geo_i,
+        counts_u, counts_i,
+    )
+
+
+def finish_wire(
+    iw: np.ndarray,
+    vw: np.ndarray,
+    n_users: int,
+    n_items: int,
+    L_u: int,
+    L_i: int,
+    geo_u: _SegGeometry,
+    geo_i: _SegGeometry,
+    counts_u: np.ndarray,
+    counts_i: np.ndarray,
+) -> HostWire:
+    """The shared tail of the monolithic and streaming packers: narrow a
+    user-sorted, sentinel-padded item/value COO and assemble the wire."""
+    iw = _narrow_ids(iw)
+    vw, v_scale = _narrow_vals(vw)
+    nibble = _nibble_packable(vw)
+    if nibble:
+        vw = _pack_nibbles_host(vw)
+    aux = {
+        "su": aux_pad(geo_u.starts.astype(np.int32)),
+        "bu": aux_pad(geo_u.seg_base.astype(np.int32)),
+        "si": aux_pad(geo_i.starts.astype(np.int32)),
+        "bi": aux_pad(geo_i.seg_base.astype(np.int32)),
+    }
+    return HostWire(
+        n_users=n_users, n_items=n_items, L_u=L_u, L_i=L_i,
+        geo_u=geo_u, geo_i=geo_i, iw=iw, vw=vw, nibble=nibble,
+        v_scale=v_scale, aux=aux, counts_u=counts_u, counts_i=counts_i,
+    )
+
+
 def _padded_rows(n: int, n_shards: int) -> int:
     # +1 sentinel row for segment padding, bucketed, and a multiple of
     # the shard count
@@ -528,17 +740,27 @@ def _train_packed(
     n_users: int,
     n_items: int,
     timings: Optional[dict] = None,
+    compile_wait=None,
 ) -> ALSModelArrays:
-    """The training tail: the loop and the factor fetch. With ``timings``
-    the kernels are built before the timed loop (``compile_s``: nvcc at a
-    process's first use, then a cached load) and the loop is timed to its
-    end (``device_loop_s``)."""
+    """The training tail: the loop and the factor fetch. The loop's kernels
+    are built before the timed loop (``compile_s``: nvcc at a process's
+    first use, then a cached load): by the ``start_compile_async`` build
+    that ``compile_wait`` waits for (its exposed wait is
+    ``compile_exposed_s``), else here when ``timings`` is given. The loop
+    is timed to its end (``device_loop_s``)."""
     device = X.device
-    if timings is not None:
+    if compile_wait is not None:
         t = time.perf_counter()
-        if device.type == "cuda":
-            for kernel in (_k1, _k2):
-                kernel.load_library()
+        rec = compile_wait()
+        if timings is not None:
+            timings["compile_exposed_s"] = time.perf_counter() - t
+            timings["compile_s"] = rec["busy_s"]
+        if "error" in rec:
+            # the background build failed: build here, raising its error
+            _load_libraries(device, (_k1, _k2))
+    elif timings is not None:
+        t = time.perf_counter()
+        _load_libraries(device, (_k1, _k2))
         timings["compile_s"] = time.perf_counter() - t
     t = time.perf_counter()
     X, Y, tel = _run_iterations(
@@ -563,6 +785,192 @@ def _train_packed(
     return ALSModelArrays(X_host[:n_users].copy(), Y_host[:n_items].copy())
 
 
+def _load_libraries(device: torch.device, kernels) -> None:
+    """Build (at first use) and load the kernels' libraries for a CUDA
+    ``device``; the CPU runs the twins and needs none."""
+    if device.type == "cuda":
+        for kernel in kernels:
+            kernel.load_library()
+
+
+def start_compile_async(device: DeviceLike = None):
+    """Build and load the training kernels' libraries (K1, K2, K4, K5) on a
+    background thread, so nvcc at a process's first use hides under the
+    host work that precedes the device pack: the counterpart of the
+    reference's background XLA compile. Returns ``wait() -> dict`` with
+    ``busy_s``, the thread's seconds (and ``error`` if the build failed;
+    training then builds inline, which raises the error)."""
+    dev = resolve_device(device)
+    kernels = (_k1, _k2, _k5)
+    rec: dict = {}
+    if dev.type != "cuda":
+        rec["busy_s"] = 0.0
+        return lambda: rec
+
+    def work() -> None:
+        t0 = time.perf_counter()
+        try:
+            native.build_sources([k.SOURCE for k in kernels])
+            _load_libraries(dev, kernels)
+        except Exception as e:
+            rec["error"] = repr(e)
+        rec["busy_s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=work, daemon=True, name="als-kernel-build")
+    th.start()
+
+    def wait() -> dict:
+        th.join()
+        return rec
+
+    return wait
+
+
+def upload_wire(wire: HostWire, device: torch.device, n_chunks: int = 1) -> tuple:
+    """The wire on ``device`` as ``(i_dev, v_dev, aux_dev)``: the COO
+    planes go up in ``n_chunks`` chunks at even boundaries, and each value
+    chunk of a nibble-packed wire is unpacked by K4 into its slice of one
+    int8 plane as soon as it is up."""
+
+    def parts(a: np.ndarray):
+        if n_chunks <= 1 or len(a) < 2 * n_chunks:
+            return [(0, a)]
+        step = -(-len(a) // n_chunks)
+        step += step % 2  # even boundary: value pairs stay byte-aligned
+        return [(s, a[s : s + step]) for s in range(0, len(a), step)]
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    i_dev = torch.empty(len(wire.iw), dtype=_TORCH_DTYPES[wire.iw.dtype], device=device)
+    for s, part in parts(wire.iw):
+        i_dev[s : s + len(part)].copy_(up(part))
+    if wire.nibble:
+        v_dev = torch.empty(2 * len(wire.vw), dtype=torch.int8, device=device)
+        for s, part in parts(wire.vw):
+            _k5.unpack_nibbles(up(part), out=v_dev[2 * s : 2 * (s + len(part))])
+    else:
+        v_dev = up(wire.vw)
+    aux_dev = {k: up(a) for k, a in wire.aux.items()}
+    return i_dev, v_dev, aux_dev
+
+
+_TORCH_DTYPES = {
+    np.dtype(np.uint16): torch.uint16,
+    np.dtype(np.int32): torch.int32,
+}
+
+
+def _geo_pack(
+    geo: _SegGeometry, p_cols: torch.Tensor, p_vals: torch.Tensor,
+    n_sys_rows: int, n_cols: int,
+) -> SegmentPack:
+    """One side's device planes with its host geometry and K1 plan."""
+    shape2 = (geo.n_chunks, geo.sc)
+    return pack_from_planes(
+        geo.seg_rows.reshape(shape2),
+        p_cols.reshape(*shape2, geo.L), p_vals.reshape(*shape2, geo.L),
+        geo.rem.reshape(shape2),
+        plan_groups(geo.seg_rows, geo.rem, n_sys_rows),
+        n_sys_rows, n_cols,
+    )
+
+
+def device_pack_from_wire(
+    wire: HostWire,
+    device: DeviceLike = None,
+    device_wire: Optional[tuple] = None,  # (i_dev, v_dev, aux_dev) pre-shipped
+    timings: Optional[dict] = None,
+) -> Tuple[SegmentPack, SegmentPack]:
+    """Both sides' packs, built on the card from the wire: upload it
+    (unless pre-shipped, which fixes the device), then K5a on the user
+    side and K5b on the item side. ``seg_rows``, ``rem`` and the K1 plans
+    come from the host geometry; nothing is read back from the planes.
+
+    ``timings`` receives ``device_put_s`` (the upload, K4 included, when
+    this call ships the wire), ``wire_mb`` and ``device_pack_dispatch_s``
+    (K5a and K5b enqueued, the plans built and the geometry uploaded)."""
+    if device_wire is None:
+        dev = resolve_device(device)
+        t = time.perf_counter()
+        device_wire = upload_wire(wire, dev)
+        if timings is not None:
+            _sync(dev)
+            timings["device_put_s"] = time.perf_counter() - t
+    i_dev, v_dev, aux = device_wire
+    if timings is not None:
+        timings["wire_mb"] = wire.wire_mb
+    t = time.perf_counter()
+    u_keys, pcu, pvu = _k5.device_pack_presorted(
+        i_dev, v_dev, aux["su"], aux["bu"], wire.geo_u.total, wire.L_u,
+        wire.v_scale,
+    )
+    pci, pvi = _k5.device_scatter_pack(
+        i_dev, u_keys, v_dev, aux["si"], aux["bi"], wire.geo_i.total,
+        wire.L_i, wire.v_scale, key_bound=wire.n_items + 1,
+    )
+    R_u, R_i = _padded_rows(wire.n_users, 1), _padded_rows(wire.n_items, 1)
+    packs = (
+        _geo_pack(wire.geo_u, pcu, pvu, R_u, R_i),
+        _geo_pack(wire.geo_i, pci, pvi, R_i, R_u),
+    )
+    if timings is not None:
+        timings["device_pack_dispatch_s"] = time.perf_counter() - t
+    return packs
+
+
+def train_from_wire(
+    wire: HostWire,
+    config: ALSConfig,
+    *,
+    device: DeviceLike = None,
+    device_wire: Optional[tuple] = None,  # (i_dev, v_dev, aux_dev) pre-shipped
+    timings: Optional[dict] = None,
+    checkpoint_dir: Optional[str] = None,
+    compile_wait=None,  # from start_compile_async, or None
+    factor_state: Optional[tuple] = None,  # pre-placed (X, Y, lam/obs x4)
+    warm_start: Optional[ALSModelArrays] = None,
+    geo_dev: Optional[tuple] = None,
+    factor_slots_out: Optional[dict] = None,
+) -> ALSModelArrays:
+    """Train from a wire: the device pack, then the loop. A pre-shipped
+    ``device_wire``, a pre-placed ``factor_state`` and a ``compile_wait``
+    let the streaming trainer hand in work it overlapped with the scan.
+    ``warm_start`` seeds the factors from a model whose rows are aligned
+    to this wire's id spaces. The resident pack's ``geo_dev`` and
+    ``factor_slots_out`` and checkpoints (``checkpoint_dir``) raise
+    ``NotImplementedError``."""
+    _check_ported(config, checkpoint_dir=checkpoint_dir)
+    if geo_dev is not None or factor_slots_out is not None:
+        raise NotImplementedError(
+            "the device-resident pack (geo_dev, factor_slots_out) is not "
+            "ported yet (ROADMAP.md queue 1 item 4)"
+        )
+    dev = device_wire[0].device if device_wire is not None else resolve_device(device)
+    if factor_state is None:
+        factor_state = init_factor_state_single(
+            wire.counts_u, wire.counts_i, wire.n_users, wire.n_items, config,
+            warm=(
+                None if warm_start is None
+                else (
+                    np.asarray(warm_start.user_factors, np.float32),
+                    np.asarray(warm_start.item_factors, np.float32),
+                )
+            ),
+            device=dev,
+        )
+    user_pack, item_pack = device_pack_from_wire(
+        wire, dev, device_wire=device_wire, timings=timings
+    )
+    if timings is not None:
+        timings["padded_slots"] = wire.padded_slots
+    return _train_packed(
+        user_pack, item_pack, *factor_state,
+        config=config, n_users=wire.n_users, n_items=wire.n_items,
+        timings=timings, compile_wait=compile_wait,
+    )
+
+
 def train_als(
     user_idx: np.ndarray,
     item_idx: np.ndarray,
@@ -576,14 +984,15 @@ def train_als(
     timings: Optional[dict] = None,
 ) -> ALSModelArrays:
     """Train ALS factors from COO ratings on ``device`` (CUDA unless the
-    CPU is asked for): the reference's ``train_als``, host-pack route.
+    CPU is asked for): the reference's ``train_als`` with ``mesh=None``,
+    the wire route (``build_host_wire``, then ``train_from_wire``).
 
     ``timings``, if given, receives the reference's phase breakdown:
-    ``pack_s`` (host packing of both sides), ``device_put_s`` (the K1
-    group plans, built on the host, and the host->device copies of the
-    packs and the factor state), ``compile_s``, ``device_loop_s``, ``padded_slots`` (segment-grid
-    slots of both sides) and ``sweep_telemetry`` (per sweep ``dx``, ``dy``,
-    ``x_rms``, ``y_rms``)."""
+    ``pack_s`` (the host wire), ``device_put_s`` (its upload, K4
+    included), ``wire_mb``, ``device_pack_dispatch_s`` (K5 and the K1
+    plans), ``compile_s``, ``device_loop_s``, ``padded_slots``
+    (segment-grid slots of both sides) and ``sweep_telemetry`` (per sweep
+    ``dx``, ``dy``, ``x_rms``, ``y_rms``)."""
     _check_ported(config, mesh, checkpoint_dir)
     dev = resolve_device(device)
     t = time.perf_counter()
@@ -595,33 +1004,10 @@ def train_als(
         or item_idx.min() < 0 or item_idx.max() >= n_items
     ):
         raise ValueError("user or item ids out of range")
-    counts_u = np.bincount(user_idx, minlength=n_users).astype(np.int32)
-    counts_i = np.bincount(item_idx, minlength=n_items).astype(np.int32)
-    L_u = auto_segment_length(user_idx, n_users, config.segment_length, counts=counts_u)
-    L_i = auto_segment_length(item_idx, n_items, config.segment_length, counts=counts_i)
-    R_u, R_i = _padded_rows(n_users, 1), _padded_rows(n_items, 1)
-    user_side = pack_segments(
-        user_idx, item_idx, ratings_f, n_users, L_u, 1, config.chunk_slots
-    )
-    item_side = pack_segments(
-        item_idx, user_idx, ratings_f, n_items, L_i, 1, config.chunk_slots
-    )
+    wire = build_host_wire(user_idx, item_idx, ratings_f, n_users, n_items, config)
     if timings is not None:
         timings["pack_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    user_pack = device_pack(user_side, R_u, R_i, dev)
-    item_pack = device_pack(item_side, R_i, R_u, dev)
-    state = init_factor_state_single(
-        counts_u, counts_i, n_users, n_items, config, device=dev
-    )
-    if timings is not None:
-        _sync(dev)
-        timings["device_put_s"] = time.perf_counter() - t
-        timings["padded_slots"] = user_side.cols.size + item_side.cols.size
-    return _train_packed(
-        user_pack, item_pack, *state,
-        config=config, n_users=n_users, n_items=n_items, timings=timings,
-    )
+    return train_from_wire(wire, config, device=dev, timings=timings)
 
 
 # --- prediction / evaluation ---

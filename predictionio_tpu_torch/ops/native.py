@@ -69,9 +69,32 @@ def build_sources(sources: Sequence[str]) -> Dict[str, Path]:
     starting one nvcc for each, all at once; return source -> library.
     The compiler's output is kept beside each library as ``.log``."""
     out = {s: library_path(s) for s in sources}
+    # one build of a source at a time in this process (a background
+    # build and a first use may meet); taken in one order, so no deadlock
+    locks = [_source_lock(s) for s in sorted(set(sources))]
+    for lock in locks:
+        lock.acquire()
+    try:
+        _build_missing(sources, out)
+    finally:
+        for lock in reversed(locks):
+            lock.release()
+    return out
+
+
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}
+_SOURCE_LOCKS_GUARD = threading.Lock()
+
+
+def _source_lock(source: str) -> threading.Lock:
+    with _SOURCE_LOCKS_GUARD:
+        return _SOURCE_LOCKS.setdefault(source, threading.Lock())
+
+
+def _build_missing(sources: Sequence[str], out: Dict[str, Path]) -> None:
     todo = [s for s in sources if not out[s].exists()]
     if not todo:
-        return out
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = []
@@ -93,7 +116,6 @@ def build_sources(sources: Sequence[str]) -> Dict[str, Path]:
         os.replace(tmp, out[s])
     if failed:
         raise RuntimeError("\n".join(failed))
-    return out
 
 
 def build_log(source: str) -> str:

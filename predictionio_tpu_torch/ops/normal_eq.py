@@ -148,6 +148,39 @@ def upload_pack(
         raise ValueError(f"column ids out of range [0, {n_cols})")
     if rem.size and (rem.min() < 0 or rem.max() > cols.shape[2]):
         raise ValueError(f"rem out of range [0, {cols.shape[2]}]")
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return pack_from_planes(
+        seg_rows, up(cols, np.int32), up(vals, np.float32), rem, plan,
+        n_sys_rows, n_cols,
+    )
+
+
+def pack_from_planes(
+    seg_rows: np.ndarray,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    rem: np.ndarray,
+    plan: Tuple[np.ndarray, np.ndarray, np.ndarray, int],
+    n_sys_rows: int,
+    n_cols: int,
+) -> SegmentPack:
+    """A side whose ``cols``/``vals`` planes ([C, Sc, L] int32/float32) are
+    already on their device, as the device pack builds them: the host
+    geometry (``seg_rows``, ``rem``) and the ``plan_groups`` plan go up
+    beside them. The planes are not read back: the caller has checked the
+    ids on the host."""
+    device = cols.device
+    if (
+        cols.dim() != 3 or vals.shape != cols.shape
+        or np.shape(seg_rows) != tuple(cols.shape[:2])
+        or np.shape(rem) != tuple(cols.shape[:2])
+    ):
+        raise ValueError("seg_rows/rem must be [C, Sc] and cols/vals [C, Sc, L]")
+    if cols.dtype != torch.int32 or vals.dtype != torch.float32 or vals.device != device:
+        raise ValueError("cols/vals must be int32/float32 on one device")
     groups, c_rows, c_start, n_partials = plan
 
     def up(a, dtype):
@@ -155,8 +188,8 @@ def upload_pack(
 
     return SegmentPack(
         seg_rows=up(seg_rows, np.int32),
-        cols=up(cols, np.int32),
-        vals=up(vals, np.float32),
+        cols=cols,
+        vals=vals,
         rem=up(rem, np.int32),
         plan=GroupPlan(
             groups=up(groups, np.int32),
