@@ -80,7 +80,53 @@ Phases; any failure exits non-zero:
    Latency, qps and batch fill are printed for the record, beside the
    card; the clients share the server's interpreter, so they are a floor
    of what the server can do.
-5. The ``kernels`` JSON line, the card line, then the last line
+5. R1, the retriever's kernels (run after phase 2): kernel A
+   (``ops/masked_topn.py``, ``csrc/masked_topn.cu``: ``candidate_mask``,
+   then ``masked_topn``) and kernel B (``ops/rescore.py``,
+   ``csrc/rescore.cu``: ``rescore_topn``) against their twins on the card,
+   on the bench's quantized catalog (a copy of ``bench.py:3044-3050``:
+   50,000 items, rank 64, seed 37) through ``ItemRetriever`` operands: B in
+   {8, 64, 128}, n = 16, the three tiers (float32, bf16, int8) x
+   (positive_only, normalize) in {(F,F), (T,F), (T,T)}, a resident
+   exclusion of 500 ids, per-query exclude widths 1, 16 and 64, include
+   lists (one empty, one of 7 items: fewer live candidates than n); edge
+   shapes: n = 1, n = 40 (a quantized shortlist of 1,024), a ragged catalog
+   of 40 (smaller than the shortlist), exact ties from duplicated rows,
+   zero query rows (items 0..n-1), and n = N over 20,000 integer rows
+   whose every sum is exact (the merges and kernel B's sort in device
+   memory). The candidate bits are bit-equal; A's int8 scores and ids bit
+   for bit; A's f32/bf16 and B's scores to rtol 1e-5 / atol 1e-6 with ids
+   equal outside near-tie runs (B on A's shortlist). Then the bench's gates
+   with ItemRetriever on the card over 8 batches of 64 queries at n = 10:
+   recall@10 >= 0.999 for int8 and bf16 against the float32 retriever,
+   every returned score equal to ``Y[id]·q`` within rtol 1e-5 / atol 1e-5,
+   a resident-bytes reduction >= 3x for int8. Times: each kernel, twin and
+   library yardstick (f32 ``topk(where(mask, q @ Y.T, -inf))``, int8
+   ``torch._int_mm`` + epilogue + ``topk``, bf16 ``q.bfloat16() @ Y.T`` +
+   ``topk``; none is called by the port) beside its bound.
+6. R2, quantized recommendation: the model phase 4 served is saved again
+   with ``precision="int8"`` and with ``"bf16"``, each deployed through
+   ``tools.cli deploy --device cuda`` and sent the float32 deployment's 320
+   queries; every answer equals the float32 deployment's (ids outside
+   near-tie runs, scores rtol 1e-5), users without ratings get items
+   0..num-1, ``status.json`` says ``servingPrecision == ["int8"]`` (or
+   ``["bf16"]``), and per deployment candidate_mask = masked_topn =
+   rescore_topn = one launch per served batch that held a known user, K3
+   and every twin 0. Then kernels A and B against their twins at this
+   path's shapes (the trained catalog at int8 and bf16, user rows at B=8
+   and 128, n=16, the deployment's flags; int8 stage 1 bit for bit, B at
+   rtol 1e-5 / atol 1e-6), and timed there (B=128, int8).
+7. R3, Similar Product: the trained item factors carried into an
+   ``SPModel`` (``sp_model_from_numpy``) with seeded categories (24, 1-3 per
+   item), saved, deployed through the CLI and sent 320 queries (1-10 query
+   items; 30 % with categories, 10 % a whitelist, 20 % a blacklist; 4 with
+   unknown items only); every answer equals the same retriever's driven by
+   the plain twins on the card (through the summed-score ``Serving``);
+   candidate_mask = masked_topn = one per batch with a known item,
+   rescore_topn, K3 and every twin 0.
+8. The ``kernels`` JSON line (the new kernels' launches summed over R2 and
+   R3, their times at R2's shape, their errors the largest over R1 and
+   R2), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -88,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import http.client
 import json
 import os
@@ -163,10 +210,11 @@ def device_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def roofline(nbytes: float, flops: float):
-    """(bound_ms, bound_by): bytes over the memory rate vs fp32 operations
-    over the fp32 peak, whichever takes longer."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+def roofline(nbytes: float, flops: float, peak_ops: float = PEAK_FP32_FLOPS):
+    """(bound_ms, bound_by): bytes over the memory rate vs operations over
+    their type's peak (fp32 unless ``peak_ops`` says otherwise), whichever
+    takes longer."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_ops
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -954,9 +1002,99 @@ def http_json(url, body=None, timeout=60.0):
         return raw.decode()
 
 
+class Deployment:
+    """``tools.cli deploy --model path --device cuda`` (max_batch 128, 2 ms
+    window) on a thread of this process, up and answering on ``port``."""
+
+    def __init__(self, path, device):
+        from predictionio_tpu_torch.tools import cli
+
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.failure = []
+
+        def serve():
+            try:
+                cli.main([
+                    "deploy", "--model", path, "--ip", "127.0.0.1",
+                    "--port", str(self.port), "--device", str(device),
+                    "--max-batch", "128", "--batch-window-ms", "2.0",
+                ])
+            except BaseException as e:  # reported by the main thread
+                self.failure.append(e)
+
+        t0 = time.perf_counter()
+        self.thread = threading.Thread(target=serve, daemon=True)
+        self.thread.start()
+        deadline = time.monotonic() + 300
+        while True:
+            if self.failure:
+                raise RuntimeError("deploy failed") from self.failure[0]
+            try:
+                http_json(self.base + "/status.json", timeout=5)
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("server did not come up within 300 s")
+                time.sleep(0.2)
+        self.deploy_s = time.perf_counter() - t0
+
+    def status(self):
+        return http_json(self.base + "/status.json")
+
+    def query(self, body):
+        return http_json(self.base + "/queries.json", json.dumps(body).encode())
+
+    def send(self, bodies, n_clients=32):
+        """POST every body from ``n_clients`` concurrent clients, each on
+        one keep-alive connection; returns ([(i, latency_s, answer)], wall
+        seconds)."""
+        def client(c):
+            conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+            out = []
+            try:
+                for i in range(c, len(bodies), n_clients):
+                    t = time.perf_counter()
+                    conn.request("POST", "/queries.json", json.dumps(bodies[i]),
+                                 {"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    raw = resp.read()
+                    if resp.status != 200:
+                        raise AssertionError(f"query {i}: HTTP {resp.status} {raw!r}")
+                    out.append((i, time.perf_counter() - t, json.loads(raw)))
+            finally:
+                conn.close()
+            return out
+
+        t_start = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(n_clients) as pool:
+            answers = [a for part in pool.map(client, range(n_clients)) for a in part]
+        return sorted(answers, key=lambda a: a[0]), time.perf_counter() - t_start
+
+    def stop(self):
+        try:
+            http_json(self.base + "/stop")
+        except (urllib.error.URLError, ConnectionError):
+            pass
+        self.thread.join(timeout=60)
+        if self.thread.is_alive():
+            raise RuntimeError("server did not stop after GET /stop")
+        if self.failure:
+            raise RuntimeError("server failed") from self.failure[0]
+
+
+def latency_stats(answers, wall):
+    import numpy as np
+
+    lat = np.sort([a[1] for a in answers]) * 1e3
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "qps": len(answers) / wall}
+
+
 def slice_phase(rng, device, workdir, model):
     """Serve the trained model through the CLI; returns (K3 launches on
-    the main path, serving stats)."""
+    the main path, serving stats, the traffic and its answers for the
+    quantized deployments)."""
     import numpy as np
     import torch
 
@@ -965,7 +1103,6 @@ def slice_phase(rng, device, workdir, model):
         check_topn_agreement,
         topn_packed_plain,
     )
-    from predictionio_tpu_torch.tools import cli
     from predictionio_tpu_torch.utils.serialize import save_model
 
     uf, itf = model.arrays.user_factors, model.arrays.item_factors
@@ -974,36 +1111,8 @@ def slice_phase(rng, device, workdir, model):
     path = os.path.join(workdir, "ml20m_trained.npz")
     save_model(path, model)
 
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    failure = []
-
-    def serve():
-        try:
-            cli.main([
-                "deploy", "--model", path, "--ip", "127.0.0.1",
-                "--port", str(port), "--device", str(device),
-                "--max-batch", "128", "--batch-window-ms", "2.0",
-            ])
-        except BaseException as e:  # reported by the main thread
-            failure.append(e)
-
-    t0 = time.perf_counter()
-    server_thread = threading.Thread(target=serve, daemon=True)
-    server_thread.start()
-    deadline = time.monotonic() + 300
-    while True:
-        if failure:
-            raise RuntimeError("deploy failed") from failure[0]
-        try:
-            http_json(base + "/status.json", timeout=5)
-            break
-        except (urllib.error.URLError, ConnectionError):
-            if time.monotonic() > deadline:
-                raise RuntimeError("server did not come up within 300 s")
-            time.sleep(0.2)
-    print(f"  deploy (load, upload, warm, bind): {time.perf_counter() - t0:.2f} s", flush=True)
-
+    server = Deployment(path, device)
+    print(f"  deploy (load, upload, warm, bind): {server.deploy_s:.2f} s", flush=True)
     try:
         # the main path: counts start at 0 here, after deploy's warm-up
         LAUNCHES.reset()
@@ -1018,31 +1127,9 @@ def slice_phase(rng, device, workdir, model):
         unrated_at = set(picked[4:4 + min(8, len(unrated))])
         for i, row in zip(sorted(unrated_at), unrated):
             users[i] = user_of_row[int(row)]
-
-        def client(c):
-            # one keep-alive connection per client, its queries in turn
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-            out = []
-            try:
-                for i in range(c, n_queries, n_clients):
-                    body = json.dumps({"user": users[i], "num": int(nums[i])})
-                    t = time.perf_counter()
-                    conn.request("POST", "/queries.json", body,
-                                 {"Content-Type": "application/json"})
-                    resp = conn.getresponse()
-                    raw = resp.read()
-                    if resp.status != 200:
-                        raise AssertionError(f"query {i}: HTTP {resp.status} {raw!r}")
-                    out.append((i, time.perf_counter() - t, json.loads(raw)))
-            finally:
-                conn.close()
-            return out
-
-        t_start = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(n_clients) as pool:
-            answers = [a for part in pool.map(client, range(n_clients)) for a in part]
-        wall = time.perf_counter() - t_start
-        status = http_json(base + "/status.json")
+        bodies = [{"user": users[i], "num": int(nums[i])} for i in range(n_queries)]
+        answers, wall = server.send(bodies, n_clients)
+        status = server.status()
         counts = LAUNCHES.snapshot()
         # one launch per served batch, except a batch of unknown users only
         # (at most one such batch per unknown query)
@@ -1054,32 +1141,16 @@ def slice_phase(rng, device, workdir, model):
             )
         launches, fill = counts["topn_packed"], status["batchFillMean"]
         server_avg_ms = status["avgServingSec"] * 1e3
+        if status["servingPrecision"] != ["float32"]:
+            raise AssertionError(f"servingPrecision {status['servingPrecision']}")
 
         # unknown users one at a time: each is a batch of its own, which
         # must not launch K3
-        unknown = ["nobody", "u-1", f"u{ML20M_USERS}", "i0"]
-        for u in unknown:
-            res = http_json(base + "/queries.json", json.dumps({"user": u, "num": 10}).encode())
-            if res.get("itemScores") != []:
-                raise AssertionError(f"unknown user {u!r} got {res}")
-        status = http_json(base + "/status.json")
-        counts = LAUNCHES.snapshot()
-        if counts["topn_packed"] != launches:
-            raise AssertionError("a batch of unknown users launched K3")
-        if status["batches"] != batches + len(unknown):
-            raise AssertionError(f"unexpected batch count {status['batches']}")
-        if counts["topn_packed_plain"] != 0:
+        check_unknown_users(server, LAUNCHES, "topn_packed", batches)
+        if LAUNCHES.snapshot()["topn_packed_plain"] != 0:
             raise AssertionError("the plain twin ran on the serving path")
     finally:
-        try:
-            http_json(base + "/stop")
-        except (urllib.error.URLError, ConnectionError):
-            pass
-    server_thread.join(timeout=60)
-    if server_thread.is_alive():
-        raise RuntimeError("server did not stop after GET /stop")
-    if failure:
-        raise RuntimeError("server failed") from failure[0]
+        server.stop()
 
     # every answer against the plain twin on the card
     Yd = torch.from_numpy(itf).to(device)
@@ -1104,19 +1175,590 @@ def slice_phase(rng, device, workdir, model):
             raise AssertionError(f"user without ratings {users[i]!r} got {got_i[0]}")
         check_topn_agreement(got_s, got_i, ref_s[i:i + 1, :num], ref_i[i:i + 1, :num],
                              RTOL, ATOL, q=q_np[i:i + 1], Y=itf)
-    lat = np.sort([a[1] for a in answers]) * 1e3
     stats = {
-        "queries": n_queries, "clients": n_clients,
-        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
-        "qps": n_queries / wall, "batches": batches,
-        "batch_fill_mean": fill, "server_avg_ms": server_avg_ms,
+        "queries": n_queries, "clients": n_clients, **latency_stats(answers, wall),
+        "batches": batches, "batch_fill_mean": fill, "server_avg_ms": server_avg_ms,
         "unrated_queries": len(unrated_at),
         "k3_launches": counts["topn_packed"],
         "plain_launches": counts["topn_packed_plain"],
         "card": card_line(),
     }
     print("serving " + json.dumps(stats), flush=True)
-    return counts["topn_packed"], stats
+    traffic = {"bodies": bodies, "answers": answers, "unknown_at": unknown_at,
+               "unrated_at": unrated_at}
+    return counts["topn_packed"], stats, traffic
+
+
+def check_unknown_users(server, counts, name, batches):
+    """Unknown users one at a time: each is a batch of its own, which must
+    answer empty and launch no kernel (``counts[name]`` unchanged)."""
+    before = counts.snapshot()[name]
+    unknown = ["nobody", "u-1", f"u{ML20M_USERS}", "i0"]
+    for u in unknown:
+        res = server.query({"user": u, "num": 10})
+        if res.get("itemScores") != []:
+            raise AssertionError(f"unknown user {u!r} got {res}")
+    status = server.status()
+    if counts.snapshot()[name] != before:
+        raise AssertionError(f"a batch of unknown users launched {name}")
+    if status["batches"] != batches + len(unknown):
+        raise AssertionError(f"unexpected batch count {status['batches']}")
+
+
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+RET_ITEMS, RET_RANK, RET_SEED = 50_000, 64, 37
+TIER_PEAK = {"float32": PEAK_FP32_FLOPS, "bf16": PEAK_BF16_FLOPS, "int8": PEAK_INT8_OPS}
+TIER_BYTES = {"float32": 4, "bf16": 2, "int8": 1}
+
+
+def quantized_catalog(n_items=RET_ITEMS, rank=RET_RANK, seed=RET_SEED):
+    """The bench's quantized catalog (a copy of ``bench.py:3044-3050``):
+    clustered rows, so near-duplicates crowd every top-n boundary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((256, rank)).astype(np.float32)
+    return (
+        base[rng.integers(0, 256, n_items)]
+        + 0.3 * rng.standard_normal((n_items, rank))
+    ).astype(np.float32)
+
+
+def check_ranked(got, ref, label, exact=False):
+    """Two packed [B, 2m] results: the same dead (-inf) slots with the same
+    ids, and the live prefix equal (``exact``) or within RTOL/ATOL with ids
+    equal outside near-tie runs. Returns the largest score difference."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops.retrieval import unpack_topn
+    from predictionio_tpu_torch.ops.topn import check_topn_agreement
+
+    m = got.shape[1] // 2
+    gs, gi = unpack_topn(got.cpu().numpy(), m)
+    rs, ri = unpack_topn(ref.cpu().numpy(), m)
+    if exact:
+        if not (np.array_equal(gs.view(np.uint32), rs.view(np.uint32)) and np.array_equal(gi, ri)):
+            raise AssertionError(f"{label}: not bit-equal to the plain twin")
+        return 0.0
+    live = np.isfinite(rs)
+    if not np.array_equal(np.isfinite(gs), live) or not np.array_equal(
+            np.where(live, 0, gi), np.where(live, 0, ri)):
+        raise AssertionError(f"{label}: dead slots differ from the plain twin")
+    err = 0.0
+    for r in range(rs.shape[0]):
+        k = int(live[r].sum())
+        if k:
+            err = max(err, check_topn_agreement(gs[r:r + 1, :k], gi[r:r + 1, :k],
+                                                rs[r:r + 1, :k], ri[r:r + 1, :k], RTOL, ATOL))
+    return err
+
+
+def retriever_operands(r, q_np, exclude, include, device):
+    """The device operands one ItemRetriever.topn batch builds."""
+    import torch
+
+    from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
+
+    qp = pad_rows_pow2(q_np, 8)
+    b, b_pad = q_np.shape[0], qp.shape[0]
+    excl, _ = r._assemble_idx(list(exclude) + [None] * (b_pad - b), b_pad)
+    incl, has = r._assemble_idx(list(include) + [None] * (b_pad - b), b_pad)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(qp), t(excl), t(incl), t(has)
+
+
+def check_retriever_kernels(r, q_np, n, exclude, include, positive_only, normalize, device, label,
+                            errs, exact=False):
+    """Kernel A (mask, then score/select) and, for a quantized tier, kernel
+    B against their twins on the card, on one ItemRetriever batch; bit for
+    bit where ``exact`` (or, for kernel A, in int8)."""
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops import rescore as kb
+
+    q, excl, incl, has = retriever_operands(r, q_np, exclude, include, device)
+    bits = ka.candidate_mask(r._allow_dev, excl, incl, has)
+    bits_ref = ka.candidate_mask_plain(r._allow_dev, excl, incl, has)
+    if not bits_equal(bits, bits_ref):
+        raise AssertionError(f"candidate_mask {label}: differs from its twin")
+    rn = r._rn_dev if normalize else None
+    quant = r.precision != "float32"
+    n_dev = r._shortlist_width(n, r.n_items) if quant else n
+    m = r._shortlist_width(n_dev, r._n_pad) if quant else n
+    args = (q, r._y_dev, r._scale_dev, rn, bits, m, positive_only, normalize)
+    s1 = ka.masked_topn_packed(*args)
+    s1_ref = ka.masked_topn_plain(*args)
+    e = check_ranked(s1, s1_ref, f"masked_topn {label}", exact=exact or r.precision == "int8")
+    errs["masked_topn"] = max(errs.get("masked_topn", 0.0), e)
+    errs.setdefault("candidate_mask", 0.0)
+    if quant:
+        args2 = (q, r._y_dev, r._scale_dev, rn, s1, n_dev, positive_only, normalize)
+        e2 = check_ranked(kb.rescore_topn(*args2), kb.rescore_topn_plain(*args2),
+                          f"rescore_topn {label}", exact=exact)
+        errs["rescore_topn"] = max(errs.get("rescore_topn", 0.0), e2)
+    return bits, s1
+
+
+def retrieval_kernel_phase(rng, device):
+    """R1: kernel A (candidate_mask, masked_topn) and kernel B (rescore_topn)
+    against their twins on the card, on the bench's 50,000 x 64 quantized
+    catalog and edge shapes; the bench's own gates through ItemRetriever;
+    times at the catalog's shapes. Returns (max errors, timing rows)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops.retrieval import ItemRetriever
+
+    Y = quantized_catalog()
+    N, k = Y.shape
+    resident = rng.choice(N, size=500, replace=False)
+    retrievers = {}
+    for prec in ("float32", "bf16", "int8"):
+        r = ItemRetriever(Y, device=device, precision=prec, component=f"r1-{prec}")
+        r.set_excluded_ids(resident)
+        retrievers[prec] = r
+    errs = {}
+    n = 16
+    for B in (8, 64, 128):
+        for ew in (1, 16, 64):
+            q_np = rng.standard_normal((B, k)).astype(np.float32)
+            exclude = [rng.choice(N, size=ew, replace=False) for _ in range(B)]
+            include = [None] * B
+            include[0] = np.zeros(0, np.int64)  # an empty include: no candidates
+            include[1 % B] = np.sort(rng.choice(N, size=N // 10, replace=False))
+            include[B // 2] = np.arange(7)  # fewer live candidates than n
+            for prec, r in retrievers.items():
+                for po, nz in ((False, False), (True, False), (True, True)):
+                    check_retriever_kernels(r, q_np, n, exclude, include, po, nz, device,
+                                            f"{prec} B={B} excl={ew} po={po} nz={nz}", errs)
+        print(f"  B={B}: 3 tiers x 3 flag pairs x exclude widths 1/16/64, resident "
+              f"exclusion of 500, include lists (one empty): kernels equal their twins "
+              f"(int8 bit for bit)", flush=True)
+    # edge shapes: n = 1; a ragged catalog smaller than the shortlist;
+    # exact ties from duplicated rows; zero query rows (items 0..n-1)
+    ties = rng.integers(-3, 4, size=(700, 8)).astype(np.float32)
+    ties = np.concatenate([ties, ties, ties[:211]])
+    edges = [("n=1", Y, 1, rng.standard_normal((8, k)).astype(np.float32)),
+             ("n=40 (quantized shortlist 1,024: a two-level merge)", Y, 40,
+              rng.standard_normal((8, k)).astype(np.float32)),
+
+             ("ragged N=40 < shortlist", Y[:40, :10].copy(), 16,
+              rng.standard_normal((5, 10)).astype(np.float32)),
+             ("exact ties", ties, 40, rng.integers(-3, 4, size=(16, 8)).astype(np.float32)),
+             ("zero query rows", Y, 16, np.zeros((8, k), np.float32))]
+    for label, Yc, nn, q_np in edges:
+        for prec in ("float32", "bf16", "int8"):
+            r = ItemRetriever(Yc, device=device, precision=prec, component="r1-edge")
+            for po, nz in ((False, False), (True, True)):
+                check_retriever_kernels(r, q_np, nn, [None] * len(q_np), [None] * len(q_np),
+                                        po, nz, device, f"{label} {prec}", errs)
+                if label == "zero query rows" and not po:
+                    _, idx = r.topn(q_np, nn, normalize=nz)
+                    if not (idx == np.arange(nn)).all():
+                        raise AssertionError(f"zero query rows ({prec}) got {idx[0]}")
+            r.free()
+        print(f"  {label}: every tier equal to its twins", flush=True)
+    # n = N over integer rows, each with one entry of magnitude 127: every
+    # tier's rows and query are then exact (int8 scale 1, bf16 integers),
+    # every sum an exact integer, so kernels and twins agree bit for bit
+    # whatever their summation order. 20,000 rows: the merge of 79 lists of
+    # 256 and kernel B's sort of 32,768 keys both run in device memory.
+    Yi = rng.integers(-20, 21, size=(20_000, 8)).astype(np.float32)
+    Yi[np.arange(len(Yi)), rng.integers(0, 8, len(Yi))] = rng.choice([-127.0, 127.0], len(Yi))
+    qi = rng.integers(-20, 21, size=(4, 8)).astype(np.float32)
+    qi[:, 0] = 127.0
+    for prec in ("float32", "bf16", "int8"):
+        r = ItemRetriever(Yi, device=device, precision=prec, component="r1-wide")
+        for po, nz in ((False, False), (True, True)):
+            check_retriever_kernels(r, qi, len(Yi), [None] * 4, [None] * 4, po, nz, device,
+                                    f"n=N wide {prec}", errs, exact=True)
+        r.free()
+    print("  n=N=20,000 (device-memory merge, kernel B's device-memory sort): every tier "
+          "bit-equal to its twins", flush=True)
+
+    # the bench's gates (bench.py bench_retrieval_quantized), on the card
+    exact = ItemRetriever(Y, device=device, component="bench-exact")
+    gates = {}
+    for prec in ("int8", "bf16"):
+        quant = ItemRetriever(Y, device=device, precision=prec, component="bench-quant")
+        grng = np.random.default_rng(RET_SEED + 1)
+        hits = total = parity_fail = 0
+        for _ in range(8):
+            q = grng.standard_normal((64, k)).astype(np.float32)
+            _, ei = exact.topn(q, 10)
+            qs, qi = quant.topn(q, 10)
+            for row in range(64):
+                hits += len(set(ei[row].tolist()) & set(qi[row].tolist()))
+                total += 10
+                if not np.allclose(qs[row], Y[qi[row]] @ q[row], rtol=1e-5, atol=1e-5):
+                    parity_fail += 1
+        recall = hits / total
+        reduction = exact.resident_bytes / quant.resident_bytes
+        if recall < 0.999 or parity_fail:
+            raise AssertionError(f"{prec}: recall@10 {recall}, {parity_fail} score-parity failures")
+        if prec == "int8" and reduction < 3.0:
+            raise AssertionError(f"int8 resident-bytes reduction {reduction} < 3")
+        gates[prec] = {"recall_at_10": recall, "score_parity_failures": parity_fail,
+                       "bytes_reduction_x": reduction,
+                       "bytes_per_item": quant.resident_bytes / N}
+        quant.free()
+    gates["float32_bytes_per_item"] = exact.resident_bytes / N
+    exact.free()
+    print("retrieval_gates " + json.dumps(gates), flush=True)
+
+    rows = []
+    for B in (8, 64, 128):
+        q_np = rng.standard_normal((B, k)).astype(np.float32)
+        for prec, r in retrievers.items():
+            rows.append(time_retriever_kernels(r, q_np, 16, False, False, device,
+                                               {"catalog": "quantized 50,000 x 64"}))
+    for r in retrievers.values():
+        r.free()
+    print("retrieval_timing " + json.dumps(rows), flush=True)
+    return errs, rows
+
+
+def time_retriever_kernels(r, q_np, n, positive_only, normalize, device, extra):
+    """Each kernel of one ItemRetriever batch, its twin and its library
+    yardstick, by CUDA events (``time_ms``) and on the card alone
+    (``device_ms``), beside its bound."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops import rescore as kb
+
+    q, excl, incl, has = retriever_operands(r, q_np, [None] * len(q_np), [None] * len(q_np), device)
+    B, k = q.shape
+    N = r._n_pad
+    rn = r._rn_dev if normalize else None
+    quant = r.precision != "float32"
+    n_dev = r._shortlist_width(n, r.n_items) if quant else n
+    m = r._shortlist_width(n_dev, N) if quant else n
+    bits = ka.candidate_mask(r._allow_dev, excl, incl, has)
+    a_args = (q, r._y_dev, r._scale_dev, rn, bits, m, positive_only, normalize)
+    s1 = ka.masked_topn_packed(*a_args)
+    W = ka.mask_words(N)
+    row = {"precision": r.precision, "B": B, "N": N, "k": k, "n": n, "m": m, **extra}
+    mask_call = lambda: ka.candidate_mask(r._allow_dev, excl, incl, has)
+    row["candidate_mask"] = {
+        "ms": time_ms(mask_call), "device_ms": device_ms(mask_call, calls=200),
+        "plain_ms": time_ms(lambda: ka.candidate_mask_plain(r._allow_dev, excl, incl, has), iters=20),
+        "bound": roofline(N + 4 * B * (excl.shape[1] + incl.shape[1]) + B + 4 * B * W, 0),
+        "library_ms": None,
+    }
+    a_call = lambda: ka.masked_topn_packed(*a_args)
+    a_bytes = 4 * B * k + TIER_BYTES[r.precision] * N * k + (4 * N if r.precision == "int8" else 0) \
+        + (4 * N if normalize else 0) + 4 * B * W + 8 * B * m
+    row["masked_topn"] = {
+        "ms": time_ms(a_call), "device_ms": device_ms(a_call, calls=100),
+        "plain_ms": time_ms(lambda: ka.masked_topn_plain(*a_args), iters=20),
+        "bound": roofline(a_bytes, 2 * B * N * k, TIER_PEAK[r.precision]),
+        "library_ms": library_topn_ms(r, q, m),
+    }
+    if quant:
+        b_args = (q, r._y_dev, r._scale_dev, rn, s1, n_dev, positive_only, normalize)
+        b_call = lambda: kb.rescore_topn(*b_args)
+        b_bytes = 4 * B * k + B * m * k * TIER_BYTES[r.precision] + 8 * B * m + 8 * B * n_dev \
+            + (4 * B * m if r.precision == "int8" else 0) + (4 * B * m if normalize else 0)
+        row["rescore_topn"] = {
+            "ms": time_ms(b_call), "device_ms": device_ms(b_call, calls=100),
+            "plain_ms": time_ms(lambda: kb.rescore_topn_plain(*b_args), iters=20),
+            "bound": roofline(b_bytes, 2 * B * m * k),
+            "library_ms": None,
+        }
+    row["card"] = card_line()
+    return row
+
+
+def library_topn_ms(r, q, m):
+    """One PyTorch call for kernel A's function in its tier, the
+    yardstick (the port never calls it): f32 ``topk(where(mask, q @ Y.T,
+    -inf), m)``; int8 ``torch._int_mm`` of the quantized query, the
+    epilogue and ``topk``; bf16 ``q.bfloat16() @ Y.T`` and ``topk``. None
+    where the call is refused on this card (printed)."""
+    import torch
+
+    Y, allow = r._y_dev, r._allow_dev
+    if r.precision == "float32":
+        ninf = torch.tensor(float("-inf"), device=q.device)
+        fn = lambda: torch.topk(torch.where(allow, q @ Y.T, ninf), m)
+    elif r.precision == "bf16":
+        fn = lambda: torch.topk(q.to(torch.bfloat16) @ Y.T, m)
+    else:
+        scale = r._scale_dev
+
+        def fn():
+            qs = q.abs().amax(dim=1) / 127.0
+            qs = torch.where(qs > 0, qs, torch.ones_like(qs))
+            qi = torch.clamp(torch.round(q / qs[:, None]), -127, 127).to(torch.int8)
+            acc = torch._int_mm(qi, Y.T)
+            return torch.topk(acc.to(torch.float32) * qs[:, None] * scale[None, :], m)
+    try:
+        return time_ms(fn, iters=50)
+    except RuntimeError as e:
+        print(f"  library yardstick for {r.precision} at B={q.shape[0]} refused: {e}", flush=True)
+        return None
+
+
+@contextlib.contextmanager
+def plain_retrieval_kernels():
+    """ItemRetriever driven by its kernels' plain twins, on whatever device
+    its tensors are on (the twins count no launches)."""
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops import rescore as kb
+    from predictionio_tpu_torch.ops import retrieval
+
+    saved = (retrieval.candidate_mask, retrieval.masked_topn_packed, retrieval.rescore_topn)
+    retrieval.candidate_mask = ka.candidate_mask_plain
+    retrieval.masked_topn_packed = ka.masked_topn_plain
+    retrieval.rescore_topn = kb.rescore_topn_plain
+    try:
+        yield
+    finally:
+        (retrieval.candidate_mask, retrieval.masked_topn_packed, retrieval.rescore_topn) = saved
+
+
+def retrieval_counts():
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops import rescore as kb
+    from predictionio_tpu_torch.ops import topn as k3
+
+    return (ka.LAUNCHES, kb.LAUNCHES, k3.LAUNCHES)
+
+
+def snapshot(counters):
+    out = {}
+    for c in counters:
+        out.update(c.snapshot())
+    return out
+
+
+def check_retrieval_launches(counts, batches, n_unknown, quantized, label):
+    """Kernel A (mask and select) once per served batch that held a known
+    query (a batch of unknown queries only launches nothing), kernel B as
+    often on a quantized deployment and never otherwise, K3 and every twin
+    never."""
+    a = counts["masked_topn"]
+    if not batches - n_unknown <= a <= batches or batches < 1:
+        raise AssertionError(f"{label}: masked_topn launched {a} times for {batches} batches")
+    if counts["candidate_mask"] != a or counts["rescore_topn"] != (a if quantized else 0):
+        raise AssertionError(f"{label}: launches {counts}")
+    if counts["topn_packed"] or any(v for name, v in counts.items() if name.endswith("_plain")):
+        raise AssertionError(f"{label}: K3 or a plain twin ran: {counts}")
+
+
+def quantized_serving_phase(rng, device, workdir, model, traffic):
+    """R2: the trained model saved with precision int8 and bf16, each
+    deployed through the CLI and sent the float32 deployment's traffic;
+    every answer held against the float32 deployment's; kernels A and B
+    held against their twins at the path's shapes. Returns (launches per
+    deployment, stats, kernel timing row at the path's shape, the
+    kernels' largest errors there)."""
+    import dataclasses
+
+    import numpy as np
+
+    from predictionio_tpu_torch.models.recommendation.engine import ALSModel
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops.retrieval import ItemRetriever
+    from predictionio_tpu_torch.ops.topn import check_topn_agreement
+    from predictionio_tpu_torch.utils.serialize import save_model
+
+    counters = retrieval_counts()
+    unknown_at, unrated_at = traffic["unknown_at"], traffic["unrated_at"]
+    f32 = {i: res["itemScores"] for i, _, res in traffic["answers"]}
+    launches, stats = {}, {}
+    for prec in ("int8", "bf16"):
+        qmodel = ALSModel(arrays=model.arrays, user_index=model.user_index,
+                          item_index=model.item_index,
+                          params=dataclasses.replace(model.params, precision=prec))
+        name = f"ml20m_{prec}"
+        path = os.path.join(workdir, f"{name}.npz")
+        save_model(path, qmodel)
+        server = Deployment(path, device)
+        try:
+            for c in counters:
+                c.reset()
+            answers, wall = server.send(traffic["bodies"])
+            status = server.status()
+            counts = snapshot(counters)
+            batches = status["batches"]
+            check_retrieval_launches(counts, batches, len(unknown_at), True, name)
+            if status["servingPrecision"] != [prec]:
+                raise AssertionError(f"{name}: servingPrecision {status['servingPrecision']}")
+            check_unknown_users(server, ka.LAUNCHES, "masked_topn", batches)
+        finally:
+            server.stop()
+        for i, _, res in answers:
+            got, ref = res["itemScores"], f32[i]
+            if res.get("modelVersion") != name:
+                raise AssertionError(f"modelVersion {res.get('modelVersion')!r}")
+            if len(got) != len(ref) or (i in unknown_at and got):
+                raise AssertionError(f"{name} query {i}: {len(got)} items, float32 gave {len(ref)}")
+            got_i = np.array([[model.item_index[x["item"]] for x in got]])
+            if i in unrated_at and got_i[0].tolist() != list(range(len(got))):
+                raise AssertionError(f"{name}: user without ratings got {got_i[0]}")
+            if got:
+                check_topn_agreement(
+                    np.array([[x["score"] for x in got]]), got_i,
+                    np.array([[x["score"] for x in ref]]),
+                    np.array([[model.item_index[x["item"]] for x in ref]]), RTOL, ATOL)
+        launches[prec] = counts
+        stats[prec] = {"queries": len(answers), **latency_stats(answers, wall),
+                       "batches": batches, "batch_fill_mean": status["batchFillMean"],
+                       "server_avg_ms": status["avgServingSec"] * 1e3,
+                       "deploy_s": server.deploy_s, "launches": counts}
+        print(f"  {name}: {len(answers)} answers equal the float32 deployment's "
+              f"(ids outside near-tie runs, scores rtol {RTOL}); launches {counts}", flush=True)
+    stats["card"] = card_line()
+    print("quantized_serving " + json.dumps(stats), flush=True)
+    # the kernels against their twins at this path's shapes: the trained
+    # catalog in each tier as the deployment holds it, user rows at the
+    # usual and the full batch, num=10's n=16 and the deployment's flags
+    uf, itf = model.arrays.user_factors, model.arrays.item_factors
+    errs = {}
+    for prec in ("int8", "bf16"):
+        r = ItemRetriever(itf, device=device, precision=prec,
+                          shortlist_mult=model.params.shortlist_mult)
+        for B in (8, 128):
+            q_np = uf[rng.integers(0, len(uf), B)]
+            check_retriever_kernels(r, q_np, 16, [None] * B, [None] * B, False, False, device,
+                                    f"ML-20M {prec} B={B}", errs)
+        r.free()
+    print(f"  ML-20M catalog, B=8 and 128, n=16: kernel A equal to its twin (int8 bit for "
+          f"bit), kernel B within rtol {RTOL} / atol {ATOL}; errors {errs}", flush=True)
+    # the kernels' times at this path's shape: a full batch
+    r = ItemRetriever(itf, device=device, precision="int8")
+    q_np = uf[rng.integers(0, len(uf), 128)]
+    row = time_retriever_kernels(r, q_np, 16, False, False, device,
+                                 {"catalog": "ML-20M items, trained"})
+    r.free()
+    print("retrieval_path_timing " + json.dumps(row), flush=True)
+    print("batch_wall " + json.dumps(batch_wall_ms(rng, device, uf, itf)), flush=True)
+    return launches, stats, row, errs
+
+
+def batch_wall_ms(rng, device, uf, itf):
+    """One serving batch's wall time on the host clock (upload, kernels,
+    the result's copy back and, for a quantized tier, the host refinement),
+    median of 50 after a warm-up, at B=8 (the served batches' usual size)
+    and B=128: K3 through ServingFactors, and ItemRetriever in each tier."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops.als import ServingFactors
+    from predictionio_tpu_torch.ops.retrieval import ItemRetriever
+
+    def median_ms(fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(50):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        return float(np.median(times) * 1e3)
+
+    sf = ServingFactors(uf, itf, device=device)
+    retrievers = {p: ItemRetriever(itf, device=device, precision=p) for p in ("float32", "bf16", "int8")}
+    out = {"card": card_line()}
+    for B in (8, 128):
+        q = uf[rng.integers(0, len(uf), B)]
+        out[f"B={B}"] = {"k3_serving_factors": median_ms(lambda: sf.topn_by_rows(q, 16)),
+                         **{f"retriever_{p}": median_ms(lambda: r.topn(q, 16))
+                            for p, r in retrievers.items()}}
+    for r in retrievers.values():
+        r.free()
+    return out
+
+
+def similarproduct_phase(rng, device, workdir, model):
+    """R3: the trained item factors carried into a Similar Product model
+    with seeded categories, saved, deployed through the CLI and sent 320
+    queries; every answer held against the same retriever driven by the
+    plain twins on the card. Returns (launches, stats)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models.similarproduct import engine as psp
+    from predictionio_tpu_torch.ops.retrieval import ItemRetriever
+    from predictionio_tpu_torch.ops.topn import check_topn_agreement
+    from predictionio_tpu_torch.utils.serialize import save_model
+
+    itf = model.arrays.item_factors
+    N = len(itf)
+    inv = model.item_index.inverse()
+    ids = [inv[r] for r in range(N)]
+    cats = [sorted({f"c{c}" for c in rng.integers(0, 24, rng.integers(1, 4))}) for _ in range(N)]
+    params = psp.ALSAlgorithmParams(rank=itf.shape[1])
+    path = os.path.join(workdir, "ml20m_similar.npz")
+    save_model(path, psp.sp_model_from_numpy(itf, ids, cats, params))
+
+    n_queries = 320
+    unknown_at = set(rng.choice(n_queries, size=4, replace=False).tolist())
+    bodies = []
+    for i in range(n_queries):
+        body = {"items": [ids[j] for j in rng.integers(0, N, rng.integers(1, 11))],
+                "num": int(10 if rng.random() < 0.85 else rng.integers(1, 41))}
+        u = rng.random(3)
+        if u[0] < 0.3:
+            body["categories"] = [f"c{c}" for c in rng.integers(0, 24, rng.integers(1, 3))]
+        if u[1] < 0.1:
+            body["white_list"] = [ids[j] for j in rng.integers(0, N, 200)]
+        if u[2] < 0.2:
+            body["black_list"] = [ids[j] for j in rng.integers(0, N, 20)]
+        if i in unknown_at:
+            body["items"] = [f"unknown{i}", "nothing"]
+        bodies.append(body)
+
+    counters = retrieval_counts()
+    server = Deployment(path, device)
+    try:
+        for c in counters:
+            c.reset()
+        answers, wall = server.send(bodies)
+        status = server.status()
+        counts = snapshot(counters)
+        check_retrieval_launches(counts, status["batches"], len(unknown_at), False, "similar product")
+        if status["servingPrecision"] != ["float32"]:
+            raise AssertionError(f"servingPrecision {status['servingPrecision']}")
+    finally:
+        server.stop()
+
+    ref_model = psp.sp_model_from_numpy(itf, ids, cats, params)
+    alg = psp.ALSAlgorithm(params)
+    alg.prepare_serving(device, ref_model)
+    queries = [(i, psp.Query(**b)) for i, b in enumerate(bodies)]
+    with plain_retrieval_kernels():
+        ref = dict(ref_model.similar_batch(queries))
+    alg.release_serving(ref_model)
+    serving = psp.Serving()
+    for i, _, res in answers:
+        if res.get("modelVersion") != "ml20m_similar":
+            raise AssertionError(f"modelVersion {res.get('modelVersion')!r}")
+        got = res["itemScores"]
+        want = serving.serve(queries[i][1], [ref[i]]).item_scores
+        if len(got) != len(want) or (i in unknown_at and got):
+            raise AssertionError(f"similar product query {i}: {len(got)} items, the twins gave {len(want)}")
+        if got:
+            check_topn_agreement(
+                np.array([[x["score"] for x in got]]),
+                np.array([[model.item_index[x["item"]] for x in got]]),
+                np.array([[x.score for x in want]]),
+                np.array([[model.item_index[x.item] for x in want]]), RTOL, ATOL)
+    stats = {"queries": n_queries, **latency_stats(answers, wall),
+             "batches": status["batches"], "batch_fill_mean": status["batchFillMean"],
+             "server_avg_ms": status["avgServingSec"] * 1e3, "deploy_s": server.deploy_s,
+             "launches": counts, "empty_answers": sum(not a[2]["itemScores"] for a in answers),
+             "card": card_line()}
+    print("similarproduct_serving " + json.dumps(stats), flush=True)
+    # kernel A at this path's shape: float32 cosine, positive_only
+    r = ItemRetriever(itf, device=device)
+    q_np = ref_model.normed_host[rng.integers(0, N, 128)]
+    row = time_retriever_kernels(r, q_np, 16, True, True, device,
+                                 {"catalog": "ML-20M items, trained (cosine)"})
+    r.free()
+    print("similarproduct_path_timing " + json.dumps(row), flush=True)
+    return counts, stats
 
 
 def main() -> int:
@@ -1134,9 +1776,11 @@ def main() -> int:
     from predictionio_tpu_torch.device import resolve_device
     from predictionio_tpu_torch.ops import (
         device_pack,
+        masked_topn,
         native,
         normal_eq,
         predict_pairs,
+        rescore,
         spd_solve,
         topn,
     )
@@ -1150,7 +1794,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} nvcc {native.nvcc_path()}", flush=True)
     t0 = time.perf_counter()
-    kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs)
+    kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -1164,11 +1808,18 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     print("phase kernels", flush=True)
     max_err, rows = kernel_phase(rng, device)
+    print("phase retrieval kernels (R1)", flush=True)
+    ret_errs, _ = retrieval_kernel_phase(rng, device)
     print("phase train", flush=True)
     model, kernels, _ = train_phase(rng, device)
     print("phase slice", flush=True)
     with tempfile.TemporaryDirectory() as workdir:
-        launches, _ = slice_phase(rng, device, workdir, model)
+        launches, _, traffic = slice_phase(rng, device, workdir, model)
+        print("phase quantized recommendation (R2)", flush=True)
+        q_launches, _, path_row, path_errs = quantized_serving_phase(
+            rng, device, workdir, model, traffic)
+        print("phase similar product (R3)", flush=True)
+        sp_launches, _ = similarproduct_phase(rng, device, workdir, model)
 
     full = rows[2]  # B=128, n=16: the full-width batch at num=10
     kernels += [{
@@ -1184,6 +1835,27 @@ def main() -> int:
         "bound_by": full["bound_by"],
         "library_ms": full["library_ms"],
     }]
+    # this slice's kernels: launches summed over the three retriever
+    # paths (each counted from 0), times at the int8 path's shape, errors
+    # the largest over R1's shapes and R2's
+    replaces = {
+        "candidate_mask": ("masked_topn.cu", "predictionio_tpu/ops/retrieval.py:164"),
+        "masked_topn": ("masked_topn.cu", "predictionio_tpu/ops/retrieval.py:280"),
+        "rescore_topn": ("rescore.cu", "predictionio_tpu/ops/retrieval.py:316"),
+    }
+    for name, (source, where) in replaces.items():
+        n_launch = q_launches["int8"][name] + q_launches["bf16"][name] + sp_launches[name]
+        if n_launch < 1:
+            raise AssertionError(f"{name} never launched on the retriever paths")
+        t = path_row[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"predictionio_tpu_torch/csrc/{source}", "replaces": where,
+            "launches": n_launch, "max_abs_err": max(ret_errs[name], path_errs[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -413,6 +413,10 @@ class QueryAPI:
             "startTime": self.server_start_time.isoformat(),
             "algorithms": [type(a).__name__ for a in dep.algorithms],
             "algorithmsParams": [repr(a.params) for a in dep.algorithms],
+            # the residency precision each algorithm serves with
+            "servingPrecision": [
+                a.serving_precision(m) for a, m in zip(dep.algorithms, dep.models)
+            ],
             "serving": type(dep.serving).__name__,
             "requestCount": requests,
             "avgServingSec": total / requests if requests else 0.0,

@@ -96,6 +96,12 @@ class BaseAlgorithm(Controller, Generic[M, Q, P]):
         """Deploy-time warm-up before the server takes traffic. Default:
         nothing."""
 
+    def serving_precision(self, model: M) -> Optional[str]:
+        """The residency precision this algorithm serves ``model`` with
+        ("float32", "bf16", "int8"), or None where it has no such notion
+        or no serving state yet. Default: None."""
+        return None
+
     def release_serving(self, model: M) -> None:
         """Free the device-resident serving state a model holds. A query
         racing past the release must still be servable. Default:

@@ -8,7 +8,11 @@ JSON names. ``ALSAlgorithm.train`` trains on a ``torch.device`` through
 ``ops/streaming.train_als_streaming`` when the training data streams
 (``StreamingTrainingData``), else through ``ops/als.train_als``: both take
 the wire route (K4 and K5 pack, then K1 and K2 per half-step). ``ALSModel.recommend_many``
-serves a micro-batch with one K3 launch on the model's device.
+serves a micro-batch with one K3 launch on the model's device; with
+``precision="int8"`` or ``"bf16"`` it serves through an ``ItemRetriever``
+(``ops/retrieval.py``) instead: the catalog resident quantized, stage 1
+(kernel A) shortlists, stage 2 (kernel B) rescores the shortlist exactly,
+and the host refines against the original rows.
 ``als_model_from_numpy`` builds a model from a trained model's arrays,
 which is how a model trained by the JAX package is carried across (as
 numpy: the port never imports the JAX package).
@@ -39,6 +43,7 @@ from predictionio_tpu_torch.ops.als import (
     train_als,
     validate_solver,
 )
+from predictionio_tpu_torch.ops.retrieval import ItemRetriever
 from predictionio_tpu_torch.ops.streaming import train_als_streaming
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
 
@@ -170,23 +175,17 @@ class ALSAlgorithmParams(Params):
     warm_num: int = 16
     warm_max_batch: int = 128
     delta_sweeps: int = 2
-    # resident catalog precision; only "float32" is ported
+    # serving residency precision of the catalog: "float32" serves through
+    # ServingFactors (K3); "bf16"/"int8" through an ItemRetriever (the
+    # two-stage shortlist + exact rescore)
     precision: str = "float32"
+    # stage-1 shortlist width multiplier c (shortlist = pow2(c*n))
     shortlist_mult: int = 4
     solver: str = "exact"
     block_size: int = 0
 
     def __post_init__(self):
         validate_solver(self.solver, self.block_size, self.rank)
-
-
-def _check_precision(params: Optional[ALSAlgorithmParams]) -> None:
-    if params is not None and params.precision != "float32":
-        raise NotImplementedError(
-            f"precision={params.precision!r} serving is not ported yet "
-            "(ROADMAP.md queue 1 item 5, quantized retrieval); only "
-            "'float32' is served"
-        )
 
 
 @dataclasses.dataclass
@@ -208,6 +207,10 @@ class ALSModel:
     _inv_item: Optional[BiMap] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    # quantized serving state, built by prepare_serving; never saved
+    _retriever: Optional[ItemRetriever] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     def attach_device(self, device: DeviceLike) -> None:
         """Serve on ``device`` (drops serving state built elsewhere)."""
@@ -217,7 +220,6 @@ class ALSModel:
     @property
     def serving(self) -> ServingFactors:
         if self._serving is None:
-            _check_precision(self.params)
             self._serving = ServingFactors(
                 self.arrays.user_factors, self.arrays.item_factors,
                 device=self._device,
@@ -229,9 +231,11 @@ class ALSModel:
         return result
 
     def recommend_many(self, queries) -> List[Tuple[int, PredictedResult]]:
-        """Top-N for a batch of indexed queries, one K3 launch. Unknown
-        users get an empty result; the top-k width is the batch's largest
-        ``num`` on the pow2 ladder (min 16, clamped to the catalog)."""
+        """Top-N for a batch of indexed queries: one K3 launch, or, on a
+        quantized deployment, one retriever batch (kernels A and B).
+        Unknown users get an empty result; the top-k width is the batch's
+        largest ``num`` on the pow2 ladder (min 16, clamped to the
+        catalog)."""
         known = [
             (qx, self.user_index[q.user], q.num)
             for qx, q in queries
@@ -247,7 +251,14 @@ class ALSModel:
         max_num = pow2_topk_width(
             max(n for _, _, n in known), len(self.item_index)
         )
-        scores, idx = self.serving.topn_by_user([u for _, u, _ in known], max_num)
+        users = [u for _, u, _ in known]
+        retriever = self._retriever
+        if retriever is not None:
+            scores, idx = retriever.topn(
+                self.arrays.user_factors[np.asarray(users, np.int64)], max_num
+            )
+        else:
+            scores, idx = self.serving.topn_by_user(users, max_num)
         # the inverse index is catalog-sized: built once, not per request
         if self._inv_item is None:
             self._inv_item = self.item_index.inverse()
@@ -346,10 +357,28 @@ class ALSAlgorithm(BaseAlgorithm):
         )
 
     def prepare_serving(self, device: torch.device, model: ALSModel) -> ALSModel:
-        """Bind the model's serving state to ``device``."""
-        _check_precision(self.params)
+        """Bind the model's serving state to ``device``. With a quantized
+        ``precision``, deploy an ItemRetriever: the catalog resides as
+        int8/bf16 rows and retrieval runs the two-stage shortlist + exact
+        rescore."""
         model.attach_device(device)
+        p: ALSAlgorithmParams = self.params
+        if p.precision != "float32":
+            model._retriever = ItemRetriever(
+                model.arrays.item_factors,
+                component="recommendation",
+                device=model._device,
+                precision=p.precision,
+                shortlist_mult=p.shortlist_mult,
+            )
         return model
+
+    def serving_precision(self, model: ALSModel) -> Optional[str]:
+        if model._retriever is not None:
+            return model._retriever.precision
+        if model._serving is not None:
+            return "float32"
+        return None
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         return model.recommend(query.user, query.num)
@@ -358,14 +387,26 @@ class ALSAlgorithm(BaseAlgorithm):
         return model.recommend_many(queries)
 
     def release_serving(self, model: ALSModel) -> None:
-        """Drop the device factors; they free once the last in-flight batch
-        lets go. A straggler query rebuilds them lazily."""
+        """Drop the device factors (and free the retriever); they free once
+        the last in-flight batch lets go. A straggler query rebuilds
+        float32 serving state lazily."""
         model._serving = None
+        retriever, model._retriever = model._retriever, None
+        if retriever is not None:
+            retriever.free()
 
     def warm(self, model: ALSModel) -> None:
         """Run every top-k tier up to warm_num and every padded batch size
-        up to warm_max_batch once, before the server takes traffic."""
+        up to warm_max_batch once, before the server takes traffic. A
+        quantized deployment warms the retriever's ladder instead."""
         p: ALSAlgorithmParams = self.params
+        if model._retriever is not None:
+            model._retriever.warm(
+                n=p.warm_num, max_batch=p.warm_max_batch,
+                flag_combos=((False, False),),
+                exclude_widths=(1,),
+            )
+            return
         n = 16
         while True:
             model.serving.warm(n=n, max_batch=p.warm_max_batch)

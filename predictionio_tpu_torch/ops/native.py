@@ -55,11 +55,12 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to: named by a hash of its bytes and
-    the flags."""
+    """Where ``csrc/<source>`` builds to: named by a hash of its bytes, the
+    shared headers' (``csrc/*.cuh``) and the flags."""
     src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

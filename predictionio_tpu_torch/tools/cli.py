@@ -6,8 +6,9 @@
         [--max-batch 128] [--batch-window-ms 2.0] [--pipeline-depth 1] \\
         [--transport async|threaded]
 
-It loads the model (``utils/serialize.py``), prepares it on the device
-(CUDA unless ``--device cpu``), warms the serving kernel and serves
+It loads the model (``utils/serialize.py``), picks its engine from the
+file (recommendation or similar product), prepares it on the device (CUDA
+unless ``--device cpu``), warms the serving kernels and serves
 ``POST /queries.json`` until ``GET /stop``. The served ``modelVersion`` is
 the model file's name without its extension.
 """
@@ -27,10 +28,8 @@ from predictionio_tpu_torch.api.engine_server import (
 )
 from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
-from predictionio_tpu_torch.models.recommendation.engine import (
-    ALSAlgorithmParams,
-    recommendation_engine,
-)
+from predictionio_tpu_torch.models.recommendation import engine as rec
+from predictionio_tpu_torch.models.similarproduct import engine as sp
 from predictionio_tpu_torch.utils.serialize import load_model
 
 
@@ -41,8 +40,11 @@ def deploy_model_file(
     bind a server for it (not yet serving)."""
     dev = resolve_device(device)
     model = load_model(model_path)
-    params = model.params if model.params is not None else ALSAlgorithmParams()
-    engine = recommendation_engine()
+    kind = sp if isinstance(model, sp.SPModel) else rec
+    params = model.params if model.params is not None else kind.ALSAlgorithmParams()
+    engine = (
+        sp.similarproduct_engine() if kind is sp else rec.recommendation_engine()
+    )
     engine_params = EngineParams(algorithm_params_list=(("als", params),))
     models = engine.prepare_deploy(dev, engine_params, [model])
     version = os.path.splitext(os.path.basename(model_path))[0]

@@ -1,10 +1,16 @@
 """Model files for the port: ``save_model``/``load_model``.
 
-An ALS model is saved as one ``.npz``: the factor matrices, the user and
-item ids in row order, and the algorithm params as JSON. Loading never
-unpickles (``allow_pickle=False``): a pickled JAX-package model would
-import ``predictionio_tpu`` classes, so models cross from the JAX package
-as arrays (``models.recommendation.engine.als_model_from_numpy``).
+A model is saved as one ``.npz`` whose ``engine`` field names its engine:
+
+- ``"recommendation"`` (the default when the field is absent, as in the
+  files of the first slices): an ALS model's factor matrices, the user and
+  item ids in row order, and the algorithm params as JSON;
+- ``"similarproduct"``: the item factors, the item ids in row order, each
+  item's categories (JSON, in row order) and the params as JSON.
+
+Loading never unpickles (``allow_pickle=False``): a pickled JAX-package
+model would import ``predictionio_tpu`` classes, so models cross from the
+JAX package as arrays (``als_model_from_numpy``, ``sp_model_from_numpy``).
 """
 
 from __future__ import annotations
@@ -19,28 +25,40 @@ from predictionio_tpu_torch.controller.params import (
     params_from_json,
     params_to_json,
 )
-from predictionio_tpu_torch.models.recommendation.engine import (
-    ALSAlgorithmParams,
-    ALSModel,
-    als_model_from_numpy,
-)
+from predictionio_tpu_torch.models.recommendation import engine as rec
+from predictionio_tpu_torch.models.similarproduct import engine as sp
 
 PathLike = Union[str, os.PathLike]
+Model = Union[rec.ALSModel, sp.SPModel]
 
 
-def save_model(path: PathLike, model: ALSModel) -> None:
+def save_model(path: PathLike, model: Model) -> None:
     """Write ``model`` to ``path`` (an ``.npz``)."""
-    user_ids = _ids_in_row_order(model.user_index)
-    item_ids = _ids_in_row_order(model.item_index)
     params = None if model.params is None else params_to_json(model.params)
+    item_ids = _ids_in_row_order(model.item_index)
+    if isinstance(model, sp.SPModel):
+        categories = [
+            list(model.items.get(r, sp.Item()).categories)
+            for r in range(len(item_ids))
+        ]
+        arrays = {
+            "engine": np.asarray("similarproduct"),
+            "item_factors": np.asarray(model.item_factors, np.float32),
+            "item_categories_json": np.asarray(json.dumps(categories)),
+        }
+    else:
+        arrays = {
+            "engine": np.asarray("recommendation"),
+            "user_factors": np.asarray(model.arrays.user_factors, np.float32),
+            "item_factors": np.asarray(model.arrays.item_factors, np.float32),
+            "user_ids": np.asarray(_ids_in_row_order(model.user_index), dtype=str),
+        }
     with open(path, "wb") as f:
         np.savez(
             f,
-            user_factors=np.asarray(model.arrays.user_factors, np.float32),
-            item_factors=np.asarray(model.arrays.item_factors, np.float32),
-            user_ids=np.asarray(user_ids, dtype=str),
             item_ids=np.asarray(item_ids, dtype=str),
             params_json=np.asarray(json.dumps(params)),
+            **arrays,
         )
 
 
@@ -53,17 +71,30 @@ def _ids_in_row_order(index) -> list:
     return ids
 
 
-def load_model(path: PathLike) -> ALSModel:
+def load_model(path: PathLike) -> Model:
     """Read a model written by ``save_model``."""
     with np.load(path, allow_pickle=False) as z:
+        engine = str(z["engine"]) if "engine" in z.files else "recommendation"
         params = json.loads(str(z["params_json"]))
-        return als_model_from_numpy(
+        if engine == "similarproduct":
+            return sp.sp_model_from_numpy(
+                z["item_factors"],
+                z["item_ids"].tolist(),
+                json.loads(str(z["item_categories_json"])),
+                params=(
+                    None if params is None
+                    else params_from_json(params, sp.ALSAlgorithmParams)
+                ),
+            )
+        if engine != "recommendation":
+            raise ValueError(f"{path}: unknown engine {engine!r}")
+        return rec.als_model_from_numpy(
             z["user_factors"],
             z["item_factors"],
             z["user_ids"].tolist(),
             z["item_ids"].tolist(),
             params=(
                 None if params is None
-                else params_from_json(params, ALSAlgorithmParams)
+                else params_from_json(params, rec.ALSAlgorithmParams)
             ),
         )

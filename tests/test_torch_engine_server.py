@@ -195,3 +195,127 @@ def test_batching_executor_isolates_a_poison_query():
     assert outcomes == [2, 4, "error", 6, 8]
     with pytest.raises(RuntimeError, match="shutting down"):
         executor.submit_nowait(5)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _deploy_file_in_thread(path, port):
+    """``tools.cli deploy --model path --device cpu`` on a thread; returns
+    (thread, failures)."""
+    import threading
+    import time
+
+    from predictionio_tpu_torch.tools import cli
+
+    failures = []
+
+    def serve():
+        try:
+            cli.main(["deploy", "--model", str(path), "--ip", "127.0.0.1",
+                      "--port", str(port), "--device", "cpu",
+                      "--batch-window-ms", "20"])
+        except BaseException as e:  # reported by the test thread
+            failures.append(e)
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 60
+    while True:
+        assert not failures, failures
+        try:
+            _request(port, "GET", "/status.json")
+            return thread, failures
+        except urllib.error.URLError:
+            assert time.monotonic() < deadline, "server did not come up"
+            time.sleep(0.1)
+
+
+@pytest.mark.parametrize("precision", ["float32", "int8"])
+def test_similarproduct_model_file_deploys_over_http(tmp_path, precision):
+    """A Similar Product model file, deployed by the CLI on the CPU, answers
+    as the JAX package's prepared SPModel does, and status.json reports its
+    servingPrecision."""
+    from predictionio_tpu.models.similarproduct import engine as jax_sp
+    from predictionio_tpu_torch.models.similarproduct import engine as port_sp
+    from predictionio_tpu_torch.utils.serialize import save_model
+
+    rng = np.random.default_rng(8)
+    n_items = 300
+    factors = rng.normal(size=(n_items, RANK)).astype(np.float32)
+    cats = [[f"c{c}" for c in rng.integers(0, 6, rng.integers(1, 4))] for _ in range(n_items)]
+    ids = [f"i{r}" for r in range(n_items)]
+    params = port_sp.ALSAlgorithmParams(rank=RANK, precision=precision, warm_max_batch=8)
+    path = tmp_path / "sp_model.npz"
+    save_model(path, port_sp.sp_model_from_numpy(factors, ids, cats, params))
+
+    jax_alg = jax_sp.ALSAlgorithm(jax_sp.ALSAlgorithmParams(rank=RANK, precision=precision))
+    jax_model = jax_alg.prepare_serving(None, jax_sp.SPModel(
+        item_factors=factors, item_index=JaxBiMap({i: r for r, i in enumerate(ids)}),
+        items={r: jax_sp.Item(categories=tuple(c)) for r, c in enumerate(cats)},
+    ))
+    queries = [
+        {"items": ["i1", "i7"], "num": 10},
+        {"items": ["i3"], "num": 4, "categories": ["c1", "c2"]},
+        {"items": ["i5", "i9", "i11"], "num": 20, "white_list": [f"i{r}" for r in range(0, 300, 3)]},
+        {"items": ["i2"], "num": 6, "black_list": ["i4", "i8", "zzz"]},
+        {"items": ["nothing-known"], "num": 3},
+    ]
+    port = _free_port()
+    thread, failures = _deploy_file_in_thread(path, port)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(queries)) as pool:
+            answers = list(pool.map(
+                lambda q: _request(port, "POST", "/queries.json", json.dumps(q).encode()),
+                queries,
+            ))
+        for q, (status, raw) in zip(queries, answers):
+            assert status == 200
+            payload = json.loads(raw)
+            assert payload["modelVersion"] == "sp_model"
+            ref = jax_sp.Serving().serve(
+                jax_sp.Query(**q), [jax_model.similar(jax_sp.Query(**q))])
+            got = payload["itemScores"]
+            assert len(got) == len(ref.item_scores)
+            if got:
+                check_topn_agreement(
+                    np.array([[x["score"] for x in got]]),
+                    np.array([[int(x["item"][1:]) for x in got]]),
+                    np.array([[s.score for s in ref.item_scores]]),
+                    np.array([[int(s.item[1:]) for s in ref.item_scores]]),
+                    RTOL, ATOL,
+                )
+        status = json.loads(_request(port, "GET", "/status.json")[1])
+        assert status["servingPrecision"] == [precision]
+        assert status["algorithms"] == ["ALSAlgorithm"]
+        assert _request(port, "GET", "/stop") == (200, b"Shutting down...")
+        thread.join(timeout=30)
+        assert not thread.is_alive() and not failures
+    finally:
+        jax_alg.release_serving(jax_model)
+        if thread.is_alive():
+            _request(port, "GET", "/stop")
+
+
+def test_quantized_recommendation_reports_its_precision(factors):
+    """status.json's servingPrecision, one entry per algorithm: the JAX
+    server's field (api/engine_server.py)."""
+    uf, itf = factors
+    model = port_engine.als_model_from_numpy(
+        uf, itf, [f"u{r}" for r in range(N_USERS)], [f"i{r}" for r in range(N_ITEMS)])
+    engine = port_engine.recommendation_engine()
+    for precision in ("float32", "bf16"):
+        params = port_engine.ALSAlgorithmParams(rank=RANK, warm_max_batch=8, precision=precision)
+        ep = EngineParams(algorithm_params_list=(("als", params),))
+        dep = DeployedEngine(engine, ep, engine.prepare_deploy("cpu", ep, [model]), version="v1")
+        server = EngineServer(dep, ServerConfig(ip="127.0.0.1", port=0)).start()
+        try:
+            status = json.loads(_request(server.port, "GET", "/status.json")[1])
+            assert status["servingPrecision"] == [precision]
+        finally:
+            server.shutdown()

@@ -11,6 +11,8 @@ ALS, two summation orders; tests/test_torch_als_train.py), so scores are
 held at rtol 1e-4, atol 1e-5.
 """
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -124,10 +126,57 @@ def test_save_load_round_trips_bit_for_bit(models, tmp_path):
 
 
 def test_quantized_precision_is_not_served_as_float32(models):
+    """A quantized precision deploys the retriever in that tier (kernels A
+    and B), never the float32 K3 path."""
     _, port_model = models
-    alg = port_engine.ALSAlgorithm(port_engine.ALSAlgorithmParams(rank=RANK, precision="int8"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        alg.prepare_serving("cpu", port_model)
+    for precision in ("int8", "bf16"):
+        alg = port_engine.ALSAlgorithm(
+            port_engine.ALSAlgorithmParams(rank=RANK, precision=precision, warm_max_batch=8)
+        )
+        model = alg.prepare_serving("cpu", copy.copy(port_model))
+        assert model._retriever is not None
+        assert model._retriever.precision == alg.serving_precision(model) == precision
+        alg.warm(model)
+        assert model._serving is None  # the float32 serving state is never built
+        alg.release_serving(model)
+        assert model._retriever is None and alg.serving_precision(model) is None
+
+
+@pytest.mark.parametrize("precision", ["int8", "bf16"])
+def test_quantized_batch_predict_matches_jax(models, precision):
+    """Mirrors tests/test_retrieval_quantized.py: the port's quantized
+    deployment against the JAX package's (``prepare_serving(None, ...)``)
+    and against the port's own float32 deployment."""
+    jax_model, port_model = models
+    jax_alg = jax_engine.ALSAlgorithm(
+        jax_engine.ALSAlgorithmParams(rank=RANK, precision=precision))
+    port_alg = port_engine.ALSAlgorithm(
+        port_engine.ALSAlgorithmParams(rank=RANK, precision=precision))
+    jq = jax_alg.prepare_serving(None, copy.deepcopy(jax_model))
+    pq = port_alg.prepare_serving("cpu", copy.copy(port_model))
+    try:
+        assert jax_alg.serving_precision(jq) == port_alg.serving_precision(pq) == precision
+        jax_out = dict(jax_alg.batch_predict(jq, _queries(jax_engine)))
+        port_out = dict(port_alg.batch_predict(pq, _queries(port_engine)))
+        exact_out = dict(port_model.recommend_many(_queries(port_engine)))
+        item_row = port_model.item_index
+        for qx, (_, q) in enumerate(_queries(port_engine)):
+            j, p, e = jax_out[qx], port_out[qx], exact_out[qx]
+            assert len(p.item_scores) == len(j.item_scores) == len(e.item_scores)
+            if q.user not in port_model.user_index:
+                assert p.item_scores == ()
+                continue
+            for ref in (j, e):
+                check_topn_agreement(
+                    np.array([[s.score for s in p.item_scores]]),
+                    np.array([[item_row[s.item] for s in p.item_scores]]),
+                    np.array([[s.score for s in ref.item_scores]]),
+                    np.array([[item_row[s.item] for s in ref.item_scores]]),
+                    RTOL, ATOL,
+                )
+    finally:
+        jax_alg.release_serving(jq)
+        port_alg.release_serving(pq)
 
 
 def test_trained_saved_loaded_model_serves_like_jax(tmp_path):
@@ -201,3 +250,22 @@ def test_empty_training_data_fails_its_sanity_check():
     )
     with pytest.raises(ValueError, match="empty"):
         td.sanity_check()
+
+
+def test_model_files_without_an_engine_field_load_as_recommendation(models, tmp_path):
+    """Files written before the ``engine`` field existed load as the
+    recommendation engine's; a file naming an unknown engine is refused."""
+    _, port_model = models
+    path = tmp_path / "model.npz"
+    save_model(path, port_model)
+    with np.load(path, allow_pickle=False) as z:
+        assert str(z["engine"]) == "recommendation"
+        arrays = {name: z[name] for name in z.files}
+    np.savez(tmp_path / "older.npz", **{k: v for k, v in arrays.items() if k != "engine"})
+    loaded = load_model(tmp_path / "older.npz")
+    assert isinstance(loaded, port_engine.ALSModel)
+    assert loaded.user_index == port_model.user_index
+    np.testing.assert_array_equal(loaded.arrays.item_factors, port_model.arrays.item_factors)
+    np.savez(tmp_path / "other.npz", **dict(arrays, engine=np.asarray("nosuch")))
+    with pytest.raises(ValueError, match="unknown engine"):
+        load_model(tmp_path / "other.npz")
