@@ -46,7 +46,7 @@ Phases; any failure exits non-zero:
       (ids as strings, 20 batches of 1M events) → ``train_als_streaming``,
       then RMSE on the training ratings through K7: K4 = 2 (one per upload
       chunk), K5a = K5b = 1, K1 = K2 = 2 x sweeps, K7 = one per
-      1,048,576-pair chunk, every twin 0.
+      1,048,576-pair chunk, K12 and every twin 0.
    c. The streaming wire against ``build_host_wire`` over the relabelled
       COO, byte for byte; a second streaming training, with its timings,
       and the direct route (``train_als`` on the relabelled COO, with its
@@ -66,6 +66,50 @@ Phases; any failure exits non-zero:
       busy share (its time on the card alone over its wall time). Device
       times are CUDA-event times of calls queued behind a spin kernel, so
       the card runs them with no wait for the host (``device_ms``).
+3i. Implicit training (``implicit_prefs=True``, alpha 1.0) on the same
+   ratings read as confidences, same rank, sweeps and reg:
+   a. The main path, counted from 0: ``ALSAlgorithm.train`` on the same
+      stream: K4 = 2, K5a = K5b = 1, K1 = K2 = 2 x sweeps, K12a = 4 x
+      sweeps (one Gramian before each half-step, two in each sweep's
+      objective), K12b = sweeps, K3, K7, K14 and every twin 0. A second
+      streaming training (its timings and per-sweep telemetry, objective
+      included, printed as ``implicit_telemetry``) and the direct route
+      (``train_als``): factors and telemetry bit-identical.
+   b. K1 (implicit weights), K2 (+G), K12a and K12b against their twins on
+      the path's packs and factors: the first half-steps and sweep 4's
+      (K1 and K2 at 3a's tolerances, b's scale from the implicit weights;
+      K12a within 1e-4 of G's largest diagonal entry, symmetric; K12b
+      within 1e-4 of its largest term's magnitude, computed in float64,
+      and bit for bit against a second launch).
+   c. Three sweeps driven by this script with the twins against the
+      kernels' loop: factors within 2e-3 of the largest entry, objectives
+      rtol 2e-3.
+   d. Times of K1 and K2 in implicit mode, K12a (users, items) and K12b
+      (with its two Gramians) at the path's shapes, their twins, the
+      library call for K12a (``X.T @ X``, TF32 off; K12b has none), bounds
+      and the implicit loop's busy share (``implicit_training``).
+3s. Similar Product training, reduced to the stream's first 2,000,000
+   events as views (all 138,493 users, all 26,744 items with 1-3 of 24
+   seeded categories) and the next 500,000 as likes and dislikes (30 %
+   dislikes, the last fifth repeating the first fifth's pairs later): the
+   reference's ``_ratings`` deduplicates in a Python dict, and 20M event
+   objects would take most of the script's time. ``ALSAlgorithm.train``
+   and ``LikeAlgorithm.train`` (rank 32, 10 sweeps, lambda 0.01, alpha
+   1.0), each counted from 0: K1 = K2 = 20, K12a = 40, K12b = 10, K5a =
+   K5b = 1, K4 at most 1, K14 and every twin 0. After each training, K1
+   (implicit), K2 (+G), K12a and K12b against their twins on that
+   training's packs (built from the algorithm's own deduplicated values;
+   LikeAlgorithm's hold dislikes, r = -1) as in 3i b. Then R3's traffic
+   (``sp_traffic``, 320 queries) through the host path of
+   ``SPModel.similar`` (no retriever) of each model, counted from 0: K14
+   once per query with a known item, nothing else; every answer against
+   the twin-driven host path (ids outside near-tie runs, scores rtol 1e-5
+   / atol 1e-6); ALSAlgorithm's also against the retriever-served answers
+   of the same model; then ``release_serving`` and a straggler query,
+   answered by the host path (K14 + 1). K14
+   against its twin at Q = 4, 8, 16 over the trained catalog (within 1e-5
+   of Σ_q |q·y|), and timed at Q = 16 beside ``(q @ Y.T).sum(0)``
+   (``similarproduct_training``).
 4. Serving: the model just trained is saved with ``save_model`` and served
    by ``tools.cli deploy --device cuda`` (max_batch 128, 2 ms window). 32
    concurrent clients on keep-alive connections send 320
@@ -124,10 +168,13 @@ Phases; any failure exits non-zero:
    the plain twins on the card (through the summed-score ``Serving``);
    candidate_mask = masked_topn = one per batch with a known item,
    rescore_topn, K3 and every twin 0.
-8. The ``kernels`` JSON line (the new kernels' launches summed over R2 and
-   R3, their times at R2's shape, their errors the largest over R1 and
-   R2), the card line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. The ``kernels`` JSON line (kernels A and B: launches summed over R2 and
+   R3, times at R2's shape, errors the largest over R1 and R2; K1 and K2:
+   launches summed over the explicit, implicit and Similar Product
+   trainings, times at the explicit path's user side; K12a and K12b:
+   launches over the implicit and Similar Product trainings, times at the
+   implicit path's user side; K14: launches on both host paths' traffic),
+   the card line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -342,6 +389,18 @@ def synth_ml20m(n_users, n_items, n_ratings, seed=41):
     return u, i, r
 
 
+_RATINGS = []
+
+
+def ml20m_ratings():
+    """The ML-20M-shaped ratings (``synth_ml20m`` at ML20M_USERS x
+    ML20M_ITEMS, ML20M_RATINGS), made once per process and shared by the
+    training phases."""
+    if not _RATINGS:
+        _RATINGS.append(synth_ml20m(ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS))
+    return _RATINGS[0]
+
+
 def k1_bound(pack, n_ratings: int, Y_rows: int, k: int):
     """K1's (bound_ms, bound_by) for one side: the packed planes, Y, A and
     b each moved once vs the k(k+1)/2 + k FMAs per rating that the
@@ -378,17 +437,21 @@ def k7_bound(P: int, n_users: int, n_items: int, k: int):
     return roofline(12 * P + 4 * k * (n_users + n_items), 2 * k * P)
 
 
-def check_k1(A, b, A2, b2, pack, label, errs):
+def check_k1(A, b, A2, b2, pack, label, errs, implicit=False, alpha=1.0):
     """Hold K1's A, b against the twin's A2, b2 at K1_RTOL of each row's
-    scale: the largest diagonal bounds every Σ|y_i y_j| of the row,
-    sqrt(Σ v² · it) every Σ|v y_i| (Cauchy-Schwarz). Returns the largest
+    scale: the largest diagonal bounds every Σ|w_a y_i y_j| of the row
+    (w_a >= 0), sqrt(Σ w_b² · it) every Σ|w_b y_i| (Cauchy-Schwarz; w_b is
+    the rating, or 1(v>0)(1 + α|v|) in implicit mode). Returns the largest
     differences."""
     import torch
 
     R = pack.n_sys_rows
     diag = A2.diagonal(dim1=1, dim2=2).amax(dim=1)
+    w_b = pack.vals
+    if implicit:
+        w_b = (pack.vals > 0).to(torch.float32) * (1.0 + alpha * pack.vals.abs())
     vsq = torch.zeros(R, dtype=torch.float32, device=A.device).index_add_(
-        0, pack.seg_rows.reshape(-1).long(), pack.vals.square().sum(-1).reshape(-1)
+        0, pack.seg_rows.reshape(-1).long(), w_b.square().sum(-1).reshape(-1)
     )
     ea = (A - A2).abs().amax(dim=(1, 2))
     eb = (b - b2).abs().amax(dim=1)
@@ -404,21 +467,25 @@ def check_k1(A, b, A2, b2, pack, label, errs):
     return ea, eb
 
 
-def check_half_step(X_prev, Y, pack, lam, has_obs, label, errs):
-    """K1 and K2 against their twins on one real half-step."""
+def check_half_step(X_prev, Y, pack, lam, has_obs, label, errs, implicit=False,
+                    alpha=1.0, G=None):
+    """K1 and K2 against their twins on one real half-step (in implicit
+    mode with the implicit weights and the Gramian ``G`` of Y). Returns
+    K2's X."""
     import torch
 
     from predictionio_tpu_torch.ops import normal_eq as k1
     from predictionio_tpu_torch.ops import spd_solve as k2
 
     R = pack.n_sys_rows
-    A, b = k1.normal_eq(Y, pack)
-    A2, b2 = k1.normal_eq_plain(Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R)
-    ea, eb = check_k1(A, b, A2, b2, pack, label, errs)
+    A, b = k1.normal_eq(Y, pack, implicit, alpha)
+    A2, b2 = k1.normal_eq_plain(Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R,
+                                implicit, alpha)
+    ea, eb = check_k1(A, b, A2, b2, pack, label, errs, implicit, alpha)
 
     s1 = torch.zeros(2, dtype=torch.float32, device=Y.device)
-    X1 = k2.spd_solve(A, b, lam, has_obs, X_prev, s1)
-    X2, s2 = k2.spd_solve_plain(A, b, lam, has_obs, X_prev)
+    X1 = k2.spd_solve(A, b, lam, has_obs, X_prev, s1, G)
+    X2, s2 = k2.spd_solve_plain(A, b, lam, has_obs, X_prev, G)
     ex = (X1 - X2).abs().amax(dim=1)
     if not bool((ex <= 1e-6 + K2_RTOL * X2.abs().amax(dim=1)).all()):
         raise AssertionError(f"K2 {label}: differs from its twin (max |dx| {ex.max().item()})")
@@ -428,6 +495,7 @@ def check_half_step(X_prev, Y, pack, lam, has_obs, label, errs):
     errs["spd_solve"] = max(errs.get("spd_solve", 0.0), ex.max().item())
     print(f"  {label}: K1 max |dA| {ea:.3g} |db| {eb:.3g}, "
           f"K2 max |dx| {ex.max().item():.3g} ok", flush=True)
+    return X1
 
 
 def check_k1_sizes(rng, device, errs):
@@ -661,6 +729,7 @@ def train_phase(rng, device):
     )
     from predictionio_tpu_torch.ops import als, streaming
     from predictionio_tpu_torch.ops import device_pack as k5
+    from predictionio_tpu_torch.ops import gramian as k12
     from predictionio_tpu_torch.ops import normal_eq as k1
     from predictionio_tpu_torch.ops import predict_pairs as k7
     from predictionio_tpu_torch.ops import spd_solve as k2
@@ -668,7 +737,7 @@ def train_phase(rng, device):
 
     t0 = time.perf_counter()
     n_users, n_items, k = ML20M_USERS, ML20M_ITEMS, RANK
-    u, i, r = synth_ml20m(n_users, n_items, ML20M_RATINGS)
+    u, i, r = ml20m_ratings()
     print(f"  ratings: {len(r)} in {time.perf_counter() - t0:.2f} s", flush=True)
     params = ALSAlgorithmParams(rank=k, num_iterations=SWEEPS, lambda_=REG)
     config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, seed=params.seed)
@@ -717,7 +786,7 @@ def train_phase(rng, device):
 
     alg = ALSAlgorithm(params)
     pd = Preparator().prepare(device, StreamingTrainingData(stream_factory, loader))
-    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k7.LAUNCHES, k3.LAUNCHES)
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k7.LAUNCHES, k3.LAUNCHES, k12.LAUNCHES)
     for c in counters:
         c.reset()
     t = time.perf_counter()
@@ -738,6 +807,7 @@ def train_phase(rng, device):
     want = {
         "unpack_nibbles": SHIP_CHUNKS, "device_pack_presorted": 1, "device_scatter_pack": 1,
         "normal_eq": 2 * SWEEPS, "spd_solve": 2 * SWEEPS, "predict_pairs": n_chunks,
+        "gramian": 0, "implicit_objective": 0,
     }
     for name, n in want.items():
         if counts[name] != n:
@@ -824,7 +894,7 @@ def train_phase(rng, device):
     # d. the same sweeps with the twins, driven by this script, against the
     # kernels' loop on the same packs
     Xk, Yk, tel_k = als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, SWEEPS)
-    rows = als._telemetry_rows(tel_k, SWEEPS, Xk.numel(), Yk.numel()).astype(np.float64)
+    rows = als._telemetry_rows(tel_k, SWEEPS, Xk.numel(), Yk.numel())[:, :4].astype(np.float64)
     X, Y = X0, Y0
     tel = np.zeros((SWEEPS, 4), np.float64)
     t = time.perf_counter()
@@ -981,6 +1051,519 @@ def train_phase(rng, device):
             t_k["predict_pairs"], t_k7_plain, bounds["predict_pairs"], None),
     ]
     return model, kernels, stats
+
+
+ALPHA = 1.0  # the implicit phases' confidence scale (MLlib's default)
+K12_RTOL = 1e-4  # of the Gramian's largest diagonal entry; a sum of up to 147,456 products
+OBJ_RTOL = 1e-4  # of the objective's largest term magnitude; sums of up to 20M terms
+TWIN_SWEEPS = 3  # sweeps of the twin-driven loop the implicit phase runs
+
+
+def objective_scale(X, Y, pack, lam_u, lam_i, alpha):
+    """The magnitudes of the implicit objective's three terms (Σ_obs of
+    the terms' absolute values, Σ|XᵀX ∘ YᵀY| and the regularizer), in
+    float64 on the card: the scale its float32 sums round at."""
+    import torch
+
+    Xd, Yd = X.double(), Y.double()
+    L = pack.cols.shape[-1]
+    iota = torch.arange(L, device=X.device)
+    obs = torch.zeros((), dtype=torch.float64, device=X.device)
+    for c in range(pack.seg_rows.shape[0]):
+        mask = (iota[None, :] < pack.rem[c][:, None]).double()
+        s = torch.einsum("slk,sk->sl", Yd[pack.cols[c].long()], Xd[pack.seg_rows[c].long()])
+        v = pack.vals[c].double()
+        cw = alpha * v.abs() * mask
+        p = (v > 0).double() * mask
+        obs += (cw * s * s + 2 * (1 + cw) * p * s.abs() + (1 + cw) * p).sum()
+    all_sq = ((Xd.T @ Xd) * (Yd.T @ Yd)).abs().sum()
+    reg = (lam_u.double() * (Xd * Xd).sum(-1)).sum() + (lam_i.double() * (Yd * Yd).sum(-1)).sum()
+    return max(obs.item(), all_sq.item(), reg.item())
+
+
+def check_gramian(F, label, errs):
+    """K12a against its twin on one factor array, within K12_RTOL of the
+    twin's largest diagonal entry (it bounds every Σ|f_i f_j|)."""
+    from predictionio_tpu_torch.ops import gramian as k12
+
+    G, G2 = k12.gramian(F), k12.gramian_plain(F)
+    e = (G - G2).abs().max().item()
+    if not e <= 1e-6 + K12_RTOL * G2.diagonal().max().item():
+        raise AssertionError(f"K12a {label}: differs from its twin (max |dG| {e})")
+    if not bool((G == G.T).all()):
+        raise AssertionError(f"K12a {label}: not symmetric")
+    errs["gramian"] = max(errs.get("gramian", 0.0), e)
+    print(f"  K12a {label} ({F.shape[0]} x {F.shape[1]}): max |dG| {e:.3g} ok", flush=True)
+    return G
+
+
+def check_objective(X, Y, pack, lam_u, lam_i, label, errs):
+    """K12b against its twin at OBJ_RTOL of its largest term's magnitude,
+    and bit for bit against a second launch."""
+    from predictionio_tpu_torch.ops import gramian as k12
+
+    got = k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA).item()
+    again = k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA).item()
+    want = k12.implicit_objective_plain(
+        X, Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, lam_u, lam_i, ALPHA).item()
+    scale = objective_scale(X, Y, pack, lam_u, lam_i, ALPHA)
+    e = abs(got - want)
+    if not e <= OBJ_RTOL * scale or got != again:
+        raise AssertionError(f"K12b {label}: {got} (again {again}) vs the twin's {want}, scale {scale}")
+    errs["implicit_objective"] = max(errs.get("implicit_objective", 0.0), e)
+    print(f"  K12b {label}: {got:.9g} vs twin {want:.9g} (|d| {e:.3g}, scale {scale:.4g}) ok",
+          flush=True)
+
+
+def gramian_bound(n: int, k: int):
+    """K12a's (bound_ms, bound_by): the [n, k] array read once and G
+    written once vs the k(k+1) operations per row a symmetric G needs."""
+    return roofline(4 * (n * k + k * k), n * k * (k + 1))
+
+
+def objective_bound(pack, n_obs: int, R_u: int, R_i: int, k: int):
+    """K12b's (bound_ms, bound_by): each observed slot's id and rating, each
+    segment's row and count, both factor arrays and regularizers once vs
+    2k + 10 operations per slot and 3 per factor entry."""
+    S = pack.rem.numel()
+    nbytes = 8 * n_obs + 8 * S + 4 * (R_u + R_i) * (k + 1)
+    return roofline(nbytes, n_obs * (2 * k + 10) + 3 * k * (R_u + R_i))
+
+
+def check_implicit_sweeps(up, ip, state, label, errs):
+    """K1 (implicit), K2 (+G), K12a and K12b against their twins on one
+    training's packs: the first half-steps from ``state`` (the init), then
+    sweep TWIN_SWEEPS + 1's after TWIN_SWEEPS kernel-driven sweeps, and the
+    objective after it. Returns (X3, Y3, X4, Y4, the loop's telemetry)."""
+    from predictionio_tpu_torch.ops import als
+
+    X0, Y0, lam_u, lam_i, obs_u, obs_i = state
+    s = TWIN_SWEEPS + 1
+    Gy = check_gramian(Y0, f"{label}items, the init", errs)
+    X1 = check_half_step(X0, Y0, up, lam_u, obs_u, f"{label}implicit user side, first half-step",
+                         errs, True, ALPHA, Gy)
+    Gx = check_gramian(X1, f"{label}users, after the first half-step", errs)
+    check_half_step(Y0, X1, ip, lam_i, obs_i, f"{label}implicit item side, first half-step", errs,
+                    True, ALPHA, Gx)
+    X3, Y3, tel3 = als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, TWIN_SWEEPS,
+                                       implicit=True, alpha=ALPHA)
+    Gy = check_gramian(Y3, f"{label}items of sweep {s}", errs)
+    X4 = check_half_step(X3, Y3, up, lam_u, obs_u, f"{label}implicit user side of sweep {s}",
+                         errs, True, ALPHA, Gy)
+    Gx = check_gramian(X4, f"{label}users of sweep {s}", errs)
+    Y4 = check_half_step(Y3, X4, ip, lam_i, obs_i, f"{label}implicit item side of sweep {s}",
+                         errs, True, ALPHA, Gx)
+    check_objective(X4, Y4, up, lam_u, lam_i, f"{label}sweep {s}", errs)
+    return X3, Y3, X4, Y4, tel3
+
+
+def implicit_train_phase(rng, device):
+    """The recommendation template with implicit_prefs=True on the ML-20M
+    stream: the main path counted, the telemetry with its objective, the
+    streaming and direct routes bit-identical, K1 (implicit), K2 (+G),
+    K12a and K12b against their twins at the path's shapes, a twin-driven
+    loop, and times. Returns (kernel rows, launches, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.recommendation.engine import (
+        ALSAlgorithm,
+        ALSAlgorithmParams,
+        Preparator,
+        StreamingTrainingData,
+    )
+    from predictionio_tpu_torch.ops import als, streaming
+    from predictionio_tpu_torch.ops import device_pack as k5
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import predict_pairs as k7
+    from predictionio_tpu_torch.ops import similarity as k14
+    from predictionio_tpu_torch.ops import spd_solve as k2
+    from predictionio_tpu_torch.ops import topn as k3
+
+    n_users, n_items, k = ML20M_USERS, ML20M_ITEMS, RANK
+    u, i, r = ml20m_ratings()
+    params = ALSAlgorithmParams(rank=k, num_iterations=SWEEPS, lambda_=REG, alpha=ALPHA,
+                                implicit_prefs=True)
+    config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, alpha=ALPHA, implicit_prefs=True,
+                           seed=params.seed)
+    names = np.array([f"u{n}" for n in range(n_users)] + [f"i{n}" for n in range(n_items)], dtype=object)
+
+    def stream_factory():
+        return ml20m_stream(u, i, r, names, n_users)
+
+    def loader():
+        raise AssertionError("the streaming path materialized the training data")
+
+    # the main path, counted: ALSAlgorithm.train on the stream
+    alg = ALSAlgorithm(params)
+    pd = Preparator().prepare(device, StreamingTrainingData(stream_factory, loader))
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k12.LAUNCHES, k7.LAUNCHES, k3.LAUNCHES,
+                k14.LAUNCHES)
+    for c in counters:
+        c.reset()
+    t = time.perf_counter()
+    model = alg.train(device, pd)
+    train_s = time.perf_counter() - t
+    counts = snapshot(counters)
+    want = {
+        "unpack_nibbles": SHIP_CHUNKS, "device_pack_presorted": 1, "device_scatter_pack": 1,
+        "normal_eq": 2 * SWEEPS, "spd_solve": 2 * SWEEPS,
+        # one Gramian before each half-step, two inside each sweep's objective
+        "gramian": 4 * SWEEPS, "implicit_objective": SWEEPS,
+        "predict_pairs": 0, "topn_packed": 0, "cosine_sum": 0,
+    }
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name} launched {counts[name]} times on the implicit path, not {n}")
+    if any(v for name, v in counts.items() if name.endswith("_plain")):
+        raise AssertionError(f"a plain twin ran on the implicit path: {counts}")
+    Xm, Ym = model.arrays.user_factors, model.arrays.item_factors
+    n_u, n_i = len(model.user_index), len(model.item_index)
+    if Xm.shape != (n_u, k) or Ym.shape != (n_i, k):
+        raise AssertionError("implicit factors have the wrong shape")
+    if not (np.isfinite(Xm).all() and np.isfinite(Ym).all()):
+        raise AssertionError("implicit factors are not finite")
+    print(f"  ALSAlgorithm.train (streaming, implicit, alpha {ALPHA}): {train_s:.2f} s, "
+          f"{n_u} users x {n_i} items, launches {counts}", flush=True)
+
+    # a second streaming training with its timings (the per-sweep telemetry
+    # with the objective), and the direct route: bit-identical factors
+    t_stream = {}
+    again = streaming.train_als_streaming(stream_factory(), config, device=device, timings=t_stream)
+    remap_u = np.array([model.user_index.get(f"u{n}", -1) for n in range(n_users)], np.int32)
+    remap_i = np.array([model.item_index.get(f"i{n}", -1) for n in range(n_items)], np.int32)
+    u_rel, i_rel = remap_u[u], remap_i[i]
+    timings = {}
+    direct = als.train_als(u_rel, i_rel, r, n_u, n_i, config, device=device, timings=timings)
+    for name, other in (("a second streaming training", again.arrays), ("the direct route", direct)):
+        if not all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                   for a, b in ((other.user_factors, Xm), (other.item_factors, Ym))):
+            raise AssertionError(f"{name}'s implicit factors differ from the main path's")
+    tel = t_stream["sweep_telemetry"]
+    if len(tel) != SWEEPS or any(sorted(row) != ["dx", "dy", "objective", "x_rms", "y_rms"] for row in tel):
+        raise AssertionError(f"implicit telemetry rows {tel}")
+    if tel != timings["sweep_telemetry"] or not np.isfinite([row["objective"] for row in tel]).all():
+        raise AssertionError("the routes' telemetry differs or an objective is not finite")
+    print("  a second streaming training and the direct route: bit-identical factors and telemetry",
+          flush=True)
+    print("implicit_telemetry " + json.dumps(tel), flush=True)
+
+    # K1 (implicit), K2 (+G), K12a and K12b against their twins on the
+    # path's packs and factors: the first half-steps, and sweep 4's
+    errs = {}
+    wire = als.build_host_wire(u_rel, i_rel, r, n_u, n_i, config)
+    up, ip = als.device_pack_from_wire(wire, device)
+    state = als.init_factor_state_single(wire.counts_u, wire.counts_i, n_u, n_i, config, device=device)
+    X0, Y0, lam_u, lam_i, obs_u, obs_i = state
+    X3, Y3, X4, Y4, tel3 = check_implicit_sweeps(up, ip, state, "", errs)
+
+    # the same sweeps with the twins, driven by this script
+    X, Y = X0, Y0
+    rows = []
+    t = time.perf_counter()
+    for it in range(TWIN_SWEEPS):
+        A, b = k1.normal_eq_plain(Y, up.seg_rows, up.cols, up.vals, up.rem, up.n_sys_rows, True, ALPHA)
+        X, _ = k2.spd_solve_plain(A, b, lam_u, obs_u, X, k12.gramian_plain(Y))
+        A, b = k1.normal_eq_plain(X, ip.seg_rows, ip.cols, ip.vals, ip.rem, ip.n_sys_rows, True, ALPHA)
+        Y, _ = k2.spd_solve_plain(A, b, lam_i, obs_i, Y, k12.gramian_plain(X))
+        rows.append(k12.implicit_objective_plain(
+            X, Y, up.seg_rows, up.cols, up.vals, up.rem, lam_u, lam_i, ALPHA).item())
+    twin_loop_s = time.perf_counter() - t
+    Xt, Yt = X[:n_u].cpu().numpy(), Y[:n_i].cpu().numpy()
+    dX = np.abs(Xt - X3[:n_u].cpu().numpy()).max()
+    dY = np.abs(Yt - Y3[:n_i].cpu().numpy()).max()
+    if dX > TRAIN_RTOL * np.abs(Xt).max() or dY > TRAIN_RTOL * np.abs(Yt).max():
+        raise AssertionError(f"implicit twin training differs: max |dX| {dX}, |dY| {dY}")
+    obj_k = als._telemetry_rows(tel3, TWIN_SWEEPS, X3.numel(), Y3.numel())[:, 4].astype(np.float64)
+    np.testing.assert_allclose(obj_k, rows, rtol=TRAIN_RTOL)
+    print(f"  twin-driven implicit training, {TWIN_SWEEPS} sweeps ({twin_loop_s:.2f} s): max |dX| "
+          f"{dX:.3g}, |dY| {dY:.3g}, objective max rel diff {np.abs(obj_k / rows - 1).max():.3g} ok",
+          flush=True)
+
+    # times at the path's shapes (sweep 4's factors)
+    A_u, b_u = k1.normal_eq(Y3, up, True, ALPHA)
+    A_i, b_i = k1.normal_eq(X4, ip, True, ALPHA)
+    Gy, Gx = k12.gramian(Y3), k12.gramian(X4)
+    sums = torch.zeros(2, dtype=torch.float32, device=device)
+    calls = {
+        "normal_eq": {"user": lambda: k1.normal_eq(Y3, up, True, ALPHA),
+                      "item": lambda: k1.normal_eq(X4, ip, True, ALPHA)},
+        "spd_solve": {"user": lambda: k2.spd_solve(A_u, b_u, lam_u, obs_u, X3, sums, Gy),
+                      "item": lambda: k2.spd_solve(A_i, b_i, lam_i, obs_i, Y3, sums, Gx)},
+        "gramian": {"user": lambda: k12.gramian(X4), "item": lambda: k12.gramian(Y3)},
+        "implicit_objective": {"user": lambda: k12.implicit_objective(X4, Y4, up, lam_u, lam_i, ALPHA)},
+    }
+    t_k = {n: {side: time_ms(f, iters=20, warmup=2) for side, f in c.items()} for n, c in calls.items()}
+    dev = {n: {side: device_ms(f, calls=10) for side, f in c.items()} for n, c in calls.items()}
+    plain_ms = {
+        "normal_eq_user": time_ms(lambda: k1.normal_eq_plain(
+            Y3, up.seg_rows, up.cols, up.vals, up.rem, up.n_sys_rows, True, ALPHA), iters=3, warmup=1),
+        "spd_solve_user": time_ms(lambda: k2.spd_solve_plain(A_u, b_u, lam_u, obs_u, X3, Gy),
+                                  iters=3, warmup=1),
+        "gramian_user": time_ms(lambda: k12.gramian_plain(X4), iters=50, warmup=5),
+        "implicit_objective": time_ms(lambda: k12.implicit_objective_plain(
+            X4, Y4, up.seg_rows, up.cols, up.vals, up.rem, lam_u, lam_i, ALPHA), iters=3, warmup=1),
+    }
+    library_ms = {"gramian_user": time_ms(lambda: X4.T @ X4, iters=50, warmup=5)}
+    R_u, R_i = up.n_sys_rows, ip.n_sys_rows
+    bounds = {
+        "normal_eq": {"user": k1_bound(up, len(r), R_i, k), "item": k1_bound(ip, len(r), R_u, k)},
+        "spd_solve": {"user": k2_bound(R_u, int(obs_u.sum()), k),
+                      "item": k2_bound(R_i, int(obs_i.sum()), k)},
+        "gramian": {"user": gramian_bound(R_u, k), "item": gramian_bound(R_i, k)},
+        "implicit_objective": {"user": objective_bound(up, len(r), R_u, R_i, k)},
+    }
+
+    def loop():
+        return als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, SWEEPS,
+                                   implicit=True, alpha=ALPHA)
+
+    loop()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop()
+    torch.cuda.synchronize()
+    loop_wall_ms = (time.perf_counter() - t) * 1e3
+    loop_device_ms = device_ms(loop, calls=1)
+    stream_keys = ("scan_s", "fold_s", "pack_s", "pack_exposed_s", "device_put_exposed_s", "wire_mb",
+                   "compile_s", "compile_exposed_s", "device_pack_dispatch_s", "device_loop_s",
+                   "stream_wall_s", "pack_cache")
+    stats = {
+        "card": card_line(), "alpha": ALPHA, "train_s": train_s,
+        "streaming": {key: t_stream[key] for key in stream_keys},
+        "direct": {key: timings[key] for key in (
+            "pack_s", "device_put_s", "wire_mb", "device_pack_dispatch_s", "compile_s",
+            "device_loop_s", "padded_slots")},
+        "ms_per_sweep": timings["device_loop_s"] * 1e3 / SWEEPS,
+        "loop_wall_ms": loop_wall_ms, "loop_device_ms": loop_device_ms,
+        "device_busy_share": loop_device_ms / loop_wall_ms,
+        "launches": counts, "kernel_ms": t_k, "device_ms": dev, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound": bounds, "errors": errs, "twin_loop_s": twin_loop_s,
+    }
+    print("implicit_training " + json.dumps(stats), flush=True)
+    return counts, errs, stats
+
+
+SP_VIEWS = 2_000_000  # view events of the Similar Product phase (the ML-20M stream's first)
+SP_LIKES = 500_000  # like/dislike events, the next ones of the stream
+SP_REG = 0.01
+
+
+def sp_traffic(rng, ids, n_queries=320):
+    """The Similar Product traffic of R3: 1-10 query items; 30 % with 1-2 of
+    24 categories, 10 % a whitelist of 200, 20 % a blacklist of 20, 4 with
+    unknown items only; num 10 (85 %) or 1..40. Returns (bodies, the
+    unknown-only queries)."""
+    N = len(ids)
+    unknown_at = set(rng.choice(n_queries, size=4, replace=False).tolist())
+    bodies = []
+    for q in range(n_queries):
+        body = {"items": [ids[j] for j in rng.integers(0, N, rng.integers(1, 11))],
+                "num": int(10 if rng.random() < 0.85 else rng.integers(1, 41))}
+        x = rng.random(3)
+        if x[0] < 0.3:
+            body["categories"] = [f"c{c}" for c in rng.integers(0, 24, rng.integers(1, 3))]
+        if x[1] < 0.1:
+            body["white_list"] = [ids[j] for j in rng.integers(0, N, 200)]
+        if x[2] < 0.2:
+            body["black_list"] = [ids[j] for j in rng.integers(0, N, 20)]
+        if q in unknown_at:
+            body["items"] = [f"unknown{q}", "nothing"]
+        bodies.append(body)
+    return bodies, unknown_at
+
+
+@contextlib.contextmanager
+def plain_cosine_sum():
+    """SimilarityScorer driven by K14's plain twin, on whatever device its
+    tensors are on (the twin counts no launches)."""
+    from predictionio_tpu_torch.ops import similarity
+
+    saved = similarity.cosine_sum
+    similarity.cosine_sum = similarity.cosine_sum_plain
+    try:
+        yield
+    finally:
+        similarity.cosine_sum = saved
+
+
+def check_sp_answers(got, want, item_row, label):
+    """Two runs' answers to one query list: equal lengths, ids equal
+    outside near-tie runs, scores at RTOL / ATOL."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops.topn import check_topn_agreement
+
+    for q, res in want.items():
+        g = got[q].item_scores
+        if len(g) != len(res.item_scores):
+            raise AssertionError(f"{label}, query {q}: {len(g)} items, not {len(res.item_scores)}")
+        if g:
+            check_topn_agreement(
+                np.array([[x.score for x in g]]), np.array([[item_row[x.item] for x in g]]),
+                np.array([[x.score for x in res.item_scores]]),
+                np.array([[item_row[x.item] for x in res.item_scores]]), RTOL, ATOL)
+
+
+def sp_train_phase(rng, device):
+    """Similar Product training on the card: ALSAlgorithm over the view
+    counts of the ML-20M stream's first SP_VIEWS events (all 138,493 users,
+    all 26,744 items with seeded categories) and LikeAlgorithm over the next
+    SP_LIKES as likes and dislikes; the host scoring path (K14) over R3's
+    traffic against its twin and against the retriever; K14 against its
+    twin at Q = 4, 8, 16; a query after release_serving. Returns (the
+    trainings' launches, the host path's launches, errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.similarproduct import engine as psp
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import device_pack as k5
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import similarity as k14
+    from predictionio_tpu_torch.ops import spd_solve as k2
+
+    n_users, n_items, k = ML20M_USERS, ML20M_ITEMS, RANK
+    u, i, _ = ml20m_ratings()
+    print(f"  reduced: {SP_VIEWS} view events and {SP_LIKES} like/dislike events, not the "
+          f"stream's {len(u)}: _ratings deduplicates in a Python dict, as the reference does",
+          flush=True)
+    t = time.perf_counter()
+    un = [f"u{n}" for n in range(n_users)]
+    inm = [f"i{n}" for n in range(n_items)]
+    cats = [tuple(sorted({f"c{c}" for c in rng.integers(0, 24, rng.integers(1, 4))}))
+            for _ in range(n_items)]
+    users = {name: {} for name in un}
+    items = {name: psp.Item(categories=c) for name, c in zip(inm, cats)}
+    views = [psp.ViewEvent(user=un[a], item=inm[b], t=float(n))
+             for n, (a, b) in enumerate(zip(u[:SP_VIEWS].tolist(), i[:SP_VIEWS].tolist()))]
+    lu, li = u[SP_VIEWS:SP_VIEWS + SP_LIKES].copy(), i[SP_VIEWS:SP_VIEWS + SP_LIKES].copy()
+    rep = SP_LIKES // 5  # the last fifth repeats the first fifth's pairs, later
+    lu[-rep:], li[-rep:] = lu[:rep], li[:rep]
+    like = rng.random(SP_LIKES) < 0.7
+    likes = [psp.LikeEvent(user=un[a], item=inm[b], t=float(n), like=bool(x))
+             for n, (a, b, x) in enumerate(zip(lu.tolist(), li.tolist(), like.tolist()))]
+    td = psp.TrainingData(users=users, items=items, view_events=views, like_events=likes)
+    td.sanity_check()
+    events_s = time.perf_counter() - t
+    params = psp.ALSAlgorithmParams(rank=k, num_iterations=SWEEPS, lambda_=SP_REG, alpha=ALPHA)
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k12.LAUNCHES, k14.LAUNCHES)
+    counts, train_s, models, errs = {}, {}, {}, {}
+    for name in ("ALSAlgorithm", "LikeAlgorithm"):
+        alg = getattr(psp, name)(params)
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        m = alg.train(device, psp.Preparator().prepare(device, td))
+        train_s[name] = time.perf_counter() - t
+        counts[name] = snapshot(counters)
+        want = {"normal_eq": 2 * SWEEPS, "spd_solve": 2 * SWEEPS, "gramian": 4 * SWEEPS,
+                "implicit_objective": SWEEPS, "device_pack_presorted": 1,
+                "device_scatter_pack": 1, "cosine_sum": 0}
+        for kname, n in want.items():
+            if counts[name][kname] != n:
+                raise AssertionError(f"{name}: {kname} launched {counts[name][kname]} times, not {n}")
+        if counts[name]["unpack_nibbles"] > 1 or any(
+                v for kname, v in counts[name].items() if kname.endswith("_plain")):
+            raise AssertionError(f"{name}: launches {counts[name]}")
+        if m.item_factors.shape != (n_items, k) or not np.isfinite(m.item_factors).all():
+            raise AssertionError(f"{name}: item factors {m.item_factors.shape} not finite or misshapen")
+        models[name] = m
+        print(f"  similarproduct.{name}.train: {train_s[name]:.2f} s, launches {counts[name]}",
+              flush=True)
+        # K1 (implicit), K2 (+G), K12a and K12b against their twins on this
+        # training's packs: its deduplicated values (LikeAlgorithm's with
+        # dislikes, r = -1: w_a = alpha, w_b = 0) from the same init
+        user_index, _, su, si, sr = alg.training_arrays(td)
+        config = alg.als_config()
+        n_u = len(user_index)
+        wire = als.build_host_wire(su, si, sr, n_u, n_items, config)
+        up, ip = als.device_pack_from_wire(wire, device)
+        state = als.init_factor_state_single(wire.counts_u, wire.counts_i, n_u, n_items, config,
+                                             device=device)
+        n_neg = int((sr < 0).sum())
+        if name == "LikeAlgorithm" and not (0 < n_neg < len(sr)):
+            raise AssertionError(f"LikeAlgorithm: {n_neg} dislikes of {len(sr)} values")
+        if name == "LikeAlgorithm" and not bool((up.vals < 0).any() and (ip.vals < 0).any()):
+            raise AssertionError("LikeAlgorithm: the packs carry no dislike")
+        print(f"  similarproduct.{name}: {len(sr)} (user, item) values, {n_neg} negative; "
+              f"its kernels against their twins:", flush=True)
+        check_implicit_sweeps(up, ip, state, f"{name}: ", errs)
+    model = models["ALSAlgorithm"]
+    alg = psp.ALSAlgorithm(params)
+
+    # the host path (no retriever) over R3's traffic, counted, against the
+    # twin-driven host path and the retriever-served answers
+    bodies, unknown_at = sp_traffic(rng, inm)
+    queries = [(q, psp.Query(**b)) for q, b in enumerate(bodies)]
+    host, host_s, host_counts = {}, {}, {}
+    for name in ("ALSAlgorithm", "LikeAlgorithm"):
+        a, m = getattr(psp, name)(params), models[name]
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        host[name] = dict(a.batch_predict(m, queries))
+        host_s[name] = time.perf_counter() - t
+        host_counts[name] = snapshot(counters)
+        if host_counts[name]["cosine_sum"] != len(queries) - len(unknown_at) or any(
+                v for kname, v in host_counts[name].items() if kname != "cosine_sum"):
+            raise AssertionError(f"{name} host path launches {host_counts[name]} "
+                                 f"for {len(queries)} queries")
+        if any(host[name][q].item_scores for q in unknown_at):
+            raise AssertionError(f"{name}: an unknown-only query was answered")
+        if not any(res.item_scores for res in host[name].values()):
+            raise AssertionError(f"{name}: the host path answered no query")
+        with plain_cosine_sum():
+            twin = dict(a.batch_predict(m, queries))
+        check_sp_answers(host[name], twin, m.item_index, f"{name} host path vs its twin")
+        print(f"  {name} host path: {len(queries)} queries in {host_s[name]:.2f} s, K14 launches "
+              f"{host_counts[name]['cosine_sum']}; equal to its twin", flush=True)
+    host = host["ALSAlgorithm"]
+    alg.prepare_serving(device, model)
+    served = {}
+    for s in range(0, len(queries), 64):
+        served.update(dict(alg.batch_predict(model, queries[s:s + 64])))
+    check_sp_answers(host, served, model.item_index, "host path vs the retriever")
+    # a straggler after release_serving: answered by the host path
+    alg.release_serving(model)
+    q0 = next(q for q in range(len(queries)) if q not in unknown_at)
+    before = k14.LAUNCHES.snapshot()["cosine_sum"]
+    straggler = alg.predict(model, queries[q0][1])
+    if k14.LAUNCHES.snapshot()["cosine_sum"] != before + 1 or model._retriever is not None:
+        raise AssertionError("the straggler did not take the host path")
+    check_sp_answers({q0: straggler}, {q0: host[q0]}, model.item_index, "straggler")
+    print("  ALSAlgorithm host path equal to the retriever; the straggler after "
+          "release_serving answered by the host path", flush=True)
+
+    # K14 against its twin on the trained catalog at every query width the
+    # traffic reaches, within 1e-5 of Σ_q |q·y| (unit rows)
+    scorer = model.scorer
+    Yn = scorer._dev
+    for Q in (4, 8, 16):
+        q = torch.from_numpy(scorer.normed[rng.integers(0, n_items, Q)]).to(device)
+        got, want_ = k14.cosine_sum(q, Yn), k14.cosine_sum_plain(q, Yn)
+        scale = k14.cosine_sum_plain(q.abs(), Yn.abs())
+        e = (got - want_).abs()
+        if not bool((e <= 1e-6 + 1e-5 * scale).all()):
+            raise AssertionError(f"K14 Q={Q}: differs from its twin ({e.max().item()})")
+        errs["cosine_sum"] = max(errs.get("cosine_sum", 0.0), e.max().item())
+        print(f"  K14 Q={Q} over {n_items} x {k}: max |d| {e.max().item():.3g} ok", flush=True)
+    q16 = torch.from_numpy(scorer.normed[rng.integers(0, n_items, 16)]).to(device)
+    timing = {
+        "ms": time_ms(lambda: k14.cosine_sum(q16, Yn), iters=200, warmup=10),
+        "device_ms": device_ms(lambda: k14.cosine_sum(q16, Yn), calls=50),
+        "plain_ms": time_ms(lambda: k14.cosine_sum_plain(q16, Yn), iters=200, warmup=10),
+        "library_ms": time_ms(lambda: (q16 @ Yn.T).sum(0), iters=200, warmup=10),
+        "bound": roofline(4 * (16 * k + n_items * k + n_items), 2 * 16 * n_items * k),
+        "Q": 16,
+    }
+    stats = {"card": card_line(), "events_s": events_s, "train_s": train_s, "launches": counts,
+             "host_path": {"queries": len(queries), "seconds": host_s, "launches": host_counts},
+             "cosine_sum": timing, "reduced": {"views": SP_VIEWS, "likes": SP_LIKES}}
+    print("similarproduct_training " + json.dumps(stats), flush=True)
+    return counts, host_counts, errs, stats
 
 
 def free_port() -> int:
@@ -1776,11 +2359,13 @@ def main() -> int:
     from predictionio_tpu_torch.device import resolve_device
     from predictionio_tpu_torch.ops import (
         device_pack,
+        gramian,
         masked_topn,
         native,
         normal_eq,
         predict_pairs,
         rescore,
+        similarity,
         spd_solve,
         topn,
     )
@@ -1794,7 +2379,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} nvcc {native.nvcc_path()}", flush=True)
     t0 = time.perf_counter()
-    kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore)
+    kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
+                      gramian, similarity)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -1806,19 +2392,24 @@ def main() -> int:
         m.load_library()
 
     rng = np.random.default_rng(args.seed)
-    print("phase kernels", flush=True)
+    print(f"phase kernels (at {time.perf_counter() - t0:.1f} s)", flush=True)
     max_err, rows = kernel_phase(rng, device)
-    print("phase retrieval kernels (R1)", flush=True)
+    print(f"phase retrieval kernels (R1) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     ret_errs, _ = retrieval_kernel_phase(rng, device)
-    print("phase train", flush=True)
+    print(f"phase train (at {time.perf_counter() - t0:.1f} s)", flush=True)
     model, kernels, _ = train_phase(rng, device)
-    print("phase slice", flush=True)
+    print(f"phase implicit train (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    i_counts, i_errs, i_stats = implicit_train_phase(rng, device)
+    print(f"phase similar product train (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    sp_counts, host_counts, sp_errs, sp_stats = sp_train_phase(rng, device)
+    print(f"phase slice (at {time.perf_counter() - t0:.1f} s)", flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _, traffic = slice_phase(rng, device, workdir, model)
-        print("phase quantized recommendation (R2)", flush=True)
+        print(f"phase quantized recommendation (R2) (at {time.perf_counter() - t0:.1f} s)",
+              flush=True)
         q_launches, _, path_row, path_errs = quantized_serving_phase(
             rng, device, workdir, model, traffic)
-        print("phase similar product (R3)", flush=True)
+        print(f"phase similar product (R3) (at {time.perf_counter() - t0:.1f} s)", flush=True)
         sp_launches, _ = similarproduct_phase(rng, device, workdir, model)
 
     full = rows[2]  # B=128, n=16: the full-width batch at num=10
@@ -1856,6 +2447,32 @@ def main() -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
+    # K1 and K2 on every training path; K12 on the implicit ones (each
+    # path's counts from 0); K14 on the Similar Product host path
+    train_counts = [i_counts] + list(sp_counts.values())
+    for row in kernels:
+        if row["name"] in ("normal_eq", "spd_solve"):
+            row["launches"] += sum(c[row["name"]] for c in train_counts)
+            row["max_abs_err"] = max(row["max_abs_err"], i_errs[row["name"]], sp_errs[row["name"]])
+    for name, where in (("gramian", "predictionio_tpu/ops/als.py:742"),
+                        ("implicit_objective", "predictionio_tpu/ops/als.py:752")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "predictionio_tpu_torch/csrc/gramian.cu",
+            "replaces": where, "launches": sum(c[name] for c in train_counts),
+            "max_abs_err": max(i_errs[name], sp_errs[name]), "ms": i_stats["kernel_ms"][name]["user"],
+            "plain_ms": i_stats["plain_ms"][f"{name}_user" if name == "gramian" else name],
+            "bound_ms": i_stats["bound"][name]["user"][0],
+            "bound_by": i_stats["bound"][name]["user"][1],
+            "library_ms": i_stats["library_ms"].get(f"{name}_user"),
+        })
+    t14 = sp_stats["cosine_sum"]
+    kernels.append({
+        "name": "cosine_sum", "route": "cuda", "source": "predictionio_tpu_torch/csrc/cosine_sum.cu",
+        "replaces": "predictionio_tpu/ops/similarity.py:63", "launches": sum(c["cosine_sum"] for c in host_counts.values()),
+        "max_abs_err": sp_errs["cosine_sum"], "ms": t14["ms"], "plain_ms": t14["plain_ms"],
+        "bound_ms": t14["bound"][0], "bound_by": t14["bound"][1], "library_ms": t14["library_ms"],
+    })
+    print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,23 @@
 // K1: the per-row normal equations of an ALS half-step — the hand-written
 // Hopper kernel that replaces the reference's jitted loop body
-// predictionio_tpu/ops/als.py:481 _accumulate_systems (explicit ratings,
-// float32, precision="highest").
+// predictionio_tpu/ops/als.py:481 _accumulate_systems (explicit and
+// implicit feedback, float32, precision="highest").
 //
-// What it computes. For every system row r: A[r] = Σ y yᵀ and
-// b[r] = Σ v·y over the row's observations, y = Y[col] (the counter-side
-// factor row), v the rating. The observations come in the packed segment
+// What it computes. For every system row r: A[r] = Σ w_a·y yᵀ and
+// b[r] = Σ w_b·y over the row's observations, y = Y[col] (the counter-side
+// factor row), v the rating. Explicit: w_a = 1, w_b = v. Implicit (the
+// reference's :521-530, Hu-Koren-Volinsky as MLlib trainImplicit):
+// w_a = α·|v| (a confidence, so a dislike v < 0 still adds to A) and
+// w_b = 1(v>0)·(1 + α·|v|). The weights are a template argument chosen by
+// the launch, so the explicit instantiation is the explicit loop as it
+// was, arithmetic for arithmetic. The observations come in the packed segment
 // layout (cols/vals [S, L], valid slots a prefix of rem[s] per segment, a
 // row's segments consecutive). A [R, k, k] and b [R, k] are written in
 // full, zeros for rows without observations.
 //
 // Bound on an H100 SXM. A is symmetric, so a rating needs k(k+1)/2 + k
-// FMAs, 2 flops each: at ML-20M (20M ratings, k=32) ≈22.4 GFLOP per
+// FMAs, 2 flops each (implicit mode adds k products per slot, scaling the
+// gathered row by w_a): at ML-20M (20M ratings, k=32) ≈22.4 GFLOP per
 // half-step, ≈0.33 ms at the fp32 CUDA-core peak (67 TFLOP/s). The bytes
 // (packed planes plus A and b, ≈0.90 GB on the user side, ≈0.34 GB on the
 // item side) take ≈0.27 ms and ≈0.10 ms at 3.35 TB/s: it is bound by
@@ -49,6 +55,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tiling.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -59,29 +67,21 @@ constexpr int WARPS32 = 4;  // warps (= groups) per block of the k <= 32 form
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
 
-// The t-th 4x4 tile of the lower triangle, row by row: (0,0), (1,0),
-// (1,1), (2,0), ...
-__device__ __forceinline__ void lower_tile(int t, int& ti, int& tj) {
-  int i = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-  while ((i + 1) * (i + 2) / 2 <= t) ++i;
-  while (i * (i + 1) / 2 > t) --i;
-  ti = i;
-  tj = t - i * (i + 1) / 2;
-}
-
+template <bool IMPLICIT>
 __global__ void __launch_bounds__(THREADS) normal_eq_groups(
     const float* __restrict__ Y, const int* __restrict__ cols,
     const float* __restrict__ vals, const int* __restrict__ rem,
     const int* __restrict__ groups, int n_groups,
     float* __restrict__ partials, float* __restrict__ A,
     float* __restrict__ b, int k, int L, int T, int tiles_per_block,
-    int SG) {
+    int SG, float alpha) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int kp = 4 * T;               // staged row length, float4-aligned
   float* ys = smem;                   // [CH][kp]
-  float* wb = ys + CH * kp;           // [CH] ratings
-  float* red = wb + CH;               // [(SG-1) * tiles_per_block * RED]
+  float* wb = ys + CH * kp;           // [CH] b's weights (explicit: ratings)
+  float* wa = wb + CH;                // [CH] A's weights (implicit only)
+  float* red = wa + CH;               // [(SG-1) * tiles_per_block * RED]
 
   const int g = blockIdx.x;
   const int row = groups[g];
@@ -119,7 +119,16 @@ __global__ void __launch_bounds__(THREADS) normal_eq_groups(
         const float* src = Y + (long long)cols[base + l0 + r] * k;
         for (int col = lane; col < kp; col += 32) ys[r * kp + col] = col < k ? src[col] : 0.f;
       }
-      if (tid < c) wb[tid] = vals[base + l0 + tid];
+      if (tid < c) {
+        const float v = vals[base + l0 + tid];
+        if constexpr (IMPLICIT) {
+          const float cv = alpha * fabsf(v);
+          wa[tid] = cv;
+          wb[tid] = v > 0.f ? 1.f + cv : 0.f;
+        } else {
+          wb[tid] = v;
+        }
+      }
       __syncthreads();
       if (active) {
         for (int cc = sg; cc < c; cc += SG) {
@@ -127,10 +136,16 @@ __global__ void __launch_bounds__(THREADS) normal_eq_groups(
           const float4 y = *reinterpret_cast<const float4*>(ys + cc * kp + tj * 4);
           const float av[4] = {a.x, a.y, a.z, a.w};
           const float yv[4] = {y.x, y.y, y.z, y.w};
+          float aw[4] = {av[0], av[1], av[2], av[3]};  // w_a·y (explicit: y)
+          if constexpr (IMPLICIT) {
+            const float w = wa[cc];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) aw[x] = av[x] * w;
+          }
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
 #pragma unroll
-            for (int z = 0; z < 4; ++z) acc[x][z] = fmaf(av[x], yv[z], acc[x][z]);
+            for (int z = 0; z < 4; ++z) acc[x][z] = fmaf(aw[x], yv[z], acc[x][z]);
           }
           if (tj == 0) {
             const float w = wb[cc];
@@ -194,25 +209,34 @@ __global__ void __launch_bounds__(THREADS) normal_eq_groups(
 }
 
 // A chunk of up to 32 slots of one segment, as the k <= 32 form walks a
-// group: lane l holds slot l's column id and rating.
+// group: lane l holds slot l's column id and b's weight (explicit: the
+// rating), and in implicit mode A's weight.
 struct Chunk {
   int s, l0, c;  // segment, first slot, slot count (0: past the group)
   int col;
-  float v;
+  float v;  // w_b
+  float w;  // w_a (implicit only)
 };
 
+template <bool IMPLICIT>
 __device__ __forceinline__ Chunk load_chunk(const int* __restrict__ cols,
                                             const float* __restrict__ vals,
                                             const int* __restrict__ rem,
                                             int s, int l0, int s_end, int L,
-                                            int lane) {
-  Chunk ch{s, l0, 0, 0, 0.f};
+                                            int lane, float alpha) {
+  Chunk ch{s, l0, 0, 0, 0.f, 0.f};
   if (s < s_end) {
     ch.c = min(32, rem[s] - l0);
     const long long at = (long long)s * L + l0 + lane;
     if (lane < ch.c) {
       ch.col = cols[at];
-      ch.v = vals[at];
+      const float v = vals[at];
+      if constexpr (IMPLICIT) {
+        ch.w = alpha * fabsf(v);
+        ch.v = v > 0.f ? 1.f + ch.w : 0.f;
+      } else {
+        ch.v = v;
+      }
     }
   }
   return ch;
@@ -251,12 +275,13 @@ __device__ __forceinline__ void gather_async(float (*tile)[32],
 // of the 32x32 square and row l of b. Two shared tiles per warp: while the
 // warp multiplies one chunk, the next one's rows are in flight, and the
 // column ids of the one after are loading.
+template <bool IMPLICIT>
 __global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
     const float* __restrict__ Y, const int* __restrict__ cols,
     const float* __restrict__ vals, const int* __restrict__ rem,
     const int* __restrict__ groups, int n_groups,
     float* __restrict__ partials, float* __restrict__ A,
-    float* __restrict__ b, int k, int L) {
+    float* __restrict__ b, int k, int L, float alpha) {
   __shared__ __align__(16) float ys[WARPS32][2][32][32];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -278,19 +303,19 @@ __global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
   float bl = 0.f;
 
   int s = 0, l0 = 0;
-  Chunk cur = load_chunk(cols, vals, rem, seg0, 0, s_end, L, lane);
+  Chunk cur = load_chunk<IMPLICIT>(cols, vals, rem, seg0, 0, s_end, L, lane, alpha);
   if (cur.c) gather_async(ys[warp][0], Y, cur, k, lane);
-  Chunk nxt{s_end, 0, 0, 0, 0.f};
+  Chunk nxt{s_end, 0, 0, 0, 0.f, 0.f};
   if (cur.c) {
     next_of(cur, rem, s, l0);
-    nxt = load_chunk(cols, vals, rem, s, l0, s_end, L, lane);
+    nxt = load_chunk<IMPLICIT>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
   }
   for (int n = 0; cur.c; ++n) {
-    Chunk after{s_end, 0, 0, 0, 0.f};
+    Chunk after{s_end, 0, 0, 0, 0.f, 0.f};
     if (nxt.c) {
       gather_async(ys[warp][(n + 1) & 1], Y, nxt, k, lane);
       next_of(nxt, rem, s, l0);
-      after = load_chunk(cols, vals, rem, s, l0, s_end, L, lane);
+      after = load_chunk<IMPLICIT>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
@@ -301,7 +326,12 @@ __global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
       const float4 a = *reinterpret_cast<const float4*>(&sy[q][ti * 4]);
       const float4 y0 = *reinterpret_cast<const float4*>(&sy[q][tj * 8]);
       const float4 y1 = *reinterpret_cast<const float4*>(&sy[q][tj * 8 + 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+      float av[4] = {a.x, a.y, a.z, a.w};  // w_a·y (explicit: y)
+      if constexpr (IMPLICIT) {
+        const float w = __shfl_sync(FULL, cur.w, q);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) av[x] *= w;
+      }
       const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
@@ -364,6 +394,36 @@ __global__ void __launch_bounds__(COMBINE_THREADS) normal_eq_combine(
   }
 }
 
+template <bool IMPLICIT>
+cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
+                          const int* rem, const int* groups, int n_groups,
+                          float* partials, float* A, float* b, int k, int L,
+                          float alpha, cudaStream_t stream) {
+  if (k <= 32) {
+    normal_eq_groups32<IMPLICIT>
+        <<<(n_groups + WARPS32 - 1) / WARPS32, 32 * WARPS32, 0, stream>>>(
+            Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, alpha);
+    return cudaGetLastError();
+  }
+  const int T = (k + 3) / 4;
+  const int NT = T * (T + 1) / 2;
+  const int tpb = NT < THREADS ? NT : THREADS;
+  const int SG = THREADS / tpb;
+  const size_t smem = (size_t)(CH * 4 * T + 2 * CH) * sizeof(float) +
+                      (size_t)(SG - 1) * tpb * RED * sizeof(float);
+  if (smem > DEFAULT_SMEM) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        normal_eq_groups<IMPLICIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(n_groups, (NT + tpb - 1) / tpb);
+  normal_eq_groups<IMPLICIT><<<grid, THREADS, smem, stream>>>(
+      Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, T, tpb, SG,
+      alpha);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -373,35 +433,17 @@ extern "C" {
 // allocates A [R,k,k], b [R,k] and partials [max(P,1), k*k+k], and builds
 // the plan: groups [4, n_groups] int32 (row, first segment, segment
 // count, partial slot or -1), c_rows [n_combine], c_start [n_combine+1].
+// implicit != 0 takes the implicit weights with confidence scale alpha.
 int normal_eq_f32(const float* Y, const int* cols, const float* vals,
                   const int* rem, const int* groups, int n_groups,
                   const int* c_rows, const int* c_start, int n_combine,
                   float* partials, float* A, float* b, int k, int L,
-                  cudaStream_t stream) {
-  cudaError_t err;
-  if (k <= 32) {
-    normal_eq_groups32<<<(n_groups + WARPS32 - 1) / WARPS32, 32 * WARPS32, 0,
-                         stream>>>(Y, cols, vals, rem, groups, n_groups,
-                                   partials, A, b, k, L);
-  } else {
-    const int T = (k + 3) / 4;
-    const int NT = T * (T + 1) / 2;
-    const int tpb = NT < THREADS ? NT : THREADS;
-    const int SG = THREADS / tpb;
-    const size_t smem = (size_t)(CH * 4 * T + CH) * sizeof(float) +
-                        (size_t)(SG - 1) * tpb * RED * sizeof(float);
-    if (smem > DEFAULT_SMEM) {
-      err = cudaFuncSetAttribute(normal_eq_groups,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    dim3 grid(n_groups, (NT + tpb - 1) / tpb);
-    normal_eq_groups<<<grid, THREADS, smem, stream>>>(
-        Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, T, tpb,
-        SG);
-  }
-  err = cudaGetLastError();
+                  int implicit, float alpha, cudaStream_t stream) {
+  cudaError_t err =
+      implicit ? launch_groups<true>(Y, cols, vals, rem, groups, n_groups,
+                                     partials, A, b, k, L, alpha, stream)
+               : launch_groups<false>(Y, cols, vals, rem, groups, n_groups,
+                                      partials, A, b, k, L, alpha, stream);
   if (err != cudaSuccess || n_combine == 0) return (int)err;
   dim3 grid2(n_combine, (k * k + k + COMBINE_THREADS - 1) / COMBINE_THREADS);
   normal_eq_combine<<<grid2, COMBINE_THREADS, 0, stream>>>(

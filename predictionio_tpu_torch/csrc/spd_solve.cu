@@ -2,8 +2,10 @@
 // kernel that replaces the reference's predictionio_tpu/ops/als.py:549
 // _spd_solve together with the epilogue of :612 _solve_side.
 //
-// What it computes. For every row r of R systems: A[r] + lam[r]·I (k x k,
-// symmetric positive definite), its Cholesky factor with the forward
+// What it computes. For every row r of R systems: A[r] (+ G) + lam[r]·I
+// (k x k, symmetric positive definite; G, when given, is the implicit
+// mode's shared Gramian YᵀY of :630-632, added before the regularizer as
+// the reference adds it), its Cholesky factor with the forward
 // substitution of b[r] fused into the factorization sweep (the pivot
 // through rsqrt, as the reference does), then back substitution, giving
 // x[r]. X[r] = has_obs[r] ? x[r] : X_prev[r]: rows without observations
@@ -19,8 +21,13 @@
 // GFLOP, ≈0.03 ms at 67 TFLOP/s: it is bound by bytes.
 //
 // Design: one warp per system, in one of two kernels.
-//   spd_solve_rows32 (k <= 32, the main path's rank): lane i holds row i of
-//     the system in 32 registers (padded to 32 with identity rows, which
+//   spd_solve_rows32 (k <= 32, the main path's rank): G, when given, is
+//     staged once per block in shared memory (one 4 KB tile, row stride 33
+//     so a warp's reads of a column hit 32 banks) and added to A as each
+//     lane loads its row; no [R, k, k] pass forms A + G. With G or without
+//     it is a template argument, so the instantiation without G is the
+//     explicit kernel as it was, code and registers. Lane i
+//     holds row i of the system in 32 registers (padded to 32 with identity rows, which
 //     leave the solution unchanged). In step j the pivot and the
 //     right-hand side come by shuffle from lane j, every lane scales its
 //     entry of column j, publishes it in a 32-float shared vector, and
@@ -30,7 +37,8 @@
 //     sum a fixed xor butterfly over the lanes.
 //   spd_solve_rows (any other k for which a warp's matrix fits in shared
 //     memory; the caller allows k <= 200): the matrix in shared memory with
-//     a row stride of k+1, lanes owning rows i = lane, lane+32, ...; step j
+//     G's entries (read through the cache: a k x k tile does not fit
+//     beside the warps' matrices) added as it is loaded, a row stride of k+1, lanes owning rows i = lane, lane+32, ...; step j
 //     scales column j and applies the rank-1 update row by row; back
 //     substitution goes column-wise.
 // The telemetry partials come from a butterfly over each warp and an
@@ -86,6 +94,7 @@ __device__ __forceinline__ void block_partials(float dsq, float xsq,
 }
 
 __global__ void spd_solve_rows(const float* __restrict__ A,
+                               const float* __restrict__ G,
                                const float* __restrict__ b,
                                const float* __restrict__ lam,
                                const unsigned char* __restrict__ has_obs,
@@ -114,7 +123,9 @@ __global__ void spd_solve_rows(const float* __restrict__ A,
       for (int e = lane; e < k * k; e += 32) {
         const int i = e / k;
         const int j = e - i * k;
-        sA[i * kp + j] = i == j ? a[e] + lr : a[e];
+        float v = a[e];
+        if (G != nullptr) v += G[e];
+        sA[i * kp + j] = i == j ? v + lr : v;
       }
       for (int i = lane; i < k; i += 32) sy[i] = b[row * k + i];
       __syncwarp();
@@ -163,18 +174,25 @@ __global__ void spd_solve_rows(const float* __restrict__ A,
   if (partials != nullptr) block_partials(dsq, xsq, red, W, partials);
 }
 
+template <bool HAS_G>
 __global__ void __launch_bounds__(32 * MAX_WARPS) spd_solve_rows32(
-    const float* __restrict__ A, const float* __restrict__ b,
+    const float* __restrict__ A, const float* __restrict__ G,
+    const float* __restrict__ b,
     const float* __restrict__ lam, const unsigned char* __restrict__ has_obs,
     const float* __restrict__ X_prev, float* __restrict__ X,
     float* __restrict__ partials, int R, int k) {
   __shared__ __align__(16) float sc[MAX_WARPS][32];
   __shared__ float red[2 * MAX_WARPS];
+  __shared__ float sG[HAS_G ? 32 : 1][33];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * MAX_WARPS + warp;
   const bool mine = lane < k;
   float dsq = 0.f, xsq = 0.f;
+  if constexpr (HAS_G) {
+    for (int e = threadIdx.x; e < k * k; e += blockDim.x) sG[e / k][e % k] = G[e];
+    __syncthreads();
+  }
 
   if (row < R) {
     const float* xp = X_prev + row * k;
@@ -195,6 +213,12 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) spd_solve_rows32(
       } else {
 #pragma unroll
         for (int l = 0; l < 32; ++l) a[l] = (mine && l < k) ? arow[l] : 0.f;
+      }
+      if constexpr (HAS_G) {
+#pragma unroll
+        for (int l = 0; l < 32; ++l) {
+          if (mine && l < k) a[l] += sG[lane][l];
+        }
       }
       const float lr = lam[row];
 #pragma unroll
@@ -285,9 +309,11 @@ int spd_solve_blocks(int R, int k) {
 
 // Launches the solve on `stream` (and, when `sums` is not null, the
 // reduction of the telemetry sums, using `partials` of 2·blocks floats) and
-// returns cudaGetLastError(). The caller checks shapes, dtypes, devices,
-// R >= 1 and 1 <= k <= 200.
-int spd_solve_f32(const float* A, const float* b, const float* lam,
+// returns cudaGetLastError(). G is a [k, k] matrix added to every system,
+// or null. The caller checks shapes, dtypes, devices, R >= 1 and
+// 1 <= k <= 200.
+int spd_solve_f32(const float* A, const float* G, const float* b,
+                  const float* lam,
                   const unsigned char* has_obs, const float* X_prev,
                   float* X, float* partials, float* sums, int R, int k,
                   cudaStream_t stream) {
@@ -296,8 +322,13 @@ int spd_solve_f32(const float* A, const float* b, const float* lam,
   float* part = sums ? partials : nullptr;
   cudaError_t err;
   if (k <= 32) {
-    spd_solve_rows32<<<blocks, 32 * W, 0, stream>>>(A, b, lam, has_obs,
-                                                    X_prev, X, part, R, k);
+    if (G != nullptr) {
+      spd_solve_rows32<true><<<blocks, 32 * W, 0, stream>>>(
+          A, G, b, lam, has_obs, X_prev, X, part, R, k);
+    } else {
+      spd_solve_rows32<false><<<blocks, 32 * W, 0, stream>>>(
+          A, G, b, lam, has_obs, X_prev, X, part, R, k);
+    }
   } else {
     const size_t smem =
         ((size_t)W * per_warp_floats(k) + 2 * W) * sizeof(float);
@@ -308,7 +339,7 @@ int spd_solve_f32(const float* A, const float* b, const float* lam,
                                  (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    spd_solve_rows<<<blocks, 32 * W, smem, stream>>>(A, b, lam, has_obs,
+    spd_solve_rows<<<blocks, 32 * W, smem, stream>>>(A, G, b, lam, has_obs,
                                                      X_prev, X, part, R, k, W);
   }
   err = cudaGetLastError();

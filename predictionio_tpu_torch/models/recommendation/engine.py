@@ -7,7 +7,8 @@ Queries, results, training data and params keep the reference's fields and
 JSON names. ``ALSAlgorithm.train`` trains on a ``torch.device`` through
 ``ops/streaming.train_als_streaming`` when the training data streams
 (``StreamingTrainingData``), else through ``ops/als.train_als``: both take
-the wire route (K4 and K5 pack, then K1 and K2 per half-step). ``ALSModel.recommend_many``
+the wire route (K4 and K5 pack, then K1 and K2 per half-step, with K12's
+Gramian and objective under ``implicit_prefs=True``). ``ALSModel.recommend_many``
 serves a micro-batch with one K3 launch on the model's device; with
 ``precision="int8"`` or ``"bf16"`` it serves through an ``ItemRetriever``
 (``ops/retrieval.py``) instead: the catalog resident quantized, stage 1
@@ -158,9 +159,11 @@ class Preparator(BasePreparator):
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
     """The reference's ALSAlgorithmParams, field for field, so an
-    engine.json params block parses the same. Training takes the explicit
-    exact-solver fields; ``implicit_prefs``, ``solver="subspace"`` and
-    ``checkpoint_dir`` raise ``NotImplementedError`` (ops/als.py)."""
+    engine.json params block parses the same. Training takes explicit
+    ratings, or implicit feedback with ``implicit_prefs=True`` and its
+    confidence scale ``alpha`` (MLlib trainImplicit), with the exact
+    solver; ``solver="subspace"`` and ``checkpoint_dir`` raise
+    ``NotImplementedError`` (ops/als.py)."""
 
     rank: int = 10
     num_iterations: int = 10

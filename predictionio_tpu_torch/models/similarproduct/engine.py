@@ -1,23 +1,33 @@
-"""Similar Product engine, the serving subset: the counterpart of
+"""Similar Product engine: the counterpart of
 ``predictionio_tpu/models/similarproduct/engine.py`` (reference
 examples/scala-parallel-similarproduct/multi: Engine.scala,
-ALSAlgorithm.scala predict, LikeAlgorithm.scala, Serving.scala).
+Preparator.scala, ALSAlgorithm.scala, LikeAlgorithm.scala, Serving.scala).
 
-A query names items; the answer is the items most like them by the sum of
-cosines of their ALS factors, under the query's candidacy rules (the query
-items themselves and the ``black_list`` excluded, ``white_list`` ∩ the
-``categories`` index as an inclusion list). A prepared model serves every
-micro-batch through one ``ItemRetriever`` batch (``ops/retrieval.py``,
-cosine and ``positive_only``): the query vector is the sum of the
-normalized query-item rows, and the rules are on-device masks. ``Serving``
-sums each item's scores across algorithms.
+Training: ``ALSAlgorithm.train`` runs implicit ALS (``ops/als.train_als``
+with ``implicit_prefs=True``: K1 with implicit weights, K12's Gramian, K2
+with ``+G``) over the deduplicated view counts per (user, item);
+``LikeAlgorithm`` over like/dislike events, the latest per (user, item)
+winning, like +1, dislike −1. The model keeps the item factors.
 
-Queries, results and params keep the reference's fields and JSON names.
-A model crosses from the JAX package as arrays (``sp_model_from_numpy``).
-Not ported yet, each raising ``NotImplementedError``: training (implicit
-ALS, ROADMAP queue 1 item 6), scoring without a prepared retriever (the
-host cosine-sum path, K14, item 6) and the ``dimsum`` algorithm (K19,
-item 6).
+Serving. A query names items; the answer is the items most like them by
+the sum of cosines of their ALS factors, under the query's candidacy rules
+(the query items themselves and the ``black_list`` excluded,
+``white_list`` ∩ the ``categories`` index as an inclusion list). A
+prepared model serves every micro-batch through one ``ItemRetriever``
+batch (``ops/retrieval.py``, cosine and ``positive_only``): the query
+vector is the sum of the normalized query-item rows, and the rules are
+on-device masks. Without a prepared retriever (a model just trained, or a
+straggler after ``release_serving``) ``SPModel.similar`` scores on the
+host path: K14 (``ops/similarity.py``) sums the cosines on the model's
+device, and the rules and the selection run in numpy, as the reference's.
+``Serving`` sums each item's scores across algorithms.
+
+Queries, results, training data and params keep the reference's fields
+and JSON names. A model crosses from the JAX package as arrays
+(``sp_model_from_numpy``). Not ported yet, each raising
+``NotImplementedError``: the ``dimsum`` algorithm (K19) and
+``solver="subspace"`` (K11), both ROADMAP queue 1 item 6, the rest; the
+``DataSource`` (it reads the event store, item 3).
 """
 
 from __future__ import annotations
@@ -31,14 +41,18 @@ import torch
 
 from predictionio_tpu_torch.controller import (
     BaseAlgorithm,
+    BasePreparator,
     BaseServing,
     Engine,
     Params,
+    SanityCheck,
 )
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops import retrieval
-from predictionio_tpu_torch.ops.als import validate_solver
+from predictionio_tpu_torch.ops.als import ALSConfig, train_als, validate_solver
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever
+from predictionio_tpu_torch.ops.similarity import SimilarityScorer, normalize_rows
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
 
 logger = logging.getLogger(__name__)
@@ -86,6 +100,47 @@ class Item:
     categories: Tuple[str, ...] = ()
 
 
+@dataclasses.dataclass
+class ViewEvent:
+    user: str
+    item: str
+    t: float
+
+
+@dataclasses.dataclass
+class LikeEvent:
+    user: str
+    item: str
+    t: float
+    like: bool  # like=True, dislike=False
+
+
+@dataclasses.dataclass
+class TrainingData(SanityCheck):
+    users: Dict[str, dict]
+    items: Dict[str, Item]
+    view_events: List[ViewEvent]
+    like_events: List[LikeEvent] = dataclasses.field(default_factory=list)
+
+    def sanity_check(self) -> None:
+        if not self.items:
+            raise ValueError("items is empty — are item $set events present?")
+        if not self.view_events and not self.like_events:
+            raise ValueError("viewEvents is empty — are view events present?")
+
+
+@dataclasses.dataclass
+class PreparedData:
+    td: TrainingData
+
+
+class Preparator(BasePreparator):
+    """Pass-through (reference Preparator.scala)."""
+
+    def prepare(self, device, td: TrainingData) -> PreparedData:
+        return PreparedData(td=td)
+
+
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
     """The reference's ALSAlgorithmParams, field for field, so an
@@ -104,7 +159,10 @@ class ALSAlgorithmParams(Params):
     precision: str = "float32"
     # stage-1 shortlist width multiplier c (shortlist = pow2(c*n))
     shortlist_mult: int = 4
+    # confidence scale of the implicit objective this engine always
+    # trains (c = alpha*|r|, MLlib trainImplicit)
     alpha: float = 1.0
+    # "exact", or the iALS++ "subspace" solver (not ported yet: K11)
     solver: str = "exact"
     block_size: int = 0
 
@@ -112,25 +170,23 @@ class ALSAlgorithmParams(Params):
         validate_solver(self.solver, self.block_size, self.rank)
 
 
-def normalize_rows(factors: np.ndarray) -> np.ndarray:
-    """L2-normalize rows; zero rows stay zero (cosine with a zero vector
-    is 0 in the reference's cosine helper). A copy of
-    ``predictionio_tpu/ops/similarity.py:54``, keeping its dtype."""
-    f = np.asarray(factors, np.float32)
-    norms = np.linalg.norm(f, axis=1, keepdims=True)
-    return np.where(norms > 0, f / np.where(norms == 0, 1, norms), 0.0)
-
-
 @dataclasses.dataclass
 class SPModel:
     """Item factors, their ids and metadata, and the params they serve
-    with. The retriever is device state, built by ``prepare_serving`` and
-    never saved."""
+    with. The retriever and the host path's scorer are device state, built
+    on the model's device (the one it was trained or prepared on) and never
+    saved."""
 
     item_factors: np.ndarray  # [n_items, k]
     item_index: BiMap
     items: Dict[int, Item]  # dense index -> metadata
     params: Optional[ALSAlgorithmParams] = None
+    _device: Optional[torch.device] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    _scorer: Optional[SimilarityScorer] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
     _inv_index: Optional[BiMap] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -144,11 +200,24 @@ class SPModel:
         default=None, repr=False, compare=False
     )
 
+    def attach_device(self, device: DeviceLike) -> None:
+        """Score on ``device`` (drops a scorer built elsewhere)."""
+        self._device = resolve_device(device)
+        self._scorer = None
+
     @property
     def normed_host(self) -> np.ndarray:
         if self._normed_host is None:
             self._normed_host = normalize_rows(self.item_factors)
         return self._normed_host
+
+    @property
+    def scorer(self) -> SimilarityScorer:
+        """The host path's scorer: the normalized factors resident on the
+        model's device (CUDA when none is attached), built at first use."""
+        if self._scorer is None:
+            self._scorer = SimilarityScorer(self.item_factors, device=self._device)
+        return self._scorer
 
     def category_items(self, categories) -> np.ndarray:
         """Dense indices of items carrying one of the given categories."""
@@ -233,16 +302,58 @@ class SPModel:
         return out
 
     def similar(self, query: Query) -> PredictedResult:
-        """Reference ALSAlgorithm.predict for one query, through the
-        prepared retriever."""
-        if self._retriever is None:
-            raise NotImplementedError(
-                "similar product scoring without a prepared retriever (the "
-                "host cosine-sum path, K14) is not ported yet (ROADMAP.md "
-                "queue 1 item 6); call prepare_serving first"
+        """Reference ALSAlgorithm.predict for one query: through the
+        prepared retriever when there is one, else the host path (K14's
+        sum of cosines on the model's device, then the reference's rules
+        and selection in numpy)."""
+        if self._retriever is not None:
+            [(_, result)] = self.similar_batch([(0, query)])
+            return result
+        query_idx = [
+            self.item_index[i] for i in query.items if i in self.item_index
+        ]
+        if not query_idx:
+            logger.info("no item factors for query items %s", query.items)
+            return PredictedResult()
+        scorer = self.scorer
+        scores = scorer.cosine_sum(scorer.normed[query_idx])
+
+        mask = scores > 0
+        mask[query_idx] = False  # exclude the query items themselves
+        if query.white_list is not None:
+            wl = np.zeros_like(mask)
+            wl[[
+                self.item_index[i]
+                for i in query.white_list
+                if i in self.item_index
+            ]] = True
+            mask &= wl
+        if query.black_list is not None:
+            mask[[
+                self.item_index[i]
+                for i in query.black_list
+                if i in self.item_index
+            ]] = False
+        if query.categories is not None:
+            cats = set(query.categories)
+            for idx in np.nonzero(mask)[0]:
+                item = self.items.get(int(idx))
+                if item is None or not cats.intersection(item.categories):
+                    mask[idx] = False
+
+        scores = np.where(mask, scores, -np.inf)
+        num = min(query.num, int(mask.sum()))
+        if num <= 0:
+            return PredictedResult()
+        top = np.argpartition(-scores, num - 1)[:num]
+        top = top[np.argsort(-scores[top])]
+        inv = self.inv_index
+        return PredictedResult(
+            item_scores=tuple(
+                ItemScore(item=inv[int(i)], score=float(scores[i]))
+                for i in top
             )
-        [(_, result)] = self.similar_batch([(0, query)])
-        return result
+        )
 
 
 def sp_model_from_numpy(
@@ -275,26 +386,88 @@ def sp_model_from_numpy(
 
 
 class ALSAlgorithm(BaseAlgorithm):
-    """Similar-product serving of ALS item factors (reference
-    ALSAlgorithm.scala predict). Training, implicit ALS over view counts,
-    is not ported yet."""
+    """Implicit ALS over deduplicated view counts, and similar-product
+    serving of its item factors (reference ALSAlgorithm.scala: train is
+    reduceByKey count -> ALS.trainImplicit; predict the sum of cosines)."""
 
     params_class = ALSAlgorithmParams
     query_class = Query
 
-    def train(self, device, pd) -> SPModel:
-        raise NotImplementedError(
-            "similar product training (implicit ALS) is not ported yet "
-            "(ROADMAP.md queue 1 item 6); carry a trained model across with "
-            "sp_model_from_numpy"
+    def _ratings(self, td: TrainingData) -> Dict[Tuple[str, str], float]:
+        """(user, item) -> value. Overridden by LikeAlgorithm."""
+        counts: Dict[Tuple[str, str], float] = {}
+        for v in td.view_events:
+            key = (v.user, v.item)
+            counts[key] = counts.get(key, 0.0) + 1.0
+        return counts
+
+    def training_arrays(self, td: TrainingData):
+        """(user_index, item_index, users, items, values): the indexes (items
+        in sorted id order; users over the users, view and like events) and
+        the int32 / int32 / float32 arrays of ``_ratings`` that ``train``
+        gives ``train_als``."""
+        item_index = BiMap.string_int(td.items.keys())
+        user_index = BiMap.string_int(
+            set(td.users.keys())
+            | {v.user for v in td.view_events}
+            | {e.user for e in td.like_events}
         )
+        triples = [
+            (user_index[u], item_index[i], val)
+            for (u, i), val in self._ratings(td).items()
+            if i in item_index
+        ]
+        if not triples:
+            raise ValueError(
+                "no valid (user, item) events after index mapping"
+            )
+        u, i, r = (np.asarray(x) for x in zip(*triples))
+        return (user_index, item_index, u.astype(np.int32),
+                i.astype(np.int32), r.astype(np.float32))
+
+    def als_config(self) -> ALSConfig:
+        """The implicit ``ALSConfig`` of these params."""
+        p = self.params
+        return ALSConfig(
+            rank=p.rank,
+            iterations=p.num_iterations,
+            reg=p.lambda_,
+            implicit_prefs=True,
+            alpha=p.alpha,
+            seed=p.seed if p.seed is not None else 0,
+            solver=p.solver,
+            block_size=p.block_size,
+        )
+
+    def train(self, device: DeviceLike, pd: PreparedData) -> SPModel:
+        """Train on ``device`` (CUDA unless the CPU is asked for): implicit
+        ALS through ``ops/als.train_als`` over ``training_arrays``. The
+        model scores on ``device`` until ``prepare_serving`` moves it."""
+        td = pd.td
+        user_index, item_index, u, i, r = self.training_arrays(td)
+        arrays = train_als(
+            u, i, r,
+            n_users=len(user_index),
+            n_items=len(item_index),
+            config=self.als_config(),
+            device=device,
+        )
+        model = SPModel(
+            item_factors=arrays.item_factors,
+            item_index=item_index,
+            items={item_index[i]: item for i, item in td.items.items()},
+            params=self.params,
+        )
+        model.attach_device(device)
+        return model
 
     def predict(self, model: SPModel, query: Query) -> PredictedResult:
         return model.similar(query)
 
     def batch_predict(self, model: SPModel, queries):
-        """The whole micro-batch as ONE retriever batch
-        (model.similar_batch)."""
+        """With a prepared retriever, the whole micro-batch as ONE
+        retriever batch (model.similar_batch); otherwise the host path, query
+        by query."""
         if model._retriever is None:
             return [(i, self.predict(model, q)) for i, q in queries]
         return model.similar_batch(queries)
@@ -302,7 +475,8 @@ class ALSAlgorithm(BaseAlgorithm):
     def prepare_serving(self, device: torch.device, model: SPModel) -> SPModel:
         """Build the serving state: the item factors resident on
         ``device`` in the params' precision; candidacy rules apply as
-        on-device masks."""
+        on-device masks. The host path scores on ``device`` too."""
+        model.attach_device(device)
         model._retriever = ItemRetriever(
             model.item_factors, component="similarproduct", device=device,
             precision=self.params.precision,
@@ -316,20 +490,26 @@ class ALSAlgorithm(BaseAlgorithm):
         return None
 
     def release_serving(self, model: SPModel) -> None:
-        """Null the model's reference, then free the retriever's device
-        tensors."""
+        """Null the model's references first (a straggler then scores on
+        the host path, rebuilding its scorer), then free the retriever's
+        device tensors."""
         retriever, model._retriever = model._retriever, None
+        model._scorer = None
         if retriever is not None:
             retriever.free()
 
     def warm(self, model: SPModel) -> None:
-        """Run the retriever's serving shapes once before traffic."""
+        """Run the serving shapes once before traffic: the retriever's
+        ladder for a prepared model, the host path's query widths up to
+        ``warm_max_query_items`` otherwise."""
         if model._retriever is not None:
             model._retriever.warm(
                 n=self.params.warm_num,
                 max_batch=self.params.warm_max_batch,
                 flag_combos=((True, True),),
             )
+        else:
+            model.scorer.warm(max_q=self.params.warm_max_query_items)
 
     def result_to_json(self, result: PredictedResult):
         return {
@@ -342,9 +522,18 @@ class ALSAlgorithm(BaseAlgorithm):
 
 class LikeAlgorithm(ALSAlgorithm):
     """The multi variant's second algorithm (reference LikeAlgorithm.scala):
-    the same serving over factors trained from like/dislike events (latest
-    event per user and item wins, like +1, dislike -1); its training waits
-    with ALSAlgorithm's."""
+    like/dislike events, like +1, dislike −1, the LATEST event per (user,
+    item) winning; the same implicit ALS (a dislike adds confidence and no
+    preference) and cosine predict."""
+
+    def _ratings(self, td: TrainingData) -> Dict[Tuple[str, str], float]:
+        latest: Dict[Tuple[str, str], Tuple[float, float]] = {}
+        for e in td.like_events:
+            key = (e.user, e.item)
+            value = 1.0 if e.like else -1.0
+            if key not in latest or e.t >= latest[key][0]:
+                latest[key] = (e.t, value)
+        return {k: val for k, (_, val) in latest.items()}
 
 
 class DIMSUMAlgorithm(BaseAlgorithm):
@@ -354,7 +543,7 @@ class DIMSUMAlgorithm(BaseAlgorithm):
     def __init__(self, params: Optional[Params] = None):
         raise NotImplementedError(
             "the dimsum algorithm (K19, the all-pairs cosine Rn·Rnᵀ) is not "
-            "ported yet (ROADMAP.md queue 1 item 6)"
+            "ported yet (ROADMAP.md queue 1 item 6, the rest)"
         )
 
 

@@ -1,6 +1,6 @@
 """ALS training and serving: the counterpart of
-``predictionio_tpu/ops/als.py`` for one GPU, explicit ratings, exact
-solver.
+``predictionio_tpu/ops/als.py`` for one GPU, explicit and implicit
+feedback, exact solver.
 
 Training is the reference's single-device route (``train_als`` with
 ``mesh=None``, :1788-1815): ``build_host_wire`` :1306 / ``finish_wire``
@@ -19,10 +19,13 @@ device loop (``_run_iterations``, the reference's fused program :837) is
 a host loop of two hand-written kernels per half-step: K1
 (``ops/normal_eq.py``, the normal equations) and K2
 (``ops/spd_solve.py``, the regularized solve, whose epilogue also sums
-the sweep telemetry). ``predict_ratings`` / ``rmse`` run K7
-(``ops/predict_pairs.py``). Implicit feedback, the subspace solver, bf16
-compute, checkpoints, the resident pack and meshes raise
-``NotImplementedError``.
+the sweep telemetry). Implicit feedback (``implicit_prefs=True``, MLlib's
+trainImplicit) adds K12 (``ops/gramian.py``): before each half-step the
+Gramian G of the counter side's padded factors, which K2 adds to every
+system, and with telemetry the objective once per sweep.
+``predict_ratings`` / ``rmse`` run K7 (``ops/predict_pairs.py``). The
+subspace solver, bf16 compute, checkpoints, the resident pack and meshes
+raise ``NotImplementedError``.
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
 :2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
@@ -45,6 +48,7 @@ import torch
 
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops import device_pack as _k5
+from predictionio_tpu_torch.ops import gramian as _k12
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops import normal_eq as _k1
 from predictionio_tpu_torch.ops import predict_pairs as _k7
@@ -62,9 +66,10 @@ from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 @dataclasses.dataclass(frozen=True)
 class ALSConfig:
     """The reference's training config, field for field (see its comments
-    at ``predictionio_tpu/ops/als.py:79``). The port trains
-    ``implicit_prefs=False``, ``solver="exact"``, ``compute_dtype="float32"``
-    and raises ``NotImplementedError`` for the rest."""
+    at ``predictionio_tpu/ops/als.py:79``). The port trains explicit and
+    implicit feedback with ``solver="exact"`` and
+    ``compute_dtype="float32"``, and raises ``NotImplementedError`` for the
+    rest."""
 
     rank: int = 10
     iterations: int = 10
@@ -578,21 +583,17 @@ def _lam_obs_host(
 # --- training: the device loop ---
 
 # sweeps the telemetry records per run (later sweeps are not recorded);
-# each row is [dx_rms, dy_rms, x_rms, y_rms] (the reference's fifth column,
-# the implicit objective, is not ported)
+# each row is [dx_rms, dy_rms, x_rms, y_rms, objective], the objective 0
+# outside implicit mode, as the reference records them
 TELEMETRY_SLOTS = 64
+TELEMETRY_COLS = 5
 
 
 def _check_ported(config: ALSConfig, mesh=None, checkpoint_dir=None) -> None:
-    if config.implicit_prefs:
-        raise NotImplementedError(
-            "implicit_prefs=True is not ported yet (ROADMAP.md queue 1 item 6: "
-            "needs K12, the Gramian and the implicit objective)"
-        )
     if config.solver != "exact":
         raise NotImplementedError(
             f"solver={config.solver!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 6: K11, the iALS++ subspace solver)"
+            "item 6, the rest: K11, the iALS++ subspace solver)"
         )
     if config.compute_dtype != "float32":
         raise NotImplementedError(
@@ -671,12 +672,16 @@ def _solve_side(
     lam: torch.Tensor,
     has_obs: torch.Tensor,
     sums: Optional[torch.Tensor] = None,
+    G: Optional[torch.Tensor] = None,
+    implicit: bool = False,
+    alpha: float = 1.0,
 ) -> torch.Tensor:
-    """One half-step: K1 forms the systems, K2 solves them with the
-    regularizer and keeps ``X_prev`` for rows without observations
-    (writing the telemetry sums into ``sums`` when given)."""
-    A, b = _k1.normal_eq(Y, pack)
-    return _k2.spd_solve(A, b, lam, has_obs, X_prev, sums)
+    """One half-step: K1 forms the systems (with the implicit weights when
+    ``implicit``), K2 solves them with ``G`` (implicit mode's Gramian of
+    Y) and the regularizer and keeps ``X_prev`` for rows without
+    observations (writing the telemetry sums into ``sums`` when given)."""
+    A, b = _k1.normal_eq(Y, pack, implicit, alpha)
+    return _k2.spd_solve(A, b, lam, has_obs, X_prev, sums, G)
 
 
 def _run_iterations(
@@ -690,34 +695,49 @@ def _run_iterations(
     item_has_obs: torch.Tensor,
     n_iters: int,
     telemetry: bool = True,
+    implicit: bool = False,
+    alpha: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The training loop: ``n_iters`` sweeps of (user half-step, item
     half-step), two K1 and two K2 launches per sweep, with no host sync.
-    With ``telemetry``, sweep i's K2 launches write their raw sums into
-    ``tel[i]`` ([TELEMETRY_SLOTS, side, (Σ ΔX², Σ X²)]);
-    ``_telemetry_rows`` turns them into the reference's RMS rows."""
+    In ``implicit`` mode each half-step first forms G, the Gramian of the
+    counter side's current padded factors (K12a), as the reference's
+    ``half`` does (:883). With ``telemetry``, sweep i's K2 launches write
+    their raw sums into ``tel[i]`` ([TELEMETRY_SLOTS, TELEMETRY_COLS]:
+    Σ ΔX², Σ X², Σ ΔY², Σ Y², objective) and, in implicit mode, K12b writes
+    the objective at the sweep's factors into its fifth column;
+    ``_telemetry_rows`` turns them into the reference's rows."""
     tel = (
-        torch.zeros((TELEMETRY_SLOTS, 2, 2), dtype=torch.float32, device=X.device)
+        torch.zeros((TELEMETRY_SLOTS, TELEMETRY_COLS), dtype=torch.float32, device=X.device)
         if telemetry else None
     )
     for it in range(n_iters):
         rec = tel is not None and it < TELEMETRY_SLOTS
-        X = _solve_side(X, Y, user_pack, user_lam, user_has_obs, tel[it, 0] if rec else None)
-        Y = _solve_side(Y, X, item_pack, item_lam, item_has_obs, tel[it, 1] if rec else None)
+        G = _k12.gramian(Y) if implicit else None
+        X = _solve_side(X, Y, user_pack, user_lam, user_has_obs,
+                        tel[it, 0:2] if rec else None, G, implicit, alpha)
+        G = _k12.gramian(X) if implicit else None
+        Y = _solve_side(Y, X, item_pack, item_lam, item_has_obs,
+                        tel[it, 2:4] if rec else None, G, implicit, alpha)
+        if rec and implicit:
+            _k12.implicit_objective(
+                X, Y, user_pack, user_lam, item_lam, alpha, out=tel[it, 4:5]
+            )
     return X, Y, tel
 
 
 def _telemetry_rows(tel: torch.Tensor, n_sweeps: int, x_numel: int, y_numel: int) -> np.ndarray:
-    """[min(n_sweeps, TELEMETRY_SLOTS), 4] float32 rows
-    ``[RMS(ΔX), RMS(ΔY), RMS(X), RMS(Y)]``, the means over the padded
-    factor arrays, as the reference records them."""
+    """[min(n_sweeps, TELEMETRY_SLOTS), TELEMETRY_COLS] float32 rows
+    ``[RMS(ΔX), RMS(ΔY), RMS(X), RMS(Y), objective]``, the means over the
+    padded factor arrays, as the reference records them."""
     s = tel.cpu().numpy()[: min(n_sweeps, TELEMETRY_SLOTS)]
-    rows = np.zeros((len(s), 4), np.float32)
+    rows = np.zeros((len(s), TELEMETRY_COLS), np.float32)
     nx, ny = np.float32(x_numel), np.float32(y_numel)
-    rows[:, 0] = np.sqrt(s[:, 0, 0] / nx)
-    rows[:, 1] = np.sqrt(s[:, 1, 0] / ny)
-    rows[:, 2] = np.sqrt(s[:, 0, 1] / nx)
-    rows[:, 3] = np.sqrt(s[:, 1, 1] / ny)
+    rows[:, 0] = np.sqrt(s[:, 0] / nx)
+    rows[:, 1] = np.sqrt(s[:, 2] / ny)
+    rows[:, 2] = np.sqrt(s[:, 1] / nx)
+    rows[:, 3] = np.sqrt(s[:, 3] / ny)
+    rows[:, 4] = s[:, 4]
     return rows
 
 
@@ -749,6 +769,8 @@ def _train_packed(
     ``compile_exposed_s``), else here when ``timings`` is given. The loop
     is timed to its end (``device_loop_s``)."""
     device = X.device
+    implicit = config.implicit_prefs
+    kernels = (_k1, _k2, _k12) if implicit else (_k1, _k2)
     if compile_wait is not None:
         t = time.perf_counter()
         rec = compile_wait()
@@ -757,16 +779,17 @@ def _train_packed(
             timings["compile_s"] = rec["busy_s"]
         if "error" in rec:
             # the background build failed: build here, raising its error
-            _load_libraries(device, (_k1, _k2))
+            _load_libraries(device, kernels)
     elif timings is not None:
         t = time.perf_counter()
-        _load_libraries(device, (_k1, _k2))
+        _load_libraries(device, kernels)
         timings["compile_s"] = time.perf_counter() - t
     t = time.perf_counter()
     X, Y, tel = _run_iterations(
         X, Y, user_pack, item_pack, user_lam, item_lam,
         user_has_obs, item_has_obs, config.iterations,
-        telemetry=config.sweep_telemetry,
+        telemetry=config.sweep_telemetry, implicit=implicit,
+        alpha=config.alpha,
     )
     if timings is not None:
         _sync(device)
@@ -775,10 +798,13 @@ def _train_packed(
     Y_host = Y.cpu().numpy()
     if tel is not None and config.iterations > 0 and timings is not None:
         rows = _telemetry_rows(tel, config.iterations, X.numel(), Y.numel())
+        # the objective only means something in implicit mode; explicit
+        # rows keep their four keys, as the reference's (:2276-2287)
         timings["sweep_telemetry"] = [
             {
                 "dx": float(r[0]), "dy": float(r[1]),
                 "x_rms": float(r[2]), "y_rms": float(r[3]),
+                **({"objective": float(r[4])} if implicit else {}),
             }
             for r in rows
         ]
@@ -794,14 +820,14 @@ def _load_libraries(device: torch.device, kernels) -> None:
 
 
 def start_compile_async(device: DeviceLike = None):
-    """Build and load the training kernels' libraries (K1, K2, K4, K5) on a
-    background thread, so nvcc at a process's first use hides under the
+    """Build and load the training kernels' libraries (K1, K2, K4, K5,
+    K12) on a background thread, so nvcc at a process's first use hides under the
     host work that precedes the device pack: the counterpart of the
     reference's background XLA compile. Returns ``wait() -> dict`` with
     ``busy_s``, the thread's seconds (and ``error`` if the build failed;
     training then builds inline, which raises the error)."""
     dev = resolve_device(device)
-    kernels = (_k1, _k2, _k5)
+    kernels = (_k1, _k2, _k5, _k12)
     rec: dict = {}
     if dev.type != "cuda":
         rec["busy_s"] = 0.0
@@ -992,7 +1018,8 @@ def train_als(
     included), ``wire_mb``, ``device_pack_dispatch_s`` (K5 and the K1
     plans), ``compile_s``, ``device_loop_s``, ``padded_slots``
     (segment-grid slots of both sides) and ``sweep_telemetry`` (per sweep
-    ``dx``, ``dy``, ``x_rms``, ``y_rms``)."""
+    ``dx``, ``dy``, ``x_rms``, ``y_rms``, and ``objective`` in implicit
+    mode)."""
     _check_ported(config, mesh, checkpoint_dir)
     dev = resolve_device(device)
     t = time.perf_counter()

@@ -1,10 +1,13 @@
 """K1, the per-row normal equations of one ALS half-step: the counterpart
 of the reference's ``predictionio_tpu/ops/als.py:481 _accumulate_systems``
-(explicit ratings, float32).
+(explicit and implicit feedback, float32).
 
-For every system row r it forms ``A[r] = Σ y yᵀ`` and ``b[r] = Σ v·y`` over
-the row's observations, where y is the counter-side factor row ``Y[col]``
-and v the rating. The observations arrive in the packed segment layout of
+For every system row r it forms ``A[r] = Σ w_a·y yᵀ`` and
+``b[r] = Σ w_b·y`` over the row's observations, where y is the counter-side
+factor row ``Y[col]`` and v the rating: explicit ``w_a = 1``, ``w_b = v``;
+implicit (the reference's :521-530) ``w_a = α·|v|``,
+``w_b = 1(v>0)·(1 + α·|v|)``, so a dislike (v < 0) adds confidence to A and
+nothing to b. The observations arrive in the packed segment layout of
 ``ops/als.py pack_segments``: fixed-width segments of L slots, each
 segment's valid slots a prefix (``rem``), a row's segments consecutive,
 padding segments pointing at the sentinel row.
@@ -209,10 +212,13 @@ def normal_eq_plain(
     vals: torch.Tensor,
     rem: torch.Tensor,
     n_sys_rows: int,
+    implicit: bool = False,
+    alpha: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin, the reference's loop: per chunk, gather
-    ``Y[cols]`` [Sc, L, k], mask the slots past ``rem``, two einsums, and a
-    scatter-add of the segments into A [R, k, k] and b [R, k]."""
+    ``Y[cols]`` [Sc, L, k], mask the slots past ``rem``, weigh them, two
+    einsums, and a scatter-add of the segments into A [R, k, k] and
+    b [R, k]."""
     k = Y.shape[1]
     L = cols.shape[-1]
     iota = torch.arange(L, device=Y.device)
@@ -222,8 +228,14 @@ def normal_eq_plain(
         rows_c = seg_rows[c].long()
         mask = (iota[None, :] < rem[c][:, None]).to(torch.float32)
         Yg = Y[cols[c].long()]  # [Sc, L, k]
-        A_seg = torch.einsum("slk,sl,slj->skj", Yg, mask, Yg)
-        b_seg = torch.einsum("slk,sl->sk", Yg, vals[c] * mask)
+        if implicit:
+            conf = alpha * vals[c].abs()
+            aw = conf * mask
+            bw = (vals[c] > 0).to(torch.float32) * mask * (1.0 + conf)
+        else:
+            aw, bw = mask, vals[c] * mask
+        A_seg = torch.einsum("slk,sl,slj->skj", Yg, aw, Yg)
+        b_seg = torch.einsum("slk,sl->sk", Yg, bw)
         A.index_add_(0, rows_c, A_seg)
         b.index_add_(0, rows_c, b_seg)
     return A, b
@@ -232,8 +244,8 @@ def normal_eq_plain(
 def _declare(lib: ctypes.CDLL) -> None:
     lib.normal_eq_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
         ctypes.c_void_p
-    ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p
+    ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p
     ]
     lib.normal_eq_f32.restype = ctypes.c_int
 
@@ -259,9 +271,12 @@ def _check(Y: torch.Tensor, pack: SegmentPack) -> None:
             raise ValueError(f"pack.{name} is on {getattr(pack, name).device}, Y on {Y.device}")
 
 
-def normal_eq(Y: torch.Tensor, pack: SegmentPack) -> Tuple[torch.Tensor, torch.Tensor]:
+def normal_eq(
+    Y: torch.Tensor, pack: SegmentPack, implicit: bool = False, alpha: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: A [R, k, k] and b [R, k] float32 for the side ``pack`` against
-    the counter-side factors ``Y`` [n, k] (R = ``pack.n_sys_rows``).
+    the counter-side factors ``Y`` [n, k] (R = ``pack.n_sys_rows``), with
+    the implicit weights and confidence scale ``alpha`` when ``implicit``.
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
@@ -269,7 +284,9 @@ def normal_eq(Y: torch.Tensor, pack: SegmentPack) -> Tuple[torch.Tensor, torch.T
     R = pack.n_sys_rows
     if Y.device.type == "cpu":
         LAUNCHES.add("normal_eq_plain")
-        return normal_eq_plain(Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R)
+        return normal_eq_plain(
+            Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R, implicit, alpha
+        )
     if Y.device.type != "cuda":
         raise ValueError(f"unsupported device {Y.device}")
     if not Y.is_contiguous():
@@ -290,7 +307,7 @@ def normal_eq(Y: torch.Tensor, pack: SegmentPack) -> Tuple[torch.Tensor, torch.T
             pack.rem.data_ptr(), plan.groups.data_ptr(), plan.groups.shape[1],
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(),
             plan.combine_rows.shape[0], partials.data_ptr(), A.data_ptr(),
-            b.data_ptr(), k, L, stream,
+            b.data_ptr(), k, L, int(bool(implicit)), float(alpha), stream,
         )
     _LIBRARY.check(err, "normal_eq")
     LAUNCHES.add("normal_eq")

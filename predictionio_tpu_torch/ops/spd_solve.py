@@ -3,8 +3,11 @@ reference's ``predictionio_tpu/ops/als.py:549 _spd_solve`` with the
 epilogue of ``:612 _solve_side`` (regularizer on the diagonal, rows without
 observations keep their previous factors).
 
-``spd_solve(A, b, lam, has_obs, X_prev, sums)`` returns X [R, k]:
-``X[r] = has_obs[r] ? (A[r] + lam[r]·I)⁻¹ b[r] : X_prev[r]``. Given a
+``spd_solve(A, b, lam, has_obs, X_prev, sums, G)`` returns X [R, k]:
+``X[r] = has_obs[r] ? (A[r] + G + lam[r]·I)⁻¹ b[r] : X_prev[r]``, where
+``G`` is an optional [k, k] matrix added to every system (implicit
+feedback's shared Gramian YᵀY, the reference's :630-632; none means
+zero). Given a
 2-float ``sums`` tensor it also writes ``[Σ (X − X_prev)², Σ X²]`` there,
 the sweep telemetry's raw sums (the reference's RMS over the padded
 arrays).
@@ -74,10 +77,13 @@ def spd_solve_plain(
     lam: torch.Tensor,
     has_obs: torch.Tensor,
     X_prev: torch.Tensor,
+    G: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin: (X, [Σ (X − X_prev)², Σ X²])."""
     k = A.shape[-1]
     eye = torch.eye(k, dtype=torch.float32, device=A.device)
+    if G is not None:
+        A = A + G[None]
     x = cholesky_solve_plain(A + lam[:, None, None] * eye, b)
     X = torch.where(has_obs[:, None], x, X_prev)
     d = X - X_prev
@@ -87,7 +93,7 @@ def spd_solve_plain(
 def _declare(lib: ctypes.CDLL) -> None:
     lib.spd_solve_blocks.argtypes = [ctypes.c_int] * 2
     lib.spd_solve_blocks.restype = ctypes.c_int
-    lib.spd_solve_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
+    lib.spd_solve_f32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p
     ]
     lib.spd_solve_f32.restype = ctypes.c_int
@@ -101,7 +107,7 @@ def load_library() -> ctypes.CDLL:
     return _LIBRARY.get()
 
 
-def _check(A, b, lam, has_obs, X_prev, sums) -> None:
+def _check(A, b, lam, has_obs, X_prev, sums, G) -> None:
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"A must be [R, k, k], got {tuple(A.shape)}")
     R, k = A.shape[0], A.shape[1]
@@ -118,9 +124,11 @@ def _check(A, b, lam, has_obs, X_prev, sums) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     if has_obs.dtype != torch.bool:
         raise TypeError(f"has_obs must be bool, got {has_obs.dtype}")
-    tensors = [A, b, lam, has_obs, X_prev] + ([sums] if sums is not None else [])
+    tensors = [A, b, lam, has_obs, X_prev] + [t for t in (sums, G) if t is not None]
     if any(t.device != A.device for t in tensors):
         raise ValueError("all tensors must be on one device")
+    if G is not None and (tuple(G.shape) != (k, k) or G.dtype != torch.float32):
+        raise ValueError(f"G must be a [{k}, {k}] float32 tensor")
     if sums is not None and (sums.shape != (2,) or sums.dtype != torch.float32):
         raise ValueError("sums must be a float32 tensor of 2 elements")
 
@@ -132,16 +140,18 @@ def spd_solve(
     has_obs: torch.Tensor,
     X_prev: torch.Tensor,
     sums: Optional[torch.Tensor] = None,
+    G: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K2 on A [R, k, k], b [R, k], lam [R] float32, has_obs [R] bool and
-    X_prev [R, k] float32 -> X [R, k]; see the module docstring.
+    """K2 on A [R, k, k], b [R, k], lam [R] float32, has_obs [R] bool,
+    X_prev [R, k] float32 and an optional G [k, k] float32 -> X [R, k]; see
+    the module docstring.
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
-    _check(A, b, lam, has_obs, X_prev, sums)
+    _check(A, b, lam, has_obs, X_prev, sums, G)
     if A.device.type == "cpu":
         LAUNCHES.add("spd_solve_plain")
-        X, s = spd_solve_plain(A, b, lam, has_obs, X_prev)
+        X, s = spd_solve_plain(A, b, lam, has_obs, X_prev, G)
         if sums is not None:
             sums.copy_(s)
         return X
@@ -149,7 +159,7 @@ def spd_solve(
         raise ValueError(f"unsupported device {A.device}")
     if not all(
         t.is_contiguous() for t in (A, b, lam, has_obs, X_prev)
-    ) or (sums is not None and not sums.is_contiguous()):
+    ) or any(t is not None and not t.is_contiguous() for t in (sums, G)):
         raise ValueError("every tensor must be contiguous")
     lib = load_library()
     R, k = A.shape[0], A.shape[1]
@@ -162,7 +172,8 @@ def spd_solve(
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.spd_solve_f32(
-            A.data_ptr(), b.data_ptr(), lam.data_ptr(), has_obs.data_ptr(),
+            A.data_ptr(), G.data_ptr() if G is not None else None,
+            b.data_ptr(), lam.data_ptr(), has_obs.data_ptr(),
             X_prev.data_ptr(), X.data_ptr(),
             partials.data_ptr() if partials is not None else None,
             sums.data_ptr() if sums is not None else None,

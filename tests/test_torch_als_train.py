@@ -1,8 +1,9 @@
 """ALS training parity: the port's ``train_als`` on the CPU (K1 and K2 by
 their plain twins) against the JAX package's ``train_als`` from the same
 seed, both against the float64 MLlib oracle (``ops/als_reference.py``),
-one sweep from the same warm factors, determinism, prediction (K7), and
-the configurations the port does not train yet.
+one sweep from the same warm factors, determinism, prediction (K7),
+implicit feedback against JAX (``test_torch_implicit.py`` has the rest),
+and the configurations the port does not train yet.
 
 Tolerances, stated beforehand:
 - port against JAX after several sweeps: factors within 2e-5 of the
@@ -186,7 +187,7 @@ def test_predict_ratings_checks_ids_on_the_host(u, i):
 @pytest.mark.parametrize(
     "config, kwargs, match",
     [
-        (dict(implicit_prefs=True), {}, "implicit"),
+        (dict(implicit_prefs=True, solver="subspace", block_size=2), {}, "subspace"),
         (dict(solver="subspace", block_size=2), {}, "subspace"),
         (dict(compute_dtype="bfloat16"), {}, "bfloat16"),
         ({}, dict(checkpoint_dir="ckpt"), "checkpoint"),
@@ -198,6 +199,29 @@ def test_configurations_not_ported_raise(ratings, config, kwargs, match):
     cfg = port_als.ALSConfig(rank=4, iterations=1, **config)
     with pytest.raises(NotImplementedError, match=match):
         port_als.train_als(u, i, r, N_USERS, N_ITEMS, cfg, device="cpu", **kwargs)
+
+
+def test_implicit_train_matches_jax(ratings):
+    """``implicit_prefs=True`` trains: the ratings read as confidences,
+    factors and telemetry (the objective column too) at this file's
+    tolerances against JAX's."""
+    u, i, r = ratings
+    t_port, t_jax = {}, {}
+    port = port_als.train_als(
+        u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(**CFG, implicit_prefs=True, alpha=0.5),
+        device="cpu", timings=t_port,
+    )
+    ref = jax_als.train_als(
+        u, i, r, N_USERS, N_ITEMS, jax_als.ALSConfig(**CFG, implicit_prefs=True, alpha=0.5),
+        timings=t_jax,
+    )
+    _close(port.user_factors, ref.user_factors, 2e-5)
+    _close(port.item_factors, ref.item_factors, 2e-5)
+    keys = ("dx", "dy", "x_rms", "y_rms", "objective")
+    np.testing.assert_allclose(
+        [[s[c] for c in keys] for s in t_port["sweep_telemetry"]],
+        [[s[c] for c in keys] for s in t_jax["sweep_telemetry"]], rtol=1e-5,
+    )
 
 
 def test_training_defaults_to_cuda_and_raises_without_it(ratings, monkeypatch):

@@ -1,14 +1,18 @@
-"""The port's Similar Product serving against the JAX package's, on the CPU
+"""The port's Similar Product engine against the JAX package's, on the CPU
 (``device="cpu"``): one catalog of item factors with seeded categories,
 carried across as numpy with ``sp_model_from_numpy``, prepared on both
 sides (the JAX ``SPModel`` with its prepared ``ItemRetriever``), and the
 same queries served through ``similar_batch`` and the summed-score
-``Serving``.
+``Serving``; then training (``ALSAlgorithm`` over view counts,
+``LikeAlgorithm`` over likes and dislikes) on one ``TrainingData`` on both
+sides, the host scoring path (K14, no retriever) over the candidacy rules,
+and a query after ``release_serving``.
 
-Tolerance: scores rtol 1e-5 / atol 1e-6 (XLA and PyTorch sum the rank in
+Tolerances: scores rtol 1e-5 / atol 1e-6 (XLA and PyTorch sum the rank in
 different orders; the quantized tiers end in the reference's own host
 refinement), item lists equal outside near-tie runs
-(``check_topn_agreement``).
+(``check_topn_agreement``); trained factors within 2e-5 of the largest
+entry (``test_torch_implicit.py``'s training tolerance).
 """
 
 import dataclasses
@@ -21,6 +25,7 @@ from predictionio_tpu.models.similarproduct import engine as jsp
 from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.models.similarproduct import engine as psp
+from predictionio_tpu_torch.ops import similarity as k14
 from predictionio_tpu_torch.ops.topn import check_topn_agreement
 from predictionio_tpu_torch.utils.serialize import load_model, save_model
 
@@ -127,19 +132,119 @@ def test_similar_batch_through_serving_matches_jax(precision):
 
 
 def test_unported_paths_raise_naming_their_items():
+    """DIMSUM (K19) and the subspace solver (K11) still raise, naming item
+    6; training, predict and batch_predict without a retriever answer."""
     factors, ids, cats = make_catalog()
-    alg = psp.ALSAlgorithm()
     model = psp.sp_model_from_numpy(factors, ids, cats)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        alg.train("cpu", None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        alg.predict(model, psp.Query(items=["i1"]))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        alg.batch_predict(model, [(0, psp.Query(items=["i1"]))])
+    model.attach_device("cpu")
+    alg = psp.ALSAlgorithm(psp.ALSAlgorithmParams(rank=4, num_iterations=2))
+    td = make_training_data(psp)
+    trained = alg.train("cpu", psp.Preparator().prepare("cpu", td))
+    assert trained.item_factors.shape == (len(td.items), 4)
+    answer = alg.predict(model, psp.Query(items=["i1"], num=3))
+    assert len(answer.item_scores) == 3
+    assert dict(alg.batch_predict(model, [(0, psp.Query(items=["i1"], num=3))]))[0] == answer
+    with pytest.raises(NotImplementedError, match="item 6.*K11"):
+        psp.ALSAlgorithm(psp.ALSAlgorithmParams(rank=4, solver="subspace", block_size=2)).train(
+            "cpu", psp.Preparator().prepare("cpu", td))
     with pytest.raises(NotImplementedError, match="K19.*item 6"):
         psp.similarproduct_engine().make_components(
             EngineParams(algorithm_params_list=(("dimsum", psp.ALSAlgorithmParams()),))
         )
+
+
+N_USERS_T, N_ITEMS_T = 80, 50
+TRAIN_PARAMS = dict(rank=8, num_iterations=5, lambda_=0.01, alpha=1.0, seed=3)
+
+
+def make_training_data(module, seed=9):
+    """Users, items with categories, view events with repeats (and one of
+    an item not in the catalog), like and dislike events, several per
+    (user, item) at distinct times, so the latest must win."""
+    rng = np.random.default_rng(seed)
+    users = {f"u{n}": {} for n in range(N_USERS_T)}
+    items = {
+        f"i{n}": module.Item(categories=tuple(
+            sorted({f"c{c}" for c in rng.integers(0, 6, rng.integers(1, 3))})))
+        for n in range(N_ITEMS_T)
+    }
+    views = [
+        module.ViewEvent(user=f"u{a}", item=f"i{b}", t=float(t))
+        for t, (a, b) in enumerate(zip(rng.integers(0, N_USERS_T, 1500),
+                                       rng.zipf(1.4, 1500) % N_ITEMS_T))
+    ]
+    views.append(module.ViewEvent(user="u3", item="not-in-catalog", t=2000.0))
+    likes = [
+        module.LikeEvent(user=f"u{a}", item=f"i{b}", t=float(t), like=bool(k))
+        for t, (a, b, k) in enumerate(zip(rng.integers(0, N_USERS_T, 900),
+                                          rng.integers(0, N_ITEMS_T, 900),
+                                          rng.random(900) < 0.7))
+    ]
+    return module.TrainingData(users=users, items=items, view_events=views, like_events=likes)
+
+
+def _trained_pair(algorithm):
+    """The same algorithm trained by both packages on one TrainingData."""
+    jalg = getattr(jsp, algorithm)(jsp.ALSAlgorithmParams(**TRAIN_PARAMS))
+    jmodel = jalg.train(None, jsp.Preparator().prepare(None, make_training_data(jsp)))
+    palg = getattr(psp, algorithm)(psp.ALSAlgorithmParams(**TRAIN_PARAMS))
+    pmodel = palg.train("cpu", psp.Preparator().prepare("cpu", make_training_data(psp)))
+    return jalg, jmodel, palg, pmodel
+
+
+def _host_queries(module, seed=4):
+    rng = np.random.default_rng(seed)
+    queries = []
+    for qx in range(24):
+        items = [f"i{r}" for r in rng.integers(0, N_ITEMS_T, rng.integers(1, 6))]
+        kw = {"num": int(rng.integers(1, 12))}
+        if qx % 3 == 0:
+            kw["categories"] = [f"c{c}" for c in rng.integers(0, 6, 2)]
+        if qx % 4 == 1:
+            kw["white_list"] = [f"i{r}" for r in rng.integers(0, N_ITEMS_T, 15)]
+        if qx % 5 == 2:
+            kw["black_list"] = [f"i{r}" for r in rng.integers(0, N_ITEMS_T, 6)] + ["nope"]
+        queries.append((qx, module.Query(items=items, **kw)))
+    queries.append((24, module.Query(items=["unknown"])))
+    queries.append((25, module.Query(items=["i1"], num=5, white_list=[])))
+    return queries
+
+
+@pytest.mark.parametrize("algorithm", ["ALSAlgorithm", "LikeAlgorithm"])
+def test_training_and_host_scoring_match_jax(algorithm):
+    jalg, jmodel, palg, pmodel = _trained_pair(algorithm)
+    assert pmodel.item_index.to_dict() == jmodel.item_index.to_dict()
+    assert pmodel.items == {r: psp.Item(categories=it.categories) for r, it in jmodel.items.items()}
+    ref = jmodel.item_factors
+    np.testing.assert_allclose(pmodel.item_factors, ref, rtol=0, atol=2e-5 * np.abs(ref).max())
+    # the host path over the same factors: the JAX model carries the
+    # port's, so the answers compare at the scoring tolerance
+    jmodel.item_factors = pmodel.item_factors
+    assert pmodel._retriever is None  # a model just trained scores on the host path
+    before = k14.LAUNCHES.snapshot()["cosine_sum_plain"]
+    jq, pq = _host_queries(jsp), _host_queries(psp)
+    pout = dict(palg.batch_predict(pmodel, pq))
+    known = sum(any(i in pmodel.item_index for i in q.items) for _, q in pq)
+    assert k14.LAUNCHES.snapshot()["cosine_sum_plain"] == before + known
+    assert_same(pout, dict(jalg.batch_predict(jmodel, jq)), pmodel.item_index)
+    assert pout[24].item_scores == () and pout[25].item_scores == ()
+
+
+def test_a_query_after_release_serving_is_answered_by_the_host_path():
+    jalg, jmodel, palg, pmodel = _trained_pair("ALSAlgorithm")
+    palg.prepare_serving("cpu", pmodel)
+    query = psp.Query(items=["i2", "i7"], num=6, categories=["c1", "c2"])
+    served = palg.predict(pmodel, query)
+    palg.release_serving(pmodel)
+    assert pmodel._retriever is None and pmodel._scorer is None
+    before = k14.LAUNCHES.snapshot()["cosine_sum_plain"]
+    straggler = palg.predict(pmodel, query)
+    assert k14.LAUNCHES.snapshot()["cosine_sum_plain"] == before + 1
+    jmodel.item_factors = pmodel.item_factors
+    ref = jalg.predict(jmodel, jsp.Query(items=["i2", "i7"], num=6, categories=["c1", "c2"]))
+    assert_same({0: straggler}, {0: ref}, pmodel.item_index)
+    assert_same({0: straggler}, {0: served}, pmodel.item_index)
+    palg.warm(pmodel)  # the host path's query widths
 
 
 def test_normalize_rows_and_params_match_jax():
