@@ -88,6 +88,32 @@ Phases; any failure exits non-zero:
       (with its two Gramians) at the path's shapes, their twins, the
       library call for K12a (``X.T @ X``, TF32 off; K12b has none), bounds
       and the implicit loop's busy share (``implicit_training``).
+3p. iALS++ at full width: first K11a (``ops/subspace.py``,
+   ``csrc/subspace.cu``: ``subspace_accumulate``) and K11b
+   (``subspace_block_solve``) against their twins on random packs (a row
+   of many segments, an empty row, dislikes) at k in {8, 32, 64} and b in
+   {1, 2, 4, 8, k}, explicit and implicit (K11a within 1e-4 of each row's
+   scale as K1, K11b's rows within 1e-4 of their largest entry as K2, both
+   bit for bit against a second launch); with b = k one subspace
+   half-step against K1 and K2's exact half-step at K2's tolerance. Then
+   the main path, counted from 0: ``ALSAlgorithm.train`` with
+   ``implicit_prefs=True``, ``solver="subspace"``, rank 64, block 8 (the
+   reference's bench setting), 10 sweeps, on the same stream: K11a = K11b
+   = 2 x 8 x sweeps, K11a's combine once per K11a launch on a side with
+   multi-group rows, K12a = 4 x sweeps, K12b = sweeps, K1 = K2 = 0, every
+   twin 0. A second streaming training and the direct route: factors,
+   per-sweep and per-block telemetry bit-identical; the objective printed
+   per sweep, never gated on its sign. K11a and K11b against their twins
+   on the path's packs (blocks 0 and 7 of sweep 1's user half-step and of
+   sweep 4's item half-step); two sweeps driven by the twins against the
+   kernels' loop (within 2e-3 of the largest entry). The same stream
+   trained with ``solver="exact"`` at rank 64: the two loops'
+   ``device_loop_s`` and hit-rate@10 of both models over the ratings >=
+   4.0 of 2,000 seeded users (``bench.py:2573``, in matrix), recorded, not
+   gated. Times of K11a and K11b at the path's shapes (block 0), their
+   twins, the library call for K11b (batched ``torch.linalg.cholesky`` +
+   ``cholesky_solve`` of the block systems; K11a has none), bounds and the
+   loop's busy share (``subspace_training``).
 3s. Similar Product training, reduced to the stream's first 2,000,000
    events as views (all 138,493 users, all 26,744 items with 1-3 of 24
    seeded categories) and the next 500,000 as likes and dislikes (30 %
@@ -110,6 +136,20 @@ Phases; any failure exits non-zero:
    against its twin at Q = 4, 8, 16 over the trained catalog (within 1e-5
    of Σ_q |q·y|), and timed at Q = 16 beside ``(q @ Y.T).sum(0)``
    (``similarproduct_training``).
+3d. DIMSUM on 3s's TrainingData: ``DIMSUMAlgorithm.train`` at thresholds
+   0.0 and 0.5, each counted from 0: K19a (``ops/cooccurrence.py``,
+   ``csrc/cooccurrence.cu``: ``cooccur_counts``) = K19b
+   (``cosine_from_counts``) = 1, twins 0. K19a bit for bit against its twin
+   (and its counts summing to the pairs i >= j of every user's distinct
+   items), both models bit for bit against the twins'; every row within
+   1e-6 of float64 cosines from the counts, and against the dense float32
+   ``Rn @ Rn.T`` of the reference (TF32 off; one call, the library time)
+   at rtol 1e-5 / atol 1e-6 wherever the dense product's own rounding
+   allows it (co-view counts up to 167), its gap elsewhere printed; the
+   0.5 model is the 0.0 model filtered. R3's 320 queries through
+   ``predict`` at each threshold, equal to the twin model's answers. The
+   seconds of the host dedup, the kernels and the device-to-host copy;
+   times of K19a and K19b, their twins and bounds (``dimsum``).
 4. Serving: the model just trained is saved with ``save_model`` and served
    by ``tools.cli deploy --device cuda`` (max_batch 128, 2 ms window). 32
    concurrent clients on keep-alive connections send 320
@@ -173,7 +213,11 @@ Phases; any failure exits non-zero:
    launches summed over the explicit, implicit and Similar Product
    trainings, times at the explicit path's user side; K12a and K12b:
    launches over the implicit and Similar Product trainings, times at the
-   implicit path's user side; K14: launches on both host paths' traffic),
+   implicit path's user side; K14: launches on both host paths' traffic;
+   K11a and K11b: launches on 3p's main path, times at its user side,
+   errors the largest over 3p and the small shapes; K19a and K19b:
+   launches over both DIMSUM trainings, the dense product as K19b's
+   library time),
    the card line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -402,12 +446,14 @@ def ml20m_ratings():
 
 
 def k1_bound(pack, n_ratings: int, Y_rows: int, k: int):
-    """K1's (bound_ms, bound_by) for one side: the packed planes, Y, A and
-    b each moved once vs the k(k+1)/2 + k FMAs per rating that the
-    symmetric A and b need (2 operations each)."""
+    """K1's (bound_ms, bound_by) for one side: each rating's id and value
+    (8 B; the kernel reads only the ``rem[s]`` real slots of a segment,
+    never the padding), each segment's int32 count, Y, A and b each moved
+    once vs the k(k+1)/2 + k FMAs per rating that the symmetric A and b
+    need (2 operations each)."""
     R = pack.n_sys_rows
     nbytes = (
-        pack.cols.numel() * 8 + pack.rem.numel() * 8 + Y_rows * k * 4
+        n_ratings * 8 + pack.rem.numel() * 4 + Y_rows * k * 4
         + R * (k * k + k) * 4
     )
     return roofline(nbytes, 2 * n_ratings * (k * (k + 1) // 2 + k))
@@ -1563,7 +1609,613 @@ def sp_train_phase(rng, device):
              "host_path": {"queries": len(queries), "seconds": host_s, "launches": host_counts},
              "cosine_sum": timing, "reduced": {"views": SP_VIEWS, "likes": SP_LIKES}}
     print("similarproduct_training " + json.dumps(stats), flush=True)
-    return counts, host_counts, errs, stats
+    return counts, host_counts, errs, stats, (td, queries)
+
+
+def np_bits_equal(a, b) -> bool:
+    """Two numpy arrays of one dtype and shape with the same bits."""
+    import numpy as np
+
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+SUB_RANK, SUB_BLOCK = 64, 8  # phase 3p: the reference's bench setting (bench.py:2596, :2674)
+HIT_USERS = 2_000  # seeded users of 3p's hit-rate@10
+
+
+def k11_scales(Y, X, pack, s0, b, implicit, alpha, A2):
+    """Per-row scales of K11a's outputs, as K1's: the largest diagonal of
+    the twin's A bounds every Σ|w_a y_i y_j|; sqrt(Σ c²/w_a · that
+    diagonal) bounds every Σ|c·y_i| (Cauchy-Schwarz, c = w_b − w_a·d, every
+    w_a > 0 here)."""
+    import torch
+
+    L = pack.cols.shape[-1]
+    iota = torch.arange(L, device=X.device)
+    csq = torch.zeros(pack.n_sys_rows, dtype=torch.float32, device=X.device)
+    for c in range(pack.seg_rows.shape[0]):
+        rows = pack.seg_rows[c].long()
+        mask = (iota[None, :] < pack.rem[c][:, None]).to(torch.float32)
+        v = pack.vals[c]
+        d = torch.einsum("slk,sk->sl", Y[pack.cols[c].long()], X[rows])
+        if implicit:
+            wa = alpha * v.abs()
+            wb = (v > 0).to(torch.float32) * (1.0 + wa)
+        else:
+            wa, wb = torch.ones_like(v), v
+        coef = (wb - wa * d) * mask
+        csq.index_add_(0, rows, (coef * coef / wa.clamp_min(1e-30)).sum(-1))
+    diag = A2.diagonal(dim1=1, dim2=2).amax(dim=1)
+    return diag, (csq * diag).sqrt()
+
+
+def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, errs, last):
+    """K11a and K11b on one block against their twins (K11a at K1_RTOL of
+    each row's scale; K11b's updated rows at K2_RTOL of each row's largest
+    entry, both given the kernel's A and r) and against a second launch,
+    bit for bit. Leaves the kernel's update in X."""
+    import torch
+
+    from predictionio_tpu_torch.ops import subspace as k11
+
+    R = pack.n_sys_rows
+    A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA)
+    A_again, r_again = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA)
+    A2, r2 = k11.subspace_accumulate_plain(Y, X, pack.seg_rows, pack.cols, pack.vals, pack.rem,
+                                           R, s0, b, implicit, ALPHA)
+    diag, rscale = k11_scales(Y, X, pack, s0, b, implicit, ALPHA, A2)
+    ea = (A - A2).abs().amax(dim=(1, 2))
+    er = (r - r2).abs().amax(dim=1)
+    if not bool((ea <= 1e-6 + K1_RTOL * diag).all()) or not bool(
+            (er <= 1e-6 + K1_RTOL * rscale).all()):
+        raise AssertionError(f"K11a {label}: differs from its twin (max |dA| {ea.max().item()}, "
+                             f"|dr| {er.max().item()})")
+    if not (bits_equal(A, A_again) and bits_equal(r, r_again)):
+        raise AssertionError(f"K11a {label}: a second launch differs")
+    X_twin = X.clone()
+    X_again = X.clone()
+    s1 = torch.zeros(2, dtype=torch.float32, device=X.device)
+    s_again = torch.zeros(2, dtype=torch.float32, device=X.device)
+    Gb = G if implicit else None
+    k11.subspace_block_solve(A, r, X, lam, has_obs, s0, Gb, s1, last)
+    k11.subspace_block_solve(A, r, X_again, lam, has_obs, s0, Gb, s_again, last)
+    _, s2 = k11.subspace_block_solve_plain(A, r, X_twin, lam, has_obs, s0, Gb)
+    ex = (X - X_twin).abs().amax(dim=1)
+    if not bool((ex <= 1e-6 + K2_RTOL * X_twin.abs().amax(dim=1)).all()):
+        raise AssertionError(f"K11b {label}: differs from its twin (max |dx| {ex.max().item()})")
+    if not (bits_equal(X, X_again) and bits_equal(s1, s_again)):
+        raise AssertionError(f"K11b {label}: a second launch differs")
+    # each sum against its own twin value: the block's Σδ² is a small
+    # share of ΣX², so one tolerance off ΣX² would not hold it
+    got_d2, want_d2 = s1[0].item(), s2[0].item()
+    if not abs(got_d2 - want_d2) <= K2_RTOL * want_d2 + 1e-30:
+        raise AssertionError(f"K11b {label}: block sum of squared updates {got_d2} vs {want_d2}")
+    if last:
+        if not abs(s1[1].item() - s2[1].item()) <= K2_RTOL * s2[1].item() + 1e-30:
+            raise AssertionError(f"K11b {label}: sum of squared factors {s1[1].item()} vs "
+                                 f"{s2[1].item()}")
+    elif s1[1].item() != 0.0:
+        raise AssertionError(f"K11b {label}: a sum of squared factors before the last block")
+    errs["subspace_accumulate"] = max(errs.get("subspace_accumulate", 0.0), ea.max().item(),
+                                      er.max().item())
+    errs["subspace_block_solve"] = max(errs.get("subspace_block_solve", 0.0), ex.max().item())
+    print(f"  {label}: K11a max |dA| {ea.max().item():.3g} |dr| {er.max().item():.3g}, "
+          f"K11b max |dx| {ex.max().item():.3g}, Σδ² {got_d2:.6g} vs twin {want_d2:.6g} "
+          f"(rel {abs(got_d2 - want_d2) / max(want_d2, 1e-30):.3g}; Σδ²/ΣX² "
+          f"{want_d2 / max(s2[1].item(), 1e-30):.3g}) ok", flush=True)
+    return X
+
+
+def check_subspace_half_step(X, Y, pack, lam, has_obs, G, b, implicit, label, errs, blocks):
+    """A whole subspace half-step by the kernels, block by block, in place
+    on ``X``; the blocks in ``blocks`` checked against their twins."""
+    from predictionio_tpu_torch.ops import subspace as k11
+
+    nb = X.shape[1] // b
+    for j in range(nb):
+        s0 = j * b
+        if j in blocks:
+            check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit,
+                                 f"{label}, block {j}", errs, j == nb - 1)
+        else:
+            A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA)
+            k11.subspace_block_solve(A, r, X, lam, has_obs, s0, G if implicit else None,
+                                     last=j == nb - 1)
+    return X
+
+
+def check_k11_sizes(rng, device, errs):
+    """K11a and K11b on random packs (a row of many segments, an empty
+    row) at k in {8, 32, 64} and b in {1, 2, 4, 8, k}, explicit and implicit,
+    against their twins; with b = k one subspace half-step against K1 and
+    K2's exact half-step, at K2's tolerance."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import spd_solve as k2
+
+    n_rows, n_cols, nnz = 300, 200, 40_000
+    u = rng.integers(0, n_rows, nnz).astype(np.int32)
+    u[: nnz // 3] = 2  # many segments: partials and a combine
+    u[u == 5] = 6  # an empty row
+    i = rng.integers(0, n_cols, nnz).astype(np.int32)
+    r = (rng.integers(1, 11, nnz) / 2).astype(np.float32)
+    r[rng.random(nnz) < 0.1] *= -1  # dislikes (implicit: confidence, no preference)
+    side = als.pack_segments(u, i, r, n_rows, 64, 1, 65_536)
+    R, n_y = als._padded_rows(n_rows, 1), als._padded_rows(n_cols, 1)
+    pack = als.device_pack(side, R, n_y, device)
+    counts = np.bincount(u, minlength=n_rows)
+    for k in (8, 32, 64):
+        Y = torch.from_numpy((0.3 * rng.standard_normal((n_y, k))).astype(np.float32)).to(device)
+        X0 = torch.from_numpy((0.3 * rng.standard_normal((R, k))).astype(np.float32)).to(device)
+        G = Y.T @ Y
+        for implicit in (False, True):
+            cfg = als.ALSConfig(rank=k, reg=0.05)
+            lam, obs = (torch.from_numpy(a).to(device)
+                        for a in als._lam_obs_host(counts, n_rows, R, cfg))
+            for b in sorted({1, 2, 4, 8, k}):
+                X = X0.clone()
+                mode = "implicit" if implicit else "explicit"
+                check_subspace_block(X, Y, pack, lam, obs, G, 0, b, implicit,
+                                     f"K11 k={k} b={b} {mode}, block 0", errs, b == k)
+                if b == k:  # one block: the exact half-step
+                    A, bb = k1.normal_eq(Y, pack, implicit, ALPHA)
+                    Xe = k2.spd_solve(A, bb, lam, obs, X0, None, G if implicit else None)
+                    ex = (X - Xe).abs().amax(dim=1)
+                    if not bool((ex <= 1e-6 + K2_RTOL * Xe.abs().amax(dim=1)).all()):
+                        raise AssertionError(f"K11 k={k} b=k {mode}: differs from K1+K2 "
+                                             f"({ex.max().item()})")
+                    if not bits_equal(X[5], X0[5]):
+                        raise AssertionError(f"K11 k={k} {mode}: the empty row moved")
+                    print(f"  K11 k={k} b=k {mode}: the exact half-step, max |dx| "
+                          f"{ex.max().item():.3g} ok", flush=True)
+
+
+def hit_rate_at_10(X, Y, u, i, r, users, device):
+    """bench.py:2573 ``_implicit_hit_rate`` over ``users``, in matrix: per
+    user, the share of the items rated >= 4.0 in the model's top 10
+    (float64 scores on the card)."""
+    import numpy as np
+    import torch
+
+    Xd = torch.from_numpy(X[users]).to(device).double()
+    Yd = torch.from_numpy(Y).to(device).double()
+    top = torch.topk(Xd @ Yd.T, 10, dim=1).indices.cpu().numpy()
+    keep = (r >= 4.0) & np.isin(u, users)
+    row = {int(uu): n for n, uu in enumerate(users)}
+    liked = {}
+    for uu, ii in zip(u[keep].tolist(), i[keep].tolist()):
+        liked.setdefault(uu, set()).add(ii)
+    hits = total = 0
+    for uu, items in liked.items():
+        hits += len(items & set(top[row[uu]].tolist()))
+        total += min(len(items), 10)
+    return hits / total
+
+
+def subspace_train_phase(rng, device):
+    """iALS++ at full width (phase 3p): the recommendation template with
+    implicit_prefs=True, solver="subspace", rank 64, block 8 on the ML-20M
+    stream, counted; the routes bit-identical; K11a and K11b against their
+    twins on the path's packs; a twin-driven loop; the exact solver at rank
+    64 on the same stream for the loop's time and hit-rate@10; times.
+    Returns (launches, errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.recommendation.engine import (
+        ALSAlgorithm,
+        ALSAlgorithmParams,
+        Preparator,
+        StreamingTrainingData,
+    )
+    from predictionio_tpu_torch.ops import als, streaming
+    from predictionio_tpu_torch.ops import device_pack as k5
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import spd_solve as k2
+    from predictionio_tpu_torch.ops import subspace as k11
+
+    n_users, n_items, k, b = ML20M_USERS, ML20M_ITEMS, SUB_RANK, SUB_BLOCK
+    nb = k // b
+    u, i, r = ml20m_ratings()
+    params = ALSAlgorithmParams(rank=k, num_iterations=SWEEPS, lambda_=REG, alpha=ALPHA,
+                                implicit_prefs=True, solver="subspace", block_size=b)
+    config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, alpha=ALPHA, implicit_prefs=True,
+                           seed=params.seed, solver="subspace", block_size=b)
+    names = np.array([f"u{n}" for n in range(n_users)] + [f"i{n}" for n in range(n_items)], dtype=object)
+
+    def stream_factory():
+        return ml20m_stream(u, i, r, names, n_users)
+
+    def loader():
+        raise AssertionError("the streaming path materialized the training data")
+
+    alg = ALSAlgorithm(params)
+    pd = Preparator().prepare(device, StreamingTrainingData(stream_factory, loader))
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k11.LAUNCHES, k12.LAUNCHES)
+    for c in counters:
+        c.reset()
+    t = time.perf_counter()
+    model = alg.train(device, pd)
+    train_s = time.perf_counter() - t
+    counts = snapshot(counters)
+    Xm, Ym = model.arrays.user_factors, model.arrays.item_factors
+    n_u, n_i = len(model.user_index), len(model.item_index)
+    if Xm.shape != (n_u, k) or Ym.shape != (n_i, k) or not (
+            np.isfinite(Xm).all() and np.isfinite(Ym).all()):
+        raise AssertionError("subspace factors misshapen or not finite")
+
+    # the packs the path trained on, for the counts and the checks
+    remap_u = np.array([model.user_index.get(f"u{n}", -1) for n in range(n_users)], np.int32)
+    remap_i = np.array([model.item_index.get(f"i{n}", -1) for n in range(n_items)], np.int32)
+    u_rel, i_rel = remap_u[u], remap_i[i]
+    wire = als.build_host_wire(u_rel, i_rel, r, n_u, n_i, config)
+    up, ip = als.device_pack_from_wire(wire, device)
+    combines = SWEEPS * nb * (int(up.plan.combine_rows.numel() > 0)
+                              + int(ip.plan.combine_rows.numel() > 0))
+    want = {
+        "unpack_nibbles": SHIP_CHUNKS, "device_pack_presorted": 1, "device_scatter_pack": 1,
+        "subspace_accumulate": 2 * nb * SWEEPS, "subspace_block_solve": 2 * nb * SWEEPS,
+        "subspace_combine": combines, "normal_eq": 0, "spd_solve": 0,
+        "gramian": 4 * SWEEPS, "implicit_objective": SWEEPS,
+    }
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name} launched {counts[name]} times on the subspace path, not {n}")
+    if any(v for name, v in counts.items() if name.endswith("_plain")):
+        raise AssertionError(f"a plain twin ran on the subspace path: {counts}")
+    print(f"  ALSAlgorithm.train (streaming, implicit, subspace rank {k} block {b}): "
+          f"{train_s:.2f} s, launches {counts}", flush=True)
+
+    # a second streaming training (timings, telemetry) and the direct route
+    t_stream, timings = {}, {}
+    again = streaming.train_als_streaming(stream_factory(), config, device=device, timings=t_stream)
+    direct = als.train_als(u_rel, i_rel, r, n_u, n_i, config, device=device, timings=timings)
+    for name, other in (("a second streaming training", again.arrays), ("the direct route", direct)):
+        if not all(np_bits_equal(a, bb) for a, bb in ((other.user_factors, Xm), (other.item_factors, Ym))):
+            raise AssertionError(f"{name}'s subspace factors differ from the main path's")
+    for key in ("sweep_telemetry", "block_telemetry"):
+        if t_stream[key] != timings[key]:
+            raise AssertionError(f"the routes' {key} differ")
+    tel, btel = timings["sweep_telemetry"], timings["block_telemetry"]
+    if len(tel) != SWEEPS or len(btel) != SWEEPS * nb or not np.isfinite(
+            [row[c] for row in tel for c in row]).all():
+        raise AssertionError(f"subspace telemetry: {len(tel)} sweep rows, {len(btel)} block rows")
+    print("  a second streaming training and the direct route: bit-identical factors and "
+          "telemetry", flush=True)
+    print("subspace_telemetry " + json.dumps({"sweep": tel, "block": btel}), flush=True)
+    print("  objective per sweep (never gated on its sign): "
+          + ", ".join(f"{row['objective']:.7g}" for row in tel), flush=True)
+
+    # K11a and K11b against their twins on the path's packs: blocks 0 and
+    # nb-1 of sweep 1's user half-step and of sweep 4's item half-step
+    errs = {}
+    state = als.init_factor_state_single(wire.counts_u, wire.counts_i, n_u, n_i, config, device=device)
+    X0, Y0, lam_u, lam_i, obs_u, obs_i = state
+    Gy = k12.gramian(Y0)
+    check_subspace_half_step(X0.clone(), Y0, up, lam_u, obs_u, Gy, b, True,
+                             "sweep 1, user side", errs, (0, nb - 1))
+    X3, Y3, tel3 = als._run_iterations(X0.clone(), Y0.clone(), up, ip, lam_u, lam_i, obs_u, obs_i,
+                                       3, implicit=True, alpha=ALPHA, solver="subspace",
+                                       block_size=b)
+    X4 = als._solve_side_subspace(X3.clone(), Y3, k12.gramian(Y3), up, lam_u, obs_u, ALPHA, True, b)
+    check_subspace_half_step(Y3.clone(), X4, ip, lam_i, obs_i, k12.gramian(X4), b, True,
+                             "sweep 4, item side", errs, (0, nb - 1))
+
+    # two sweeps driven by the twins against the kernels' loop
+    X2, Y2, _ = als._run_iterations(X0.clone(), Y0.clone(), up, ip, lam_u, lam_i, obs_u, obs_i,
+                                    2, implicit=True, alpha=ALPHA, solver="subspace", block_size=b)
+    X, Y = X0.clone(), Y0.clone()
+    t = time.perf_counter()
+    for _ in range(2):
+        for F, H, pack, lam, obs in ((X, Y, up, lam_u, obs_u), (Y, X, ip, lam_i, obs_i)):
+            G = k12.gramian_plain(H)
+            for j in range(nb):
+                A, rr = k11.subspace_accumulate_plain(H, F, pack.seg_rows, pack.cols, pack.vals,
+                                                      pack.rem, pack.n_sys_rows, j * b, b, True,
+                                                      ALPHA)
+                k11.subspace_block_solve_plain(A, rr, F, lam, obs, j * b, G)
+    torch.cuda.synchronize()
+    twin_loop_s = time.perf_counter() - t
+    dX = (X - X2).abs().max().item()
+    dY = (Y - Y2).abs().max().item()
+    if dX > TRAIN_RTOL * X.abs().max().item() or dY > TRAIN_RTOL * Y.abs().max().item():
+        raise AssertionError(f"twin-driven subspace training differs: max |dX| {dX}, |dY| {dY}")
+    print(f"  twin-driven subspace training, 2 sweeps ({twin_loop_s:.2f} s): max |dX| {dX:.3g}, "
+          f"|dY| {dY:.3g} ok", flush=True)
+
+    # the exact solver at rank 64 on the same stream: the loop's time and
+    # hit-rate@10 of both models (recorded, not gated)
+    exact_cfg = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, alpha=ALPHA, implicit_prefs=True,
+                              seed=params.seed)
+    t_exact = {}
+    exact = streaming.train_als_streaming(stream_factory(), exact_cfg, device=device,
+                                          timings=t_exact)
+    users = np.sort(np.random.default_rng(SUB_RANK).choice(n_u, HIT_USERS, replace=False))
+    hit = {
+        "subspace": hit_rate_at_10(Xm, Ym, u_rel, i_rel, r, users, device),
+        "exact": hit_rate_at_10(exact.arrays.user_factors, exact.arrays.item_factors, u_rel, i_rel,
+                                r, users, device),
+    }
+    loop_ratio = t_exact["device_loop_s"] / t_stream["device_loop_s"]
+    print(f"  exact solver at rank {k}: device_loop_s {t_exact['device_loop_s']:.4f} s against "
+          f"subspace {t_stream['device_loop_s']:.4f} s (exact / subspace {loop_ratio:.3f}); "
+          f"hit-rate@10 over {HIT_USERS} users: subspace {hit['subspace']:.4f}, exact "
+          f"{hit['exact']:.4f}", flush=True)
+
+    # times at the path's shapes: block 0 of the user and item half-steps
+    A_u, r_u = k11.subspace_accumulate(Y3, X3, up, 0, b, True, ALPHA)
+    A_i, r_i = k11.subspace_accumulate(X4, Y3, ip, 0, b, True, ALPHA)
+    Gy3, Gx4 = k12.gramian(Y3), k12.gramian(X4)
+    Xs, Ys = X3.clone(), Y3.clone()
+    sums = torch.zeros(2, dtype=torch.float32, device=device)
+    calls = {
+        "subspace_accumulate": {"user": lambda: k11.subspace_accumulate(Y3, X3, up, 0, b, True, ALPHA),
+                                "item": lambda: k11.subspace_accumulate(X4, Y3, ip, 0, b, True, ALPHA)},
+        # in place on scratch copies: each call adds its δ again, which
+        # changes no instruction it runs
+        "subspace_block_solve": {
+            "user": lambda: k11.subspace_block_solve(A_u, r_u, Xs, lam_u, obs_u, 0, Gy3, sums),
+            "item": lambda: k11.subspace_block_solve(A_i, r_i, Ys, lam_i, obs_i, 0, Gx4, sums)},
+    }
+    t_k = {n: {side: time_ms(f, iters=20, warmup=2) for side, f in c.items()} for n, c in calls.items()}
+    dev = {n: {side: device_ms(f, calls=10) for side, f in c.items()} for n, c in calls.items()}
+    Xp = X3.clone()
+    plain_ms = {
+        "subspace_accumulate_user": time_ms(lambda: k11.subspace_accumulate_plain(
+            Y3, X3, up.seg_rows, up.cols, up.vals, up.rem, up.n_sys_rows, 0, b, True, ALPHA),
+            iters=3, warmup=1),
+        "subspace_block_solve_user": time_ms(lambda: k11.subspace_block_solve_plain(
+            A_u, r_u, Xp, lam_u, obs_u, 0, Gy3), iters=3, warmup=1),
+    }
+    eye = torch.eye(b, dtype=torch.float32, device=device)
+
+    def library_solve():
+        M = A_u + Gy3[:b, :b][None] + lam_u[:, None, None] * eye
+        rhs = r_u - X3 @ Gy3[:b].T - lam_u[:, None] * X3[:, :b]
+        return torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(M))
+
+    library_ms = {"subspace_block_solve_user": time_ms(library_solve, iters=20, warmup=2)}
+    R_u, R_i = up.n_sys_rows, ip.n_sys_rows
+    bounds = {
+        "subspace_accumulate": {"user": k11a_bound(up, len(r), R_i, k, b),
+                                "item": k11a_bound(ip, len(r), R_u, k, b)},
+        "subspace_block_solve": {"user": k11b_bound(R_u, int(obs_u.sum()), k, b),
+                                 "item": k11b_bound(R_i, int(obs_i.sum()), k, b)},
+    }
+
+    def loop():
+        return als._run_iterations(X0.clone(), Y0.clone(), up, ip, lam_u, lam_i, obs_u, obs_i,
+                                   SWEEPS, implicit=True, alpha=ALPHA, solver="subspace",
+                                   block_size=b)
+
+    loop()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop()
+    torch.cuda.synchronize()
+    loop_wall_ms = (time.perf_counter() - t) * 1e3
+    loop_device_ms = device_ms(loop, calls=1)
+    stats = {
+        "card": card_line(), "rank": k, "block_size": b, "train_s": train_s,
+        "streaming": {key: t_stream[key] for key in (
+            "fold_s", "pack_exposed_s", "device_put_exposed_s", "compile_s", "compile_exposed_s",
+            "device_pack_dispatch_s", "device_loop_s", "stream_wall_s")},
+        "exact_streaming": {key: t_exact[key] for key in ("device_loop_s", "stream_wall_s")},
+        "exact_over_subspace_loop": loop_ratio, "hit_rate_at_10": hit, "hit_users": HIT_USERS,
+        "ms_per_sweep": t_stream["device_loop_s"] * 1e3 / SWEEPS,
+        "loop_wall_ms": loop_wall_ms, "loop_device_ms": loop_device_ms,
+        "device_busy_share": loop_device_ms / loop_wall_ms,
+        "launches": counts, "kernel_ms": t_k, "device_ms": dev, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound": bounds, "errors": errs, "twin_loop_s": twin_loop_s,
+        "packs": {"L_u": wire.L_u, "L_i": wire.L_i, "slots_u": up.cols.numel(),
+                  "slots_i": ip.cols.numel(), "real_slots_u": int(up.rem.sum().item()),
+                  "real_slots_i": int(ip.rem.sum().item()), "partials_u": up.plan.n_partials,
+                  "partials_i": ip.plan.n_partials},
+    }
+    print("subspace_training " + json.dumps(stats), flush=True)
+    return counts, errs, stats
+
+
+def k11a_bound(pack, n_ratings: int, Y_rows: int, k: int, b: int):
+    """K11a's (bound_ms, bound_by) for one block: each rating's id and
+    value once (8 B; only the ``rem[s]`` real slots of a segment are read,
+    never the padding), each segment's int32 count, the counter side's and
+    the side's factors once, A and r written once, vs k + b(b+1)/2 + b
+    FMAs per rating (d, the triangle, r)."""
+    R = pack.n_sys_rows
+    nbytes = (n_ratings * 8 + pack.rem.numel() * 4 + (Y_rows + R) * k * 4
+              + R * (b * b + b) * 4)
+    return roofline(nbytes, 2 * n_ratings * (k + b * (b + 1) // 2 + b))
+
+
+def k11b_bound(R: int, R_obs: int, k: int, b: int):
+    """K11b's (bound_ms, bound_by) for one block: lam, has_obs and x_B of
+    every row, A (its lower triangle), r and x's other columns (for G x)
+    of the solved rows, x_B written back, vs b³/3 + 2b² + k·b operations
+    per solve."""
+    nbytes = R * (4 + 1 + 8 * b) + R_obs * (4 * b * (b + 1) // 2 + 4 * b + 4 * (k - b))
+    return roofline(nbytes, R_obs * (b ** 3 / 3 + 2 * b * b + 2 * k * b))
+
+
+DIMSUM_THRESHOLDS = (0.0, 0.5)
+# co-view counts up to which the dense float32 Rn @ Rn.T rounds within
+# rtol 1e-5: a sum of C equal positive terms errs by at most C·2⁻²⁴ of it
+DENSE_COUNT = 167
+
+
+def dimsum_phase(device, td, queries):
+    """DIMSUM on 3s's TrainingData (phase 3d): ``DIMSUMAlgorithm.train``
+    counted (K19a = K19b = 1) at two thresholds; the model bit for bit
+    against the twins' on the same upload; against float64 cosines from
+    the counts and the dense float32 ``Rn @ Rn.T`` (TF32 off, also the
+    library time); R3's queries through ``predict`` against the twin
+    model's; host dedup, K19 and copy seconds; times. Returns (launches,
+    errors, stats)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.similarproduct import engine as psp
+    from predictionio_tpu_torch.ops import cooccurrence as k19
+
+    errs = {"cooccur_counts": 0.0, "cosine_from_counts": 0.0}  # bit for bit, or it raises
+    counts, train_s, models = {}, {}, {}
+    for thr in DIMSUM_THRESHOLDS:
+        alg = psp.DIMSUMAlgorithm(psp.DIMSUMAlgorithmParams(threshold=thr))
+        k19.LAUNCHES.reset()
+        t = time.perf_counter()
+        models[thr] = alg.train(device, psp.Preparator().prepare(device, td))
+        train_s[thr] = time.perf_counter() - t
+        counts[thr] = k19.LAUNCHES.snapshot()
+        if counts[thr] != {"cooccur_counts": 1, "cosine_from_counts": 1,
+                           "cooccur_counts_plain": 0, "cosine_from_counts_plain": 0}:
+            raise AssertionError(f"DIMSUM threshold {thr}: launches {counts[thr]}")
+        print(f"  DIMSUMAlgorithm.train threshold {thr}: {train_s[thr]:.2f} s, launches "
+              f"{counts[thr]}", flush=True)
+    alg = psp.DIMSUMAlgorithm(psp.DIMSUMAlgorithmParams(threshold=0.0))
+    item_index, u, i = alg.view_arrays(td)
+    I = len(item_index)
+    timings = {}
+    k19.item_cosine(u, i, I, 0.0, device=device, timings=timings)
+    print(f"  host dedup {timings['dedup_s']:.3f} s, upload + K19 {timings['device_s']:.3f} s, "
+          f"device-to-host copy {timings['d2h_s']:.3f} s ({I} x {I} float32)", flush=True)
+    user_ptr, items = k19.dedup_views(u, i, I)
+    rinv_np = k19.inverse_norms(items, I)
+    ptr_d, items_d = torch.from_numpy(user_ptr).to(device), torch.from_numpy(items).to(device)
+    rinv = torch.from_numpy(rinv_np).to(device)
+    C = k19.cooccur_counts(ptr_d, items_d, I)
+    C2 = k19.cooccur_counts_plain(ptr_d, items_d, I)
+    if not bits_equal(C, C2):
+        raise AssertionError("K19a differs from its twin")
+    del C2
+    pairs = int(((user_ptr[1:] - user_ptr[:-1]) * (user_ptr[1:] - user_ptr[:-1] + 1) // 2).sum())
+    if int(C.sum(dtype=torch.int64).item()) != pairs:
+        raise AssertionError("K19a's counts do not sum to the pair count")
+    n_seen = int((rinv_np > 0).sum())
+    print(f"  K19a bit-equal to its twin: {len(items)} distinct (user, item) pairs over "
+          f"{len(user_ptr) - 1} users, {n_seen} of {I} items viewed, {pairs} pairs i >= j",
+          flush=True)
+    twin_models = {}
+    for thr in DIMSUM_THRESHOLDS:
+        S2 = k19.cosine_from_counts_plain(C, rinv, thr)
+        if not np_bits_equal(models[thr].similarities, S2.cpu().numpy()):
+            raise AssertionError(f"DIMSUM threshold {thr}: the model differs from the twins'")
+        twin_models[thr] = dataclasses.replace(models[thr], similarities=S2.cpu().numpy())
+        del S2
+    print("  both models bit-equal to the twins' (K19b)", flush=True)
+
+    # against float64 cosines from the counts, and the dense float32
+    # Rn @ Rn.T of the reference (TF32 off), over every row
+    S = torch.from_numpy(models[0.0].similarities).to(device)
+    Rn = torch.zeros((I, len(user_ptr) - 1), dtype=torch.float32, device=device)
+    owner = torch.repeat_interleave(torch.arange(len(user_ptr) - 1, device=device),
+                                    ptr_d[1:] - ptr_d[:-1])
+    Rn[items_d.long(), owner] = rinv[items_d.long()]
+    dense = Rn @ Rn.T
+    library_ms = time_ms(lambda: Rn @ Rn.T, iters=1, warmup=0)
+    rd = rinv.double()
+    e64 = e_dense = e_dense_all = e_dense_exact = 0.0
+    n_many = 0
+    for s in range(0, I, 2048):
+        rows = slice(s, min(I, s + 2048))
+        Cs = C[rows].double()
+        CT = C[:, rows].T.double()
+        idx = torch.arange(rows.start, rows.stop, device=device)[:, None]
+        col = torch.arange(I, device=device)[None, :]
+        full = torch.where(col < idx, Cs, torch.where(col > idx, CT, torch.zeros_like(Cs)))
+        ex = full * rd[None, :] * rd[rows, None]
+        got = S[rows].double()
+        d64 = (got - ex).abs()
+        if not bool((d64 <= 1e-6 * ex.abs() + 1e-7).all()):
+            raise AssertionError(f"DIMSUM rows {rows}: off the float64 cosine by {d64.max().item()}")
+        e64 = max(e64, d64.max().item())
+        dd = dense[rows].double().clone()
+        dd[idx.expand_as(dd) == col.expand_as(dd)] = 0.0
+        dd_abs = (got - dd).abs()
+        # the dense product sums C[i, j] equal float32 terms: its own
+        # rounding is within rtol 1e-5 only where C[i, j] <= DENSE_COUNT
+        few = full <= DENSE_COUNT
+        if not bool((dd_abs <= 1e-5 * dd.abs() + 1e-6)[few].all()):
+            raise AssertionError(f"DIMSUM rows {rows}: off the dense Rn @ Rn.T by "
+                                 f"{dd_abs[few].max().item()} where C <= {DENSE_COUNT}")
+        e_dense = max(e_dense, dd_abs[few].max().item())
+        e_dense_all = max(e_dense_all, dd_abs.max().item())
+        e_dense_exact = max(e_dense_exact, (dd - ex).abs().max().item())
+        n_many += int((~few).sum().item())
+    del dense
+    print(f"  every row against float64 cosines from the counts (max |d| {e64:.3g}); against the "
+          f"dense Rn @ Rn.T, TF32 off ({library_ms:.2f} ms a call), max |d| {e_dense:.3g} where "
+          f"C <= {DENSE_COUNT}, {e_dense_all:.3g} over all ({n_many} entries with more "
+          f"co-views; the dense product is off the float64 cosines by {e_dense_exact:.3g}) ok",
+          flush=True)
+    # K19a's library call: the counts alone are Rb @ Rb.T of the binary
+    # view matrix (TF32 off; exact in float32 below 2^24 co-views)
+    Rn[items_d.long(), owner] = 1.0
+    dense_counts = Rn @ Rn.T
+    if not torch.equal(torch.tril(dense_counts).to(torch.int32), C):
+        raise AssertionError("K19a differs from the dense binary Rb @ Rb.T")
+    del dense_counts
+    counts_library_ms = time_ms(lambda: Rn @ Rn.T, iters=1, warmup=0)
+    del Rn
+    print(f"  K19a equal to the dense binary Rb @ Rb.T, TF32 off ({counts_library_ms:.2f} ms a "
+          "call) ok", flush=True)
+    # the 0.5 model: only values at or above the threshold stay
+    S0, S5 = models[0.0].similarities, models[0.5].similarities
+    if not np_bits_equal(S5, np.where(S0 >= 0.5, S0, np.float32(0))):
+        raise AssertionError("DIMSUM threshold 0.5: not the 0.0 model filtered at 0.5")
+
+    # R3's queries through predict, against the twin model's answers
+    answers, answered = {}, {}
+    for thr in DIMSUM_THRESHOLDS:
+        a = psp.DIMSUMAlgorithm(psp.DIMSUMAlgorithmParams(threshold=thr))
+        t = time.perf_counter()
+        got = {q: a.predict(models[thr], query) for q, query in queries}
+        answers[thr] = time.perf_counter() - t
+        want = {q: a.predict(twin_models[thr], query) for q, query in queries}
+        if got != want:
+            raise AssertionError(f"DIMSUM threshold {thr}: answers differ from the twin model's")
+        answered[thr] = sum(bool(res.item_scores) for res in got.values())
+    if not answered[0.0]:
+        raise AssertionError("DIMSUM threshold 0.0: no query answered")
+    print(f"  {len(queries)} queries through predict, equal to the twin model's answers: "
+          + ", ".join(f"threshold {thr}: {answered[thr]} answered in {sec:.2f} s"
+                      for thr, sec in answers.items()), flush=True)
+
+    # times: each kernel, its twin, the library call, bounds
+    nnz = len(items)
+    t_k = {"cooccur_counts": time_ms(lambda: k19.cooccur_counts(ptr_d, items_d, I), iters=5, warmup=1),
+           "cosine_from_counts": time_ms(lambda: k19.cosine_from_counts(C, rinv, 0.0), iters=5,
+                                         warmup=1)}
+    dev = {"cooccur_counts": device_ms(lambda: k19.cooccur_counts(ptr_d, items_d, I), calls=3),
+           "cosine_from_counts": device_ms(lambda: k19.cosine_from_counts(C, rinv, 0.0), calls=3)}
+    plain_ms = {"cooccur_counts": time_ms(lambda: k19.cooccur_counts_plain(ptr_d, items_d, I),
+                                          iters=2, warmup=1),
+                "cosine_from_counts": time_ms(lambda: k19.cosine_from_counts_plain(C, rinv, 0.0),
+                                              iters=2, warmup=1)}
+    bounds = {
+        # the CSR in, C written once (its I² int32 entries)
+        "cooccur_counts": roofline(8 * len(user_ptr) + 4 * nnz + 4 * I * I, pairs),
+        # C's lower triangle and rinv in, S written once
+        "cosine_from_counts": roofline(4 * I * (I + 1) // 2 + 4 * I + 4 * I * I, 2 * I * I),
+    }
+    stats = {"card": card_line(), "items": I, "distinct_pairs": nnz, "pairs": pairs,
+             "train_s": train_s, "item_cosine": timings, "predict_s": answers,
+             "answered": answered,
+             "launches": counts, "kernel_ms": t_k, "device_ms": dev, "plain_ms": plain_ms,
+             "library_ms": {"cooccur_counts": counts_library_ms,
+                            "cosine_from_counts": library_ms}, "bound": bounds,
+             "errors": {"float64": e64, "dense_few": e_dense, "dense_all": e_dense_all,
+                        "dense_vs_float64": e_dense_exact, "entries_over_count": n_many}}
+    print("dimsum " + json.dumps(stats), flush=True)
+    launches = {name: sum(c[name] for c in counts.values())
+                for name in ("cooccur_counts", "cosine_from_counts")}
+    return launches, errs, stats
 
 
 def free_port() -> int:
@@ -2358,6 +3010,7 @@ def main() -> int:
 
     from predictionio_tpu_torch.device import resolve_device
     from predictionio_tpu_torch.ops import (
+        cooccurrence,
         device_pack,
         gramian,
         masked_topn,
@@ -2367,6 +3020,7 @@ def main() -> int:
         rescore,
         similarity,
         spd_solve,
+        subspace,
         topn,
     )
 
@@ -2380,7 +3034,7 @@ def main() -> int:
           f"devices {torch.cuda.device_count()} nvcc {native.nvcc_path()}", flush=True)
     t0 = time.perf_counter()
     kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
-                      gramian, similarity)
+                      gramian, similarity, subspace, cooccurrence)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -2400,8 +3054,15 @@ def main() -> int:
     model, kernels, _ = train_phase(rng, device)
     print(f"phase implicit train (at {time.perf_counter() - t0:.1f} s)", flush=True)
     i_counts, i_errs, i_stats = implicit_train_phase(rng, device)
+    print(f"phase subspace train (3p) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    k11_errs = {}
+    check_k11_sizes(rng, device, k11_errs)
+    p_counts, p_errs, p_stats = subspace_train_phase(rng, device)
     print(f"phase similar product train (at {time.perf_counter() - t0:.1f} s)", flush=True)
-    sp_counts, host_counts, sp_errs, sp_stats = sp_train_phase(rng, device)
+    sp_counts, host_counts, sp_errs, sp_stats, (sp_td, sp_queries) = sp_train_phase(rng, device)
+    print(f"phase dimsum (3d) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    d_counts, d_errs, d_stats = dimsum_phase(device, sp_td, sp_queries)
+    del sp_td
     print(f"phase slice (at {time.perf_counter() - t0:.1f} s)", flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _, traffic = slice_phase(rng, device, workdir, model)
@@ -2449,7 +3110,7 @@ def main() -> int:
         })
     # K1 and K2 on every training path; K12 on the implicit ones (each
     # path's counts from 0); K14 on the Similar Product host path
-    train_counts = [i_counts] + list(sp_counts.values())
+    train_counts = [i_counts, p_counts] + list(sp_counts.values())
     for row in kernels:
         if row["name"] in ("normal_eq", "spd_solve"):
             row["launches"] += sum(c[row["name"]] for c in train_counts)
@@ -2472,6 +3133,32 @@ def main() -> int:
         "max_abs_err": sp_errs["cosine_sum"], "ms": t14["ms"], "plain_ms": t14["plain_ms"],
         "bound_ms": t14["bound"][0], "bound_by": t14["bound"][1], "library_ms": t14["library_ms"],
     })
+    # this slice's kernels: K11 on the subspace path (3p; errors the
+    # largest over 3p and the small shapes), K19 on DIMSUM's (3d, both
+    # thresholds)
+    for name in ("subspace_accumulate", "subspace_block_solve"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "predictionio_tpu_torch/csrc/subspace.cu",
+            "replaces": "predictionio_tpu/ops/als.py:640", "launches": p_counts[name],
+            "max_abs_err": max(p_errs[name], k11_errs[name]),
+            "ms": p_stats["kernel_ms"][name]["user"],
+            "plain_ms": p_stats["plain_ms"][f"{name}_user"],
+            "bound_ms": p_stats["bound"][name]["user"][0],
+            "bound_by": p_stats["bound"][name]["user"][1],
+            "library_ms": p_stats["library_ms"].get(f"{name}_user"),
+        })
+    kernels[-2]["combine_launches"] = p_counts["subspace_combine"]
+    for name in ("cooccur_counts", "cosine_from_counts"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "predictionio_tpu_torch/csrc/cooccurrence.cu",
+            "replaces": "predictionio_tpu/models/similarproduct/engine.py:615",
+            "launches": d_counts[name], "max_abs_err": d_errs[name],
+            "ms": d_stats["kernel_ms"][name], "plain_ms": d_stats["plain_ms"][name],
+            "bound_ms": d_stats["bound"][name][0], "bound_by": d_stats["bound"][name][1],
+            # K19a: the dense binary Rb @ Rb.T; K19b: Rn @ Rn.T, the whole
+            # function of the reference, K19a's share included
+            "library_ms": d_stats["library_ms"][name],
+        })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -11,7 +11,7 @@ from predictionio_tpu_torch.controller.base import (
     FirstServing,
     SanityCheck,
 )
-from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.controller.engine import Engine, EngineFactory, EngineParams
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     Params,
@@ -26,6 +26,7 @@ __all__ = [
     "BaseServing",
     "EmptyParams",
     "Engine",
+    "EngineFactory",
     "EngineParams",
     "FirstServing",
     "Params",

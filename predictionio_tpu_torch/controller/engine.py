@@ -2,9 +2,9 @@
 (reference controller/Engine.scala:80 and prepareDeploy :196-265).
 
 It builds an engine's algorithms and serving from ``EngineParams`` and
-prepares loaded models for serving on one device. The train and eval
-workflows come with a later slice; an algorithm trains on its own
-(``BaseAlgorithm.train``).
+prepares loaded models for serving on one device; ``EngineFactory`` is the
+user object that returns an engine. The train and eval workflows come with
+a later slice; an algorithm trains on its own (``BaseAlgorithm.train``).
 """
 
 from __future__ import annotations
@@ -89,3 +89,18 @@ class Engine:
             algo.prepare_serving(device, m)
             for algo, m in zip(algorithms, models)
         ]
+
+
+class EngineFactory:
+    """User object returning an Engine (reference
+    controller/EngineFactory.scala:24-37).
+
+    Subclass and implement ``apply()``; optionally override
+    ``engine_params(key)`` for params-by-key lookup.
+    """
+
+    def apply(self) -> Engine:
+        raise NotImplementedError
+
+    def engine_params(self, key: str) -> EngineParams:
+        raise KeyError(f"engine params key {key!r} is not defined")

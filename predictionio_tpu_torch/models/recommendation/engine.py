@@ -161,9 +161,9 @@ class ALSAlgorithmParams(Params):
     """The reference's ALSAlgorithmParams, field for field, so an
     engine.json params block parses the same. Training takes explicit
     ratings, or implicit feedback with ``implicit_prefs=True`` and its
-    confidence scale ``alpha`` (MLlib trainImplicit), with the exact
-    solver; ``solver="subspace"`` and ``checkpoint_dir`` raise
-    ``NotImplementedError`` (ops/als.py)."""
+    confidence scale ``alpha`` (MLlib trainImplicit), with the exact solver
+    or the iALS++ ``solver="subspace"`` and its ``block_size``;
+    ``checkpoint_dir`` raises ``NotImplementedError`` (ops/als.py)."""
 
     rank: int = 10
     num_iterations: int = 10

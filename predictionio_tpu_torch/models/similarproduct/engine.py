@@ -22,12 +22,20 @@ host path: K14 (``ops/similarity.py``) sums the cosines on the model's
 device, and the rules and the selection run in numpy, as the reference's.
 ``Serving`` sums each item's scores across algorithms.
 
+Both ALS algorithms train with either solver: ``solver="subspace"`` (with
+``block_size``) runs the iALS++ loop (K11, ``ops/subspace.py``).
+
+The third algorithm, ``dimsum`` (``DIMSUMAlgorithm``, the reference's
+experimental DIMSUM project), keeps the thresholded all-pairs item cosine
+of the binary view matrix, computed on the device from the co-view counts
+(K19, ``ops/cooccurrence.py``) and kept on the host as a ``DIMSUMModel``;
+``predict`` sums the query items' rows and applies the candidacy rules in
+numpy, as the reference does.
+
 Queries, results, training data and params keep the reference's fields
 and JSON names. A model crosses from the JAX package as arrays
-(``sp_model_from_numpy``). Not ported yet, each raising
-``NotImplementedError``: the ``dimsum`` algorithm (K19) and
-``solver="subspace"`` (K11), both ROADMAP queue 1 item 6, the rest; the
-``DataSource`` (it reads the event store, item 3).
+(``sp_model_from_numpy``, ``dimsum_model_from_numpy``). Not ported yet:
+the ``DataSource`` (it reads the event store, item 3).
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
-from predictionio_tpu_torch.ops import retrieval
+from predictionio_tpu_torch.ops import cooccurrence, retrieval
 from predictionio_tpu_torch.ops.als import ALSConfig, train_als, validate_solver
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever
 from predictionio_tpu_torch.ops.similarity import SimilarityScorer, normalize_rows
@@ -162,7 +170,7 @@ class ALSAlgorithmParams(Params):
     # confidence scale of the implicit objective this engine always
     # trains (c = alpha*|r|, MLlib trainImplicit)
     alpha: float = 1.0
-    # "exact", or the iALS++ "subspace" solver (not ported yet: K11)
+    # "exact", or the iALS++ "subspace" solver with its block_size
     solver: str = "exact"
     block_size: int = 0
 
@@ -317,43 +325,52 @@ class SPModel:
             return PredictedResult()
         scorer = self.scorer
         scores = scorer.cosine_sum(scorer.normed[query_idx])
+        return rank_on_host(scores, query_idx, query, self)
 
-        mask = scores > 0
-        mask[query_idx] = False  # exclude the query items themselves
-        if query.white_list is not None:
-            wl = np.zeros_like(mask)
-            wl[[
-                self.item_index[i]
-                for i in query.white_list
-                if i in self.item_index
-            ]] = True
-            mask &= wl
-        if query.black_list is not None:
-            mask[[
-                self.item_index[i]
-                for i in query.black_list
-                if i in self.item_index
-            ]] = False
-        if query.categories is not None:
-            cats = set(query.categories)
-            for idx in np.nonzero(mask)[0]:
-                item = self.items.get(int(idx))
-                if item is None or not cats.intersection(item.categories):
-                    mask[idx] = False
 
-        scores = np.where(mask, scores, -np.inf)
-        num = min(query.num, int(mask.sum()))
-        if num <= 0:
-            return PredictedResult()
-        top = np.argpartition(-scores, num - 1)[:num]
-        top = top[np.argsort(-scores[top])]
-        inv = self.inv_index
-        return PredictedResult(
-            item_scores=tuple(
-                ItemScore(item=inv[int(i)], score=float(scores[i]))
-                for i in top
-            )
+def rank_on_host(scores: np.ndarray, query_idx, query: Query, model) -> PredictedResult:
+    """The reference's candidacy rules and selection in numpy (the tail of
+    its ALSAlgorithm and DIMSUMAlgorithm predict): positive ``scores``
+    only, the query items and the ``black_list`` excluded, the
+    ``white_list`` and ``categories`` as inclusion rules, then the top
+    ``num`` by ``argpartition`` and ``argsort``. ``model`` gives the
+    ``item_index``, ``inv_index`` and ``items``."""
+    mask = scores > 0
+    mask[query_idx] = False  # exclude the query items themselves
+    if query.white_list is not None:
+        wl = np.zeros_like(mask)
+        wl[[
+            model.item_index[i]
+            for i in query.white_list
+            if i in model.item_index
+        ]] = True
+        mask &= wl
+    if query.black_list is not None:
+        mask[[
+            model.item_index[i]
+            for i in query.black_list
+            if i in model.item_index
+        ]] = False
+    if query.categories is not None:
+        cats = set(query.categories)
+        for idx in np.nonzero(mask)[0]:
+            item = model.items.get(int(idx))
+            if item is None or not cats.intersection(item.categories):
+                mask[idx] = False
+
+    scores = np.where(mask, scores, -np.inf)
+    num = min(query.num, int(mask.sum()))
+    if num <= 0:
+        return PredictedResult()
+    top = np.argpartition(-scores, num - 1)[:num]
+    top = top[np.argsort(-scores[top])]
+    inv = model.inv_index
+    return PredictedResult(
+        item_scores=tuple(
+            ItemScore(item=inv[int(i)], score=float(scores[i]))
+            for i in top
         )
+    )
 
 
 def sp_model_from_numpy(
@@ -536,15 +553,116 @@ class LikeAlgorithm(ALSAlgorithm):
         return {k: val for k, (_, val) in latest.items()}
 
 
-class DIMSUMAlgorithm(BaseAlgorithm):
-    """The DIMSUM item-item cosine algorithm (reference experimental
-    scala-parallel-similarproduct-dimsum): not ported yet."""
+@dataclasses.dataclass(frozen=True)
+class DIMSUMAlgorithmParams(Params):
+    threshold: float = 0.0
 
-    def __init__(self, params: Optional[Params] = None):
-        raise NotImplementedError(
-            "the dimsum algorithm (K19, the all-pairs cosine Rn·Rnᵀ) is not "
-            "ported yet (ROADMAP.md queue 1 item 6, the rest)"
+
+@dataclasses.dataclass
+class DIMSUMModel:
+    """The thresholded item-item cosine matrix (host numpy), the item ids
+    and metadata, and the params it was trained with."""
+
+    similarities: np.ndarray  # [n_items, n_items], zeroed under threshold
+    item_index: BiMap
+    items: Dict[int, Item]
+    params: Optional[DIMSUMAlgorithmParams] = None
+    _inv_index: Optional[BiMap] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    @property
+    def inv_index(self) -> BiMap:
+        if self._inv_index is None:
+            self._inv_index = self.item_index.inverse()
+        return self._inv_index
+
+
+def dimsum_model_from_numpy(
+    similarities: np.ndarray,
+    item_ids: Sequence[str],
+    item_categories: Sequence[Sequence[str]],
+    params: Optional[DIMSUMAlgorithmParams] = None,
+) -> DIMSUMModel:
+    """A DIMSUMModel from a trained model's arrays: ``item_ids[r]`` is the
+    id of row and column ``r`` and ``item_categories[r]`` its categories.
+    For a model trained by the JAX package: ``model.similarities``, the ids
+    of ``item_index`` in row order, and ``model.items[r].categories``."""
+    sims = np.asarray(similarities, np.float32)
+    n = sims.shape[0] if sims.ndim == 2 else -1
+    if sims.shape != (n, n):
+        raise ValueError(f"similarities of shape {sims.shape} are not [I, I]")
+    if len(item_ids) != n or len(item_categories) != n:
+        raise ValueError(
+            f"{len(item_ids)} item ids and {len(item_categories)} category "
+            f"lists for {n} rows"
         )
+    return DIMSUMModel(
+        similarities=sims,
+        item_index=BiMap({str(i): r for r, i in enumerate(item_ids)}),
+        items={
+            r: Item(categories=tuple(str(c) for c in cats))
+            for r, cats in enumerate(item_categories)
+        },
+        params=params,
+    )
+
+
+class DIMSUMAlgorithm(BaseAlgorithm):
+    """Item-item column similarity of the binary user x item view matrix
+    (reference experimental scala-parallel-similarproduct-dimsum,
+    DIMSUMAlgorithm.scala: RowMatrix.columnSimilarities(threshold)). As in
+    the JAX package, the similarities are exact cosines and the threshold
+    is a filter, not a sampling parameter; the port forms them from the
+    co-view counts on the device (K19) instead of the dense product."""
+
+    params_class = DIMSUMAlgorithmParams
+    query_class = Query
+
+    def view_arrays(self, td: TrainingData):
+        """(item_index, users, items): the item index (sorted ids) and the
+        int32 user / item indices of the views of catalog items (users over
+        the users and the view events, as the reference indexes them)."""
+        user_index = BiMap.string_int(
+            set(td.users.keys()) | {v.user for v in td.view_events}
+        )
+        item_index = BiMap.string_int(td.items.keys())
+        pairs = [
+            (user_index[v.user], item_index[v.item])
+            for v in td.view_events
+            if v.item in item_index
+        ]
+        u = np.fromiter((p[0] for p in pairs), np.int32, len(pairs))
+        i = np.fromiter((p[1] for p in pairs), np.int32, len(pairs))
+        return item_index, u, i
+
+    def train(self, device: DeviceLike, pd: PreparedData) -> DIMSUMModel:
+        """The similarities on ``device`` (CUDA unless the CPU is asked
+        for), copied to the host: the model is host numpy."""
+        td = pd.td
+        item_index, u, i = self.view_arrays(td)
+        sims = cooccurrence.item_cosine(
+            u, i, len(item_index), self.params.threshold, device=device
+        )
+        return DIMSUMModel(
+            similarities=sims,
+            item_index=item_index,
+            items={item_index[i]: item for i, item in td.items.items()},
+            params=self.params,
+        )
+
+    def predict(self, model: DIMSUMModel, query: Query) -> PredictedResult:
+        """The reference's predict: the query items' rows summed, then the
+        candidacy rules and the selection in numpy (``rank_on_host``)."""
+        query_idx = [
+            model.item_index[i] for i in query.items if i in model.item_index
+        ]
+        if not query_idx:
+            return PredictedResult()
+        scores = model.similarities[query_idx].sum(axis=0)
+        return rank_on_host(scores, query_idx, query, model)
+
+    result_to_json = ALSAlgorithm.result_to_json
 
 
 class Serving(BaseServing):

@@ -1,6 +1,6 @@
 """ALS training and serving: the counterpart of
 ``predictionio_tpu/ops/als.py`` for one GPU, explicit and implicit
-feedback, exact solver.
+feedback, exact and subspace solvers.
 
 Training is the reference's single-device route (``train_als`` with
 ``mesh=None``, :1788-1815): ``build_host_wire`` :1306 / ``finish_wire``
@@ -22,10 +22,14 @@ a host loop of two hand-written kernels per half-step: K1
 the sweep telemetry). Implicit feedback (``implicit_prefs=True``, MLlib's
 trainImplicit) adds K12 (``ops/gramian.py``): before each half-step the
 Gramian G of the counter side's padded factors, which K2 adds to every
-system, and with telemetry the objective once per sweep.
-``predict_ratings`` / ``rmse`` run K7 (``ops/predict_pairs.py``). The
-subspace solver, bf16 compute, checkpoints, the resident pack and meshes
-raise ``NotImplementedError``.
+system, and with telemetry the objective once per sweep. The iALS++
+solver (``solver="subspace"``, :640 ``_solve_side_subspace``) replaces K1
+and K2 by K11 (``ops/subspace.py``): per half-step, per column block of
+width ``block_size``, K11a forms the block systems and residuals and K11b
+solves them and updates the block in place, with one telemetry row per
+block. ``predict_ratings`` / ``rmse`` run K7 (``ops/predict_pairs.py``).
+bf16 compute, checkpoints, the resident pack and meshes raise
+``NotImplementedError``.
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
 :2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
@@ -53,6 +57,7 @@ from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops import normal_eq as _k1
 from predictionio_tpu_torch.ops import predict_pairs as _k7
 from predictionio_tpu_torch.ops import spd_solve as _k2
+from predictionio_tpu_torch.ops import subspace as _k11
 from predictionio_tpu_torch.ops.normal_eq import (
     SegmentPack,
     pack_from_planes,
@@ -67,9 +72,8 @@ from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 class ALSConfig:
     """The reference's training config, field for field (see its comments
     at ``predictionio_tpu/ops/als.py:79``). The port trains explicit and
-    implicit feedback with ``solver="exact"`` and
-    ``compute_dtype="float32"``, and raises ``NotImplementedError`` for the
-    rest."""
+    implicit feedback with either solver in ``compute_dtype="float32"``,
+    and raises ``NotImplementedError`` for bfloat16."""
 
     rank: int = 10
     iterations: int = 10
@@ -93,6 +97,15 @@ class ALSConfig:
         if self.reg_mode not in ("weighted", "plain"):
             raise ValueError(f"reg_mode must be weighted|plain, got {self.reg_mode}")
         validate_solver(self.solver, self.block_size, self.rank)
+
+    @property
+    def telemetry_rows_per_sweep(self) -> int:
+        """Telemetry rows the loop records per sweep: one for the exact
+        solver, one per column block for the subspace solver (the
+        reference's :123-130)."""
+        if self.solver == "subspace" and self.block_size:
+            return self.rank // self.block_size
+        return 1
 
 
 def validate_solver(solver: str, block_size: int, rank: int) -> None:
@@ -584,17 +597,14 @@ def _lam_obs_host(
 
 # sweeps the telemetry records per run (later sweeps are not recorded);
 # each row is [dx_rms, dy_rms, x_rms, y_rms, objective], the objective 0
-# outside implicit mode, as the reference records them
+# outside implicit mode, as the reference records them. The subspace solver
+# records one row per column block, so its buffer holds TELEMETRY_SLOTS x
+# rows_per_sweep rows: the same sweeps fit with either solver
 TELEMETRY_SLOTS = 64
 TELEMETRY_COLS = 5
 
 
 def _check_ported(config: ALSConfig, mesh=None, checkpoint_dir=None) -> None:
-    if config.solver != "exact":
-        raise NotImplementedError(
-            f"solver={config.solver!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 6, the rest: K11, the iALS++ subspace solver)"
-        )
     if config.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={config.compute_dtype!r} is not ported yet "
@@ -684,6 +694,36 @@ def _solve_side(
     return _k2.spd_solve(A, b, lam, has_obs, X_prev, sums, G)
 
 
+def _solve_side_subspace(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    G: Optional[torch.Tensor],
+    pack: SegmentPack,
+    lam: torch.Tensor,
+    has_obs: torch.Tensor,
+    alpha: float,
+    implicit: bool,
+    block_size: int,
+    sums: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One iALS++ half-step (the reference's :640): for each column block
+    in order, K11a forms the block systems and residuals against the
+    current X and K11b solves them (with ``G``, implicit mode's Gramian of
+    Y, None in explicit mode) and adds the deltas into X in place, so each
+    block sees the blocks before it. Rows without observations keep their
+    factors. ``sums`` ([n_blocks, 2], one row per block) receives each
+    block's ``Σ δ²`` and, in its last row, ``Σ X²`` of the updated array."""
+    nb = X.shape[1] // block_size
+    for j in range(nb):
+        s0 = j * block_size
+        A, r = _k11.subspace_accumulate(Y, X, pack, s0, block_size, implicit, alpha)
+        _k11.subspace_block_solve(
+            A, r, X, lam, has_obs, s0, G, None if sums is None else sums[j],
+            last=j == nb - 1,
+        )
+    return X
+
+
 def _run_iterations(
     X: torch.Tensor,
     Y: torch.Tensor,
@@ -697,48 +737,88 @@ def _run_iterations(
     telemetry: bool = True,
     implicit: bool = False,
     alpha: float = 1.0,
+    solver: str = "exact",
+    block_size: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The training loop: ``n_iters`` sweeps of (user half-step, item
-    half-step), two K1 and two K2 launches per sweep, with no host sync.
-    In ``implicit`` mode each half-step first forms G, the Gramian of the
-    counter side's current padded factors (K12a), as the reference's
-    ``half`` does (:883). With ``telemetry``, sweep i's K2 launches write
-    their raw sums into ``tel[i]`` ([TELEMETRY_SLOTS, TELEMETRY_COLS]:
-    Σ ΔX², Σ X², Σ ΔY², Σ Y², objective) and, in implicit mode, K12b writes
-    the objective at the sweep's factors into its fifth column;
-    ``_telemetry_rows`` turns them into the reference's rows."""
+    half-step) with no host sync. The exact solver launches K1 and K2 per
+    half-step; ``solver="subspace"`` runs ``_solve_side_subspace`` (K11a
+    and K11b per column block of ``block_size``), updating X and Y in
+    place. In ``implicit`` mode each half-step first forms G, the Gramian
+    of the counter side's current padded factors (K12a), as the reference's
+    ``half`` does (:883). With ``telemetry``, sweep i writes raw sums into
+    its rows of ``tel`` ([TELEMETRY_SLOTS x rows_per_sweep, TELEMETRY_COLS]:
+    Σ ΔX², Σ X², Σ ΔY², Σ Y², objective; one row per sweep, or per block
+    with the subspace solver, whose Σ X², Σ Y² and objective go into the
+    sweep's last row) and, in implicit mode, K12b writes the objective at
+    the sweep's factors; ``_telemetry_rows`` turns them into the
+    reference's rows."""
+    subspace = solver == "subspace"
+    nb = X.shape[1] // block_size if subspace else 1
     tel = (
-        torch.zeros((TELEMETRY_SLOTS, TELEMETRY_COLS), dtype=torch.float32, device=X.device)
+        torch.zeros((TELEMETRY_SLOTS * nb, TELEMETRY_COLS), dtype=torch.float32, device=X.device)
         if telemetry else None
     )
     for it in range(n_iters):
         rec = tel is not None and it < TELEMETRY_SLOTS
+        rows = tel[it * nb : (it + 1) * nb] if rec else None
         G = _k12.gramian(Y) if implicit else None
-        X = _solve_side(X, Y, user_pack, user_lam, user_has_obs,
-                        tel[it, 0:2] if rec else None, G, implicit, alpha)
+        if subspace:
+            X = _solve_side_subspace(X, Y, G, user_pack, user_lam, user_has_obs, alpha,
+                                     implicit, block_size, None if rows is None else rows[:, 0:2])
+        else:
+            X = _solve_side(X, Y, user_pack, user_lam, user_has_obs,
+                            rows[0, 0:2] if rec else None, G, implicit, alpha)
         G = _k12.gramian(X) if implicit else None
-        Y = _solve_side(Y, X, item_pack, item_lam, item_has_obs,
-                        tel[it, 2:4] if rec else None, G, implicit, alpha)
+        if subspace:
+            Y = _solve_side_subspace(Y, X, G, item_pack, item_lam, item_has_obs, alpha,
+                                     implicit, block_size, None if rows is None else rows[:, 2:4])
+        else:
+            Y = _solve_side(Y, X, item_pack, item_lam, item_has_obs,
+                            rows[0, 2:4] if rec else None, G, implicit, alpha)
         if rec and implicit:
             _k12.implicit_objective(
-                X, Y, user_pack, user_lam, item_lam, alpha, out=tel[it, 4:5]
+                X, Y, user_pack, user_lam, item_lam, alpha, out=rows[nb - 1, 4:5]
             )
     return X, Y, tel
 
 
-def _telemetry_rows(tel: torch.Tensor, n_sweeps: int, x_numel: int, y_numel: int) -> np.ndarray:
-    """[min(n_sweeps, TELEMETRY_SLOTS), TELEMETRY_COLS] float32 rows
-    ``[RMS(ΔX), RMS(ΔY), RMS(X), RMS(Y), objective]``, the means over the
-    padded factor arrays, as the reference records them."""
-    s = tel.cpu().numpy()[: min(n_sweeps, TELEMETRY_SLOTS)]
+def _telemetry_rows(
+    tel: torch.Tensor, n_sweeps: int, x_numel: int, y_numel: int, rows_per_sweep: int = 1,
+) -> np.ndarray:
+    """[min(n_sweeps, TELEMETRY_SLOTS) x rows_per_sweep, TELEMETRY_COLS]
+    float32 rows ``[RMS(ΔX), RMS(ΔY), RMS(X), RMS(Y), objective]``, the
+    means over the padded factor arrays, as the reference records them.
+    With several rows per sweep (the subspace solver's blocks) the delta
+    columns are each block's update RMS over its columns; the factor RMS
+    and objective stand in the sweep's last row, where
+    ``_sweep_aggregate`` reads them."""
+    rps = max(1, int(rows_per_sweep))
+    s = tel.cpu().numpy()[: min(n_sweeps, TELEMETRY_SLOTS) * rps]
     rows = np.zeros((len(s), TELEMETRY_COLS), np.float32)
     nx, ny = np.float32(x_numel), np.float32(y_numel)
-    rows[:, 0] = np.sqrt(s[:, 0] / nx)
-    rows[:, 1] = np.sqrt(s[:, 2] / ny)
+    rows[:, 0] = np.sqrt(s[:, 0] / np.float32(x_numel // rps))
+    rows[:, 1] = np.sqrt(s[:, 2] / np.float32(y_numel // rps))
     rows[:, 2] = np.sqrt(s[:, 1] / nx)
     rows[:, 3] = np.sqrt(s[:, 3] / ny)
     rows[:, 4] = s[:, 4]
     return rows
+
+
+def _sweep_aggregate(sweep_rows: np.ndarray, rows_per_sweep: int) -> np.ndarray:
+    """Collapse per-block telemetry rows to one row per sweep (the
+    reference's :1953): the delta columns combine as
+    sqrt(mean(block_rms²)) — exact, since blocks are disjoint column sets
+    of equal width — and the per-sweep columns (factor RMS, objective) come
+    from the sweep's last block row."""
+    rps = max(1, int(rows_per_sweep))
+    if rps == 1:
+        return sweep_rows
+    per = sweep_rows.reshape(-1, rps, sweep_rows.shape[-1])
+    out = per[:, -1, :].copy()
+    out[:, 0] = np.sqrt(np.mean(np.square(per[:, :, 0]), axis=1))
+    out[:, 1] = np.sqrt(np.mean(np.square(per[:, :, 1]), axis=1))
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -770,7 +850,7 @@ def _train_packed(
     is timed to its end (``device_loop_s``)."""
     device = X.device
     implicit = config.implicit_prefs
-    kernels = (_k1, _k2, _k12) if implicit else (_k1, _k2)
+    kernels = _loop_kernels(config)
     if compile_wait is not None:
         t = time.perf_counter()
         rec = compile_wait()
@@ -789,7 +869,7 @@ def _train_packed(
         X, Y, user_pack, item_pack, user_lam, item_lam,
         user_has_obs, item_has_obs, config.iterations,
         telemetry=config.sweep_telemetry, implicit=implicit,
-        alpha=config.alpha,
+        alpha=config.alpha, solver=config.solver, block_size=config.block_size,
     )
     if timings is not None:
         _sync(device)
@@ -797,18 +877,30 @@ def _train_packed(
     X_host = X.cpu().numpy()
     Y_host = Y.cpu().numpy()
     if tel is not None and config.iterations > 0 and timings is not None:
-        rows = _telemetry_rows(tel, config.iterations, X.numel(), Y.numel())
+        rps = config.telemetry_rows_per_sweep
+        rows = _telemetry_rows(tel, config.iterations, X.numel(), Y.numel(), rps)
         # the objective only means something in implicit mode; explicit
-        # rows keep their four keys, as the reference's (:2276-2287)
+        # rows keep their four keys, as the reference's (:2276-2299)
         timings["sweep_telemetry"] = [
             {
                 "dx": float(r[0]), "dy": float(r[1]),
                 "x_rms": float(r[2]), "y_rms": float(r[3]),
                 **({"objective": float(r[4])} if implicit else {}),
             }
-            for r in rows
+            for r in _sweep_aggregate(rows, rps)
         ]
+        if rps > 1:
+            timings["block_telemetry"] = [
+                {"sweep": ri // rps, "block": ri % rps, "dx": float(r[0]), "dy": float(r[1])}
+                for ri, r in enumerate(rows)
+            ]
     return ALSModelArrays(X_host[:n_users].copy(), Y_host[:n_items].copy())
+
+
+def _loop_kernels(config: ALSConfig) -> tuple:
+    """The kernel modules the loop of ``config`` launches."""
+    solver = (_k11,) if config.solver == "subspace" else (_k1, _k2)
+    return solver + ((_k12,) if config.implicit_prefs else ())
 
 
 def _load_libraries(device: torch.device, kernels) -> None:
@@ -819,15 +911,16 @@ def _load_libraries(device: torch.device, kernels) -> None:
             kernel.load_library()
 
 
-def start_compile_async(device: DeviceLike = None):
-    """Build and load the training kernels' libraries (K1, K2, K4, K5,
-    K12) on a background thread, so nvcc at a process's first use hides under the
-    host work that precedes the device pack: the counterpart of the
-    reference's background XLA compile. Returns ``wait() -> dict`` with
-    ``busy_s``, the thread's seconds (and ``error`` if the build failed;
-    training then builds inline, which raises the error)."""
+def start_compile_async(device: DeviceLike, config: ALSConfig):
+    """Build and load the training kernels' libraries (K4 and K5, and those
+    the loop of ``config`` launches) on a background thread, so nvcc at a
+    process's first use hides under the host work that precedes the device
+    pack: the counterpart of the reference's background XLA compile.
+    Returns ``wait() -> dict`` with ``busy_s``, the thread's seconds (and
+    ``error`` if the build failed; training then builds inline, which
+    raises the error)."""
     dev = resolve_device(device)
-    kernels = (_k1, _k2, _k5, _k12)
+    kernels = (_k5,) + _loop_kernels(config)
     rec: dict = {}
     if dev.type != "cuda":
         rec["busy_s"] = 0.0

@@ -243,7 +243,7 @@ def _scan_and_pack(stream, config, timings: dict, device):
     )
     # geometry known: the kernels' build starts NOW, under the merge,
     # the narrowing and the upload
-    compile_wait = _als.start_compile_async(device)
+    compile_wait = _als.start_compile_async(device, config)
 
     iw, vw = _scatter_merge(
         batches, n, n_users, n_items, geo_u,

@@ -6,11 +6,14 @@ A model is saved as one ``.npz`` whose ``engine`` field names its engine:
   files of the first slices): an ALS model's factor matrices, the user and
   item ids in row order, and the algorithm params as JSON;
 - ``"similarproduct"``: the item factors, the item ids in row order, each
-  item's categories (JSON, in row order) and the params as JSON.
+  item's categories (JSON, in row order) and the params as JSON;
+- ``"dimsum"``: a DIMSUM model's item-item similarities, the item ids in
+  row order, each item's categories and the params as JSON.
 
 Loading never unpickles (``allow_pickle=False``): a pickled JAX-package
 model would import ``predictionio_tpu`` classes, so models cross from the
-JAX package as arrays (``als_model_from_numpy``, ``sp_model_from_numpy``).
+JAX package as arrays (``als_model_from_numpy``, ``sp_model_from_numpy``,
+``dimsum_model_from_numpy``).
 """
 
 from __future__ import annotations
@@ -29,23 +32,29 @@ from predictionio_tpu_torch.models.recommendation import engine as rec
 from predictionio_tpu_torch.models.similarproduct import engine as sp
 
 PathLike = Union[str, os.PathLike]
-Model = Union[rec.ALSModel, sp.SPModel]
+Model = Union[rec.ALSModel, sp.SPModel, sp.DIMSUMModel]
 
 
 def save_model(path: PathLike, model: Model) -> None:
     """Write ``model`` to ``path`` (an ``.npz``)."""
     params = None if model.params is None else params_to_json(model.params)
     item_ids = _ids_in_row_order(model.item_index)
-    if isinstance(model, sp.SPModel):
+    if isinstance(model, (sp.SPModel, sp.DIMSUMModel)):
         categories = [
             list(model.items.get(r, sp.Item()).categories)
             for r in range(len(item_ids))
         ]
-        arrays = {
-            "engine": np.asarray("similarproduct"),
-            "item_factors": np.asarray(model.item_factors, np.float32),
-            "item_categories_json": np.asarray(json.dumps(categories)),
-        }
+        arrays = {"item_categories_json": np.asarray(json.dumps(categories))}
+        if isinstance(model, sp.SPModel):
+            arrays.update(
+                engine=np.asarray("similarproduct"),
+                item_factors=np.asarray(model.item_factors, np.float32),
+            )
+        else:
+            arrays.update(
+                engine=np.asarray("dimsum"),
+                similarities=np.asarray(model.similarities, np.float32),
+            )
     else:
         arrays = {
             "engine": np.asarray("recommendation"),
@@ -84,6 +93,16 @@ def load_model(path: PathLike) -> Model:
                 params=(
                     None if params is None
                     else params_from_json(params, sp.ALSAlgorithmParams)
+                ),
+            )
+        if engine == "dimsum":
+            return sp.dimsum_model_from_numpy(
+                z["similarities"],
+                z["item_ids"].tolist(),
+                json.loads(str(z["item_categories_json"])),
+                params=(
+                    None if params is None
+                    else params_from_json(params, sp.DIMSUMAlgorithmParams)
                 ),
             )
         if engine != "recommendation":

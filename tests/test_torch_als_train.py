@@ -2,7 +2,8 @@
 their plain twins) against the JAX package's ``train_als`` from the same
 seed, both against the float64 MLlib oracle (``ops/als_reference.py``),
 one sweep from the same warm factors, determinism, prediction (K7),
-implicit feedback against JAX (``test_torch_implicit.py`` has the rest),
+implicit feedback and the subspace solver against JAX
+(``test_torch_implicit.py`` and ``test_torch_subspace.py`` have the rest),
 and the configurations the port does not train yet.
 
 Tolerances, stated beforehand:
@@ -187,8 +188,6 @@ def test_predict_ratings_checks_ids_on_the_host(u, i):
 @pytest.mark.parametrize(
     "config, kwargs, match",
     [
-        (dict(implicit_prefs=True, solver="subspace", block_size=2), {}, "subspace"),
-        (dict(solver="subspace", block_size=2), {}, "subspace"),
         (dict(compute_dtype="bfloat16"), {}, "bfloat16"),
         ({}, dict(checkpoint_dir="ckpt"), "checkpoint"),
         ({}, dict(mesh=object()), "mesh"),
@@ -199,6 +198,26 @@ def test_configurations_not_ported_raise(ratings, config, kwargs, match):
     cfg = port_als.ALSConfig(rank=4, iterations=1, **config)
     with pytest.raises(NotImplementedError, match=match):
         port_als.train_als(u, i, r, N_USERS, N_ITEMS, cfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("implicit", [True, False])
+def test_subspace_train_matches_jax(ratings, implicit):
+    """``solver="subspace"`` trains (it raised before K11 was ported):
+    explicit and implicit, factors and per-sweep telemetry at this file's
+    tolerances against JAX's (``test_torch_subspace.py`` has the rest)."""
+    u, i, r = ratings
+    cfg = dict(CFG, solver="subspace", block_size=2, implicit_prefs=implicit, alpha=0.5)
+    t_port, t_jax = {}, {}
+    port = port_als.train_als(u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(**cfg),
+                              device="cpu", timings=t_port)
+    ref = jax_als.train_als(u, i, r, N_USERS, N_ITEMS, jax_als.ALSConfig(**cfg), timings=t_jax)
+    _close(port.user_factors, ref.user_factors, 2e-5)
+    _close(port.item_factors, ref.item_factors, 2e-5)
+    keys = ("dx", "dy", "x_rms", "y_rms") + (("objective",) if implicit else ())
+    np.testing.assert_allclose(
+        [[s[c] for c in keys] for s in t_port["sweep_telemetry"]],
+        [[s[c] for c in keys] for s in t_jax["sweep_telemetry"]], rtol=1e-5,
+    )
 
 
 def test_implicit_train_matches_jax(ratings):

@@ -293,10 +293,16 @@ def test_recommendation_engine_trains_implicit(views):
         rank=RANK, iterations=CFG["iterations"], reg=CFG["reg"], alpha=ALPHA,
         implicit_prefs=True, seed=CFG["seed"]), device="cpu")
     np.testing.assert_array_equal(model.arrays.item_factors, direct.item_factors)
-    with pytest.raises(NotImplementedError, match="item 6.*K11"):
-        rec.ALSAlgorithm(rec.ALSAlgorithmParams(
-            rank=4, implicit_prefs=True, solver="subspace", block_size=2,
-        )).train("cpu", rec.Preparator().prepare("cpu", td))
+    # the subspace solver trains through the engine too, as train_als does
+    sub = rec.ALSAlgorithm(rec.ALSAlgorithmParams(
+        rank=4, num_iterations=2, implicit_prefs=True, solver="subspace", block_size=2,
+        seed=CFG["seed"],
+    )).train("cpu", rec.Preparator().prepare("cpu", td))
+    direct = port_als.train_als(u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(
+        rank=4, iterations=2, reg=0.01, implicit_prefs=True, solver="subspace", block_size=2,
+        seed=CFG["seed"]), device="cpu")
+    np.testing.assert_array_equal(sub.arrays.user_factors, direct.user_factors)
+    np.testing.assert_array_equal(sub.arrays.item_factors, direct.item_factors)
 
 
 @pytest.mark.parametrize("n_query", [1, 5, 16])

@@ -25,6 +25,7 @@ from predictionio_tpu.models.similarproduct import engine as jsp
 from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.controller.params import params_from_json
 from predictionio_tpu_torch.models.similarproduct import engine as psp
+from predictionio_tpu_torch.ops import als as port_als
 from predictionio_tpu_torch.ops import similarity as k14
 from predictionio_tpu_torch.ops.topn import check_topn_agreement
 from predictionio_tpu_torch.utils.serialize import load_model, save_model
@@ -132,8 +133,9 @@ def test_similar_batch_through_serving_matches_jax(precision):
 
 
 def test_unported_paths_raise_naming_their_items():
-    """DIMSUM (K19) and the subspace solver (K11) still raise, naming item
-    6; training, predict and batch_predict without a retriever answer."""
+    """Multi-GPU serving (item 11) still raises, for the retriever and the
+    host path's scorer; training, predict and batch_predict without a
+    retriever answer."""
     factors, ids, cats = make_catalog()
     model = psp.sp_model_from_numpy(factors, ids, cats)
     model.attach_device("cpu")
@@ -144,13 +146,35 @@ def test_unported_paths_raise_naming_their_items():
     answer = alg.predict(model, psp.Query(items=["i1"], num=3))
     assert len(answer.item_scores) == 3
     assert dict(alg.batch_predict(model, [(0, psp.Query(items=["i1"], num=3))]))[0] == answer
-    with pytest.raises(NotImplementedError, match="item 6.*K11"):
-        psp.ALSAlgorithm(psp.ALSAlgorithmParams(rank=4, solver="subspace", block_size=2)).train(
-            "cpu", psp.Preparator().prepare("cpu", td))
-    with pytest.raises(NotImplementedError, match="K19.*item 6"):
-        psp.similarproduct_engine().make_components(
-            EngineParams(algorithm_params_list=(("dimsum", psp.ALSAlgorithmParams()),))
-        )
+    with pytest.raises(NotImplementedError, match="item 11"):
+        psp.ItemRetriever(factors, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 11"):
+        psp.SimilarityScorer(factors, device="cpu", mesh=object())
+
+
+def test_subspace_and_dimsum_train():
+    """The subspace solver (K11) trains both ALS algorithms, as train_als
+    with the same config does, and the engine's ``dimsum`` algorithm (K19)
+    builds, trains and answers (both raised before they were ported;
+    ``test_torch_subspace.py`` and ``test_torch_dimsum.py`` hold them
+    against the JAX package)."""
+    td = make_training_data(psp)
+    for name in ("ALSAlgorithm", "LikeAlgorithm"):
+        alg = getattr(psp, name)(psp.ALSAlgorithmParams(
+            rank=4, num_iterations=2, solver="subspace", block_size=2))
+        trained = alg.train("cpu", psp.Preparator().prepare("cpu", td))
+        user_index, item_index, u, i, r = alg.training_arrays(td)
+        direct = port_als.train_als(u, i, r, len(user_index), len(item_index),
+                                    alg.als_config(), device="cpu")
+        np.testing.assert_array_equal(trained.item_factors, direct.item_factors)
+    [dimsum], _ = psp.similarproduct_engine().make_components(
+        EngineParams(algorithm_params_list=(("dimsum", psp.DIMSUMAlgorithmParams()),))
+    )
+    assert isinstance(dimsum, psp.DIMSUMAlgorithm)
+    model = dimsum.train("cpu", psp.Preparator().prepare("cpu", td))
+    assert model.similarities.shape == (N_ITEMS_T, N_ITEMS_T)
+    answer = dimsum.predict(model, psp.Query(items=["i1"], num=3))
+    assert 0 < len(answer.item_scores) <= 3
 
 
 N_USERS_T, N_ITEMS_T = 80, 50
