@@ -150,6 +150,32 @@ Phases; any failure exits non-zero:
    ``predict`` at each threshold, equal to the twin model's answers. The
    seconds of the host dedup, the kernels and the device-to-host copy;
    times of K19a and K19b, their twins and bounds (``dimsum``).
+3e. Grid evaluation (after 3d): first K13a (``ops/grid.py``,
+   ``csrc/grid.cu``: ``normal_eq_variants``) and K13b
+   (``spd_solve_variants``) on random packs (a row of many segments, an
+   empty row, dislikes) at k in {1, 8, 16, 33}, V in {1, 2, 3}, explicit
+   and implicit: variant v bit for bit against K1 and K2 run on it alone,
+   and against the twins at K1's and K2's tolerances. Then the main path,
+   counted from 0: ``run_evaluation(RecommendationEvaluation(k=10),
+   ParamsGrid().engine_params_list)`` with ``grid_train="auto"`` on the
+   ML-20M ratings as one app's ``EventColumns`` (ids indexed in sorted
+   string order, as ``find_columns`` indexes them), 3 folds (seed 3), 10
+   queries' worth per user, ranks 8 and 16 x regs 0.01 and 0.1, 10 sweeps:
+   6 ``train_grid`` calls and 0 ``train`` calls, K13a = K13b = 120, K1 =
+   K2 = 0, K3 once per 16,384-query chunk, every twin 0, 4 variants scored.
+   Fold 0 at rank 16 against the serial path: ``train_als_grid`` on the
+   fold's ratings in the wire's user order bit for bit equal to
+   ``train_als`` per regularizer; the run's own grid factors (the host
+   pack's scan order) compared for the record; fold 0's Precision@10 of
+   grid and serial models within 0.02. K13a and K13b against K1, K2 and
+   their twins on fold 0's packs (first user and item half-steps, ranks 8
+   and 16). Times at fold 0's user side, rank 16: each kernel, its device
+   time, twin and bound, K13b's library call (batched
+   ``torch.linalg.cholesky`` + ``cholesky_solve`` over V x R rows), K1
+   and K2 per variant; the evaluation's wall clock, each stage's wall and
+   thread-summed seconds (``read_eval``, host pack, upload, device loop,
+   serving, metric), serving chunks, the process's RSS through the run
+   and Precision@10 per variant (``evaluation``).
 4. Serving: the model just trained is saved with ``save_model`` and served
    by ``tools.cli deploy --device cuda`` (max_batch 128, 2 ms window). 32
    concurrent clients on keep-alive connections send 320
@@ -217,7 +243,8 @@ Phases; any failure exits non-zero:
    K11a and K11b: launches on 3p's main path, times at its user side,
    errors the largest over 3p and the small shapes; K19a and K19b:
    launches over both DIMSUM trainings, the dense product as K19b's
-   library time),
+   library time; K13a and K13b: launches on 3e's main path, times at its
+   fold 0 user side, errors the largest over 3e and the small shapes),
    the card line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -604,6 +631,76 @@ def check_k2_sizes(rng, device, errs):
         errs["spd_solve"] = max(errs.get("spd_solve", 0.0), ex.max().item())
         print(f"  K2 k={k}: max |dx| twin {ex.max().item():.3g}, "
               f"float64 {np.abs(x1 - exact).max():.3g} ok", flush=True)
+
+
+def check_k13(Y, pack, lam, has_obs, X_prev, implicit, label, errs, alpha=1.0):
+    """K13a and K13b (``ops/grid.py``) on one half-step of V variants:
+    variant v bit for bit against K1 and K2 run on variant v alone (the
+    same kernels and order, so no tolerance), and against the twins at K1's
+    and K2's tolerances. In implicit mode each variant's G is its K12a
+    Gramian. Returns K13b's X."""
+    import torch
+
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import grid as k13
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import spd_solve as k2
+
+    V = Y.shape[0]
+    G = torch.stack([k12.gramian(Y_v) for Y_v in Y]) if implicit else None
+    A, b = k13.normal_eq_variants(Y, pack, implicit, alpha)
+    A2, b2 = k13.normal_eq_variants_plain(Y, pack, implicit, alpha)
+    X = k13.spd_solve_variants(A, b, lam, has_obs, X_prev, G)
+    X2 = k13.spd_solve_variants_plain(A, b, lam, has_obs, X_prev, G)
+    ea = ex = 0.0
+    for v in range(V):
+        A1, b1 = k1.normal_eq(Y[v], pack, implicit, alpha)
+        if not (torch.equal(A[v], A1) and torch.equal(b[v], b1)):
+            raise AssertionError(f"K13a {label}: variant {v} is not bit-equal to K1 on it")
+        X1 = k2.spd_solve(A[v], b[v], lam[v], has_obs, X_prev[v], None,
+                          None if G is None else G[v])
+        if not torch.equal(X[v], X1):
+            raise AssertionError(f"K13b {label}: variant {v} is not bit-equal to K2 on it")
+        sub = {}
+        ea = max(ea, *check_k1(A[v], b[v], A2[v], b2[v], pack, f"K13a {label} v={v}", sub,
+                               implicit, alpha))
+        e = (X[v] - X2[v]).abs().amax(dim=1)
+        if not bool((e <= 1e-6 + K2_RTOL * X2[v].abs().amax(dim=1)).all()):
+            raise AssertionError(f"K13b {label}: variant {v} differs from its twin ({e.max().item()})")
+        ex = max(ex, e.max().item())
+    errs["normal_eq_variants"] = max(errs.get("normal_eq_variants", 0.0), ea)
+    errs["spd_solve_variants"] = max(errs.get("spd_solve_variants", 0.0), ex)
+    print(f"  {label}: V={V} K13a = K1 and K13b = K2 per variant, bit for bit; against "
+          f"the twins max |dA|,|db| {ea:.3g}, |dx| {ex:.3g} ok", flush=True)
+    return X
+
+
+def check_k13_sizes(rng, device, errs):
+    """K13a and K13b on random packs (a row of many segments, an empty row,
+    dislikes in implicit mode) at k in {1, 8, 16, 33} (both of K1's forms),
+    V in {1, 2, 3}, explicit and implicit, through ``check_k13``."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+
+    n_rows, n_cols, nnz = 300, 200, 60_000
+    u = rng.integers(0, n_rows, nnz).astype(np.int32)
+    u[: nnz // 3] = 2
+    u[u == 5] = 6
+    i = rng.integers(0, n_cols, nnz).astype(np.int32)
+    r = (rng.integers(-2, 11, nnz) / 2).astype(np.float32)
+    side = als.pack_segments(u, i, r, n_rows, 64, 1, 65_536)
+    R, n_y = als._padded_rows(n_rows, 1), als._padded_rows(n_cols, 1)
+    pack = als.device_pack(side, R, n_y, device)
+    has_obs = torch.from_numpy(np.r_[side.counts, np.zeros(R - n_rows, np.int32)] > 0).to(device)
+    for k, V, implicit in ((1, 2, False), (8, 1, False), (8, 2, True), (16, 3, False),
+                           (16, 2, True), (33, 2, False), (33, 3, True)):
+        Y = torch.from_numpy(rng.normal(size=(V, n_y, k)).astype(np.float32) * 0.3).to(device)
+        X_prev = torch.from_numpy(rng.normal(size=(V, R, k)).astype(np.float32)).to(device)
+        lam = torch.from_numpy(rng.uniform(0.5, 2.5, (V, R)).astype(np.float32)).to(device)
+        check_k13(Y, pack, lam, has_obs, X_prev, implicit,
+                  f"k={k} {'implicit' if implicit else 'explicit'}", errs, alpha=0.7)
 
 
 STREAM_BATCH = 1_000_000  # events per batch of the columnar stream
@@ -2218,6 +2315,370 @@ def dimsum_phase(device, td, queries):
     return launches, errs, stats
 
 
+EVAL_K, EVAL_QUERY_NUM, EVAL_SEED = 3, 10, 3  # folds, num per query, the fold seed
+EVAL_GRID_RTOL, EVAL_GRID_ATOL = 2e-4, 2e-5  # the reference's grid tolerance (tests/test_als.py:394)
+EVAL_PRECISION_ATOL = 0.02  # tie flips (tests/test_recommendation_eval.py:113)
+
+
+def ml20m_event_columns():
+    """The ML-20M-shaped ratings as one app's EventColumns, ids indexed in
+    sorted string order as ``PEventStore.find_columns`` indexes them (users
+    "u<j>", items "i<j>")."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.data.store import EventColumns
+
+    u, i, r = ml20m_ratings()
+
+    def index(codes, n, prefix):
+        present = np.flatnonzero(np.bincount(codes, minlength=n))
+        names = np.array([f"{prefix}{j}" for j in present])
+        order = np.argsort(names, kind="stable")
+        row = np.full(n, -1, np.int32)
+        row[present[order]] = np.arange(len(present), dtype=np.int32)
+        return BiMap({name: j for j, name in enumerate(names[order].tolist())}), row
+
+    user_index, user_row = index(u, ML20M_USERS, "u")
+    item_index, item_row = index(i, ML20M_ITEMS, "i")
+    return EventColumns(user_index, item_index, user_row[u], item_row[i], r)
+
+
+def k13a_bound(pack, n_ratings: int, Y_rows: int, k: int, V: int):
+    """K13a's (bound_ms, bound_by) for one side: the pack read once for all
+    variants (8 B a rating, 4 B a segment), each variant's Y, A and b moved
+    once vs V x K1's k(k+1)/2 + k FMAs per rating."""
+    R = pack.n_sys_rows
+    nbytes = n_ratings * 8 + pack.rem.numel() * 4 + V * (Y_rows * k + R * (k * k + k)) * 4
+    return roofline(nbytes, V * 2 * n_ratings * (k * (k + 1) // 2 + k))
+
+
+def k13b_bound(R: int, R_obs: int, k: int, V: int):
+    """K13b's (bound_ms, bound_by): has_obs once, each variant's lam,
+    X_prev and X for every row, the lower triangle of A and b for the rows
+    it solves, vs V x k³/3 + 2k² operations per solve."""
+    nbytes = R + V * (R * (4 + 8 * k) + R_obs * (lower_triangle_bytes(k) + 4 * k))
+    return roofline(nbytes, V * R_obs * (k ** 3 / 3 + 2 * k * k))
+
+
+def eval_phase(device):
+    """Phase 3e: ``run_evaluation(RecommendationEvaluation(k=10),
+    ParamsGrid().engine_params_list)`` on the ML-20M-shaped ratings, counted
+    from 0; the grid held against the serial path on fold 0 at rank 16;
+    K13a and K13b against K1, K2 and their twins at fold 0's packs; times.
+    Returns (launch counts, errors, stats)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.controller import engine as engine_mod
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.models.recommendation.evaluation import (
+        ParamsGrid,
+        PrecisionAtK,
+        RecommendationEvaluation,
+    )
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import grid as k13
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import spd_solve as k2
+    from predictionio_tpu_torch.ops import topn as k3
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
+    from predictionio_tpu_torch.workflow.workflow_params import WorkflowParams
+
+    t = time.perf_counter()
+    cols = ml20m_event_columns()
+    print(f"  EventColumns: {cols.n} ratings, {len(cols.entity_index)} users x "
+          f"{len(cols.target_index)} items ({time.perf_counter() - t:.2f} s)", flush=True)
+    ctx = WorkflowContext(device, {"default": cols})
+    grid = ParamsGrid().engine_params_list
+    # every variant: eval_k 3, 10 sweeps, seed 3, explicit; the fold seed
+    # and query num as the data source params default them
+    ds_params = grid[0].data_source_params[1]
+    assert (ds_params.eval_k, ds_params.eval_query_num, ds_params.seed) == (
+        EVAL_K, EVAL_QUERY_NUM, EVAL_SEED)
+    for ep in grid:
+        p = ep.algorithm_params_list[0][1]
+        assert p.num_iterations == SWEEPS and not p.implicit_prefs and p.seed == EVAL_SEED
+
+    # instruments: calls, each stage's intervals on the wall clock (the
+    # grid's threads overlap, so a stage's wall seconds are the union of
+    # its intervals, its busy seconds their sum), the folds read and the
+    # grid's models, kept for the checks
+    lock = threading.Lock()
+    rec_stats = {"train_grid": 0, "train": 0}
+    spans = {key: [] for key in ("read_eval", "pack", "device_put", "device_loop", "serve", "metric")}
+    folds, grid_models = [], []
+    orig = {
+        "read_eval": rec.DataSource.read_eval, "train_grid": rec.ALSAlgorithm.__dict__["train_grid"],
+        "train": rec.ALSAlgorithm.train, "train_als_grid": rec.train_als_grid,
+        "serve_fold": engine_mod.Engine.__dict__["serve_fold"],
+    }
+
+    def add(key, value):
+        with lock:
+            rec_stats[key] += value
+
+    def span(key, t_start, seconds=None):
+        with lock:
+            spans[key].append((t_start, t_start + seconds if seconds is not None
+                               else time.perf_counter()))
+
+    def read_eval(self, ctx_):
+        t = time.perf_counter()
+        out = orig["read_eval"](self, ctx_)
+        span("read_eval", t)
+        folds.append(out)
+        return out
+
+    def train_grid(cls, device_, pd, algos):
+        add("train_grid", 1)
+        models = orig["train_grid"].__func__(cls, device_, pd, algos)
+        with lock:
+            grid_models.append((pd.td, [a.params for a in algos], models))
+        return models
+
+    def train(self, device_, pd):
+        add("train", 1)
+        return orig["train"](self, device_, pd)
+
+    def train_als_grid(*args, **kwargs):
+        timings = {}
+        t = time.perf_counter()
+        out = orig["train_als_grid"](*args, timings=timings, **kwargs)
+        for key in ("pack", "device_put", "device_loop"):  # consecutive phases
+            span(key, t, timings[f"{key}_s"])
+            t += timings[f"{key}_s"]
+        return out
+
+    def serve_fold(algorithms, models, serving, qa_pairs):
+        t = time.perf_counter()
+        out = orig["serve_fold"].__func__(algorithms, models, serving, qa_pairs)
+        span("serve", t)
+        return out
+
+    evaluation = RecommendationEvaluation(k=10)
+    metric = evaluation.evaluator.metric
+    metric_calculate = metric.calculate
+
+    def calculate(ctx_, eval_data_set):
+        t = time.perf_counter()
+        out = metric_calculate(ctx_, eval_data_set)
+        span("metric", t)
+        return out
+
+    # the process's resident set sampled every 0.25 s through the run
+    rss_samples, sampling = [rss_mb()], threading.Event()
+
+    def sample_rss():
+        while not sampling.wait(0.25):
+            rss_samples.append(rss_mb())
+
+    sampler = threading.Thread(target=sample_rss, daemon=True)
+    sampler.start()
+    rec.DataSource.read_eval = read_eval
+    rec.ALSAlgorithm.train_grid = classmethod(train_grid)
+    rec.ALSAlgorithm.train = train
+    rec.train_als_grid = train_als_grid
+    engine_mod.Engine.serve_fold = staticmethod(serve_fold)
+    metric.calculate = calculate
+    try:
+        for m in (k1, k2, k3, k13):
+            m.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = run_evaluation(evaluation, grid, ctx=ctx,
+                                workflow_params=WorkflowParams(grid_train="auto"))
+        eval_s = time.perf_counter() - t
+        counts = {**k1.LAUNCHES.snapshot(), **k2.LAUNCHES.snapshot(),
+                  **k3.LAUNCHES.snapshot(), **k13.LAUNCHES.snapshot()}
+    finally:
+        rec.DataSource.read_eval = orig["read_eval"]
+        rec.ALSAlgorithm.train_grid = orig["train_grid"]
+        rec.ALSAlgorithm.train = orig["train"]
+        rec.train_als_grid = orig["train_als_grid"]
+        engine_mod.Engine.serve_fold = orig["serve_fold"]
+        del metric.calculate
+        sampling.set()
+        sampler.join()
+    rss_samples.append(rss_mb())
+
+    # the run: 2 ranks x 3 folds grid trainings of 2 variants each, no
+    # per-variant training, 10 sweeps x 2 sides of K13a and K13b each
+    [fold_sets] = folds
+    n_queries = [len(qa) for _, _, qa in fold_sets]
+    chunks = 4 * sum(-(-q // als.MAX_QUERY_ROWS) for q in n_queries)
+    want = {"normal_eq_variants": 2 * EVAL_K * SWEEPS * 2, "spd_solve_variants": 2 * EVAL_K * SWEEPS * 2,
+            "normal_eq": 0, "spd_solve": 0, "topn_packed": chunks,
+            "normal_eq_variants_plain": 0, "spd_solve_variants_plain": 0, "normal_eq_plain": 0,
+            "spd_solve_plain": 0, "topn_packed_plain": 0}
+    got = {key: counts[key] for key in want}
+    if got != want or rec_stats["train_grid"] != 2 * EVAL_K or rec_stats["train"] != 0:
+        raise AssertionError(
+            f"3e launches {got} (want {want}), train_grid {rec_stats['train_grid']} "
+            f"(want {2 * EVAL_K}), train {rec_stats['train']} (want 0)")
+    scores = [ms.score for _, ms in result.engine_params_scores]
+    if len(scores) != 4 or not all(0.0 <= s <= 1.0 for s in scores):
+        raise AssertionError(f"3e: scores {scores}")
+    if scores[result.best_idx] != max(scores):
+        raise AssertionError(f"3e: best index {result.best_idx} of {scores}")
+    print(f"  run_evaluation: {eval_s:.2f} s; Precision@10 per variant (rank, reg) "
+          f"{[(ep.algorithm_params_list[0][1].rank, ep.algorithm_params_list[0][1].lambda_, round(s, 6)) for ep, s in zip(grid, scores)]}, "
+          f"best {result.best_idx}; queries per fold {n_queries}; launches {got}; "
+          f"train_grid {rec_stats['train_grid']}, train 0", flush=True)
+
+    # held against the serial path: fold 0 at rank 16, each regularizer
+    # trained alone by train_als (the wire route). The wire packs the item
+    # side in user order, the grid's host pack in scan order, so the two
+    # sum each item's ratings in different orders: train_als_grid on the
+    # fold's ratings stably sorted by user packs them as the wire does and
+    # must give the serial factors bit for bit; the run's own grid models
+    # (scan order) are compared for the record, and their fold 0
+    # Precision@10 held within 0.02 of the serial models'
+    errs = {}
+    td0, _, qa0 = fold_sets[0]
+    [(_, params16, models16)] = [g for g in grid_models if g[0] is td0 and g[1][0].rank == 16]
+    n_u, n_i = len(td0.user_index), len(td0.item_index)
+    algo = rec.ALSAlgorithm(params16[0])
+    point = PrecisionAtK(k=10)
+
+    def fold_precision(model):
+        served = engine_mod.Engine.serve_fold([algo], [model], rec.Serving(), qa0)
+        return point.calculate(ctx, [({}, served)])
+
+    by_user = np.argsort(td0.user_idx, kind="stable")
+    config16 = als.ALSConfig(rank=16, iterations=SWEEPS, reg=0.0, seed=EVAL_SEED)
+    sorted_grid = als.train_als_grid(
+        td0.user_idx[by_user], td0.item_idx[by_user], td0.ratings[by_user], n_u, n_i,
+        config16, [p.lambda_ for p in params16], device=device)
+    serial = {}
+    for p, gm, sg in zip(params16, models16, sorted_grid):
+        config = als.ALSConfig(rank=16, iterations=SWEEPS, reg=p.lambda_, seed=p.seed)
+        sm = als.train_als(td0.user_idx, td0.item_idx, td0.ratings, n_u, n_i, config, device=device)
+        if not (np.array_equal(sm.user_factors, sg.user_factors)
+                and np.array_equal(sm.item_factors, sg.item_factors)):
+            raise AssertionError(f"3e: the grid on the wire's order is not bit-equal to "
+                                 f"train_als at reg {p.lambda_}")
+        d = np.concatenate([(gm.arrays.user_factors - sm.user_factors).ravel(),
+                            (gm.arrays.item_factors - sm.item_factors).ravel()])
+        ref = np.concatenate([sm.user_factors.ravel(), sm.item_factors.ravel()])
+        outside = int((np.abs(d) > EVAL_GRID_ATOL + EVAL_GRID_RTOL * np.abs(ref)).sum())
+        p_grid = fold_precision(gm)
+        p_serial = fold_precision(rec.ALSModel(sm, td0.user_index, td0.item_index, p, _device=device))
+        if abs(p_grid - p_serial) > EVAL_PRECISION_ATOL:
+            raise AssertionError(f"3e: fold 0 Precision@10 grid {p_grid} vs serial {p_serial}")
+        serial[str(p.lambda_)] = {
+            "wire_order_bit_equal": True, "scan_order_max_abs_diff": float(np.abs(d).max()),
+            "scan_order_outside_tol": outside, "entries": int(d.size),
+            "precision_grid": p_grid, "precision_serial": p_serial,
+        }
+        print(f"  fold 0, rank 16, reg {p.lambda_}: train_als_grid on the wire's order = serial "
+              f"train_als bit for bit; the run's grid (scan order) max |d| {np.abs(d).max():.3g}, "
+              f"{outside} of {d.size} outside rtol 2e-4 / atol 2e-5; Precision@10 {p_grid:.6f} "
+              f"vs serial {p_serial:.6f} ok", flush=True)
+
+    # K13a and K13b against K1, K2 and their twins at fold 0's packs: the
+    # first user half-step (Y the seeded init) and the item half-step after
+    # it, for both ranks; timed at rank 16's user side
+    t = time.perf_counter()
+    user_side = als.pack_segments(td0.user_idx, td0.item_idx, td0.ratings, n_u,
+                                  als.auto_segment_length(td0.user_idx, n_u, 128))
+    item_side = als.pack_segments(td0.item_idx, td0.user_idx, td0.ratings, n_i,
+                                  als.auto_segment_length(td0.item_idx, n_i, 128))
+    R_u, R_i = als._padded_rows(n_u, 1), als._padded_rows(n_i, 1)
+    up = als.device_pack(user_side, R_u, R_i, device)
+    ip = als.device_pack(item_side, R_i, R_u, device)
+    regs = [p.lambda_ for p in params16]
+    V = len(regs)
+
+    def lam_obs(side, R):
+        lams = [als._lam_obs_host(side.counts, side.n_rows, R, als.ALSConfig(reg=reg))[0] for reg in regs]
+        obs = als._lam_obs_host(side.counts, side.n_rows, R, als.ALSConfig())[1]
+        return torch.from_numpy(np.stack(lams)).to(device), torch.from_numpy(obs).to(device)
+
+    lam_u, obs_u = lam_obs(user_side, R_u)
+    lam_i, obs_i = lam_obs(item_side, R_i)
+    print(f"  fold 0 packs ({time.perf_counter() - t:.2f} s): users {tuple(up.cols.shape)}, items "
+          f"{tuple(ip.cols.shape)}, {len(td0.ratings)} ratings", flush=True)
+    for k in (8, 16):
+        _, Y0 = als._factor_init_host(n_u, n_i, als.ALSConfig(rank=k, seed=EVAL_SEED), 1)
+        Y = torch.from_numpy(np.broadcast_to(Y0, (V, R_i, k)).copy()).to(device)
+        X0 = torch.zeros((V, R_u, k), dtype=torch.float32, device=device)
+        X = check_k13(Y, up, lam_u, obs_u, X0, False, f"fold 0 users, rank {k}", errs)
+        Y1 = check_k13(X, ip, lam_i, obs_i, Y, False, f"fold 0 items, rank {k}", errs)
+    # timed at rank 16's user side of sweep 2: Y the items solved in sweep 1
+    k, Yt = 16, Y1
+    A, b = k13.normal_eq_variants(Yt, up)
+    A_reg = A + lam_u[..., None, None] * torch.eye(k, device=device)
+    calls = {
+        "normal_eq_variants": lambda: k13.normal_eq_variants(Yt, up),
+        "spd_solve_variants": lambda: k13.spd_solve_variants(A, b, lam_u, obs_u, X0),
+    }
+    kernel_ms = {n: time_ms(f, iters=20, warmup=2) for n, f in calls.items()}
+    dev_ms = {n: device_ms(f, calls=10) for n, f in calls.items()}
+    plain_ms = {
+        "normal_eq_variants": time_ms(lambda: k13.normal_eq_variants_plain(Yt, up), iters=3, warmup=1),
+        "spd_solve_variants": time_ms(
+            lambda: k13.spd_solve_variants_plain(A, b, lam_u, obs_u, X0), iters=3, warmup=1),
+    }
+    # K13b's yardstick: one batched Cholesky factor and solve over V x R rows
+    library_ms = {
+        "normal_eq_variants": None,
+        "spd_solve_variants": time_ms(lambda: torch.cholesky_solve(
+            b.reshape(-1, k, 1), torch.linalg.cholesky(A_reg.reshape(-1, k, k))), iters=5, warmup=1),
+    }
+    bounds = {
+        "normal_eq_variants": k13a_bound(up, len(td0.ratings), R_i, k, V),
+        "spd_solve_variants": k13b_bound(R_u, int(obs_u.sum()), k, V),
+    }
+    # per variant, K1 and K2 at the same shapes (the serial path's cost)
+    kernel_ms["normal_eq_per_variant"] = time_ms(lambda: k1.normal_eq(Yt[0], up), iters=20, warmup=2)
+    kernel_ms["spd_solve_per_variant"] = time_ms(
+        lambda: k2.spd_solve(A[0], b[0], lam_u[0], obs_u, X0[0]), iters=20, warmup=2)
+    for n in calls:
+        print(f"  {n} (fold 0 users, rank {k}, V={V}): kernel {kernel_ms[n]:.4f} ms, device "
+              f"{dev_ms[n]:.4f}, plain {plain_ms[n]:.3f}, library {library_ms[n]}, bound "
+              f"{bounds[n][0]:.4f} ({bounds[n][1]})", flush=True)
+    stats = {
+        "card": card_line(),
+        "eval_s": eval_s,
+        # per stage: wall seconds in which some thread was in it, and the
+        # seconds summed over the threads
+        "stages_s": {key: {"wall": union_s(v), "busy": sum(e - b for b, e in v)}
+                     for key, v in spans.items()},
+        "serving_chunks": chunks,
+        "queries_per_fold": n_queries,
+        "rss_mb": {"before": rss_samples[0], "peak": max(rss_samples), "after": rss_samples[-1]},
+        "precision_at_10": {f"rank{ep.algorithm_params_list[0][1].rank}_reg{ep.algorithm_params_list[0][1].lambda_}": s
+                            for ep, s in zip(grid, scores)},
+        "best_idx": result.best_idx,
+        "serial_fold0_rank16": serial,
+        "launches": got,
+        "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound": bounds,
+    }
+    print("evaluation " + json.dumps(stats), flush=True)
+    return got, errs, stats
+
+
+def union_s(intervals) -> float:
+    """Seconds covered by the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for b, e in sorted(intervals):
+        if e > reach:
+            total += e - max(b, reach)
+            reach = e
+    return total
+
+
+def rss_mb() -> float:
+    """This process's resident set now, in MB (Linux /proc)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3013,6 +3474,7 @@ def main() -> int:
         cooccurrence,
         device_pack,
         gramian,
+        grid,
         masked_topn,
         native,
         normal_eq,
@@ -3034,7 +3496,7 @@ def main() -> int:
           f"devices {torch.cuda.device_count()} nvcc {native.nvcc_path()}", flush=True)
     t0 = time.perf_counter()
     kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
-                      gramian, similarity, subspace, cooccurrence)
+                      gramian, similarity, subspace, cooccurrence, grid)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -3063,6 +3525,10 @@ def main() -> int:
     print(f"phase dimsum (3d) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     d_counts, d_errs, d_stats = dimsum_phase(device, sp_td, sp_queries)
     del sp_td
+    print(f"phase grid evaluation (3e) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    e_errs = {}
+    check_k13_sizes(rng, device, e_errs)
+    e_counts, e_path_errs, e_stats = eval_phase(device)
     print(f"phase slice (at {time.perf_counter() - t0:.1f} s)", flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _, traffic = slice_phase(rng, device, workdir, model)
@@ -3158,6 +3624,17 @@ def main() -> int:
             # K19a: the dense binary Rb @ Rb.T; K19b: Rn @ Rn.T, the whole
             # function of the reference, K19a's share included
             "library_ms": d_stats["library_ms"][name],
+        })
+    # K13 on the grid evaluation's path (3e; errors the largest over 3e's
+    # fold packs and the small shapes)
+    for name in ("normal_eq_variants", "spd_solve_variants"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "predictionio_tpu_torch/csrc/grid.cu",
+            "replaces": "predictionio_tpu/ops/als.py:942", "launches": e_counts[name],
+            "max_abs_err": max(e_errs[name], e_path_errs[name]),
+            "ms": e_stats["kernel_ms"][name], "plain_ms": e_stats["plain_ms"][name],
+            "bound_ms": e_stats["bound"][name][0], "bound_by": e_stats["bound"][name][1],
+            "library_ms": e_stats["library_ms"][name],
         })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

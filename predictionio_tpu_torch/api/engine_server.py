@@ -79,7 +79,7 @@ class DeployedEngine:
         self.engine = engine
         self.engine_params = engine_params
         self.version = version
-        self.algorithms, self.serving = engine.make_components(engine_params)
+        _, _, self.algorithms, self.serving = engine.make_components(engine_params)
         self.models = models
         if len(self.models) != len(self.algorithms):
             raise ValueError(

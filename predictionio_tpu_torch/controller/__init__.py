@@ -1,14 +1,17 @@
 """The subset of the DASE controller API the ported slices use (the
 counterpart of ``predictionio_tpu/controller``): params from JSON, the
-data check, the preparator, algorithm and serving bases, and an engine
-that builds them and prepares a deploy. Evaluation and the train workflow
-come with later slices."""
+data check, the data source, preparator, algorithm and serving bases, an
+engine that builds them, evaluates a params grid and prepares a deploy.
+The metrics and the evaluator are in ``metrics`` and ``evaluation``; the
+train workflow comes with a later slice."""
 
 from predictionio_tpu_torch.controller.base import (
     BaseAlgorithm,
+    BaseDataSource,
     BasePreparator,
     BaseServing,
     FirstServing,
+    IdentityPreparator,
     SanityCheck,
 )
 from predictionio_tpu_torch.controller.engine import Engine, EngineFactory, EngineParams
@@ -22,6 +25,7 @@ from predictionio_tpu_torch.controller.params import (
 
 __all__ = [
     "BaseAlgorithm",
+    "BaseDataSource",
     "BasePreparator",
     "BaseServing",
     "EmptyParams",
@@ -29,6 +33,7 @@ __all__ = [
     "EngineFactory",
     "EngineParams",
     "FirstServing",
+    "IdentityPreparator",
     "Params",
     "ParamsError",
     "SanityCheck",

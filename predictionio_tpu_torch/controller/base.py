@@ -1,11 +1,16 @@
 """Controller bases, the subset of ``predictionio_tpu/controller/base.py``
-the ported slices use: the data check, the preparator, the algorithm and
-the serving bases (reference controller/SanityCheck.scala:30,
-core/BasePreparator.scala:32-42, core/BaseAlgorithm.scala:55-123,
-core/BaseServing.scala:28-51, controller/LFirstServing.scala:24-39).
+the ported slices use: the data check, the data source, the preparator,
+the algorithm and the serving bases (reference
+controller/SanityCheck.scala:30, core/BaseDataSource.scala:31-52,
+core/BasePreparator.scala:32-42, controller/IdentityPreparator.scala:30-92,
+core/BaseAlgorithm.scala:55-123, core/BaseServing.scala:28-51,
+controller/LFirstServing.scala:24-39).
 
-Where the reference hands a workflow context to ``prepare``, ``train`` and
-``prepare_serving``, the port hands the ``torch.device`` they run on.
+Where the reference hands a workflow context to ``prepare``, ``train``,
+``train_grid`` and ``prepare_serving``, the port hands the
+``torch.device`` they run on; a data source gets the context
+(``workflow/context.py``), which carries the device and the event columns
+it reads.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ from predictionio_tpu_torch.controller.params import (
 )
 
 TD = TypeVar("TD")  # training data
+EI = TypeVar("EI")  # evaluation info
 PD = TypeVar("PD")  # prepared data
 M = TypeVar("M")  # model
 Q = TypeVar("Q")  # query
 P = TypeVar("P")  # predicted result
+A = TypeVar("A")  # actual result
 
 
 def doer(cls, params: Optional[Params] = None):
@@ -62,6 +69,19 @@ class SanityCheck(abc.ABC):
     def sanity_check(self) -> None: ...
 
 
+class BaseDataSource(Controller, Generic[TD, EI, Q, A]):
+    """Reads training and evaluation data (reference
+    core/BaseDataSource.scala:31-52)."""
+
+    def read_training(self, ctx) -> TD:
+        raise NotImplementedError
+
+    def read_eval(self, ctx) -> List[Tuple[TD, EI, List[Tuple[Q, A]]]]:
+        """Evaluation folds: (training data, eval info, (query, actual)
+        pairs). Default: none (reference PDataSource readEval)."""
+        return []
+
+
 class BasePreparator(Controller, Generic[TD, PD]):
     """Transforms training data into prepared data
     (reference core/BasePreparator.scala:32-42)."""
@@ -70,12 +90,36 @@ class BasePreparator(Controller, Generic[TD, PD]):
         raise NotImplementedError
 
 
+class IdentityPreparator(BasePreparator[TD, TD]):
+    """Pass-through preparator (reference
+    controller/IdentityPreparator.scala:30-92)."""
+
+    def prepare(self, device: torch.device, training_data: TD) -> TD:
+        return training_data
+
+
 class BaseAlgorithm(Controller, Generic[M, Q, P]):
     """Trains a model and predicts from it (reference
     core/BaseAlgorithm.scala)."""
 
+    # param fields that may differ between variants trained together by
+    # ``train_grid``; empty: no grid path, the evaluation trains each
+    # variant on its own
+    GRID_AXES: Tuple[str, ...] = ()
+
     def train(self, device: torch.device, prepared_data) -> M:
         raise NotImplementedError
+
+    @classmethod
+    def train_grid(
+        cls, device: torch.device, prepared_data, algos: Sequence["BaseAlgorithm"]
+    ) -> Optional[List[M]]:
+        """Train several variants of this algorithm, whose params differ
+        only in ``GRID_AXES`` fields, together on ``device``: one model per
+        entry of ``algos``, in order, or None when these variants cannot
+        train together (the evaluation then trains each with ``train``).
+        Default: None."""
+        return None
 
     def predict(self, model: M, query: Q) -> P:
         raise NotImplementedError

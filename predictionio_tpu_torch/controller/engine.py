@@ -1,28 +1,37 @@
-"""Engine: the deploy-side subset of ``predictionio_tpu/controller/engine.py``
-(reference controller/Engine.scala:80 and prepareDeploy :196-265).
+"""Engine: the counterpart of ``predictionio_tpu/controller/engine.py``
+(reference controller/Engine.scala:80, eval :311 -> :726-816,
+prepareDeploy :196-265; controller/EngineParams.scala:32).
 
-It builds an engine's algorithms and serving from ``EngineParams`` and
+An engine holds a class map per DASE slot (data source, preparator,
+algorithms, serving) and builds the components from ``EngineParams``.
+``eval`` reads a data source's folds and, per fold, prepares, trains and
+serves the held-out queries (``serve_fold``); ``batch_eval`` does that for
+every variant of a params grid on a thread pool. ``prepare_deploy``
 prepares loaded models for serving on one device; ``EngineFactory`` is the
-user object that returns an engine. The train and eval workflows come with
-a later slice; an algorithm trains on its own (``BaseAlgorithm.train``).
+user object that returns an engine. The train workflow (``train``,
+``prepare_deploy`` from stored instances, engine.json parsing) waits for
+the event store (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
-from predictionio_tpu_torch.controller.base import FirstServing, doer
-from predictionio_tpu_torch.controller.params import EmptyParams, Params
+from predictionio_tpu_torch.controller.base import FirstServing, IdentityPreparator, doer
+from predictionio_tpu_torch.controller.params import EmptyParams, Params, params_to_json
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
-    """Named (name, params) per algorithm plus the serving slot
+    """Named (name, params) per DASE slot plus the ordered algorithm list
     (reference controller/EngineParams.scala:32)."""
 
+    data_source_params: Tuple[str, Params] = ("", EmptyParams())
+    preparator_params: Tuple[str, Params] = ("", EmptyParams())
     algorithm_params_list: Tuple[Tuple[str, Params], ...] = ()
     serving_params: Tuple[str, Params] = ("", EmptyParams())
 
@@ -31,20 +40,68 @@ class EngineParams:
             self, "algorithm_params_list", tuple(self.algorithm_params_list)
         )
 
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "datasource": {
+                "name": self.data_source_params[0],
+                "params": params_to_json(self.data_source_params[1]),
+            },
+            "preparator": {
+                "name": self.preparator_params[0],
+                "params": params_to_json(self.preparator_params[1]),
+            },
+            "algorithms": [
+                {"name": n, "params": params_to_json(p)}
+                for n, p in self.algorithm_params_list
+            ],
+            "serving": {
+                "name": self.serving_params[0],
+                "params": params_to_json(self.serving_params[1]),
+            },
+        }
+
+
+def _run_grid(items: Sequence[Any], fn, workflow_params) -> List[Any]:
+    """Map ``fn`` over the grid's items, in order, on a thread pool of
+    ``workflow_params.eval_parallelism`` workers (the reference's `.par`
+    over param sets, MetricEvaluator.scala:221-230); serially for one."""
+    items = list(items)
+    workers = min(int(getattr(workflow_params, "eval_parallelism", 1) or 1), len(items))
+    if workers <= 1:
+        return [fn(x) for x in items]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, items))
+
 
 def _as_class_map(classes) -> Dict[str, type]:
-    """A single class becomes the default-name map."""
+    """A single class becomes the default-name map; None an empty one."""
+    if classes is None:
+        return {}
     if isinstance(classes, Mapping):
         return dict(classes)
     return {"": classes}
 
 
 class Engine:
-    """Algorithm and serving class maps (reference Engine.scala:80)."""
+    """The four class maps (reference Engine.scala:80). An engine without
+    a data source (the Similar Product engines, whose data source reads
+    the event store) deploys but does not evaluate."""
 
-    def __init__(self, algorithm_classes, serving_classes=FirstServing):
+    def __init__(
+        self,
+        data_source_classes=None,
+        preparator_classes=None,
+        algorithm_classes=None,
+        serving_classes=None,
+    ):
+        self.data_source_class_map = _as_class_map(data_source_classes)
+        self.preparator_class_map = _as_class_map(
+            preparator_classes if preparator_classes is not None else IdentityPreparator
+        )
         self.algorithm_class_map = _as_class_map(algorithm_classes)
-        self.serving_class_map = _as_class_map(serving_classes)
+        self.serving_class_map = _as_class_map(
+            serving_classes if serving_classes is not None else FirstServing
+        )
 
     @staticmethod
     def _lookup(class_map: Dict[str, type], name: str, slot: str) -> type:
@@ -58,7 +115,18 @@ class Engine:
         return class_map[name]
 
     def make_components(self, engine_params: EngineParams):
-        """(algorithms, serving) instantiated from ``engine_params``."""
+        """(data_source, preparator, algorithms, serving) instantiated from
+        ``engine_params``; the data source is None on an engine that has
+        none."""
+        ds_name, ds_params = engine_params.data_source_params
+        prep_name, prep_params = engine_params.preparator_params
+        data_source = (
+            doer(self._lookup(self.data_source_class_map, ds_name, "DataSource"), ds_params)
+            if self.data_source_class_map else None
+        )
+        preparator = doer(
+            self._lookup(self.preparator_class_map, prep_name, "Preparator"), prep_params
+        )
         algorithms = [
             doer(self._lookup(self.algorithm_class_map, name, "Algorithm"), p)
             for name, p in engine_params.algorithm_params_list
@@ -70,7 +138,64 @@ class Engine:
             self._lookup(self.serving_class_map, serv_name, "Serving"),
             serv_params,
         )
-        return algorithms, serving
+        return data_source, preparator, algorithms, serving
+
+    # --- evaluation (reference object Engine.eval :726-816) ---
+
+    @staticmethod
+    def serve_fold(algorithms, models, serving, qa_pairs) -> List[Tuple[Any, Any, Any]]:
+        """Supplement the queries, batch-predict per algorithm, regroup
+        per query and serve (reference :786-810). Shared by ``eval`` and
+        the FastEval workflow."""
+        queries = [(qx, serving.supplement(q)) for qx, (q, _) in enumerate(qa_pairs)]
+        per_query: Dict[int, List[Any]] = {qx: [] for qx, _ in queries}
+        for algo, model in zip(algorithms, models):
+            for qx, p in algo.batch_predict(model, queries):
+                per_query[qx].append(p)
+        return [
+            (q, serving.serve(q, per_query[qx]), a)
+            for qx, (q, a) in enumerate(qa_pairs)
+        ]
+
+    def _require_data_source(self) -> None:
+        if not self.data_source_class_map:
+            raise NotImplementedError(
+                "this engine has no ported DataSource: its data source reads "
+                "the event store (PEventStore), which is not ported yet "
+                "(ROADMAP.md queue 1 item 3)"
+            )
+
+    def eval(
+        self, ctx, engine_params: EngineParams, workflow_params
+    ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Per fold of the data source's ``read_eval(ctx)``: prepare,
+        train every algorithm on ``ctx.device`` and serve the fold's
+        queries. Returns [(eval_info, [(query, predicted, actual)])]."""
+        self._require_data_source()
+        data_source, preparator, algorithms, serving = self.make_components(
+            engine_params
+        )
+        out = []
+        for td, eval_info, qa_pairs in data_source.read_eval(ctx):
+            pd = preparator.prepare(ctx.device, td)
+            models = [algo.train(ctx.device, pd) for algo in algorithms]
+            out.append((eval_info, self.serve_fold(algorithms, models, serving, qa_pairs)))
+        return out
+
+    def batch_eval(
+        self, ctx, engine_params_list: Sequence[EngineParams], workflow_params
+    ) -> List[Tuple[EngineParams, List[Tuple[Any, List[Tuple[Any, Any, Any]]]]]]:
+        """``eval`` over the params grid, ``eval_parallelism`` variants at a
+        time (device launches queue on one stream; each variant's host
+        stages overlap the others'). Results keep grid order."""
+        self._require_data_source()
+        return _run_grid(
+            engine_params_list,
+            lambda ep: (ep, self.eval(ctx, ep, workflow_params)),
+            workflow_params,
+        )
+
+    # --- deploy ---
 
     def prepare_deploy(
         self,
@@ -80,7 +205,7 @@ class Engine:
     ) -> List[Any]:
         """Bind each loaded model's serving state to ``device`` (reference
         prepareDeploy; the port deploys persisted models only)."""
-        algorithms, _ = self.make_components(engine_params)
+        _, _, algorithms, _ = self.make_components(engine_params)
         if len(models) != len(algorithms):
             raise ValueError(
                 f"{len(models)} models for {len(algorithms)} algorithms"

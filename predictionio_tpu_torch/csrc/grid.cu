@@ -1,0 +1,79 @@
+// K13: the regularizer-grid training loop of an ALS evaluation — the
+// hand-written Hopper kernels that replace the reference's
+// predictionio_tpu/ops/als.py:942 _run_iterations_grid (float32, the exact
+// solver, explicit and implicit feedback).
+//
+// What it computes. V regularizer variants of one ALS configuration share
+// one packed side per half-step (the same ratings, rank and sweeps; only
+// λ differs) and each has its own factors. The reference vmaps K1 and K2
+// over the variant axis inside one program, its loop outside the vmap
+// (:976-996), so each variant sweeps exactly as a serial run. Here:
+//   K13a normal_eq_variants: for every variant v and system row r,
+//     A[v,r] = Σ w_a·y yᵀ and b[v,r] = Σ w_b·y over the row's ratings,
+//     y = Y[v][col] (K1's systems and, in implicit mode, K1's weights).
+//   K13b spd_solve_variants: X[v,r] = has_obs[r] ? (A[v,r] + G[v] +
+//     λ[v,r]·I)⁻¹ b[v,r] : X_prev[v,r] (K2's solve; G[v] is variant v's
+//     own Gramian in implicit mode, none in explicit mode). No telemetry:
+//     the reference's grid keeps none.
+//
+// Bound on an H100 SXM, at the evaluation's shape (an ML-20M fold: about
+// 13.3M training ratings, V = 2, k = 8 or 16). K13a: each rating needs
+// k(k+1)/2 + k FMAs per variant, V·(k²+3k) flops in all (0.11 GFLOP per
+// variant at k = 8, 0.40 at k = 16: ≈3.2 / ≈12 µs at 67 TFLOP/s), against
+// the pack read once (8 B a rating, 4 B a segment) plus V·R·(k²+k)·4 bytes
+// of systems written (≈0.14 GB on the user side at k = 16): bound by
+// bytes. K13b reads each variant's lower triangle and b and writes X:
+// bound by bytes too.
+//
+// Design. Both are K1's and K2's own kernels (normal_eq.cuh,
+// spd_solve.cuh) with a variant axis, so variant v is summed and solved
+// in exactly K1's and K2's order: bit-equal to K1 and K2 run on variant
+// v's factors. K13a walks K1's group plan unchanged and puts a group's V
+// variants in neighbouring blocks (block = group block · V + v), so the
+// group's column ids, ratings and plan entries come from device memory
+// once and from L2 for the other variants; each variant gathers its own
+// factor rows. The multi-group rows' partials and their ordered combine
+// are per variant (blockIdx.z). K13b runs K2's warp-per-system kernels
+// with the variant on blockIdx.y; each block stages its variant's G.
+// Later work: the k <= 32 form pads every system to 32 x 32, so at k = 8
+// three quarters of its FMAs multiply zeros; a form sized to k, and the
+// variants of one slot in one warp, are the next steps.
+
+#include "normal_eq.cuh"
+#include "spd_solve.cuh"
+
+extern "C" {
+
+// K13a on `stream`; returns cudaGetLastError(). Y is [V, y_rows, k]
+// (y_stride = y_rows·k floats between variants); A [V, R, k, k], b
+// [V, R, k] and partials [V, max(P, 1), k·k + k] are allocated by the
+// caller, which checks shapes, dtypes, devices, id ranges and
+// 1 <= k <= 1024, and builds the plan as for K1 (normal_eq_f32).
+int normal_eq_variants_f32(const float* Y, const int* cols,
+                           const float* vals, const int* rem,
+                           const int* groups, int n_groups, const int* c_rows,
+                           const int* c_start, int n_combine, float* partials,
+                           float* A, float* b, int k, int L, int implicit,
+                           float alpha, int V, long long y_stride, int R,
+                           int P, cudaStream_t stream) {
+  return (int)k1::launch<true>(Y, cols, vals, rem, groups, n_groups, c_rows,
+                         c_start, n_combine, partials, A, b, k, L, implicit,
+                         alpha, V, y_stride, R, P, stream);
+}
+
+// K13b on `stream`; returns cudaGetLastError(). A [V, R, k, k], b, X_prev
+// and X [V, R, k], lam [V, R], has_obs [R] and G [V, k, k] or null. The
+// caller checks shapes, dtypes, devices, R >= 1 and 1 <= k <= 200.
+int spd_solve_variants_f32(const float* A, const float* G, const float* b,
+                           const float* lam, const unsigned char* has_obs,
+                           const float* X_prev, float* X, int R, int k, int V,
+                           cudaStream_t stream) {
+  return (int)k2::launch(A, G, b, lam, has_obs, X_prev, X, nullptr, nullptr,
+                         R, k, V, stream);
+}
+
+const char* grid_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

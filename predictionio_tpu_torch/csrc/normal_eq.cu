@@ -52,379 +52,11 @@
 // are never read; groups without segments (empty, padding and sentinel
 // rows) write zeros. Products are fp32 FMAs, never TF32. Later work:
 // wgmma with 3xTF32 splitting, double-buffered gathers, fusing K2.
+//
+// The kernels live in normal_eq.cuh, shared with K13a (csrc/grid.cu),
+// which runs them over a variant axis; here V = 1.
 
-#include <cuda_runtime.h>
-
-#include "tiling.cuh"
-
-namespace {
-
-constexpr int THREADS = 256;
-constexpr int CH = 64;  // gathered slots staged per round
-constexpr int COMBINE_THREADS = 256;
-constexpr int RED = 20;  // floats a thread hands over in the slot-group sum
-constexpr int WARPS32 = 4;  // warps (= groups) per block of the k <= 32 form
-constexpr unsigned FULL = 0xffffffffu;
-constexpr size_t DEFAULT_SMEM = 48 * 1024;
-
-template <bool IMPLICIT>
-__global__ void __launch_bounds__(THREADS) normal_eq_groups(
-    const float* __restrict__ Y, const int* __restrict__ cols,
-    const float* __restrict__ vals, const int* __restrict__ rem,
-    const int* __restrict__ groups, int n_groups,
-    float* __restrict__ partials, float* __restrict__ A,
-    float* __restrict__ b, int k, int L, int T, int tiles_per_block,
-    int SG, float alpha) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int kp = 4 * T;               // staged row length, float4-aligned
-  float* ys = smem;                   // [CH][kp]
-  float* wb = ys + CH * kp;           // [CH] b's weights (explicit: ratings)
-  float* wa = wb + CH;                // [CH] A's weights (implicit only)
-  float* red = wa + CH;               // [(SG-1) * tiles_per_block * RED]
-
-  const int g = blockIdx.x;
-  const int row = groups[g];
-  const int seg0 = groups[n_groups + g];
-  const int nseg = groups[2 * n_groups + g];
-  const int slot = groups[3 * n_groups + g];
-  const int NT = T * (T + 1) / 2;
-  const int tile0 = blockIdx.y * tiles_per_block;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int tl = tid % tiles_per_block;
-  const int sg = tid / tiles_per_block;
-  const int tile = tile0 + tl;
-  const bool active = sg < SG && tile < NT;
-  int ti = 0, tj = 0;
-  if (active) lower_tile(tile, ti, tj);
-
-  float acc[4][4];
-  float bacc[4];
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    bacc[x] = 0.f;
-#pragma unroll
-    for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
-  }
-
-  for (int s = seg0; s < seg0 + nseg; ++s) {
-    const int n = rem[s];
-    const long long base = (long long)s * L;
-    for (int l0 = 0; l0 < n; l0 += CH) {
-      const int c = min(CH, n - l0);
-      __syncthreads();  // the previous round's readers are done
-      for (int r = warp; r < c; r += THREADS / 32) {
-        const float* src = Y + (long long)cols[base + l0 + r] * k;
-        for (int col = lane; col < kp; col += 32) ys[r * kp + col] = col < k ? src[col] : 0.f;
-      }
-      if (tid < c) {
-        const float v = vals[base + l0 + tid];
-        if constexpr (IMPLICIT) {
-          const float cv = alpha * fabsf(v);
-          wa[tid] = cv;
-          wb[tid] = v > 0.f ? 1.f + cv : 0.f;
-        } else {
-          wb[tid] = v;
-        }
-      }
-      __syncthreads();
-      if (active) {
-        for (int cc = sg; cc < c; cc += SG) {
-          const float4 a = *reinterpret_cast<const float4*>(ys + cc * kp + ti * 4);
-          const float4 y = *reinterpret_cast<const float4*>(ys + cc * kp + tj * 4);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float yv[4] = {y.x, y.y, y.z, y.w};
-          float aw[4] = {av[0], av[1], av[2], av[3]};  // w_a·y (explicit: y)
-          if constexpr (IMPLICIT) {
-            const float w = wa[cc];
-#pragma unroll
-            for (int x = 0; x < 4; ++x) aw[x] = av[x] * w;
-          }
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-#pragma unroll
-            for (int z = 0; z < 4; ++z) acc[x][z] = fmaf(aw[x], yv[z], acc[x][z]);
-          }
-          if (tj == 0) {
-            const float w = wb[cc];
-#pragma unroll
-            for (int x = 0; x < 4; ++x) bacc[x] = fmaf(w, av[x], bacc[x]);
-          }
-        }
-      }
-    }
-  }
-
-  if (SG > 1) {  // sum the slot groups, in order, into slot group 0
-    if (active && sg > 0) {
-      float* r = red + ((sg - 1) * tiles_per_block + tl) * RED;
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-#pragma unroll
-        for (int z = 0; z < 4; ++z) r[x * 4 + z] = acc[x][z];
-        r[16 + x] = bacc[x];
-      }
-    }
-    __syncthreads();
-    if (active && sg == 0) {
-      for (int q = 1; q < SG; ++q) {
-        const float* r = red + ((q - 1) * tiles_per_block + tl) * RED;
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-#pragma unroll
-          for (int z = 0; z < 4; ++z) acc[x][z] += r[x * 4 + z];
-          bacc[x] += r[16 + x];
-        }
-      }
-    }
-  }
-
-  if (active && sg == 0) {
-    float* dA;
-    float* db;
-    if (slot < 0) {
-      dA = A + (long long)row * k * k;
-      db = b + (long long)row * k;
-    } else {
-      dA = partials + (long long)slot * (k * k + k);
-      db = dA + k * k;
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int i = ti * 4 + x;
-      if (i >= k) break;
-#pragma unroll
-      for (int z = 0; z < 4; ++z) {
-        const int j = tj * 4 + z;
-        if (j < k) {
-          dA[(long long)i * k + j] = acc[x][z];
-          if (ti != tj) dA[(long long)j * k + i] = acc[x][z];
-        }
-      }
-      if (tj == 0) db[i] = bacc[x];
-    }
-  }
-}
-
-// A chunk of up to 32 slots of one segment, as the k <= 32 form walks a
-// group: lane l holds slot l's column id and b's weight (explicit: the
-// rating), and in implicit mode A's weight.
-struct Chunk {
-  int s, l0, c;  // segment, first slot, slot count (0: past the group)
-  int col;
-  float v;  // w_b
-  float w;  // w_a (implicit only)
-};
-
-template <bool IMPLICIT>
-__device__ __forceinline__ Chunk load_chunk(const int* __restrict__ cols,
-                                            const float* __restrict__ vals,
-                                            const int* __restrict__ rem,
-                                            int s, int l0, int s_end, int L,
-                                            int lane, float alpha) {
-  Chunk ch{s, l0, 0, 0, 0.f, 0.f};
-  if (s < s_end) {
-    ch.c = min(32, rem[s] - l0);
-    const long long at = (long long)s * L + l0 + lane;
-    if (lane < ch.c) {
-      ch.col = cols[at];
-      const float v = vals[at];
-      if constexpr (IMPLICIT) {
-        ch.w = alpha * fabsf(v);
-        ch.v = v > 0.f ? 1.f + ch.w : 0.f;
-      } else {
-        ch.v = v;
-      }
-    }
-  }
-  return ch;
-}
-
-__device__ __forceinline__ void next_of(const Chunk& ch,
-                                        const int* __restrict__ rem, int& s,
-                                        int& l0) {
-  s = ch.s;
-  l0 = ch.l0 + 32;
-  if (l0 >= rem[s]) {
-    ++s;
-    l0 = 0;
-  }
-}
-
-// Gather a chunk's Y rows into a shared tile without staging them in
-// registers (cp.async, 4 bytes a lane, zero-filled past k).
-__device__ __forceinline__ void gather_async(float (*tile)[32],
-                                             const float* __restrict__ Y,
-                                             const Chunk& ch, int k,
-                                             int lane) {
-  for (int q = 0; q < ch.c; ++q) {
-    const int col = __shfl_sync(FULL, ch.col, q);
-    const float* src = Y + (long long)col * k + (lane < k ? lane : 0);
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(&tile[q][lane]);
-    const int bytes = lane < k ? 4 : 0;
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(bytes));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// k <= 32: one warp per group, no block barrier. Rows are padded to 32
-// with zeros; lane l owns the 4x8 tile (rows 4·(l/4).., columns 8·(l%4)..)
-// of the 32x32 square and row l of b. Two shared tiles per warp: while the
-// warp multiplies one chunk, the next one's rows are in flight, and the
-// column ids of the one after are loading.
-template <bool IMPLICIT>
-__global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
-    const float* __restrict__ Y, const int* __restrict__ cols,
-    const float* __restrict__ vals, const int* __restrict__ rem,
-    const int* __restrict__ groups, int n_groups,
-    float* __restrict__ partials, float* __restrict__ A,
-    float* __restrict__ b, int k, int L, float alpha) {
-  __shared__ __align__(16) float ys[WARPS32][2][32][32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * WARPS32 + warp;
-  if (g >= n_groups) return;
-  const int row = groups[g];
-  const int seg0 = groups[n_groups + g];
-  const int s_end = seg0 + groups[2 * n_groups + g];
-  const int slot = groups[3 * n_groups + g];
-  const int ti = lane >> 2;
-  const int tj = lane & 3;
-
-  float acc[4][8];
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-#pragma unroll
-    for (int z = 0; z < 8; ++z) acc[x][z] = 0.f;
-  }
-  float bl = 0.f;
-
-  int s = 0, l0 = 0;
-  Chunk cur = load_chunk<IMPLICIT>(cols, vals, rem, seg0, 0, s_end, L, lane, alpha);
-  if (cur.c) gather_async(ys[warp][0], Y, cur, k, lane);
-  Chunk nxt{s_end, 0, 0, 0, 0.f, 0.f};
-  if (cur.c) {
-    next_of(cur, rem, s, l0);
-    nxt = load_chunk<IMPLICIT>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
-  }
-  for (int n = 0; cur.c; ++n) {
-    Chunk after{s_end, 0, 0, 0, 0.f, 0.f};
-    if (nxt.c) {
-      gather_async(ys[warp][(n + 1) & 1], Y, nxt, k, lane);
-      next_of(nxt, rem, s, l0);
-      after = load_chunk<IMPLICIT>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncwarp();
-    float(*sy)[32] = ys[warp][n & 1];
-    for (int q = 0; q < cur.c; ++q) {
-      const float4 a = *reinterpret_cast<const float4*>(&sy[q][ti * 4]);
-      const float4 y0 = *reinterpret_cast<const float4*>(&sy[q][tj * 8]);
-      const float4 y1 = *reinterpret_cast<const float4*>(&sy[q][tj * 8 + 4]);
-      float av[4] = {a.x, a.y, a.z, a.w};  // w_a·y (explicit: y)
-      if constexpr (IMPLICIT) {
-        const float w = __shfl_sync(FULL, cur.w, q);
-#pragma unroll
-        for (int x = 0; x < 4; ++x) av[x] *= w;
-      }
-      const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-#pragma unroll
-        for (int z = 0; z < 8; ++z) acc[x][z] = fmaf(av[x], yv[z], acc[x][z]);
-      }
-      bl = fmaf(__shfl_sync(FULL, cur.v, q), sy[q][lane], bl);
-    }
-    __syncwarp();  // this tile's readers are done before it is refilled
-    cur = nxt;
-    nxt = after;
-  }
-
-  float* dA;
-  float* db;
-  if (slot < 0) {
-    dA = A + (long long)row * k * k;
-    db = b + (long long)row * k;
-  } else {
-    dA = partials + (long long)slot * (k * k + k);
-    db = dA + k * k;
-  }
-  // through a shared tile, so the stores to A are coalesced
-  float(*sy)[32] = ys[warp][0];
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    float4* dst = reinterpret_cast<float4*>(&sy[ti * 4 + x][tj * 8]);
-    dst[0] = make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
-    dst[1] = make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
-  }
-  __syncwarp();
-  if (k == 32) {  // A's rows are the tile's rows: 256 float4, 8 a lane
-    const float4* src = reinterpret_cast<const float4*>(&sy[0][0]);
-    float4* out = reinterpret_cast<float4*>(dA);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) out[q * 32 + lane] = src[q * 32 + lane];
-  } else {
-    for (int e = lane; e < k * k; e += 32) dA[e] = sy[e / k][e % k];
-  }
-  if (lane < k) db[lane] = bl;
-}
-
-__global__ void __launch_bounds__(COMBINE_THREADS) normal_eq_combine(
-    const float* __restrict__ partials, const int* __restrict__ c_rows,
-    const int* __restrict__ c_start, float* __restrict__ A,
-    float* __restrict__ b, int k) {
-  const int m = blockIdx.x;
-  const int E = k * k + k;
-  const int e = blockIdx.y * COMBINE_THREADS + threadIdx.x;
-  if (e >= E) return;
-  const int p1 = c_start[m + 1];
-  float s = 0.f;
-#pragma unroll 8
-  for (int p = c_start[m]; p < p1; ++p) s += partials[(long long)p * E + e];
-  const long long row = c_rows[m];
-  if (e < k * k) {
-    A[row * k * k + e] = s;
-  } else {
-    b[row * k + (e - k * k)] = s;
-  }
-}
-
-template <bool IMPLICIT>
-cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
-                          const int* rem, const int* groups, int n_groups,
-                          float* partials, float* A, float* b, int k, int L,
-                          float alpha, cudaStream_t stream) {
-  if (k <= 32) {
-    normal_eq_groups32<IMPLICIT>
-        <<<(n_groups + WARPS32 - 1) / WARPS32, 32 * WARPS32, 0, stream>>>(
-            Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, alpha);
-    return cudaGetLastError();
-  }
-  const int T = (k + 3) / 4;
-  const int NT = T * (T + 1) / 2;
-  const int tpb = NT < THREADS ? NT : THREADS;
-  const int SG = THREADS / tpb;
-  const size_t smem = (size_t)(CH * 4 * T + 2 * CH) * sizeof(float) +
-                      (size_t)(SG - 1) * tpb * RED * sizeof(float);
-  if (smem > DEFAULT_SMEM) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        normal_eq_groups<IMPLICIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(n_groups, (NT + tpb - 1) / tpb);
-  normal_eq_groups<IMPLICIT><<<grid, THREADS, smem, stream>>>(
-      Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, T, tpb, SG,
-      alpha);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "normal_eq.cuh"
 
 extern "C" {
 
@@ -439,16 +71,9 @@ int normal_eq_f32(const float* Y, const int* cols, const float* vals,
                   const int* c_rows, const int* c_start, int n_combine,
                   float* partials, float* A, float* b, int k, int L,
                   int implicit, float alpha, cudaStream_t stream) {
-  cudaError_t err =
-      implicit ? launch_groups<true>(Y, cols, vals, rem, groups, n_groups,
-                                     partials, A, b, k, L, alpha, stream)
-               : launch_groups<false>(Y, cols, vals, rem, groups, n_groups,
-                                      partials, A, b, k, L, alpha, stream);
-  if (err != cudaSuccess || n_combine == 0) return (int)err;
-  dim3 grid2(n_combine, (k * k + k + COMBINE_THREADS - 1) / COMBINE_THREADS);
-  normal_eq_combine<<<grid2, COMBINE_THREADS, 0, stream>>>(
-      partials, c_rows, c_start, A, b, k);
-  return (int)cudaGetLastError();
+  return (int)k1::launch<false>(Y, cols, vals, rem, groups, n_groups, c_rows,
+                         c_start, n_combine, partials, A, b, k, L, implicit,
+                         alpha, 1, 0, 0, 0, stream);
 }
 
 const char* normal_eq_error_string(int code) {

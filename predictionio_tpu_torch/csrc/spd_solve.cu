@@ -44,268 +44,17 @@
 // The telemetry partials come from a butterfly over each warp and an
 // ordered sum over the block's warps; a one-block kernel sums the partials
 // in a fixed tree. No atomics: a run is bit-for-bit repeatable.
+//
+// The kernels live in spd_solve.cuh, shared with K13b (csrc/grid.cu),
+// which runs them over a variant axis; here V = 1.
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int MAX_WARPS = 8;
-constexpr int REDUCE_THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr size_t DEFAULT_SMEM = 48 * 1024;
-constexpr size_t MAX_SMEM = 227 * 1024;
-
-__host__ __device__ inline int per_warp_floats(int k) { return k * (k + 1) + 3 * k; }
-
-inline int warps_for(int k) {
-  if (k <= 32) return MAX_WARPS;  // spd_solve_rows32
-  const size_t bytes = (size_t)per_warp_floats(k) * sizeof(float);
-  int w = (int)(DEFAULT_SMEM / bytes);
-  if (w > MAX_WARPS) w = MAX_WARPS;
-  return w < 1 ? 1 : w;
-}
-
-// The telemetry epilogue of both solve kernels: a butterfly over the
-// warp, then thread 0 sums the block's warps in order.
-__device__ __forceinline__ void block_partials(float dsq, float xsq,
-                                               float* red, int W,
-                                               float* partials) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    dsq += __shfl_xor_sync(FULL, dsq, o);
-    xsq += __shfl_xor_sync(FULL, xsq, o);
-  }
-  if (lane == 0) {
-    red[2 * warp] = dsq;
-    red[2 * warp + 1] = xsq;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s0 = 0.f, s1 = 0.f;
-    for (int w = 0; w < W; ++w) {
-      s0 += red[2 * w];
-      s1 += red[2 * w + 1];
-    }
-    partials[2 * blockIdx.x] = s0;
-    partials[2 * blockIdx.x + 1] = s1;
-  }
-}
-
-__global__ void spd_solve_rows(const float* __restrict__ A,
-                               const float* __restrict__ G,
-                               const float* __restrict__ b,
-                               const float* __restrict__ lam,
-                               const unsigned char* __restrict__ has_obs,
-                               const float* __restrict__ X_prev,
-                               float* __restrict__ X,
-                               float* __restrict__ partials, int R, int k,
-                               int W) {
-  extern __shared__ float smem[];
-  const int kp = k + 1;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sA = smem + warp * per_warp_floats(k);  // [k][k+1]
-  float* sy = sA + k * kp;                       // rhs, then y
-  float* sd = sy + k;                            // 1 / L_jj
-  float* sx = sd + k;                            // solution
-  float* red = smem + W * per_warp_floats(k);    // [2 * W]
-  const long long row = (long long)blockIdx.x * W + warp;
-  float dsq = 0.f, xsq = 0.f;
-
-  if (row < R) {
-    const float* xp = X_prev + row * k;
-    float* xo = X + row * k;
-    if (has_obs[row]) {
-      const float* a = A + row * k * k;
-      const float lr = lam[row];
-      for (int e = lane; e < k * k; e += 32) {
-        const int i = e / k;
-        const int j = e - i * k;
-        float v = a[e];
-        if (G != nullptr) v += G[e];
-        sA[i * kp + j] = i == j ? v + lr : v;
-      }
-      for (int i = lane; i < k; i += 32) sy[i] = b[row * k + i];
-      __syncwarp();
-      // Cholesky with the forward substitution fused
-      for (int j = 0; j < k; ++j) {
-        const float d = rsqrtf(sA[j * kp + j]);
-        const float yj = sy[j] * d;
-        for (int i = j + 1 + lane; i < k; i += 32) sA[i * kp + j] *= d;
-        __syncwarp();
-        if (lane == 0) {
-          sy[j] = yj;
-          sd[j] = d;
-        }
-        for (int i = j + 1 + lane; i < k; i += 32) {
-          const float ci = sA[i * kp + j];
-          sy[i] = fmaf(-ci, yj, sy[i]);
-          for (int l = j + 1; l <= i; ++l) {
-            sA[i * kp + l] = fmaf(-ci, sA[l * kp + j], sA[i * kp + l]);
-          }
-        }
-        __syncwarp();
-      }
-      // back substitution, column by column
-      for (int j = k - 1; j >= 0; --j) {
-        const float xj = sy[j] * sd[j];
-        if (lane == 0) sx[j] = xj;
-        for (int i = lane; i < j; i += 32) sy[i] = fmaf(-sA[j * kp + i], xj, sy[i]);
-        __syncwarp();
-      }
-      for (int i = lane; i < k; i += 32) {
-        const float x = sx[i];
-        const float dl = x - xp[i];
-        xo[i] = x;
-        dsq = fmaf(dl, dl, dsq);
-        xsq = fmaf(x, x, xsq);
-      }
-    } else {
-      for (int i = lane; i < k; i += 32) {
-        const float x = xp[i];
-        xo[i] = x;
-        xsq = fmaf(x, x, xsq);
-      }
-    }
-  }
-
-  if (partials != nullptr) block_partials(dsq, xsq, red, W, partials);
-}
-
-template <bool HAS_G>
-__global__ void __launch_bounds__(32 * MAX_WARPS) spd_solve_rows32(
-    const float* __restrict__ A, const float* __restrict__ G,
-    const float* __restrict__ b,
-    const float* __restrict__ lam, const unsigned char* __restrict__ has_obs,
-    const float* __restrict__ X_prev, float* __restrict__ X,
-    float* __restrict__ partials, int R, int k) {
-  __shared__ __align__(16) float sc[MAX_WARPS][32];
-  __shared__ float red[2 * MAX_WARPS];
-  __shared__ float sG[HAS_G ? 32 : 1][33];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * MAX_WARPS + warp;
-  const bool mine = lane < k;
-  float dsq = 0.f, xsq = 0.f;
-  if constexpr (HAS_G) {
-    for (int e = threadIdx.x; e < k * k; e += blockDim.x) sG[e / k][e % k] = G[e];
-    __syncthreads();
-  }
-
-  if (row < R) {
-    const float* xp = X_prev + row * k;
-    float* xo = X + row * k;
-    if (has_obs[row]) {
-      float a[32];
-      const float* arow = A + row * k * k + (long long)lane * k;
-      if ((k & 3) == 0) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (mine && 4 * q < k) v = *reinterpret_cast<const float4*>(arow + 4 * q);
-          a[4 * q] = v.x;
-          a[4 * q + 1] = v.y;
-          a[4 * q + 2] = v.z;
-          a[4 * q + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int l = 0; l < 32; ++l) a[l] = (mine && l < k) ? arow[l] : 0.f;
-      }
-      if constexpr (HAS_G) {
-#pragma unroll
-        for (int l = 0; l < 32; ++l) {
-          if (mine && l < k) a[l] += sG[lane][l];
-        }
-      }
-      const float lr = lam[row];
-#pragma unroll
-      for (int l = 0; l < 32; ++l) {
-        if (l == lane) a[l] = mine ? a[l] + lr : 1.f;
-      }
-      float r = mine ? b[row * k + lane] : 0.f;
-      float y = 0.f, dinv = 0.f;
-      // Cholesky with the forward substitution fused
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float d = rsqrtf(__shfl_sync(FULL, a[j], j));
-        const float yj = __shfl_sync(FULL, r, j) * d;
-        const float c = a[j] * d;  // L_ij on lanes i > j
-        if (lane == j) {
-          y = yj;
-          dinv = d;
-        }
-        if (lane > j) r = fmaf(-c, yj, r);
-        a[j] = c;
-        sc[warp][lane] = c;
-        __syncwarp();
-#pragma unroll
-        for (int l = j + 1; l < 32; ++l) {
-          if (lane >= l) a[l] = fmaf(-c, sc[warp][l], a[l]);
-        }
-        __syncwarp();
-      }
-      // back substitution, row by row
-      float x = 0.f;
-#pragma unroll
-      for (int j = 31; j >= 0; --j) {
-        float p = lane > j ? a[j] * x : 0.f;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(FULL, p, o);
-        if (lane == j) x = (y - p) * dinv;
-      }
-      if (mine) {
-        const float dl = x - xp[lane];
-        xo[lane] = x;
-        dsq = dl * dl;
-        xsq = x * x;
-      }
-    } else if (mine) {
-      const float x = xp[lane];
-      xo[lane] = x;
-      xsq = x * x;
-    }
-  }
-  if (partials != nullptr) block_partials(dsq, xsq, red, MAX_WARPS, partials);
-}
-
-__global__ void __launch_bounds__(REDUCE_THREADS) spd_reduce(
-    const float* __restrict__ partials, int n, float* __restrict__ sums) {
-  __shared__ float s0[REDUCE_THREADS], s1[REDUCE_THREADS];
-  const int t = threadIdx.x;
-  float a = 0.f, c = 0.f;
-  for (int p = t; p < n; p += REDUCE_THREADS) {
-    a += partials[2 * p];
-    c += partials[2 * p + 1];
-  }
-  s0[t] = a;
-  s1[t] = c;
-  __syncthreads();
-  for (int o = REDUCE_THREADS / 2; o > 0; o >>= 1) {
-    if (t < o) {
-      s0[t] += s0[t + o];
-      s1[t] += s1[t + o];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    sums[0] = s0[0];
-    sums[1] = s1[0];
-  }
-}
-
-}  // namespace
+#include "spd_solve.cuh"
 
 extern "C" {
 
 // Blocks spd_solve_f32 launches for R systems of size k (the partials
 // buffer holds two floats per block).
-int spd_solve_blocks(int R, int k) {
-  const int W = warps_for(k);
-  return (R + W - 1) / W;
-}
+int spd_solve_blocks(int R, int k) { return k2::blocks_for(R, k); }
 
 // Launches the solve on `stream` (and, when `sums` is not null, the
 // reduction of the telemetry sums, using `partials` of 2·blocks floats) and
@@ -317,35 +66,8 @@ int spd_solve_f32(const float* A, const float* G, const float* b,
                   const unsigned char* has_obs, const float* X_prev,
                   float* X, float* partials, float* sums, int R, int k,
                   cudaStream_t stream) {
-  const int W = warps_for(k);
-  const int blocks = (R + W - 1) / W;
-  float* part = sums ? partials : nullptr;
-  cudaError_t err;
-  if (k <= 32) {
-    if (G != nullptr) {
-      spd_solve_rows32<true><<<blocks, 32 * W, 0, stream>>>(
-          A, G, b, lam, has_obs, X_prev, X, part, R, k);
-    } else {
-      spd_solve_rows32<false><<<blocks, 32 * W, 0, stream>>>(
-          A, G, b, lam, has_obs, X_prev, X, part, R, k);
-    }
-  } else {
-    const size_t smem =
-        ((size_t)W * per_warp_floats(k) + 2 * W) * sizeof(float);
-    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    if (smem > DEFAULT_SMEM) {
-      err = cudaFuncSetAttribute(spd_solve_rows,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    spd_solve_rows<<<blocks, 32 * W, smem, stream>>>(A, G, b, lam, has_obs,
-                                                     X_prev, X, part, R, k, W);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || sums == nullptr) return (int)err;
-  spd_reduce<<<1, REDUCE_THREADS, 0, stream>>>(partials, blocks, sums);
-  return (int)cudaGetLastError();
+  return (int)k2::launch(A, G, b, lam, has_obs, X_prev, X, partials, sums, R,
+                         k, 1, stream);
 }
 
 const char* spd_solve_error_string(int code) {

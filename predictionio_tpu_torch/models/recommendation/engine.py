@@ -1,7 +1,8 @@
 """Recommendation engine: the counterpart of
 ``predictionio_tpu/models/recommendation/engine.py`` (reference
 examples/scala-parallel-recommendation/custom-query: Engine.scala,
-Preparator.scala, ALSAlgorithm.scala:24-105, Serving.scala).
+DataSource.scala, Preparator.scala, ALSAlgorithm.scala:24-105,
+Serving.scala).
 
 Queries, results, training data and params keep the reference's fields and
 JSON names. ``ALSAlgorithm.train`` trains on a ``torch.device`` through
@@ -14,6 +15,11 @@ serves a micro-batch with one K3 launch on the model's device; with
 (``ops/retrieval.py``) instead: the catalog resident quantized, stage 1
 (kernel A) shortlists, stage 2 (kernel B) rescores the shortlist exactly,
 and the host refines against the original rows.
+``DataSource`` reads the event columns the workflow context supplies for
+its app (the port has no event store yet, ROADMAP.md queue 1 item 3) and
+splits them into k folds for evaluation; ``ALSAlgorithm.train_grid``
+trains an evaluation grid's regularizer variants together
+(``ops/als.train_als_grid``, K13).
 ``als_model_from_numpy`` builds a model from a trained model's arrays,
 which is how a model trained by the JAX package is carried across (as
 numpy: the port never imports the JAX package).
@@ -29,6 +35,7 @@ import torch
 
 from predictionio_tpu_torch.controller import (
     BaseAlgorithm,
+    BaseDataSource,
     BasePreparator,
     Engine,
     FirstServing,
@@ -42,6 +49,7 @@ from predictionio_tpu_torch.ops.als import (
     ALSModelArrays,
     ServingFactors,
     train_als,
+    train_als_grid,
     validate_solver,
 )
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever
@@ -74,6 +82,11 @@ class PredictedResult:
                 for s in self.item_scores
             ),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ActualResult:
+    items: Tuple[str, ...] = ()
 
 
 @dataclasses.dataclass
@@ -147,6 +160,100 @@ class StreamingTrainingData(TrainingData):
 @dataclasses.dataclass
 class PreparedData:
     td: TrainingData
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = "default"
+    channel_name: Optional[str] = None
+    event_names: Tuple[str, ...] = ("rate", "buy")
+    # k-fold eval config (reference DataSource readEval)
+    eval_k: Optional[int] = None
+    eval_query_num: int = 10
+    seed: int = 3
+
+
+def _names(index: BiMap) -> np.ndarray:
+    """The ids of a dense index in row order, as an object array."""
+    names = np.empty(len(index), dtype=object)
+    for name, row in index.items():
+        names[row] = name
+    return names
+
+
+def _held_out_queries(
+    users: np.ndarray, items: np.ndarray, user_names: np.ndarray,
+    item_names: np.ndarray, num: int,
+) -> List[Tuple[Query, ActualResult]]:
+    """One (Query, ActualResult) per user with held-out items: users in the
+    order they first appear, each one's items in scan order. The
+    reference's loop over the events (``setdefault(u, []).append``),
+    grouped with a stable sort instead."""
+    if len(users) == 0:
+        return []
+    order = np.argsort(users, kind="stable")
+    u_sorted = users[order]
+    starts = np.flatnonzero(np.r_[True, u_sorted[1:] != u_sorted[:-1]])
+    ends = np.r_[starts[1:], len(u_sorted)]
+    held = item_names[items[order]].tolist()
+    query_users = user_names[u_sorted[starts]].tolist()
+    # a stable sort keeps each user's first event at the head of its run
+    return [
+        (Query(user=query_users[g], num=num),
+         ActualResult(items=tuple(held[starts[g] : ends[g]])))
+        for g in np.argsort(order[starts], kind="stable").tolist()
+    ]
+
+
+class DataSource(BaseDataSource):
+    """Rating columns of an app (reference DataSource.scala). The reference
+    scans the event store (``PEventStore.find_columns``); the port reads
+    the columns the workflow context supplies for ``app_name``
+    (``WorkflowContext.find_columns``) until the event store is ported
+    (ROADMAP.md queue 1 item 3)."""
+
+    params_class = DataSourceParams
+
+    def read_training(self, ctx) -> TrainingData:
+        cols = ctx.find_columns(self.params.app_name)
+        return TrainingData(
+            user_idx=cols.entity_idx,
+            item_idx=cols.target_idx,
+            ratings=cols.values,
+            user_index=cols.entity_index,
+            item_index=cols.target_index,
+        )
+
+    def read_eval(self, ctx):
+        """``eval_k`` folds (the reference's :256-294): each rating goes to
+        the fold ``default_rng(seed).integers(0, k, n)`` draws for it; a
+        fold trains on the other folds' ratings and asks, per user with
+        ratings in the fold, for ``eval_query_num`` items, the fold's items
+        of that user being the actual result."""
+        if not self.params.eval_k:
+            return []
+        cols = ctx.find_columns(self.params.app_name)
+        k = self.params.eval_k
+        rng = np.random.default_rng(self.params.seed)
+        fold_of = rng.integers(0, k, size=cols.n)
+        user_names, item_names = _names(cols.entity_index), _names(cols.target_index)
+        out = []
+        for fold in range(k):
+            train_sel = fold_of != fold
+            test_sel = ~train_sel
+            td = TrainingData(
+                user_idx=cols.entity_idx[train_sel],
+                item_idx=cols.target_idx[train_sel],
+                ratings=cols.values[train_sel],
+                user_index=cols.entity_index,
+                item_index=cols.target_index,
+            )
+            qa = _held_out_queries(
+                cols.entity_idx[test_sel], cols.target_idx[test_sel],
+                user_names, item_names, self.params.eval_query_num,
+            )
+            out.append((td, {"fold": fold}, qa))
+        return out
 
 
 class Preparator(BasePreparator):
@@ -312,12 +419,52 @@ class ALSAlgorithm(BaseAlgorithm):
 
     params_class = ALSAlgorithmParams
     query_class = Query
+    # regularizer variants of one configuration train together in an
+    # evaluation's grid (ops/als.py train_als_grid)
+    GRID_AXES = ("lambda_",)
+
+    @classmethod
+    def train_grid(cls, device: DeviceLike, pd: PreparedData, algos) -> Optional[List[ALSModel]]:
+        """The variants ``algos`` trained together on ``device``, one
+        model each, in order; None when they differ beyond ``lambda_``,
+        checkpoint, or use the subspace solver (the reference's
+        :457-472)."""
+        base: ALSAlgorithmParams = algos[0].params
+        for a in algos:
+            p: ALSAlgorithmParams = a.params
+            if dataclasses.replace(p, lambda_=0.0) != dataclasses.replace(base, lambda_=0.0):
+                return None  # they differ beyond the regularizer
+            if p.checkpoint_dir is not None:
+                return None  # checkpoint state is per run, not per grid
+            if p.solver != "exact":
+                return None  # the blocked solver trains per variant
+        td = pd.td
+        config = ALSConfig(
+            rank=base.rank,
+            iterations=base.num_iterations,
+            reg=0.0,  # the variants' regularizers travel in the grid axis
+            alpha=base.alpha,
+            implicit_prefs=base.implicit_prefs,
+            seed=base.seed if base.seed is not None else 0,
+        )
+        arrays_list = train_als_grid(
+            td.user_idx, td.item_idx, td.ratings,
+            n_users=len(td.user_index), n_items=len(td.item_index),
+            config=config, regs=[a.params.lambda_ for a in algos], device=device,
+        )
+        dev = resolve_device(device)
+        return [
+            ALSModel(arrays=arrays, user_index=td.user_index, item_index=td.item_index,
+                     params=a.params, _device=dev)
+            for arrays, a in zip(arrays_list, algos)
+        ]
 
     def train(self, device: DeviceLike, pd: PreparedData) -> ALSModel:
         """Train on ``device`` (CUDA unless the CPU is asked for): training
         data that streams (``StreamingTrainingData``) goes through
         ``ops/streaming.train_als_streaming``, the rest, and a stream that
-        comes up empty, through ``ops/als.train_als``."""
+        comes up empty, through ``ops/als.train_als``. The model serves on
+        ``device`` until ``prepare_serving`` moves it."""
         td = pd.td
         p: ALSAlgorithmParams = self.params
         config = ALSConfig(
@@ -340,6 +487,7 @@ class ALSAlgorithm(BaseAlgorithm):
                 return ALSModel(
                     arrays=result.arrays, user_index=result.user_index,
                     item_index=result.item_index, params=p,
+                    _device=resolve_device(device),
                 )
             # empty scan: the materialized path below owns the error
             # reporting (TrainingData.sanity_check)
@@ -356,7 +504,7 @@ class ALSAlgorithm(BaseAlgorithm):
         )
         return ALSModel(
             arrays=arrays, user_index=td.user_index,
-            item_index=td.item_index, params=p,
+            item_index=td.item_index, params=p, _device=resolve_device(device),
         )
 
     def prepare_serving(self, device: torch.device, model: ALSModel) -> ALSModel:
@@ -432,4 +580,9 @@ class Serving(FirstServing):
 
 
 def recommendation_engine() -> Engine:
-    return Engine(algorithm_classes={"als": ALSAlgorithm}, serving_classes=Serving)
+    return Engine(
+        data_source_classes=DataSource,
+        preparator_classes=Preparator,
+        algorithm_classes={"als": ALSAlgorithm},
+        serving_classes=Serving,
+    )

@@ -28,15 +28,21 @@ and K2 by K11 (``ops/subspace.py``): per half-step, per column block of
 width ``block_size``, K11a forms the block systems and residuals and K11b
 solves them and updates the block in place, with one telemetry row per
 block. ``predict_ratings`` / ``rmse`` run K7 (``ops/predict_pairs.py``).
-bf16 compute, checkpoints, the resident pack and meshes raise
-``NotImplementedError``.
+``train_als_grid`` (:1023) trains the regularizer variants of one
+configuration together, as an evaluation's grid does: both sides packed
+once on the host (``pack_segments``), then ``_run_iterations_grid`` (the
+reference's :942), per half-step one K13a and one K13b launch
+(``ops/grid.py``) for every variant. bf16 compute, checkpoints, the
+resident pack and meshes raise ``NotImplementedError``.
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
 :2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
 ``ServingFactors`` uploads the factor matrices to its device once. Each
 batch then pads its query rows to a power of two (min 8, the reference's
 bucketing), launches K3 (``ops/topn.py``) and makes ONE device→host copy
-of the packed ``[B, 2n]`` result.
+of the packed ``[B, 2n]`` result; a batch of more than ``MAX_QUERY_ROWS``
+rows (an evaluation fold's queries) goes in chunks of that many, which
+bounds K3's scratch.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops import device_pack as _k5
 from predictionio_tpu_torch.ops import gramian as _k12
+from predictionio_tpu_torch.ops import grid as _k13
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops import normal_eq as _k1
 from predictionio_tpu_torch.ops import predict_pairs as _k7
@@ -128,6 +135,12 @@ def validate_solver(solver: str, block_size: int, rank: int) -> None:
             )
 
 
+# query rows per K3 launch: K3's scratch grows with the padded batch
+# (4·B·pow2(tiles)·n floats, csrc/topn_select.cuh), about 8.6 GB for a
+# whole ML-20M fold in one launch and 0.54 GB for this many rows
+MAX_QUERY_ROWS = 16_384
+
+
 @dataclasses.dataclass
 class ALSModelArrays:
     """Trained factors, host-resident numpy."""
@@ -157,8 +170,18 @@ class ServingFactors:
         self, user_rows: np.ndarray, n: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-N for explicit query factor rows [B, k]: (scores [B, n],
-        item indices [B, n])."""
+        item indices [B, n]), one K3 launch per ``MAX_QUERY_ROWS`` rows
+        (rows are independent, so the chunks change no answer)."""
         b = len(user_rows)
+        if b > MAX_QUERY_ROWS:
+            parts = [
+                self.topn_by_rows(user_rows[s : s + MAX_QUERY_ROWS], n)
+                for s in range(0, b, MAX_QUERY_ROWS)
+            ]
+            return (
+                np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+            )
         packed = self.topn_packed_device(user_rows, n).cpu().numpy()[:b]
         return packed[:, :n], _unpack_indices(packed, n)
 
@@ -1128,6 +1151,145 @@ def train_als(
     if timings is not None:
         timings["pack_s"] = time.perf_counter() - t
     return train_from_wire(wire, config, device=dev, timings=timings)
+
+
+# --- the regularizer grid (evaluation) ---
+
+
+def _solve_side_grid(
+    X_prev: torch.Tensor,
+    Y: torch.Tensor,
+    pack: SegmentPack,
+    lam: torch.Tensor,
+    has_obs: torch.Tensor,
+    implicit: bool,
+    alpha: float,
+) -> torch.Tensor:
+    """One half-step of every variant: in implicit mode first each
+    variant's Gramian of its counter-side factors (K12a, one launch per
+    variant, as the reference vmaps ``_gramian``), then K13a and K13b once
+    for all variants."""
+    G = torch.stack([_k12.gramian(Y[v]) for v in range(Y.shape[0])]) if implicit else None
+    A, b = _k13.normal_eq_variants(Y, pack, implicit, alpha)
+    return _k13.spd_solve_variants(A, b, lam, has_obs, X_prev, G)
+
+
+def _run_iterations_grid(
+    X: torch.Tensor,  # [V, R_u, k] per-variant factors
+    Y: torch.Tensor,  # [V, R_i, k]
+    user_pack: SegmentPack,  # shared by the variants: only λ differs
+    item_pack: SegmentPack,
+    user_lam: torch.Tensor,  # [V, R_u]
+    item_lam: torch.Tensor,  # [V, R_i]
+    user_has_obs: torch.Tensor,  # [R_u]
+    item_has_obs: torch.Tensor,  # [R_i]
+    alpha: float,
+    n_iters: int,
+    implicit: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grid's loop (the reference's :942, its single-device form): per
+    sweep the user half-step, then the item half-step, every variant in
+    the same launches. Each variant sweeps exactly as a serial run of
+    ``train_als`` with its regularizer does."""
+    for _ in range(n_iters):
+        X = _solve_side_grid(X, Y, user_pack, user_lam, user_has_obs, implicit, alpha)
+        Y = _solve_side_grid(Y, X, item_pack, item_lam, item_has_obs, implicit, alpha)
+    return X, Y
+
+
+def train_als_grid(
+    user_idx: np.ndarray,
+    item_idx: np.ndarray,
+    ratings: np.ndarray,
+    n_users: int,
+    n_items: int,
+    config: ALSConfig,
+    regs: Sequence[float],
+    device: DeviceLike = None,
+    mesh=None,
+    timings: Optional[dict] = None,
+) -> List[ALSModelArrays]:
+    """Train ``len(regs)`` regularizer variants of one ALS configuration
+    together on ``device`` (CUDA unless the CPU is asked for): the
+    reference's :1023 with ``mesh=None``. Everything but ``config.reg`` is
+    shared: both sides are packed once on the host, every variant starts
+    from the same seeded factors, and the loop launches K13a and K13b once
+    per half-step for all variants. Returns one ``ALSModelArrays`` per
+    regularizer, in order, matching ``train_als`` with ``reg = regs[v]``.
+
+    ``timings``, if given, receives ``pack_s`` (the host packing),
+    ``device_put_s`` (the packs, plans and factor state to the device) and
+    ``device_loop_s``."""
+    if config.solver != "exact":
+        raise ValueError(
+            "train_als_grid supports solver='exact' only (the grid loop has "
+            "no subspace variant); train subspace configs one at a time via "
+            "train_als"
+        )
+    _check_ported(config, mesh)
+    dev = resolve_device(device)
+    k = config.rank
+    n_variants = len(regs)
+    if n_variants == 0:
+        return []
+    t = time.perf_counter()
+    user_idx = np.asarray(user_idx, np.int32)
+    item_idx = np.asarray(item_idx, np.int32)
+    ratings = np.asarray(ratings, np.float32)
+    if len(user_idx) and (
+        user_idx.min() < 0 or user_idx.max() >= n_users
+        or item_idx.min() < 0 or item_idx.max() >= n_items
+    ):
+        raise ValueError("user or item ids out of range")
+    user_side = pack_segments(
+        user_idx, item_idx, ratings, n_users,
+        auto_segment_length(user_idx, n_users, config.segment_length),
+        1, config.chunk_slots,
+    )
+    item_side = pack_segments(
+        item_idx, user_idx, ratings, n_items,
+        auto_segment_length(item_idx, n_items, config.segment_length),
+        1, config.chunk_slots,
+    )
+    r_u, r_i = _padded_rows(n_users, 1), _padded_rows(n_items, 1)
+    rng = np.random.default_rng(config.seed)
+    Y0 = np.zeros((r_i, k), np.float32)
+    Y0[:n_items] = np.abs(rng.standard_normal((n_items, k))) / math.sqrt(k)
+
+    def lam_obs(side: PackedSide, n_sys_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        lams, obs = [], None
+        for reg in regs:
+            lam, obs = _lam_obs_host(
+                side.counts, side.n_rows, n_sys_rows,
+                dataclasses.replace(config, reg=float(reg)),
+            )
+            lams.append(lam)
+        return torch.from_numpy(np.stack(lams)).to(dev), torch.from_numpy(obs).to(dev)
+
+    if timings is not None:
+        timings["pack_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    user_pack = device_pack(user_side, r_u, r_i, dev)
+    item_pack = device_pack(item_side, r_i, r_u, dev)
+    user_lam, user_obs = lam_obs(user_side, r_u)
+    item_lam, item_obs = lam_obs(item_side, r_i)
+    X = torch.zeros((n_variants, r_u, k), dtype=torch.float32, device=dev)
+    Y = _upload(Y0, dev).repeat(n_variants, 1, 1)
+    if timings is not None:
+        _sync(dev)
+        timings["device_put_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    X, Y = _run_iterations_grid(
+        X, Y, user_pack, item_pack, user_lam, item_lam, user_obs, item_obs,
+        config.alpha, config.iterations, config.implicit_prefs,
+    )
+    X_host, Y_host = X.cpu().numpy(), Y.cpu().numpy()
+    if timings is not None:
+        timings["device_loop_s"] = time.perf_counter() - t
+    return [
+        ALSModelArrays(X_host[v, :n_users].copy(), Y_host[v, :n_items].copy())
+        for v in range(n_variants)
+    ]
 
 
 # --- prediction / evaluation ---

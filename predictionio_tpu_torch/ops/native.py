@@ -6,8 +6,9 @@ launches (``LaunchCounts``).
 A library is built at first use, into ``predictionio_tpu_torch/_build``
 (listed in ``.gitignore``), under a name that carries a hash of its source
 and flags, so an edited source is rebuilt and an unchanged one is reused.
-A failed build raises with the compiler's output. Nothing here runs when
-the module is imported.
+A failed build raises ``KernelError`` with the compiler's output, as does a
+launch that returns a CUDA error. Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ NVCC_FLAGS = (
 )
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build or did not launch: never a condition a
+    caller may work around by another route."""
+
+
 def nvcc_path() -> str:
     """The nvcc to build with: ``$CUDA_HOME/bin/nvcc``, else the one on
     ``PATH``, else the toolkit's standard location."""
@@ -47,7 +53,7 @@ def nvcc_path() -> str:
     for c in candidates:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
         "/usr/local/cuda/bin); the CUDA toolkit is needed to build the "
         "port's kernels"
@@ -116,7 +122,7 @@ def _build_missing(sources: Sequence[str], out: Dict[str, Path]) -> None:
             continue
         os.replace(tmp, out[s])
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
 
 
 def build_log(source: str) -> str:
@@ -158,7 +164,7 @@ class Library:
         """Raise if a launch function returned a CUDA error."""
         if err != 0:
             text = getattr(self.get(), self._error_string)(err).decode()
-            raise RuntimeError(
+            raise KernelError(
                 f"{what} kernel launch failed: {text} (cudaError {err})"
             )
 

@@ -167,7 +167,7 @@ def test_subspace_and_dimsum_train():
         direct = port_als.train_als(u, i, r, len(user_index), len(item_index),
                                     alg.als_config(), device="cpu")
         np.testing.assert_array_equal(trained.item_factors, direct.item_factors)
-    [dimsum], _ = psp.similarproduct_engine().make_components(
+    _, _, [dimsum], _ = psp.similarproduct_engine().make_components(
         EngineParams(algorithm_params_list=(("dimsum", psp.DIMSUMAlgorithmParams()),))
     )
     assert isinstance(dimsum, psp.DIMSUMAlgorithm)
