@@ -66,6 +66,38 @@ Phases; any failure exits non-zero:
       busy share (its time on the card alone over its wall time). Device
       times are CUDA-event times of calls queued behind a spin kernel, so
       the card runs them with no wait for the host (``device_ms``).
+3r. Delta retraining (after 3), the path of every retrain after the
+   first (``pio train --continuous``; the reference's ``bench_delta_train``,
+   ``bench.py:2195``): first K8 (``ops/delta_scatter.py``,
+   ``csrc/delta_scatter.cu``: ``delta_counts_prefix``, ``move_and_append``,
+   ``shift_offsets``) against its twins bit for bit on random packs (uint16
+   and int32 ids, int8 and float32 values, old padding dropped past the new
+   length, the tail past the moved padding filled, a 600-row run, an empty
+   delta, 2M slots). Then the same ML-20M ratings as a store that grows by
+   appended 10,000-event deltas (``DeltaStore``: a ``ColumnarStream`` with
+   a fingerprint, cache key, weakref-able scope, cursor and
+   ``delta_factory``), through ``train_als_streaming`` with
+   ``set_resident_training(True)``, ``warm_sweeps=2``, each round counted
+   from 0: a cold round (``miss``, ``resident=cold``, the pack parked on the
+   card); a hit (factors bit-equal to the cold round's, no K4, an upload
+   smaller than the wire); two chained scatter rounds on existing ids whose
+   counts avoid ``count % L == 0`` (``bench.py:2280``): ``fold``,
+   ``scatter``, K8a = K8b = K8c = 1, K5a = K5b = 1, K4 = 0, K1 = K2 = 4,
+   twins 0, K8's outputs bit-equal to its twins' on the round's own inputs,
+   the resident wire byte-equal to ``build_host_wire`` of the grown store,
+   an upload of at most 10x the delta rows' encoded size (7 B a row). Then
+   the same data with residency off (a cold round and two host folds):
+   factors bit-equal to the scatter rounds'; a cold 10-sweep ``train_als``
+   of the grown store and the RMSE gap of the warm model over it on the
+   training ratings (at most 1e-3, the reference's gate). Then a random
+   delta with 1 % new users: ``fold``, ``fallback``, 0 resident bytes, the
+   folded wire byte-equal to a cold rescan's; a hit parks the pack again
+   and ``release_resident_packs()`` returns 1, leaves 0 resident bytes and
+   restores the rescan's host wire. Printed per round: the wall clock,
+   ``delta_scan_s``, ``fold_exposed_s``, ``device_put_exposed_s``,
+   ``device_loop_s``, ``delta_upload_bytes``, the resident bytes and the
+   launches; K8's kernel, device and plain times and bounds at round 2's
+   inputs (``delta_training``).
 3i. Implicit training (``implicit_prefs=True``, alpha 1.0) on the same
    ratings read as confidences, same rank, sweeps and reg:
    a. The main path, counted from 0: ``ALSAlgorithm.train`` on the same
@@ -244,8 +276,10 @@ Phases; any failure exits non-zero:
    errors the largest over 3p and the small shapes; K19a and K19b:
    launches over both DIMSUM trainings, the dense product as K19b's
    library time; K13a and K13b: launches on 3e's main path, times at its
-   fold 0 user side, errors the largest over 3e and the small shapes),
-   the card line, then the last line ``{"ok": true, "device": {...}}``.
+   fold 0 user side, errors the largest over 3e and the small shapes; K8a,
+   K8b and K8c: launches over 3r's scatter rounds, times at round 2's
+   inputs, K1 and K2 also summed over 3r's rounds), the card line, then
+   the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -972,7 +1006,7 @@ def train_phase(rng, device):
     t_scan = {}
     wait = None
     try:
-        s_wire, _, _, wait = streaming._scan_and_pack(stream_factory(), config, t_scan, device)
+        s_wire, _, _, wait, _ = streaming._scan_and_pack(stream_factory(), config, t_scan, device)
     finally:
         if wait is not None:
             wait()
@@ -2663,6 +2697,473 @@ def eval_phase(device):
     return got, errs, stats
 
 
+# --- 3r: delta retraining rounds ---
+
+DELTA_EVENTS = 10_000  # events of a delta round (bench.py:2241)
+WARM_SWEEPS = 2  # the warm rounds' sweeps (bench.py:2241, ALSAlgorithmParams.delta_sweeps)
+DELTA_RMSE_GAP = 1e-3  # the warm model's RMSE over a cold retrain's (bench.py:2200-2215)
+DELTA_UPLOAD_RATIO = 10  # a scatter round uploads at most 10x the delta rows' encoded size
+K8_NAMES = ("delta_counts_prefix", "move_and_append", "shift_offsets")
+
+
+def k8_case(rng, n_users, n_items, nnz, d, int32_ids, f32_vals, weighted, device, one_user=False):
+    """Consistent K8 inputs: a resident pack's planes and geometry from a
+    random COO of ``nnz`` ratings, and a user-sorted delta of ``d`` rows on
+    its existing ids. Returns (planes, du, di, dv, P_new, init_id, lam)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+
+    u = rng.integers(0, n_users, nnz)
+    i = rng.integers(0, n_items, nnz)
+    counts_u = np.bincount(u, minlength=n_users).astype(np.int32)
+    counts_i = np.bincount(i, minlength=n_items).astype(np.int32)
+    geo_u = als._segment_geometry(counts_u, n_users, 8, 1, 1 << 22)
+    geo_i = als._segment_geometry(counts_i, n_items, 8, 1, 1 << 22)
+    P_old = als._bucket_count(nnz)
+    id_t, val_t = (np.int32 if int32_ids else np.uint16), (np.float32 if f32_vals else np.int8)
+    i_plane = np.full(P_old, n_items, id_t)
+    i_plane[:nnz] = rng.integers(0, n_items, nnz)
+    v_plane = np.zeros(P_old, val_t)
+    v_plane[:nnz] = rng.uniform(0, 5, nnz) if f32_vals else rng.integers(1, 11, nnz)
+    users, items = np.flatnonzero(counts_u), np.flatnonzero(counts_i)
+    du = np.sort(np.full(d, users[0]) if one_user else rng.choice(users, d)).astype(np.int32)
+    di = rng.choice(items, d).astype(id_t)
+    dv = (rng.uniform(0, 5, d) if f32_vals else rng.integers(1, 11, d)).astype(val_t)
+    P_new = als._bucket_count(nnz + d)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    planes = {
+        "i_plane": up(i_plane), "v_plane": up(v_plane),
+        "su": up(als.aux_pad(geo_u.starts.astype(np.int32))),
+        "si": up(als.aux_pad(geo_i.starts.astype(np.int32))),
+        "bu": up(als.aux_pad(geo_u.seg_base.astype(np.int32))),
+        "bi": up(als.aux_pad(geo_i.seg_base.astype(np.int32))),
+        "seg_rows_u": up(geo_u.seg_rows), "rem_u": up(geo_u.rem),
+        "seg_rows_i": up(geo_i.seg_rows), "rem_i": up(geo_i.rem),
+    }
+    lam = None
+    if weighted:
+        rows_u, rows_i = np.unique(du).astype(np.int32), np.unique(di.astype(np.int64)).astype(np.int32)
+        lam = {
+            "lam_u": up(rng.uniform(0.1, 9, als._padded_rows(n_users, 1)).astype(np.float32)),
+            "rows_u": up(rows_u), "vals_u": up(rng.uniform(0.1, 9, len(rows_u)).astype(np.float32)),
+            "lam_i": up(rng.uniform(0.1, 9, als._padded_rows(n_items, 1)).astype(np.float32)),
+            "rows_i": up(rows_i), "vals_i": up(rng.uniform(0.1, 9, len(rows_i)).astype(np.float32)),
+        }
+    init_id = n_items if P_new > nnz + d else 0
+    return planes, up(du), up(di), up(dv), P_new, init_id, lam
+
+
+def check_k8(args, n_users, n_items, label):
+    """K8a, K8b and K8c (``apply_delta``) against their twins on the same
+    inputs, every output bit for bit."""
+    import torch
+
+    from predictionio_tpu_torch.ops import delta_scatter as k8
+
+    planes, du, di, dv, P_new, init_id, lam = args
+    got = k8.apply_delta(planes, du, di, dv, n_users, n_items, P_new, init_id, lam)
+    ref = k8.apply_delta(planes, du, di, dv, n_users, n_items, P_new, init_id, lam, plain=True)
+    torch.cuda.synchronize()
+    if set(got) != set(ref):
+        raise AssertionError(f"K8 {label}: outputs {sorted(got)} vs the twins' {sorted(ref)}")
+    for name in got:
+        if not bits_equal(got[name], ref[name]):
+            raise AssertionError(f"K8 {label}: {name} differs from the twins'")
+
+
+def check_k8_sizes(rng, device):
+    """K8 on random packs that reach what the ML-20M rounds do not: int32
+    ids and float32 values, plain regularization, old padding dropped past
+    P_new, the tail past the moved padding filled, one user's long run, an
+    empty delta, and planes of 2M slots."""
+    cases = [
+        ("uint16/int8, weighted, padding dropped", 300, 150, 1000, 20, False, False, True, False),
+        ("int32/float32, plain, tail filled", 500, 70_000, 65_536, 3, True, True, False, False),
+        ("one user's run of 600", 50, 40, 5000, 600, False, False, True, True),
+        ("an empty delta", 80, 60, 3000, 0, False, True, True, False),
+        ("2M slots, weighted", 138_493, 26_744, 2_000_000, 10_000, False, False, True, False),
+    ]
+    for label, nu, ni, nnz, d, i32, f32, weighted, one in cases:
+        args = k8_case(rng, nu, ni, nnz, d, i32, f32, weighted, device, one_user=one)
+        check_k8(args, nu, ni, label)
+        print(f"  K8 {label}: P {args[0]['i_plane'].shape[0]} -> {args[4]}, d={d}: "
+              f"bit-equal to the twins", flush=True)
+
+
+def k8_bounds(args, n_users, n_items):
+    """(bound_ms, bound_by) of K8a, K8b, K8c and the three together: each
+    input read once and each output written once (integer copy work)."""
+    planes, du, di, dv, P_new, _, lam = args
+
+    def b(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    d_bytes = b(du, di, dv)
+    out_a = 4 * 2 * (n_users + 1) + 4 * 2 * (n_items + 1)  # dense and sh, both sides
+    plane_slot = planes["i_plane"].element_size() + planes["v_plane"].element_size()
+    k8a = b(du, di) + out_a
+    k8b = (b(planes["i_plane"], planes["v_plane"], planes["su"]) + 4 * (n_users + 1)
+           + d_bytes + P_new * plane_slot)
+    lam_in = b(*lam.values()) if lam else 0
+    lam_out = b(lam["lam_u"], lam["lam_i"]) if lam else 0
+    geo = b(planes["su"], planes["si"], planes["bu"], planes["bi"], planes["seg_rows_u"],
+            planes["rem_u"], planes["seg_rows_i"], planes["rem_i"])
+    k8c = (geo + out_a + lam_in + b(planes["su"], planes["si"], planes["rem_u"], planes["rem_i"])
+           + lam_out)
+    return {"delta_counts_prefix": roofline(k8a, 0), "move_and_append": roofline(k8b, 0),
+            "shift_offsets": roofline(k8c, 0), "k8": roofline(k8a + k8b + k8c, 0)}
+
+
+class DeltaStore:
+    """The ML-20M ratings as a store that grows by appended deltas, read
+    through ColumnarStreams with a cache identity: the base in
+    STREAM_BATCH-event batches and each delta as one batch, in one code
+    space (code c < n_users is user "u<c>", the next n_items item
+    "i<c - n_users>", new ids coded after them); the fingerprint and the
+    cursor are the events covered, and ``delta_factory(cursor)`` streams
+    the batches after it. The store is its own cache scope."""
+
+    def __init__(self, u, i, r, n_users, n_items, key):
+        import numpy as np
+
+        self.key = key
+        self.names = [f"u{n}" for n in range(n_users)] + [f"i{n}" for n in range(n_items)]
+        self.code = {nm: c for c, nm in enumerate(self.names)}
+        t = (i + np.int32(n_users)).astype(np.int32)
+        self.batches = [
+            (s, (u[s:s + STREAM_BATCH], t[s:s + STREAM_BATCH], r[s:s + STREAM_BATCH]))
+            for s in range(0, len(r), STREAM_BATCH)
+        ]
+        self.events = len(r)
+
+    def code_of(self, name: str) -> int:
+        """The code of a user or item id, a new one after every earlier
+        code for an id the store has not seen."""
+        if name not in self.code:
+            self.code[name] = len(self.names)
+            self.names.append(name)
+        return self.code[name]
+
+    def add(self, e_codes, t_codes, r) -> None:
+        self.batches.append((self.events, (e_codes, t_codes, r)))
+        self.events += len(r)
+
+    def stream(self, lo: int = 0):
+        import numpy as np
+
+        from predictionio_tpu_torch.data.storage.columnar import ColumnarStream
+
+        hi = self.events
+        names = np.array(self.names, dtype=object)
+        batches = [b for s, b in self.batches if s >= lo]
+        s = ColumnarStream(iter(batches), lambda: names, fingerprint=(hi,),
+                           cache_key=self.key, cache_scope=self, cursor_fn=lambda: hi)
+        s.delta_factory = self.stream
+        return s
+
+    def coo(self, user_index, item_index):
+        """Every rating as (dense user, dense item, value) in
+        ``user_index``/``item_index`` ids (the trained model's)."""
+        import numpy as np
+
+        lut = np.array([user_index.get(nm, item_index.get(nm, -1)) for nm in self.names], np.int64)
+        e = np.concatenate([b[0] for _, b in self.batches])
+        t = np.concatenate([b[1] for _, b in self.batches])
+        r = np.concatenate([b[2] for _, b in self.batches])
+        return lut[e].astype(np.int32), lut[t].astype(np.int32), r
+
+
+def existing_delta(cnt_u, cnt_i, L_u, L_i, n):
+    """``make_existing_events`` (bench.py:2280): n events on EXISTING ids
+    whose counts avoid ``count % L == 0`` (no row crosses a segment
+    boundary), half-step ratings; updates the counts."""
+    import numpy as np
+
+    users, items = np.flatnonzero(cnt_u), np.flatnonzero(cnt_i)
+    e = np.empty(n, np.int32)
+    t = np.empty(n, np.int32)
+    ui = ii = 0
+    for j in range(n):
+        while cnt_u[users[ui % len(users)]] % L_u == 0:
+            ui += 1
+        while cnt_i[items[ii % len(items)]] % L_i == 0:
+            ii += 1
+        uu, it = int(users[ui % len(users)]), int(items[ii % len(items)])
+        cnt_u[uu] += 1
+        cnt_i[it] += 1
+        ui += 1
+        ii += 1
+        e[j], t[j] = uu, len(cnt_u) + it
+    r = ((np.arange(n) % 10) + 1).astype(np.float32) / 2
+    return e, t, r
+
+
+def wire_identity(w):
+    """Everything of a host wire that a cold rescan must reproduce."""
+    return (
+        w.n_users, w.n_items, w.L_u, w.L_i, w.nibble, w.v_scale, w.iw.dtype.str,
+        w.iw.tobytes(), w.vw.dtype.str, w.vw.tobytes(),
+        tuple((k, a.tobytes()) for k, a in sorted(w.aux.items())),
+        w.counts_u.tobytes(), w.counts_i.tobytes(),
+    )
+
+
+def delta_phase(device):
+    """Phase 3r: delta retraining rounds of the recommendation template on
+    the ML-20M stream (module docstring). Returns (launches summed over
+    the rounds, K8 errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als, streaming
+    from predictionio_tpu_torch.ops import delta_scatter as k8
+    from predictionio_tpu_torch.ops import device_pack as k5
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import spd_solve as k2
+
+    n_users, n_items, k = ML20M_USERS, ML20M_ITEMS, RANK
+    u, i, r = ml20m_ratings()
+    config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, seed=3)
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k8.LAUNCHES, k12.LAUNCHES)
+    cnt_u = np.bincount(u, minlength=n_users).astype(np.int64)
+    cnt_i = np.bincount(i, minlength=n_items).astype(np.int64)
+    recorded = []
+    plain_apply = k8.apply_delta
+
+    def recording(planes, du, di, dv, nu, ni, P_new, init_id, lam=None, plain=False):
+        out = plain_apply(planes, du, di, dv, nu, ni, P_new, init_id, lam, plain)
+        recorded.append(((dict(planes), du, di, dv, P_new, init_id, lam and dict(lam)), out))
+        return out
+
+    rounds = {}
+
+    def run(label, store, want, warm_sweeps=WARM_SWEEPS):
+        """One round through train_als_streaming, counted from 0."""
+        for c in counters:
+            c.reset()
+        t = {}
+        t0 = time.perf_counter()
+        res = streaming.train_als_streaming(store.stream(), config, device=device, timings=t,
+                                            warm_sweeps=warm_sweeps)
+        wall = time.perf_counter() - t0
+        counts = {}
+        for c in counters:
+            counts.update(c.snapshot())
+        for key, v in want.items():
+            got = t.get(key) if key in ("pack_cache", "resident") else counts[key]
+            if got != v:
+                raise AssertionError(f"3r {label}: {key} = {got}, not {v} ({t}, {counts})")
+        if any(v for name, v in counts.items() if name.endswith("_plain")):
+            raise AssertionError(f"3r {label}: a plain twin ran on the main path: {counts}")
+        if not (np.isfinite(res.arrays.user_factors).all() and np.isfinite(res.arrays.item_factors).all()):
+            raise AssertionError(f"3r {label}: factors are not finite")
+        row = {"wall_s": wall, **{key: t.get(key) for key in (
+            "pack_cache", "resident", "delta_events", "delta_scan_s", "fold_exposed_s",
+            "device_put_exposed_s", "device_loop_s", "delta_upload_bytes", "warm_sweeps")},
+            "resident_bytes": streaming.resident_pack_bytes(),
+            "launches": {n: v for n, v in counts.items() if v}}
+        rounds[label] = row
+        print(f"  {label}: {json.dumps(row)}", flush=True)
+        return res, t
+
+    def same(a, b):
+        return all(np_bits_equal(x, y) for x, y in
+                   ((a.user_factors, b.user_factors), (a.item_factors, b.item_factors)))
+
+    def entry_of(store):
+        [entry] = [e for key, e in streaming._PACK_CACHE.items() if key[0] == store.key]
+        return entry
+
+    loop_counts = 2 * SWEEPS
+    warm_counts = 2 * WARM_SWEEPS
+    streaming.pack_cache_clear()
+    prev = streaming.set_resident_training(True)
+    streaming._k8.apply_delta = recording
+    try:
+        store = DeltaStore(u, i, r, n_users, n_items, ("ml20m", "resident"))
+        # 1. cold: the pack parks on the card
+        cold, _ = run("cold", store, {"pack_cache": "miss", "resident": "cold",
+                                      "unpack_nibbles": SHIP_CHUNKS, "normal_eq": loop_counts,
+                                      "move_and_append": 0})
+        if streaming.resident_pack_bytes() <= 0 or not entry_of(store).wire.stripped:
+            raise AssertionError("3r cold: no pack was parked on the card")
+        entry = entry_of(store)
+        L_u, L_i = entry.wire.L_u, entry.wire.L_i
+        P = entry.resident.plane_len
+        wire_bytes = P * entry.wire.iw.itemsize + (
+            P // 2 if entry.wire.nibble else P * entry.resident.v_plane.element_size())
+        # 2. hit: the resident planes, no wire upload, the same factors
+        hit, t_hit = run("hit", store, {"pack_cache": "hit", "resident": "scatter",
+                                        "unpack_nibbles": 0, "device_pack_presorted": 1,
+                                        "normal_eq": loop_counts, "move_and_append": 0})
+        if not same(hit.arrays, cold.arrays):
+            raise AssertionError("3r hit: factors differ from the cold round's")
+        if t_hit["delta_upload_bytes"] >= wire_bytes:
+            raise AssertionError(f"3r hit: uploaded {t_hit['delta_upload_bytes']} B, a wire's worth")
+        # 3. two chained scatter rounds of existing-id deltas
+        deltas, scatter = [], []
+        for rnd in (1, 2):
+            e, t_, rr = existing_delta(cnt_u, cnt_i, L_u, L_i, DELTA_EVENTS)
+            deltas.append((e, t_, rr))
+            store.add(e, t_, rr)
+            res, t = run(f"scatter {rnd}", store, {
+                "pack_cache": "fold", "resident": "scatter", "unpack_nibbles": 0,
+                "delta_counts_prefix": 1, "move_and_append": 1, "shift_offsets": 1,
+                "device_pack_presorted": 1, "device_scatter_pack": 1,
+                "normal_eq": warm_counts, "spd_solve": warm_counts})
+            scatter.append(res)
+            encoded = DELTA_EVENTS * (4 + 2 + 1)
+            if t["delta_upload_bytes"] > DELTA_UPLOAD_RATIO * encoded:
+                raise AssertionError(f"3r scatter {rnd}: uploaded {t['delta_upload_bytes']} B "
+                                     f"for a {encoded} B delta")
+            args, out = recorded[-1]
+            check_k8(args, n_users, n_items, f"scatter round {rnd}")
+            entry = entry_of(store)
+            got = wire_identity(streaming._reconstruct_wire(entry))
+            u_rel, i_rel, r_all = store.coo(res.user_index, res.item_index)
+            cold_wire = als.build_host_wire(u_rel, i_rel, r_all, len(res.user_index),
+                                            len(res.item_index), config)
+            if got != wire_identity(cold_wire):
+                raise AssertionError(f"3r scatter {rnd}: the resident wire differs from build_host_wire")
+            print(f"  scatter {rnd}: K8 bit-equal to its twins; the resident wire == "
+                  f"build_host_wire(grown store), byte for byte", flush=True)
+        # K8 at this shape, on round 2's own inputs
+        args, _ = recorded[-1]
+        planes, du, di, dv, P_new, init_id, lam = args
+
+        def k8_all(plain=False):
+            return plain_apply(planes, du, di, dv, n_users, n_items, P_new, init_id, lam, plain)
+
+        dense_u, dense_i, sh_u, sh_i = k8.delta_counts_prefix(du, di, n_users, n_items)
+        calls = {
+            "delta_counts_prefix": lambda: k8.delta_counts_prefix(du, di, n_users, n_items),
+            "move_and_append": lambda: k8.move_and_append(
+                planes["i_plane"], planes["v_plane"], planes["su"], sh_u, du, di, dv,
+                n_users, P_new, init_id),
+            "shift_offsets": lambda: k8.shift_offsets(
+                planes["su"], planes["si"], sh_u, sh_i, dense_u, dense_i, n_users, n_items,
+                planes["bu"], planes["bi"], planes["seg_rows_u"], planes["rem_u"],
+                planes["seg_rows_i"], planes["rem_i"], *(lam[x] for x in (
+                    "lam_u", "rows_u", "vals_u", "lam_i", "rows_i", "vals_i"))),
+            "k8": k8_all,
+        }
+        plains = {
+            "delta_counts_prefix": lambda: k8.delta_counts_prefix_plain(du, di, n_users, n_items),
+            "move_and_append": lambda: k8.move_and_append_plain(
+                planes["i_plane"], planes["v_plane"], planes["su"], sh_u, du, di, dv,
+                n_users, P_new, init_id),
+            "shift_offsets": lambda: k8.shift_offsets_plain(
+                planes["su"], planes["si"], sh_u, sh_i, dense_u, dense_i, n_users, n_items,
+                planes["bu"], planes["bi"], planes["seg_rows_u"], planes["rem_u"],
+                planes["seg_rows_i"], planes["rem_i"], *(lam[x] for x in (
+                    "lam_u", "rows_u", "vals_u", "lam_i", "rows_i", "vals_i"))),
+            "k8": lambda: k8_all(plain=True),
+        }
+        k8_ms = {n: time_ms(f, iters=50, warmup=5) for n, f in calls.items()}
+        k8_dev = {n: device_ms(f, calls=20) for n, f in calls.items()}
+        k8_plain = {n: time_ms(f, iters=5, warmup=1) for n, f in plains.items()}
+        k8_bound = k8_bounds(args, n_users, n_items)
+        for c in counters:
+            c.reset()
+        for n in calls:
+            print(f"  {n} (ML-20M pack, d={DELTA_EVENTS}): kernel {k8_ms[n]:.4f} ms, device "
+                  f"{k8_dev[n]:.4f}, plain {k8_plain[n]:.3f}, bound {k8_bound[n][0]:.4f} "
+                  f"({k8_bound[n][1]})", flush=True)
+        del recorded[:], planes, du, di, dv, lam, args
+
+        # 5. the same data with residency off: the host fold, bit for bit
+        streaming.set_resident_training(False)
+        host = DeltaStore(u, i, r, n_users, n_items, ("ml20m", "host"))
+        hcold, _ = run("host cold", host, {"pack_cache": "miss", "normal_eq": loop_counts})
+        if not same(hcold.arrays, cold.arrays):
+            raise AssertionError("3r host cold: factors differ from the resident cold round's")
+        for rnd, (e, t_, rr) in enumerate(deltas, 1):
+            host.add(e, t_, rr)
+            hres, _ = run(f"host fold {rnd}", host, {
+                "pack_cache": "fold", "unpack_nibbles": SHIP_CHUNKS, "move_and_append": 0,
+                "normal_eq": warm_counts})
+            if not same(hres.arrays, scatter[rnd - 1].arrays):
+                raise AssertionError(f"3r host fold {rnd}: factors differ from scatter round {rnd}'s")
+        print("  host folds: factors bit-equal to the scatter rounds'", flush=True)
+        # 6. a cold 10-sweep retrain of the grown store, and the RMSE gap
+        u_rel, i_rel, r_all = store.coo(hres.user_index, hres.item_index)
+        t0 = time.perf_counter()
+        retrain = als.train_als(u_rel, i_rel, r_all, len(hres.user_index), len(hres.item_index),
+                                config, device=device)
+        retrain_s = time.perf_counter() - t0
+        rmse_warm = als.rmse(scatter[-1].arrays, u_rel, i_rel, r_all, device=device)
+        rmse_cold = als.rmse(retrain, u_rel, i_rel, r_all, device=device)
+        gap = rmse_warm - rmse_cold
+        print(f"  cold retrain of the grown store: {retrain_s:.2f} s; RMSE warm {rmse_warm:.6f}, "
+              f"cold {rmse_cold:.6f}, gap {gap:.3g}", flush=True)
+        if gap > DELTA_RMSE_GAP:
+            raise AssertionError(f"3r: the warm model's RMSE is {gap} over a cold retrain's")
+        del host, hcold, hres, retrain
+        streaming.set_resident_training(True)
+
+        # 4. a random delta with new ids: the pack falls back to the host
+        drng = np.random.default_rng(23)
+        nu2 = int(n_users * 1.01)
+        du_new = drng.integers(0, nu2, DELTA_EVENTS)
+        di_new = drng.integers(0, n_items, DELTA_EVENTS)
+        e = np.array([store.code_of(f"u{x}") for x in du_new], np.int32)
+        t_ = (di_new + n_users).astype(np.int32)
+        store.add(e, t_, (drng.integers(1, 11, DELTA_EVENTS) / 2).astype(np.float32))
+        run("fallback", store, {"pack_cache": "fold", "resident": "fallback",
+                                "unpack_nibbles": SHIP_CHUNKS, "move_and_append": 0,
+                                "normal_eq": warm_counts})
+        if streaming.resident_pack_bytes() != 0:
+            raise AssertionError("3r fallback: the pack was not released")
+        t0 = time.perf_counter()
+        rescan = streaming._scan_and_pack(store.stream(), config, {}, device)
+        rescan[3]()
+        rescan_s = time.perf_counter() - t0
+        rescan_id = wire_identity(rescan[0])
+        if wire_identity(entry_of(store).wire) != rescan_id:
+            raise AssertionError("3r fallback: the folded wire differs from a cold rescan's")
+        print(f"  fallback: the host-folded wire == a cold rescan's ({rescan_s:.2f} s), byte for byte",
+              flush=True)
+        # 7. a hit parks the pack again; release restores the host wire
+        run("re-park", store, {"pack_cache": "hit", "resident": "cold",
+                               "unpack_nibbles": SHIP_CHUNKS, "normal_eq": loop_counts})
+        parked = streaming.resident_pack_bytes()
+        released = streaming.release_resident_packs()
+        entry = entry_of(store)
+        if (released, streaming.resident_pack_bytes()) != (1, 0) or entry.wire.stripped:
+            raise AssertionError(f"3r release: {released} released, {streaming.resident_pack_bytes()} B left")
+        if wire_identity(entry.wire) != rescan_id:
+            raise AssertionError("3r release: the restored host wire differs from a cold rescan's")
+        print(f"  release: 1 pack ({parked} B) released, 0 B resident, the host wire restored "
+              f"byte for byte", flush=True)
+    finally:
+        streaming._k8.apply_delta = plain_apply
+        streaming.set_resident_training(prev)
+        streaming.pack_cache_clear()
+
+    stats = {
+        "card": card_line(),
+        "rounds": rounds,
+        "cold_retrain_s": retrain_s,
+        "rmse": {"warm": rmse_warm, "cold": rmse_cold, "gap": gap},
+        "delta_encoded_bytes": DELTA_EVENTS * (4 + 2 + 1),
+        "kernel_ms": k8_ms, "device_ms": k8_dev, "plain_ms": k8_plain, "bound": k8_bound,
+    }
+    print("delta_training " + json.dumps(stats), flush=True)
+    # launches over every round, for the kernels line (K8 runs only in the
+    # scatter rounds)
+    launches = {
+        name: sum(row["launches"].get(name, 0) for row in rounds.values())
+        for name in K8_NAMES + ("normal_eq", "spd_solve", "gramian", "implicit_objective")
+    }
+    return launches, {n: 0.0 for n in K8_NAMES}, stats
+
+
 def union_s(intervals) -> float:
     """Seconds covered by the union of (start, end) intervals."""
     total, reach = 0.0, float("-inf")
@@ -3472,6 +3973,7 @@ def main() -> int:
     from predictionio_tpu_torch.device import resolve_device
     from predictionio_tpu_torch.ops import (
         cooccurrence,
+        delta_scatter,
         device_pack,
         gramian,
         grid,
@@ -3496,7 +3998,7 @@ def main() -> int:
           f"devices {torch.cuda.device_count()} nvcc {native.nvcc_path()}", flush=True)
     t0 = time.perf_counter()
     kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
-                      gramian, similarity, subspace, cooccurrence, grid)
+                      gramian, similarity, subspace, cooccurrence, grid, delta_scatter)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -3514,6 +4016,9 @@ def main() -> int:
     ret_errs, _ = retrieval_kernel_phase(rng, device)
     print(f"phase train (at {time.perf_counter() - t0:.1f} s)", flush=True)
     model, kernels, _ = train_phase(rng, device)
+    print(f"phase delta retraining (3r) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    check_k8_sizes(rng, device)
+    r_counts, r_errs, r_stats = delta_phase(device)
     print(f"phase implicit train (at {time.perf_counter() - t0:.1f} s)", flush=True)
     i_counts, i_errs, i_stats = implicit_train_phase(rng, device)
     print(f"phase subspace train (3p) (at {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -3576,7 +4081,7 @@ def main() -> int:
         })
     # K1 and K2 on every training path; K12 on the implicit ones (each
     # path's counts from 0); K14 on the Similar Product host path
-    train_counts = [i_counts, p_counts] + list(sp_counts.values())
+    train_counts = [i_counts, p_counts, r_counts] + list(sp_counts.values())
     for row in kernels:
         if row["name"] in ("normal_eq", "spd_solve"):
             row["launches"] += sum(c[row["name"]] for c in train_counts)
@@ -3635,6 +4140,17 @@ def main() -> int:
             "ms": e_stats["kernel_ms"][name], "plain_ms": e_stats["plain_ms"][name],
             "bound_ms": e_stats["bound"][name][0], "bound_by": e_stats["bound"][name][1],
             "library_ms": e_stats["library_ms"][name],
+        })
+    # K8 on the delta rounds' path (3r: launches over the two scatter
+    # rounds, times at round 2's inputs); no one PyTorch call moves the
+    # planes and appends the delta, so no library time
+    for name in K8_NAMES:
+        kernels.append({
+            "name": name, "route": "cuda", "source": "predictionio_tpu_torch/csrc/delta_scatter.cu",
+            "replaces": "predictionio_tpu/ops/streaming.py:1036", "launches": r_counts[name],
+            "max_abs_err": r_errs[name], "ms": r_stats["kernel_ms"][name],
+            "plain_ms": r_stats["plain_ms"][name], "bound_ms": r_stats["bound"][name][0],
+            "bound_by": r_stats["bound"][name][1], "library_ms": None,
         })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -462,9 +462,10 @@ class ALSAlgorithm(BaseAlgorithm):
     def train(self, device: DeviceLike, pd: PreparedData) -> ALSModel:
         """Train on ``device`` (CUDA unless the CPU is asked for): training
         data that streams (``StreamingTrainingData``) goes through
-        ``ops/streaming.train_als_streaming``, the rest, and a stream that
-        comes up empty, through ``ops/als.train_als``. The model serves on
-        ``device`` until ``prepare_serving`` moves it."""
+        ``ops/streaming.train_als_streaming`` (a round that folds a delta
+        into its pack cache trains ``delta_sweeps`` warm sweeps), the rest,
+        and a stream that comes up empty, through ``ops/als.train_als``.
+        The model serves on ``device`` until ``prepare_serving`` moves it."""
         td = pd.td
         p: ALSAlgorithmParams = self.params
         config = ALSConfig(
@@ -482,6 +483,7 @@ class ALSAlgorithm(BaseAlgorithm):
             result = train_als_streaming(
                 stream_factory(), config, device=device,
                 checkpoint_dir=p.checkpoint_dir,
+                warm_sweeps=p.delta_sweeps,
             )
             if result is not None:
                 return ALSModel(

@@ -32,8 +32,10 @@ block. ``predict_ratings`` / ``rmse`` run K7 (``ops/predict_pairs.py``).
 configuration together, as an evaluation's grid does: both sides packed
 once on the host (``pack_segments``), then ``_run_iterations_grid`` (the
 reference's :942), per half-step one K13a and one K13b launch
-(``ops/grid.py``) for every variant. bf16 compute, checkpoints, the
-resident pack and meshes raise ``NotImplementedError``.
+(``ops/grid.py``) for every variant. ``train_from_wire`` takes the
+resident pack's geometry and hands back its final factors
+(``ops/streaming.py`` delta rounds). bf16 compute, checkpoints and meshes
+raise ``NotImplementedError``.
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
 :2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
@@ -113,6 +115,18 @@ class ALSConfig:
         if self.solver == "subspace" and self.block_size:
             return self.rank // self.block_size
         return 1
+
+
+def config_train_key(config: ALSConfig) -> tuple:
+    """What the loop computes for fixed data (the reference's :156): the
+    resident pack (``ops/streaming.py``) warm-starts its device-held
+    factors only under an equal key, and demotes to the host wire when a
+    reg, mode, alpha, solver or block size changed."""
+    return (
+        config.rank, config.reg, config.reg_mode,
+        config.implicit_prefs, config.alpha,
+        config.solver, config.block_size,
+    )
 
 
 def validate_solver(solver: str, block_size: int, rank: int) -> None:
@@ -490,6 +504,10 @@ class HostWire:
     aux: dict  # su/bu/si/bi int32 CSR offsets + segment bases (aux_pad'd)
     counts_u: np.ndarray  # [n_users] int32 observation counts
     counts_i: np.ndarray  # [n_items]
+    # a STRIPPED wire keeps only its geometry and metadata: its planes and
+    # offsets live on the card under a ResidentPack (ops/streaming.py),
+    # which restores them before any host use
+    stripped: bool = False
 
     @property
     def wire_mb(self) -> float:
@@ -864,8 +882,10 @@ def _train_packed(
     n_items: int,
     timings: Optional[dict] = None,
     compile_wait=None,
+    factor_slots_out: Optional[dict] = None,
 ) -> ALSModelArrays:
-    """The training tail: the loop and the factor fetch. The loop's kernels
+    """The training tail: the loop and the factor fetch (the loop's final
+    device X/Y also go into ``factor_slots_out`` when given). The loop's kernels
     are built before the timed loop (``compile_s``: nvcc at a process's
     first use, then a cached load): by the ``start_compile_async`` build
     that ``compile_wait`` waits for (its exposed wait is
@@ -897,6 +917,9 @@ def _train_packed(
     if timings is not None:
         _sync(device)
         timings["device_loop_s"] = time.perf_counter() - t
+    if factor_slots_out is not None:
+        factor_slots_out["X"] = X
+        factor_slots_out["Y"] = Y
     X_host = X.cpu().numpy()
     Y_host = Y.cpu().numpy()
     if tel is not None and config.iterations > 0 and timings is not None:
@@ -1005,10 +1028,20 @@ _TORCH_DTYPES = {
 
 def _geo_pack(
     geo: _SegGeometry, p_cols: torch.Tensor, p_vals: torch.Tensor,
-    n_sys_rows: int, n_cols: int,
+    n_sys_rows: int, n_cols: int, resident: Optional[tuple] = None,
 ) -> SegmentPack:
-    """One side's device planes with its host geometry and K1 plan."""
+    """One side's device planes with its host geometry and K1 plan, or with
+    the ``resident`` ``(seg_rows, rem, plan)`` already on the card."""
     shape2 = (geo.n_chunks, geo.sc)
+    if resident is not None:
+        seg_rows, rem, plan = resident
+        if plan.n_sys_rows != n_sys_rows:
+            raise ValueError("the resident group plan is for another row count")
+        return SegmentPack(
+            seg_rows=seg_rows.reshape(shape2),
+            cols=p_cols.reshape(*shape2, geo.L), vals=p_vals.reshape(*shape2, geo.L),
+            rem=rem.reshape(shape2), plan=plan, n_cols=int(n_cols),
+        )
     return pack_from_planes(
         geo.seg_rows.reshape(shape2),
         p_cols.reshape(*shape2, geo.L), p_vals.reshape(*shape2, geo.L),
@@ -1023,11 +1056,19 @@ def device_pack_from_wire(
     device: DeviceLike = None,
     device_wire: Optional[tuple] = None,  # (i_dev, v_dev, aux_dev) pre-shipped
     timings: Optional[dict] = None,
+    geo_dev: Optional[tuple] = None,  # resident (sr_u, rem_u, sr_i, rem_i, plan_u, plan_i)
 ) -> Tuple[SegmentPack, SegmentPack]:
     """Both sides' packs, built on the card from the wire: upload it
     (unless pre-shipped, which fixes the device), then K5a on the user
     side and K5b on the item side. ``seg_rows``, ``rem`` and the K1 plans
     come from the host geometry; nothing is read back from the planes.
+
+    ``geo_dev`` (the reference's :1582, :1645) hands in a resident pack's
+    flat int32 ``seg_rows``/``rem`` of both sides already on the card, so
+    nothing of the geometry is uploaded. The port's K1 also takes a group
+    plan, built on the host from the same geometry, so ``geo_dev`` carries
+    both sides' ``GroupPlan`` too: a resident scatter round keeps each
+    segment's row and the set of real segments, so the plans stay valid.
 
     ``timings`` receives ``device_put_s`` (the upload, K4 included, when
     this call ships the wire), ``wire_mb`` and ``device_pack_dispatch_s``
@@ -1052,9 +1093,13 @@ def device_pack_from_wire(
         wire.L_i, wire.v_scale, key_bound=wire.n_items + 1,
     )
     R_u, R_i = _padded_rows(wire.n_users, 1), _padded_rows(wire.n_items, 1)
+    res_u = res_i = None
+    if geo_dev is not None:
+        sr_u, rem_u, sr_i, rem_i, plan_u, plan_i = geo_dev
+        res_u, res_i = (sr_u, rem_u, plan_u), (sr_i, rem_i, plan_i)
     packs = (
-        _geo_pack(wire.geo_u, pcu, pvu, R_u, R_i),
-        _geo_pack(wire.geo_i, pci, pvi, R_i, R_u),
+        _geo_pack(wire.geo_u, pcu, pvu, R_u, R_i, res_u),
+        _geo_pack(wire.geo_i, pci, pvi, R_i, R_u, res_i),
     )
     if timings is not None:
         timings["device_pack_dispatch_s"] = time.perf_counter() - t
@@ -1072,22 +1117,23 @@ def train_from_wire(
     compile_wait=None,  # from start_compile_async, or None
     factor_state: Optional[tuple] = None,  # pre-placed (X, Y, lam/obs x4)
     warm_start: Optional[ALSModelArrays] = None,
-    geo_dev: Optional[tuple] = None,
-    factor_slots_out: Optional[dict] = None,
+    geo_dev: Optional[tuple] = None,  # resident geometry, see device_pack_from_wire
+    factor_slots_out: Optional[dict] = None,  # receives the final device X/Y
 ) -> ALSModelArrays:
     """Train from a wire: the device pack, then the loop. A pre-shipped
     ``device_wire``, a pre-placed ``factor_state`` and a ``compile_wait``
     let the streaming trainer hand in work it overlapped with the scan.
     ``warm_start`` seeds the factors from a model whose rows are aligned
-    to this wire's id spaces. The resident pack's ``geo_dev`` and
-    ``factor_slots_out`` and checkpoints (``checkpoint_dir``) raise
+    to this wire's id spaces. ``geo_dev`` passes a resident pack's
+    geometry to ``device_pack_from_wire``; ``factor_slots_out`` (a dict)
+    receives the loop's final device factors under ``"X"``/``"Y"`` and
+    both packs' device geometry under ``"geo"`` (a ``geo_dev`` tuple), which
+    the resident pack keeps for the next round (the reference's tail,
+    :2242-2248). Checkpoints (``checkpoint_dir``) raise
     ``NotImplementedError``."""
     _check_ported(config, checkpoint_dir=checkpoint_dir)
-    if geo_dev is not None or factor_slots_out is not None:
-        raise NotImplementedError(
-            "the device-resident pack (geo_dev, factor_slots_out) is not "
-            "ported yet (ROADMAP.md queue 1 item 4)"
-        )
+    if wire.stripped and device_wire is None:
+        raise ValueError("a stripped wire trains only from its resident planes")
     dev = device_wire[0].device if device_wire is not None else resolve_device(device)
     if factor_state is None:
         factor_state = init_factor_state_single(
@@ -1102,14 +1148,21 @@ def train_from_wire(
             device=dev,
         )
     user_pack, item_pack = device_pack_from_wire(
-        wire, dev, device_wire=device_wire, timings=timings
+        wire, dev, device_wire=device_wire, timings=timings, geo_dev=geo_dev
     )
     if timings is not None:
         timings["padded_slots"] = wire.padded_slots
+    if factor_slots_out is not None:
+        factor_slots_out["geo"] = (
+            user_pack.seg_rows.reshape(-1), user_pack.rem.reshape(-1),
+            item_pack.seg_rows.reshape(-1), item_pack.rem.reshape(-1),
+            user_pack.plan, item_pack.plan,
+        )
     return _train_packed(
         user_pack, item_pack, *factor_state,
         config=config, n_users=wire.n_users, n_items=wire.n_items,
         timings=timings, compile_wait=compile_wait,
+        factor_slots_out=factor_slots_out,
     )
 
 

@@ -14,6 +14,8 @@ Tolerances, stated beforehand:
   one device program).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -84,7 +86,7 @@ def _wire_bytes(w):
 def test_scan_and_pack_matches_jax_and_build_host_wire(events):
     u, i, r, _, _ = events
     t_port, t_jax = {}, {}
-    wire, user_index, item_index, wait = port_streaming._scan_and_pack(
+    wire, user_index, item_index, wait, _ = port_streaming._scan_and_pack(
         _stream(ColumnarStream, events), port_als.ALSConfig(**CFG), t_port, "cpu"
     )
     assert wait()["busy_s"] == 0.0  # the CPU builds no kernels
@@ -170,22 +172,45 @@ def test_from_columnar_trains_like_the_batched_stream(events):
 
 
 def test_a_stream_with_a_cache_identity_raises_unless_the_cache_is_off(events):
-    identity = dict(fingerprint=(1, 2), cache_key=("app", None), cache_scope=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_streaming.train_als_streaming(
-            _stream(ColumnarStream, events, **identity), port_als.ALSConfig(**CFG), device="cpu"
+    """A stream with a cache identity reaches the pack cache (a miss, then a
+    hit on the same fingerprint, as JAX's); ``cache=False`` trains it cold
+    ("off"). The name is from before the cache was ported, when such a
+    stream raised."""
+
+    class Scope:
+        pass
+
+    scope = Scope()
+    identity = dict(fingerprint=(1, 2), cache_key=("app", None), cache_scope=scope)
+    port_streaming.pack_cache_clear()
+    jax_streaming.pack_cache_clear()
+    try:
+        outcomes = []
+        for _ in range(2):
+            t_port, t_jax = {}, {}
+            port_streaming.train_als_streaming(
+                _stream(ColumnarStream, events, **identity), port_als.ALSConfig(**CFG),
+                device="cpu", timings=t_port,
+            )
+            jax_streaming.train_als_streaming(
+                _stream(JaxColumnarStream, events, **identity), jax_als.ALSConfig(**CFG), timings=t_jax,
+            )
+            outcomes.append((t_port["pack_cache"], t_jax["pack_cache"]))
+        assert outcomes == [("miss", "miss"), ("hit", "hit")]
+        timings = {}
+        res = port_streaming.train_als_streaming(
+            _stream(ColumnarStream, events, **identity), port_als.ALSConfig(**CFG),
+            device="cpu", cache=False, timings=timings,
         )
-    timings = {}
-    res = port_streaming.train_als_streaming(
-        _stream(ColumnarStream, events, **identity), port_als.ALSConfig(**CFG),
-        device="cpu", cache=False, timings=timings,
-    )
-    assert res is not None and timings["pack_cache"] == "off"
+        assert res is not None and timings["pack_cache"] == "off"
+    finally:
+        port_streaming.pack_cache_clear()
+        jax_streaming.pack_cache_clear()
 
 
 @pytest.mark.parametrize(
     "kwargs, match",
-    [(dict(timer=object()), "item 4"), (dict(checkpoint_dir="ckpt"), "item 12")],
+    [(dict(profile_dir="prof"), "item 10"), (dict(checkpoint_dir="ckpt"), "item 12")],
 )
 def test_legs_not_ported_raise(events, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -194,19 +219,64 @@ def test_legs_not_ported_raise(events, kwargs, match):
         )
 
 
-@pytest.mark.parametrize(
-    "kwargs, match",
-    [
-        (dict(checkpoint_dir="ckpt"), "item 12"),
-        (dict(geo_dev=()), "item 4"),
-        (dict(factor_slots_out={}), "item 4"),
-    ],
-)
-def test_train_from_wire_legs_not_ported_raise(kwargs, match):
+def test_a_timer_receives_the_stream_phases(events):
+    """Any object with ``add`` and ``note`` is a phase timer (the
+    reference's ``_attribute_phases``); before the timer was ported this
+    was a case of ``test_legs_not_ported_raise``."""
+    added, notes = [], {}
+
+    class Timer:
+        def add(self, name, seconds, overlapped=False):
+            added.append((name, overlapped))
+
+        def note(self, key, value):
+            notes[key] = value
+
+    port_streaming.train_als_streaming(
+        _stream(ColumnarStream, events), port_als.ALSConfig(**CFG), device="cpu", timer=Timer()
+    )
+    names = dict(added)
+    assert names["stream:scan"] is True and names["stream:device-loop"] is False
+    assert notes["pack_cache"] == "miss" and notes["sweeps"] == CFG["iterations"]
+
+
+def test_train_from_wire_legs_not_ported_raise():
     one = np.zeros(1, np.int32)
     wire = port_als.build_host_wire(one, one, np.ones(1, np.float32), 2, 2, port_als.ALSConfig(rank=2))
-    with pytest.raises(NotImplementedError, match=match):
-        port_als.train_from_wire(wire, port_als.ALSConfig(rank=2), device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        port_als.train_from_wire(wire, port_als.ALSConfig(rank=2), device="cpu", checkpoint_dir="ckpt")
+
+
+@pytest.mark.parametrize("leg", ["geo_dev", "factor_slots_out"])
+def test_train_from_wire_takes_and_hands_back_resident_state(events, leg):
+    """The resident pack's legs of ``train_from_wire`` (before they were
+    ported, cases of ``test_train_from_wire_legs_not_ported_raise``):
+    ``factor_slots_out`` receives the loop's final device factors and both
+    packs' device geometry; ``geo_dev`` trains from that geometry to the
+    same factors, bit for bit."""
+    u, i, r, _, _ = events
+    config = port_als.ALSConfig(**CFG)
+    wire = port_als.build_host_wire(u, i, r, N_USERS, N_ITEMS, config)
+    slots = {}
+    got = port_als.train_from_wire(wire, config, device="cpu", factor_slots_out=slots)
+    if leg == "factor_slots_out":
+        assert set(slots) == {"X", "Y", "geo"}
+        np.testing.assert_array_equal(slots["X"][:N_USERS].numpy(), got.user_factors)
+        np.testing.assert_array_equal(slots["Y"][:N_ITEMS].numpy(), got.item_factors)
+        sr_u, rem_u, sr_i, rem_i, plan_u, plan_i = slots["geo"]
+        np.testing.assert_array_equal(sr_u.numpy(), wire.geo_u.seg_rows)
+        np.testing.assert_array_equal(rem_i.numpy(), wire.geo_i.rem)
+        assert plan_u.n_sys_rows == port_als._padded_rows(N_USERS, 1)
+        return
+    again = port_als.train_from_wire(
+        wire, config, device_wire=port_als.upload_wire(wire, port_als.resolve_device("cpu")),
+        geo_dev=slots["geo"],
+    )
+    np.testing.assert_array_equal(again.user_factors, got.user_factors)
+    np.testing.assert_array_equal(again.item_factors, got.item_factors)
+    stripped = dataclasses.replace(wire, iw=wire.iw[:0], vw=wire.vw[:0], aux={}, stripped=True)
+    with pytest.raises(ValueError, match="stripped"):
+        port_als.train_from_wire(stripped, config, device="cpu")
 
 
 def _algorithm():
