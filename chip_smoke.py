@@ -208,6 +208,82 @@ Phases; any failure exits non-zero:
    thread-summed seconds (``read_eval``, host pack, upload, device loop,
    serving, metric), serving chunks, the process's RSS through the run
    and Precision@10 per variant (``evaluation``).
+3h. bfloat16 training (right after 3; its grid after 3e), the reference's
+   headline config (``bench.py:772-775``, :1123-1125: rank 32, 10 sweeps,
+   reg 0.05, ``compute_dtype="bfloat16"``; phase 3's seed 3, so the dtype
+   is the only difference):
+   a. The four bf16 forms on random packs (a row of many segments, an
+      empty row, ratings off the bf16 grid, dislikes in implicit mode):
+      K1-bf16 (``normal_eq_bf16``) at k in {1, 7, 32, 33, 70}, explicit and
+      implicit, within K1_RTOL (1e-4) of each row's scale of its twin's
+      bf16 form; K13a-bf16 at (k, V) in {(8, 2), (16, 2), (33, 3)} bit for
+      bit against K1-bf16 per variant; K11a-bf16 at k in {8, 32, 64} x b in
+      {1, 2, 8, k} within 1e-4 of each row's scale plus, for r, one bf16
+      step of the residual weight times the slot's largest |y_B| for every
+      slot whose weight lies within the two summation orders' gap of a
+      bf16 rounding boundary (the kernel and its twin sum d in different
+      orders, so such a weight may round one step apart; the rows this
+      admits are counted); K12b-bf16 at k in {8, 32}, four factor draws
+      each, within BF16_OBJ_RTOL (1e-6) of its largest term's magnitude;
+      each bit for bit against a second launch and not equal to its
+      float32 form. Each check is also shown to fail every form that skips
+      one of the reference's roundings: for K1-bf16 the float32 form, Y
+      unrounded and the weights unrounded; for K11a-bf16 the float32 form
+      and y, x, A's weight or the residual's weight unrounded, at the same
+      per-row limits, the flip allowance included; in some row each lies
+      more than ROUNDING_MARGIN (2) limits off the twin. For K12b-bf16 the
+      float32 kernel's value and the forms rounding only x, only y or
+      neither lie more than the limit plus twice one float32 evaluation's
+      summation error (K12b-bf16's own distance from the twin, at least
+      one float32 step of the value) off on some draw (a rounding moves
+      the scalar by terms of either sign). A form whose skipped rounding
+      changes no value (weights exact in bf16) is named, not gated.
+   b. The main path, counted from 0: ``train_als_streaming`` over phase
+      3's stream, then ``train_als`` on the relabelled COO: factors bit for
+      bit; K4 = 2, K5a = K5b = 1, K1-bf16 = K2 = 20, float32 K1 = 0, twins
+      0. Training RMSE within 5e-4 of phase 3's float32 model's. K1-bf16
+      against its twin at both half-steps of sweep 4 (K1_RTOL), and its
+      skipped-rounding forms outside that limit in some row there; the
+      kernels' 10 sweeps on the wire's packs (equal to the main path's
+      factors) against 10 sweeps of the twins by training RMSE within
+      1e-4 (bf16 rounding flips compound, so factors are not gated).
+   c. Implicit (alpha 1.0), counted: K1-bf16 = K2 = 20, K12a = 40,
+      K12b-bf16 = 10, float32 K12b = 0; routes bit for bit; then ten
+      one-sweep loops on its packs (bit for bit the main path's factors),
+      K12b-bf16 against its twin after each sweep at BF16_OBJ_RTOL (and
+      equal to the loop's own value), K1-bf16 implicit against its twin
+      at sweep 4 with its skipped-rounding forms gated as in b; after
+      sweep 4 the float32 K12b's value on the same inputs lies more than
+      K12b-bf16's limit plus twice its summation error off the twin (the
+      other forms' margins are printed).
+   d. iALS++ (3p's config: implicit, rank 64, block 8) in bf16, counted:
+      K11a-bf16 = K11b = 160, K12a = 40, K12b-bf16 = 10, K1 = 0; routes
+      bit for bit; K11a-bf16 and K11b against their twins at block 0 of
+      sweep 4's user and item half-steps, K11a-bf16's skipped-rounding
+      forms gated as in a.
+   e. The grid: ``train_als_grid`` in bf16 over the template's grid (ranks
+      8 and 16 x regs 0.01 and 0.1) on 3e's fold-0 training ratings in the
+      wire's order, each variant bit for bit equal to ``train_als`` in bf16
+      of that variant, counted (K13a-bf16 = 20 per rank, float32 K13a =
+      0); K13a-bf16 against K1-bf16 and its twin on fold 0's first user
+      half-step at rank 16.
+   f. Times: each bf16 form beside its float32 form on the same inputs
+      (sweep 4's user side; K13a at fold 0's user side, rank 16, V = 2),
+      device times, twins, bounds (the bf16 inputs at 2 B an entry, the
+      products at the bf16 tensor-core peak; K12b-bf16 reads the float32
+      factors for its regularizer); each training's wall clock,
+      ``device_loop_s`` and ms per sweep beside phase 3's float32 ones
+      (``bf16_training``, ``bf16_grid``).
+3c. Checkpoint/resume (after 3h) through the template's route,
+   ``ALSAlgorithm.train`` on phase 3's stream with ``checkpoint_dir`` (a
+   temporary directory) and ``checkpoint_every=5``: 5 sweeps (one save);
+   10 sweeps on the same directory, which log "resuming ALS from
+   iteration 5", launch K1 10 times and equal phase 3's uninterrupted
+   model bit for bit; 10 again, which resume at 10 with no K1 launch; the
+   bf16 config of 3h through ``train_als_streaming`` on the same
+   directory, which logs "different run", trains fresh (K1-bf16 = 20) and
+   equals 3h's model bit for bit. Each save's seconds and the bytes on
+   disk (``checkpoint``).
 4. Serving: the model just trained is saved with ``save_model`` and served
    by ``tools.cli deploy --device cuda`` (max_batch 128, 2 ms window). 32
    concurrent clients on keep-alive connections send 320
@@ -278,8 +354,12 @@ Phases; any failure exits non-zero:
    library time; K13a and K13b: launches on 3e's main path, times at its
    fold 0 user side, errors the largest over 3e and the small shapes; K8a,
    K8b and K8c: launches over 3r's scatter rounds, times at round 2's
-   inputs, K1 and K2 also summed over 3r's rounds), the card line, then
-   the last line ``{"ok": true, "device": {...}}``.
+   inputs, K1 and K2 also summed over 3r's rounds; K1-bf16, K11a-bf16 and
+   K12b-bf16: launches over 3h's bf16 main paths, times at sweep 4's user
+   side, K2 and K12a also summed over them; K13a-bf16: launches on 3h's
+   grid; errors the largest over 3h's random packs and paths; no library
+   time, as for their float32 forms), the card line, then the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -302,9 +382,11 @@ import urllib.request
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 ML20M_USERS, ML20M_ITEMS, RANK = 138_493, 26_744, 32
 RTOL, ATOL = 1e-5, 1e-6
+BF16 = "bfloat16"  # ALSConfig.compute_dtype of the bfloat16 phases
 
 
 def card_line() -> str:
@@ -506,18 +588,21 @@ def ml20m_ratings():
     return _RATINGS[0]
 
 
-def k1_bound(pack, n_ratings: int, Y_rows: int, k: int):
+def k1_bound(pack, n_ratings: int, Y_rows: int, k: int, bf16: bool = False):
     """K1's (bound_ms, bound_by) for one side: each rating's id and value
     (8 B; the kernel reads only the ``rem[s]`` real slots of a segment,
     never the padding), each segment's int32 count, Y, A and b each moved
     once vs the k(k+1)/2 + k FMAs per rating that the symmetric A and b
-    need (2 operations each)."""
+    need (2 operations each). K1-bf16 (``bf16``): Y's rows are bfloat16
+    inputs (2 B an entry) and the products run at the bf16 tensor-core
+    peak."""
     R = pack.n_sys_rows
     nbytes = (
-        n_ratings * 8 + pack.rem.numel() * 4 + Y_rows * k * 4
+        n_ratings * 8 + pack.rem.numel() * 4 + Y_rows * k * (2 if bf16 else 4)
         + R * (k * k + k) * 4
     )
-    return roofline(nbytes, 2 * n_ratings * (k * (k + 1) // 2 + k))
+    return roofline(nbytes, 2 * n_ratings * (k * (k + 1) // 2 + k),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
 
 
 def lower_triangle_bytes(k: int) -> int:
@@ -544,51 +629,148 @@ def k7_bound(P: int, n_users: int, n_items: int, k: int):
     return roofline(12 * P + 4 * k * (n_users + n_items), 2 * k * P)
 
 
-def check_k1(A, b, A2, b2, pack, label, errs, implicit=False, alpha=1.0):
-    """Hold K1's A, b against the twin's A2, b2 at K1_RTOL of each row's
-    scale: the largest diagonal bounds every Σ|w_a y_i y_j| of the row
-    (w_a >= 0), sqrt(Σ w_b² · it) every Σ|w_b y_i| (Cauchy-Schwarz; w_b is
-    the rating, or 1(v>0)(1 + α|v|) in implicit mode). Returns the largest
-    differences."""
+def k1_limits(A2, pack, implicit=False, alpha=1.0):
+    """Each row's limits (for A, for b) on K1's distance from its twin's
+    A2: K1_RTOL of the row's scale. The largest diagonal bounds every
+    Σ|w_a y_i y_j| of the row (w_a >= 0), sqrt(Σ w_b² · it) every
+    Σ|w_b y_i| (Cauchy-Schwarz; w_b is the rating, or 1(v>0)(1 + α|v|) in
+    implicit mode)."""
     import torch
 
-    R = pack.n_sys_rows
     diag = A2.diagonal(dim1=1, dim2=2).amax(dim=1)
     w_b = pack.vals
     if implicit:
         w_b = (pack.vals > 0).to(torch.float32) * (1.0 + alpha * pack.vals.abs())
-    vsq = torch.zeros(R, dtype=torch.float32, device=A.device).index_add_(
+    vsq = torch.zeros(pack.n_sys_rows, dtype=torch.float32, device=A2.device).index_add_(
         0, pack.seg_rows.reshape(-1).long(), w_b.square().sum(-1).reshape(-1)
     )
+    return 1e-6 + K1_RTOL * diag, 1e-6 + K1_RTOL * (vsq * diag).sqrt()
+
+
+def check_k1(A, b, A2, b2, pack, label, errs, implicit=False, alpha=1.0, name="normal_eq"):
+    """Hold K1's A, b against the twin's A2, b2 within ``k1_limits`` in
+    every row. Returns the largest differences."""
+    la, lb = k1_limits(A2, pack, implicit, alpha)
     ea = (A - A2).abs().amax(dim=(1, 2))
     eb = (b - b2).abs().amax(dim=1)
-    if not bool((ea <= 1e-6 + K1_RTOL * diag).all()) or not bool(
-        (eb <= 1e-6 + K1_RTOL * (vsq * diag).sqrt()).all()
-    ):
+    if not bool((ea <= la).all()) or not bool((eb <= lb).all()):
         raise AssertionError(
             f"K1 {label}: differs from its twin (max |dA| {ea.max().item()}, "
             f"|db| {eb.max().item()})"
         )
     ea, eb = ea.max().item(), eb.max().item()
-    errs["normal_eq"] = max(errs.get("normal_eq", 0.0), ea, eb)
+    errs[name] = max(errs.get(name, 0.0), ea, eb)
     return ea, eb
 
 
+ROUNDING_MARGIN = 2.0  # a form that skips a rounding must lie this many limits off the twin
+
+
+class PartialRounding:
+    """Applies or skips one form's roundings, and records whether a skipped
+    one would have changed a value: if none would, the form computes the
+    bfloat16 function itself on these inputs."""
+
+    def __init__(self):
+        self.changes = False
+
+    def __call__(self, t, do_round):
+        from predictionio_tpu_torch.ops.precision import round_bf16
+
+        r = round_bf16(t)
+        if do_round:
+            return r
+        self.changes = self.changes or not bool((r == t).all())
+        return t
+
+
+def k1_partial_rounding(Y, pack, implicit, alpha, round_y, round_w):
+    """K1's function with only some of K1-bf16's roundings, in the twin's
+    order: Y's rows when ``round_y``, the weights when ``round_w`` (both:
+    K1-bf16's twin; neither: the float32 form). What a K1-bf16 that skipped
+    a rounding would compute. Returns A, b and whether a skipped rounding
+    changed any value."""
+    import torch
+
+    rnd = PartialRounding()
+    Yc = rnd(Y, round_y)
+    R, k, L = pack.n_sys_rows, Y.shape[1], pack.cols.shape[-1]
+    iota = torch.arange(L, device=Y.device)
+    A = torch.zeros((R, k, k), dtype=torch.float32, device=Y.device)
+    b = torch.zeros((R, k), dtype=torch.float32, device=Y.device)
+    for c in range(pack.seg_rows.shape[0]):
+        rows = pack.seg_rows[c].long()
+        mask = (iota[None, :] < pack.rem[c][:, None]).to(torch.float32)
+        v = pack.vals[c]
+        Yg = Yc[pack.cols[c].long()]
+        if implicit:
+            conf = alpha * v.abs()
+            aw = rnd(conf * mask, round_w)
+            bw = rnd((v > 0).to(torch.float32) * mask * (1.0 + conf), round_w)
+        else:
+            aw, bw = mask, rnd(v * mask, round_w)
+        A.index_add_(0, rows, torch.einsum("slk,sl,slj->skj", Yg, aw, Yg))
+        b.index_add_(0, rows, torch.einsum("slk,sl->sk", Yg, bw))
+    return A, b, rnd.changes
+
+
+def rounding_verdict(label, form, ratio, has_rows, gate):
+    """One skipped-rounding form against the twin: ``ratio`` is each row's
+    distance over its limit. Gated (``gate``): some row lies more than
+    ROUNDING_MARGIN limits off, so a kernel computing that form fails its
+    check whatever order it sums in. Returns the printed summary."""
+    worst = ratio.max().item()
+    outside = int((ratio > 1.0).sum().item())
+    if gate and not worst > ROUNDING_MARGIN:
+        raise AssertionError(f"{label}: the form with {form} lies within {worst:.3g} limits of "
+                             f"the twin; the check would not fail it")
+    return f"{form}: {outside}/{has_rows} rows outside, up to {worst:.3g}x"
+
+
+def check_k1_rounds(Y, pack, A2, b2, implicit, alpha, label, gate=True):
+    """K1-bf16's check tells apart each form that skips a rounding: the
+    float32 form, Y unrounded and the weights unrounded, each held against
+    the bfloat16 twin's A2, b2 within the rows' ``k1_limits``. A form whose
+    skipped rounding changes no value computes K1-bf16's function on these
+    inputs (a half-step rating and its weights are exact in bfloat16) and
+    is named, not gated."""
+    import torch
+
+    la, lb = k1_limits(A2, pack, implicit, alpha)
+    has_rows = int((A2.diagonal(dim1=1, dim2=2).amax(dim=1) > 0).sum().item())
+    out = []
+    for form, ry, rw in (("float32", False, False), ("Y unrounded", False, True),
+                         ("weights unrounded", True, False)):
+        Am, bm, changes = k1_partial_rounding(Y, pack, implicit, alpha, ry, rw)
+        if not changes:
+            out.append(f"{form}: the same function here")
+            continue
+        ratio = torch.maximum((Am - A2).abs().amax(dim=(1, 2)) / la,
+                              (bm - b2).abs().amax(dim=1) / lb)
+        out.append(rounding_verdict(label, form, ratio, has_rows, gate))
+    print(f"  {label}, forms that skip a rounding{'' if gate else ' (not gated)'}: "
+          f"{'; '.join(out)} ok", flush=True)
+
+
 def check_half_step(X_prev, Y, pack, lam, has_obs, label, errs, implicit=False,
-                    alpha=1.0, G=None):
-    """K1 and K2 against their twins on one real half-step (in implicit
-    mode with the implicit weights and the Gramian ``G`` of Y). Returns
-    K2's X."""
+                    alpha=1.0, G=None, compute_dtype="float32", rounds=None):
+    """K1 (K1-bf16 in bfloat16 compute) and K2 against their twins on one
+    real half-step (in implicit mode with the implicit weights and the
+    Gramian ``G`` of Y); in bfloat16 with ``rounds`` ("gate" or "print"),
+    also ``check_k1_rounds``. Returns K2's X."""
     import torch
 
     from predictionio_tpu_torch.ops import normal_eq as k1
     from predictionio_tpu_torch.ops import spd_solve as k2
 
     R = pack.n_sys_rows
-    A, b = k1.normal_eq(Y, pack, implicit, alpha)
+    A, b = k1.normal_eq(Y, pack, implicit, alpha, compute_dtype)
     A2, b2 = k1.normal_eq_plain(Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R,
-                                implicit, alpha)
-    ea, eb = check_k1(A, b, A2, b2, pack, label, errs, implicit, alpha)
+                                implicit, alpha, compute_dtype)
+    name = "normal_eq_bf16" if compute_dtype == BF16 else "normal_eq"
+    ea, eb = check_k1(A, b, A2, b2, pack, label, errs, implicit, alpha, name)
+    if rounds is not None and compute_dtype == BF16:
+        check_k1_rounds(Y, pack, A2, b2, implicit, alpha, label, rounds == "gate")
 
     s1 = torch.zeros(2, dtype=torch.float32, device=Y.device)
     X1 = k2.spd_solve(A, b, lam, has_obs, X_prev, s1, G)
@@ -667,12 +849,14 @@ def check_k2_sizes(rng, device, errs):
               f"float64 {np.abs(x1 - exact).max():.3g} ok", flush=True)
 
 
-def check_k13(Y, pack, lam, has_obs, X_prev, implicit, label, errs, alpha=1.0):
+def check_k13(Y, pack, lam, has_obs, X_prev, implicit, label, errs, alpha=1.0,
+              compute_dtype="float32"):
     """K13a and K13b (``ops/grid.py``) on one half-step of V variants:
     variant v bit for bit against K1 and K2 run on variant v alone (the
     same kernels and order, so no tolerance), and against the twins at K1's
     and K2's tolerances. In implicit mode each variant's G is its K12a
-    Gramian. Returns K13b's X."""
+    Gramian. In bfloat16 compute K13a-bf16 against K1-bf16 and the twins'
+    bfloat16 forms. Returns K13b's X."""
     import torch
 
     from predictionio_tpu_torch.ops import gramian as k12
@@ -682,13 +866,13 @@ def check_k13(Y, pack, lam, has_obs, X_prev, implicit, label, errs, alpha=1.0):
 
     V = Y.shape[0]
     G = torch.stack([k12.gramian(Y_v) for Y_v in Y]) if implicit else None
-    A, b = k13.normal_eq_variants(Y, pack, implicit, alpha)
-    A2, b2 = k13.normal_eq_variants_plain(Y, pack, implicit, alpha)
+    A, b = k13.normal_eq_variants(Y, pack, implicit, alpha, compute_dtype)
+    A2, b2 = k13.normal_eq_variants_plain(Y, pack, implicit, alpha, compute_dtype)
     X = k13.spd_solve_variants(A, b, lam, has_obs, X_prev, G)
     X2 = k13.spd_solve_variants_plain(A, b, lam, has_obs, X_prev, G)
     ea = ex = 0.0
     for v in range(V):
-        A1, b1 = k1.normal_eq(Y[v], pack, implicit, alpha)
+        A1, b1 = k1.normal_eq(Y[v], pack, implicit, alpha, compute_dtype)
         if not (torch.equal(A[v], A1) and torch.equal(b[v], b1)):
             raise AssertionError(f"K13a {label}: variant {v} is not bit-equal to K1 on it")
         X1 = k2.spd_solve(A[v], b[v], lam[v], has_obs, X_prev[v], None,
@@ -702,9 +886,10 @@ def check_k13(Y, pack, lam, has_obs, X_prev, implicit, label, errs, alpha=1.0):
         if not bool((e <= 1e-6 + K2_RTOL * X2[v].abs().amax(dim=1)).all()):
             raise AssertionError(f"K13b {label}: variant {v} differs from its twin ({e.max().item()})")
         ex = max(ex, e.max().item())
-    errs["normal_eq_variants"] = max(errs.get("normal_eq_variants", 0.0), ea)
+    name = "normal_eq_variants_bf16" if compute_dtype == BF16 else "normal_eq_variants"
+    errs[name] = max(errs.get(name, 0.0), ea)
     errs["spd_solve_variants"] = max(errs.get("spd_solve_variants", 0.0), ex)
-    print(f"  {label}: V={V} K13a = K1 and K13b = K2 per variant, bit for bit; against "
+    print(f"  {label}: V={V} K13a = K1 and K13b = K2 per variant ({compute_dtype}), bit for bit; against "
           f"the twins max |dA|,|db| {ea:.3g}, |dx| {ex:.3g} ok", flush=True)
     return X
 
@@ -1233,6 +1418,11 @@ def train_phase(rng, device):
 ALPHA = 1.0  # the implicit phases' confidence scale (MLlib's default)
 K12_RTOL = 1e-4  # of the Gramian's largest diagonal entry; a sum of up to 147,456 products
 OBJ_RTOL = 1e-4  # of the objective's largest term magnitude; sums of up to 20M terms
+# K12b-bf16 against its twin, of the same scale: tight enough that a form
+# skipping a rounding fails on the random packs (objective_rounds);
+# the ML-20M readings on an H100 reached 7e-8 of it (12 of 1.725e8)
+BF16_OBJ_RTOL = 1e-6
+OBJ_DRAWS = 4  # random factor draws per rank of K12b-bf16's random-pack check
 TWIN_SWEEPS = 3  # sweeps of the twin-driven loop the implicit phase runs
 
 
@@ -1274,22 +1464,99 @@ def check_gramian(F, label, errs):
     return G
 
 
-def check_objective(X, Y, pack, lam_u, lam_i, label, errs):
-    """K12b against its twin at OBJ_RTOL of its largest term's magnitude,
-    and bit for bit against a second launch."""
+def observed_term64(X, Y, pack, alpha):
+    """The implicit objective's observed term, Σ_obs cw·s² − 2(1+cw)·p·s
+    + (1+cw)·p over the user pack, in float64 on the card from the factors
+    as given."""
+    import torch
+
+    Xd, Yd = X.double(), Y.double()
+    L = pack.cols.shape[-1]
+    iota = torch.arange(L, device=X.device)
+    obs = torch.zeros((), dtype=torch.float64, device=X.device)
+    for c in range(pack.seg_rows.shape[0]):
+        mask = (iota[None, :] < pack.rem[c][:, None]).double()
+        s = torch.einsum("slk,sk->sl", Yd[pack.cols[c].long()], Xd[pack.seg_rows[c].long()])
+        v = pack.vals[c].double()
+        cw = alpha * v.abs() * mask
+        p = (v > 0).double() * mask
+        obs += (cw * s * s - 2 * (1 + cw) * p * s + (1 + cw) * p).sum()
+    return obs.item()
+
+
+def objective_rounds(X, Y, pack, lam_u, lam_i, label):
+    """How far each form that skips one of K12b-bf16's roundings lies from
+    the bfloat16 twin's value on these inputs: the float32 kernel's value,
+    and the forms that round only x, only y or neither (the twin's value
+    moved by their observed term's float64 difference from the rounded
+    one). Returns each form's margin in units of K12b-bf16's limit,
+    (distance − 2·noise) / limit, where the noise is one float32
+    evaluation's summation error, taken as K12b-bf16's own distance from
+    the twin here (at least one float32 step of the value): a kernel that
+    computed a form with a margin above 1 would fail the check, whatever
+    order it summed in."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops.precision import round_bf16
+
+    want = k12.implicit_objective_plain(
+        X, Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, lam_u, lam_i, ALPHA,
+        compute_dtype=BF16).item()
+    got = k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA, compute_dtype=BF16).item()
+    noise = max(abs(got - want), float(np.spacing(np.float32(want))))
+    limit = BF16_OBJ_RTOL * objective_scale(X, Y, pack, lam_u, lam_i, ALPHA)
+    Xr, Yr = round_bf16(X), round_bf16(Y)
+    base = observed_term64(Xr, Yr, pack, ALPHA)
+    gaps = {"float32 kernel": abs(k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA).item()
+                                  - want)}
+    for form, Xm, Ym in (("x only", Xr, Y), ("y only", X, Yr), ("neither", X, Y)):
+        gaps[f"rounding {form}"] = abs(observed_term64(Xm, Ym, pack, ALPHA) - base)
+    print(f"  K12b-bf16 {label}, forms that skip a rounding: "
+          f"{', '.join(f'{n} {g:.6g}' for n, g in gaps.items())} from the twin's value "
+          f"(limit {limit:.4g}, noise {noise:.4g})", flush=True)
+    return {n: (g - 2 * noise) / limit for n, g in gaps.items()}
+
+
+def gate_objective_rounds(label, margins, forms=None):
+    """Fails unless the margin (``objective_rounds``) of every form in
+    ``forms`` (default: all) is above 1: the check fails a kernel that
+    computes any of them."""
+    gated = {n: g for n, g in margins.items() if forms is None or n in forms}
+    worst = min(gated.values())
+    if not worst > 1.0:
+        raise AssertionError(f"K12b-bf16 {label}: a form that skips a rounding stays within "
+                             f"{worst:.3g} limits of the twin ({margins}); the check would not "
+                             f"fail it")
+    print(f"  K12b-bf16 {label}: {'every form' if forms is None else ', '.join(gated)} "
+          f"fails the check (margins {', '.join(f'{n} {g:.3g}' for n, g in margins.items())} "
+          f"limits) ok", flush=True)
+
+
+def check_objective(X, Y, pack, lam_u, lam_i, label, errs, compute_dtype="float32", got=None):
+    """K12b against its twin at OBJ_RTOL of its largest term's magnitude
+    (K12b-bf16 at BF16_OBJ_RTOL), and bit for bit against a second launch
+    (and against ``got``, a value the loop's own launch wrote, when given).
+    Returns the kernel's value."""
     from predictionio_tpu_torch.ops import gramian as k12
 
-    got = k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA).item()
-    again = k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA).item()
+    cdt = compute_dtype
+    first = k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA, compute_dtype=cdt).item()
+    again = k12.implicit_objective(X, Y, pack, lam_u, lam_i, ALPHA, compute_dtype=cdt).item()
     want = k12.implicit_objective_plain(
-        X, Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, lam_u, lam_i, ALPHA).item()
+        X, Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, lam_u, lam_i, ALPHA,
+        compute_dtype=cdt).item()
     scale = objective_scale(X, Y, pack, lam_u, lam_i, ALPHA)
-    e = abs(got - want)
-    if not e <= OBJ_RTOL * scale or got != again:
-        raise AssertionError(f"K12b {label}: {got} (again {again}) vs the twin's {want}, scale {scale}")
-    errs["implicit_objective"] = max(errs.get("implicit_objective", 0.0), e)
-    print(f"  K12b {label}: {got:.9g} vs twin {want:.9g} (|d| {e:.3g}, scale {scale:.4g}) ok",
-          flush=True)
+    limit = (BF16_OBJ_RTOL if cdt == BF16 else OBJ_RTOL) * scale
+    e = abs(first - want)
+    if not e <= limit or first != again or (got is not None and got != first):
+        raise AssertionError(f"K12b {label}: {first} (again {again}, the loop's {got}) vs the "
+                             f"twin's {want}, limit {limit} (scale {scale})")
+    name = "implicit_objective_bf16" if cdt == BF16 else "implicit_objective"
+    errs[name] = max(errs.get(name, 0.0), e)
+    print(f"  K12b ({cdt}) {label}: {first:.9g} vs twin {want:.9g} (|d| {e:.3g}, limit "
+          f"{limit:.4g}, scale {scale:.4g}) ok", flush=True)
+    return first
 
 
 def gramian_bound(n: int, k: int):
@@ -1298,13 +1565,16 @@ def gramian_bound(n: int, k: int):
     return roofline(4 * (n * k + k * k), n * k * (k + 1))
 
 
-def objective_bound(pack, n_obs: int, R_u: int, R_i: int, k: int):
+def objective_bound(pack, n_obs: int, R_u: int, R_i: int, k: int, bf16: bool = False):
     """K12b's (bound_ms, bound_by): each observed slot's id and rating, each
     segment's row and count, both factor arrays and regularizers once vs
-    2k + 10 operations per slot and 3 per factor entry."""
+    2k + 10 operations per slot and 3 per factor entry. K12b-bf16
+    (``bf16``): the same bytes (the regularizer reads the float32 factors),
+    the operations at the bf16 tensor-core peak."""
     S = pack.rem.numel()
     nbytes = 8 * n_obs + 8 * S + 4 * (R_u + R_i) * (k + 1)
-    return roofline(nbytes, n_obs * (2 * k + 10) + 3 * k * (R_u + R_i))
+    return roofline(nbytes, n_obs * (2 * k + 10) + 3 * k * (R_u + R_i),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
 
 
 def check_implicit_sweeps(up, ip, state, label, errs):
@@ -1755,21 +2025,34 @@ SUB_RANK, SUB_BLOCK = 64, 8  # phase 3p: the reference's bench setting (bench.py
 HIT_USERS = 2_000  # seeded users of 3p's hit-rate@10
 
 
-def k11_scales(Y, X, pack, s0, b, implicit, alpha, A2):
+def k11_scales(Y, X, pack, s0, b, implicit, alpha, A2, compute_dtype="float32"):
     """Per-row scales of K11a's outputs, as K1's: the largest diagonal of
     the twin's A bounds every Σ|w_a y_i y_j|; sqrt(Σ c²/w_a · that
     diagonal) bounds every Σ|c·y_i| (Cauchy-Schwarz, c = w_b − w_a·d, every
-    w_a > 0 here)."""
+    w_a > 0 here). Third, each row's allowance for bfloat16 rounding flips
+    (0 in float32): K11a-bf16 rounds c to bfloat16 after forming d in
+    float32, and the kernel and its twin sum d in different orders, so
+    where c lies within the two orders' rounding gap of a bfloat16 rounding
+    boundary (|Δd| <= 2^-22·k·Σ_j |y_j x_j| bounds the gap) the two may
+    round c one bfloat16 step apart; the allowance adds that step times
+    the slot's largest |y_B| for every such slot of the row."""
     import torch
 
+    from predictionio_tpu_torch.ops.precision import round_bf16
+
+    bf16 = compute_dtype == BF16
     L = pack.cols.shape[-1]
+    k = Y.shape[1]
     iota = torch.arange(L, device=X.device)
     csq = torch.zeros(pack.n_sys_rows, dtype=torch.float32, device=X.device)
+    flips = torch.zeros(pack.n_sys_rows, dtype=torch.float32, device=X.device)
+    Yc, Xc = (round_bf16(Y), round_bf16(X)) if bf16 else (Y, X)
     for c in range(pack.seg_rows.shape[0]):
         rows = pack.seg_rows[c].long()
         mask = (iota[None, :] < pack.rem[c][:, None]).to(torch.float32)
         v = pack.vals[c]
-        d = torch.einsum("slk,sk->sl", Y[pack.cols[c].long()], X[rows])
+        Yg = Yc[pack.cols[c].long()]
+        d = torch.einsum("slk,sk->sl", Yg, Xc[rows])
         if implicit:
             wa = alpha * v.abs()
             wb = (v > 0).to(torch.float32) * (1.0 + wa)
@@ -1777,33 +2060,104 @@ def k11_scales(Y, X, pack, s0, b, implicit, alpha, A2):
             wa, wb = torch.ones_like(v), v
         coef = (wb - wa * d) * mask
         csq.index_add_(0, rows, (coef * coef / wa.clamp_min(1e-30)).sum(-1))
+        if bf16:
+            gap = wa * (2.0 ** -22) * k * torch.einsum("slk,sk->sl", Yg.abs(), Xc[rows].abs())
+            step = (round_bf16(coef + gap) - round_bf16(coef - gap)) * mask
+            yb = Yg[:, :, s0:s0 + b].abs().amax(dim=-1)
+            flips.index_add_(0, rows, (step * yb).sum(-1))
     diag = A2.diagonal(dim1=1, dim2=2).amax(dim=1)
-    return diag, (csq * diag).sqrt()
+    return diag, (csq * diag).sqrt(), flips
 
 
-def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, errs, last):
-    """K11a and K11b on one block against their twins (K11a at K1_RTOL of
-    each row's scale; K11b's updated rows at K2_RTOL of each row's largest
-    entry, both given the kernel's A and r) and against a second launch,
-    bit for bit. Leaves the kernel's update in X."""
+def k11a_partial_rounding(Y, X, pack, s0, b, implicit, alpha, rounds):
+    """K11a's block accumulation with only the roundings named in
+    ``rounds`` (of "y", "x", "w_a", "residual"; all four: K11a-bf16's twin;
+    none: the float32 form), in the twin's order. What a K11a-bf16 that
+    skipped a rounding would compute. Returns A, r and whether a skipped
+    rounding changed any value."""
+    import torch
+
+    rnd = PartialRounding()
+    Yc = rnd(Y, "y" in rounds)
+    R, L = pack.n_sys_rows, pack.cols.shape[-1]
+    iota = torch.arange(L, device=Y.device)
+    A = torch.zeros((R, b, b), dtype=torch.float32, device=Y.device)
+    r = torch.zeros((R, b), dtype=torch.float32, device=Y.device)
+    for c in range(pack.seg_rows.shape[0]):
+        rows = pack.seg_rows[c].long()
+        mask = (iota[None, :] < pack.rem[c][:, None]).to(torch.float32)
+        v = pack.vals[c]
+        Yg = Yc[pack.cols[c].long()]
+        Yb = Yg[:, :, s0:s0 + b]
+        d = torch.einsum("slk,sk->sl", Yg, rnd(X[rows], "x" in rounds))
+        if implicit:
+            aw = alpha * v.abs() * mask
+            bw = (v > 0).to(torch.float32) * mask * (1.0 + alpha * v.abs())
+        else:
+            aw, bw = mask, v * mask
+        A.index_add_(0, rows, torch.einsum("slb,sl,slc->sbc", Yb, rnd(aw, "w_a" in rounds), Yb))
+        r.index_add_(0, rows, torch.einsum("sl,slb->sb", rnd(bw - aw * d, "residual" in rounds),
+                                           Yb))
+    return A, r, rnd.changes
+
+
+def check_k11a_rounds(Y, X, pack, s0, b, implicit, A2, r2, la, lr, label, gate=True):
+    """K11a-bf16's check tells apart each form that skips a rounding (the
+    float32 form; y, x, A's weight or the residual's weight unrounded),
+    each held against the bfloat16 twin's A2, r2 within the same per-row
+    limits ``la``, ``lr`` as the kernel (``lr`` with the rounding-flip
+    allowance). A form whose skipped rounding changes no value computes
+    K11a-bf16's function on these inputs and is named, not gated."""
+    import torch
+
+    has_rows = int((A2.diagonal(dim1=1, dim2=2).amax(dim=1) > 0).sum().item())
+    every = ("y", "x", "w_a", "residual")
+    out = []
+    for form, rounds in (("float32", ()),) + tuple(
+            (f"{n} unrounded", tuple(m for m in every if m != n)) for n in every):
+        Am, rm, changes = k11a_partial_rounding(Y, X, pack, s0, b, implicit, ALPHA, rounds)
+        if not changes:
+            out.append(f"{form}: the same function here")
+            continue
+        ratio = torch.maximum((Am - A2).abs().amax(dim=(1, 2)) / la,
+                              (rm - r2).abs().amax(dim=1) / lr)
+        out.append(rounding_verdict(label, form, ratio, has_rows, gate))
+    print(f"  {label}, forms that skip a rounding{'' if gate else ' (not gated)'}: "
+          f"{'; '.join(out)} ok", flush=True)
+
+
+def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, errs, last,
+                         compute_dtype="float32", rounds=None):
+    """K11a (K11a-bf16 in bfloat16 compute) and K11b on one block against
+    their twins (K11a at K1_RTOL of each row's scale, plus in bfloat16 the
+    row's rounding-flip allowance of ``k11_scales``; K11b's updated rows at
+    K2_RTOL of each row's largest entry, both given the kernel's A and r)
+    and against a second launch, bit for bit. In bfloat16 with ``rounds``
+    ("gate" or "print"), also ``check_k11a_rounds`` at the same limits.
+    Leaves the kernel's update in X."""
     import torch
 
     from predictionio_tpu_torch.ops import subspace as k11
 
     R = pack.n_sys_rows
-    A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA)
-    A_again, r_again = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA)
+    cdt = compute_dtype
+    A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, cdt)
+    A_again, r_again = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, cdt)
     A2, r2 = k11.subspace_accumulate_plain(Y, X, pack.seg_rows, pack.cols, pack.vals, pack.rem,
-                                           R, s0, b, implicit, ALPHA)
-    diag, rscale = k11_scales(Y, X, pack, s0, b, implicit, ALPHA, A2)
+                                           R, s0, b, implicit, ALPHA, cdt)
+    diag, rscale, flips = k11_scales(Y, X, pack, s0, b, implicit, ALPHA, A2, cdt)
+    la, lr = 1e-6 + K1_RTOL * diag, 1e-6 + K1_RTOL * rscale + flips
     ea = (A - A2).abs().amax(dim=(1, 2))
     er = (r - r2).abs().amax(dim=1)
-    if not bool((ea <= 1e-6 + K1_RTOL * diag).all()) or not bool(
-            (er <= 1e-6 + K1_RTOL * rscale).all()):
+    if not bool((ea <= la).all()) or not bool((er <= lr).all()):
         raise AssertionError(f"K11a {label}: differs from its twin (max |dA| {ea.max().item()}, "
                              f"|dr| {er.max().item()})")
+    # the rows whose r the flip allowance admitted, for the record
+    flipped = int((er > 1e-6 + K1_RTOL * rscale).sum().item())
     if not (bits_equal(A, A_again) and bits_equal(r, r_again)):
         raise AssertionError(f"K11a {label}: a second launch differs")
+    if rounds is not None and cdt == BF16:
+        check_k11a_rounds(Y, X, pack, s0, b, implicit, A2, r2, la, lr, label, rounds == "gate")
     X_twin = X.clone()
     X_again = X.clone()
     s1 = torch.zeros(2, dtype=torch.float32, device=X.device)
@@ -1828,19 +2182,22 @@ def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, er
                                  f"{s2[1].item()}")
     elif s1[1].item() != 0.0:
         raise AssertionError(f"K11b {label}: a sum of squared factors before the last block")
-    errs["subspace_accumulate"] = max(errs.get("subspace_accumulate", 0.0), ea.max().item(),
-                                      er.max().item())
+    name = "subspace_accumulate_bf16" if cdt == BF16 else "subspace_accumulate"
+    errs[name] = max(errs.get(name, 0.0), ea.max().item(), er.max().item())
     errs["subspace_block_solve"] = max(errs.get("subspace_block_solve", 0.0), ex.max().item())
-    print(f"  {label}: K11a max |dA| {ea.max().item():.3g} |dr| {er.max().item():.3g}, "
+    print(f"  {label}: K11a ({cdt}) max |dA| {ea.max().item():.3g} |dr| {er.max().item():.3g}"
+          f"{f' ({flipped} rows by a bf16 rounding flip)' if cdt == BF16 else ''}, "
           f"K11b max |dx| {ex.max().item():.3g}, Σδ² {got_d2:.6g} vs twin {want_d2:.6g} "
           f"(rel {abs(got_d2 - want_d2) / max(want_d2, 1e-30):.3g}; Σδ²/ΣX² "
           f"{want_d2 / max(s2[1].item(), 1e-30):.3g}) ok", flush=True)
     return X
 
 
-def check_subspace_half_step(X, Y, pack, lam, has_obs, G, b, implicit, label, errs, blocks):
+def check_subspace_half_step(X, Y, pack, lam, has_obs, G, b, implicit, label, errs, blocks,
+                             compute_dtype="float32", rounds=None):
     """A whole subspace half-step by the kernels, block by block, in place
-    on ``X``; the blocks in ``blocks`` checked against their twins."""
+    on ``X``; the blocks in ``blocks`` checked against their twins (and in
+    bfloat16 against the forms that skip a rounding, ``rounds``)."""
     from predictionio_tpu_torch.ops import subspace as k11
 
     nb = X.shape[1] // b
@@ -1848,9 +2205,9 @@ def check_subspace_half_step(X, Y, pack, lam, has_obs, G, b, implicit, label, er
         s0 = j * b
         if j in blocks:
             check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit,
-                                 f"{label}, block {j}", errs, j == nb - 1)
+                                 f"{label}, block {j}", errs, j == nb - 1, compute_dtype, rounds)
         else:
-            A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA)
+            A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, compute_dtype)
             k11.subspace_block_solve(A, r, X, lam, has_obs, s0, G if implicit else None,
                                      last=j == nb - 1)
     return X
@@ -2152,16 +2509,19 @@ def subspace_train_phase(rng, device):
     return counts, errs, stats
 
 
-def k11a_bound(pack, n_ratings: int, Y_rows: int, k: int, b: int):
+def k11a_bound(pack, n_ratings: int, Y_rows: int, k: int, b: int, bf16: bool = False):
     """K11a's (bound_ms, bound_by) for one block: each rating's id and
     value once (8 B; only the ``rem[s]`` real slots of a segment are read,
     never the padding), each segment's int32 count, the counter side's and
     the side's factors once, A and r written once, vs k + b(b+1)/2 + b
-    FMAs per rating (d, the triangle, r)."""
+    FMAs per rating (d, the triangle, r). K11a-bf16 (``bf16``): both
+    factor arrays are bfloat16 inputs (2 B an entry), the products at the
+    bf16 tensor-core peak."""
     R = pack.n_sys_rows
-    nbytes = (n_ratings * 8 + pack.rem.numel() * 4 + (Y_rows + R) * k * 4
+    nbytes = (n_ratings * 8 + pack.rem.numel() * 4 + (Y_rows + R) * k * (2 if bf16 else 4)
               + R * (b * b + b) * 4)
-    return roofline(nbytes, 2 * n_ratings * (k + b * (b + 1) // 2 + b))
+    return roofline(nbytes, 2 * n_ratings * (k + b * (b + 1) // 2 + b),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
 
 
 def k11b_bound(R: int, R_obs: int, k: int, b: int):
@@ -2378,13 +2738,16 @@ def ml20m_event_columns():
     return EventColumns(user_index, item_index, user_row[u], item_row[i], r)
 
 
-def k13a_bound(pack, n_ratings: int, Y_rows: int, k: int, V: int):
+def k13a_bound(pack, n_ratings: int, Y_rows: int, k: int, V: int, bf16: bool = False):
     """K13a's (bound_ms, bound_by) for one side: the pack read once for all
     variants (8 B a rating, 4 B a segment), each variant's Y, A and b moved
-    once vs V x K1's k(k+1)/2 + k FMAs per rating."""
+    once vs V x K1's k(k+1)/2 + k FMAs per rating. K13a-bf16 (``bf16``):
+    Y in bfloat16 (2 B an entry), the products at the bf16 peak."""
     R = pack.n_sys_rows
-    nbytes = n_ratings * 8 + pack.rem.numel() * 4 + V * (Y_rows * k + R * (k * k + k)) * 4
-    return roofline(nbytes, V * 2 * n_ratings * (k * (k + 1) // 2 + k))
+    nbytes = (n_ratings * 8 + pack.rem.numel() * 4
+              + V * (Y_rows * k * (2 if bf16 else 4) + R * (k * k + k) * 4))
+    return roofline(nbytes, V * 2 * n_ratings * (k * (k + 1) // 2 + k),
+                    PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
 
 
 def k13b_bound(R: int, R_obs: int, k: int, V: int):
@@ -2694,7 +3057,550 @@ def eval_phase(device):
         "library_ms": library_ms, "bound": bounds,
     }
     print("evaluation " + json.dumps(stats), flush=True)
-    return got, errs, stats
+    return got, errs, stats, td0
+
+
+# --- 3h: bfloat16 training; 3c: checkpoint/resume ---
+
+K13_BF16_RANKS = (8, 16)  # the template's grid ranks (models/recommendation/evaluation.py ParamsGrid)
+BF16_RMSE_TOL = 1e-4  # the kernels' bf16 loop against the twins' by training RMSE
+BF16_F32_RMSE_GAP = 5e-4  # the bf16 model's training RMSE against phase 3's float32 model's
+CKPT_EVERY = 5  # 3c's checkpoint cadence
+
+
+def check_bf16_sizes(rng, device, errs):
+    """The four bfloat16 forms on random packs (a row of many segments, an
+    empty row; ratings off the bfloat16 grid, half steps plus 0.2, and in
+    implicit mode a tenth dislikes), against their twins' bfloat16 forms
+    and against a second launch, bit for bit: K1-bf16 at k in {1, 7, 32,
+    33, 70} (both of K1's forms) at K1_RTOL of each row's scale; K13a-bf16
+    bit for bit against K1-bf16 per variant (V = 2, 3); K11a-bf16 at k in
+    {8, 32, 64} x b in {1, 2, 8, k} (both forms) at K1_RTOL plus the
+    rounding-flip allowance; K12b-bf16 at k in {8, 32} at OBJ_RTOL. Each
+    also differs from its float32 form: the rounding happens."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import normal_eq as k1
+
+    n_rows, n_cols, nnz = 300, 200, 60_000
+    u = rng.integers(0, n_rows, nnz).astype(np.int32)
+    u[: nnz // 3] = 2  # many segments: partials and a combine
+    u[u == 5] = 6  # an empty row
+    i = rng.integers(0, n_cols, nnz).astype(np.int32)
+    r = (rng.integers(1, 10, nnz) / 2 + 0.2).astype(np.float32)
+    r_imp = np.where(rng.random(nnz) < 0.1, np.float32(-1.0), r).astype(np.float32)
+    R, n_y = als._padded_rows(n_rows, 1), als._padded_rows(n_cols, 1)
+    packs = {imp: als.device_pack(als.pack_segments(u, i, v, n_rows, 64, 1, 65_536), R, n_y, device)
+             for imp, v in ((False, r), (True, r_imp))}
+    counts = np.bincount(u, minlength=n_rows)
+    has_obs = torch.from_numpy(np.r_[counts, np.zeros(R - n_rows, np.int64)] > 0).to(device)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
+
+    for k in (1, 7, 32, 33, 70):
+        Y = normal(n_y, k)
+        for implicit in (False, True):
+            pack = packs[implicit]
+            label = f"K1-bf16 k={k} {'implicit' if implicit else 'explicit'}"
+            A, b = k1.normal_eq(Y, pack, implicit, ALPHA, BF16)
+            A_again, b_again = k1.normal_eq(Y, pack, implicit, ALPHA, BF16)
+            A2, b2 = k1.normal_eq_plain(Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R,
+                                        implicit, ALPHA, BF16)
+            ea, eb = check_k1(A, b, A2, b2, pack, label, errs, implicit, ALPHA, "normal_eq_bf16")
+            if not (bits_equal(A, A_again) and bits_equal(b, b_again)):
+                raise AssertionError(f"{label}: a second launch differs")
+            check_k1_rounds(Y, pack, A2, b2, implicit, ALPHA, label)
+            A32, b32 = k1.normal_eq(Y, pack, implicit, ALPHA)
+            gap = max((A32 - A).abs().max().item(), (b32 - b).abs().max().item())
+            if gap == 0.0:
+                raise AssertionError(f"{label}: equal to the float32 form")
+            print(f"  {label}: max |dA| {ea:.3g} |db| {eb:.3g} against the twin; float32 form "
+                  f"{gap:.3g} away ok", flush=True)
+    for k, V, implicit in ((8, 2, False), (16, 2, True), (33, 3, False)):
+        Y = normal(V, n_y, k, scale=0.3)
+        X_prev = normal(V, R, k)
+        lam = torch.from_numpy(rng.uniform(0.5, 2.5, (V, R)).astype(np.float32)).to(device)
+        check_k13(Y, packs[implicit], lam, has_obs, X_prev, implicit,
+                  f"K13a-bf16 k={k} {'implicit' if implicit else 'explicit'}", errs, ALPHA, BF16)
+    for k in (8, 32, 64):
+        Y = normal(n_y, k, scale=0.3)
+        X0 = normal(R, k, scale=0.3)
+        G = Y.T @ Y
+        for implicit in (False, True):
+            lam, obs = (torch.from_numpy(a).to(device) for a in als._lam_obs_host(
+                counts, n_rows, R, als.ALSConfig(rank=k, reg=0.05)))
+            for b in sorted({1, 2, 8, k}):
+                X = X0.clone()
+                mode = "implicit" if implicit else "explicit"
+                check_subspace_block(X, Y, packs[implicit], lam, obs, G, 0, b, implicit,
+                                     f"K11-bf16 k={k} b={b} {mode}, block 0", errs, b == k, BF16,
+                                     "gate")
+                X32 = X0.clone()
+                check_subspace_block(X32, Y, packs[implicit], lam, obs, G, 0, b, implicit,
+                                     f"K11 k={k} b={b} {mode}, block 0", {}, b == k)
+                if bits_equal(X, X32):
+                    raise AssertionError(f"K11a-bf16 k={k} b={b} {mode}: equal to the float32 form")
+    lam_u = torch.from_numpy(rng.uniform(0.1, 1.0, R).astype(np.float32)).to(device)
+    lam_i = torch.from_numpy(rng.uniform(0.1, 1.0, n_y).astype(np.float32)).to(device)
+    for k in (8, 32):
+        # a rounding moves the scalar by a sum of terms of either sign, so
+        # each form must fail the check on at least one of a few draws
+        best = {}
+        for draw in range(OBJ_DRAWS):
+            X, Y = normal(R, k, scale=0.5), normal(n_y, k, scale=0.5)
+            label = f"k={k} random pack, draw {draw}"
+            got = check_objective(X, Y, packs[True], lam_u, lam_i, label, errs, BF16)
+            if got == k12.implicit_objective(X, Y, packs[True], lam_u, lam_i, ALPHA).item():
+                raise AssertionError(f"K12b-bf16 {label}: equal to the float32 form")
+            for form, g in objective_rounds(X, Y, packs[True], lam_u, lam_i, label).items():
+                best[form] = max(best.get(form, -np.inf), g)
+        gate_objective_rounds(f"k={k}, the best of {OBJ_DRAWS} draws", best)
+
+
+def bf16_train_phase(device, f32_stats):
+    """Phase 3h: bfloat16 training at full width on the ML-20M ratings,
+    the reference's headline config (``bench.py:772-775``, :1123-1125):
+    the streaming and direct routes counted and bit-identical, K1-bf16
+    against its twin at sweep 4, the twins' 10-sweep loop against the
+    kernels' by RMSE, the RMSE against phase 3's float32 model; implicit
+    (K1-bf16 implicit, K12b-bf16 against its twin per sweep) and iALS++ at
+    rank 64, block 8 (K11a-bf16 against its twin at block 0 of sweep 4's
+    half-steps); times and bounds. Returns (launches, errors, stats, the
+    explicit model's factors)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.recommendation.engine import ALSAlgorithmParams
+    from predictionio_tpu_torch.ops import als, streaming
+    from predictionio_tpu_torch.ops import device_pack as k5
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import predict_pairs as k7
+    from predictionio_tpu_torch.ops import spd_solve as k2
+    from predictionio_tpu_torch.ops import subspace as k11
+
+    n_users, n_items, k = ML20M_USERS, ML20M_ITEMS, RANK
+    u, i, r = ml20m_ratings()
+    names = np.array([f"u{n}" for n in range(n_users)] + [f"i{n}" for n in range(n_items)], dtype=object)
+    # the bench's config; phase 3's seed, so the dtype is the only difference
+    config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, seed=ALSAlgorithmParams().seed,
+                           compute_dtype=BF16)
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k5.LAUNCHES, k7.LAUNCHES, k11.LAUNCHES, k12.LAUNCHES)
+    errs, stats, launches = {}, {"card": card_line()}, {}
+
+    def main_path(cfg, label, want):
+        """``train_als_streaming`` over the ML-20M stream, counted from 0,
+        then the direct route on the relabelled COO: bit-identical."""
+        for c in counters:
+            c.reset()
+        t_s = {}
+        t = time.perf_counter()
+        res = streaming.train_als_streaming(ml20m_stream(u, i, r, names, n_users), cfg,
+                                            device=device, timings=t_s)
+        wall = time.perf_counter() - t
+        counts = snapshot(counters)
+        want = {"unpack_nibbles": SHIP_CHUNKS, "device_pack_presorted": 1, "device_scatter_pack": 1,
+                "normal_eq": 0, "subspace_accumulate": 0, "implicit_objective": 0,
+                "predict_pairs": 0, **want}
+        for name, n in want.items():
+            if counts[name] != n:
+                raise AssertionError(f"3h {label}: {name} launched {counts[name]} times, not {n}")
+        if any(v for name, v in counts.items() if name.endswith("_plain")):
+            raise AssertionError(f"3h {label}: a plain twin ran on the main path: {counts}")
+        n_u, n_i = len(res.user_index), len(res.item_index)
+        remap_u = np.array([res.user_index.get(f"u{n}", -1) for n in range(n_users)], np.int32)
+        remap_i = np.array([res.item_index.get(f"i{n}", -1) for n in range(n_items)], np.int32)
+        u_rel, i_rel = remap_u[u], remap_i[i]
+        t_d = {}
+        t = time.perf_counter()
+        direct = als.train_als(u_rel, i_rel, r, n_u, n_i, cfg, device=device, timings=t_d)
+        direct_wall = time.perf_counter() - t
+        X, Y = res.arrays.user_factors, res.arrays.item_factors
+        if X.shape != (n_u, cfg.rank) or not (np.isfinite(X).all() and np.isfinite(Y).all()):
+            raise AssertionError(f"3h {label}: factors misshapen or not finite")
+        if not (np_bits_equal(X, direct.user_factors) and np_bits_equal(Y, direct.item_factors)):
+            raise AssertionError(f"3h {label}: the direct route's factors differ from the streaming route's")
+        launches[label] = counts
+        stats[label] = {
+            "stream_wall_s": wall, "direct_wall_s": direct_wall,
+            "streaming": {key: t_s[key] for key in ("scan_s", "fold_s", "pack_exposed_s",
+                                                    "device_put_exposed_s", "compile_s",
+                                                    "device_pack_dispatch_s", "device_loop_s",
+                                                    "stream_wall_s")},
+            "direct": {key: t_d[key] for key in ("pack_s", "device_put_s", "device_pack_dispatch_s",
+                                                 "compile_s", "device_loop_s")},
+            "ms_per_sweep": {"streaming": t_s["device_loop_s"] * 1e3 / SWEEPS,
+                             "direct": t_d["device_loop_s"] * 1e3 / SWEEPS},
+            "telemetry_last": t_s["sweep_telemetry"][-1],
+            "launches": counts,
+        }
+        print(f"  {label}: train_als_streaming {wall:.2f} s (device loop "
+              f"{t_s['device_loop_s']:.4f} s, {t_s['device_loop_s'] * 1e3 / SWEEPS:.3f} ms per "
+              f"sweep), train_als {direct_wall:.2f} s: bit-identical factors; launches "
+              f"{ {name: n for name, n in counts.items() if n} }", flush=True)
+        return res.arrays, u_rel, i_rel, n_u, n_i
+
+    # a. explicit: the main path, then the packs it trained on
+    model, u_rel, i_rel, n_u, n_i = main_path(config, "explicit", {
+        "normal_eq_bf16": 2 * SWEEPS, "spd_solve": 2 * SWEEPS, "gramian": 0})
+    rmse = als.rmse(model, u_rel, i_rel, r, device=device)
+    gap = rmse - f32_stats["rmse"]
+    if not abs(gap) <= BF16_F32_RMSE_GAP:
+        raise AssertionError(f"3h: bf16 RMSE {rmse} vs float32 {f32_stats['rmse']}")
+    stats["explicit"].update(rmse=rmse, rmse_f32=f32_stats["rmse"], rmse_gap=gap, f32={
+        "train_s": f32_stats["train_s"], "ms_per_sweep": f32_stats["ms_per_sweep"],
+        "streaming_device_loop_s": f32_stats["streaming"]["device_loop_s"],
+        "direct_device_loop_s": f32_stats["direct"]["device_loop_s"]})
+    print(f"  explicit bf16 RMSE {rmse:.6f} vs phase 3's float32 {f32_stats['rmse']:.6f} "
+          f"(gap {gap:.3g}) ok", flush=True)
+    wire = als.build_host_wire(u_rel, i_rel, r, n_u, n_i, config)
+    up, ip = als.device_pack_from_wire(wire, device)
+    R_u, R_i = up.n_sys_rows, ip.n_sys_rows
+    state = als.init_factor_state_single(wire.counts_u, wire.counts_i, n_u, n_i, config, device=device)
+    X0, Y0, lam_u, lam_i, obs_u, obs_i = state
+
+    # b. K1-bf16 against its twin at both half-steps of sweep 4
+    X3, Y3, _ = als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, 3, compute_dtype=BF16)
+    X4 = check_half_step(X3, Y3, up, lam_u, obs_u, "bf16 user side of sweep 4", errs,
+                         compute_dtype=BF16, rounds="gate")
+    check_half_step(Y3, X4, ip, lam_i, obs_i, "bf16 item side of sweep 4", errs, compute_dtype=BF16,
+                    rounds="gate")
+
+    # c. the whole loop: the kernels' 10 sweeps (equal to the main path's
+    # factors) against the twins' 10, by training RMSE
+    Xk, Yk, _ = als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, SWEEPS,
+                                    compute_dtype=BF16)
+    if not (bits_equal(Xk[:n_u].cpu(), torch.from_numpy(model.user_factors))
+            and bits_equal(Yk[:n_i].cpu(), torch.from_numpy(model.item_factors))):
+        raise AssertionError("3h: the loop on the wire's packs differs from the main path")
+    X, Y = X0, Y0
+    t = time.perf_counter()
+    for _ in range(SWEEPS):
+        A, b = k1.normal_eq_plain(Y, up.seg_rows, up.cols, up.vals, up.rem, R_u, False, 1.0, BF16)
+        X, _ = k2.spd_solve_plain(A, b, lam_u, obs_u, X)
+        A, b = k1.normal_eq_plain(X, ip.seg_rows, ip.cols, ip.vals, ip.rem, R_i, False, 1.0, BF16)
+        Y, _ = k2.spd_solve_plain(A, b, lam_i, obs_i, Y)
+    twin_loop_s = time.perf_counter() - t
+    twin = als.ALSModelArrays(X[:n_u].cpu().numpy(), Y[:n_i].cpu().numpy())
+    rmse_twin = als.rmse(twin, u_rel, i_rel, r, device=device)
+    d_max = max(np.abs(twin.user_factors - model.user_factors).max() / np.abs(model.user_factors).max(),
+                np.abs(twin.item_factors - model.item_factors).max() / np.abs(model.item_factors).max())
+    if not abs(rmse_twin - rmse) <= BF16_RMSE_TOL:
+        raise AssertionError(f"3h: the twins' bf16 loop RMSE {rmse_twin} vs the kernels' {rmse}")
+    stats["explicit"].update(twin_loop_s=twin_loop_s, rmse_twin=rmse_twin,
+                             twin_factor_gap_of_largest=float(d_max))
+    print(f"  twin-driven bf16 loop ({twin_loop_s:.2f} s): RMSE {rmse_twin:.6f} vs the kernels' "
+          f"{rmse:.6f}; factors {d_max:.3g} of the largest entry apart (rounding flips, not gated) "
+          f"ok", flush=True)
+
+    # d. times at sweep 4's inputs: K1-bf16 beside K1 on the same inputs
+    calls = {
+        "normal_eq_bf16": {"user": lambda: k1.normal_eq(Y3, up, False, 1.0, BF16),
+                           "item": lambda: k1.normal_eq(X4, ip, False, 1.0, BF16)},
+        "normal_eq": {"user": lambda: k1.normal_eq(Y3, up), "item": lambda: k1.normal_eq(X4, ip)},
+    }
+    kernel_ms = {n: {s: time_ms(f, iters=20, warmup=2) for s, f in c.items()} for n, c in calls.items()}
+    dev_ms = {n: {s: device_ms(f, calls=10) for s, f in c.items()} for n, c in calls.items()}
+    plain_ms = {"normal_eq_bf16": time_ms(lambda: k1.normal_eq_plain(
+        Y3, up.seg_rows, up.cols, up.vals, up.rem, R_u, False, 1.0, BF16), iters=3, warmup=1)}
+    bounds = {"normal_eq_bf16": {"user": k1_bound(up, len(r), R_i, k, bf16=True),
+                                 "item": k1_bound(ip, len(r), R_u, k, bf16=True)}}
+    del A, b, X, Y, Xk, Yk
+
+    # e. implicit: the main path, then sweep by sweep on its packs with
+    # K12b-bf16 (the loop's own objective) against its twin after each
+    cfg_i = dataclasses.replace(config, implicit_prefs=True, alpha=ALPHA)
+    model_i, *_ = main_path(cfg_i, "implicit", {
+        "normal_eq_bf16": 2 * SWEEPS, "spd_solve": 2 * SWEEPS, "gramian": 4 * SWEEPS,
+        "implicit_objective_bf16": SWEEPS})
+    X, Y = X0, Y0
+    objectives = []
+    for s in range(1, SWEEPS + 1):
+        if s == 4:
+            check_half_step(X, Y, up, lam_u, obs_u, "bf16 implicit user side of sweep 4", errs,
+                            True, ALPHA, k12.gramian(Y), BF16, "gate")
+        X, Y, tel = als._run_iterations(X, Y, up, ip, lam_u, lam_i, obs_u, obs_i, 1, implicit=True,
+                                        alpha=ALPHA, compute_dtype=BF16)
+        objectives.append(check_objective(X, Y, up, lam_u, lam_i, f"implicit sweep {s}", errs, BF16,
+                                          got=tel[0, 4].item()))
+        if s == 4:
+            # the float32 kernel gated here; the forms rounding only x or
+            # only y are gated on 3h a.'s random packs and printed here
+            margins = objective_rounds(X, Y, up, lam_u, lam_i, "implicit sweep 4")
+            gate_objective_rounds("implicit sweep 4", margins, ("float32 kernel",))
+            stats["implicit_objective_rounds"] = margins
+    if not (bits_equal(X[:n_u].cpu(), torch.from_numpy(model_i.user_factors))
+            and bits_equal(Y[:n_i].cpu(), torch.from_numpy(model_i.item_factors))):
+        raise AssertionError("3h: ten one-sweep loops differ from the implicit main path")
+    Xi, Yi = X, Y
+    kernel_ms["implicit_objective_bf16"] = time_ms(
+        lambda: k12.implicit_objective(Xi, Yi, up, lam_u, lam_i, ALPHA, compute_dtype=BF16),
+        iters=20, warmup=2)
+    kernel_ms["implicit_objective"] = time_ms(
+        lambda: k12.implicit_objective(Xi, Yi, up, lam_u, lam_i, ALPHA), iters=20, warmup=2)
+    dev_ms["implicit_objective_bf16"] = device_ms(
+        lambda: k12.implicit_objective(Xi, Yi, up, lam_u, lam_i, ALPHA, compute_dtype=BF16), calls=10)
+    plain_ms["implicit_objective_bf16"] = time_ms(lambda: k12.implicit_objective_plain(
+        Xi, Yi, up.seg_rows, up.cols, up.vals, up.rem, lam_u, lam_i, ALPHA, compute_dtype=BF16),
+        iters=3, warmup=1)
+    bounds["implicit_objective_bf16"] = objective_bound(up, len(r), R_u, R_i, k, bf16=True)
+    stats["implicit"]["objectives"] = objectives
+    print(f"  implicit: K12b-bf16 per sweep against its twin, and 10 one-sweep loops = the main "
+          f"path bit for bit; objectives {objectives}", flush=True)
+    del X, Y, Xi, Yi
+
+    # f. iALS++ at rank 64, block 8, implicit (3p's config) in bf16
+    kp, bp = SUB_RANK, SUB_BLOCK
+    cfg_p = dataclasses.replace(cfg_i, rank=kp, solver="subspace", block_size=bp)
+    model_p, *_ = main_path(cfg_p, "subspace", {
+        "subspace_accumulate_bf16": 2 * (kp // bp) * SWEEPS,
+        "subspace_block_solve": 2 * (kp // bp) * SWEEPS, "normal_eq_bf16": 0, "spd_solve": 0,
+        "gramian": 4 * SWEEPS, "implicit_objective_bf16": SWEEPS})
+    state_p = als.init_factor_state_single(wire.counts_u, wire.counts_i, n_u, n_i, cfg_p, device=device)
+    Xp, Yp = state_p[0].clone(), state_p[1].clone()
+    lam_pu, lam_pi = state_p[2], state_p[3]
+    Xp, Yp, _ = als._run_iterations(Xp, Yp, up, ip, lam_pu, lam_pi, obs_u, obs_i, 3, implicit=True,
+                                    alpha=ALPHA, solver="subspace", block_size=bp,
+                                    compute_dtype=BF16)
+    Xp3, Yp3 = Xp.clone(), Yp.clone()
+    Gy = k12.gramian(Yp)
+    check_subspace_half_step(Xp, Yp, up, lam_pu, obs_u, Gy, bp, True, "bf16 subspace user side of "
+                             "sweep 4", errs, {0}, BF16, "gate")
+    Gx = k12.gramian(Xp)
+    check_subspace_half_step(Yp, Xp, ip, lam_pi, obs_i, Gx, bp, True, "bf16 subspace item side of "
+                             "sweep 4", errs, {0}, BF16, "gate")
+    kernel_ms["subspace_accumulate_bf16"] = {
+        "user": time_ms(lambda: k11.subspace_accumulate(Yp3, Xp3, up, 0, bp, True, ALPHA, BF16),
+                        iters=20, warmup=2),
+        "item": time_ms(lambda: k11.subspace_accumulate(Xp, Yp3, ip, 0, bp, True, ALPHA, BF16),
+                        iters=20, warmup=2)}
+    kernel_ms["subspace_accumulate"] = {
+        "user": time_ms(lambda: k11.subspace_accumulate(Yp3, Xp3, up, 0, bp, True, ALPHA),
+                        iters=20, warmup=2)}
+    dev_ms["subspace_accumulate_bf16"] = {
+        "user": device_ms(lambda: k11.subspace_accumulate(Yp3, Xp3, up, 0, bp, True, ALPHA, BF16),
+                          calls=10)}
+    plain_ms["subspace_accumulate_bf16"] = time_ms(lambda: k11.subspace_accumulate_plain(
+        Yp3, Xp3, up.seg_rows, up.cols, up.vals, up.rem, R_u, 0, bp, True, ALPHA, BF16),
+        iters=3, warmup=1)
+    bounds["subspace_accumulate_bf16"] = {
+        "user": k11a_bound(up, len(r), R_i, kp, bp, bf16=True),
+        "item": k11a_bound(ip, len(r), R_u, kp, bp, bf16=True)}
+    stats.update(kernel_ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms, bound=bounds)
+    for name, row in kernel_ms.items():
+        print(f"  {name}: kernel {row} ms, device {dev_ms.get(name)}, plain {plain_ms.get(name)}, "
+              f"bound {bounds.get(name)}", flush=True)
+    counts = {}
+    for c in launches.values():
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+    print("bf16_training " + json.dumps(stats), flush=True)
+    return counts, errs, stats, model
+
+
+def bf16_grid_phase(device, td0):
+    """Phase 3h's grid: ``train_als_grid`` in bfloat16 over the template's
+    grid (ranks 8 and 16 x regs 0.01 and 0.1) on 3e's fold-0 training
+    ratings in the wire's order, each variant bit for bit equal to
+    ``train_als`` in bfloat16 of that variant, counted from 0 (K13a-bf16 =
+    2 x sweeps per rank, float32 K13a = 0); K13a-bf16 against K1-bf16 per
+    variant and its twin on fold 0's first half-steps at rank 16; times.
+    Returns (launches, errors, stats)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.recommendation.evaluation import ParamsGrid
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import grid as k13
+    from predictionio_tpu_torch.ops import normal_eq as k1
+
+    regs = sorted({ep.algorithm_params_list[0][1].lambda_ for ep in ParamsGrid().engine_params_list})
+    ranks = sorted({ep.algorithm_params_list[0][1].rank for ep in ParamsGrid().engine_params_list})
+    assert tuple(ranks) == K13_BF16_RANKS and len(regs) == 2
+    n_u, n_i = len(td0.user_index), len(td0.item_index)
+    by_user = np.argsort(td0.user_idx, kind="stable")
+    u, i, r = td0.user_idx[by_user], td0.item_idx[by_user], td0.ratings[by_user]
+    errs, counts = {}, {"normal_eq_variants_bf16": 0, "normal_eq_variants": 0}
+    walls = {}
+    for k in ranks:
+        config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=0.0, seed=EVAL_SEED, compute_dtype=BF16)
+        k13.LAUNCHES.reset()
+        t_g = {}
+        t = time.perf_counter()
+        grid = als.train_als_grid(u, i, r, n_u, n_i, config, regs, device=device, timings=t_g)
+        walls[f"rank{k}"] = {"grid_s": time.perf_counter() - t, **t_g}
+        c = k13.LAUNCHES.snapshot()
+        if (c["normal_eq_variants_bf16"], c["normal_eq_variants"]) != (2 * SWEEPS, 0) or any(
+                v for name, v in c.items() if name.endswith("_plain")):
+            raise AssertionError(f"3h grid rank {k}: launches {c}")
+        for name in counts:
+            counts[name] += c[name]
+        for reg, gm in zip(regs, grid):
+            sm = als.train_als(u, i, r, n_u, n_i, dataclasses.replace(config, reg=reg), device=device)
+            if not (np_bits_equal(sm.user_factors, gm.user_factors)
+                    and np_bits_equal(sm.item_factors, gm.item_factors)):
+                raise AssertionError(f"3h grid: rank {k} reg {reg} is not bit-equal to bf16 train_als")
+        print(f"  bf16 grid, fold 0, rank {k}: {walls[f'rank{k}']['grid_s']:.2f} s, each of regs "
+              f"{regs} bit-equal to bf16 train_als; launches {c}", flush=True)
+    # K13a-bf16 against K1-bf16 and the twins on fold 0's packs at rank 16
+    k = 16
+    user_side = als.pack_segments(u, i, r, n_u, als.auto_segment_length(u, n_u, 128))
+    R_u, R_i = als._padded_rows(n_u, 1), als._padded_rows(n_i, 1)
+    up = als.device_pack(user_side, R_u, R_i, device)
+    lam = torch.from_numpy(np.stack([als._lam_obs_host(user_side.counts, n_u, R_u, als.ALSConfig(reg=g))[0]
+                                     for g in regs])).to(device)
+    obs = torch.from_numpy(als._lam_obs_host(user_side.counts, n_u, R_u, als.ALSConfig())[1]).to(device)
+    _, Y0 = als._factor_init_host(n_u, n_i, als.ALSConfig(rank=k, seed=EVAL_SEED), 1)
+    Y = torch.from_numpy(np.broadcast_to(Y0, (len(regs), R_i, k)).copy()).to(device)
+    X0 = torch.zeros((len(regs), R_u, k), dtype=torch.float32, device=device)
+    check_k13(Y, up, lam, obs, X0, False, "bf16 fold 0 users, rank 16", errs, compute_dtype=BF16)
+    kernel_ms = {
+        "normal_eq_variants_bf16": time_ms(lambda: k13.normal_eq_variants(Y, up, False, 1.0, BF16),
+                                           iters=20, warmup=2),
+        "normal_eq_variants": time_ms(lambda: k13.normal_eq_variants(Y, up), iters=20, warmup=2),
+        "normal_eq_bf16_per_variant": time_ms(lambda: k1.normal_eq(Y[0], up, False, 1.0, BF16),
+                                              iters=20, warmup=2),
+    }
+    dev_ms = {"normal_eq_variants_bf16": device_ms(
+        lambda: k13.normal_eq_variants(Y, up, False, 1.0, BF16), calls=10)}
+    plain_ms = {"normal_eq_variants_bf16": time_ms(
+        lambda: k13.normal_eq_variants_plain(Y, up, False, 1.0, BF16), iters=3, warmup=1)}
+    bounds = {"normal_eq_variants_bf16": k13a_bound(up, len(r), R_i, k, len(regs), bf16=True)}
+    stats = {"card": card_line(), "walls": walls, "launches": counts, "kernel_ms": kernel_ms,
+             "device_ms": dev_ms, "plain_ms": plain_ms, "bound": bounds}
+    print("bf16_grid " + json.dumps(stats), flush=True)
+    return counts, errs, stats
+
+
+def checkpoint_phase(device, f32_model, bf16_model):
+    """Phase 3c: checkpoint/resume through the template's route,
+    ``ALSAlgorithm.train`` on the ML-20M stream with ``checkpoint_dir`` (a
+    temporary directory) and ``checkpoint_every=5``: 5 sweeps; then 10 on
+    the same directory, which resume at 5 and equal phase 3's
+    uninterrupted model bit for bit; 10 again, which resume at 10 with no
+    K1 launch; then the bfloat16 config on the same directory, which is
+    another run: it logs "different run", starts fresh and equals 3h's
+    bf16 model bit for bit. Records each save's seconds and the bytes on
+    disk. Returns stats."""
+    import dataclasses
+    import logging
+
+    import numpy as np
+
+    from predictionio_tpu_torch.models.recommendation.engine import (
+        ALSAlgorithm,
+        ALSAlgorithmParams,
+        Preparator,
+        StreamingTrainingData,
+    )
+    from predictionio_tpu_torch.ops import als, streaming
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.workflow import checkpoint
+
+    n_users, n_items = ML20M_USERS, ML20M_ITEMS
+    u, i, r = ml20m_ratings()
+    names = np.array([f"u{n}" for n in range(n_users)] + [f"i{n}" for n in range(n_items)], dtype=object)
+
+    def stream_factory():
+        return ml20m_stream(u, i, r, names, n_users)
+
+    def loader():
+        raise AssertionError("the streaming path materialized the training data")
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    saves = []
+    orig_save = checkpoint.StepCheckpointer.maybe_save
+
+    def timed_save(self, step, state, force=False):
+        t = time.perf_counter()
+        out = orig_save(self, step, state, force)
+        saves.append((step, time.perf_counter() - t))
+        return out
+
+    lines = Lines()
+    logger = logging.getLogger("predictionio_tpu_torch.ops.als")
+    level = logger.level
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    checkpoint.StepCheckpointer.maybe_save = timed_save
+    runs = []
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            ckdir = os.path.join(d, "ckpt")
+            base = ALSAlgorithmParams(rank=RANK, num_iterations=SWEEPS, lambda_=REG,
+                                      checkpoint_dir=ckdir, checkpoint_every=CKPT_EVERY)
+
+            def run(label, params=None, config=None):
+                lines.lines.clear()
+                k1.LAUNCHES.reset()
+                n_saves = len(saves)
+                t = time.perf_counter()
+                if config is None:
+                    pd = Preparator().prepare(device, StreamingTrainingData(stream_factory, loader))
+                    arrays = ALSAlgorithm(params).train(device, pd).arrays
+                else:
+                    arrays = streaming.train_als_streaming(
+                        stream_factory(), config, device=device, checkpoint_dir=ckdir,
+                        checkpoint_every=CKPT_EVERY).arrays
+                wall = time.perf_counter() - t
+                files = sorted(os.listdir(ckdir))
+                row = {"label": label, "wall_s": wall, "log": list(lines.lines),
+                       "launches": k1.LAUNCHES.snapshot(), "saves": saves[n_saves:],
+                       "files": files,
+                       "bytes_on_disk": sum(os.path.getsize(os.path.join(ckdir, f)) for f in files)}
+                runs.append(row)
+                print(f"  {label}: {wall:.2f} s, log {row['log']}, K1 launches "
+                      f"{row['launches']}, saves {row['saves']}, on disk {files} "
+                      f"({row['bytes_on_disk']} B)", flush=True)
+                return arrays, row
+
+            def same(a, b):
+                return (np_bits_equal(a.user_factors, b.user_factors)
+                        and np_bits_equal(a.item_factors, b.item_factors))
+
+            _, row = run("5 sweeps", dataclasses.replace(base, num_iterations=CKPT_EVERY))
+            if row["launches"]["normal_eq"] != 2 * CKPT_EVERY or len(row["saves"]) != 1:
+                raise AssertionError(f"3c: the 5-sweep run {row}")
+            arrays, row = run("10 sweeps, resumed", base)
+            if not any("resuming ALS from iteration 5" in m for m in row["log"]):
+                raise AssertionError(f"3c: the 10-sweep run did not resume at 5: {row['log']}")
+            if row["launches"]["normal_eq"] != 2 * (SWEEPS - CKPT_EVERY):
+                raise AssertionError(f"3c: the resumed run launched K1 {row['launches']}")
+            if not same(arrays, f32_model.arrays):
+                raise AssertionError("3c: the resumed model differs from phase 3's uninterrupted one")
+            arrays, row = run("10 sweeps again", base)
+            if not any("resuming ALS from iteration 10" in m for m in row["log"]) or \
+                    row["launches"]["normal_eq"] != 0 or not same(arrays, f32_model.arrays):
+                raise AssertionError(f"3c: the finished run did not short-circuit: {row}")
+            bf16_cfg = als.ALSConfig(rank=RANK, iterations=SWEEPS, reg=REG, seed=base.seed,
+                                     compute_dtype=BF16)
+            arrays, row = run("bf16 config", config=bf16_cfg)
+            if not any("different run" in m for m in row["log"]) or \
+                    row["launches"]["normal_eq_bf16"] != 2 * SWEEPS or not same(arrays, bf16_model):
+                raise AssertionError(f"3c: the bf16 config did not start a fresh run: {row}")
+    finally:
+        checkpoint.StepCheckpointer.maybe_save = orig_save
+        logger.removeHandler(lines)
+        logger.setLevel(level)
+    stats = {"card": card_line(), "runs": runs,
+             "save_s": [s for row in runs for _, s in row["saves"]]}
+    print("checkpoint " + json.dumps(stats), flush=True)
+    return stats
 
 
 # --- 3r: delta retraining rounds ---
@@ -3402,7 +4308,6 @@ def check_unknown_users(server, counts, name, batches):
         raise AssertionError(f"unexpected batch count {status['batches']}")
 
 
-PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 RET_ITEMS, RET_RANK, RET_SEED = 50_000, 64, 37
 TIER_PEAK = {"float32": PEAK_FP32_FLOPS, "bf16": PEAK_BF16_FLOPS, "int8": PEAK_INT8_OPS}
@@ -4015,7 +4920,14 @@ def main() -> int:
     print(f"phase retrieval kernels (R1) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     ret_errs, _ = retrieval_kernel_phase(rng, device)
     print(f"phase train (at {time.perf_counter() - t0:.1f} s)", flush=True)
-    model, kernels, _ = train_phase(rng, device)
+    model, kernels, f32_stats = train_phase(rng, device)
+    print(f"phase bf16 kernels and training (3h) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    h_errs = {}
+    check_bf16_sizes(rng, device, h_errs)
+    h_counts, h_path_errs, h_stats, bf16_arrays = bf16_train_phase(device, f32_stats)
+    print(f"phase checkpoint/resume (3c) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    checkpoint_phase(device, model, bf16_arrays)
+    del bf16_arrays
     print(f"phase delta retraining (3r) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     check_k8_sizes(rng, device)
     r_counts, r_errs, r_stats = delta_phase(device)
@@ -4033,7 +4945,10 @@ def main() -> int:
     print(f"phase grid evaluation (3e) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     e_errs = {}
     check_k13_sizes(rng, device, e_errs)
-    e_counts, e_path_errs, e_stats = eval_phase(device)
+    e_counts, e_path_errs, e_stats, td0 = eval_phase(device)
+    print(f"phase bf16 grid (3h) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    g_counts, g_errs, g_stats = bf16_grid_phase(device, td0)
+    del td0
     print(f"phase slice (at {time.perf_counter() - t0:.1f} s)", flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _, traffic = slice_phase(rng, device, workdir, model)
@@ -4080,8 +4995,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
         })
     # K1 and K2 on every training path; K12 on the implicit ones (each
-    # path's counts from 0); K14 on the Similar Product host path
-    train_counts = [i_counts, p_counts, r_counts] + list(sp_counts.values())
+    # path's counts from 0); K14 on the Similar Product host path; 3h's
+    # bf16 trainings launch K2 and K12a, never float32 K1 or K12b
+    train_counts = [i_counts, p_counts, r_counts, h_counts] + list(sp_counts.values())
     for row in kernels:
         if row["name"] in ("normal_eq", "spd_solve"):
             row["launches"] += sum(c[row["name"]] for c in train_counts)
@@ -4151,6 +5067,34 @@ def main() -> int:
             "max_abs_err": r_errs[name], "ms": r_stats["kernel_ms"][name],
             "plain_ms": r_stats["plain_ms"][name], "bound_ms": r_stats["bound"][name][0],
             "bound_by": r_stats["bound"][name][1], "library_ms": None,
+        })
+    # the bf16 forms (3h): K1-bf16, K11a-bf16 and K12b-bf16 on the bf16
+    # main paths (launches summed over them), times at sweep 4's user side;
+    # K13a-bf16 on the bf16 grid's path, times at fold 0's user side, rank
+    # 16; errors the largest over the random packs and the paths. No one
+    # PyTorch call computes any of them (as for their float32 forms)
+    errs_h = {n: max(h_errs.get(n, 0.0), h_path_errs.get(n, 0.0), g_errs.get(n, 0.0))
+              for n in ("normal_eq_bf16", "subspace_accumulate_bf16", "implicit_objective_bf16",
+                        "normal_eq_variants_bf16")}
+    for name, source, where, stats_h, launched in (
+            ("normal_eq_bf16", "normal_eq.cu", "predictionio_tpu/ops/als.py:481", h_stats,
+             h_counts["normal_eq_bf16"]),
+            ("subspace_accumulate_bf16", "subspace.cu", "predictionio_tpu/ops/als.py:640", h_stats,
+             h_counts["subspace_accumulate_bf16"]),
+            ("implicit_objective_bf16", "gramian.cu", "predictionio_tpu/ops/als.py:752", h_stats,
+             h_counts["implicit_objective_bf16"]),
+            ("normal_eq_variants_bf16", "grid.cu", "predictionio_tpu/ops/als.py:942", g_stats,
+             g_counts["normal_eq_variants_bf16"])):
+        ms, bnd = stats_h["kernel_ms"][name], stats_h["bound"][name]
+        if isinstance(ms, dict):
+            ms, bnd = ms["user"], bnd["user"]
+        if launched < 1:
+            raise AssertionError(f"{name} never launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"predictionio_tpu_torch/csrc/{source}",
+            "replaces": where, "launches": launched, "max_abs_err": errs_h[name],
+            "ms": ms, "plain_ms": stats_h["plain_ms"][name], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None,
         })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

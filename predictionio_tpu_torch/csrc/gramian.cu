@@ -50,9 +50,18 @@
 // fixed tree, and writes (⟨Gx, Gy⟩ + obs) + (reg_x + reg_y), the
 // reference's order of the three terms. No atomics: a run repeats bit for
 // bit. Slots past a segment's count are never read.
+//
+// K12b-bf16 (implicit_objective_f32 with bf16 = 1): the reference's
+// compute_dtype="bfloat16" objective (:779-780 Xc = bf16(X), Yc = bf16(Y)):
+// the scores s = x·y are formed from x and y rounded to bfloat16 as they
+// are read (exact products, float32 sums); the weights c and p, the
+// Gramians (K12a, float32) and the regularizer's norms stay unrounded
+// float32, as in the reference. Bound: K12b's bytes (the regularizer
+// reads the float32 factors), so bound by bytes. K12a has no bf16 form.
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "tiling.cuh"
 
 namespace {
@@ -181,8 +190,9 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
 
 // One lane's share of the dot product of a shared row x and a device row
 // y over k entries, for a group of G lanes (sub = this lane's place in
-// it): its chunks summed in order. The group's shares are then added in a
-// fixed butterfly.
+// it): its chunks summed in order, y in the compute type (x is staged in
+// it). The group's shares are then added in a fixed butterfly.
+template <bool BF16>
 __device__ __forceinline__ float lane_dot(const float* __restrict__ x,
                                           const float* __restrict__ y,
                                           bool valid, int k, int sub, int G) {
@@ -194,13 +204,13 @@ __device__ __forceinline__ float lane_dot(const float* __restrict__ x,
       for (int c = sub; c < (k >> 2); c += G) {
         const float4 a = x4[c];
         const float4 b = __ldg(y4 + c);
-        d = fmaf(a.x, b.x, d);
-        d = fmaf(a.y, b.y, d);
-        d = fmaf(a.z, b.z, d);
-        d = fmaf(a.w, b.w, d);
+        d = fmaf(a.x, in_cdt<BF16>(b.x), d);
+        d = fmaf(a.y, in_cdt<BF16>(b.y), d);
+        d = fmaf(a.z, in_cdt<BF16>(b.z), d);
+        d = fmaf(a.w, in_cdt<BF16>(b.w), d);
       }
     } else {
-      for (int j = sub; j < k; j += G) d = fmaf(x[j], __ldg(y + j), d);
+      for (int j = sub; j < k; j += G) d = fmaf(x[j], in_cdt<BF16>(__ldg(y + j)), d);
     }
   }
   return d;
@@ -213,6 +223,7 @@ __device__ __forceinline__ float lane_dot(const float* __restrict__ x,
 // the slot's y row as float4s (coalesced; the UNROLL rows' loads are in
 // flight together) and summing the dot in a fixed butterfly; the group's
 // first lane adds the slots' terms to its running sum in slot order.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS) objective_partial(
     const float* __restrict__ X, const float* __restrict__ Y,
     const int* __restrict__ seg_rows, const int* __restrict__ cols,
@@ -240,7 +251,7 @@ __global__ void __launch_bounds__(THREADS) objective_partial(
       if (n == 0) continue;
       const float* xr = X + (long long)seg_rows[s] * k;
       __syncwarp();
-      for (int j = lane; j < k; j += 32) x[j] = xr[j];
+      for (int j = lane; j < k; j += 32) x[j] = in_cdt<BF16>(xr[j]);
       __syncwarp();
       const long long base = (long long)s * L;
       for (int l0 = 0; l0 < n; l0 += UNROLL * per_pass) {
@@ -256,7 +267,7 @@ __global__ void __launch_bounds__(THREADS) objective_partial(
         }
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          d[u] = lane_dot(x, Y + (long long)col[u] * k, ok[u], k, sub, G);
+          d[u] = lane_dot<BF16>(x, Y + (long long)col[u] * k, ok[u], k, sub, G);
         }
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
@@ -329,6 +340,36 @@ inline int objective_segs_per_block(int S) {
   return per < OBJ_WARPS ? OBJ_WARPS : per;
 }
 
+template <bool BF16>
+int objective(const float* X, int n_x, const float* Y, int n_y,
+              const int* seg_rows, const int* cols, const float* vals,
+              const int* rem, int S, int L, int k, float alpha,
+              const float* lam_x, const float* lam_y, const float* Gx,
+              const float* Gy, float* partials, float* out,
+              cudaStream_t stream) {
+  const int spb = objective_segs_per_block(S);
+  const int b_obs = ceil_div(S > 0 ? S : 1, spb);
+  const int rpb = gramian_rows_per_block(n_x > n_y ? n_x : n_y);
+  const int b_x = ceil_div(n_x > 0 ? n_x : 1, rpb);
+  const int b_y = ceil_div(n_y > 0 ? n_y : 1, rpb);
+  const size_t smem = (size_t)OBJ_WARPS * ((k + 3) & ~3) * sizeof(float);
+  cudaError_t err;
+  if (smem > DEFAULT_SMEM) {
+    err = cudaFuncSetAttribute(objective_partial<BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  objective_partial<BF16><<<b_obs + b_x + b_y, THREADS, smem, stream>>>(
+      X, Y, seg_rows, cols, vals, rem, S, L, k, alpha, spb, b_obs, lam_x, n_x,
+      lam_y, n_y, rpb, b_x, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  objective_finish<<<1, THREADS, 0, stream>>>(partials, b_obs, b_x, b_y, Gx,
+                                              Gy, k * k, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -382,34 +423,21 @@ int objective_partials(int S, int n_x, int n_y) {
 // regularizers of both sides, and the two Gramians Gx = XᵀX, Gy = YᵀY.
 // Launches both kernels on `stream` and returns cudaGetLastError(). The
 // caller checks shapes, dtypes, devices, id ranges and 1 <= k <= 1024.
+// bf16 != 0 runs K12b-bf16, with the scores in bfloat16 compute (see the
+// header).
 int implicit_objective_f32(const float* X, int n_x, const float* Y, int n_y,
                            const int* seg_rows, const int* cols,
                            const float* vals, const int* rem, int S, int L,
                            int k, float alpha, const float* lam_x,
                            const float* lam_y, const float* Gx,
                            const float* Gy, float* partials, float* out,
-                           cudaStream_t stream) {
-  const int spb = objective_segs_per_block(S);
-  const int b_obs = ceil_div(S > 0 ? S : 1, spb);
-  const int rpb = gramian_rows_per_block(n_x > n_y ? n_x : n_y);
-  const int b_x = ceil_div(n_x > 0 ? n_x : 1, rpb);
-  const int b_y = ceil_div(n_y > 0 ? n_y : 1, rpb);
-  const size_t smem = (size_t)OBJ_WARPS * ((k + 3) & ~3) * sizeof(float);
-  cudaError_t err;
-  if (smem > DEFAULT_SMEM) {
-    err = cudaFuncSetAttribute(objective_partial,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  objective_partial<<<b_obs + b_x + b_y, THREADS, smem, stream>>>(
-      X, Y, seg_rows, cols, vals, rem, S, L, k, alpha, spb, b_obs, lam_x, n_x,
-      lam_y, n_y, rpb, b_x, partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  objective_finish<<<1, THREADS, 0, stream>>>(partials, b_obs, b_x, b_y, Gx,
-                                              Gy, k * k, out);
-  return (int)cudaGetLastError();
+                           int bf16, cudaStream_t stream) {
+  return bf16 ? objective<true>(X, n_x, Y, n_y, seg_rows, cols, vals, rem, S,
+                                L, k, alpha, lam_x, lam_y, Gx, Gy, partials,
+                                out, stream)
+              : objective<false>(X, n_x, Y, n_y, seg_rows, cols, vals, rem, S,
+                                 L, k, alpha, lam_x, lam_y, Gx, Gy, partials,
+                                 out, stream);
 }
 
 const char* gramian_error_string(int code) {

@@ -39,6 +39,12 @@
 // three quarters of its FMAs multiply zeros; a form sized to k, and the
 // variants of one slot in one warp, are the next steps.
 
+//
+// K13a-bf16 (normal_eq_variants_f32 with bf16 = 1): the grid in the
+// reference's compute_dtype="bfloat16" (its :942 with _solve_side's cast
+// weights): the same kernels with K1-bf16's rounding (csrc/normal_eq.cu),
+// so variant v stays bit-equal to K1-bf16 on its factors. K13b is unchanged (float32).
+
 #include "normal_eq.cuh"
 #include "spd_solve.cuh"
 
@@ -48,17 +54,25 @@ extern "C" {
 // (y_stride = y_rows·k floats between variants); A [V, R, k, k], b
 // [V, R, k] and partials [V, max(P, 1), k·k + k] are allocated by the
 // caller, which checks shapes, dtypes, devices, id ranges and
-// 1 <= k <= 1024, and builds the plan as for K1 (normal_eq_f32).
+// 1 <= k <= 1024, and builds the plan as for K1 (normal_eq_f32). bf16 != 0
+// runs K13a-bf16.
 int normal_eq_variants_f32(const float* Y, const int* cols,
                            const float* vals, const int* rem,
                            const int* groups, int n_groups, const int* c_rows,
                            const int* c_start, int n_combine, float* partials,
                            float* A, float* b, int k, int L, int implicit,
                            float alpha, int V, long long y_stride, int R,
-                           int P, cudaStream_t stream) {
-  return (int)k1::launch<true>(Y, cols, vals, rem, groups, n_groups, c_rows,
-                         c_start, n_combine, partials, A, b, k, L, implicit,
-                         alpha, V, y_stride, R, P, stream);
+                           int P, int bf16, cudaStream_t stream) {
+  return (int)(bf16 ? k1::launch<true, true>(Y, cols, vals, rem, groups,
+                                             n_groups, c_rows, c_start,
+                                             n_combine, partials, A, b, k, L,
+                                             implicit, alpha, V, y_stride, R,
+                                             P, stream)
+                    : k1::launch<true, false>(Y, cols, vals, rem, groups,
+                                              n_groups, c_rows, c_start,
+                                              n_combine, partials, A, b, k, L,
+                                              implicit, alpha, V, y_stride, R,
+                                              P, stream));
 }
 
 // K13b on `stream`; returns cudaGetLastError(). A [V, R, k, k], b, X_prev

@@ -55,6 +55,23 @@
 //
 // The kernels live in normal_eq.cuh, shared with K13a (csrc/grid.cu),
 // which runs them over a variant axis; here V = 1.
+//
+// K1-bf16 (normal_eq_f32 with bf16 = 1): the reference's
+// compute_dtype="bfloat16" form of the same function (its :506
+// Yc = Y.astype(bf16), :528-534 the cast weights). Y is rounded to
+// bfloat16 as each gathered row lands in shared memory; explicit w_a = 1
+// (exact) and w_b = bf16(v); implicit w_a = bf16(α|v|) and
+// w_b = bf16(1(v>0)(1 + α|v|)). Every product of two
+// such values is exact in float32 (8-bit significands; w_a·y then has 16
+// bits and (w_a·y)·y 24), so the kernel runs the float32 FMA path above on
+// the rounded values and computes what the reference computes: its CPU
+// program forms w_a·y in float32 and never rounds it back to bf16. A bf16
+// MMA on bf16(w_a·y) would not (it is exact only where w_a is 0 or 1,
+// explicit mode). Bound: the same FMAs, now counted at the bf16
+// tensor-core peak (989 TFLOP/s), against the pack, 2-byte rows of Y and
+// the float32 A and b: ≈0.79 GB on the user side at ML-20M, ≈0.23 ms at
+// 3.35 TB/s, so bound by bytes; the kernel, on the CUDA cores, runs near
+// K1's float32 time.
 
 #include "normal_eq.cuh"
 
@@ -65,15 +82,24 @@ extern "C" {
 // allocates A [R,k,k], b [R,k] and partials [max(P,1), k*k+k], and builds
 // the plan: groups [4, n_groups] int32 (row, first segment, segment
 // count, partial slot or -1), c_rows [n_combine], c_start [n_combine+1].
-// implicit != 0 takes the implicit weights with confidence scale alpha.
+// implicit != 0 takes the implicit weights with confidence scale alpha;
+// bf16 != 0 runs K1-bf16, with Y and the weights rounded to bfloat16
+// where the reference casts them (see the header).
 int normal_eq_f32(const float* Y, const int* cols, const float* vals,
                   const int* rem, const int* groups, int n_groups,
                   const int* c_rows, const int* c_start, int n_combine,
                   float* partials, float* A, float* b, int k, int L,
-                  int implicit, float alpha, cudaStream_t stream) {
-  return (int)k1::launch<false>(Y, cols, vals, rem, groups, n_groups, c_rows,
-                         c_start, n_combine, partials, A, b, k, L, implicit,
-                         alpha, 1, 0, 0, 0, stream);
+                  int implicit, float alpha, int bf16, cudaStream_t stream) {
+  return (int)(bf16 ? k1::launch<false, true>(Y, cols, vals, rem, groups,
+                                              n_groups, c_rows, c_start,
+                                              n_combine, partials, A, b, k, L,
+                                              implicit, alpha, 1, 0, 0, 0,
+                                              stream)
+                    : k1::launch<false, false>(Y, cols, vals, rem, groups,
+                                               n_groups, c_rows, c_start,
+                                               n_combine, partials, A, b, k, L,
+                                               implicit, alpha, 1, 0, 0, 0,
+                                               stream));
 }
 
 const char* normal_eq_error_string(int code) {

@@ -2,11 +2,14 @@
 // their design), with a variant axis: V factor matrices Y[v] against one
 // shared packed side and group plan, each variant's systems summed in
 // exactly K1's order. normal_eq.cu launches them with V = 1; grid.cu's
-// K13a (the regularizer grid) with V variants.
+// K13a (the regularizer grid) with V variants. BF16 is the reference's
+// bfloat16 compute (bf16.cuh): each gathered row is rounded as it lands in
+// shared memory, and the weights where the reference casts them.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "tiling.cuh"
 
 namespace k1 {
@@ -19,7 +22,7 @@ constexpr int WARPS32 = 4;  // warps (= groups) per block of the k <= 32 form
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
 
-template <bool IMPLICIT, bool VARIANTS>
+template <bool IMPLICIT, bool VARIANTS, bool BF16>
 __global__ void __launch_bounds__(THREADS) normal_eq_groups(
     const float* __restrict__ Y, const int* __restrict__ cols,
     const float* __restrict__ vals, const int* __restrict__ rem,
@@ -78,16 +81,18 @@ __global__ void __launch_bounds__(THREADS) normal_eq_groups(
       __syncthreads();  // the previous round's readers are done
       for (int r = warp; r < c; r += THREADS / 32) {
         const float* src = Y + (long long)cols[base + l0 + r] * k;
-        for (int col = lane; col < kp; col += 32) ys[r * kp + col] = col < k ? src[col] : 0.f;
+        for (int col = lane; col < kp; col += 32) {
+          ys[r * kp + col] = col < k ? in_cdt<BF16>(src[col]) : 0.f;
+        }
       }
       if (tid < c) {
         const float v = vals[base + l0 + tid];
         if constexpr (IMPLICIT) {
           const float cv = alpha * fabsf(v);
-          wa[tid] = cv;
-          wb[tid] = v > 0.f ? 1.f + cv : 0.f;
+          wa[tid] = in_cdt<BF16>(cv);
+          wb[tid] = in_cdt<BF16>(v > 0.f ? 1.f + cv : 0.f);
         } else {
-          wb[tid] = v;
+          wb[tid] = in_cdt<BF16>(v);
         }
       }
       __syncthreads();
@@ -171,7 +176,7 @@ __global__ void __launch_bounds__(THREADS) normal_eq_groups(
 
 // A chunk of up to 32 slots of one segment, as the k <= 32 form walks a
 // group: lane l holds slot l's column id and b's weight (explicit: the
-// rating), and in implicit mode A's weight.
+// rating), and in implicit mode A's weight, both in the compute type.
 struct Chunk {
   int s, l0, c;  // segment, first slot, slot count (0: past the group)
   int col;
@@ -179,7 +184,7 @@ struct Chunk {
   float w;  // w_a (implicit only)
 };
 
-template <bool IMPLICIT>
+template <bool IMPLICIT, bool BF16>
 __device__ __forceinline__ Chunk load_chunk(const int* __restrict__ cols,
                                             const float* __restrict__ vals,
                                             const int* __restrict__ rem,
@@ -193,10 +198,11 @@ __device__ __forceinline__ Chunk load_chunk(const int* __restrict__ cols,
       ch.col = cols[at];
       const float v = vals[at];
       if constexpr (IMPLICIT) {
-        ch.w = alpha * fabsf(v);
-        ch.v = v > 0.f ? 1.f + ch.w : 0.f;
+        const float cv = alpha * fabsf(v);
+        ch.w = in_cdt<BF16>(cv);
+        ch.v = in_cdt<BF16>(v > 0.f ? 1.f + cv : 0.f);
       } else {
-        ch.v = v;
+        ch.v = in_cdt<BF16>(v);
       }
     }
   }
@@ -236,7 +242,7 @@ __device__ __forceinline__ void gather_async(float (*tile)[32],
 // of the 32x32 square and row l of b. Two shared tiles per warp: while the
 // warp multiplies one chunk, the next one's rows are in flight, and the
 // column ids of the one after are loading.
-template <bool IMPLICIT, bool VARIANTS>
+template <bool IMPLICIT, bool VARIANTS, bool BF16>
 __global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
     const float* __restrict__ Y, const int* __restrict__ cols,
     const float* __restrict__ vals, const int* __restrict__ rem,
@@ -273,25 +279,28 @@ __global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
   float bl = 0.f;
 
   int s = 0, l0 = 0;
-  Chunk cur = load_chunk<IMPLICIT>(cols, vals, rem, seg0, 0, s_end, L, lane, alpha);
+  Chunk cur = load_chunk<IMPLICIT, BF16>(cols, vals, rem, seg0, 0, s_end, L, lane, alpha);
   if (cur.c) gather_async(ys[warp][0], Y, cur, k, lane);
   Chunk nxt{s_end, 0, 0, 0, 0.f, 0.f};
   if (cur.c) {
     next_of(cur, rem, s, l0);
-    nxt = load_chunk<IMPLICIT>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
+    nxt = load_chunk<IMPLICIT, BF16>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
   }
   for (int n = 0; cur.c; ++n) {
     Chunk after{s_end, 0, 0, 0, 0.f, 0.f};
     if (nxt.c) {
       gather_async(ys[warp][(n + 1) & 1], Y, nxt, k, lane);
       next_of(nxt, rem, s, l0);
-      after = load_chunk<IMPLICIT>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
+      after = load_chunk<IMPLICIT, BF16>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
-    __syncwarp();
     float(*sy)[32] = ys[warp][n & 1];
+    if constexpr (BF16) {  // each lane rounds the column its own copies wrote
+      for (int q = 0; q < cur.c; ++q) sy[q][lane] = round_bf16(sy[q][lane]);
+    }
+    __syncwarp();
     for (int q = 0; q < cur.c; ++q) {
       const float4 a = *reinterpret_cast<const float4*>(&sy[q][ti * 4]);
       const float4 y0 = *reinterpret_cast<const float4*>(&sy[q][tj * 8]);
@@ -368,14 +377,14 @@ __global__ void __launch_bounds__(COMBINE_THREADS) normal_eq_combine(
   }
 }
 
-template <bool IMPLICIT, bool VARIANTS>
+template <bool IMPLICIT, bool VARIANTS, bool BF16>
 cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
                           const int* rem, const int* groups, int n_groups,
                           float* partials, float* A, float* b, int k, int L,
                           float alpha, int V, long long y_stride, int R, int P,
                           cudaStream_t stream) {
   if (k <= 32) {
-    normal_eq_groups32<IMPLICIT, VARIANTS>
+    normal_eq_groups32<IMPLICIT, VARIANTS, BF16>
         <<<((n_groups + WARPS32 - 1) / WARPS32) * V, 32 * WARPS32, 0, stream>>>(
             Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, alpha,
             V, y_stride, R, P);
@@ -389,12 +398,12 @@ cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
                       (size_t)(SG - 1) * tpb * RED * sizeof(float);
   if (smem > DEFAULT_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
-        normal_eq_groups<IMPLICIT, VARIANTS>,
+        normal_eq_groups<IMPLICIT, VARIANTS, BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(n_groups * V, (NT + tpb - 1) / tpb);
-  normal_eq_groups<IMPLICIT, VARIANTS><<<grid, THREADS, smem, stream>>>(
+  normal_eq_groups<IMPLICIT, VARIANTS, BF16><<<grid, THREADS, smem, stream>>>(
       Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, T, tpb, SG,
       alpha, V, y_stride, R, P);
   return cudaGetLastError();
@@ -404,8 +413,8 @@ cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
 // Variant v reads Y + v·y_stride and writes A + v·R·k², b + v·R·k and
 // its P partial slots at partials + v·P·(k²+k). The plan is shared.
 // VARIANTS = false (K1: V = 1) compiles the group kernels without the
-// variant arithmetic.
-template <bool VARIANTS>
+// variant arithmetic; BF16 computes in the reference's bfloat16.
+template <bool VARIANTS, bool BF16>
 cudaError_t launch(const float* Y, const int* cols, const float* vals,
                    const int* rem, const int* groups, int n_groups,
                    const int* c_rows, const int* c_start, int n_combine,
@@ -413,13 +422,15 @@ cudaError_t launch(const float* Y, const int* cols, const float* vals,
                    int implicit, float alpha, int V, long long y_stride, int R,
                    int P, cudaStream_t stream) {
   cudaError_t err =
-      implicit ? launch_groups<true, VARIANTS>(Y, cols, vals, rem, groups,
-                                               n_groups, partials, A, b, k, L,
-                                               alpha, V, y_stride, R, P, stream)
-               : launch_groups<false, VARIANTS>(Y, cols, vals, rem, groups,
-                                                n_groups, partials, A, b, k, L,
-                                                alpha, V, y_stride, R, P,
-                                                stream);
+      implicit
+          ? launch_groups<true, VARIANTS, BF16>(Y, cols, vals, rem, groups,
+                                                n_groups, partials, A, b, k,
+                                                L, alpha, V, y_stride, R, P,
+                                                stream)
+          : launch_groups<false, VARIANTS, BF16>(Y, cols, vals, rem, groups,
+                                                 n_groups, partials, A, b, k,
+                                                 L, alpha, V, y_stride, R, P,
+                                                 stream);
   if (err != cudaSuccess || n_combine == 0) return err;
   dim3 grid2(n_combine, (k * k + k + COMBINE_THREADS - 1) / COMBINE_THREADS, V);
   normal_eq_combine<<<grid2, COMBINE_THREADS, 0, stream>>>(

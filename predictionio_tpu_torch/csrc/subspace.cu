@@ -64,9 +64,23 @@
 //     cache; the Cholesky and the substitutions as K2's shared-memory form.
 //   Sums are fixed-order: no atomics, so a run repeats bit for bit.
 // Products are fp32 FMAs on the CUDA cores, never TF32.
+//
+// K11a-bf16 (subspace_accumulate_f32 with bf16 = 1): the reference's
+// compute_dtype="bfloat16" form of the block body (:680 Yc = bf16(Y), :701
+// xg = bf16(x[rows]), :716 and :721 the cast weights), both forms above
+// with BF16 set. Each gathered y row and the row's current x are rounded
+// to bfloat16 as they are read, in every block (x changes after each
+// block); d = Σ y·x is summed in float32 from exact products; A's weight
+// is bf16(w_a), and the residual's weight bf16(w_b − w_a·d) is formed in
+// float32 from the unrounded w_a and w_b with a separate product and
+// difference (no FMA contraction: the reference rounds the product), then
+// rounded. The products and sums stay the float32 FMAs above. Bound: the
+// same operations at the bf16 tensor-core peak against the same pack
+// bytes, so bound by bytes. K11b is unchanged (float32).
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "tiling.cuh"
 
 namespace {
@@ -84,9 +98,20 @@ constexpr size_t MAX_SMEM = 227 * 1024;
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+// The residual's weight w_b − w_a·d. In bfloat16 compute the reference
+// forms it in float32 with the product rounded on its own, then casts it.
+template <bool BF16>
+__device__ __forceinline__ float residual_weight(float wa, float wb, float d) {
+  if constexpr (BF16) {
+    return round_bf16(__fsub_rn(wb, __fmul_rn(wa, d)));
+  } else {
+    return wb - wa * d;
+  }
+}
+
 // T = ceil(k / 32) columns per lane, a template argument so the main
 // path's rank (k = 64, T = 2) runs without guards on unused chunks.
-template <int T>
+template <int T, bool BF16>
 __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_groups(
     const float* __restrict__ Y, const float* __restrict__ X,
     const int* __restrict__ cols, const float* __restrict__ vals,
@@ -112,7 +137,7 @@ __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_groups(
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     const int c = lane + 32 * t;
-    xv[t] = c < k ? X[(long long)row * k + c] : 0.f;
+    xv[t] = c < k ? in_cdt<BF16>(X[(long long)row * k + c]) : 0.f;
   }
   // owned outputs: triangle entries (oi >= oj), r entries (oj = -1), or
   // none (oi = -1)
@@ -159,7 +184,7 @@ __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_groups(
 #pragma unroll
           for (int t = 0; t < T; ++t) {
             const int cc = lane + 32 * t;
-            yv[u][t] = (q < c && cc < k) ? src[cc] : 0.f;
+            yv[u][t] = (q < c && cc < k) ? in_cdt<BF16>(src[cc]) : 0.f;
           }
         }
 #pragma unroll
@@ -179,8 +204,8 @@ __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_groups(
               if (cc >= s0 && cc < s0 + b) sy[q * b + (cc - s0)] = yv[u][t];
             }
             if (lane == 0) {
-              swa[q] = waq;
-              sco[q] = wbq - waq * part;
+              swa[q] = in_cdt<BF16>(waq);
+              sco[q] = residual_weight<BF16>(waq, wbq, part);
             }
           }
         }
@@ -232,7 +257,7 @@ __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_groups(
 // shared memory, read as a broadcast), and adds its slot into its private
 // b(b+1)/2 + b sums. At the group's end the lanes' sums go through the
 // tile, and lane e adds up output e over the 32 lanes in order.
-template <int T, int B>
+template <int T, int B, bool BF16>
 __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_lanes(
     const float* __restrict__ Y, const float* __restrict__ X,
     const int* __restrict__ cols, const float* __restrict__ vals,
@@ -260,7 +285,7 @@ __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_lanes(
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     const int c = lane + 32 * t;
-    sx[c] = c < k ? X[(long long)row * k + c] : 0.f;
+    sx[c] = c < k ? in_cdt<BF16>(X[(long long)row * k + c]) : 0.f;
   }
   float acc[NOUT];
 #pragma unroll
@@ -290,6 +315,15 @@ __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_lanes(
       }
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 0;\n" ::);
+      if constexpr (BF16) {  // each lane rounds the columns its own copies wrote
+        for (int q = 0; q < c; ++q) {
+#pragma unroll
+          for (int t = 0; t < T; ++t) {
+            float* e = &sy[q * KP + lane + 32 * t];
+            *e = round_bf16(*e);
+          }
+        }
+      }
       __syncwarp();
       if (lane < c) {
         const float* y = sy + lane * KP;
@@ -304,14 +338,15 @@ __global__ void __launch_bounds__(32 * WARPS) subspace_accumulate_lanes(
           wa = 1.f;
           wb = v;
         }
-        const float co = wb - wa * d;
+        const float co = residual_weight<BF16>(wa, wb, d);
+        const float wA = in_cdt<BF16>(wa);
         float yb[B];
 #pragma unroll
         for (int i = 0; i < B; ++i) yb[i] = y[s0 + i];
         int e = 0;
 #pragma unroll
         for (int i = 0; i < B; ++i) {
-          const float wy = wa * yb[i];
+          const float wy = wA * yb[i];
 #pragma unroll
           for (int j = 0; j <= i; ++j, ++e) acc[e] = fmaf(wy, yb[j], acc[e]);
         }
@@ -512,7 +547,7 @@ __global__ void __launch_bounds__(REDUCE_THREADS) subspace_reduce(
   }
 }
 
-template <int T>
+template <int T, bool BF16>
 cudaError_t launch_accumulate(const float* Y, const float* X, const int* cols,
                               const float* vals, const int* rem,
                               const int* groups, int n_groups,
@@ -523,36 +558,25 @@ cudaError_t launch_accumulate(const float* Y, const float* X, const int* cols,
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   if (smem > DEFAULT_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
-        subspace_accumulate_groups<T>,
+        subspace_accumulate_groups<T, BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int nout = b * (b + 1) / 2 + b;
   dim3 grid(ceil_div(n_groups, WARPS), ceil_div(nout, OUT_TILE));
-  subspace_accumulate_groups<T><<<grid, 32 * WARPS, smem, stream>>>(
+  subspace_accumulate_groups<T, BF16><<<grid, 32 * WARPS, smem, stream>>>(
       Y, X, cols, vals, rem, groups, n_groups, partials, A, r, k, L, s0, b,
       implicit, alpha);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// K11a on `stream`: A [R, b, b] and r [R, b] of the column block
-// [s0, s0 + b) against Y [n, k] and the current X [R, k], over a packed
-// side (cols/vals [S, L], rem [S]) walked through K1's group plan
-// (groups [4, n_groups]: row, first segment, segment count, partial slot
-// or -1; c_rows [n_combine], c_start [n_combine + 1]), partials
-// [max(P, 1), b*b + b]. Returns cudaGetLastError(). The caller checks
-// shapes, dtypes, devices, id ranges, 1 <= b, b | k and k <= 200.
-int subspace_accumulate_f32(const float* Y, const float* X, const int* cols,
-                            const float* vals, const int* rem,
-                            const int* groups, int n_groups,
-                            const int* c_rows, const int* c_start,
-                            int n_combine, float* partials, float* A,
-                            float* r, int k, int L, int s0, int b,
-                            int implicit, float alpha, cudaStream_t stream) {
+template <bool BF16>
+int accumulate(const float* Y, const float* X, const int* cols,
+               const float* vals, const int* rem, const int* groups,
+               int n_groups, const int* c_rows, const int* c_start,
+               int n_combine, float* partials, float* A, float* r, int k,
+               int L, int s0, int b, int implicit, float alpha,
+               cudaStream_t stream) {
   if (n_groups < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
   const int T = (k + 31) / 32;
@@ -560,7 +584,7 @@ int subspace_accumulate_f32(const float* Y, const float* X, const int* cols,
     const dim3 grid(ceil_div(n_groups, WARPS));
 #define SUBSPACE_LANES(TT, BB)                                                \
   if (T == TT && b == BB) {                                                   \
-    subspace_accumulate_lanes<TT, BB><<<grid, 32 * WARPS, 0, stream>>>(       \
+    subspace_accumulate_lanes<TT, BB, BF16><<<grid, 32 * WARPS, 0, stream>>>( \
         Y, X, cols, vals, rem, groups, n_groups, partials, A, r, k, L, s0,     \
         implicit, alpha);                                                     \
     err = cudaGetLastError();                                                 \
@@ -577,7 +601,7 @@ int subspace_accumulate_f32(const float* Y, const float* X, const int* cols,
   } else switch (T) {
 #define SUBSPACE_CASE(TT)                                                     \
   case TT:                                                                    \
-    err = launch_accumulate<TT>(Y, X, cols, vals, rem, groups, n_groups,      \
+    err = launch_accumulate<TT, BF16>(Y, X, cols, vals, rem, groups, n_groups,\
                                partials, A, r, k, L, s0, b, implicit, alpha,  \
                                stream);                                       \
     break;
@@ -597,6 +621,34 @@ int subspace_accumulate_f32(const float* Y, const float* X, const int* cols,
   subspace_combine<<<grid2, COMBINE_THREADS, 0, stream>>>(partials, c_rows,
                                                           c_start, A, r, b);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K11a on `stream`: A [R, b, b] and r [R, b] of the column block
+// [s0, s0 + b) against Y [n, k] and the current X [R, k], over a packed
+// side (cols/vals [S, L], rem [S]) walked through K1's group plan
+// (groups [4, n_groups]: row, first segment, segment count, partial slot
+// or -1; c_rows [n_combine], c_start [n_combine + 1]), partials
+// [max(P, 1), b*b + b]. Returns cudaGetLastError(). The caller checks
+// shapes, dtypes, devices, id ranges, 1 <= b, b | k and k <= 200.
+// bf16 != 0 runs K11a-bf16 (see the header).
+int subspace_accumulate_f32(const float* Y, const float* X, const int* cols,
+                            const float* vals, const int* rem,
+                            const int* groups, int n_groups,
+                            const int* c_rows, const int* c_start,
+                            int n_combine, float* partials, float* A,
+                            float* r, int k, int L, int s0, int b,
+                            int implicit, float alpha, int bf16,
+                            cudaStream_t stream) {
+  return bf16 ? accumulate<true>(Y, X, cols, vals, rem, groups, n_groups,
+                                 c_rows, c_start, n_combine, partials, A, r, k,
+                                 L, s0, b, implicit, alpha, stream)
+              : accumulate<false>(Y, X, cols, vals, rem, groups, n_groups,
+                                  c_rows, c_start, n_combine, partials, A, r,
+                                  k, L, s0, b, implicit, alpha, stream);
 }
 
 // Blocks subspace_block_solve_f32 launches for R rows at block width b

@@ -269,8 +269,12 @@ class ALSAlgorithmParams(Params):
     engine.json params block parses the same. Training takes explicit
     ratings, or implicit feedback with ``implicit_prefs=True`` and its
     confidence scale ``alpha`` (MLlib trainImplicit), with the exact solver
-    or the iALS++ ``solver="subspace"`` and its ``block_size``;
-    ``checkpoint_dir`` raises ``NotImplementedError`` (ops/als.py)."""
+    or the iALS++ ``solver="subspace"`` and its ``block_size``. With
+    ``checkpoint_dir`` training saves its factors every
+    ``checkpoint_every`` sweeps and resumes a run of the same data and
+    params from the latest save (ops/als.py). As the reference's, the params
+    have no ``compute_dtype``: bfloat16 training is reached through
+    ``ALSConfig``."""
 
     rank: int = 10
     num_iterations: int = 10
@@ -483,6 +487,7 @@ class ALSAlgorithm(BaseAlgorithm):
             result = train_als_streaming(
                 stream_factory(), config, device=device,
                 checkpoint_dir=p.checkpoint_dir,
+                checkpoint_every=p.checkpoint_every,
                 warm_sweeps=p.delta_sweeps,
             )
             if result is not None:
@@ -503,6 +508,7 @@ class ALSAlgorithm(BaseAlgorithm):
             config=config,
             device=device,
             checkpoint_dir=p.checkpoint_dir,
+            checkpoint_every=p.checkpoint_every,
         )
         return ALSModel(
             arrays=arrays, user_index=td.user_index,

@@ -34,8 +34,16 @@ once on the host (``pack_segments``), then ``_run_iterations_grid`` (the
 reference's :942), per half-step one K13a and one K13b launch
 (``ops/grid.py``) for every variant. ``train_from_wire`` takes the
 resident pack's geometry and hands back its final factors
-(``ops/streaming.py`` delta rounds). bf16 compute, checkpoints and meshes
-raise ``NotImplementedError``.
+(``ops/streaming.py`` delta rounds). ``compute_dtype="bfloat16"`` (the
+reference's headline training config) runs the bfloat16 forms of the
+accumulating kernels, K1-bf16, K11a-bf16, K12b-bf16 and, in the grid,
+K13a-bf16: the gathered factor rows and the weights are rounded to bfloat16
+where the reference casts them, and every product is formed exactly and
+summed in float32; the factors, the systems and the solves (K2, K11b,
+K13b, K12a) stay float32. ``checkpoint_dir`` saves the factors every
+``checkpoint_every`` sweeps (``workflow/checkpoint.py``) and resumes a run
+of the same data and config from its latest save (the reference's
+``_train_packed`` :2130-2235). A mesh raises ``NotImplementedError``.
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
 :2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
@@ -50,6 +58,8 @@ bounds K3's scratch.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import logging
 import math
 import threading
 import time
@@ -65,6 +75,7 @@ from predictionio_tpu_torch.ops import grid as _k13
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops import normal_eq as _k1
 from predictionio_tpu_torch.ops import predict_pairs as _k7
+from predictionio_tpu_torch.ops.precision import COMPUTE_DTYPES
 from predictionio_tpu_torch.ops import spd_solve as _k2
 from predictionio_tpu_torch.ops import subspace as _k11
 from predictionio_tpu_torch.ops.normal_eq import (
@@ -75,14 +86,19 @@ from predictionio_tpu_torch.ops.normal_eq import (
 )
 from predictionio_tpu_torch.ops.topn import topn_packed
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
+from predictionio_tpu_torch.workflow.checkpoint import StepCheckpointer
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
 class ALSConfig:
     """The reference's training config, field for field (see its comments
     at ``predictionio_tpu/ops/als.py:79``). The port trains explicit and
-    implicit feedback with either solver in ``compute_dtype="float32"``,
-    and raises ``NotImplementedError`` for bfloat16."""
+    implicit feedback with either solver in ``compute_dtype="float32"`` or
+    ``"bfloat16"`` (the grid with the exact solver only, as the
+    reference's), and raises ``NotImplementedError`` for any other
+    dtype."""
 
     rank: int = 10
     iterations: int = 10
@@ -121,7 +137,9 @@ def config_train_key(config: ALSConfig) -> tuple:
     """What the loop computes for fixed data (the reference's :156): the
     resident pack (``ops/streaming.py``) warm-starts its device-held
     factors only under an equal key, and demotes to the host wire when a
-    reg, mode, alpha, solver or block size changed."""
+    reg, mode, alpha, solver or block size changed. As the reference's, it
+    leaves ``compute_dtype`` out: factors trained in float32 warm-start a
+    bfloat16 round, and the reverse."""
     return (
         config.rank, config.reg, config.reg_mode,
         config.implicit_prefs, config.alpha,
@@ -645,15 +663,11 @@ TELEMETRY_SLOTS = 64
 TELEMETRY_COLS = 5
 
 
-def _check_ported(config: ALSConfig, mesh=None, checkpoint_dir=None) -> None:
-    if config.compute_dtype != "float32":
+def _check_ported(config: ALSConfig, mesh=None) -> None:
+    if config.compute_dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r} is not ported yet "
-            "(ROADMAP.md queue 1 item 12); the port trains in float32"
-        )
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP.md queue 1 item 12)"
+            f"compute_dtype={config.compute_dtype!r} is not ported; the port "
+            f"trains in {' or '.join(COMPUTE_DTYPES)}"
         )
     if mesh is not None:
         raise NotImplementedError(
@@ -726,12 +740,14 @@ def _solve_side(
     G: Optional[torch.Tensor] = None,
     implicit: bool = False,
     alpha: float = 1.0,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """One half-step: K1 forms the systems (with the implicit weights when
-    ``implicit``), K2 solves them with ``G`` (implicit mode's Gramian of
-    Y) and the regularizer and keeps ``X_prev`` for rows without
-    observations (writing the telemetry sums into ``sums`` when given)."""
-    A, b = _k1.normal_eq(Y, pack, implicit, alpha)
+    ``implicit``, in ``compute_dtype``), K2 solves them with ``G``
+    (implicit mode's Gramian of Y) and the regularizer and keeps
+    ``X_prev`` for rows without observations (writing the telemetry sums
+    into ``sums`` when given)."""
+    A, b = _k1.normal_eq(Y, pack, implicit, alpha, compute_dtype)
     return _k2.spd_solve(A, b, lam, has_obs, X_prev, sums, G)
 
 
@@ -746,6 +762,7 @@ def _solve_side_subspace(
     implicit: bool,
     block_size: int,
     sums: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """One iALS++ half-step (the reference's :640): for each column block
     in order, K11a forms the block systems and residuals against the
@@ -757,7 +774,8 @@ def _solve_side_subspace(
     nb = X.shape[1] // block_size
     for j in range(nb):
         s0 = j * block_size
-        A, r = _k11.subspace_accumulate(Y, X, pack, s0, block_size, implicit, alpha)
+        A, r = _k11.subspace_accumulate(Y, X, pack, s0, block_size, implicit, alpha,
+                                        compute_dtype)
         _k11.subspace_block_solve(
             A, r, X, lam, has_obs, s0, G, None if sums is None else sums[j],
             last=j == nb - 1,
@@ -780,13 +798,15 @@ def _run_iterations(
     alpha: float = 1.0,
     solver: str = "exact",
     block_size: int = 0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The training loop: ``n_iters`` sweeps of (user half-step, item
     half-step) with no host sync. The exact solver launches K1 and K2 per
     half-step; ``solver="subspace"`` runs ``_solve_side_subspace`` (K11a
     and K11b per column block of ``block_size``), updating X and Y in
-    place. In ``implicit`` mode each half-step first forms G, the Gramian
-    of the counter side's current padded factors (K12a), as the reference's
+    place. K1, K11a and K12b compute in ``compute_dtype``. In ``implicit``
+    mode each half-step first forms G, the Gramian of the counter side's
+    current padded factors (K12a), as the reference's
     ``half`` does (:883). With ``telemetry``, sweep i writes raw sums into
     its rows of ``tel`` ([TELEMETRY_SLOTS x rows_per_sweep, TELEMETRY_COLS]:
     Σ ΔX², Σ X², Σ ΔY², Σ Y², objective; one row per sweep, or per block
@@ -806,20 +826,23 @@ def _run_iterations(
         G = _k12.gramian(Y) if implicit else None
         if subspace:
             X = _solve_side_subspace(X, Y, G, user_pack, user_lam, user_has_obs, alpha,
-                                     implicit, block_size, None if rows is None else rows[:, 0:2])
+                                     implicit, block_size, None if rows is None else rows[:, 0:2],
+                                     compute_dtype)
         else:
             X = _solve_side(X, Y, user_pack, user_lam, user_has_obs,
-                            rows[0, 0:2] if rec else None, G, implicit, alpha)
+                            rows[0, 0:2] if rec else None, G, implicit, alpha, compute_dtype)
         G = _k12.gramian(X) if implicit else None
         if subspace:
             Y = _solve_side_subspace(Y, X, G, item_pack, item_lam, item_has_obs, alpha,
-                                     implicit, block_size, None if rows is None else rows[:, 2:4])
+                                     implicit, block_size, None if rows is None else rows[:, 2:4],
+                                     compute_dtype)
         else:
             Y = _solve_side(Y, X, item_pack, item_lam, item_has_obs,
-                            rows[0, 2:4] if rec else None, G, implicit, alpha)
+                            rows[0, 2:4] if rec else None, G, implicit, alpha, compute_dtype)
         if rec and implicit:
             _k12.implicit_objective(
-                X, Y, user_pack, user_lam, item_lam, alpha, out=rows[nb - 1, 4:5]
+                X, Y, user_pack, user_lam, item_lam, alpha, out=rows[nb - 1, 4:5],
+                compute_dtype=compute_dtype,
             )
     return X, Y, tel
 
@@ -883,6 +906,9 @@ def _train_packed(
     timings: Optional[dict] = None,
     compile_wait=None,
     factor_slots_out: Optional[dict] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 5,
+    fp_material=None,
 ) -> ALSModelArrays:
     """The training tail: the loop and the factor fetch (the loop's final
     device X/Y also go into ``factor_slots_out`` when given). The loop's kernels
@@ -890,7 +916,16 @@ def _train_packed(
     first use, then a cached load): by the ``start_compile_async`` build
     that ``compile_wait`` waits for (its exposed wait is
     ``compile_exposed_s``), else here when ``timings`` is given. The loop
-    is timed to its end (``device_loop_s``)."""
+    is timed to its end (``device_loop_s``, summed over the chunks when
+    checkpointing).
+
+    With ``checkpoint_dir`` (the reference's :2130-2235) the loop runs in
+    chunks of ``checkpoint_every`` sweeps and saves X, Y, the sweep count
+    and the run's fingerprint after each; a run whose fingerprint
+    (``_run_fingerprint`` of ``fp_material()``, the config and the shapes)
+    matches the latest save resumes from it, and any other starts fresh.
+    Every sum of the loop has a fixed order, so a resumed run equals an
+    uninterrupted one bit for bit."""
     device = X.device
     implicit = config.implicit_prefs
     kernels = _loop_kernels(config)
@@ -907,24 +942,81 @@ def _train_packed(
         t = time.perf_counter()
         _load_libraries(device, kernels)
         timings["compile_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    X, Y, tel = _run_iterations(
-        X, Y, user_pack, item_pack, user_lam, item_lam,
-        user_has_obs, item_has_obs, config.iterations,
-        telemetry=config.sweep_telemetry, implicit=implicit,
-        alpha=config.alpha, solver=config.solver, block_size=config.block_size,
-    )
+    every = max(1, checkpoint_every)
+    ckpt = StepCheckpointer(checkpoint_dir, every=every)
+    start = 0
+    fingerprint = None
+    if ckpt.enabled:
+        fingerprint = _run_fingerprint(
+            fp_material, config, n_users, n_items, X.shape[0], Y.shape[0]
+        )
+        state = ckpt.restore_latest()
+        if state is not None:
+            saved = int(state["iteration"])
+            if not np.array_equal(state.get("fingerprint"), fingerprint):
+                logger.info(
+                    "checkpoint in %s is from a different run (data/config "
+                    "changed); training from scratch", checkpoint_dir,
+                )
+            elif saved > config.iterations:
+                # a checkpoint past the requested sweeps would return an
+                # over-trained model: start fresh
+                logger.info(
+                    "checkpoint at iteration %d exceeds requested %d; "
+                    "training from scratch", saved, config.iterations,
+                )
+            else:
+                start = saved
+                X = _upload(state["X"], device).clone()
+                Y = _upload(state["Y"], device).clone()
+                logger.info("resuming ALS from iteration %d", start)
+        if timings is not None:
+            timings["checkpoint_resumed_at"] = start
+    # the whole loop in one chunk without checkpoints, else chunks of the
+    # cadence with a save at each chunk's end
+    step = every if ckpt.enabled else max(1, config.iterations)
+    tel_parts = []
     if timings is not None:
-        _sync(device)
-        timings["device_loop_s"] = time.perf_counter() - t
+        timings["device_loop_s"] = 0.0
+    try:
+        it = start
+        while it < config.iterations:
+            chunk = min(step, config.iterations - it)
+            t = time.perf_counter()
+            X, Y, tel = _run_iterations(
+                X, Y, user_pack, item_pack, user_lam, item_lam,
+                user_has_obs, item_has_obs, chunk,
+                telemetry=config.sweep_telemetry, implicit=implicit,
+                alpha=config.alpha, solver=config.solver, block_size=config.block_size,
+                compute_dtype=config.compute_dtype,
+            )
+            tel_parts.append((tel, chunk))
+            if timings is not None:
+                _sync(device)
+                timings["device_loop_s"] += time.perf_counter() - t
+            it += chunk
+            if ckpt.enabled:
+                t = time.perf_counter()
+                ckpt.maybe_save(it, {
+                    "iteration": it, "X": X.cpu().numpy(), "Y": Y.cpu().numpy(),
+                    "fingerprint": fingerprint,
+                }, force=True)
+                if timings is not None:
+                    timings["checkpoint_save_s"] = (
+                        timings.get("checkpoint_save_s", 0.0) + time.perf_counter() - t
+                    )
+    finally:
+        ckpt.close()
     if factor_slots_out is not None:
         factor_slots_out["X"] = X
         factor_slots_out["Y"] = Y
     X_host = X.cpu().numpy()
     Y_host = Y.cpu().numpy()
-    if tel is not None and config.iterations > 0 and timings is not None:
+    if tel_parts and config.sweep_telemetry and timings is not None:
         rps = config.telemetry_rows_per_sweep
-        rows = _telemetry_rows(tel, config.iterations, X.numel(), Y.numel(), rps)
+        rows = np.concatenate([
+            _telemetry_rows(tel, n, X.numel(), Y.numel(), rps) for tel, n in tel_parts
+        ])
         # the objective only means something in implicit mode; explicit
         # rows keep their four keys, as the reference's (:2276-2299)
         timings["sweep_telemetry"] = [
@@ -941,6 +1033,23 @@ def _train_packed(
                 for ri, r in enumerate(rows)
             ]
     return ALSModelArrays(X_host[:n_users].copy(), Y_host[:n_items].copy())
+
+
+def _run_fingerprint(
+    fp_material, config: ALSConfig, n_users: int, n_items: int, rows_x: int, rows_y: int,
+) -> np.ndarray:
+    """A run's identity, the reference's (:2167-2180): the SHA-256 of the
+    data (``fp_material()``), the config with ``iterations=0`` (so a run
+    in another dtype, reg or solver never resumes this one), the id counts
+    and the padded row counts, as 32 uint8. Equal identities may resume
+    each other's checkpoints."""
+    digest = hashlib.sha256(
+        fp_material()
+        + repr(dataclasses.replace(config, iterations=0)).encode()
+        + f"{n_users},{n_items},1".encode()
+        + f";rows={rows_x},{rows_y}".encode()
+    ).digest()
+    return np.frombuffer(digest, dtype=np.uint8)
 
 
 def _loop_kernels(config: ALSConfig) -> tuple:
@@ -1114,9 +1223,11 @@ def train_from_wire(
     device_wire: Optional[tuple] = None,  # (i_dev, v_dev, aux_dev) pre-shipped
     timings: Optional[dict] = None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 5,
     compile_wait=None,  # from start_compile_async, or None
     factor_state: Optional[tuple] = None,  # pre-placed (X, Y, lam/obs x4)
     warm_start: Optional[ALSModelArrays] = None,
+    _fp_material=None,  # () -> bytes: the data's identity for checkpoints
     geo_dev: Optional[tuple] = None,  # resident geometry, see device_pack_from_wire
     factor_slots_out: Optional[dict] = None,  # receives the final device X/Y
 ) -> ALSModelArrays:
@@ -1129,11 +1240,19 @@ def train_from_wire(
     receives the loop's final device factors under ``"X"``/``"Y"`` and
     both packs' device geometry under ``"geo"`` (a ``geo_dev`` tuple), which
     the resident pack keeps for the next round (the reference's tail,
-    :2242-2248). Checkpoints (``checkpoint_dir``) raise
-    ``NotImplementedError``."""
-    _check_ported(config, checkpoint_dir=checkpoint_dir)
+    :2242-2248). ``checkpoint_dir`` saves and resumes the loop every
+    ``checkpoint_every`` sweeps (``_train_packed``); the run's data
+    identity is ``_fp_material()`` when given (a stripped wire has no
+    bytes to hash: the resident round hands in its entry's fingerprint and
+    cursor), else the wire's bytes; a stripped wire with a
+    ``checkpoint_dir`` and no ``_fp_material`` raises ``ValueError``."""
+    _check_ported(config)
     if wire.stripped and device_wire is None:
         raise ValueError("a stripped wire trains only from its resident planes")
+    if wire.stripped and checkpoint_dir is not None and _fp_material is None:
+        # its planes live on the card, so its bytes would hash as empty and
+        # two datasets of one shape could resume each other's checkpoints
+        raise ValueError("a stripped wire checkpoints only with its _fp_material")
     dev = device_wire[0].device if device_wire is not None else resolve_device(device)
     if factor_state is None:
         factor_state = init_factor_state_single(
@@ -1163,6 +1282,8 @@ def train_from_wire(
         config=config, n_users=wire.n_users, n_items=wire.n_items,
         timings=timings, compile_wait=compile_wait,
         factor_slots_out=factor_slots_out,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        fp_material=_fp_material if _fp_material is not None else wire.identity_bytes,
     )
 
 
@@ -1176,11 +1297,17 @@ def train_als(
     device: DeviceLike = None,
     mesh=None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 5,
     timings: Optional[dict] = None,
 ) -> ALSModelArrays:
     """Train ALS factors from COO ratings on ``device`` (CUDA unless the
     CPU is asked for): the reference's ``train_als`` with ``mesh=None``,
     the wire route (``build_host_wire``, then ``train_from_wire``).
+
+    With ``checkpoint_dir`` the factors are saved every
+    ``checkpoint_every`` sweeps, and a run of the same ratings and config
+    resumes from the latest save (the run's identity hashes the COO as
+    given, as the reference's :1785).
 
     ``timings``, if given, receives the reference's phase breakdown:
     ``pack_s`` (the host wire), ``device_put_s`` (its upload, K4
@@ -1188,8 +1315,9 @@ def train_als(
     plans), ``compile_s``, ``device_loop_s``, ``padded_slots``
     (segment-grid slots of both sides) and ``sweep_telemetry`` (per sweep
     ``dx``, ``dy``, ``x_rms``, ``y_rms``, and ``objective`` in implicit
-    mode)."""
-    _check_ported(config, mesh, checkpoint_dir)
+    mode), and with ``checkpoint_dir`` ``checkpoint_resumed_at`` (the
+    sweep the run started from) and ``checkpoint_save_s``."""
+    _check_ported(config, mesh)
     dev = resolve_device(device)
     t = time.perf_counter()
     user_idx = np.asarray(user_idx, np.int32)
@@ -1203,7 +1331,14 @@ def train_als(
     wire = build_host_wire(user_idx, item_idx, ratings_f, n_users, n_items, config)
     if timings is not None:
         timings["pack_s"] = time.perf_counter() - t
-    return train_from_wire(wire, config, device=dev, timings=timings)
+
+    def fp_material() -> bytes:
+        return user_idx.tobytes() + item_idx.tobytes() + ratings_f.tobytes()
+
+    return train_from_wire(
+        wire, config, device=dev, timings=timings, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, _fp_material=fp_material,
+    )
 
 
 # --- the regularizer grid (evaluation) ---
@@ -1217,13 +1352,14 @@ def _solve_side_grid(
     has_obs: torch.Tensor,
     implicit: bool,
     alpha: float,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """One half-step of every variant: in implicit mode first each
     variant's Gramian of its counter-side factors (K12a, one launch per
-    variant, as the reference vmaps ``_gramian``), then K13a and K13b once
-    for all variants."""
+    variant, as the reference vmaps ``_gramian``), then K13a (in
+    ``compute_dtype``) and K13b once for all variants."""
     G = torch.stack([_k12.gramian(Y[v]) for v in range(Y.shape[0])]) if implicit else None
-    A, b = _k13.normal_eq_variants(Y, pack, implicit, alpha)
+    A, b = _k13.normal_eq_variants(Y, pack, implicit, alpha, compute_dtype)
     return _k13.spd_solve_variants(A, b, lam, has_obs, X_prev, G)
 
 
@@ -1239,14 +1375,17 @@ def _run_iterations_grid(
     alpha: float,
     n_iters: int,
     implicit: bool,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The grid's loop (the reference's :942, its single-device form): per
     sweep the user half-step, then the item half-step, every variant in
     the same launches. Each variant sweeps exactly as a serial run of
     ``train_als`` with its regularizer does."""
     for _ in range(n_iters):
-        X = _solve_side_grid(X, Y, user_pack, user_lam, user_has_obs, implicit, alpha)
-        Y = _solve_side_grid(Y, X, item_pack, item_lam, item_has_obs, implicit, alpha)
+        X = _solve_side_grid(X, Y, user_pack, user_lam, user_has_obs, implicit, alpha,
+                             compute_dtype)
+        Y = _solve_side_grid(Y, X, item_pack, item_lam, item_has_obs, implicit, alpha,
+                             compute_dtype)
     return X, Y
 
 
@@ -1334,7 +1473,7 @@ def train_als_grid(
     t = time.perf_counter()
     X, Y = _run_iterations_grid(
         X, Y, user_pack, item_pack, user_lam, item_lam, user_obs, item_obs,
-        config.alpha, config.iterations, config.implicit_prefs,
+        config.alpha, config.iterations, config.implicit_prefs, config.compute_dtype,
     )
     X_host, Y_host = X.cpu().numpy(), Y.cpu().numpy()
     if timings is not None:

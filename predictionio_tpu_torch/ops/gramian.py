@@ -12,7 +12,9 @@ _gramian`` (K12a) and ``:752 _implicit_objective`` (K12b), float32.
   both padded sides (s = x·y, c = α·|r|, p = 1(r>0)), one gather-and-score
   pass over the user pack. Every event is a slot, so a store with repeated
   events can give a negative value, as the reference's can; compare it,
-  never gate on its sign.
+  never gate on its sign. With ``compute_dtype="bfloat16"`` (K12b-bf16,
+  the reference's :779-780) the scores s are formed from x and y rounded
+  to bfloat16; the weights, the Gramians and the regularizer stay float32.
 
 Three forms of each, one function:
 - the hand-written CUDA kernels for Hopper, ``csrc/gramian.cu`` (its
@@ -35,6 +37,7 @@ import torch
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
 from predictionio_tpu_torch.ops.normal_eq import SegmentPack
+from predictionio_tpu_torch.ops.precision import in_cdt, is_bf16
 
 SOURCE = "gramian.cu"
 _MAX_K = 1024
@@ -42,7 +45,8 @@ _MAX_K = 1024
 # "gramian", "implicit_objective": kernel launches; "*_plain": CPU calls the
 # wrappers routed to the plain twins
 LAUNCHES = LaunchCounts(
-    "gramian", "gramian_plain", "implicit_objective", "implicit_objective_plain"
+    "gramian", "gramian_plain", "implicit_objective", "implicit_objective_plain",
+    "implicit_objective_bf16", "implicit_objective_bf16_plain",
 )
 
 
@@ -63,17 +67,21 @@ def implicit_objective_plain(
     alpha: float,
     Gx: Optional[torch.Tensor] = None,
     Gy: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """The plain twin, the reference's loop: per chunk of the user pack,
-    score every slot against its row's factors and sum the observed terms;
-    then the two Gramians' inner product (``Gx``/``Gy`` when given, else
-    formed here) and the regularizer."""
+    score every slot against its row's factors (rounded to bfloat16 in
+    bfloat16 compute) and sum the observed terms; then the two Gramians'
+    inner product (``Gx``/``Gy`` when given, else formed here) and the
+    regularizer."""
+    bf16 = is_bf16(compute_dtype)
+    Xc, Yc = in_cdt(X, bf16), in_cdt(Y, bf16)
     L = cols.shape[-1]
     iota = torch.arange(L, device=X.device)
     obs = torch.zeros((), dtype=torch.float32, device=X.device)
     for c in range(seg_rows.shape[0]):
         mask = (iota[None, :] < rem[c][:, None]).to(torch.float32)
-        s = torch.einsum("slk,sk->sl", Y[cols[c].long()], X[seg_rows[c].long()])
+        s = torch.einsum("slk,sk->sl", Yc[cols[c].long()], Xc[seg_rows[c].long()])
         cw = alpha * vals[c].abs() * mask
         p = (vals[c] > 0).to(torch.float32) * mask
         term = cw * s * s - 2.0 * (1.0 + cw) * p * s + (1.0 + cw) * p * p
@@ -96,7 +104,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.objective_partials.restype = ctypes.c_int
     lib.implicit_objective_f32.argtypes = (
         [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.implicit_objective_f32.restype = ctypes.c_int
 
@@ -154,13 +163,15 @@ def implicit_objective(
     item_lam: torch.Tensor,
     alpha: float,
     out: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """K12b: the implicit objective (a float32 scalar) at the padded
     factors X [R_u, k] and Y [R_i, k], over ``user_pack`` (the user side's
     pack, its column ids rows of Y), with the per-row regularizers
-    ``user_lam`` [R_u] and ``item_lam`` [R_i]. Runs K12a twice for the
-    Gramians. Written into ``out`` (one float32 element) when given, else
-    into a new 0-d tensor.
+    ``user_lam`` [R_u] and ``item_lam`` [R_i], in ``compute_dtype``
+    (``"bfloat16"``: K12b-bf16). Runs K12a twice for the Gramians. Written
+    into ``out`` (one float32 element) when given, else into a new 0-d
+    tensor.
 
     CPU tensors go to the plain twins. CUDA tensors go to the kernels,
     which must build and launch or this raises."""
@@ -181,12 +192,14 @@ def implicit_objective(
         raise ValueError("out must be one float32 element")
     if X.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
         raise ValueError("every tensor must be contiguous")
+    bf16 = is_bf16(compute_dtype)
+    name = "implicit_objective_bf16" if bf16 else "implicit_objective"
     Gx, Gy = gramian(X), gramian(Y)
     if X.device.type == "cpu":
-        LAUNCHES.add("implicit_objective_plain")
+        LAUNCHES.add(f"{name}_plain")
         value = implicit_objective_plain(
             X, Y, user_pack.seg_rows, user_pack.cols, user_pack.vals,
-            user_pack.rem, user_lam, item_lam, alpha, Gx, Gy,
+            user_pack.rem, user_lam, item_lam, alpha, Gx, Gy, compute_dtype,
         )
         if out is None:
             return value
@@ -208,8 +221,8 @@ def implicit_objective(
             user_pack.vals.data_ptr(), user_pack.rem.data_ptr(), S, L, k,
             float(alpha), user_lam.data_ptr(), item_lam.data_ptr(),
             Gx.data_ptr(), Gy.data_ptr(), partials.data_ptr(),
-            target.data_ptr(), stream,
+            target.data_ptr(), int(bf16), stream,
         )
-    _LIBRARY.check(err, "implicit_objective")
-    LAUNCHES.add("implicit_objective")
+    _LIBRARY.check(err, name)
+    LAUNCHES.add(name)
     return target

@@ -6,7 +6,9 @@ pack.
 
 - ``normal_eq_variants`` (K13a): A [V, R, k, k] and b [V, R, k], variant
   v's normal equations against its own factors ``Y[v]``, from one shared
-  ``SegmentPack`` (K1's systems, with the implicit weights when asked).
+  ``SegmentPack`` (K1's systems, with the implicit weights when asked);
+  with ``compute_dtype="bfloat16"`` K13a-bf16, K1-bf16's systems per
+  variant.
 - ``spd_solve_variants`` (K13b): X [V, R, k], variant v's systems solved
   with its own λ row ``lam[v]`` and, in implicit mode, its own Gramian
   ``G[v]``; rows without observations (``has_obs``, shared) keep
@@ -37,24 +39,27 @@ from predictionio_tpu_torch.ops import normal_eq as _k1
 from predictionio_tpu_torch.ops import spd_solve as _k2
 from predictionio_tpu_torch.ops.native import LaunchCounts
 from predictionio_tpu_torch.ops.normal_eq import SegmentPack
+from predictionio_tpu_torch.ops.precision import is_bf16
 
 SOURCE = "grid.cu"
 
 # kernel launches, and CPU calls the wrappers routed to the plain twins
 LAUNCHES = LaunchCounts(
     "normal_eq_variants", "normal_eq_variants_plain",
+    "normal_eq_variants_bf16", "normal_eq_variants_bf16_plain",
     "spd_solve_variants", "spd_solve_variants_plain",
 )
 
 
 def normal_eq_variants_plain(
     Y: torch.Tensor, pack: SegmentPack, implicit: bool = False, alpha: float = 1.0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin: K1's twin on each variant's factors."""
     out = [
         _k1.normal_eq_plain(
             Y[v], pack.seg_rows, pack.cols, pack.vals, pack.rem,
-            pack.n_sys_rows, implicit, alpha,
+            pack.n_sys_rows, implicit, alpha, compute_dtype,
         )
         for v in range(Y.shape[0])
     ]
@@ -83,7 +88,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p
     ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.normal_eq_variants_f32.restype = ctypes.c_int
     lib.spd_solve_variants_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
@@ -106,19 +111,23 @@ def _stream(device: torch.device) -> int:
 
 def normal_eq_variants(
     Y: torch.Tensor, pack: SegmentPack, implicit: bool = False, alpha: float = 1.0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13a: A [V, R, k, k] and b [V, R, k] float32 for the side ``pack``
     against each variant's counter-side factors ``Y`` [V, n, k]
-    (R = ``pack.n_sys_rows``).
+    (R = ``pack.n_sys_rows``), in ``compute_dtype`` (``"bfloat16"``:
+    K13a-bf16).
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
     if Y.dim() != 3 or Y.shape[0] < 1:
         raise ValueError(f"Y must be [V, n, k] with V >= 1, got {tuple(Y.shape)}")
     _k1._check(Y[0], pack)
+    bf16 = is_bf16(compute_dtype)
+    name = "normal_eq_variants_bf16" if bf16 else "normal_eq_variants"
     if Y.device.type == "cpu":
-        LAUNCHES.add("normal_eq_variants_plain")
-        return normal_eq_variants_plain(Y, pack, implicit, alpha)
+        LAUNCHES.add(f"{name}_plain")
+        return normal_eq_variants_plain(Y, pack, implicit, alpha, compute_dtype)
     if Y.device.type != "cuda":
         raise ValueError(f"unsupported device {Y.device}")
     if not Y.is_contiguous():
@@ -139,10 +148,10 @@ def normal_eq_variants(
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(),
             plan.combine_rows.shape[0], partials.data_ptr(), A.data_ptr(),
             b.data_ptr(), k, L, int(bool(implicit)), float(alpha), V, n_y * k, R, P,
-            _stream(Y.device),
+            int(bf16), _stream(Y.device),
         )
-    _LIBRARY.check(err, "normal_eq_variants")
-    LAUNCHES.add("normal_eq_variants")
+    _LIBRARY.check(err, name)
+    LAUNCHES.add(name)
     return A, b
 
 

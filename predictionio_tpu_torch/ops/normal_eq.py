@@ -1,6 +1,6 @@
 """K1, the per-row normal equations of one ALS half-step: the counterpart
 of the reference's ``predictionio_tpu/ops/als.py:481 _accumulate_systems``
-(explicit and implicit feedback, float32).
+(explicit and implicit feedback, float32 and bfloat16 compute).
 
 For every system row r it forms ``A[r] = Σ w_a·y yᵀ`` and
 ``b[r] = Σ w_b·y`` over the row's observations, where y is the counter-side
@@ -11,6 +11,13 @@ nothing to b. The observations arrive in the packed segment layout of
 ``ops/als.py pack_segments``: fixed-width segments of L slots, each
 segment's valid slots a prefix (``rem``), a row's segments consecutive,
 padding segments pointing at the sentinel row.
+
+With ``compute_dtype="bfloat16"`` (K1-bf16) the function is the
+reference's bfloat16 form: Y and the weights are rounded to bfloat16 where
+the reference casts them (:506, :528-534; explicit ``w_b = bf16(v)``,
+implicit ``w_a = bf16(α·|v|)``, ``w_b = bf16(1(v>0)·(1 + α·|v|))``) and
+every product of two such values is formed exactly and summed in float32.
+The float32 factors stay float32; A and b are float32.
 
 Three forms, one function:
 - the hand-written CUDA kernel for Hopper, ``csrc/normal_eq.cu`` (its header
@@ -36,6 +43,7 @@ import torch
 
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
+from predictionio_tpu_torch.ops.precision import in_cdt, is_bf16
 
 SOURCE = "normal_eq.cu"
 # segments one kernel block accumulates before it writes a row (or a
@@ -44,8 +52,8 @@ GROUP_SEGMENTS = 8
 _MAX_K = 1024  # the largest k whose staged rows fit in shared memory
 
 # "normal_eq": kernel launches; "normal_eq_plain": CPU calls the wrapper
-# routed to the plain twin
-LAUNCHES = LaunchCounts("normal_eq", "normal_eq_plain")
+# routed to the plain twin; "*_bf16*": the same in bfloat16 compute
+LAUNCHES = LaunchCounts("normal_eq", "normal_eq_plain", "normal_eq_bf16", "normal_eq_bf16_plain")
 
 
 @dataclasses.dataclass
@@ -214,11 +222,16 @@ def normal_eq_plain(
     n_sys_rows: int,
     implicit: bool = False,
     alpha: float = 1.0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin, the reference's loop: per chunk, gather
     ``Y[cols]`` [Sc, L, k], mask the slots past ``rem``, weigh them, two
     einsums, and a scatter-add of the segments into A [R, k, k] and
-    b [R, k]."""
+    b [R, k]. In bfloat16 compute Y and the weights are rounded where the
+    reference casts them; the float32 products of the rounded values are
+    exact."""
+    bf16 = is_bf16(compute_dtype)
+    Y = in_cdt(Y, bf16)
     k = Y.shape[1]
     L = cols.shape[-1]
     iota = torch.arange(L, device=Y.device)
@@ -230,10 +243,10 @@ def normal_eq_plain(
         Yg = Y[cols[c].long()]  # [Sc, L, k]
         if implicit:
             conf = alpha * vals[c].abs()
-            aw = conf * mask
-            bw = (vals[c] > 0).to(torch.float32) * mask * (1.0 + conf)
+            aw = in_cdt(conf * mask, bf16)
+            bw = in_cdt((vals[c] > 0).to(torch.float32) * mask * (1.0 + conf), bf16)
         else:
-            aw, bw = mask, vals[c] * mask
+            aw, bw = mask, in_cdt(vals[c] * mask, bf16)
         A_seg = torch.einsum("slk,sl,slj->skj", Yg, aw, Yg)
         b_seg = torch.einsum("slk,sl->sk", Yg, bw)
         A.index_add_(0, rows_c, A_seg)
@@ -245,7 +258,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.normal_eq_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
         ctypes.c_void_p
     ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p
     ]
     lib.normal_eq_f32.restype = ctypes.c_int
 
@@ -273,19 +286,24 @@ def _check(Y: torch.Tensor, pack: SegmentPack) -> None:
 
 def normal_eq(
     Y: torch.Tensor, pack: SegmentPack, implicit: bool = False, alpha: float = 1.0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: A [R, k, k] and b [R, k] float32 for the side ``pack`` against
     the counter-side factors ``Y`` [n, k] (R = ``pack.n_sys_rows``), with
-    the implicit weights and confidence scale ``alpha`` when ``implicit``.
+    the implicit weights and confidence scale ``alpha`` when ``implicit``,
+    in ``compute_dtype`` (``"bfloat16"``: K1-bf16).
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
     _check(Y, pack)
+    bf16 = is_bf16(compute_dtype)
+    name = "normal_eq_bf16" if bf16 else "normal_eq"
     R = pack.n_sys_rows
     if Y.device.type == "cpu":
-        LAUNCHES.add("normal_eq_plain")
+        LAUNCHES.add(f"{name}_plain")
         return normal_eq_plain(
-            Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R, implicit, alpha
+            Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R, implicit, alpha,
+            compute_dtype,
         )
     if Y.device.type != "cuda":
         raise ValueError(f"unsupported device {Y.device}")
@@ -307,8 +325,8 @@ def normal_eq(
             pack.rem.data_ptr(), plan.groups.data_ptr(), plan.groups.shape[1],
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(),
             plan.combine_rows.shape[0], partials.data_ptr(), A.data_ptr(),
-            b.data_ptr(), k, L, int(bool(implicit)), float(alpha), stream,
+            b.data_ptr(), k, L, int(bool(implicit)), float(alpha), int(bf16), stream,
         )
-    _LIBRARY.check(err, "normal_eq")
-    LAUNCHES.add("normal_eq")
+    _LIBRARY.check(err, name)
+    LAUNCHES.add(name)
     return A, b

@@ -50,8 +50,12 @@ The reference's Prometheus families (``pio_pack_cache_total``,
 ``pio_train_delta_upload_bytes``) and its device ledger wait for ROADMAP.md
 queue 1 item 10; here they are ``pack_cache_stats()``,
 ``resident_pack_bytes()``, ``resident_round_stats()`` and
-``timings["delta_upload_bytes"]``. ``checkpoint_dir`` (item 12) and
-``profile_dir`` (item 10) raise ``NotImplementedError``.
+``timings["delta_upload_bytes"]``. ``checkpoint_dir`` and
+``checkpoint_every`` go to ``als.train_from_wire``, which saves and
+resumes the loop; a resident round hands it the entry's fingerprint and
+cursor as the run's data identity (its stripped wire has no bytes to hash),
+as the reference does (:1655-1672). ``profile_dir`` (item 10) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -1109,6 +1113,7 @@ def train_als_streaming(
     timings: Optional[dict] = None,
     timer=None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 5,
     profile_dir: Optional[str] = None,
     ship_chunks: int = 2,
     cache: bool = True,
@@ -1146,7 +1151,7 @@ def train_als_streaming(
         )
     if stream is None:
         return None
-    _als._check_ported(config, checkpoint_dir=checkpoint_dir)
+    _als._check_ported(config)
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     t_start = time.perf_counter()
@@ -1298,10 +1303,16 @@ def train_als_streaming(
             wire, train_config,
             device_wire=device_wire,
             timings=timings,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
             compile_wait=compile_wait,
             factor_state=factor_state,
             geo_dev=resident_geo,
             factor_slots_out=fs_out,
+            _fp_material=(
+                (lambda: repr((cache_entry.fingerprint, cache_entry.cursor)).encode())
+                if resident_round else None
+            ),
         )
     except BaseException:
         if resident_round and cache_entry is not None:

@@ -11,7 +11,11 @@ written (Gauss–Seidel). Per block:
   ``r = Σ (w_b − w_a·d)·y_B`` [R, b] over the row's observations, with
   ``d = y·x`` against the row's current factors (all k columns) and K1's
   weights (explicit ``w_a = 1``, ``w_b = v``; implicit ``w_a = α|v|``,
-  ``w_b = 1(v>0)(1 + α|v|)``);
+  ``w_b = 1(v>0)(1 + α|v|)``). With ``compute_dtype="bfloat16"``
+  (K11a-bf16, the reference's :680-721): y and the row's current x are
+  rounded to bfloat16 as they are read (x in every block, since it changes
+  after each), d is summed in float32, A's weight is ``bf16(w_a)`` and the
+  residual's ``bf16(w_b − w_a·d)`` from the float32 values;
 - ``subspace_block_solve(A, r, X, lam, has_obs, s0, G, sums, last)``
   (K11b): ``δ = (A + G_BB + λI)⁻¹ (r − (G x)_B − λ·x_B)`` per row (G, the
   implicit Gramian, omitted in explicit mode), zero for rows without
@@ -44,6 +48,7 @@ import torch
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
 from predictionio_tpu_torch.ops.normal_eq import SegmentPack
+from predictionio_tpu_torch.ops.precision import in_cdt, is_bf16
 from predictionio_tpu_torch.ops.spd_solve import cholesky_solve_plain
 
 SOURCE = "subspace.cu"
@@ -52,6 +57,7 @@ _MAX_K = 200  # the largest rank the kernels take (a row's x in registers)
 LAUNCHES = LaunchCounts(
     "subspace_accumulate", "subspace_combine", "subspace_block_solve",
     "subspace_accumulate_plain", "subspace_block_solve_plain",
+    "subspace_accumulate_bf16", "subspace_accumulate_bf16_plain",
 )
 
 
@@ -67,11 +73,15 @@ def subspace_accumulate_plain(
     b: int,
     implicit: bool = False,
     alpha: float = 1.0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin, the reference's block loop (:704-724): per chunk,
     gather ``Y[cols]``, score every slot against its row's current factors,
     weigh, two einsums over the block's columns, and a scatter-add of the
-    segments into A [R, b, b] and r [R, b]."""
+    segments into A [R, b, b] and r [R, b]. In bfloat16 compute y, x and
+    the two weights are rounded where the reference casts them."""
+    bf16 = is_bf16(compute_dtype)
+    Y = in_cdt(Y, bf16)
     L = cols.shape[-1]
     iota = torch.arange(L, device=Y.device)
     A = torch.zeros((n_sys_rows, b, b), dtype=torch.float32, device=Y.device)
@@ -81,14 +91,14 @@ def subspace_accumulate_plain(
         mask = (iota[None, :] < rem[c][:, None]).to(torch.float32)
         Yg = Y[cols[c].long()]  # [Sc, L, k]
         Yb = Yg[:, :, s0 : s0 + b]
-        d = torch.einsum("slk,sk->sl", Yg, X[rows_c])
+        d = torch.einsum("slk,sk->sl", Yg, in_cdt(X[rows_c], bf16))
         if implicit:
             aw = alpha * vals[c].abs() * mask
             bw = (vals[c] > 0).to(torch.float32) * mask * (1.0 + alpha * vals[c].abs())
         else:
             aw, bw = mask, vals[c] * mask
-        A.index_add_(0, rows_c, torch.einsum("slb,sl,slc->sbc", Yb, aw, Yb))
-        r.index_add_(0, rows_c, torch.einsum("sl,slb->sb", bw - aw * d, Yb))
+        A.index_add_(0, rows_c, torch.einsum("slb,sl,slc->sbc", Yb, in_cdt(aw, bf16), Yb))
+        r.index_add_(0, rows_c, torch.einsum("sl,slb->sb", in_cdt(bw - aw * d, bf16), Yb))
     return A, r
 
 
@@ -122,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.subspace_accumulate_f32.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.subspace_accumulate_f32.restype = ctypes.c_int
     lib.subspace_solve_blocks.argtypes = [ctypes.c_int] * 2
@@ -156,11 +166,12 @@ def subspace_accumulate(
     b: int,
     implicit: bool = False,
     alpha: float = 1.0,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11a: A [R, b, b] and r [R, b] float32 of the column block
     [s0, s0 + b) for the side ``pack`` (R = ``pack.n_sys_rows``) against
     the counter-side factors ``Y`` [n, k] and the side's current factors
-    ``X`` [R, k].
+    ``X`` [R, k], in ``compute_dtype`` (``"bfloat16"``: K11a-bf16).
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
@@ -177,10 +188,13 @@ def subspace_accumulate(
     tensors = (X, pack.seg_rows, pack.cols, pack.vals, pack.rem)
     if any(t.device != Y.device for t in tensors):
         raise ValueError("all tensors must be on one device")
+    bf16 = is_bf16(compute_dtype)
+    name = "subspace_accumulate_bf16" if bf16 else "subspace_accumulate"
     if Y.device.type == "cpu":
-        LAUNCHES.add("subspace_accumulate_plain")
+        LAUNCHES.add(f"{name}_plain")
         return subspace_accumulate_plain(
-            Y, X, pack.seg_rows, pack.cols, pack.vals, pack.rem, R, s0, b, implicit, alpha
+            Y, X, pack.seg_rows, pack.cols, pack.vals, pack.rem, R, s0, b, implicit, alpha,
+            compute_dtype,
         )
     if Y.device.type != "cuda":
         raise ValueError(f"unsupported device {Y.device}")
@@ -201,10 +215,10 @@ def subspace_accumulate(
             pack.rem.data_ptr(), plan.groups.data_ptr(), plan.groups.shape[1],
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(), n_combine,
             partials.data_ptr(), A.data_ptr(), r.data_ptr(), k, pack.cols.shape[-1],
-            s0, b, int(bool(implicit)), float(alpha), stream,
+            s0, b, int(bool(implicit)), float(alpha), int(bf16), stream,
         )
-    _LIBRARY.check(err, "subspace_accumulate")
-    LAUNCHES.add("subspace_accumulate")
+    _LIBRARY.check(err, name)
+    LAUNCHES.add(name)
     if n_combine:
         LAUNCHES.add("subspace_combine")
     return A, r

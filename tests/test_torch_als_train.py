@@ -188,8 +188,6 @@ def test_predict_ratings_checks_ids_on_the_host(u, i):
 @pytest.mark.parametrize(
     "config, kwargs, match",
     [
-        (dict(compute_dtype="bfloat16"), {}, "bfloat16"),
-        ({}, dict(checkpoint_dir="ckpt"), "checkpoint"),
         ({}, dict(mesh=object()), "mesh"),
     ],
 )
@@ -198,6 +196,31 @@ def test_configurations_not_ported_raise(ratings, config, kwargs, match):
     cfg = port_als.ALSConfig(rank=4, iterations=1, **config)
     with pytest.raises(NotImplementedError, match=match):
         port_als.train_als(u, i, r, N_USERS, N_ITEMS, cfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("leg", ["bfloat16", "checkpoint"])
+def test_bf16_and_checkpoints_train(ratings, tmp_path, leg):
+    """The two configurations that were cases of
+    ``test_configurations_not_ported_raise`` now train: bfloat16 compute
+    through the twins' bfloat16 forms (``test_torch_bf16.py`` holds them
+    against JAX), and a checkpoint directory that receives the run's last
+    step and short-circuits a rerun (``test_torch_checkpoint.py`` has the
+    rest)."""
+    u, i, r = ratings
+    bf16 = leg == "bfloat16"
+    cfg = port_als.ALSConfig(rank=4, iterations=2, compute_dtype="bfloat16" if bf16 else "float32")
+    ckdir = None if bf16 else str(tmp_path / "ckpt")
+    t = {}
+    model = port_als.train_als(u, i, r, N_USERS, N_ITEMS, cfg, device="cpu", timings=t,
+                               checkpoint_dir=ckdir)
+    assert np.isfinite(model.user_factors).all() and len(t["sweep_telemetry"]) == 2
+    if bf16:
+        assert model.user_factors.dtype == np.float32
+    else:
+        assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["step_2.npz"]
+        again = port_als.train_als(u, i, r, N_USERS, N_ITEMS, cfg, device="cpu",
+                                   checkpoint_dir=ckdir)
+        assert np.array_equal(again.user_factors, model.user_factors)
 
 
 @pytest.mark.parametrize("implicit", [True, False])

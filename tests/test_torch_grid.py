@@ -107,6 +107,7 @@ def test_k13_twins_match_the_reference_grid_on_one_sweep(ratings, implicit, reg_
     )
     assert k13.LAUNCHES.snapshot() == {
         "normal_eq_variants": 0, "normal_eq_variants_plain": 2,
+        "normal_eq_variants_bf16": 0, "normal_eq_variants_bf16_plain": 0,
         "spd_solve_variants": 0, "spd_solve_variants_plain": 2,
     }
     np.testing.assert_allclose(Xp.numpy(), np.asarray(Xj), rtol=RTOL, atol=ATOL)

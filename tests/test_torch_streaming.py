@@ -210,13 +210,32 @@ def test_a_stream_with_a_cache_identity_raises_unless_the_cache_is_off(events):
 
 @pytest.mark.parametrize(
     "kwargs, match",
-    [(dict(profile_dir="prof"), "item 10"), (dict(checkpoint_dir="ckpt"), "item 12")],
+    [(dict(profile_dir="prof"), "item 10")],
 )
 def test_legs_not_ported_raise(events, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         port_streaming.train_als_streaming(
             _stream(ColumnarStream, events), port_als.ALSConfig(**CFG), device="cpu", **kwargs
         )
+
+
+def test_checkpoint_dir_saves_and_resumes(events, tmp_path):
+    """``checkpoint_dir`` (a case of ``test_legs_not_ported_raise`` before
+    checkpoints were ported): the streaming trainer saves the loop's
+    factors and a rerun of the same stream resumes at the last save, to
+    the same factors bit for bit."""
+    ckdir = str(tmp_path / "ckpt")
+    runs = []
+    for _ in range(2):
+        t = {}
+        res = port_streaming.train_als_streaming(
+            _stream(ColumnarStream, events), port_als.ALSConfig(**CFG), device="cpu",
+            cache=False, timings=t, checkpoint_dir=ckdir, checkpoint_every=2,
+        )
+        runs.append((res.arrays, t["checkpoint_resumed_at"]))
+    assert [at for _, at in runs] == [0, CFG["iterations"]]
+    assert np.array_equal(runs[0][0].user_factors, runs[1][0].user_factors)
+    assert np.array_equal(runs[0][0].item_factors, runs[1][0].item_factors)
 
 
 def test_a_timer_receives_the_stream_phases(events):
@@ -240,11 +259,18 @@ def test_a_timer_receives_the_stream_phases(events):
     assert notes["pack_cache"] == "miss" and notes["sweeps"] == CFG["iterations"]
 
 
-def test_train_from_wire_legs_not_ported_raise():
+def test_train_from_wire_takes_a_checkpoint_dir(tmp_path):
+    """``train_from_wire`` with ``checkpoint_dir`` (it raised before
+    checkpoints were ported, ``test_train_from_wire_legs_not_ported_raise``):
+    a chunked run saves each chunk and equals an unchunked one."""
     one = np.zeros(1, np.int32)
     wire = port_als.build_host_wire(one, one, np.ones(1, np.float32), 2, 2, port_als.ALSConfig(rank=2))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_als.train_from_wire(wire, port_als.ALSConfig(rank=2), device="cpu", checkpoint_dir="ckpt")
+    config = port_als.ALSConfig(rank=2, iterations=3)
+    plain = port_als.train_from_wire(wire, config, device="cpu")
+    saved = port_als.train_from_wire(wire, config, device="cpu",
+                                     checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2.npz", "step_3.npz"]
+    assert np.array_equal(plain.user_factors, saved.user_factors)
 
 
 @pytest.mark.parametrize("leg", ["geo_dev", "factor_slots_out"])

@@ -294,6 +294,8 @@ def test_rows_without_observations_keep_their_init(ratings):
 
 
 def test_wrappers_check_their_inputs_and_bf16_still_raises(ratings):
+    """The wrappers' checks; the name is from when bfloat16 raised, and its
+    last case now holds that bfloat16 trains."""
     u, i, r = ratings
     side, R, n_y = _side(u, i, r)
     pack = port_als.device_pack(side, R, n_y, torch.device("cpu"))
@@ -310,6 +312,14 @@ def test_wrappers_check_their_inputs_and_bf16_still_raises(ratings):
         k11.subspace_block_solve(A, rv, X, lam, obs, 0, G=torch.zeros(2, 2))
     with pytest.raises(ValueError):
         k11.subspace_block_solve(A, rv, X, lam, obs, 0, sums=torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        port_als.train_als(u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(
-            **dict(CFG, block_size=2, compute_dtype="bfloat16")), device="cpu")
+    # bfloat16 trains (it raised before K11a-bf16 was ported): the block
+    # systems come from K11a's bfloat16 twin, and the result is not the
+    # float32 training's
+    before = k11.LAUNCHES.snapshot()["subspace_accumulate_bf16_plain"]
+    bf16 = port_als.train_als(u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(
+        **dict(CFG, block_size=2, compute_dtype="bfloat16")), device="cpu")
+    assert k11.LAUNCHES.snapshot()["subspace_accumulate_bf16_plain"] - before == 2 * 4 * CFG["iterations"]
+    f32 = port_als.train_als(u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(
+        **dict(CFG, block_size=2)), device="cpu")
+    assert np.isfinite(bf16.user_factors).all()
+    assert not np.array_equal(bf16.user_factors, f32.user_factors)
