@@ -358,8 +358,36 @@ Phases; any failure exits non-zero:
    K12b-bf16: launches over 3h's bf16 main paths, times at sweep 4's user
    side, K2 and K12a also summed over them; K13a-bf16: launches on 3h's
    grid; errors the largest over 3h's random packs and paths; no library
-   time, as for their float32 forms), the card line, then the last line
+   time, as for their float32 forms; K15a, K15b and K18: launches on 3n's
+   main path, times at the reference's shape, errors the largest over
+   3n's checks), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
+3n. Classification (after R3), the reference's config 2 at its shape
+   (``bench.py:1841-1874``: 50,000 points of 3 Poisson-count attributes in
+   4 classes, seed 13, lambda 1.0, accuracy on the first 2,048 rows).
+   First K15a (``ops/naive_bayes.py``, ``csrc/naive_bayes.cu``:
+   ``naive_bayes_fit``) against its twin on that data (counts and sums
+   bit for bit and equal to float64 sums, pi and theta within 2e-6) and on
+   200,000 x 64 float features in 10 classes (counts bit for bit, sums
+   within 1e-5 of float64 sums relative, pi within 2e-6, theta within
+   1e-5), each bit for bit against a second launch; K15b
+   (``naive_bayes_scores``) at B in {1, 7, 2048} and on a lambda = 0
+   model's NaN rows and a tie model's rows: labels equal to the twin's
+   (first NaN, else first maximum), scores within 1e-5; K18
+   (``ops/softmax_regression.py``, ``csrc/softmax_regression.cu``) at
+   (lr, l2) in {(0.1, 0), (0.05, 0.01)}, 200 steps: W and b within 1e-5
+   of the twin's largest entry, bit for bit against a second launch. Then
+   the main path, counted from 0: ``NaiveBayesAlgorithm.train`` and
+   ``batch_predict`` of the 2,048 rows, ``LogisticRegressionAlgorithm.train``
+   and ``batch_predict``, each model saved and deployed through ``tools.cli
+   deploy --device cuda`` and sent 64 ``POST /queries.json`` from 8
+   clients, every answer equal to ``batch_predict``'s: K15a = 1, K15b = 2 +
+   the naive deployment's served batches, K18 = 400 (two launches a step),
+   twins 0. Train wall clocks and accuracies, the twins' accuracies equal;
+   times of each kernel (K18 as one 200-step training), device times,
+   twins, library calls (K15a: ``index_add_`` of the sums alone; K15b:
+   ``addmm`` + ``argmax``, two calls; K18 none) and bounds
+   (``classification``).
 """
 
 from __future__ import annotations
@@ -4863,6 +4891,296 @@ def similarproduct_phase(rng, device, workdir, model):
     return counts, stats
 
 
+# the classification phase (3n): the reference's shape (bench.py:1842-1846)
+CLS_N, CLS_F, CLS_C, CLS_QUERIES, CLS_SEED = 50_000, 3, 4, 2_048, 13
+CLS_FLOAT = (200_000, 64, 10)  # a float-feature case for K15a: rows, features, classes
+CLS_BATCHES = (1, 7, 2_048)  # K15b's batch sizes
+LR_CASES = ((0.1, 0.0), (0.05, 0.01))  # K18's (learning rate, l2)
+LR_STEPS = 200  # LogisticRegressionAlgorithmParams.iterations' default
+NB_TOL = 2e-6  # pi and theta against the twin, absolute (logf against torch.log)
+NB_FLOAT_TOL = 1e-5  # float sums in two orders: sums relative, theta absolute
+SCORE_TOL = 1e-5  # K15b's scores against the twin, absolute
+LR_TOL = 1e-5  # K18's W and b against the twin, of the largest entry
+CLS_SERVED, CLS_CLIENTS = 64, 8  # POST /queries.json per deployed model, clients
+
+
+def bench_classification_data():
+    """A copy of the reference's config 2 data (``bench.py:1841-1846``):
+    class-conditional Poisson counts, seed 13; returns (labels, features)."""
+    import numpy as np
+
+    rng = np.random.default_rng(CLS_SEED)
+    means = rng.uniform(1.0, 8.0, size=(CLS_C, CLS_F))
+    labels = rng.integers(0, CLS_C, CLS_N)
+    return labels, rng.poisson(means[labels]).astype(np.float32)
+
+
+def check_k15a(X, y, C, lam, exact, label):
+    """K15a against its twin on the card (and a second launch, bit for bit);
+    counts bit for bit, sums bit for bit where ``exact`` (integer features)
+    else within NB_FLOAT_TOL of float64 sums, pi and theta within NB_TOL
+    (theta NB_FLOAT_TOL for float features). Returns the largest |d| of pi
+    and theta, the outputs the reference returns."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import naive_bayes as k15
+
+    fit = k15.naive_bayes_fit(X, y, C, lam)
+    again = k15.naive_bayes_fit(X, y, C, lam)
+    twin = k15.fit_plain(X, y, C, lam)
+    if not all(bits_equal(a, b) for a, b in zip(fit, again)):
+        raise AssertionError(f"K15a {label}: a second launch differs")
+    if not torch.equal(fit.counts, twin.counts):
+        raise AssertionError(f"K15a {label}: counts differ from the twin's")
+    yn = y.cpu().numpy()
+    s64 = np.zeros((C, X.shape[1]))
+    np.add.at(s64, yn, X.cpu().numpy().astype(np.float64))
+    if exact:
+        if not (bits_equal(fit.sums, twin.sums) and np.array_equal(fit.sums.cpu().numpy(), s64)):
+            raise AssertionError(f"K15a {label}: sums differ from the twin's or the exact sums")
+    else:
+        for name, s in (("kernel", fit.sums), ("twin", twin.sums)):
+            d = np.abs(s.cpu().numpy() - s64).max() / np.abs(s64).max()
+            if not d <= NB_FLOAT_TOL:
+                raise AssertionError(f"K15a {label}: the {name}'s sums {d:.3g} off float64")
+    d_pi = (fit.pi - twin.pi).abs().max().item()
+    d_theta = (fit.theta - twin.theta).abs().max().item()
+    if not (d_pi <= NB_TOL and d_theta <= (NB_TOL if exact else NB_FLOAT_TOL)):
+        raise AssertionError(f"K15a {label}: pi {d_pi:.3g}, theta {d_theta:.3g} off the twin")
+    sums_d = ((fit.sums - twin.sums).abs().max() / twin.sums.abs().max()).item()
+    print(f"  K15a {label}: counts{' and sums' if exact else ''} bit for bit, a second launch "
+          f"bit for bit, sums |d| {sums_d:.3g} of the largest, pi |d| {d_pi:.3g}, theta |d| "
+          f"{d_theta:.3g} ok", flush=True)
+    return max(d_pi, d_theta)
+
+
+def check_k15b(Q, pi, theta, label):
+    """K15b against the twin on the card: labels equal, scores within
+    SCORE_TOL (bit for bit expected: one product and add order). Returns
+    (the largest |d|, whether the scores were bit-equal)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import naive_bayes as k15
+
+    idx, scores = k15.naive_bayes_scores(Q, pi, theta, with_scores=True)
+    idx_only, _ = k15.naive_bayes_scores(Q, pi, theta)
+    ref = k15.scores_plain(Q, pi, theta)
+    want = k15.argmax_first_nan(ref)
+    if not (torch.equal(idx, want) and torch.equal(idx_only, want)):
+        raise AssertionError(f"K15b {label}: labels differ from the twin's")
+    inf = torch.isinf(ref)
+    if not (torch.equal(torch.isnan(scores), torch.isnan(ref))
+            and torch.equal(torch.isinf(scores), inf) and torch.equal(scores[inf], ref[inf])):
+        raise AssertionError(f"K15b {label}: NaN or infinite scores differ from the twin's")
+    both = ref.isfinite()
+    d = (scores[both] - ref[both]).abs().max().item() if bool(both.any()) else 0.0
+    if not d <= SCORE_TOL:
+        raise AssertionError(f"K15b {label}: scores {d:.3g} off the twin")
+    return d, bits_equal(scores, ref)
+
+
+def nan_and_tie_models(device):
+    """(pi, theta, queries) of a lam = 0 model whose class 5.0 has feature 1
+    at 0 (theta -inf, so 0·(-inf) = NaN scores), and of a lam = 1 model
+    whose classes 2.0 and 4.0 saw the same points (a tie on every row)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops import naive_bayes as k15
+
+    X = np.asarray([[2, 0, 1], [1, 0, 3], [0, 2, 2], [1, 4, 0], [3, 1, 1], [0, 0, 5]], np.float32)
+    Q = np.asarray([[1, 0, 0], [0, 0, 0], [0, 1, 1], [2, 0, 3], [0, 0, 1]], np.float32)
+    nan_model = k15.train_naive_bayes(X, np.asarray([5, 5, 1, 1, 3, 3], np.float32), lam=0.0,
+                                      device=device)
+    X2 = np.concatenate([X[:2], X[:2], X[2:4]])
+    tie_model = k15.train_naive_bayes(X2, np.asarray([4, 4, 2, 2, 9, 9], np.float32), lam=1.0,
+                                      device=device)
+    return [(m, Q) for m in (nan_model, tie_model)]
+
+
+def classification_phase(device, workdir):
+    """Phase 3n: the classification template (BASELINE.json config 2) at
+    the reference's shape. K15a, K15b and K18 against their twins; the main
+    path counted from 0 (``NaiveBayesAlgorithm.train`` and
+    ``batch_predict`` of 2,048 rows, ``LogisticRegressionAlgorithm.train``
+    and ``batch_predict``, both models deployed through the CLI and sent
+    64 queries each from 8 clients, answers equal to ``batch_predict``'s);
+    train wall clocks and accuracies beside the twins'; times. Returns
+    (launches, errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.classification import engine as clf
+    from predictionio_tpu_torch.ops import naive_bayes as k15
+    from predictionio_tpu_torch.ops import softmax_regression as k18
+    from predictionio_tpu_torch.utils.serialize import save_model
+
+    labels, features = bench_classification_data()
+    X = torch.from_numpy(features).to(device)
+    y = torch.from_numpy(labels.astype(np.int32)).to(device)
+    errs = {"naive_bayes_fit": 0.0, "naive_bayes_scores": 0.0, "softmax_regression": 0.0}
+
+    # K15a: the bench's integer features, then a float case
+    errs["naive_bayes_fit"] = check_k15a(X, y, CLS_C, 1.0, True, "bench 50,000 x 3, C = 4")
+    rng = np.random.default_rng(CLS_SEED + 1)
+    n_f, F_f, C_f = CLS_FLOAT
+    Xf = torch.from_numpy(rng.uniform(0.0, 3.0, size=(n_f, F_f)).astype(np.float32)).to(device)
+    yf = torch.from_numpy(rng.integers(0, C_f, n_f).astype(np.int32)).to(device)
+    errs["naive_bayes_fit"] = max(errs["naive_bayes_fit"], check_k15a(
+        Xf, yf, C_f, 0.7, False, f"float {n_f:,} x {F_f}, C = {C_f}"))
+    del Xf, yf
+
+    # K15b at B in {1, 7, 2048} on the bench model, and the NaN and tie rows
+    fit = k15.naive_bayes_fit(X, y, CLS_C, 1.0)
+    bit_equal = True
+    for B in CLS_BATCHES:
+        d, same = check_k15b(X[:B].contiguous(), fit.pi, fit.theta, f"B = {B}")
+        errs["naive_bayes_scores"] = max(errs["naive_bayes_scores"], d)
+        bit_equal &= same
+    odd_models = nan_and_tie_models(device)
+    for m, Q in odd_models:
+        Qd = torch.from_numpy(Q).to(device)
+        pi, theta = torch.from_numpy(m.pi).to(device), torch.from_numpy(m.theta).to(device)
+        d, same = check_k15b(Qd, pi, theta, "lam = 0 / tie model")
+        errs["naive_bayes_scores"] = max(errs["naive_bayes_scores"], d)
+        bit_equal &= same
+    nan_labels = k15.predict_naive_bayes(*odd_models[0])
+    print(f"  K15b at B = {CLS_BATCHES} and on the NaN (lam = 0) and tie rows: labels equal to "
+          f"the twin's (NaN model labels {nan_labels.tolist()}), scores |d| "
+          f"{errs['naive_bayes_scores']:.3g}, bit for bit: {bit_equal} ok", flush=True)
+
+    # K18 against the twin, 200 steps, both (lr, l2)
+    for lr, l2 in LR_CASES:
+        W, b = k18.softmax_regression(X, y, CLS_C, lr, l2, LR_STEPS)
+        W2, b2 = k18.softmax_regression(X, y, CLS_C, lr, l2, LR_STEPS)
+        if not (bits_equal(W, W2) and bits_equal(b, b2)):
+            raise AssertionError(f"K18 ({lr}, {l2}): a second launch differs")
+        Wt, bt = k18.softmax_regression_plain(X, y, CLS_C, lr, l2, LR_STEPS)
+        dW = (W - Wt).abs().max().item() / Wt.abs().max().item()
+        db = (b - bt).abs().max().item() / max(bt.abs().max().item(), 1e-30)
+        if not (dW <= LR_TOL and db <= LR_TOL):
+            raise AssertionError(f"K18 ({lr}, {l2}): W {dW:.3g}, b {db:.3g} of the largest "
+                                 "entry off the twin")
+        errs["softmax_regression"] = max(errs["softmax_regression"], (W - Wt).abs().max().item(),
+                                         (b - bt).abs().max().item())
+        print(f"  K18 lr {lr}, l2 {l2}, {LR_STEPS} steps: W {dW:.3g}, b {db:.3g} of the largest "
+              "entry off the twin, a second launch bit for bit ok", flush=True)
+
+    # the main path, counted from 0
+    td = clf.TrainingData(labels=labels.astype(np.float32), features=features)
+    pd = clf.Preparator().prepare(device, td)
+    nb_algo = clf.NaiveBayesAlgorithm(clf.NaiveBayesAlgorithmParams(lambda_=1.0))
+    lr_algo = clf.LogisticRegressionAlgorithm(clf.LogisticRegressionAlgorithmParams())
+    queries = [(j, clf.Query(features=tuple(features[j]))) for j in range(CLS_QUERIES)]
+    bodies = [{"features": [float(v) for v in features[j]]} for j in range(CLS_SERVED)]
+    k15.LAUNCHES.reset()
+    k18.LAUNCHES.reset()
+    train_s, accuracy, answers_s, served = {}, {}, {}, {}
+    models = {}
+    for name, algo in (("naive", nb_algo), ("logisticregression", lr_algo)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        models[name] = algo.train(device, pd)
+        train_s[name] = time.perf_counter() - t
+        t = time.perf_counter()
+        preds = algo.batch_predict(models[name], queries)
+        answers_s[name] = time.perf_counter() - t
+        accuracy[name] = float(np.mean([p.label == labels[j] for j, p in preds]))
+        path = os.path.join(workdir, f"classification_{name}.npz")
+        save_model(path, models[name])
+        server = Deployment(path, device)
+        try:
+            answers, wall = server.send(bodies, CLS_CLIENTS)
+            status = server.status()
+        finally:
+            server.stop()
+        want = algo.batch_predict(models[name], [(i, clf.Query(**b)) for i, b in enumerate(bodies)])
+        for (i, _, res), (_, p) in zip(answers, want):
+            if res.get("label") != p.label or res.get("modelVersion") != f"classification_{name}":
+                raise AssertionError(f"{name} deployment: query {i} answered {res}, "
+                                     f"batch_predict {p}")
+        served[name] = {"queries": len(answers), "batches": status["batches"],
+                        **latency_stats(answers, wall), "deploy_s": server.deploy_s}
+    counts = {**k15.LAUNCHES.snapshot(), **k18.LAUNCHES.snapshot()}
+    # K15b: batch_predict of the 2,048 rows, one per served batch, and
+    # batch_predict of the served queries
+    want_counts = {"naive_bayes_fit": 1, "naive_bayes_scores": 2 + served["naive"]["batches"],
+                   "softmax_regression": 2 * lr_algo.params.iterations, "naive_bayes_fit_plain": 0,
+                   "naive_bayes_scores_plain": 0, "softmax_regression_plain": 0}
+    if counts != want_counts:
+        raise AssertionError(f"classification launches {counts}, expected {want_counts}")
+    print(f"  main path: NaiveBayesAlgorithm.train {train_s['naive']:.4f} s, "
+          f"LogisticRegressionAlgorithm.train {train_s['logisticregression']:.4f} s; launches "
+          f"{counts}; both deployments answered {CLS_SERVED} queries from {CLS_CLIENTS} clients "
+          "equal to batch_predict ok", flush=True)
+
+    # the twins' models, and their accuracy on the same rows
+    twin_fit = k15.fit_plain(X, y, CLS_C, 1.0)
+    Q = X[:CLS_QUERIES]
+    twin_pred = k15.argmax_first_nan(k15.scores_plain(Q, twin_fit.pi, twin_fit.theta))
+    twin_acc = {"naive": float((twin_pred.cpu().numpy() == labels[:CLS_QUERIES]).mean())}
+    p = lr_algo.params
+    Wt, bt = k18.softmax_regression_plain(X, y, CLS_C, p.learning_rate, p.l2, p.iterations)
+    lr_pred = (features[:CLS_QUERIES] @ Wt.cpu().numpy().T + bt.cpu().numpy()).argmax(1)
+    twin_acc["logisticregression"] = float((lr_pred == labels[:CLS_QUERIES]).mean())
+    if twin_acc != accuracy:
+        raise AssertionError(f"train accuracy {accuracy} differs from the twins' {twin_acc}")
+    print(f"  train accuracy on {CLS_QUERIES} rows: {accuracy} (the twins' equal)", flush=True)
+
+    # times at the main path's shapes: K15a on the bench data, K15b at
+    # B = 2,048, K18 as one 200-step training
+    Qp = X[:CLS_QUERIES].contiguous()
+    calls = {
+        "naive_bayes_fit": (lambda: k15.naive_bayes_fit(X, y, CLS_C, 1.0),
+                            lambda: k15.fit_plain(X, y, CLS_C, 1.0)),
+        "naive_bayes_scores": (lambda: k15.naive_bayes_scores(Qp, fit.pi, fit.theta),
+                               lambda: k15.argmax_first_nan(
+                                   k15.scores_plain(Qp, fit.pi, fit.theta))),
+        "softmax_regression": (lambda: k18.softmax_regression(X, y, CLS_C, 0.1, 0.0, LR_STEPS),
+                               lambda: k18.softmax_regression_plain(X, y, CLS_C, 0.1, 0.0,
+                                                                    LR_STEPS)),
+    }
+    y_long = y.long()
+    library = {
+        # K15a: the sums alone, one index_add_ (its counts and logs are more calls)
+        "naive_bayes_fit": lambda: torch.zeros((CLS_C, CLS_F), device=device).index_add_(
+            0, y_long, X),
+        # K15b: two calls, the scores and the argmax (no NaN rule)
+        "naive_bayes_scores": lambda: torch.addmm(fit.pi, Qp, fit.theta.T).argmax(1),
+    }
+    iters = {"naive_bayes_fit": 200, "naive_bayes_scores": 200, "softmax_regression": 20}
+    t_k, dev_ms, plain_ms, lib_ms = {}, {}, {}, {}
+    for name, (kern, plain) in calls.items():
+        t_k[name] = time_ms(kern, iters=iters[name], warmup=3)
+        # one K18 call is 400 launches: more calls behind the spin would fill
+        # the launch queue, and the host would wait for the spin to end
+        dev_ms[name] = device_ms(kern, calls=20 if name != "softmax_regression" else 1)
+        plain_ms[name] = time_ms(plain, iters=max(2, iters[name] // 10), warmup=1)
+        lib_ms[name] = time_ms(library[name], iters=200, warmup=3) if name in library else None
+    n, F, C, B = CLS_N, CLS_F, CLS_C, CLS_QUERIES
+    bounds = {
+        # features and labels in; counts, sums, pi and theta out
+        "naive_bayes_fit": roofline(4 * (n * F + n + 2 * C + 2 * C * F), n * F),
+        # the queries, pi and theta in; the labels out
+        "naive_bayes_scores": roofline(4 * (B * F + C + C * F + B), 2 * B * C * F + B * C),
+        # X and y read once, W and b written once; per step the logits and
+        # R^T X (2·n·C·F each), the softmax (about 6 a row and class) and the update
+        "softmax_regression": roofline(
+            4 * (n * F + n + C * F + C),
+            LR_STEPS * (4 * n * C * F + 6 * n * C + 4 * C * (F + 1))),
+    }
+    stats = {"card": card_line(), "shape": {"n": n, "features": F, "classes": C,
+                                            "queries": B, "lr_steps": LR_STEPS},
+             "train_s": train_s, "batch_predict_s": answers_s, "train_accuracy": accuracy,
+             "twin_accuracy": twin_acc, "served": served, "launches": counts,
+             "kernel_ms": t_k, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "library_ms": lib_ms, "bound": bounds, "errors": errs,
+             "k15b_bit_equal": bit_equal}
+    print("classification " + json.dumps(stats), flush=True)
+    launches = {name: counts[name] for name in errs}
+    return launches, errs, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4883,11 +5201,13 @@ def main() -> int:
         gramian,
         grid,
         masked_topn,
+        naive_bayes,
         native,
         normal_eq,
         predict_pairs,
         rescore,
         similarity,
+        softmax_regression,
         spd_solve,
         subspace,
         topn,
@@ -4903,7 +5223,8 @@ def main() -> int:
           f"devices {torch.cuda.device_count()} nvcc {native.nvcc_path()}", flush=True)
     t0 = time.perf_counter()
     kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
-                      gramian, similarity, subspace, cooccurrence, grid, delta_scatter)
+                      gramian, similarity, subspace, cooccurrence, grid, delta_scatter, naive_bayes,
+                      softmax_regression)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -4958,6 +5279,8 @@ def main() -> int:
             rng, device, workdir, model, traffic)
         print(f"phase similar product (R3) (at {time.perf_counter() - t0:.1f} s)", flush=True)
         sp_launches, _ = similarproduct_phase(rng, device, workdir, model)
+        print(f"phase classification (3n) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+        n_counts, n_errs, n_stats = classification_phase(device, workdir)
 
     full = rows[2]  # B=128, n=16: the full-width batch at num=10
     kernels += [{
@@ -5095,6 +5418,23 @@ def main() -> int:
             "replaces": where, "launches": launched, "max_abs_err": errs_h[name],
             "ms": ms, "plain_ms": stats_h["plain_ms"][name], "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": None,
+        })
+    # the classification template (3n): launches on its main path, times at
+    # the reference's shape (K15a on the bench data, K15b at B = 2,048, K18
+    # as one 200-step training); errors the largest over 3n's checks
+    for name, where in (("naive_bayes_fit", "predictionio_tpu/ops/naive_bayes.py:56"),
+                        ("naive_bayes_scores", "predictionio_tpu/ops/naive_bayes.py:73"),
+                        ("softmax_regression",
+                         "predictionio_tpu/models/classification/engine.py:231")):
+        if n_counts[name] < 1:
+            raise AssertionError(f"{name} never launched on its path")
+        source = "naive_bayes.cu" if name.startswith("naive") else "softmax_regression.cu"
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"predictionio_tpu_torch/csrc/{source}",
+            "replaces": where, "launches": n_counts[name], "max_abs_err": n_errs[name],
+            "ms": n_stats["kernel_ms"][name], "plain_ms": n_stats["plain_ms"][name],
+            "bound_ms": n_stats["bound"][name][0], "bound_by": n_stats["bound"][name][1],
+            "library_ms": n_stats["library_ms"][name],
         })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

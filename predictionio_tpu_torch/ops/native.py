@@ -176,9 +176,9 @@ class LaunchCounts:
         self._lock = threading.Lock()
         self._counts = {name: 0 for name in names}
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, launches: int = 1) -> None:
         with self._lock:
-            self._counts[name] += 1
+            self._counts[name] += launches
 
     def reset(self) -> None:
         with self._lock:

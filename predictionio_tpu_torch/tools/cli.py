@@ -7,9 +7,10 @@
         [--transport async|threaded]
 
 It loads the model (``utils/serialize.py``), picks its engine from the
-file (recommendation, similar product, or DIMSUM similar product served by
-``models/experimental/similarproduct_dimsum.py dimsum_engine``), prepares
-it on the device (CUDA
+file (recommendation, similar product, DIMSUM similar product served by
+``models/experimental/similarproduct_dimsum.py dimsum_engine``, or
+classification with the file's one algorithm), prepares it on the device
+(CUDA
 unless ``--device cpu``), warms the serving kernels and serves
 ``POST /queries.json`` until ``GET /stop``. The served ``modelVersion`` is
 the model file's name without its extension.
@@ -30,6 +31,7 @@ from predictionio_tpu_torch.api.engine_server import (
 )
 from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.models.classification import engine as clf
 from predictionio_tpu_torch.models.experimental.similarproduct_dimsum import dimsum_engine
 from predictionio_tpu_torch.models.recommendation import engine as rec
 from predictionio_tpu_torch.models.similarproduct import engine as sp
@@ -43,13 +45,21 @@ def deploy_model_file(
     bind a server for it (not yet serving)."""
     dev = resolve_device(device)
     model = load_model(model_path)
-    if isinstance(model, sp.DIMSUMModel):
+    if isinstance(model, clf.NaiveBayesModelArrays):
+        name, engine, default = "naive", clf.classification_engine(), clf.NaiveBayesAlgorithmParams
+    elif isinstance(model, clf.LogisticRegressionModel):
+        name, engine, default = (
+            "logisticregression", clf.classification_engine(),
+            clf.LogisticRegressionAlgorithmParams,
+        )
+    elif isinstance(model, sp.DIMSUMModel):
         name, engine, default = "dimsum", dimsum_engine(), sp.DIMSUMAlgorithmParams
     elif isinstance(model, sp.SPModel):
         name, engine, default = "als", sp.similarproduct_engine(), sp.ALSAlgorithmParams
     else:
         name, engine, default = "als", rec.recommendation_engine(), rec.ALSAlgorithmParams
-    params = model.params if model.params is not None else default()
+    params = getattr(model, "params", None)
+    params = params if params is not None else default()
     engine_params = EngineParams(algorithm_params_list=((name, params),))
     models = engine.prepare_deploy(dev, engine_params, [model])
     version = os.path.splitext(os.path.basename(model_path))[0]

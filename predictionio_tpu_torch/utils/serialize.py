@@ -8,12 +8,17 @@ A model is saved as one ``.npz`` whose ``engine`` field names its engine:
 - ``"similarproduct"``: the item factors, the item ids in row order, each
   item's categories (JSON, in row order) and the params as JSON;
 - ``"dimsum"``: a DIMSUM model's item-item similarities, the item ids in
-  row order, each item's categories and the params as JSON.
+  row order, each item's categories and the params as JSON;
+- ``"classification"``, with ``algorithm`` ``"naive"`` (``pi``, ``theta``
+  and the class ``labels`` of a naive Bayes model) or
+  ``"logisticregression"`` (``weights``, ``bias`` and ``labels``); these
+  models carry no params.
 
 Loading never unpickles (``allow_pickle=False``): a pickled JAX-package
 model would import ``predictionio_tpu`` classes, so models cross from the
 JAX package as arrays (``als_model_from_numpy``, ``sp_model_from_numpy``,
-``dimsum_model_from_numpy``).
+``dimsum_model_from_numpy``, ``nb_model_from_numpy``,
+``lr_model_from_numpy``).
 """
 
 from __future__ import annotations
@@ -28,15 +33,22 @@ from predictionio_tpu_torch.controller.params import (
     params_from_json,
     params_to_json,
 )
+from predictionio_tpu_torch.models.classification import engine as clf
 from predictionio_tpu_torch.models.recommendation import engine as rec
 from predictionio_tpu_torch.models.similarproduct import engine as sp
 
 PathLike = Union[str, os.PathLike]
-Model = Union[rec.ALSModel, sp.SPModel, sp.DIMSUMModel]
+Model = Union[
+    rec.ALSModel, sp.SPModel, sp.DIMSUMModel, clf.NaiveBayesModelArrays,
+    clf.LogisticRegressionModel,
+]
 
 
 def save_model(path: PathLike, model: Model) -> None:
     """Write ``model`` to ``path`` (an ``.npz``)."""
+    if isinstance(model, (clf.NaiveBayesModelArrays, clf.LogisticRegressionModel)):
+        _save_classification(path, model)
+        return
     params = None if model.params is None else params_to_json(model.params)
     item_ids = _ids_in_row_order(model.item_index)
     if isinstance(model, (sp.SPModel, sp.DIMSUMModel)):
@@ -71,6 +83,22 @@ def save_model(path: PathLike, model: Model) -> None:
         )
 
 
+def _save_classification(path: PathLike, model) -> None:
+    labels = np.asarray(model.labels)
+    if labels.dtype.kind not in "biuf":
+        raise ValueError(f"class labels must be numbers, got dtype {labels.dtype}")
+    if isinstance(model, clf.NaiveBayesModelArrays):
+        arrays = {"algorithm": np.asarray("naive"),
+                  "pi": np.asarray(model.pi, np.float32),
+                  "theta": np.asarray(model.theta, np.float32)}
+    else:
+        arrays = {"algorithm": np.asarray("logisticregression"),
+                  "weights": np.asarray(model.weights, np.float32),
+                  "bias": np.asarray(model.bias, np.float32)}
+    with open(path, "wb") as f:
+        np.savez(f, engine=np.asarray("classification"), labels=labels, **arrays)
+
+
 def _ids_in_row_order(index) -> list:
     ids = [None] * len(index)
     for key, row in index.items():
@@ -84,6 +112,15 @@ def load_model(path: PathLike) -> Model:
     """Read a model written by ``save_model``."""
     with np.load(path, allow_pickle=False) as z:
         engine = str(z["engine"]) if "engine" in z.files else "recommendation"
+        if engine == "classification":
+            algorithm = str(z["algorithm"])
+            if algorithm == "naive":
+                # the deploy binds the device (NaiveBayesAlgorithm.prepare_serving)
+                return clf.NaiveBayesModelArrays(
+                    pi=z["pi"], theta=z["theta"], labels=z["labels"])
+            if algorithm == "logisticregression":
+                return clf.lr_model_from_numpy(z["weights"], z["bias"], z["labels"])
+            raise ValueError(f"{path}: unknown classification algorithm {algorithm!r}")
         params = json.loads(str(z["params_json"]))
         if engine == "similarproduct":
             return sp.sp_model_from_numpy(

@@ -3,16 +3,20 @@ counterpart of ``predictionio_tpu/workflow/context.py``).
 
 It carries the device the workflow runs on (CUDA unless the CPU is asked
 for) and, in place of the event store the port does not have yet
-(ROADMAP.md queue 1 item 3), the event columns of each app, which a data
-source reads where the reference's calls ``PEventStore.find_columns``.
+(ROADMAP.md queue 1 item 3), the data a data source would read from it:
+the event columns of each app, read where the reference calls
+``PEventStore.find_columns``, and the aggregated entity properties of each
+(app, entity type), read where it calls ``PEventStore.aggregate_properties``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.data.store import EventColumns
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
+
+PropertyMaps = Mapping[str, Mapping[str, Any]]  # entity id -> property -> value
 
 
 class WorkflowContext:
@@ -20,9 +24,11 @@ class WorkflowContext:
         self,
         device: DeviceLike = None,
         event_columns: Optional[Mapping[str, EventColumns]] = None,
+        properties: Optional[Mapping[Tuple[str, str], PropertyMaps]] = None,
     ):
         self.device = resolve_device(device)
         self._columns = dict(event_columns or {})
+        self._properties = dict(properties or {})
 
     def find_columns(self, app_name: str) -> EventColumns:
         """The event columns of ``app_name``, as the caller supplied them."""
@@ -33,3 +39,33 @@ class WorkflowContext:
                 "WorkflowContext(event_columns={app_name: EventColumns(...)})"
             )
         return self._columns[app_name]
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: Optional[str] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> Dict[str, Mapping[str, Any]]:
+        """The aggregated properties of ``entity_type`` in ``app_name``, as
+        the caller supplied them and in the caller's order, less the
+        entities missing a ``required`` property (as the reference's
+        storage drops them)."""
+        if channel_name is not None:
+            raise NotImplementedError(
+                f"channel {channel_name!r}: channels come with the event store "
+                "(ROADMAP.md queue 1 item 3)"
+            )
+        key = (app_name, entity_type)
+        if key not in self._properties:
+            raise KeyError(
+                f"no properties of {entity_type!r} entities for app {app_name!r}: "
+                "the port has no event store yet (ROADMAP.md queue 1 item 3), so "
+                "pass them as WorkflowContext(properties={(app_name, entity_type): "
+                "{entity_id: {property: value}}})"
+            )
+        req = list(required or ())
+        return {
+            eid: props for eid, props in self._properties[key].items()
+            if all(r in props for r in req)
+        }

@@ -101,6 +101,52 @@ class TestStepCheckpointer:
         assert ckpt.latest_step() == 1
         assert int(StepCheckpointer(str(tmp_path)).restore_latest()["step"]) == 1
 
+    def test_the_docstrings_nested_state_restores_equal(self, tmp_path):
+        rng = np.random.default_rng(4)
+        arrays = {"user_factors": rng.normal(size=(5, 3)).astype(np.float32),
+                  "item_factors": rng.normal(size=(7, 3)).astype(np.float32)}
+        ckpt = StepCheckpointer(str(tmp_path), every=3)
+        assert ckpt.maybe_save(3, {"step": 3, "arrays": arrays})
+        with np.load(tmp_path / "step_3.npz", allow_pickle=False) as f:
+            assert sorted(f.files) == ["arrays/item_factors", "arrays/user_factors", "step"]
+        state = StepCheckpointer(str(tmp_path)).restore_latest()
+        assert sorted(state) == ["arrays", "step"] and int(state["step"]) == 3
+        assert sorted(state["arrays"]) == sorted(arrays)
+        for name, a in arrays.items():
+            assert state["arrays"][name].dtype == a.dtype
+            np.testing.assert_array_equal(state["arrays"][name], a)
+
+    @pytest.mark.parametrize("bad", [
+        {"step": 1, "model": object()},
+        {"step": 1, "name": "run-7"},
+        {"step": 1, "arrays": {"ids": np.asarray(["u1", "u2"])}},
+        {"step": 1, "arrays": {"x": np.asarray([1, "a"], dtype=object)}},
+        {"step": 1, "arrays": {"a/b": np.zeros(2)}},
+        {"step": 1, "arrays": {}},
+    ], ids=["object", "string", "text-array", "object-array", "separator", "empty-dict"])
+    def test_a_value_that_is_not_numeric_raises_and_writes_nothing(self, tmp_path, bad):
+        ckpt = StepCheckpointer(str(tmp_path), every=1)
+        with pytest.raises(ValueError):
+            ckpt.maybe_save(1, bad)
+        assert list(tmp_path.iterdir()) == []
+        assert ckpt.restore_latest() is None
+
+    def test_a_flat_state_in_the_earlier_layout_restores(self, tmp_path):
+        # a step file as the flat layout writes it: one entry per key
+        fp = np.arange(32, dtype=np.uint8)
+        X = np.arange(6, dtype=np.float32).reshape(2, 3)
+        with open(tmp_path / "step_4.npz", "wb") as f:
+            np.savez(f, iteration=np.asarray(4), X=X, fingerprint=fp)
+        state = StepCheckpointer(str(tmp_path)).restore_latest()
+        assert sorted(state) == ["X", "fingerprint", "iteration"]
+        assert int(state["iteration"]) == 4
+        np.testing.assert_array_equal(state["X"], X)
+        np.testing.assert_array_equal(state["fingerprint"], fp)
+        # and a flat state saved now keeps that layout
+        StepCheckpointer(str(tmp_path), every=1).maybe_save(5, {"iteration": 5, "X": X})
+        with np.load(tmp_path / "step_5.npz", allow_pickle=False) as f:
+            assert sorted(f.files) == ["X", "iteration"]
+
 
 class TestALSCheckpointResume:
     @pytest.mark.parametrize("kw", [{}, dict(compute_dtype="bfloat16"),
