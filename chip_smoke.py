@@ -360,7 +360,9 @@ Phases; any failure exits non-zero:
    grid; errors the largest over 3h's random packs and paths; no library
    time, as for their float32 forms; K15a, K15b and K18: launches on 3n's
    main path, times at the reference's shape, errors the largest over
-   3n's checks), the card line, then the last line
+   3n's checks; K16, K17a, K17b and lsq: launches on 3x's paths, lsq's
+   over the backtest and the regression template, times at K22's shape),
+   the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 3n. Classification (after R3), the reference's config 2 at its shape
    (``bench.py:1841-1874``: 50,000 points of 3 Poisson-count attributes in
@@ -388,6 +390,43 @@ Phases; any failure exits non-zero:
    twins, library calls (K15a: ``index_add_`` of the sums alone; K15b:
    ``addmm`` + ``argmax``, two calls; K18 none) and bounds
    (``classification``).
+3x. The e2 library and the least-squares templates (after 3n), each path
+   counted from 0:
+   a. K17 (``ops/categorical_nb.py``, ``csrc/categorical_nb.cu``) at UCI
+      Adult's categorical shape scaled to 1,000,000 rows (8 slots of 9, 16,
+      7, 15, 6, 5, 2 and 42 values, 2 labels, a seeded class-conditional
+      model): ``CategoricalNaiveBayes.train``, ``predict_batch`` of 2,048
+      rows, then of 256 rows with unknown values (one row all unknown,
+      label 0): K17a = 1, K17b = 2, twins 0. K17a's counts bit for bit
+      against a second launch, the twin (``bincount``) and numpy, the
+      model's logs equal numpy's on them; K17b's scores within 1e-6
+      (relative) of the twin's with -inf in the same places, labels equal
+      outside ties (1e-5), a second launch bit for bit (``categorical_nb``).
+   b. K16 (``ops/markov.py``, ``csrc/markov.cu``): ``MarkovChain.train`` on
+      1,000,000 seeded Zipf-skewed tally entries over 100,000 states, top
+      10, then 100 ``predict`` calls: K16 = 100, twin 0; each answer within
+      rtol 1e-6 / atol 1e-7 of the twin, bit for bit against a second
+      launch, the first against float64 numpy (``markov``).
+   c. K21 (``ops/lstsq.py``, ``csrc/lstsq.cu``): ``backtest`` with
+      ``RegressionStrategy`` on a 500-ticker synthetic panel of 600 days
+      over the DataSource's 4 default windows: lsq = 4 (one a window),
+      twin 0; every window's coefficients within 1e-5 of float64 numpy;
+      then lsq against its twin and float64 numpy on conditioned batches,
+      30 and 64 columns, m < n, a duplicated column, a zero column, a zero
+      matrix and an empty one (ranks equal, every system converged, a
+      second launch bit for bit), and a solve cut at one Jacobi sweep must
+      report -1 sweeps and make ``require_converged`` raise (``stock``).
+   d. K22: a 200,000-line x 10-feature file; ``OLSAlgorithm.train``, then
+      ``run_evaluation`` with ``MeanSquareError`` over 5 folds: lsq = 6,
+      twin 0; the coefficients within 1e-5 of float64 numpy, the MSE within
+      1e-4 of float64 fits of the same folds; the model saved, deployed
+      through ``tools.cli deploy --device cuda`` and sent 64 queries from 8
+      clients, every answer equal to ``batch_predict``'s (``regression``).
+   Times: each kernel, its device time, its twin and library call (K16:
+   the float32 ``index_add_`` of the products, the scatter alone; K17a:
+   ``bincount``; K17b none; lsq: ``torch.linalg.lstsq``, whose CUDA form
+   takes full-rank systems only) and bounds, at the paths' shapes; the
+   host wall clocks of each path.
 """
 
 from __future__ import annotations
@@ -5181,6 +5220,594 @@ def classification_phase(device, workdir):
     return launches, errs, stats
 
 
+# phase 3x (after 3n): the e2 library (K16, K17a, K17b) and the
+# least-squares templates (K21, K22: one kernel pair, ``lsq``)
+ADULT_CARDS = (9, 16, 7, 15, 6, 5, 2, 42)  # UCI Adult's categorical slots' value counts
+ADULT_POSITIVE = 0.24  # Adult's share of the ">50K" label
+CNB_N, CNB_QUERIES, CNB_UNKNOWN, CNB_SEED = 1_000_000, 2_048, 256, 23
+CNB_SCORE_RTOL, CNB_TIE_GAP = 1e-6, 1e-5  # K17b's scores; a tie two sum orders may split
+MC_STATES, MC_ENTRIES, MC_TOP, MC_PREDICTS, MC_SEED = 100_000, 1_000_000, 10, 100, 31
+MC_RTOL, MC_ATOL = 1e-6, 1e-7  # K16 against its twin (both sum in float64)
+STOCK_TICKERS, STOCK_DAYS = 500, 600
+REG_ROWS, REG_FEATURES, REG_FOLDS, REG_SEED = 200_000, 10, 5, 41
+LSQ_TOL = 1e-5  # lsq against float64 numpy and its twin, of the largest entry
+MSE_RTOL = 1e-4  # the evaluation's MSE against float64 fits of the same folds
+X_SERVED, X_CLIENTS = 64, 8  # POST /queries.json to the OLS deployment, clients
+PEAK_FP64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
+
+
+def adult_points():
+    """UCI Adult's categorical shape at CNB_N rows: 8 slots with Adult's
+    value counts, 2 labels, drawn from a seeded class-conditional model.
+    Returns (LabeledPoints, label codes [N], value codes [N, 8], value names
+    per slot)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.e2 import LabeledPoint
+
+    rng = np.random.default_rng(CNB_SEED)
+    labels = (rng.random(CNB_N) < ADULT_POSITIVE).astype(np.int64)
+    codes = np.empty((CNB_N, len(ADULT_CARDS)), np.int64)
+    for s, c in enumerate(ADULT_CARDS):
+        cdf = np.cumsum(rng.dirichlet(np.full(c, 0.7), size=2), axis=1)
+        u = rng.random(CNB_N)
+        codes[:, s] = np.minimum((u[:, None] > cdf[labels]).sum(1), c - 1)
+    names = [np.asarray([f"s{s}v{v}" for v in range(c)], dtype=object)
+             for s, c in enumerate(ADULT_CARDS)]
+    label_names = np.asarray(["<=50K", ">50K"], dtype=object)[labels].tolist()
+    slots = [names[s][codes[:, s]].tolist() for s in range(len(ADULT_CARDS))]
+    points = [LabeledPoint(l, f) for l, f in zip(label_names, zip(*slots))]
+    return points, labels, codes, names
+
+
+def check_k17b(model, rows, label):
+    """K17b against its twin on the card for ``rows``: scores within
+    CNB_SCORE_RTOL with -inf in the same places, labels equal except where
+    a row's two best twin scores lie within CNB_TIE_GAP, a second launch bit
+    for bit. Returns (the largest relative |d| of the finite scores, the
+    kernel's labels)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import categorical_nb as k17
+    from predictionio_tpu_torch.ops.naive_bayes import argmax_first_nan
+
+    dev = model.device
+    enc, known = model.encode(rows)
+    ll, prior = model._device_arrays(dev)
+    e, k = torch.from_numpy(enc).to(dev), torch.from_numpy(known).to(dev)
+    labels, scores = k17.cnb_scores_argmax(ll, prior, e, k)
+    labels2, scores2 = k17.cnb_scores_argmax(ll, prior, e, k)
+    if not (bits_equal(scores, scores2) and torch.equal(labels, labels2)):
+        raise AssertionError(f"K17b {label}: a second launch differs")
+    ref = k17.scores_plain(ll, prior, e, k)
+    want = argmax_first_nan(ref)
+    inf = torch.isinf(ref)
+    if not (torch.equal(torch.isinf(scores), inf) and torch.equal(scores[inf], ref[inf])):
+        raise AssertionError(f"K17b {label}: infinite scores differ from the twin's")
+    fin = ~inf
+    rel = ((scores[fin] - ref[fin]).abs() / ref[fin].abs().clamp(min=1e-30)).max().item() \
+        if bool(fin.any()) else 0.0
+    if not rel <= CNB_SCORE_RTOL:
+        raise AssertionError(f"K17b {label}: scores {rel:.3g} off the twin, relative")
+    srt = torch.sort(ref, dim=1).values.cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        gap = srt[:, -1] - srt[:, -2]
+    differ = (labels != want).cpu().numpy()
+    if (differ & ~(gap <= CNB_TIE_GAP)).any():
+        raise AssertionError(f"K17b {label}: labels differ from the twin's outside ties")
+    print(f"  K17b {label}: {len(rows)} rows, scores {rel:.3g} of the twin's (relative), "
+          f"{int(inf.sum())} -inf equal, labels equal ({int(differ.sum())} tie flips), a second "
+          "launch bit for bit ok", flush=True)
+    return rel, labels.cpu().numpy()
+
+
+def cnb_phase(device):
+    """K17 at UCI Adult's categorical shape scaled to 1,000,000 rows: K17a
+    against its twin and float64 numpy, the main path counted from 0
+    (``CategoricalNaiveBayes.train``, ``predict_batch`` of 2,048 rows, then
+    of a batch with unknown values: K17a = 1, K17b = 2, twins 0), K17b
+    against its twin on both batches, times. Returns (launches, errors,
+    stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.e2 import CategoricalNaiveBayes
+    from predictionio_tpu_torch.ops import categorical_nb as k17
+
+    t = time.perf_counter()
+    points, labels, codes, names = adult_points()
+    data_s = time.perf_counter() - t
+    rows = [p.features for p in points[:CNB_QUERIES]]
+    rng = np.random.default_rng(CNB_SEED + 1)
+    unknown_rows = [tuple("unseen" if rng.random() < 0.2 else v for v in p.features)
+                    for p in points[-CNB_UNKNOWN:]]
+    unknown_rows[0] = tuple("unseen" for _ in ADULT_CARDS)  # every score -inf: label 0
+
+    k17.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = CategoricalNaiveBayes.train(points, device=device)
+    train_s = time.perf_counter() - t
+    t = time.perf_counter()
+    served = model.predict_batch(rows)
+    predict_s = time.perf_counter() - t
+    t = time.perf_counter()
+    served_unknown = model.predict_batch(unknown_rows)
+    predict_unknown_s = time.perf_counter() - t
+    counts = k17.LAUNCHES.snapshot()
+    want_counts = {"cnb_count": 1, "cnb_scores_argmax": 2, "cnb_count_plain": 0,
+                   "cnb_scores_argmax_plain": 0}
+    if counts != want_counts:
+        raise AssertionError(f"categorical NB launches {counts}, expected {want_counts}")
+    inv = model.label_index.inverse()
+    if served_unknown[0] != inv[0]:
+        raise AssertionError(f"a row of unknown values got {served_unknown[0]!r}, not label 0")
+
+    # K17a: the train's keys, rebuilt from the model's indexes
+    L, S, V = model.log_likelihoods.shape
+    lab = np.asarray([model.label_index[n] for n in ("<=50K", ">50K")])[labels]
+    keys = np.concatenate([
+        (s * L + lab) * V + np.asarray([model.value_indexes[s][n] for n in names[s]])[codes[:, s]]
+        for s in range(S)]).astype(np.int32)
+    n_keys = S * L * V
+    keys_dev = torch.from_numpy(keys).to(device)
+    got = k17.cnb_count(keys_dev, n_keys)
+    again = k17.cnb_count(keys_dev, n_keys)
+    twin = k17.count_plain(keys_dev, n_keys)
+    c64 = np.bincount(keys, minlength=n_keys).astype(np.float64)
+    if not (torch.equal(got, again) and torch.equal(got, twin)
+            and np.array_equal(got.cpu().numpy().astype(np.float64), c64)):
+        raise AssertionError("K17a: counts differ from a second launch, the twin or numpy")
+    # the model from the exact counts, as the reference's numpy turns them into logs
+    label_counts = np.bincount(lab, minlength=L).astype(np.float64)
+    with np.errstate(divide="ignore"):
+        ll64 = np.where(c64.reshape(S, L, V) > 0,
+                        np.log(c64.reshape(S, L, V) / label_counts[None, :, None]),
+                        float("-inf")).transpose(1, 0, 2).astype(np.float32)
+    if not (np.array_equal(model.log_likelihoods, ll64) and np.array_equal(
+            model.log_priors, np.log(label_counts / CNB_N).astype(np.float32))):
+        raise AssertionError("K17a: the model's logs differ from numpy's on the exact counts")
+    print(f"  K17a: {len(keys):,} keys into {n_keys} counts (largest {int(c64.max()):,}) bit for "
+          "bit against a second launch, the twin (bincount) and numpy; the model's logs equal "
+          "numpy's on them ok", flush=True)
+    errs = {"cnb_count": 0.0, "cnb_scores_argmax": 0.0}
+    for rs, name, path_labels in ((rows, f"{CNB_QUERIES} rows", served),
+                                  (unknown_rows, f"{CNB_UNKNOWN} rows with unknowns",
+                                   served_unknown)):
+        d, kl = check_k17b(model, rs, name)
+        errs["cnb_scores_argmax"] = max(errs["cnb_scores_argmax"], d)
+        if [inv[int(i)] for i in kl] != path_labels:
+            raise AssertionError(f"K17b {name}: the path's labels differ from the kernel's")
+    accuracy = float(np.mean(np.asarray(served) == np.asarray(
+        [p.label for p in points[:CNB_QUERIES]])))
+
+    # times at the path's shapes
+    keys_long = keys_dev.long()
+    enc, known = model.encode(rows)
+    ll, prior = model._device_arrays(device)
+    e, k = torch.from_numpy(enc).to(device), torch.from_numpy(known).to(device)
+    calls = {
+        "cnb_count": (lambda: k17.cnb_count(keys_dev, n_keys),
+                      lambda: k17.count_plain(keys_dev, n_keys),
+                      lambda: torch.bincount(keys_long, minlength=n_keys)),
+        "cnb_scores_argmax": (lambda: k17.cnb_scores_argmax(ll, prior, e, k),
+                              lambda: k17.scores_plain(ll, prior, e, k).argmax(1), None),
+    }
+    t_k, dev_ms, plain_ms, lib_ms = {}, {}, {}, {}
+    for name, (kern, plain, lib) in calls.items():
+        t_k[name] = time_ms(kern, iters=100, warmup=3)
+        dev_ms[name] = device_ms(kern)
+        plain_ms[name] = time_ms(plain, iters=20, warmup=2)
+        lib_ms[name] = time_ms(lib, iters=100, warmup=3) if lib else None
+    M, N = len(keys), CNB_QUERIES
+    bounds = {
+        # the keys in, the counts out; one add a key
+        "cnb_count": roofline(4 * M + 4 * n_keys, M),
+        # codes, masks, priors and likelihoods in; scores and labels out
+        "cnb_scores_argmax": roofline(4 * N * S + N * S + 4 * L + 4 * L * S * V + 4 * N * L
+                                      + 4 * N, N * L * S),
+    }
+    stats = {"card": card_line(), "shape": {"points": CNB_N, "slots": list(ADULT_CARDS),
+                                            "labels": L, "keys": M, "n_keys": n_keys},
+             "data_s": data_s, "train_s": train_s, "predict_s": predict_s,
+             "predict_unknown_s": predict_unknown_s, "train_accuracy": accuracy,
+             "launches": counts, "kernel_ms": t_k, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "library_ms": lib_ms, "bound": bounds, "errors": errs}
+    print("categorical_nb " + json.dumps(stats), flush=True)
+    return {n: counts[n] for n in errs}, errs, stats
+
+
+def markov_tally():
+    """MC_ENTRIES seeded (from, to, count) triples over MC_STATES states:
+    sources uniform, targets Zipf-skewed (exponent 1.2, ranks scattered
+    over the states), counts 1..5."""
+    import numpy as np
+
+    rng = np.random.default_rng(MC_SEED)
+    src = rng.integers(0, MC_STATES, MC_ENTRIES)
+    dst = rng.permutation(MC_STATES)[(rng.zipf(1.2, MC_ENTRIES) - 1) % MC_STATES]
+    cnt = rng.integers(1, 6, MC_ENTRIES).astype(np.float64)
+    return list(zip(src.tolist(), dst.tolist(), cnt.tolist()))
+
+
+def markov_phase(device):
+    """K16: ``MarkovChain.train`` on 1,000,000 Zipf-skewed tally entries over
+    100,000 states, top 10, then 100 ``predict`` calls counted from 0 (K16 =
+    100, twin 0); each answer within MC_RTOL / MC_ATOL of the twin and bit
+    for bit against a second launch, the first against float64 numpy;
+    times. Returns (launches, errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.e2 import MarkovChain
+    from predictionio_tpu_torch.ops import markov as k16
+
+    entries = markov_tally()
+    t = time.perf_counter()
+    model = MarkovChain.train(entries, MC_STATES, MC_TOP, device=device)
+    train_s = time.perf_counter() - t
+    del entries
+    rng = np.random.default_rng(MC_SEED + 1)
+    curs = [rng.dirichlet(np.ones(MC_STATES)).astype(np.float32) for _ in range(MC_PREDICTS)]
+    t = time.perf_counter()
+    placed = model._device_transitions(device)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t
+
+    k16.LAUNCHES.reset()
+    t = time.perf_counter()
+    outs = [model.predict(cur) for cur in curs]
+    predict_s = time.perf_counter() - t
+    counts = k16.LAUNCHES.snapshot()
+    if counts != {"markov_step": MC_PREDICTS, "markov_step_plain": 0}:
+        raise AssertionError(f"K16 launches {counts}, expected {MC_PREDICTS} and twin 0")
+
+    err = 0.0
+    for i, (cur, out) in enumerate(zip(curs, outs)):
+        cur_t = torch.from_numpy(cur).to(device)
+        again = k16.markov_step(cur_t, placed).cpu().numpy()
+        got = np.asarray(out, np.float32)
+        if not np.array_equal(got.view(np.int32), again.view(np.int32)):
+            raise AssertionError(f"K16 predict {i}: a second launch differs")
+        twin = k16.markov_step_plain(cur_t, placed).cpu().numpy()
+        if not np.allclose(got, twin, rtol=MC_RTOL, atol=MC_ATOL):
+            raise AssertionError(f"K16 predict {i}: {np.abs(got - twin).max():.3g} off the twin")
+        err = max(err, float(np.abs(got - twin).max()))
+    contrib = (model.probs * curs[0][:, None]).astype(np.float32).ravel().astype(np.float64)
+    n64 = np.bincount(model.targets.ravel(), weights=contrib, minlength=MC_STATES)
+    d64 = np.abs(np.asarray(outs[0], np.float64) - n64).max() / np.abs(n64).max()
+    if not d64 <= MC_RTOL:
+        raise AssertionError(f"K16: {d64:.3g} of the largest entry off float64 numpy")
+    indeg = np.diff(placed.target_chunk.cpu().numpy())
+    print(f"  K16: {MC_PREDICTS} predicts over {MC_STATES:,} states ({placed.src.numel():,} kept "
+          f"transitions, {placed.n_chunks:,} chunks, a target's chunks at most {int(indeg.max())}) "
+          f"each within rtol {MC_RTOL} of the twin (|d| {err:.3g}) and bit for bit against a "
+          f"second launch; the first {d64:.3g} of the largest entry off float64 ok", flush=True)
+
+    cur_t = torch.from_numpy(curs[0]).to(device)
+    t_keep = k16.entry_targets(placed)
+    contrib_t = placed.prob * cur_t[placed.src.long()]
+    t_k = time_ms(lambda: k16.markov_step(cur_t, placed), iters=200, warmup=5)
+    dev_ms = device_ms(lambda: k16.markov_step(cur_t, placed))
+    plain_ms = time_ms(lambda: k16.markov_step_plain(cur_t, placed), iters=50, warmup=3)
+    # the scatter alone, given the products: one float32 index_add_
+    lib_ms = time_ms(lambda: torch.zeros(MC_STATES, device=device).index_add_(
+        0, t_keep, contrib_t), iters=200, warmup=5)
+    E = placed.src.numel()
+    stats = {"card": card_line(), "shape": {"states": MC_STATES, "tally_entries": MC_ENTRIES,
+                                            "top_n": MC_TOP, "kept": E,
+                                            "chunks": placed.n_chunks},
+             "train_s": train_s, "place_s": place_s, "predict_s": predict_s,
+             "predicts": MC_PREDICTS, "launches": counts, "kernel_ms": t_k,
+             "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+             # the state vector in, the kept transitions (source, probability), the next state out
+             "bound": roofline(4 * MC_STATES + 8 * E + 4 * MC_STATES, 2 * E),
+             "error": err}
+    print("markov " + json.dumps(stats), flush=True)
+    return counts["markov_step"], err, stats
+
+
+def lsq_oracle(A, b):
+    """float64 numpy at JAX's cutoff, per system of A [N, m, n]: x [N, n]."""
+    import numpy as np
+
+    N, m, n = A.shape
+    return np.stack([np.linalg.lstsq(A[i].astype(np.float64), b[i].astype(np.float64),
+                                     rcond=float(np.finfo(np.float32).eps) * max(m, n))[0]
+                     for i in range(N)])
+
+
+def max_sweeps(res) -> int:
+    """The most Jacobi sweeps a system of an lsq result took (0 from the
+    twin, which reports none)."""
+    return 0 if res.sweeps is None else int(res.sweeps.max())
+
+
+def check_lsq(A, b, label):
+    """lsq on the card against its twin and float64 numpy (x within LSQ_TOL
+    of each system's largest entry, ranks equal, singular values within
+    LSQ_TOL) and a second launch bit for bit. Returns (the largest |d| of x
+    against the twin, the kernel's result)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import lstsq as k21
+
+    got = k21.require_converged(k21.lstsq(A, b))
+    again = k21.lstsq(A, b)
+    if not all(bits_equal(p, q) for p, q in zip(got[:3], again[:3])):
+        raise AssertionError(f"lsq {label}: a second launch differs")
+    twin = k21.lstsq_plain(A, b)
+    x64 = lsq_oracle(A.cpu().numpy(), b.cpu().numpy())
+    x = got.x.cpu().numpy().astype(np.float64)
+    scale = np.maximum(np.abs(x64).max(axis=1), 1e-30)
+    d64 = (np.abs(x - x64).max(axis=1) / scale).max()
+    dt = (np.abs(x - twin.x.cpu().numpy()).max(axis=1) / scale).max()
+    if not (d64 <= LSQ_TOL and dt <= LSQ_TOL):
+        raise AssertionError(f"lsq {label}: x {d64:.3g} off float64, {dt:.3g} off the twin")
+    if not torch.equal(got.rank, twin.rank):
+        raise AssertionError(f"lsq {label}: ranks {got.rank.tolist()[:8]} differ from the "
+                             f"twin's {twin.rank.tolist()[:8]}")
+    ds = ((got.s - twin.s).abs().max() / twin.s.abs().max().clamp(min=1e-30)).item() \
+        if got.s.numel() else 0.0
+    if not ds <= LSQ_TOL:
+        raise AssertionError(f"lsq {label}: singular values {ds:.3g} off the twin's")
+    print(f"  lsq {label}: x {d64:.3g} off float64 and {dt:.3g} off the twin (of the largest "
+          f"entry), ranks {sorted(set(got.rank.tolist()))} equal, s {ds:.3g}, sweeps "
+          f"{max_sweeps(got)} at most, a second launch bit for bit ok", flush=True)
+    return float(np.abs(x - twin.x.cpu().numpy()).max()), got
+
+
+def check_lsq_edges(device):
+    """lsq at the card on the CPU tests' cases: conditioned batches at the
+    stock and regression widths, a duplicated column, a zero column, both,
+    m < n, 30 and 64 columns (more than a block's 256 Gram slots; the solve
+    past 48 KB of shared memory), a zero matrix and an empty one. Returns
+    the largest |d| against the twin."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import lstsq as k21
+
+    rng = np.random.default_rng(97)
+
+    def conditioned(m, n, cond):
+        u, _ = np.linalg.qr(rng.standard_normal((m, n)))
+        v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        return ((u * np.logspace(0, -np.log10(cond), n)) @ v.T).astype(np.float32)
+
+    cases = {
+        "3 x 173 x 5, cond 1e3": np.stack([conditioned(173, 5, 1e3) for _ in range(3)]),
+        "3 x 300 x 10, cond 1e3": np.stack([conditioned(300, 10, 1e3) for _ in range(3)]),
+        "2 x 2,000 x 30": rng.standard_normal((2, 2_000, 30)).astype(np.float32),
+        "1 x 500 x 64": rng.standard_normal((1, 500, 64)).astype(np.float32),
+        "m < n, 2 x 6 x 9": rng.standard_normal((2, 6, 9)).astype(np.float32),
+    }
+    A = rng.standard_normal((4, 50, 6)).astype(np.float32)
+    A[0, :, 4] = A[0, :, 1]  # a duplicated column
+    A[1, :, 2] = 0.0  # a zero column
+    A[2, :, 4] = A[2, :, 1]
+    A[2, :, 0] = 0.0  # both
+    A[3] = 0.0  # a zero matrix: rank 0, x = 0
+    cases["rank-deficient 4 x 50 x 6"] = A
+    err = 0.0
+    for label, a in cases.items():
+        b = rng.standard_normal(a.shape[:2]).astype(np.float32)
+        d, got = check_lsq(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device), label)
+        err = max(err, d)
+        if label.startswith("rank"):
+            if got.rank.tolist() != [5, 5, 4, 0] or got.x[3].any():
+                raise AssertionError(f"lsq {label}: ranks {got.rank.tolist()}, zero matrix x "
+                                     f"{got.x[3].tolist()}")
+    empty = k21.lstsq(torch.zeros((0, 3), device=device), torch.zeros(0, device=device))
+    if empty.x.shape != (3,) or empty.x.any() or int(empty.rank) != 0:
+        raise AssertionError("lsq: the empty matrix's answer is not JAX's zeros")
+    # a Jacobi loop cut at one sweep reports -1 sweeps, and the check raises
+    a = torch.from_numpy(rng.standard_normal((2, 300, 10)).astype(np.float32)).to(device)
+    cut = k21._lstsq_cuda(a, a[:, :, 0].contiguous(), max_sweeps=1)
+    if cut.sweeps.tolist() != [-1, -1]:
+        raise AssertionError(f"lsq cut at one sweep: sweeps {cut.sweeps.tolist()}, not -1")
+    try:
+        k21.require_converged(cut)
+    except ArithmeticError as exc:
+        print(f"  lsq cut at one sweep: sweeps -1, require_converged raised ({exc}) ok",
+              flush=True)
+    else:
+        raise AssertionError("lsq cut at one sweep: require_converged did not raise")
+    return err
+
+
+def lsq_times(A, b, peak_sweeps):
+    """lsq's kernel, device, twin and library (``torch.linalg.lstsq``, gels:
+    full-rank systems only) times on A [N, m, n], b [N, m], and its bound:
+    A, b in and x out vs the Gram's and the Jacobi sweeps' float64
+    operations (``peak_sweeps`` sweeps of n(n-1)/2 rotations, 12n each)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import lstsq as k21
+
+    N, m, n = A.shape
+    w = n + 1
+    b3 = b[:, :, None]
+    ops = 2 * N * m * w * (w + 1) / 2 + N * peak_sweeps * n * (n - 1) / 2 * 12 * n
+    return {
+        "ms": time_ms(lambda: k21.lstsq(A, b), iters=100, warmup=3),
+        "device_ms": device_ms(lambda: k21.lstsq(A, b)),
+        "plain_ms": time_ms(lambda: k21.lstsq_plain(A, b), iters=20, warmup=2),
+        "library_ms": time_ms(lambda: torch.linalg.lstsq(A, b3), iters=50, warmup=3),
+        "bound": roofline(4 * N * m * w + 4 * N * n, ops, PEAK_FP64_FLOPS),
+        "shape": [N, m, n],
+    }
+
+
+def stock_phase(device):
+    """K21: ``backtest(RegressionStrategy())`` on a 500-ticker synthetic panel
+    of 600 days with the DataSource's default windows, counted from 0 (lsq =
+    4, one per window; twin 0); each window's coefficients against float64
+    numpy and the twin; then lsq's edge cases; times at the path's shape.
+    Returns (launches, errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.experimental import stock
+    from predictionio_tpu_torch.ops import lstsq as k21
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    tickers = ("SPY",) + tuple(f"T{j:03d}" for j in range(STOCK_TICKERS - 1))
+
+    class Recording(stock.RegressionStrategy):
+        def train(self, device, td):
+            model = super().train(device, td)
+            self.windows.append((td, model))
+            return model
+
+    algo = Recording()
+    algo.windows = []
+    params = stock.DataSourceParams(n_days=STOCK_DAYS, tickers=tickers)
+    k21.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = stock.backtest(algo, params, ctx=WorkflowContext(device))
+    backtest_s = time.perf_counter() - t
+    counts = k21.LAUNCHES.snapshot()
+    if counts != {"lsq": 4, "lsq_plain": 0} or len(algo.windows) != 4:
+        raise AssertionError(f"stock launches {counts} over {len(algo.windows)} windows, "
+                             "expected lsq = 4 and twin 0")
+    err = 0.0
+    for w, (td, model) in enumerate(algo.windows):
+        X, y, _ = algo.design(td)
+        coef = np.stack([model[t] for t in tickers]).astype(np.float64)
+        x64 = lsq_oracle(X, y)
+        d = (np.abs(coef - x64).max(axis=1) / np.abs(x64).max(axis=1)).max()
+        if not d <= LSQ_TOL:
+            raise AssertionError(f"K21 window {w}: coefficients {d:.3g} off float64")
+        err = max(err, float(d))
+    print(f"  K21: backtest over {STOCK_TICKERS} tickers, 4 windows of [{STOCK_TICKERS}, "
+          f"{X.shape[1]}, {X.shape[2]}] in {backtest_s:.2f} s, lsq = 4; coefficients within "
+          f"{err:.3g} of float64 (of each ticker's largest) ok; {result.overall.days} days, "
+          f"Sharpe {result.overall.sharpe:.4f}", flush=True)
+    X, y, _ = algo.design(algo.windows[0][0])
+    A, b = torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
+    d_path, got = check_lsq(A, b, f"stock window 0, {list(X.shape)}")
+    d_edges = check_lsq_edges(device)
+    times = lsq_times(A, b, max_sweeps(got))
+    stats = {"card": card_line(), "tickers": STOCK_TICKERS, "days": STOCK_DAYS,
+             "backtest_s": backtest_s, "launches": counts, "coef_vs_float64": err,
+             "sharpe": result.overall.sharpe, "sweeps_max": max_sweeps(got), **times}
+    print("stock " + json.dumps(stats), flush=True)
+    return counts["lsq"], max(d_path, d_edges), stats
+
+
+def regression_phase(device, workdir):
+    """K22: a 200,000-line x 10-feature file; ``OLSAlgorithm.train``, then
+    ``run_evaluation`` with ``MeanSquareError`` over 5 folds, counted from 0
+    (lsq = 6, twin 0); the model saved, deployed through ``tools.cli deploy
+    --device cuda`` and sent 64 queries from 8 clients, every answer equal to
+    ``batch_predict``'s; the coefficients and the MSE against float64 numpy;
+    times at the path's shape. Returns (launches, errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.controller import EmptyParams
+    from predictionio_tpu_torch.controller.engine import EngineParams
+    from predictionio_tpu_torch.controller.evaluation import Evaluation
+    from predictionio_tpu_torch.models.experimental import regression as reg
+    from predictionio_tpu_torch.ops import lstsq as k21
+    from predictionio_tpu_torch.utils.serialize import save_model
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
+
+    rng = np.random.default_rng(REG_SEED)
+    Xw = rng.standard_normal((REG_ROWS, REG_FEATURES))
+    yw = Xw @ rng.uniform(-2.0, 2.0, REG_FEATURES) + 0.1 * rng.standard_normal(REG_ROWS)
+    path = os.path.join(workdir, "regression.txt")
+    np.savetxt(path, np.column_stack([yw, Xw]), fmt="%.9g")
+
+    k21.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    td = reg.DataSource(reg.DataSourceParams(filepath=path)).read_training(None)
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    model = reg.OLSAlgorithm().train(device, reg.Preparator().prepare(device, td))
+    train_s = time.perf_counter() - t
+    t = time.perf_counter()
+    result = run_evaluation(
+        Evaluation().set_engine_metric(reg.regression_engine(), reg.MeanSquareError()),
+        [EngineParams(data_source_params=("", reg.DataSourceParams(filepath=path,
+                                                                   eval_k=REG_FOLDS)),
+                      algorithm_params_list=(("ols", EmptyParams()),))],
+        ctx=WorkflowContext(device),
+    )
+    eval_s = time.perf_counter() - t
+    model_path = os.path.join(workdir, "ols.npz")
+    save_model(model_path, model)
+    bodies = [{"features": [float(v) for v in td.x[j]]} for j in range(X_SERVED)]
+    server = Deployment(model_path, device)
+    try:
+        answers, wall = server.send(bodies, X_CLIENTS)
+        status = server.status()
+    finally:
+        server.stop()
+    counts = k21.LAUNCHES.snapshot()
+    if counts != {"lsq": 1 + REG_FOLDS, "lsq_plain": 0}:
+        raise AssertionError(f"regression launches {counts}, expected lsq = {1 + REG_FOLDS} "
+                             "and twin 0")
+    want = reg.OLSAlgorithm().batch_predict(model, [(i, reg.Query(**b))
+                                                    for i, b in enumerate(bodies)])
+    for (i, _, res), (_, p) in zip(answers, want):
+        if res.get("prediction") != p.prediction or res.get("modelVersion") != "ols":
+            raise AssertionError(f"OLS deployment: query {i} answered {res}, batch_predict {p}")
+
+    x64 = lsq_oracle(td.x[None], td.y[None])[0]
+    d_coef = np.abs(model - x64).max() / np.abs(x64).max()
+    if not d_coef <= LSQ_TOL:
+        raise AssertionError(f"K22: coefficients {d_coef:.3g} off float64")
+    sq = []
+    for fold in range(REG_FOLDS):
+        sel = np.arange(len(td.y)) % REG_FOLDS == fold
+        c64 = lsq_oracle(td.x[~sel][None], td.y[~sel][None])[0]
+        sq.append((td.x[sel].astype(np.float64) @ c64 - td.y[sel]) ** 2)
+    mse64 = float(np.concatenate(sq).mean())
+    mse = result.best_score.score
+    if not abs(mse - mse64) <= MSE_RTOL * mse64:
+        raise AssertionError(f"K22: MSE {mse} against float64 folds' {mse64}")
+    print(f"  K22: OLSAlgorithm.train {train_s:.4f} s (the file read {read_s:.2f} s), "
+          f"coefficients {d_coef:.3g} of the largest off float64; run_evaluation over "
+          f"{REG_FOLDS} folds {eval_s:.2f} s, MSE {mse:.6g} (float64 folds {mse64:.6g}); the "
+          f"deployment answered {X_SERVED} queries from {X_CLIENTS} clients equal to "
+          f"batch_predict; lsq = {counts['lsq']} ok", flush=True)
+    A = torch.from_numpy(td.x).to(device)
+    b = torch.from_numpy(td.y).to(device)
+    d_path, got = check_lsq(A[None], b[None], f"regression [1, {REG_ROWS}, {REG_FEATURES}]")
+    times = lsq_times(A[None].contiguous(), b[None].contiguous(), max_sweeps(got))
+    stats = {"card": card_line(), "rows": REG_ROWS, "features": REG_FEATURES,
+             "folds": REG_FOLDS, "read_s": read_s, "train_s": train_s, "eval_s": eval_s,
+             "mse": mse, "mse_float64": mse64, "coef_vs_float64": float(d_coef),
+             "served": {"queries": len(answers), "batches": status["batches"],
+                        **latency_stats(answers, wall), "deploy_s": server.deploy_s},
+             "launches": counts, "sweeps_max": max_sweeps(got), **times}
+    print("regression " + json.dumps(stats), flush=True)
+    return counts["lsq"], d_path, stats
+
+
+def experimental_phase(device, workdir):
+    """Phase 3x: K17 (``cnb_phase``), K16 (``markov_phase``), K21
+    (``stock_phase``) and K22 (``regression_phase``), each counted from 0.
+    Returns (launches, errors, stats) keyed by kernel."""
+    t = time.perf_counter()
+    c_counts, c_errs, c_stats = cnb_phase(device)
+    m_launches, m_err, m_stats = markov_phase(device)
+    s_launches, s_err, s_stats = stock_phase(device)
+    r_launches, r_err, r_stats = regression_phase(device, workdir)
+    launches = {**c_counts, "markov_step": m_launches, "lsq": s_launches + r_launches}
+    errs = {**c_errs, "markov_step": m_err, "lsq": max(s_err, r_err)}
+    print(f"  3x: launches {launches} in {time.perf_counter() - t:.1f} s", flush=True)
+    return launches, errs, {"cnb": c_stats, "markov": m_stats, "stock": s_stats,
+                            "regression": r_stats}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5195,11 +5822,14 @@ def main() -> int:
 
     from predictionio_tpu_torch.device import resolve_device
     from predictionio_tpu_torch.ops import (
+        categorical_nb,
         cooccurrence,
         delta_scatter,
         device_pack,
         gramian,
         grid,
+        lstsq,
+        markov,
         masked_topn,
         naive_bayes,
         native,
@@ -5224,7 +5854,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
                       gramian, similarity, subspace, cooccurrence, grid, delta_scatter, naive_bayes,
-                      softmax_regression)
+                      softmax_regression, markov, categorical_nb, lstsq)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -5281,6 +5911,9 @@ def main() -> int:
         sp_launches, _ = similarproduct_phase(rng, device, workdir, model)
         print(f"phase classification (3n) (at {time.perf_counter() - t0:.1f} s)", flush=True)
         n_counts, n_errs, n_stats = classification_phase(device, workdir)
+        print(f"phase e2 and least squares (3x) (at {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        x_counts, x_errs, x_stats = experimental_phase(device, workdir)
 
     full = rows[2]  # B=128, n=16: the full-width batch at num=10
     kernels += [{
@@ -5436,6 +6069,36 @@ def main() -> int:
             "bound_ms": n_stats["bound"][name][0], "bound_by": n_stats["bound"][name][1],
             "library_ms": n_stats["library_ms"][name],
         })
+    # the e2 library and the least-squares templates (3x): launches on their
+    # main paths (lsq over the stock backtest and the regression template),
+    # times at the paths' shapes (lsq at K22's 200,000 x 10; K21's shape in
+    # the phase's stock line), errors the largest over 3x's checks
+    rows_3x = (
+        ("markov_step", "markov.cu", "predictionio_tpu/e2/markov_chain.py:127", x_stats["markov"]),
+        ("cnb_count", "categorical_nb.cu", "predictionio_tpu/e2/naive_bayes.py:49",
+         x_stats["cnb"]),
+        ("cnb_scores_argmax", "categorical_nb.cu", "predictionio_tpu/e2/naive_bayes.py:160",
+         x_stats["cnb"]),
+        ("lsq", "lstsq.cu", "predictionio_tpu/models/experimental/stock.py:325",
+         x_stats["regression"]),
+    )
+    for name, source, where, st in rows_3x:
+        if x_counts[name] < 1:
+            raise AssertionError(f"{name} never launched on its path")
+        pick = (lambda v: v[name]) if name.startswith("cnb") else (lambda v: v)
+        row = {
+            "name": name, "route": "cuda", "source": f"predictionio_tpu_torch/csrc/{source}",
+            "replaces": where, "launches": x_counts[name], "max_abs_err": x_errs[name],
+        }
+        if name == "lsq":
+            row.update(ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound"][0],
+                       bound_by=st["bound"][1], library_ms=st["library_ms"],
+                       also_replaces="predictionio_tpu/models/experimental/regression.py:139")
+        else:
+            row.update(ms=pick(st["kernel_ms"]), plain_ms=pick(st["plain_ms"]),
+                       bound_ms=pick(st["bound"])[0], bound_by=pick(st["bound"])[1],
+                       library_ms=pick(st["library_ms"]))
+        kernels.append(row)
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,7 +1,8 @@
 """The subset of the DASE controller API the ported slices use (the
 counterpart of ``predictionio_tpu/controller``): params from JSON, the
 data check, the data source, preparator, algorithm and serving bases, an
-engine that builds them, evaluates a params grid and prepares a deploy.
+engine that builds them, evaluates a params grid and prepares a deploy
+(and ``SimpleEngine``, its one-algorithm form).
 The metrics and the evaluator are in ``metrics`` and ``evaluation``; the
 train workflow comes with a later slice."""
 
@@ -14,7 +15,13 @@ from predictionio_tpu_torch.controller.base import (
     IdentityPreparator,
     SanityCheck,
 )
-from predictionio_tpu_torch.controller.engine import Engine, EngineFactory, EngineParams
+from predictionio_tpu_torch.controller.engine import (
+    Engine,
+    EngineFactory,
+    EngineParams,
+    SimpleEngine,
+    SimpleEngineParams,
+)
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     Params,
@@ -37,6 +44,8 @@ __all__ = [
     "Params",
     "ParamsError",
     "SanityCheck",
+    "SimpleEngine",
+    "SimpleEngineParams",
     "params_from_json",
     "params_to_json",
 ]

@@ -10,7 +10,9 @@ every variant of a params grid on a thread pool. ``prepare_deploy``
 prepares loaded models for serving on one device; ``EngineFactory`` is the
 user object that returns an engine. The train workflow (``train``,
 ``prepare_deploy`` from stored instances, engine.json parsing) waits for
-the event store (ROADMAP.md queue 1 item 3).
+the event store (ROADMAP.md queue 1 item 3). ``SimpleEngine`` (one data
+source, one algorithm, the identity preparator and first serving) and
+``SimpleEngineParams`` are the reference's sugar for the small templates.
 """
 
 from __future__ import annotations
@@ -214,6 +216,33 @@ class Engine:
             algo.prepare_serving(device, m)
             for algo, m in zip(algorithms, models)
         ]
+
+
+class SimpleEngine(Engine):
+    """1 algorithm + identity preparator + first serving
+    (reference controller/EngineParams.scala:127)."""
+
+    def __init__(self, data_source_class, algorithm_class):
+        super().__init__(
+            data_source_classes=data_source_class,
+            preparator_classes=IdentityPreparator,
+            algorithm_classes=algorithm_class,
+            serving_classes=FirstServing,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SimpleEngineParams:
+    """Sugar mirroring reference SimpleEngineParams :141."""
+
+    data_source_params: Params = EmptyParams()
+    algorithm_params: Params = EmptyParams()
+
+    def to_engine_params(self) -> EngineParams:
+        return EngineParams(
+            data_source_params=("", self.data_source_params),
+            algorithm_params_list=(("", self.algorithm_params),),
+        )
 
 
 class EngineFactory:

@@ -8,11 +8,11 @@
 
 It loads the model (``utils/serialize.py``), picks its engine from the
 file (recommendation, similar product, DIMSUM similar product served by
-``models/experimental/similarproduct_dimsum.py dimsum_engine``, or
-classification with the file's one algorithm), prepares it on the device
-(CUDA
-unless ``--device cpu``), warms the serving kernels and serves
-``POST /queries.json`` until ``GET /stop``. The served ``modelVersion`` is
+``models/experimental/similarproduct_dimsum.py dimsum_engine``,
+classification with the file's one algorithm, or the OLS model of
+``models/experimental/regression.py regression_engine``), prepares it on
+the device (CUDA unless ``--device cpu``), warms the serving kernels and
+serves ``POST /queries.json`` until ``GET /stop``. The served ``modelVersion`` is
 the model file's name without its extension.
 """
 
@@ -23,6 +23,8 @@ import os
 import sys
 from typing import Optional, Sequence
 
+import numpy as np
+
 from predictionio_tpu_torch.api.engine_server import (
     DeployedEngine,
     EngineServer,
@@ -30,8 +32,10 @@ from predictionio_tpu_torch.api.engine_server import (
     create_server,
 )
 from predictionio_tpu_torch.controller.engine import EngineParams
+from predictionio_tpu_torch.controller.params import EmptyParams
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.models.classification import engine as clf
+from predictionio_tpu_torch.models.experimental.regression import regression_engine
 from predictionio_tpu_torch.models.experimental.similarproduct_dimsum import dimsum_engine
 from predictionio_tpu_torch.models.recommendation import engine as rec
 from predictionio_tpu_torch.models.similarproduct import engine as sp
@@ -45,7 +49,9 @@ def deploy_model_file(
     bind a server for it (not yet serving)."""
     dev = resolve_device(device)
     model = load_model(model_path)
-    if isinstance(model, clf.NaiveBayesModelArrays):
+    if isinstance(model, np.ndarray):
+        name, engine, default = "ols", regression_engine(), EmptyParams
+    elif isinstance(model, clf.NaiveBayesModelArrays):
         name, engine, default = "naive", clf.classification_engine(), clf.NaiveBayesAlgorithmParams
     elif isinstance(model, clf.LogisticRegressionModel):
         name, engine, default = (

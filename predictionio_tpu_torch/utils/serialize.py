@@ -12,13 +12,15 @@ A model is saved as one ``.npz`` whose ``engine`` field names its engine:
 - ``"classification"``, with ``algorithm`` ``"naive"`` (``pi``, ``theta``
   and the class ``labels`` of a naive Bayes model) or
   ``"logisticregression"`` (``weights``, ``bias`` and ``labels``); these
-  models carry no params.
+  models carry no params;
+- ``"regression"``: an OLS model of ``models/experimental/regression.py``,
+  its coefficient vector (a 1-D float array is saved as one), no params.
 
 Loading never unpickles (``allow_pickle=False``): a pickled JAX-package
 model would import ``predictionio_tpu`` classes, so models cross from the
 JAX package as arrays (``als_model_from_numpy``, ``sp_model_from_numpy``,
 ``dimsum_model_from_numpy``, ``nb_model_from_numpy``,
-``lr_model_from_numpy``).
+``lr_model_from_numpy``; an OLS model is its coefficient array already).
 """
 
 from __future__ import annotations
@@ -40,12 +42,22 @@ from predictionio_tpu_torch.models.similarproduct import engine as sp
 PathLike = Union[str, os.PathLike]
 Model = Union[
     rec.ALSModel, sp.SPModel, sp.DIMSUMModel, clf.NaiveBayesModelArrays,
-    clf.LogisticRegressionModel,
+    clf.LogisticRegressionModel, np.ndarray,
 ]
 
 
 def save_model(path: PathLike, model: Model) -> None:
     """Write ``model`` to ``path`` (an ``.npz``)."""
+    if isinstance(model, np.ndarray):
+        if model.ndim != 1 or model.dtype.kind != "f":
+            raise ValueError(
+                f"an OLS model is a 1-D float coefficient array, got {model.dtype} "
+                f"{model.shape}"
+            )
+        with open(path, "wb") as f:
+            np.savez(f, engine=np.asarray("regression"),
+                     coefficients=np.asarray(model, np.float32))
+        return
     if isinstance(model, (clf.NaiveBayesModelArrays, clf.LogisticRegressionModel)):
         _save_classification(path, model)
         return
@@ -112,6 +124,8 @@ def load_model(path: PathLike) -> Model:
     """Read a model written by ``save_model``."""
     with np.load(path, allow_pickle=False) as z:
         engine = str(z["engine"]) if "engine" in z.files else "recommendation"
+        if engine == "regression":
+            return np.asarray(z["coefficients"], np.float32)
         if engine == "classification":
             algorithm = str(z["algorithm"])
             if algorithm == "naive":
