@@ -361,8 +361,12 @@ Phases; any failure exits non-zero:
    time, as for their float32 forms; K15a, K15b and K18: launches on 3n's
    main path, times at the reference's shape, errors the largest over
    3n's checks; K16, K17a, K17b and lsq: launches on 3x's paths, lsq's
-   over the backtest and the regression template, times at K22's shape),
-   the card line, then the last line
+   over the backtest and the regression template, times at K22's shape;
+   K20a and K20b: launches over 3y's three SimRank trainings, times at
+   the Wiki-Vote-sized graph, the sparse library call where it runs;
+   K3c: launches over 3y's two ``measure_compute_ms`` calls, its ms the
+   bench call's time a pass, its bound and library call K3's at that
+   shape), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 3n. Classification (after R3), the reference's config 2 at its shape
    (``bench.py:1841-1874``: 50,000 points of 3 Poisson-count attributes in
@@ -427,6 +431,64 @@ Phases; any failure exits non-zero:
    ``bincount``; K17b none; lsq: ``torch.linalg.lstsq``, whose CUDA form
    takes full-rank systems only) and bounds, at the paths' shapes; the
    host wall clocks of each path.
+3y. SimRank friend recommendation, K3c and the five experimental templates
+   that need no event store (after 3x), each path counted from 0:
+   a. K20a (``ops/simrank.py``, ``csrc/simrank.cu``: ``simrank_propagate``,
+      U = P S) and K20b (``simrank_contract``, decay · U Pᵀ with the
+      diagonal 1) against their twins (dense float32 products, TF32 off) on
+      a seeded graph of SNAP Wiki-Vote's size (7,115 vertices, 103,689
+      edges: power-law out-degrees up to about 900, 5 % of the vertices
+      without out-edges, repeated edges, self-loops), 5 iterations: every
+      entry within rtol 1e-5 / atol 1e-6; each kernel against its twin on
+      the 4th iteration's state and bit for bit against a second launch;
+      every vertex without out-edges exactly 0 off the diagonal. The same
+      on a 1,000-vertex graph and on a graph of repeated edges and
+      self-loops, also against float64 numpy; on n = 0, n = 1 and n in {2,
+      257, 1,031, 3,001, 5,003, 9,001} (off every tile; K20b's 8, 4, 2 and 1
+      rows a block), 2 iterations; and on a graph where 550 of 600 vertices
+      have no out-edges.
+   b. The main path: the edge list written to a file, then
+      ``SimRankDataSource`` -> ``SimRankAlgorithm.train(cuda)``: K20a =
+      K20b = 5, twins 0, the scores bit for bit (a)'s; the same for
+      ``NodeSamplingDataSource`` and ``ForestFireSamplingDataSource`` at
+      ``sample_fraction=0.5`` (their scores against the twins as in a).
+      The train's wall clock split into the host CSR build, the upload,
+      the loop and the one device-to-host copy of the [n, n] scores. The
+      model saved (engine ``"simrank"``), deployed through ``tools.cli
+      deploy --device cuda`` and sent 64 ``POST /queries.json`` from 8
+      clients (``{"item1": a, "item2": b}``; the diagonal and high
+      off-diagonal pairs among them), each answer the model's score.
+      Times of K20a and K20b at the 5th iteration, device times, twins,
+      bounds (each [n, n] input read and output written once, the CSR once;
+      2·nnz·n operations) and the library calls (the dense product, TF32
+      off, and ``torch.sparse.mm`` with a CSR P where it runs; the port
+      calls neither) (``simrank``).
+   c. K3c (``ops/topn.py`` ``topn_chain``, ``csrc/topn.cu``
+      ``topn_chain_f32``): ``ServingFactors.measure_compute_ms`` at the
+      bench's call (phase 3's model, its first 32 users, n = 10,
+      ``iters=4096``) and at phase 2's shape (a seeded catalog of 26,744 x
+      32, B = 128, n = 16): 1 + 2 x 5 chain launches each, K3 and twins 0;
+      a 4,096-pass chain's output bit for bit K3's on the query offset by
+      the last pass, a 3-pass chain against its twin (ids outside near-tie
+      runs, scores rtol 1e-5 / atol 1e-6). The measured ms a pass printed
+      beside K3's time on the card alone at the same shape and phase 2's,
+      not gated (``k3c``).
+   d. The five templates on ML-100K-shaped ratings (a copy of the bench's
+      ``synth_ml100k``: 943 x 1,682, 100,000 ratings, written as
+      ``user::item::rate`` lines), rank 10, 10 sweeps, lambda 0.05, each
+      training K1 = K2 = 20 with every twin 0: ``custom_datasource`` (the
+      file source) and ``movielens_filtering`` (the same ratings as event
+      columns) train factors bit for bit the recommendation template's and
+      answer its 33 queries equal (the filter dropping exactly the ids of
+      two blacklists, the file edited between them); ``refactor_test``'s
+      model and ``VanillaEvaluator``; ``similarproduct_localmodel`` trains
+      factors bit for bit the Similar Product template's (the lines as
+      views, 24 categories) and answers 22 queries, with no launch, within
+      rtol 1e-5 / atol 1e-6 of that template's host path (K14);
+      ``run_standalone`` with ``persist_model=True``, its model saved by
+      ``make_serializable_models`` as one ``.npz`` and reloaded by
+      ``prepare_deploy`` bit for bit, 64 predictions (K7) equal
+      (``templates``).
 """
 
 from __future__ import annotations
@@ -5808,6 +5870,626 @@ def experimental_phase(device, workdir):
                             "regression": r_stats}
 
 
+# phase 3y (after 3x): SimRank friend recommendation (K20a, K20b), K3c
+# (ServingFactors.measure_compute_ms) and the five experimental templates
+# that need no event store
+WV_VERTICES, WV_EDGES, WV_SEED = 7_115, 103_689, 43  # SNAP Wiki-Vote's size
+SR_ITERS, SR_DECAY = 5, 0.8  # SimRankParams' defaults
+SR_SERVED, SR_CLIENTS = 64, 8
+K3C_ITERS, K3C_REPS = 4096, 5  # the bench's call (bench.py:447), measure_compute_ms' reps
+ML100K_USERS, ML100K_ITEMS, ML100K_RATINGS = 943, 1682, 100_000
+ML100K_ALS = {"rank": 10, "num_iterations": 10, "lambda_": 0.05}  # bench.py:70, :431
+
+
+def wiki_vote_edges(seed=WV_SEED, n=WV_VERTICES, m=WV_EDGES):
+    """A seeded directed edge list of SNAP Wiki-Vote's size (7,115 vertices,
+    103,689 edges): out-degrees drawn by Pareto-1.6 weights (the largest
+    about 900, as Wiki-Vote's 893), targets by Pareto-2.0 popularity (the
+    largest in-degree about 500, as its 457), 5 % of the vertices without
+    out-edges, 1 % of the edges repeated, 300 self-loops (n/10 on a smaller
+    graph); vertex n-1 is a
+    target, so the file reads back n vertices."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_dup, n_loop = m // 100, min(300, n // 10)
+    out_w = rng.pareto(1.6, n) + 1.0
+    out_w[rng.choice(n, n // 20, replace=False)] = 0.0
+    deg = rng.multinomial(m - n_dup - n_loop - 1, out_w / out_w.sum())
+    src = np.repeat(np.arange(n), deg)
+    pop = rng.pareto(2.0, n) + 1.0
+    dst = rng.choice(n, len(src), p=pop / pop.sum())
+    edges = np.stack([src, dst], 1)
+    loops = rng.choice(np.flatnonzero(deg), n_loop, replace=False)
+    sources = np.flatnonzero(deg)
+    edges = np.concatenate([
+        edges, edges[rng.choice(len(edges), n_dup, replace=False)],
+        np.stack([loops, loops], 1), [[sources[0], n - 1]],
+    ])
+    return edges[rng.permutation(len(edges))].astype(np.int64)
+
+
+def simrank64(edges, n, iters, decay):
+    """SimRank in float64 numpy, dense: the reference's fixpoint with a
+    float64 P."""
+    import numpy as np
+
+    P = np.zeros((n, n))
+    if len(edges):
+        deg = np.bincount(edges[:, 0], minlength=n).astype(np.float64)
+        np.add.at(P, (edges[:, 0], edges[:, 1]), 1.0 / deg[edges[:, 0]])
+    S = np.eye(n)
+    for _ in range(iters):
+        S = decay * (P @ S @ P.T)
+        np.fill_diagonal(S, 1.0)
+    return S
+
+
+def simrank_bound(n: int, nnz: int):
+    """K20a's or K20b's (bound_ms, bound_by): the [n, n] input read and the
+    [n, n] output written once, the CSR once, against 2·nnz·n fp32
+    operations."""
+    return roofline(8.0 * n * n + 4.0 * (n + 1) + 8.0 * nnz, 2.0 * nnz * n)
+
+
+def within(got, want, rtol=RTOL, atol=ATOL):
+    """The largest |got - want| and whether every entry lies within atol +
+    rtol·|want|."""
+    import numpy as np
+
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(g - w)
+    return (float(d.max()) if d.size else 0.0), bool((d <= atol + rtol * np.abs(w)).all())
+
+
+def check_simrank(edges, n, label, device, iters=SR_ITERS, against64=False):
+    """K20a and K20b against their twins on the card (TF32 off): the loop of
+    ``iters`` iterations against the dense loop; each kernel against its
+    twin on the loop's state after ``iters - 1`` iterations, and bit for bit
+    against a second launch; a vertex without out-edges exactly 0 off the
+    diagonal; with ``against64`` the loop also against float64 numpy.
+    Returns ({kernel: max_abs_err}, the loop's scores on the host)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import simrank as k20
+
+    csr = k20.place_csr(*k20.build_transition_csr(edges, n), device)
+    S = k20.simrank(csr, iters, SR_DECAY)
+    ref = k20.simrank_plain(k20.simrank_csr_to_dense(csr), iters, SR_DECAY)
+    torch.cuda.synchronize()
+    S_np = S.cpu().numpy()
+    err, ok = within(S_np, ref.cpu().numpy())
+    if not ok:
+        raise AssertionError(f"K20 {label}: the loop lies {err:.3g} off the dense twin")
+    errs = {"simrank_propagate": 0.0, "simrank_contract": err}
+    if n:
+        S_prev = k20.simrank(csr, iters - 1, SR_DECAY)
+        U = k20.simrank_propagate(S_prev, csr)
+        U_ref = k20.simrank_propagate_plain(S_prev, csr)
+        out = k20.simrank_contract(U, csr, SR_DECAY)
+        out_ref = k20.simrank_contract_plain(U, csr, SR_DECAY)
+        for name, got, want, again in (
+                ("simrank_propagate", U, U_ref, lambda: k20.simrank_propagate(S_prev, csr)),
+                ("simrank_contract", out, out_ref, lambda: k20.simrank_contract(U, csr, SR_DECAY))):
+            e, ok = within(got.cpu().numpy(), want.cpu().numpy())
+            if not ok:
+                raise AssertionError(f"K20 {label}: {name} lies {e:.3g} off its twin")
+            if not bits_equal(got, again()):
+                raise AssertionError(f"K20 {label}: a second {name} launch differs")
+            errs[name] = max(errs[name], e)
+    if S_np.shape != (n, n) or not np.isfinite(S_np).all() or not (np.diag(S_np) == 1).all():
+        raise AssertionError(f"K20 {label}: scores not finite of shape [{n}, {n}] with a unit diagonal")
+    sinks = np.setdiff1d(np.arange(n), np.asarray(edges).reshape(-1, 2)[:, 0])
+    off = ~np.eye(n, dtype=bool)
+    if not ((S_np[sinks][off[sinks]] == 0).all() and (S_np[:, sinks][off[:, sinks]] == 0).all()):
+        raise AssertionError(f"K20 {label}: a vertex without out-edges scores off the diagonal")
+    note = ""
+    if against64:
+        e64, ok = within(S_np, simrank64(np.asarray(edges).reshape(-1, 2), n, iters, SR_DECAY))
+        if not ok:
+            raise AssertionError(f"K20 {label}: the loop lies {e64:.3g} off float64")
+        note = f", {e64:.3g} off float64 numpy"
+    print(f"  K20 {label}: n {n}, {int(csr.indptr[-1]) if n else 0} CSR entries, {iters} "
+          f"iterations within rtol {RTOL} / atol {ATOL} of the twin (|d| {err:.3g}){note}; each "
+          f"kernel against its twin and bit for bit against a second launch; {len(sinks)} "
+          "vertices without out-edges 0 off the diagonal ok", flush=True)
+    return errs, S_np
+
+
+def simrank_times(csr, S, device):
+    """Each K20 kernel, its device time, its twin and the library calls at
+    the main path's shapes: dense ``torch.matmul`` of the product (TF32 off)
+    and ``torch.sparse.mm`` with P as a CSR tensor, where it builds."""
+    import torch
+
+    from predictionio_tpu_torch.ops import simrank as k20
+
+    U = k20.simrank_propagate(S, csr)
+    P = k20.simrank_csr_to_dense(csr)
+    try:
+        P_sp = torch.sparse_csr_tensor(csr.indptr.long(), csr.cols.long(), csr.vals,
+                                       size=(csr.n, csr.n))
+        torch.sparse.mm(P_sp, S)
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  torch.sparse.mm with a CSR P does not run here: {e}", flush=True)
+        P_sp = None
+    nnz = int(csr.cols.shape[0])
+    out = {}
+    for name, kern, plain, dense, sparse in (
+            ("simrank_propagate", lambda: k20.simrank_propagate(S, csr),
+             lambda: k20.simrank_propagate_plain(S, csr), lambda: P @ S,
+             lambda: torch.sparse.mm(P_sp, S)),
+            ("simrank_contract", lambda: k20.simrank_contract(U, csr, SR_DECAY),
+             lambda: k20.simrank_contract_plain(U, csr, SR_DECAY), lambda: U @ P.T,
+             lambda: torch.sparse.mm(P_sp, U.T))):
+        ms = time_ms(kern, iters=50, warmup=3)
+        out[name] = {
+            "ms": ms, "device_ms": device_ms(kern, calls=10),
+            "plain_ms": time_ms(plain, iters=5, warmup=1),
+            "library_dense_ms": time_ms(dense, iters=5, warmup=1),
+            "library_sparse_ms": None if P_sp is None else time_ms(sparse, iters=10, warmup=2),
+            "bound": simrank_bound(csr.n, nnz),
+        }
+    return out
+
+
+def simrank_phase(device, workdir):
+    """3y a-b: K20 against its twins on the Wiki-Vote-sized graph, a
+    1,000-vertex graph (also against float64) and the edge graphs; then the
+    main path, counted from 0: ``SimRankDataSource`` -> ``SimRankAlgorithm.train``
+    and the node and forest-fire sources at ``sample_fraction=0.5``, K20a =
+    K20b = 5 each, twins 0; the train's wall clock split; the model saved,
+    deployed through ``tools.cli deploy --device cuda`` and sent 64 queries
+    from 8 clients, each answer the model's score. Returns (launches,
+    errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.experimental import friend_recommendation as fr
+    from predictionio_tpu_torch.ops import simrank as k20
+    from predictionio_tpu_torch.utils.serialize import save_model
+
+    edges = wiki_vote_edges()
+    errs = {"simrank_propagate": 0.0, "simrank_contract": 0.0}
+
+    def merge(e):
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+
+    e, wiki_S = check_simrank(edges, WV_VERTICES, "Wiki-Vote-sized graph", device)
+    merge(e)
+    rng = np.random.default_rng(WV_SEED + 1)
+    small = wiki_vote_edges(seed=WV_SEED + 1, n=1_000, m=14_000)
+    merge(check_simrank(small, 1_000, "1,000 vertices", device, against64=True)[0])
+    # the edges: n = 0, n = 1 (a self-loop), n off every tile (K20b's R = 8,
+    # 4, 2 and 1), duplicates only, a sink-heavy graph
+    merge(check_simrank(np.zeros((0, 2), np.int64), 0, "n = 0", device)[0])
+    merge(check_simrank(np.array([[0, 0]]), 1, "n = 1", device)[0])
+    for n in (2, 257, 1_031, 3_001, 5_003, 9_001):
+        g = np.stack([rng.integers(0, n, 8 * n), rng.integers(0, n, 8 * n)], 1)
+        g = np.concatenate([g, [[0, n - 1]]])
+        merge(check_simrank(g, n, f"n = {n}", device, iters=2)[0])
+    dup = np.array([[0, 1]] * 5 + [[0, 2], [1, 1], [1, 1], [2, 0], [2, 1], [2, 1], [2, 3]])
+    merge(check_simrank(dup, 5, "duplicates and self-loops", device, against64=True)[0])
+    sinky = np.stack([rng.integers(0, 50, 400), rng.integers(0, 600, 400)], 1)
+    merge(check_simrank(sinky, 600, "550 of 600 vertices without out-edges", device)[0])
+
+    path = os.path.join(workdir, "wiki_vote.txt")
+    with open(path, "w") as f:
+        f.write("# a Wiki-Vote-sized seeded graph: src dst\n")
+        f.write("".join(f"{s} {d}\n" for s, d in edges.tolist()))
+    stats = {"card": card_line(), "vertices": WV_VERTICES, "edges": WV_EDGES,
+             "iterations": SR_ITERS, "decay": SR_DECAY, "sources": {}}
+    launches = {"simrank_propagate": 0, "simrank_contract": 0}
+    models = {}
+    for label, ds in (
+            ("default", fr.SimRankDataSource(fr.SimRankDataSourceParams(graph_edgelist_path=path))),
+            ("node", fr.NodeSamplingDataSource(fr.NodeSamplingDSParams(
+                graph_edgelist_path=path, sample_fraction=0.5))),
+            ("forest", fr.ForestFireSamplingDataSource(fr.ForestFireDSParams(
+                graph_edgelist_path=path, sample_fraction=0.5)))):
+        k20.LAUNCHES.reset()
+        t = time.perf_counter()
+        td = ds.read_training(None)
+        read_s = time.perf_counter() - t
+        t = time.perf_counter()
+        model = fr.SimRankAlgorithm().train(device, td)
+        train_s = time.perf_counter() - t
+        counts = k20.LAUNCHES.snapshot()
+        want = {"simrank_propagate": SR_ITERS, "simrank_contract": SR_ITERS,
+                "simrank_propagate_plain": 0, "simrank_contract_plain": 0}
+        if counts != want:
+            raise AssertionError(f"SimRank {label}: launches {counts}, want {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        if td.n_vertices != WV_VERTICES or model.scores.shape != (WV_VERTICES, WV_VERTICES):
+            raise AssertionError(f"SimRank {label}: {td.n_vertices} vertices, scores "
+                                 f"{model.scores.shape}")
+        if label == "default":
+            if not np_bits_equal(model.scores, wiki_S):
+                raise AssertionError("SimRank: the main path's scores differ from the checked loop's")
+        else:
+            if not 0 < len(td.edges) < len(edges):
+                raise AssertionError(f"SimRank {label}: {len(td.edges)} sampled edges")
+            merge(check_simrank(td.edges, td.n_vertices, f"{label} sample", device)[0])
+        models[label] = model
+        stats["sources"][label] = {"edges": int(len(td.edges)), "read_s": read_s,
+                                   "train_s": train_s}
+        print(f"  main path {label}: {len(td.edges)} edges read in {read_s:.2f} s, "
+              f"SimRankAlgorithm.train {train_s:.3f} s, launches {counts} ok", flush=True)
+
+    # the train's wall clock split: its own steps, timed one by one
+    td = fr.SimRankDataSource(fr.SimRankDataSourceParams(graph_edgelist_path=path)).read_training(None)
+    t = time.perf_counter()
+    host_csr = k20.build_transition_csr(td.edges, td.n_vertices)
+    csr_s = time.perf_counter() - t
+    t = time.perf_counter()
+    csr = k20.place_csr(*host_csr, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    t = time.perf_counter()
+    S = k20.simrank(csr, SR_ITERS, SR_DECAY)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    t = time.perf_counter()
+    scores = S.cpu().numpy()
+    fetch_s = time.perf_counter() - t
+    if not np_bits_equal(scores, wiki_S):
+        raise AssertionError("SimRank: the timed steps' scores differ from the main path's")
+    stats["split_s"] = {"csr_build": csr_s, "upload": upload_s, "loop": loop_s, "fetch": fetch_s}
+    stats["csr_entries"] = int(len(host_csr[1]))
+    stats["max_out_degree"] = int(np.diff(host_csr[0]).max())
+    stats.update(simrank_times(csr, S, device))
+
+    model_path = os.path.join(workdir, "simrank.npz")
+    t = time.perf_counter()
+    save_model(model_path, models["default"])
+    save_s = time.perf_counter() - t
+    pairs = rng.integers(0, WV_VERTICES, (SR_SERVED, 2))
+    pairs[:4, 1] = pairs[:4, 0]  # the diagonal
+    best = wiki_S[4:12].copy()
+    best[np.arange(8), np.arange(4, 12)] = -1.0
+    pairs[4:12] = np.stack([np.arange(4, 12), best.argmax(1)], 1)  # high off-diagonal scores
+    bodies = [{"item1": int(a), "item2": int(b)} for a, b in pairs]
+    server = Deployment(model_path, device)
+    try:
+        answers, wall = server.send(bodies, SR_CLIENTS)
+        status = server.status()
+    finally:
+        server.stop()
+    for i, _, res in answers:
+        a, b = bodies[i]["item1"], bodies[i]["item2"]
+        if res != float(models["default"].scores[a, b]):
+            raise AssertionError(f"SimRank deployment: query {bodies[i]} answered {res}")
+    if not any(res > 0 for _, _, res in answers[4:12]):
+        raise AssertionError("SimRank deployment: no positive off-diagonal score served")
+    stats["served"] = {"queries": len(answers), "batches": status["batches"],
+                       **latency_stats(answers, wall), "deploy_s": server.deploy_s,
+                       "save_s": save_s}
+    print(f"  SimRank: the model saved in {save_s:.2f} s ({os.path.getsize(model_path)} B), "
+          f"deployed through the CLI, {len(answers)} queries from {SR_CLIENTS} clients each "
+          "answered the model's score ok", flush=True)
+    print("simrank " + json.dumps(stats), flush=True)
+    return launches, errs, stats
+
+
+def k3c_phase(device, model, k3_rows):
+    """3y c: ``ServingFactors.measure_compute_ms`` at the bench's call (phase
+    3's model, its first 32 users, n = 10, ``iters=4096``) and at phase 2's
+    shape (N = 26,744, rank 32, B = 128, n = 16), each counted from 0 (one
+    warm-up chain call and two a sample: 11 K3c launches, K3 and twins 0);
+    at each, the chain's output bit for bit K3's on the query offset by the
+    last pass, and a 3-pass chain against its twin. The measured ms are
+    printed beside K3's device time at the same shape, not gated. Returns
+    (launches, error, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import topn as k3
+    from predictionio_tpu_torch.ops.als import ServingFactors, _unpack_indices
+    from predictionio_tpu_torch.ops.topn import (
+        chain_offset,
+        check_topn_agreement,
+        topn_chain,
+        topn_chain_plain,
+        topn_packed,
+    )
+
+    rng = np.random.default_rng(47)
+    Y2 = (rng.standard_normal((ML20M_ITEMS, RANK)) / np.sqrt(RANK)).astype(np.float32)
+    q2 = (rng.standard_normal((128, RANK)) / np.sqrt(RANK)).astype(np.float32)
+    cases = (
+        ("bench call", model.arrays.user_factors, model.arrays.item_factors,
+         model.arrays.user_factors[:32], 10),
+        ("phase 2 shape", q2, Y2, q2, 16),
+    )
+    launches, err, stats = 0, 0.0, {"card": card_line(), "iters": K3C_ITERS, "reps": K3C_REPS}
+    for label, uf, itf, rows, n in cases:
+        sf = ServingFactors(uf, itf, device=device)
+        k3.LAUNCHES.reset()
+        t = time.perf_counter()
+        ms = sf.measure_compute_ms(rows, n, iters=K3C_ITERS, reps=K3C_REPS)
+        wall = time.perf_counter() - t
+        counts = k3.LAUNCHES.snapshot()
+        want = {"topn_packed": 0, "topn_packed_plain": 0, "topn_chain": 1 + 2 * K3C_REPS,
+                "topn_chain_plain": 0}
+        if counts != want:
+            raise AssertionError(f"K3c {label}: launches {counts}, want {want}")
+        launches += counts["topn_chain"]
+        q = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(device)
+        Y = sf._if_dev
+        out = topn_chain(q, Y, n, K3C_ITERS)
+        off = torch.tensor(float(chain_offset(K3C_ITERS - 1)), dtype=torch.float32, device=device)
+        last = topn_packed(q + off, Y, n)
+        if not bits_equal(out, last):
+            raise AssertionError(f"K3c {label}: the chain's output is not K3's on the last "
+                                 "pass's offset query")
+        got = topn_chain(q, Y, n, 3).cpu().numpy()
+        ref = topn_chain_plain(q, Y, n, 3).cpu().numpy()
+        e = check_topn_agreement(got[:, :n], _unpack_indices(got, n), ref[:, :n],
+                                 _unpack_indices(ref, n), RTOL, ATOL)
+        err = max(err, e)
+        k3_dev = device_ms(lambda: topn_packed(q, Y, n), calls=200)
+        B, N, k = q.shape[0], Y.shape[0], Y.shape[1]
+        row = {"B": B, "N": N, "k": k, "n": n, "measure_compute_ms": ms, "wall_s": wall,
+               "k3_device_ms": k3_dev,
+               "plain_ms": time_ms(lambda: topn_chain_plain(q, Y, n, 8), iters=5) / 8,
+               "library_ms": time_ms(lambda: torch.topk(q @ Y.T, n)),
+               "bound": bound(B, N, k, n), "launches": counts}
+        phase2 = [r["device_ms"] for r in k3_rows if (r["B"], r["n"]) == (B, 16)]
+        if phase2:
+            row["phase2_k3_device_ms_n16"] = phase2[0]
+        stats[label] = row
+        print(f"  K3c {label}: B {B} N {N} k {k} n {n}: measure_compute_ms {ms:.5f} ms a pass "
+              f"({K3C_ITERS} passes, {K3C_REPS} reps, {wall:.2f} s); K3 on the card alone "
+              f"{k3_dev:.5f} ms{'; phase 2 K3 device %.5f ms at n = 16' % phase2[0] if phase2 else ''}"
+              f"; the chain equals K3 on the last offset query bit for bit, a 3-pass chain "
+              f"against its twin |d| {e:.3g} ok", flush=True)
+    print("k3c " + json.dumps(stats), flush=True)
+    return launches, err, stats
+
+
+def synth_ml100k(seed=7):
+    """ML-100K-shaped synthetic ratings, a copy of the bench's generator
+    (``bench.py synth_ml100k``): 943 users x 1,682 items, 100,000 ratings
+    on a lognormal-activity x zipf-popularity long tail, 1..5."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = 6
+    U = rng.standard_normal((ML100K_USERS, k)) / np.sqrt(k)
+    V = rng.standard_normal((ML100K_ITEMS, k)) / np.sqrt(k)
+    u_p = rng.lognormal(0, 1, ML100K_USERS)
+    u_p /= u_p.sum()
+    i_p = 1.0 / np.arange(1, ML100K_ITEMS + 1) ** 0.8
+    i_p /= i_p.sum()
+    u = rng.choice(ML100K_USERS, size=ML100K_RATINGS, p=u_p).astype(np.int32)
+    i = rng.choice(ML100K_ITEMS, size=ML100K_RATINGS, p=i_p).astype(np.int32)
+    raw = (U[u] * V[i]).sum(-1)
+    r = np.clip(np.round(3.0 + 1.2 * raw + 0.4 * rng.standard_normal(ML100K_RATINGS)), 1, 5)
+    return u, i, r.astype(np.float32)
+
+
+def template_counts():
+    from predictionio_tpu_torch.ops import (
+        device_pack, gramian, normal_eq, predict_pairs, similarity, spd_solve, topn,
+    )
+
+    return (device_pack.LAUNCHES, normal_eq.LAUNCHES, spd_solve.LAUNCHES, topn.LAUNCHES,
+            predict_pairs.LAUNCHES, gramian.LAUNCHES, similarity.LAUNCHES)
+
+
+def counted(label, want, fn):
+    """``fn()`` with every template kernel's count from 0; raises unless each
+    count in ``want`` is met and every twin stayed at 0."""
+    counters = template_counts()
+    for c in counters:
+        c.reset()
+    out = fn()
+    counts = snapshot(counters)
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, not {n}")
+    if any(v for name, v in counts.items() if name.endswith("_plain")):
+        raise AssertionError(f"{label}: a plain twin ran: {counts}")
+    return out, {n: v for n, v in counts.items() if v}
+
+
+def templates_phase(device, workdir):
+    """3y d: the five templates on the card at ML-100K shape (the bench's
+    ``synth_ml100k`` written as ``user::item::rate`` lines), through their
+    entry points, each counted from 0. Returns stats."""
+    import numpy as np
+
+    from predictionio_tpu_torch.controller.engine import EngineParams
+    from predictionio_tpu_torch.controller.persistent_model import PersistentModelManifest
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.data.store import EventColumns
+    from predictionio_tpu_torch.models.experimental import custom_datasource as cds
+    from predictionio_tpu_torch.models.experimental import movielens_filtering as mlf
+    from predictionio_tpu_torch.models.experimental import refactor_test as rft
+    from predictionio_tpu_torch.models.experimental import similarproduct_localmodel as lcl
+    from predictionio_tpu_torch.models.experimental import standalone_recommendations as sar
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.models.similarproduct import engine as sp
+    from predictionio_tpu_torch.ops.topn import check_topn_agreement
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.workflow_params import WorkflowParams
+
+    u, i, r = synth_ml100k()
+    path = os.path.join(workdir, "ml100k.dat")
+    with open(path, "w") as f:
+        f.write("".join(f"{a}::{b}::{int(c)}\n" for a, b, c in zip(u.tolist(), i.tolist(),
+                                                                     r.tolist())))
+    sweeps = ML100K_ALS["num_iterations"]
+    train_want = {"normal_eq": 2 * sweeps, "spd_solve": 2 * sweeps}
+    stats = {"card": card_line(), "ratings": ML100K_RATINGS, **ML100K_ALS}
+    als = rec.ALSAlgorithmParams(**ML100K_ALS)
+    users = [str(x) for x in range(0, ML100K_USERS, 29)]
+    queries = [(n, rec.Query(user=x, num=10)) for n, x in enumerate(users)]
+
+    # the recommendation template on the same ratings, read as event columns
+    # (ids indexed in sorted string order, as the file source indexes them)
+    su, si = [str(x) for x in u.tolist()], [str(x) for x in i.tolist()]
+    ui, ii = BiMap.string_int(su), BiMap.string_int(si)
+    cols = EventColumns(ui, ii, np.asarray([ui[x] for x in su], np.int32),
+                        np.asarray([ii[x] for x in si], np.int32), r)
+    ctx = WorkflowContext(device, {"ml100k": cols})
+    rec_ep = EngineParams(data_source_params=("", rec.DataSourceParams(app_name="ml100k")),
+                          algorithm_params_list=(("als", als),))
+    t = time.perf_counter()
+    [rec_model], c = counted("recommendation", train_want, lambda: rec.recommendation_engine().train(
+        ctx, rec_ep, WorkflowParams()))
+    stats["recommendation_train_s"] = time.perf_counter() - t
+    rec_answers = dict(rec_model.recommend_many(queries))
+
+    # a. custom_datasource: the file source, the same model bit for bit
+    ep = EngineParams(data_source_params=("", cds.FileDataSourceParams(filepath=path)),
+                      algorithm_params_list=(("als", als),))
+    t = time.perf_counter()
+    [m], c = counted("custom_datasource", train_want, lambda: cds.custom_datasource_engine().train(
+        WorkflowContext(device), ep, WorkflowParams()))
+    stats["custom_datasource"] = {"train_s": time.perf_counter() - t, "launches": c}
+    if not (np_bits_equal(m.arrays.user_factors, rec_model.arrays.user_factors)
+            and np_bits_equal(m.arrays.item_factors, rec_model.arrays.item_factors)):
+        raise AssertionError("custom_datasource: factors differ from the recommendation template's")
+    _, _, algos, serving = cds.custom_datasource_engine().make_components(ep)
+    got, c = counted("custom_datasource serving", {"topn_packed": 1},
+                     lambda: algos[0].batch_predict(m, queries))
+    for (n, p), q in zip(got, queries):
+        if serving.serve(q[1], [p]) != rec_answers[n]:
+            raise AssertionError(f"custom_datasource: query {q} answered unlike the template")
+    print(f"  custom_datasource: {ML100K_RATINGS} lines, factors bit for bit the recommendation "
+          f"template's, {len(queries)} answers equal ok", flush=True)
+
+    # b. movielens_filtering: TempFilter re-reads its blacklist per query
+    blacklist = os.path.join(workdir, "blacklist.txt")
+    flt_ep = EngineParams(data_source_params=("", mlf.DataSourceParams(app_name="ml100k")),
+                          algorithm_params_list=(("als", als),),
+                          serving_params=("", mlf.TempFilterParams(filepath=blacklist)))
+    t = time.perf_counter()
+    [m], c = counted("movielens_filtering", train_want, lambda: mlf.filtering_engine().train(
+        ctx, flt_ep, WorkflowParams()))
+    stats["movielens_filtering"] = {"train_s": time.perf_counter() - t, "launches": c}
+    if not np_bits_equal(m.arrays.item_factors, rec_model.arrays.item_factors):
+        raise AssertionError("movielens_filtering: factors differ from the template's")
+    _, _, algos, serving = mlf.filtering_engine().make_components(flt_ep)
+    head = [s.item for s in max(rec_answers.values(), key=lambda a: len(a.item_scores)).item_scores]
+    for blocked in (head[:3], head[3:5] + [head[0]]):
+        with open(blacklist, "w") as f:
+            f.write("".join(f"{b}\n" for b in blocked))
+        for n, q in queries:
+            got = serving.serve(q, [algos[0].predict(m, q)])
+            want = tuple(s for s in rec_answers[n].item_scores if s.item not in blocked)
+            if got.item_scores != want:
+                raise AssertionError(f"movielens_filtering: {q} with {blocked} blocked")
+    print(f"  movielens_filtering: factors bit for bit the template's; two blacklists, the file "
+          f"edited between them, drop exactly their ids from {len(queries)} answers ok", flush=True)
+
+    # c. refactor_test: the vanilla engine and evaluator (host code)
+    vctx = WorkflowContext(device)
+    [vm] = rft.refactor_test_engine().train(vctx, rft.default_engine_params(2), WorkflowParams())
+    result = rft.VanillaEvaluator().evaluate_base(vctx, None, rft.refactor_test_engine().batch_eval(
+        vctx, [rft.default_engine_params(1)], WorkflowParams()), WorkflowParams())
+    if vm.mc != 9900 or (result.n_sets, result.total) != (3, -3 * 20 * 4950):
+        raise AssertionError(f"refactor_test: model {vm}, evaluator {result.to_one_liner()}")
+    print(f"  refactor_test: model {vm.mc}, {result.to_one_liner()} ok", flush=True)
+
+    # d. similarproduct_localmodel: the Similar Product ALS on the card, then
+    # host dictionaries and numpy cosines, against the template's host path
+    items = {f"i{x}": sp.Item(categories=(f"c{x % 24}",)) for x in range(ML100K_ITEMS)}
+    td = sp.TrainingData(users={f"u{x}": {} for x in range(ML100K_USERS)}, items=items,
+                         view_events=[sp.ViewEvent(user=f"u{a}", item=f"i{b}", t=float(n))
+                                      for n, (a, b) in enumerate(zip(u.tolist(), i.tolist()))])
+    pd = sp.PreparedData(td=td)
+    sp_params = sp.ALSAlgorithmParams(rank=10, num_iterations=10, lambda_=0.01, seed=1)
+    t = time.perf_counter()
+    local, c = counted("similarproduct_localmodel", {**train_want, "gramian": 4 * sweeps},
+                       lambda: lcl.ALSLocalAlgorithm(sp_params).train(device, pd))
+    stats["similarproduct_localmodel"] = {"train_s": time.perf_counter() - t, "launches": c}
+    sp_model = sp.ALSAlgorithm(sp_params).train(device, pd)
+    local_rows = np.stack([local.product_features[j] for j in range(ML100K_ITEMS)])
+    if not np_bits_equal(local_rows, sp_model.item_factors):
+        raise AssertionError("similarproduct_localmodel: factors differ from the template's")
+    sp_queries = [sp.Query(items=(f"i{x}",), num=10) for x in range(0, 400, 25)] + [
+        sp.Query(items=(f"i{x}", f"i{x + 7}"), num=8, categories=("c3", "c5"))
+        for x in range(0, 200, 40)] + [sp.Query(items=("nope",), num=5)]
+    algo = lcl.ALSLocalAlgorithm(sp_params)
+    t = time.perf_counter()
+    got, c = counted("similarproduct_localmodel serving", {"cosine_sum": 0},
+                     lambda: algo.batch_predict(local, list(enumerate(sp_queries))))
+    local_s = time.perf_counter() - t
+    want, c_sp = counted("similar product host path", {"cosine_sum": len(sp_queries) - 1},
+                         lambda: [sp_model.similar(q) for q in sp_queries])
+    err = 0.0
+    for (_, g), w, q in zip(got, want, sp_queries):
+        if len(g.item_scores) != len(w.item_scores):
+            raise AssertionError(f"similarproduct_localmodel: {q}: {len(g.item_scores)} items, "
+                                 f"the template {len(w.item_scores)}")
+        if not w.item_scores:
+            continue
+        err = max(err, check_topn_agreement(
+            np.array([[s.score for s in g.item_scores]]),
+            np.array([[local.item_index[s.item] for s in g.item_scores]]),
+            np.array([[s.score for s in w.item_scores]]),
+            np.array([[local.item_index[s.item] for s in w.item_scores]]), RTOL, ATOL))
+    stats["similarproduct_localmodel"]["predict_s_per_query"] = local_s / len(sp_queries)
+    print(f"  similarproduct_localmodel: factors bit for bit the template's; {len(sp_queries)} "
+          f"answers (host numpy, {local_s / len(sp_queries) * 1e3:.2f} ms a query) within rtol "
+          f"{RTOL} / atol {ATOL} of the template's host path (K14), |d| {err:.3g} ok", flush=True)
+
+    # e. standalone_recommendations: run_standalone, persisted as .npz,
+    # reloaded through make_serializable_models / prepare_deploy
+    old = os.environ.get("PIO_FS_BASEDIR")
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(workdir, "fs")
+    try:
+        t = time.perf_counter()
+        [sm], c = counted("standalone_recommendations", train_want, lambda: sar.run_standalone(
+            path, **ML100K_ALS, persist_model=True, device=device))
+        stats["standalone_recommendations"] = {"train_s": time.perf_counter() - t, "launches": c}
+        engine = sar.standalone_recommendations_engine()
+        ep = sar.standalone_engine_params(path, **ML100K_ALS, persist_model=True)
+        [kept] = engine.make_serializable_models(device, "ml100k", ep, [sm])
+        if not isinstance(kept, PersistentModelManifest):
+            raise AssertionError(f"standalone_recommendations: kept {kept!r}")
+        saved = os.listdir(os.path.join(workdir, "fs", "pmodels"))
+        if saved != ["ml100k-PMatrixFactorizationModel.npz"]:
+            raise AssertionError(f"standalone_recommendations: saved {saved}")
+        [loaded] = engine.prepare_deploy(device, ep, [kept], engine_instance_id="ml100k")
+    finally:
+        if old is None:
+            del os.environ["PIO_FS_BASEDIR"]
+        else:
+            os.environ["PIO_FS_BASEDIR"] = old
+    if not (np_bits_equal(loaded.user_features, sm.user_features)
+            and np_bits_equal(loaded.product_features, sm.product_features)):
+        raise AssertionError("standalone_recommendations: the reloaded factors differ")
+    algo = sar.ALSAlgorithm(ep.algorithm_params_list[0][1])
+    pairs = [(int(a), int(b)) for a, b in zip(u[:64].tolist(), i[:64].tolist())]
+    got, c = counted("standalone predict", {"predict_pairs": 2 * len(pairs)},
+                     lambda: [(algo.predict(loaded, p), algo.predict(sm, p)) for p in pairs])
+    if any(a != b for a, b in got):
+        raise AssertionError("standalone_recommendations: the reloaded model predicts otherwise")
+    print(f"  standalone_recommendations: run_standalone, persisted as one .npz, reloaded through "
+          f"prepare_deploy bit for bit; {len(pairs)} predictions (K7) equal ok", flush=True)
+    print("templates " + json.dumps(stats), flush=True)
+    return stats
+
+
+def phase_3y(device, workdir, model, k3_rows):
+    """Phase 3y: SimRank (``simrank_phase``), K3c (``k3c_phase``) and the five
+    templates (``templates_phase``). Returns (launches, errors, stats)."""
+    t = time.perf_counter()
+    s_counts, s_errs, s_stats = simrank_phase(device, workdir)
+    c_launches, c_err, c_stats = k3c_phase(device, model, k3_rows)
+    t_stats = templates_phase(device, workdir)
+    launches = {**s_counts, "topn_chain": c_launches}
+    errs = {**s_errs, "topn_chain": c_err}
+    print(f"  3y: launches {launches} in {time.perf_counter() - t:.1f} s", flush=True)
+    return launches, errs, {"simrank": s_stats, "k3c": c_stats, "templates": t_stats}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5837,6 +6519,7 @@ def main() -> int:
         predict_pairs,
         rescore,
         similarity,
+        simrank,
         softmax_regression,
         spd_solve,
         subspace,
@@ -5854,7 +6537,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
                       gramian, similarity, subspace, cooccurrence, grid, delta_scatter, naive_bayes,
-                      softmax_regression, markov, categorical_nb, lstsq)
+                      softmax_regression, markov, categorical_nb, lstsq, simrank)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -5914,6 +6597,9 @@ def main() -> int:
         print(f"phase e2 and least squares (3x) (at {time.perf_counter() - t0:.1f} s)",
               flush=True)
         x_counts, x_errs, x_stats = experimental_phase(device, workdir)
+        print(f"phase SimRank, K3c and the templates (3y) (at {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        y_counts, y_errs, y_stats = phase_3y(device, workdir, model, rows)
 
     full = rows[2]  # B=128, n=16: the full-width batch at num=10
     kernels += [{
@@ -6099,6 +6785,32 @@ def main() -> int:
                        bound_ms=pick(st["bound"])[0], bound_by=pick(st["bound"])[1],
                        library_ms=pick(st["library_ms"]))
         kernels.append(row)
+    # SimRank (3y): K20a and K20b launched on the three sources' main paths,
+    # times at the Wiki-Vote-sized graph's 5th iteration; K3c launched by
+    # both measure_compute_ms calls, its ms the bench call's per-pass time
+    # (its bound and library call K3's at that shape, per pass)
+    sr = y_stats["simrank"]
+    for name in ("simrank_propagate", "simrank_contract"):
+        if y_counts[name] < 1:
+            raise AssertionError(f"{name} never launched on its path")
+        t = sr[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "predictionio_tpu_torch/csrc/simrank.cu",
+            "replaces": "predictionio_tpu/models/experimental/friend_recommendation.py:433",
+            "launches": y_counts[name], "max_abs_err": y_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": (t["library_sparse_ms"] if t["library_sparse_ms"] is not None
+                           else t["library_dense_ms"]),
+            "library_dense_ms": t["library_dense_ms"], "device_ms": t["device_ms"],
+        })
+    c3 = y_stats["k3c"]["bench call"]
+    kernels.append({
+        "name": "topn_chain", "route": "cuda", "source": "predictionio_tpu_torch/csrc/topn.cu",
+        "replaces": "predictionio_tpu/ops/als.py:2382", "launches": y_counts["topn_chain"],
+        "max_abs_err": y_errs["topn_chain"], "ms": c3["measure_compute_ms"],
+        "plain_ms": c3["plain_ms"], "bound_ms": c3["bound"][0], "bound_by": c3["bound"][1],
+        "library_ms": c3["library_ms"],
+    })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,10 +1,11 @@
 """The subset of the DASE controller API the ported slices use (the
 counterpart of ``predictionio_tpu/controller``): params from JSON, the
 data check, the data source, preparator, algorithm and serving bases, an
-engine that builds them, evaluates a params grid and prepares a deploy
-(and ``SimpleEngine``, its one-algorithm form).
-The metrics and the evaluator are in ``metrics`` and ``evaluation``; the
-train workflow comes with a later slice."""
+engine that builds them, trains, evaluates a params grid and prepares a
+deploy (and ``SimpleEngine``, its one-algorithm form), and models that
+persist themselves (``PersistentModel``).
+The metrics and the evaluator are in ``metrics`` and ``evaluation``;
+engine instances come with the event store."""
 
 from predictionio_tpu_torch.controller.base import (
     BaseAlgorithm,
@@ -21,6 +22,12 @@ from predictionio_tpu_torch.controller.engine import (
     EngineParams,
     SimpleEngine,
     SimpleEngineParams,
+)
+from predictionio_tpu_torch.controller.persistent_model import (
+    LocalFileSystemPersistentModel,
+    PersistentModel,
+    PersistentModelManifest,
+    load_persistent_model,
 )
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
@@ -41,11 +48,15 @@ __all__ = [
     "EngineParams",
     "FirstServing",
     "IdentityPreparator",
+    "LocalFileSystemPersistentModel",
     "Params",
     "ParamsError",
+    "PersistentModel",
+    "PersistentModelManifest",
     "SanityCheck",
     "SimpleEngine",
     "SimpleEngineParams",
+    "load_persistent_model",
     "params_from_json",
     "params_to_json",
 ]

@@ -4,13 +4,19 @@ prepareDeploy :196-265; controller/EngineParams.scala:32).
 
 An engine holds a class map per DASE slot (data source, preparator,
 algorithms, serving) and builds the components from ``EngineParams``.
+``train`` reads the data source, prepares and trains every algorithm on
+the context's device (reference train :154 -> :621-708, with the data
+checks and the stop-after-read/prepare interruptions :662-686).
 ``eval`` reads a data source's folds and, per fold, prepares, trains and
 serves the held-out queries (``serve_fold``); ``batch_eval`` does that for
-every variant of a params grid on a thread pool. ``prepare_deploy``
-prepares loaded models for serving on one device; ``EngineFactory`` is the
-user object that returns an engine. The train workflow (``train``,
-``prepare_deploy`` from stored instances, engine.json parsing) waits for
-the event store (ROADMAP.md queue 1 item 3). ``SimpleEngine`` (one data
+every variant of a params grid on a thread pool.
+``make_serializable_models`` turns trained models into what is kept: a
+``PersistentModel`` saves itself and leaves a manifest
+(``controller/persistent_model.py``); ``prepare_deploy`` loads manifests
+back and prepares every model for serving on one device.
+``EngineFactory`` is the user object that returns an engine. Engine
+instances, their stored params and engine.json parsing come with the
+event store (ROADMAP.md queue 1 item 3). ``SimpleEngine`` (one data
 source, one algorithm, the identity preparator and first serving) and
 ``SimpleEngineParams`` are the reference's sugar for the small templates.
 """
@@ -19,12 +25,33 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+import logging
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from predictionio_tpu_torch.controller.base import FirstServing, IdentityPreparator, doer
+from predictionio_tpu_torch.controller.base import (
+    FirstServing,
+    IdentityPreparator,
+    SanityCheck,
+    doer,
+)
 from predictionio_tpu_torch.controller.params import EmptyParams, Params, params_to_json
+from predictionio_tpu_torch.controller.persistent_model import (
+    PersistentModel,
+    PersistentModelManifest,
+    load_persistent_model,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class StopAfterReadInterruption(Exception):
+    """The stop-after-read debug stop (reference WorkflowUtils.scala:410)."""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """The stop-after-prepare debug stop (reference WorkflowUtils.scala:412)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +169,41 @@ class Engine:
         )
         return data_source, preparator, algorithms, serving
 
+    # --- training (reference object Engine.train :621-708) ---
+
+    def train(self, ctx, engine_params: EngineParams, workflow_params) -> List[Any]:
+        """Read the data source with ``ctx``, prepare, and train every
+        algorithm on ``ctx.device``: one model per algorithm, in order."""
+        self._require_data_source()
+        data_source, preparator, algorithms, _ = self.make_components(engine_params)
+        return self._train_pipeline(ctx, data_source, preparator, algorithms, workflow_params)
+
+    @staticmethod
+    def _sanity(obj: Any, label: str, workflow_params) -> None:
+        if workflow_params.skip_sanity_check:
+            return
+        if isinstance(obj, SanityCheck):
+            logger.info("%s: performing data sanity check", label)
+            obj.sanity_check()
+
+    def _train_pipeline(
+        self, ctx, data_source, preparator, algorithms, workflow_params
+    ) -> List[Any]:
+        td = data_source.read_training(ctx)
+        self._sanity(td, "TrainingData", workflow_params)
+        if workflow_params.stop_after_read:
+            raise StopAfterReadInterruption()
+        pd = preparator.prepare(ctx.device, td)
+        self._sanity(pd, "PreparedData", workflow_params)
+        if workflow_params.stop_after_prepare:
+            raise StopAfterPrepareInterruption()
+        models = []
+        for i, algo in enumerate(algorithms):
+            model = algo.train(ctx.device, pd)
+            self._sanity(model, f"Model of algorithm[{i}]", workflow_params)
+            models.append(model)
+        return models
+
     # --- evaluation (reference object Engine.eval :726-816) ---
 
     @staticmethod
@@ -204,18 +266,51 @@ class Engine:
         device: torch.device,
         engine_params: EngineParams,
         models: Sequence[Any],
+        engine_instance_id: Optional[str] = None,
     ) -> List[Any]:
-        """Bind each loaded model's serving state to ``device`` (reference
-        prepareDeploy; the port deploys persisted models only)."""
+        """Load each ``PersistentModelManifest`` through its class's loader
+        (the model saved under ``engine_instance_id``), then bind each
+        model's serving state to ``device`` (reference prepareDeploy
+        :196-265; the port deploys persisted models only)."""
         _, _, algorithms, _ = self.make_components(engine_params)
         if len(models) != len(algorithms):
             raise ValueError(
                 f"{len(models)} models for {len(algorithms)} algorithms"
             )
-        return [
-            algo.prepare_serving(device, m)
-            for algo, m in zip(algorithms, models)
-        ]
+        out = []
+        for algo, m in zip(algorithms, models):
+            if isinstance(m, PersistentModelManifest):
+                if engine_instance_id is None:
+                    raise ValueError(
+                        f"a manifest of {m.class_name} needs the engine instance "
+                        "id its model was saved under"
+                    )
+                m = load_persistent_model(m, engine_instance_id, algo.params, device)
+            out.append(algo.prepare_serving(device, m))
+        return out
+
+    def make_serializable_models(
+        self,
+        device: torch.device,
+        engine_instance_id: str,
+        engine_params: EngineParams,
+        models: Sequence[Any],
+    ) -> List[Any]:
+        """The persisted form of trained models (reference
+        makeSerializableModels :282-300): a ``PersistentModel`` saves itself
+        under ``engine_instance_id`` and is kept as its manifest, unless its
+        ``save`` returns False; every other model is kept as it is."""
+        _, _, algorithms, _ = self.make_components(engine_params)
+        out = []
+        for algo, model in zip(algorithms, models):
+            if isinstance(model, PersistentModel) and model.save(
+                engine_instance_id, algo.params, device
+            ):
+                cls = type(model)
+                out.append(PersistentModelManifest(f"{cls.__module__}.{cls.__qualname__}"))
+            else:
+                out.append(model)
+        return out
 
 
 class SimpleEngine(Engine):

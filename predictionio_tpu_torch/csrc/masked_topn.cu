@@ -147,15 +147,15 @@ int masked_topn_launch(const float* q, const void* Y, const float* scale,
   if (precision == PREC_F32) {
     masked_tile_topm<PREC_F32><<<grid, THREADS, 0, stream>>>(
         q, Y, scale, rn, bits, W32, s0, i0, B, N, k, mt, stride, normalize,
-        positive_only);
+        positive_only, 0.f);
   } else if (precision == PREC_BF16) {
     masked_tile_topm<PREC_BF16><<<grid, THREADS, 0, stream>>>(
         q, Y, scale, rn, bits, W32, s0, i0, B, N, k, mt, stride, normalize,
-        positive_only);
+        positive_only, 0.f);
   } else if (precision == PREC_I8) {
     masked_tile_topm<PREC_I8><<<grid, THREADS, 0, stream>>>(
         q, Y, scale, rn, bits, W32, s0, i0, B, N, k, mt, stride, normalize,
-        positive_only);
+        positive_only, 0.f);
   } else {
     return (int)cudaErrorInvalidValue;
   }

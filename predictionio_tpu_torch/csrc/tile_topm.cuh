@@ -21,7 +21,9 @@
 // [ceil(N/32)] mask words, every item a candidate when bits is null;
 // positive_only as s > 0; -inf with the real id for a masked item) and the
 // tile's best m by warp_take_topm. No block barrier follows the scoring.
-// K3 launches PREC_F32 with bits null and both flags 0.
+// K3 launches PREC_F32 with bits null and both flags 0. With QOFF (K3c's
+// chained passes, PREC_F32 only) every query element is q + q_off as it is
+// loaded, rounded once (__fadd_rn: never contracted into the products).
 
 #pragma once
 
@@ -42,14 +44,15 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int PREC>
+template <int PREC, bool QOFF = false>
 __global__ void __launch_bounds__(THREADS)
 masked_tile_topm(const float* __restrict__ q, const void* __restrict__ Yv,
                  const float* __restrict__ scale, const float* __restrict__ rn,
                  const unsigned* __restrict__ bits, int W32,
                  float* __restrict__ cand_s, int* __restrict__ cand_i,
                  int B, int N, int k, int m, long long list_stride,
-                 int normalize, int positive_only) {
+                 int normalize, int positive_only, float q_off) {
+  static_assert(!QOFF || PREC == PREC_F32, "a query offset is K3c's, f32 only");
   __shared__ __align__(16) float ys[TILE * KS];  // int8: packed words
   const int tid = threadIdx.x, lane = tid & 31;
   const int row = blockIdx.y * WARPS + (tid >> 5);
@@ -144,6 +147,9 @@ masked_tile_topm(const float* __restrict__ q, const void* __restrict__ Yv,
       }
       // lane c holds q[row, c0 + c], zero past the chunk and for rows past B
       float qc = (row_live && lane < kc) ? qrow[c0 + lane] : 0.f;
+      if constexpr (QOFF) {
+        if (row_live && lane < kc) qc = __fadd_rn(qc, q_off);
+      }
       if constexpr (PREC == PREC_BF16) qc = bf16_round(qc);
       __syncthreads();
       for (int c = 0; c < kc4; c += 4) {

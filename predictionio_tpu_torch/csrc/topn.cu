@@ -48,6 +48,17 @@
 //     tiles shorter than m (the ragged last tile) need no special case.
 // Correct for every 1 <= n <= N, any N (not only multiples of TILE), any
 // k, and exact ties.
+//
+// K3c: the chained passes that replace the reference's timing program
+// predictionio_tpu/ops/als.py:2382 _topn_packed_chain (called by
+// ServingFactors.measure_compute_ms, :2517): n_iters K3 passes back to back
+// on one stream from one host call, pass i on the query q + float32(i) ·
+// float32(1e-7), the last pass's packed rows left in `out`. The offset is
+// formed on the host as a float32 product (one rounding, as the reference's
+// two float32 operations give it) and added to each query element as the
+// tile pass loads it, with __fadd_rn, so nvcc cannot contract it into an
+// FMA: pass i equals K3 on that offset query bit for bit. Its bound per
+// pass is K3's.
 
 #include "tile_topm.cuh"
 
@@ -73,10 +84,34 @@ int topn_packed_f32(const float* q, const float* Y, float* out,
   int* i0 = reinterpret_cast<int*>(scratch + (long long)B * stride);
   dim3 grid1(tile_blocks(N, n), (B + WARPS - 1) / WARPS);
   masked_tile_topm<PREC_F32><<<grid1, THREADS, 0, stream>>>(
-      q, Y, nullptr, nullptr, nullptr, 0, s0, i0, B, N, k, m, stride, 0, 0);
+      q, Y, nullptr, nullptr, nullptr, 0, s0, i0, B, N, k, m, stride, 0, 0, 0.f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(scratch, out, B, N, n, stream);
+}
+
+// K3c: n_iters >= 1 passes of K3 on `stream`, pass i on q + i·1e-7 (see the
+// header), into `out`; scratch as for topn_packed_f32. Returns the first
+// cudaError_t of a launch.
+int topn_chain_f32(const float* q, const float* Y, float* out, float* scratch,
+                   int B, int N, int k, int n, int n_iters,
+                   cudaStream_t stream) {
+  if (n_iters < 1) return (int)cudaErrorInvalidValue;
+  const long long stride = list_stride_of(N, n);
+  const int m = n < TILE ? n : TILE;
+  float* s0 = scratch;
+  int* i0 = reinterpret_cast<int*>(scratch + (long long)B * stride);
+  dim3 grid1(tile_blocks(N, n), (B + WARPS - 1) / WARPS);
+  for (int i = 0; i < n_iters; ++i) {
+    const float off = (float)i * 1e-7f;  // float32(i) · float32(1e-7)
+    masked_tile_topm<PREC_F32, true><<<grid1, THREADS, 0, stream>>>(
+        q, Y, nullptr, nullptr, nullptr, 0, s0, i0, B, N, k, m, stride, 0, 0, off);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = launch_merge(scratch, out, B, N, n, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 const char* topn_error_string(int code) {

@@ -52,7 +52,8 @@ batch then pads its query rows to a power of two (min 8, the reference's
 bucketing), launches K3 (``ops/topn.py``) and makes ONE device→host copy
 of the packed ``[B, 2n]`` result; a batch of more than ``MAX_QUERY_ROWS``
 rows (an evaluation fold's queries) goes in chunks of that many, which
-bounds K3's scratch.
+bounds K3's scratch. ``measure_compute_ms`` times K3 on the device through
+K3c's chained passes (``topn_chain``).
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ from predictionio_tpu_torch.ops.normal_eq import (
     plan_groups,
     upload_pack,
 )
-from predictionio_tpu_torch.ops.topn import topn_packed
+from predictionio_tpu_torch.ops.topn import topn_chain, topn_packed
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 from predictionio_tpu_torch.workflow.checkpoint import StepCheckpointer
 
@@ -235,6 +236,34 @@ class ServingFactors:
             if b >= max_batch:
                 break
             b *= 2
+
+    def measure_compute_ms(
+        self, user_rows: np.ndarray, n: int, iters: int = 256, reps: int = 5
+    ) -> float:
+        """Per-pass device time of the top-N, in ms: K3c chains ``iters``
+        passes in one call, so the host's share of a call cancels in
+        ``(t(iters) - t(1)) / (iters - 1)``; each ``t`` is one call of the
+        chain followed by a synchronize, and the result is the median over
+        ``reps`` pairs (the reference's
+        ``ServingFactors.measure_compute_ms``)."""
+        if iters < 2 or reps < 1:
+            raise ValueError(f"iters={iters} must be >= 2 and reps={reps} >= 1")
+        q = _upload(user_rows, self.device)
+
+        def chain(k: int) -> float:
+            t0 = time.perf_counter()
+            topn_chain(q, self._if_dev, n, k)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter() - t0
+
+        chain(1)  # the kernel's build and load
+        samples = []
+        for _ in range(reps):
+            t1 = chain(1)
+            tk = chain(iters)
+            samples.append((tk - t1) / (iters - 1) * 1000.0)
+        return float(np.median(samples))
 
     def topn_by_user(self, user_ids: Sequence[int], n: int):
         """Top-N for known user indices (rows gathered on the host)."""

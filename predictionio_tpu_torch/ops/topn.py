@@ -15,6 +15,16 @@ Three forms, one function:
 - the wrapper ``topn_packed``, which routes a CPU tensor to the twin and a
   CUDA tensor to the kernel. On a CUDA tensor it launches the kernel or
   raises; it never falls back to the twin. ``LAUNCHES`` counts what it ran.
+
+K3c, ``topn_chain(q, Y, n, n_iters)``, is the counterpart of the
+reference's timing program ``predictionio_tpu/ops/als.py:2382
+_topn_packed_chain``: ``n_iters`` K3 passes enqueued back to back by one
+host call, pass i on the query ``q + float32(i)·float32(1e-7)``
+(``chain_offset``), returning the last pass's packed rows. Its kernel is
+K3's with the offset added as the query is loaded (``csrc/topn.cu``
+``topn_chain_f32``); its twin ``topn_chain_plain`` loops
+``topn_packed_plain`` over the offset queries. ``ServingFactors.measure_compute_ms``
+(``ops/als.py``) times it.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ _MAX_B = 65535 * 8  # the kernel's grid holds 8 query rows per y-block
 
 # "topn_packed": kernel launches; "topn_packed_plain": CPU calls the
 # wrapper routed to the plain twin
-LAUNCHES = LaunchCounts("topn_packed", "topn_packed_plain")
+LAUNCHES = LaunchCounts("topn_packed", "topn_packed_plain", "topn_chain", "topn_chain_plain")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -44,6 +54,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.topn_packed_f32.restype = ctypes.c_int
     lib.topn_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.topn_scratch_floats.restype = ctypes.c_longlong
+    lib.topn_chain_f32.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int
+    ] * 5 + [ctypes.c_void_p]
+    lib.topn_chain_f32.restype = ctypes.c_int
 
 
 _LIBRARY = native.Library(SOURCE, _declare, "topn_error_string")
@@ -103,6 +117,13 @@ def topn_packed(q: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
         return topn_packed_plain(q, Y, n)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    return _launch("topn_packed", q, Y, n)
+
+
+def _launch(name: str, q: torch.Tensor, Y: torch.Tensor, n: int, *extra: int) -> torch.Tensor:
+    """Launch ``lib.<name>_f32`` (K3 or K3c, ``extra`` its trailing int
+    arguments) on CUDA tensors that ``_check`` accepted, into a new
+    ``[B, 2n]`` output with its scratch; count the launch."""
     if not (q.is_contiguous() and Y.is_contiguous()):
         raise ValueError("q and Y must be contiguous (row-major)")
     lib = load_library()
@@ -115,13 +136,48 @@ def topn_packed(q: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
     )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.topn_packed_f32(
+        err = getattr(lib, f"{name}_f32")(
             q.data_ptr(), Y.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            B, N, k, n, stream,
+            B, N, k, n, *extra, stream,
         )
-    _LIBRARY.check(err, "topn_packed")
-    LAUNCHES.add("topn_packed")
+    _LIBRARY.check(err, name)
+    LAUNCHES.add(name)
     return out
+
+
+def chain_offset(i: int) -> np.float32:
+    """The query offset of K3c's pass ``i``: ``float32(i) · float32(1e-7)``,
+    one float32 rounding, as the reference forms it."""
+    return np.float32(i) * np.float32(1e-7)
+
+
+def topn_chain_plain(q: torch.Tensor, Y: torch.Tensor, n: int, n_iters: int) -> torch.Tensor:
+    """The plain twin of K3c: ``topn_packed_plain`` on ``q + chain_offset(i)``
+    for i in 0..n_iters-1; the last pass's result."""
+    out = None
+    for i in range(int(n_iters)):
+        off = torch.tensor(chain_offset(i), dtype=torch.float32, device=q.device)
+        out = topn_packed_plain(q + off, Y, n)
+    return out
+
+
+def topn_chain(q: torch.Tensor, Y: torch.Tensor, n: int, n_iters: int) -> torch.Tensor:
+    """K3c on ``q [B,k]`` and ``Y [N,k]`` float32: ``n_iters`` >= 1 chained
+    K3 passes, pass i on ``q + chain_offset(i)``; the last pass's ``[B, 2n]``.
+    One call counts one launch (of ``n_iters`` passes).
+
+    CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
+    must build and launch or this raises."""
+    n, n_iters = int(n), int(n_iters)
+    _check(q, Y, n)
+    if n_iters < 1:
+        raise ValueError(f"n_iters={n_iters} must be at least 1")
+    if q.device.type == "cpu":
+        LAUNCHES.add("topn_chain_plain")
+        return topn_chain_plain(q, Y, n, n_iters)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch("topn_chain", q, Y, n, n_iters)
 
 
 def check_topn_agreement(

@@ -9,8 +9,10 @@
 It loads the model (``utils/serialize.py``), picks its engine from the
 file (recommendation, similar product, DIMSUM similar product served by
 ``models/experimental/similarproduct_dimsum.py dimsum_engine``,
-classification with the file's one algorithm, or the OLS model of
-``models/experimental/regression.py regression_engine``), prepares it on
+classification with the file's one algorithm, the OLS model of
+``models/experimental/regression.py regression_engine``, or the SimRank
+model of ``models/experimental/friend_recommendation.py simrank_engine``,
+answering ``{"item1": a, "item2": b}`` with the score), prepares it on
 the device (CUDA unless ``--device cpu``), warms the serving kernels and
 serves ``POST /queries.json`` until ``GET /stop``. The served ``modelVersion`` is
 the model file's name without its extension.
@@ -35,6 +37,7 @@ from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.controller.params import EmptyParams
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.models.classification import engine as clf
+from predictionio_tpu_torch.models.experimental import friend_recommendation as fr
 from predictionio_tpu_torch.models.experimental.regression import regression_engine
 from predictionio_tpu_torch.models.experimental.similarproduct_dimsum import dimsum_engine
 from predictionio_tpu_torch.models.recommendation import engine as rec
@@ -49,7 +52,11 @@ def deploy_model_file(
     bind a server for it (not yet serving)."""
     dev = resolve_device(device)
     model = load_model(model_path)
-    if isinstance(model, np.ndarray):
+    data_source = ""  # the engine's only data source, where it has one
+    if isinstance(model, fr.SimRankModel):
+        name, engine, default = "simrank", fr.simrank_engine(), fr.SimRankParams
+        data_source = "default"
+    elif isinstance(model, np.ndarray):
         name, engine, default = "ols", regression_engine(), EmptyParams
     elif isinstance(model, clf.NaiveBayesModelArrays):
         name, engine, default = "naive", clf.classification_engine(), clf.NaiveBayesAlgorithmParams
@@ -66,7 +73,10 @@ def deploy_model_file(
         name, engine, default = "als", rec.recommendation_engine(), rec.ALSAlgorithmParams
     params = getattr(model, "params", None)
     params = params if params is not None else default()
-    engine_params = EngineParams(algorithm_params_list=((name, params),))
+    engine_params = EngineParams(
+        data_source_params=(data_source, EmptyParams()),
+        algorithm_params_list=((name, params),),
+    )
     models = engine.prepare_deploy(dev, engine_params, [model])
     version = os.path.splitext(os.path.basename(model_path))[0]
     deployed = DeployedEngine(engine, engine_params, models, version=version)

@@ -14,13 +14,17 @@ A model is saved as one ``.npz`` whose ``engine`` field names its engine:
   ``"logisticregression"`` (``weights``, ``bias`` and ``labels``); these
   models carry no params;
 - ``"regression"``: an OLS model of ``models/experimental/regression.py``,
-  its coefficient vector (a 1-D float array is saved as one), no params.
+  its coefficient vector (a 1-D float array is saved as one), no params;
+- ``"simrank"``: a SimRank model of
+  ``models/experimental/friend_recommendation.py``, its [n, n] float32
+  ``scores``, no params.
 
 Loading never unpickles (``allow_pickle=False``): a pickled JAX-package
 model would import ``predictionio_tpu`` classes, so models cross from the
 JAX package as arrays (``als_model_from_numpy``, ``sp_model_from_numpy``,
 ``dimsum_model_from_numpy``, ``nb_model_from_numpy``,
-``lr_model_from_numpy``; an OLS model is its coefficient array already).
+``lr_model_from_numpy``, ``simrank_model_from_numpy``; an OLS model is its
+coefficient array already).
 """
 
 from __future__ import annotations
@@ -36,13 +40,14 @@ from predictionio_tpu_torch.controller.params import (
     params_to_json,
 )
 from predictionio_tpu_torch.models.classification import engine as clf
+from predictionio_tpu_torch.models.experimental import friend_recommendation as fr
 from predictionio_tpu_torch.models.recommendation import engine as rec
 from predictionio_tpu_torch.models.similarproduct import engine as sp
 
 PathLike = Union[str, os.PathLike]
 Model = Union[
     rec.ALSModel, sp.SPModel, sp.DIMSUMModel, clf.NaiveBayesModelArrays,
-    clf.LogisticRegressionModel, np.ndarray,
+    clf.LogisticRegressionModel, fr.SimRankModel, np.ndarray,
 ]
 
 
@@ -60,6 +65,11 @@ def save_model(path: PathLike, model: Model) -> None:
         return
     if isinstance(model, (clf.NaiveBayesModelArrays, clf.LogisticRegressionModel)):
         _save_classification(path, model)
+        return
+    if isinstance(model, fr.SimRankModel):
+        with open(path, "wb") as f:
+            np.savez(f, engine=np.asarray("simrank"),
+                     scores=np.asarray(model.scores, np.float32))
         return
     params = None if model.params is None else params_to_json(model.params)
     item_ids = _ids_in_row_order(model.item_index)
@@ -126,6 +136,8 @@ def load_model(path: PathLike) -> Model:
         engine = str(z["engine"]) if "engine" in z.files else "recommendation"
         if engine == "regression":
             return np.asarray(z["coefficients"], np.float32)
+        if engine == "simrank":
+            return fr.simrank_model_from_numpy(z["scores"])
         if engine == "classification":
             algorithm = str(z["algorithm"])
             if algorithm == "naive":

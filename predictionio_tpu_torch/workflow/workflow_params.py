@@ -1,4 +1,4 @@
-"""WorkflowParams: the fields an evaluation reads, from
+"""WorkflowParams: the fields training and evaluation read, from
 ``predictionio_tpu/workflow/workflow_params.py`` (reference
 core/.../workflow/WorkflowParams.scala:27-42)."""
 
@@ -9,6 +9,11 @@ import dataclasses
 
 @dataclasses.dataclass
 class WorkflowParams:
+    # training's debug switches (Engine.train): skip the data checks, stop
+    # after the data source, stop after the preparator
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
     # concurrent workers over the grid's variants (the reference's `.par`
     # over param sets, MetricEvaluator.scala:221-230); <= 1 runs serially
     eval_parallelism: int = 4

@@ -8,6 +8,14 @@ rank in different orders. Ids are equal except inside runs of near-tied
 scores, where the sets agree (``check_topn_agreement``). With exact ties
 (integer-valued factors, whose dot products are exact in any order) ids
 must be equal, lowest index first.
+
+K3c (``topn_chain``, on the CPU its twin) against the JAX package's
+``_topn_packed_chain`` at the same tolerances; each pass's query offset
+equals the reference's float32 ``i * 1e-7`` bit for bit, and the chain's
+output equals the twin of K3 on the last pass's offset query bit for bit.
+``ServingFactors.measure_compute_ms`` is checked for its contract (a
+finite median, two chain calls a sample after one warm-up call), not for
+a time.
 """
 
 import sys
@@ -25,9 +33,12 @@ from predictionio_tpu_torch.ops import als as port_als
 from predictionio_tpu_torch.ops.topn import (
     LAUNCHES,
     LaunchCounts,
+    chain_offset,
     check_topn_agreement,
     pack_topn,
+    topn_chain,
     topn_packed,
+    topn_packed_plain,
 )
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -168,3 +179,59 @@ def test_launch_counts_lose_no_update_under_contention():
     assert counts.snapshot() == {"a": 16 * 2000, "b": 0}
     counts.reset()
     assert counts.snapshot() == {"a": 0, "b": 0}
+
+
+# --- K3c: the chained passes of measure_compute_ms ---
+
+
+@pytest.mark.parametrize("n_iters", [1, 3, 17])
+def test_chain_twin_matches_jax_chain(n_iters):
+    q, Y = _inputs(500 + n_iters, 6, 12, N=300)
+    n = 10
+    packed = topn_chain(torch.from_numpy(q), torch.from_numpy(Y), n, n_iters).numpy()
+    ref = np.asarray(
+        jax_als._topn_packed_chain(jnp.asarray(q), jnp.asarray(Y), n, jnp.int32(n_iters))
+    )
+    check_topn_agreement(
+        packed[:, :n], port_als._unpack_indices(packed, n),
+        ref[:, :n], jax_als._unpack_indices(ref, n), RTOL, ATOL,
+    )
+    # the last pass is K3 on the query offset by that pass, bit for bit
+    last = topn_packed_plain(
+        torch.from_numpy(q + chain_offset(n_iters - 1)), torch.from_numpy(Y), n
+    ).numpy()
+    np.testing.assert_array_equal(packed.view(np.uint32), last.view(np.uint32))
+
+
+def test_chain_offsets_round_as_the_reference():
+    i = jnp.arange(4096, dtype=jnp.int32)
+    ref = np.asarray(jax.jit(lambda i: i.astype(jnp.float32) * 1e-7)(i))
+    got = np.array([chain_offset(j) for j in range(4096)], np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+def test_chain_counts_one_launch_a_call_and_rejects_no_passes():
+    q, Y = _inputs(7, 2, 4)
+    before = LAUNCHES.snapshot()
+    topn_chain(torch.from_numpy(q), torch.from_numpy(Y), 3, 5)
+    after = LAUNCHES.snapshot()
+    assert after["topn_chain_plain"] == before["topn_chain_plain"] + 1
+    assert after["topn_chain"] == before["topn_chain"]
+    with pytest.raises(ValueError):
+        topn_chain(torch.from_numpy(q), torch.from_numpy(Y), 3, 0)
+
+
+def test_measure_compute_ms_times_the_chain():
+    rng = np.random.default_rng(3)
+    sf = port_als.ServingFactors(
+        rng.normal(size=(40, 8)).astype(np.float32),
+        rng.normal(size=(200, 8)).astype(np.float32),
+        device="cpu",
+    )
+    before = LAUNCHES.snapshot()["topn_chain_plain"]
+    ms = sf.measure_compute_ms(sf.user_factors[:4], 5, iters=3, reps=2)
+    assert np.isfinite(ms)
+    # one warm-up call, then a t(1) and a t(iters) call per sample
+    assert LAUNCHES.snapshot()["topn_chain_plain"] == before + 1 + 2 * 2
+    with pytest.raises(ValueError):
+        sf.measure_compute_ms(sf.user_factors[:4], 5, iters=1)
