@@ -366,8 +366,12 @@ Phases; any failure exits non-zero:
    the Wiki-Vote-sized graph, the sparse library call where it runs;
    K3c: launches over 3y's two ``measure_compute_ms`` calls, its ms the
    bench call's time a pass, its bound and library call K3's at that
-   shape), the card line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   shape; 3m's: K3s (``topn_packed_sharded``) launches on the float32 mesh
+   deployment, times per batch of its shards' K3 launches at B = 128; the
+   row-shard forms and K9m launches over the int8 and Similar Product mesh
+   deployments, times at K10s's int8 shape, one shard; K14s
+   (``cosine_sum_sharded``) launches on the mesh host path), the card
+   line, then the last line ``{"ok": true, "device": {...}}``.
 3n. Classification (after R3), the reference's config 2 at its shape
    (``bench.py:1841-1874``: 50,000 points of 3 Poisson-count attributes in
    4 classes, seed 13, lambda 1.0, accuracy on the first 2,048 rows).
@@ -489,6 +493,48 @@ Phases; any failure exits non-zero:
       ``make_serializable_models`` as one ``.npz`` and reloaded by
       ``prepare_deploy`` bit for bit, 64 predictions (K7) equal
       (``templates``).
+3m. Serving on a device mesh (after R3): a ``parallel.Mesh`` of 4 LOGICAL
+   shards of the card (``[cuda:0] * 4``; with several cards also a mesh of
+   distinct cards, the same gates); phase 3's model and R1's catalog, no
+   training. Logical shards of one card run one after another, so these
+   are not multi-GPU times.
+   a. K3s (``ServingFactors(mesh)``): phase 4's 320 served queries' user
+      rows in batches of 1 to 128, bit for bit the single-device K3's
+      answers.
+   b. K9s + K9m (``ItemRetriever(mesh)``, float32): the ML-20M item factors
+      under R3's Similar Product traffic (cosine, positive_only, its
+      exclude and include lists), bit for bit the single-device
+      retriever's; on one batch each shard's mask (``id_offset``) bit for
+      bit its twin, kernel A within RTOL/ATOL of its twin and bit for bit
+      the single-device form with ids plus the offset, K9m bit for bit its
+      twin and equal to the answer.
+   c. K10s: the quantized catalog in int8 and bf16, B = 8 and 128, n = 10:
+      each row bit for bit the single-device retriever's, or (a shard's
+      own shortlist brought other candidates to the host refinement) its
+      exact scores no lower, position by position; recall@10 against the
+      float64 top 10 no lower than the single device's; the shard forms and
+      K9m as in b (int8 stage 1 bit for bit its twin, kernel B within
+      RTOL/ATOL).
+   d. K14s (``SimilarityScorer(mesh)``): Q = 4, 8, 16 within rtol 1e-6 of
+      K14.
+   e. The main path, counted from 0: phase 3's model at float32 and int8
+      and R3's Similar Product model deployed through ``tools.cli deploy
+      --serving-devices 0,0,0,0``, each sent its single-device deployment's
+      320 queries from 32 clients: every answer equal to that
+      deployment's (int8: equal, or no lower as in c); K3 = 4 per batch,
+      the mask, kernel A and kernel B (their row-shard forms count under
+      their own names) 4 per merge and none on the float32 deployment, K9m
+      one per batch with a known query, K14 and every twin 0; p50, p99,
+      q/s. Then
+      64 of R3's queries through the Similar Product host path on the mesh
+      (K14s = 4 per query with a known item), against the single device's.
+   Times: K3s per batch beside K3 (B = 8, 32, 128), and with its fetch:
+   the gathered result fetched once against one fetch per shard (K14s
+   too); one shard's mask,
+   kernel A and kernel B at B = 128 (K9s's f32 cosine and K10s's tiers);
+   K9m per call with its bytes bound and ``torch.topk`` over the
+   concatenated scores as the library call; K14s; launches per served
+   batch (``mesh_serving``).
 """
 
 from __future__ import annotations
@@ -1956,8 +2002,12 @@ def plain_cosine_sum():
     tensors are on (the twin counts no launches)."""
     from predictionio_tpu_torch.ops import similarity
 
+    def plain(q, Y, out=None):
+        res = similarity.cosine_sum_plain(q, Y)
+        return res if out is None else out.copy_(res)
+
     saved = similarity.cosine_sum
-    similarity.cosine_sum = similarity.cosine_sum_plain
+    similarity.cosine_sum = plain
     try:
         yield
     finally:
@@ -4236,9 +4286,10 @@ def http_json(url, body=None, timeout=60.0):
 
 class Deployment:
     """``tools.cli deploy --model path --device cuda`` (max_batch 128, 2 ms
-    window) on a thread of this process, up and answering on ``port``."""
+    window, plus ``extra`` arguments) on a thread of this process, up and
+    answering on ``port``."""
 
-    def __init__(self, path, device):
+    def __init__(self, path, device, extra=()):
         from predictionio_tpu_torch.tools import cli
 
         self.port = free_port()
@@ -4250,7 +4301,7 @@ class Deployment:
                 cli.main([
                     "deploy", "--model", path, "--ip", "127.0.0.1",
                     "--port", str(self.port), "--device", str(device),
-                    "--max-batch", "128", "--batch-window-ms", "2.0",
+                    "--max-batch", "128", "--batch-window-ms", "2.0", *extra,
                 ])
             except BaseException as e:  # reported by the main thread
                 self.failure.append(e)
@@ -4785,7 +4836,7 @@ def quantized_serving_phase(rng, device, workdir, model, traffic):
     every answer held against the float32 deployment's; kernels A and B
     held against their twins at the path's shapes. Returns (launches per
     deployment, stats, kernel timing row at the path's shape, the
-    kernels' largest errors there)."""
+    kernels' largest errors there, each deployment's answers)."""
     import dataclasses
 
     import numpy as np
@@ -4799,7 +4850,7 @@ def quantized_serving_phase(rng, device, workdir, model, traffic):
     counters = retrieval_counts()
     unknown_at, unrated_at = traffic["unknown_at"], traffic["unrated_at"]
     f32 = {i: res["itemScores"] for i, _, res in traffic["answers"]}
-    launches, stats = {}, {}
+    launches, stats, served = {}, {}, {}
     for prec in ("int8", "bf16"):
         qmodel = ALSModel(arrays=model.arrays, user_index=model.user_index,
                           item_index=model.item_index,
@@ -4836,6 +4887,7 @@ def quantized_serving_phase(rng, device, workdir, model, traffic):
                     np.array([[x["score"] for x in ref]]),
                     np.array([[model.item_index[x["item"]] for x in ref]]), RTOL, ATOL)
         launches[prec] = counts
+        served[prec] = answers
         stats[prec] = {"queries": len(answers), **latency_stats(answers, wall),
                        "batches": batches, "batch_fill_mean": status["batchFillMean"],
                        "server_avg_ms": status["avgServingSec"] * 1e3,
@@ -4867,7 +4919,7 @@ def quantized_serving_phase(rng, device, workdir, model, traffic):
     r.free()
     print("retrieval_path_timing " + json.dumps(row), flush=True)
     print("batch_wall " + json.dumps(batch_wall_ms(rng, device, uf, itf)), flush=True)
-    return launches, stats, row, errs
+    return launches, stats, row, errs, served
 
 
 def batch_wall_ms(rng, device, uf, itf):
@@ -4907,7 +4959,8 @@ def similarproduct_phase(rng, device, workdir, model):
     """R3: the trained item factors carried into a Similar Product model
     with seeded categories, saved, deployed through the CLI and sent 320
     queries; every answer held against the same retriever driven by the
-    plain twins on the card. Returns (launches, stats)."""
+    plain twins on the card. Returns (launches, stats, the deployment: its
+    model file, catalog ids and categories, queries and answers)."""
     import numpy as np
 
     from predictionio_tpu_torch.models.similarproduct import engine as psp
@@ -4989,7 +5042,8 @@ def similarproduct_phase(rng, device, workdir, model):
                                  {"catalog": "ML-20M items, trained (cosine)"})
     r.free()
     print("similarproduct_path_timing " + json.dumps(row), flush=True)
-    return counts, stats
+    return counts, stats, {"path": path, "ids": ids, "cats": cats, "params": params,
+                           "bodies": bodies, "answers": answers}
 
 
 # the classification phase (3n): the reference's shape (bench.py:1842-1846)
@@ -6490,6 +6544,532 @@ def phase_3y(device, workdir, model, k3_rows):
     return launches, errs, {"simrank": s_stats, "k3c": c_stats, "templates": t_stats}
 
 
+# --- phase 3m: serving on a device mesh ---
+
+MESH_SHARDS = 4  # logical shards of the one-card mesh (every shard on the card)
+MESH_HOST_QUERIES = 64  # R3's queries sent through the host path's K14s
+MESH_BATCHES = (1, 7, 8, 13, 32, 57, 128, 3)  # K3s's batch sizes, in turn
+
+
+def mesh_counters():
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops import merge_topn as k9m
+    from predictionio_tpu_torch.ops import rescore as kb
+    from predictionio_tpu_torch.ops import similarity as k14
+    from predictionio_tpu_torch.ops import topn as k3
+
+    return (ka.LAUNCHES, kb.LAUNCHES, k9m.LAUNCHES, k3.LAUNCHES, k14.LAUNCHES)
+
+
+def same_bits(a, b) -> bool:
+    """Two numpy arrays equal bit for bit (float32 compared as uint32)."""
+    import numpy as np
+
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == np.float32:
+        a, b = a.view(np.uint32), b.view(np.uint32)
+    return bool(np.array_equal(a, b))
+
+
+def exact_top10(Y64, q):
+    """Ids of the exact top 10 of ``Y·q`` in float64 (ties to the lower
+    id): the recall reference."""
+    import numpy as np
+
+    return np.argsort(-(q.astype(np.float64) @ Y64.T), axis=1, kind="stable")[:, :10]
+
+
+def no_lower(got_s, want_s, label):
+    """A quantized answer that differs from the single device's: the same
+    live slots, and each exact score no lower than the single device's at
+    its position (within rtol 1e-6)."""
+    import numpy as np
+
+    live = np.isfinite(want_s)
+    if not np.array_equal(np.isfinite(got_s), live):
+        raise AssertionError(f"{label}: live slots differ from the single device's")
+    if np.any(got_s[live] < want_s[live] - 1e-6 * np.abs(want_s[live])):
+        raise AssertionError(f"{label}: a score below the single device's: "
+                             f"{got_s[:8]} vs {want_s[:8]}")
+
+
+def check_quantized_rows(got, want, label):
+    """The sharded retriever's answer against the single device's in a
+    quantized tier: each row bit for bit, or, where a shard's own shortlist
+    (c·n_local of its rows, wider than its share of the single device's)
+    brought other candidates to the host refinement, ``no_lower``. Returns
+    the rows that differ."""
+    (gs, gi), (ws, wi) = got, want
+    differ = 0
+    for r in range(gs.shape[0]):
+        if not (same_bits(gs[r], ws[r]) and same_bits(gi[r], wi[r])):
+            differ += 1
+            no_lower(gs[r], ws[r], f"{label} row {r}")
+    return differ
+
+
+def check_offset_form(shard, single, off, label):
+    """A row-shard launch against the single-device launch on the same
+    shard: the scores bit for bit, the ids plus ``off``."""
+    import numpy as np
+
+    m = shard.shape[1] // 2
+    a, b = shard.cpu().numpy(), single.cpu().numpy()
+    if not same_bits(a[:, :m], b[:, :m]) or not np.array_equal(
+            a[:, m:].view(np.int32), b[:, m:].view(np.int32) + off):
+        raise AssertionError(f"{label}: not the single-device form with ids + {off}")
+
+
+def shard_kernel_checks(r, q_np, n, exclude, include, positive_only, normalize, device, label,
+                        errs):
+    """On one batch of the sharded retriever ``r``, each shard's row-shard
+    forms against their twins on the card (the mask bit for bit, kernel A
+    bit for bit in int8 and within RTOL/ATOL otherwise, kernel B within
+    RTOL/ATOL, as R1 holds them) and against the kernels' single-device
+    forms on the same shard (scores bit for bit, ids plus the shard's
+    offset); then K9m on the shards' candidates bit for bit against its
+    twin. Returns the merged (scores, ids) of the padded batch."""
+    import torch
+
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops import merge_topn as k9m
+    from predictionio_tpu_torch.ops import rescore as kb
+    from predictionio_tpu_torch.ops.retrieval import unpack_topn
+
+    q, excl, incl, has = retriever_operands(r, q_np, exclude, include, device)
+    quant = r.precision != "float32"
+    rows = r._n_pad // r._n_shards
+    n_dev = r._shortlist_width(n, r.n_items) if quant else n
+    n_local = min(n_dev, rows)
+    m = r._shortlist_width(n_local, rows) if quant else n_local
+    cands = []
+    for p in r._parts:
+        bits = ka.candidate_mask(p.allow, excl, incl, has, id_offset=p.off)
+        if not bits_equal(bits, ka.candidate_mask_plain(p.allow, excl, incl, has, p.off)):
+            raise AssertionError(f"candidate_mask_shard {label} off={p.off}: differs from its twin")
+        errs.setdefault("candidate_mask_shard", 0.0)
+        rn = p.rn if normalize else None
+        a_off = 0 if quant else p.off  # K10s's stage 1 keeps local ids
+        a_args = (q, p.y, p.scale, rn, bits, m, positive_only, normalize)
+        a = ka.masked_topn_packed(*a_args, id_offset=a_off)
+        e = check_ranked(a, ka.masked_topn_plain(*a_args, id_offset=a_off),
+                         f"masked_topn_shard {label} off={p.off}", exact=r.precision == "int8")
+        errs["masked_topn_shard"] = max(errs.get("masked_topn_shard", 0.0), e)
+        check_offset_form(a, ka.masked_topn_packed(*a_args), a_off,
+                          f"masked_topn_shard {label} off={p.off}")
+        if quant:
+            b_args = (q, p.y, p.scale, rn, a, n_local, positive_only, normalize)
+            c = kb.rescore_topn(*b_args, id_offset=p.off)
+            e = check_ranked(c, kb.rescore_topn_plain(*b_args, id_offset=p.off),
+                             f"rescore_topn_shard {label} off={p.off}")
+            errs["rescore_topn_shard"] = max(errs.get("rescore_topn_shard", 0.0), e)
+            check_offset_form(c, kb.rescore_topn(*b_args), p.off,
+                              f"rescore_topn_shard {label} off={p.off}")
+            a = c
+        cands.append(a)
+    cand = torch.stack(cands, dim=1).unflatten(2, (2, n_local))  # [B, S, 2, L]
+    merged = k9m.merge_topn(cand, n_dev)
+    if not bits_equal(merged, k9m.merge_topn_plain(cand, n_dev)):
+        raise AssertionError(f"merge_topn {label}: differs from its twin")
+    errs.setdefault("merge_topn", 0.0)
+    return unpack_topn(merged.cpu().numpy(), n_dev)
+
+
+def shard_times(rng, r, Y, positive_only, normalize, device):
+    """At B = 128 and n = 16: one shard's mask, kernel A (and B) in their
+    row-shard forms, and K9m over every shard's candidates, each timed with
+    its device time, twin and library call beside its bound."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import masked_topn as ka
+    from predictionio_tpu_torch.ops import merge_topn as k9m
+    from predictionio_tpu_torch.ops import rescore as kb
+
+    B, n, k = 128, 16, Y.shape[1]
+    q_np = Y[rng.integers(0, len(Y), B)].astype(np.float32)
+    if normalize:
+        q_np = q_np / np.linalg.norm(q_np, axis=1, keepdims=True)
+    q, excl, incl, has = retriever_operands(r, q_np, [None] * B, [None] * B, device)
+    quant = r.precision != "float32"
+    S, rows = r._n_shards, r._n_pad // r._n_shards
+    n_dev = r._shortlist_width(n, r.n_items) if quant else n
+    n_local = min(n_dev, rows)
+    m = r._shortlist_width(n_local, rows) if quant else n_local
+    p = r._parts[1]  # a shard with a non-zero offset
+    W = ka.mask_words(rows)
+    row = {"precision": r.precision, "B": B, "S": S, "rows_per_shard": rows, "k": k, "n": n,
+           "n_local": n_local, "m": m, "shard_offset": p.off}
+    mask_call = lambda: ka.candidate_mask(p.allow, excl, incl, has, id_offset=p.off)
+    row["candidate_mask_shard"] = {
+        "ms": time_ms(mask_call), "device_ms": device_ms(mask_call, calls=200),
+        "plain_ms": time_ms(lambda: ka.candidate_mask_plain(p.allow, excl, incl, has, p.off),
+                            iters=20),
+        "bound": roofline(rows + 4 * B * (excl.shape[1] + incl.shape[1]) + B + 4 * B * W, 0),
+        "library_ms": None,
+    }
+    bits = mask_call()
+    rn = p.rn if normalize else None
+    a_off = 0 if quant else p.off
+    a_args = (q, p.y, p.scale, rn, bits, m, positive_only, normalize)
+    a_call = lambda: ka.masked_topn_packed(*a_args, id_offset=a_off)
+    a_bytes = 4 * B * k + TIER_BYTES[r.precision] * rows * k \
+        + (4 * rows if r.precision == "int8" else 0) + (4 * rows if normalize else 0) \
+        + 4 * B * W + 8 * B * m
+    shard = types.SimpleNamespace(precision=r.precision, _y_dev=p.y, _allow_dev=p.allow,
+                                  _scale_dev=p.scale)
+    row["masked_topn_shard"] = {
+        "ms": time_ms(a_call), "device_ms": device_ms(a_call, calls=100),
+        "plain_ms": time_ms(lambda: ka.masked_topn_plain(*a_args, id_offset=a_off), iters=20),
+        "bound": roofline(a_bytes, 2 * B * rows * k, TIER_PEAK[r.precision]),
+        "library_ms": library_topn_ms(shard, q, m),
+    }
+    if quant:
+        b_args = (q, p.y, p.scale, rn, a_call(), n_local, positive_only, normalize)
+        b_call = lambda: kb.rescore_topn(*b_args, id_offset=p.off)
+        b_bytes = 4 * B * k + B * m * k * TIER_BYTES[r.precision] + 8 * B * m + 8 * B * n_local \
+            + (4 * B * m if r.precision == "int8" else 0) + (4 * B * m if normalize else 0)
+        row["rescore_topn_shard"] = {
+            "ms": time_ms(b_call), "device_ms": device_ms(b_call, calls=100),
+            "plain_ms": time_ms(lambda: kb.rescore_topn_plain(*b_args, id_offset=p.off), iters=20),
+            "bound": roofline(b_bytes, 2 * B * m * k),
+            "library_ms": None,
+        }
+    # K9m over the shards' candidate lists, laid out as the retriever lays
+    # them: [S, B, 2L] on the first shard's device
+    cand = torch.empty((S, B, 2 * n_local), dtype=torch.float32, device=device)
+    for s, part in enumerate(r._parts):
+        prn = part.rn if normalize else None
+        bits_s = ka.candidate_mask(part.allow, excl, incl, has, id_offset=part.off)
+        got = ka.masked_topn_packed(q, part.y, part.scale, prn, bits_s, m, positive_only,
+                                    normalize, id_offset=0 if quant else part.off)
+        if quant:
+            got = kb.rescore_topn(q, part.y, part.scale, prn, got, n_local, positive_only,
+                                  normalize, id_offset=part.off)
+        cand[s].copy_(got)
+    view = cand.permute(1, 0, 2).unflatten(2, (2, n_local))
+    merge_call = lambda: k9m.merge_topn(view, n_dev)
+    flat = view[:, :, 0, :].reshape(B, S * n_local).contiguous()
+    row["merge_topn"] = {
+        "S": S, "L": n_local, "n": n_dev,
+        "ms": time_ms(merge_call), "device_ms": device_ms(merge_call, calls=200),
+        "plain_ms": time_ms(lambda: k9m.merge_topn_plain(view, n_dev), iters=20),
+        "bound": roofline(4 * B * S * 2 * n_local + 4 * B * 2 * n_dev, 0),
+        "library_ms": time_ms(lambda: torch.topk(flat, n_dev)),
+    }
+    row["card"] = card_line()
+    return row
+
+
+def mesh_serving_checks(rng, device, mesh, model, traffic, sp_deploy, errs, timed):
+    """3m's comparisons on one mesh (see ``mesh_phase``); with ``timed`` (a
+    mesh of logical shards of ``device``) also the times."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.similarproduct import engine as psp
+    from predictionio_tpu_torch.ops import similarity as k14
+    from predictionio_tpu_torch.ops import topn as k3
+    from predictionio_tpu_torch.ops.als import ServingFactors
+    from predictionio_tpu_torch.ops.retrieval import ItemRetriever
+    from predictionio_tpu_torch.ops.similarity import SimilarityScorer
+    from predictionio_tpu_torch.parallel.mesh import shard_batch
+    from predictionio_tpu_torch.utils.shapes import pad_rows_pow2, pow2_topk_width
+
+    S = mesh.shape["data"]
+    uf, itf = model.arrays.user_factors, model.arrays.item_factors
+    N, k = itf.shape
+    out = {"shards": S, "devices": [str(d) for d in mesh.devices]}
+    # K3s: the 320 served queries' user rows in batches of 1-128, bit for
+    # bit K3 on the whole batch
+    known = [b for b in traffic["bodies"] if b["user"] in model.user_index]
+    rows = [model.user_index[b["user"]] for b in known]
+    nums = [b["num"] for b in known]
+    single, sharded = ServingFactors(uf, itf, device=device), ServingFactors(uf, itf, mesh=mesh)
+    at = batches = 0
+    while at < len(rows):
+        B = min(MESH_BATCHES[batches % len(MESH_BATCHES)], len(rows) - at)
+        q, n = uf[rows[at:at + B]], pow2_topk_width(max(nums[at:at + B]), N)
+        got, want = sharded.topn_by_rows(q, n), single.topn_by_rows(q, n)
+        if not (same_bits(got[0], want[0]) and same_bits(got[1], want[1])):
+            raise AssertionError(f"K3s batch of {B} at {at}: not K3's answer bit for bit")
+        at, batches = at + B, batches + 1
+    out["k3s_batches"] = batches
+    print(f"  K3s on {S} shards: {len(rows)} user rows in {batches} batches of 1-128, "
+          "bit for bit K3's", flush=True)
+    if timed:
+        out["k3s"] = []
+        Yd = sharded._if_dev
+        for B in (8, 32, 128):
+            q = pad_rows_pow2(uf[rng.integers(0, len(uf), B)], 8)
+            qd = torch.from_numpy(q).to(device)
+            shards, _ = shard_batch(mesh, q)
+            per = shards[0].shape[0]
+            packed = torch.empty((per * S, 32), dtype=torch.float32, device=device)
+            # as ServingFactors serves: each shard's block of one result
+            k3s = lambda: [k3.topn_packed(qs, Yd, 16, out=packed[s * per:(s + 1) * per])
+                           for s, qs in enumerate(shards)]
+            out["k3s"].append({
+                "B": B, "n": 16, "k3_ms": time_ms(lambda: k3.topn_packed(qd, Yd, 16)),
+                "k3s_ms": time_ms(k3s), "k3s_device_ms": device_ms(k3s, calls=100),
+                # the launches and their fetch: one fetch of the gathered
+                # result, against one fetch per shard
+                "k3s_fetch_once_ms": time_ms(lambda: (k3s(), packed.cpu()), iters=50),
+                "k3s_fetch_per_shard_ms": time_ms(
+                    lambda: [k3.topn_packed(qs, Yd, 16).cpu() for qs in shards], iters=50),
+                "plain_ms": time_ms(lambda: [k3.topn_packed_plain(qs, Yd, 16) for qs in shards],
+                                    iters=20),
+                "bound": bound(B, N, k, 16),
+                "library_ms": time_ms(lambda: torch.topk(qd @ Yd.T, 16)),
+            })
+    del single, sharded
+
+    # K9s + K9m: the ML-20M item factors (float32, cosine, positive_only)
+    # under the Similar Product traffic's exclude and include lists
+    sp_model = psp.sp_model_from_numpy(itf, sp_deploy["ids"], sp_deploy["cats"],
+                                       sp_deploy["params"])
+    specs = [(i, sp_model._retrieval_spec(psp.Query(**b)))
+             for i, b in enumerate(sp_deploy["bodies"])]
+    specs = [(i, s) for i, s in specs if s is not None]
+    r1, rS = ItemRetriever(itf, device=device), ItemRetriever(itf, mesh=mesh)
+    for at in range(0, len(specs), 128):
+        part = specs[at:at + 128]
+        q = np.stack([s[0] for _, s in part]).astype(np.float32)
+        ex, inc = [s[1] for _, s in part], [s[2] for _, s in part]
+        n = pow2_topk_width(max(sp_deploy["bodies"][i]["num"] for i, _ in part), N)
+        kw = dict(exclude=ex, include=inc, positive_only=True, normalize=True)
+        got, want = rS.topn(q, n, **kw), r1.topn(q, n, **kw)
+        if not (same_bits(got[0], want[0]) and same_bits(got[1], want[1])):
+            raise AssertionError(f"K9s batch at {at}: not the single-device retriever's answer")
+        if at == 0:
+            ms, mi = shard_kernel_checks(rS, q, n, ex, inc, True, True, device,
+                                         f"K9s {S} shards", errs)
+            if not (same_bits(ms[:len(q)], want[0]) and same_bits(mi[:len(q)], want[1])):
+                raise AssertionError("K9s: the kernels' merged candidates are not the answer")
+    print(f"  K9s + K9m on {S} shards: {len(specs)} Similar Product queries bit for bit the "
+          "single-device retriever's; the shard forms and K9m against their twins", flush=True)
+    if timed:
+        out["k9s"] = shard_times(rng, rS, itf, True, True, device)
+    r1.free()
+    rS.free()
+
+    # K10s: the quantized catalog at int8 and bf16, B = 8 and 128
+    Yq = quantized_catalog()
+    Y64 = Yq.astype(np.float64)
+    out["k10s"] = {}
+    for prec in ("int8", "bf16"):
+        r1 = ItemRetriever(Yq, device=device, precision=prec)
+        rS = ItemRetriever(Yq, mesh=mesh, precision=prec)
+        hits = {"sharded": 0, "single": 0}
+        total = differ = 0
+        for B in (8, 128):
+            for rep in range(4):
+                q = rng.standard_normal((B, Yq.shape[1])).astype(np.float32)
+                got, want = rS.topn(q, 10), r1.topn(q, 10)
+                differ += check_quantized_rows(got, want, f"K10s {prec} B={B}")
+                ref = exact_top10(Y64, q)
+                for name, (_, ids) in (("sharded", got), ("single", want)):
+                    hits[name] += sum(len(set(a) & set(b)) for a, b in zip(ids.tolist(), ref.tolist()))
+                total += ref.shape[0]
+                if rep == 0:
+                    shard_kernel_checks(rS, q, 10, [None] * B, [None] * B, False, False, device,
+                                        f"K10s {prec} B={B}", errs)
+        recall = {name: h / (10 * total) for name, h in hits.items()}
+        if recall["sharded"] < recall["single"]:
+            raise AssertionError(f"K10s {prec}: recall@10 {recall} below the single device's")
+        out["k10s"][prec] = {"queries": total, "rows_differing": differ, "recall@10": recall}
+        print(f"  K10s {prec} on {S} shards: {total} queries, {differ} rows not bit for bit the "
+              f"single device's (each no lower), recall@10 {recall}", flush=True)
+        if timed:
+            out["k10s"][prec]["times"] = shard_times(rng, rS, Yq, False, False, device)
+        r1.free()
+        rS.free()
+
+    # K14s: the host path's scorer at Q = 4, 8, 16
+    sc1, scS = SimilarityScorer(itf, device=device), SimilarityScorer(itf, mesh=mesh)
+    worst, same = 0.0, 0
+    for Q in (4, 8, 16):
+        q = sc1.normed[rng.integers(0, N, Q)]
+        a, b = scS.cosine_sum(q), sc1.cosine_sum(q)
+        if not np.allclose(a, b, rtol=1e-6, atol=1e-6):
+            raise AssertionError(f"K14s Q={Q}: not within rtol 1e-6 of K14")
+        worst, same = max(worst, float(np.abs(a - b).max())), same + same_bits(a, b)
+    errs["cosine_sum_sharded"] = max(errs.get("cosine_sum_sharded", 0.0), worst)
+    out["k14s"] = {"largest_difference": worst, "bit_equal_calls": same}
+    print(f"  K14s on {S} shards: within rtol 1e-6 of K14 (largest difference {worst}, "
+          f"{same} of 3 calls bit for bit)", flush=True)
+    if timed:
+        q = torch.from_numpy(sc1.normed[rng.integers(0, N, 8)].astype(np.float32)).to(device)
+        rows = scS._shards[0].shape[0]
+        sums = torch.empty(rows * S, dtype=torch.float32, device=device)
+        # as SimilarityScorer scores: each shard's block of one sum vector
+        call = lambda: [k14.cosine_sum(q, y, out=sums[s * rows:(s + 1) * rows])
+                        for s, y in enumerate(scS._shards)]
+        out["k14s"].update({
+            "Q": 8, "ms": time_ms(call), "device_ms": device_ms(call, calls=100),
+            "fetch_once_ms": time_ms(lambda: (call(), sums.cpu()), iters=50),
+            "fetch_per_shard_ms": time_ms(
+                lambda: [k14.cosine_sum(q, y).cpu() for y in scS._shards], iters=50),
+            "k14_ms": time_ms(lambda: k14.cosine_sum(q, sc1._dev)),
+            "plain_ms": time_ms(lambda: [k14.cosine_sum_plain(q, y) for y in scS._shards],
+                                iters=20),
+            "bound": roofline(4 * (8 * k + N * k + N), 2 * 8 * N * k),
+            "library_ms": time_ms(lambda: (q @ sc1._dev.T).sum(0)),
+        })
+    return out
+
+
+def mesh_deployments(device, spec, traffic, q_served, sp_deploy, workdir):
+    """Phase 3's model (float32, int8) and R3's Similar Product model
+    deployed through ``tools.cli deploy --serving-devices <spec>``, each
+    sent its single-device deployment's queries from 32 clients, counted
+    from 0: every answer equal to the single-device deployment's (float32
+    and Similar Product exactly; int8 exactly or ``no_lower``), every launch
+    a row-shard form (K3 one per shard per batch). Returns (launches per
+    deployment, stats)."""
+    import numpy as np
+
+    counters = mesh_counters()
+    S = len(spec.split(","))
+    runs = (("ml20m_trained", traffic["bodies"], traffic["answers"]),
+            ("ml20m_int8", traffic["bodies"], q_served["int8"]),
+            ("ml20m_similar", sp_deploy["bodies"], sp_deploy["answers"]))
+    launches, stats = {}, {"serving_devices": spec}
+    for name, bodies, single_answers in runs:
+        server = Deployment(os.path.join(workdir, f"{name}.npz"), device,
+                            ("--serving-devices", spec))
+        try:
+            for c in counters:
+                c.reset()
+            answers, wall = server.send(bodies, 32)
+            status = server.status()
+            counts = snapshot(counters)
+        finally:
+            server.stop()
+        batches = status["batches"]
+        if any(v for c, v in counts.items() if c.endswith("_plain")) or counts["cosine_sum"]:
+            raise AssertionError(f"{name} on the mesh: a twin or the host path ran: {counts}")
+        # every mask, kernel A and kernel B launch is one shard's: S of
+        # each per merged batch (the single-device retriever merges none)
+        merges = counts["merge_topn"]
+        if name == "ml20m_trained":
+            ok = counts["topn_packed"] % S == 0 and 1 <= counts["topn_packed"] // S <= batches \
+                and merges == counts["masked_topn"] == 0
+        else:
+            quant = name == "ml20m_int8"
+            ok = (1 <= merges <= batches and counts["topn_packed"] == 0
+                  and counts["candidate_mask"] == counts["masked_topn"] == S * merges
+                  and counts["rescore_topn"] == (S * merges if quant else 0))
+        if not ok:
+            raise AssertionError(f"{name} on the mesh: launches {counts} for {batches} batches")
+        want = {i: res["itemScores"] for i, _, res in single_answers}
+        differ = 0
+        for i, _, res in answers:
+            got = res["itemScores"]
+            if got == want[i]:
+                continue
+            if name != "ml20m_int8" or len(got) != len(want[i]):
+                raise AssertionError(f"{name} query {i} on the mesh: {got[:3]} != {want[i][:3]}")
+            differ += 1
+            no_lower(np.array([x["score"] for x in got]), np.array([x["score"] for x in want[i]]),
+                     f"{name} query {i}")
+        launches[name] = counts
+        stats[name] = {"queries": len(answers), **latency_stats(answers, wall), "batches": batches,
+                       "batch_fill_mean": status["batchFillMean"],
+                       "server_avg_ms": status["avgServingSec"] * 1e3,
+                       "deploy_s": server.deploy_s, "answers_differing": differ,
+                       "launches": {c: v for c, v in counts.items() if v},
+                       "launches_per_batch": {c: v / batches for c, v in counts.items() if v}}
+        print(f"  {name} over --serving-devices {spec}: {len(answers) - differ} of "
+              f"{len(answers)} answers equal the single-device deployment's; p50 "
+              f"{stats[name]['p50_ms']:.2f} ms, p99 {stats[name]['p99_ms']:.2f} ms, "
+              f"{stats[name]['qps']:.1f} q/s; launches {stats[name]['launches']}", flush=True)
+    return launches, stats
+
+
+def mesh_host_path(rng, device, mesh, itf, sp_deploy):
+    """The Similar Product host path (a model without a retriever) over the
+    mesh, K14s: ``MESH_HOST_QUERIES`` of R3's queries, counted from 0
+    (cosine_sum = one per shard per query with a known item, twins 0), each
+    answer against the single-device host path's (ids outside near-tie
+    runs, scores rtol 1e-6). Returns the launches."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models.similarproduct import engine as psp
+    from predictionio_tpu_torch.ops import similarity as k14
+    from predictionio_tpu_torch.ops.topn import check_topn_agreement
+
+    args = (itf, sp_deploy["ids"], sp_deploy["cats"], sp_deploy["params"])
+    alg = psp.ALSAlgorithm(sp_deploy["params"])
+    single, sharded = psp.sp_model_from_numpy(*args), psp.sp_model_from_numpy(*args)
+    single.attach_device(device)
+    sharded.attach_serving_mesh(mesh)
+    bodies = sp_deploy["bodies"]
+    queries = [(int(i), psp.Query(**bodies[i]))
+               for i in rng.choice(len(bodies), MESH_HOST_QUERIES, replace=False)]
+    want = dict(alg.batch_predict(single, queries))
+    k14.LAUNCHES.reset()
+    got = dict(alg.batch_predict(sharded, queries))
+    counts = k14.LAUNCHES.snapshot()
+    known = sum(any(i in sharded.item_index for i in q.items) for _, q in queries)
+    S = mesh.shape["data"]
+    if counts["cosine_sum"] != S * known or counts["cosine_sum_plain"]:
+        raise AssertionError(f"host path on the mesh: {counts} for {known} queries")
+    for i, _ in queries:
+        g, w = got[i].item_scores, want[i].item_scores
+        if len(g) != len(w):
+            raise AssertionError(f"host path query {i}: {len(g)} items, one device gave {len(w)}")
+        if g:
+            check_topn_agreement(np.array([[x.score for x in g]]),
+                                 np.array([[single.item_index[x.item] for x in g]]),
+                                 np.array([[x.score for x in w]]),
+                                 np.array([[single.item_index[x.item] for x in w]]), 1e-6, 1e-6)
+    print(f"  Similar Product host path on {S} shards: {len(queries)} queries equal the single "
+          f"device's (rtol 1e-6); cosine_sum {counts['cosine_sum']}", flush=True)
+    return counts
+
+
+def mesh_phase(rng, device, workdir, model, traffic, q_served, sp_deploy):
+    """3m: serving on a mesh of MESH_SHARDS logical shards of the card (and,
+    with several cards, on a mesh of distinct cards): K3s, K9s + K9m, K10s
+    and K14s against the single-device serving structures, the row-shard
+    forms and K9m against their twins, then the main path: the HTTP
+    deployments over the mesh and the host path, counted from 0. Logical
+    shards of one card run one after another, so no time here is a
+    multi-GPU time. Returns (launches, largest errors, stats)."""
+    import torch
+
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    errs = {}
+    spec = ",".join([str(device.index or 0)] * MESH_SHARDS)
+    mesh = make_mesh({"data": MESH_SHARDS}, [device] * MESH_SHARDS)
+    stats = {"logical": mesh_serving_checks(rng, device, mesh, model, traffic, sp_deploy, errs,
+                                            timed=True)}
+    counts, stats["http"] = mesh_deployments(device, spec, traffic, q_served, sp_deploy, workdir)
+    counts["host_path"] = mesh_host_path(rng, device, mesh, model.arrays.item_factors, sp_deploy)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = list(range(min(MESH_SHARDS, n_cards)))
+        cmesh = make_mesh({"data": len(cards)}, [torch.device("cuda", c) for c in cards])
+        stats["cards"] = mesh_serving_checks(rng, device, cmesh, model, traffic, sp_deploy, errs,
+                                             timed=False)
+        _, stats["cards_http"] = mesh_deployments(device, ",".join(map(str, cards)), traffic,
+                                                  q_served, sp_deploy, workdir)
+        mesh_host_path(rng, device, cmesh, model.arrays.item_factors, sp_deploy)
+    else:
+        print("  one card: no mesh of distinct cards to run", flush=True)
+    stats["card"] = card_line()
+    stats["note"] = ("logical shards of one card run one after another on its stream: "
+                     "these are not multi-GPU times")
+    print("mesh_serving " + json.dumps(stats), flush=True)
+    return counts, errs, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6513,6 +7093,7 @@ def main() -> int:
         lstsq,
         markov,
         masked_topn,
+        merge_topn,
         naive_bayes,
         native,
         normal_eq,
@@ -6537,7 +7118,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_modules = (topn, device_pack, normal_eq, spd_solve, predict_pairs, masked_topn, rescore,
                       gramian, similarity, subspace, cooccurrence, grid, delta_scatter, naive_bayes,
-                      softmax_regression, markov, categorical_nb, lstsq, simrank)
+                      softmax_regression, markov, categorical_nb, lstsq, simrank, merge_topn)
     sources = [m.SOURCE for m in kernel_modules]
     native.build_sources(sources)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {sources}", flush=True)
@@ -6588,10 +7169,13 @@ def main() -> int:
         launches, _, traffic = slice_phase(rng, device, workdir, model)
         print(f"phase quantized recommendation (R2) (at {time.perf_counter() - t0:.1f} s)",
               flush=True)
-        q_launches, _, path_row, path_errs = quantized_serving_phase(
+        q_launches, _, path_row, path_errs, q_served = quantized_serving_phase(
             rng, device, workdir, model, traffic)
         print(f"phase similar product (R3) (at {time.perf_counter() - t0:.1f} s)", flush=True)
-        sp_launches, _ = similarproduct_phase(rng, device, workdir, model)
+        sp_launches, _, sp_deploy = similarproduct_phase(rng, device, workdir, model)
+        print(f"phase serving on a mesh (3m) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+        m_counts, m_errs, m_stats = mesh_phase(rng, device, workdir, model, traffic,
+                                               q_served, sp_deploy)
         print(f"phase classification (3n) (at {time.perf_counter() - t0:.1f} s)", flush=True)
         n_counts, n_errs, n_stats = classification_phase(device, workdir)
         print(f"phase e2 and least squares (3x) (at {time.perf_counter() - t0:.1f} s)",
@@ -6810,6 +7394,53 @@ def main() -> int:
         "max_abs_err": y_errs["topn_chain"], "ms": c3["measure_compute_ms"],
         "plain_ms": c3["plain_ms"], "bound_ms": c3["bound"][0], "bound_by": c3["bound"][1],
         "library_ms": c3["library_ms"],
+    })
+    # serving on a mesh (3m): launches on its main path (the HTTP
+    # deployments over --serving-devices and the host path), times on the
+    # 4-shard mesh of the one card (the shards run one after another)
+    lg = m_stats["logical"]
+    k3s = lg["k3s"][-1]  # B = 128
+    if m_counts["ml20m_trained"]["topn_packed"] < 1:
+        raise AssertionError("K3s never launched on the mesh deployment")
+    kernels.append({
+        "name": "topn_packed_sharded", "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/topn.cu",
+        "replaces": "predictionio_tpu/ops/als.py:2369",
+        "launches": m_counts["ml20m_trained"]["topn_packed"], "max_abs_err": 0.0,
+        "ms": k3s["k3s_ms"], "plain_ms": k3s["plain_ms"], "bound_ms": k3s["bound"][0],
+        "bound_by": k3s["bound"][1], "library_ms": k3s["library_ms"],
+    })
+    # the row-shard forms count under their kernels' names: on these
+    # deployments every launch of them is one shard's
+    for name, counter, source, where in (
+            ("candidate_mask_shard", "candidate_mask", "masked_topn.cu",
+             "predictionio_tpu/ops/retrieval.py:397"),
+            ("masked_topn_shard", "masked_topn", "masked_topn.cu",
+             "predictionio_tpu/ops/retrieval.py:397"),
+            ("rescore_topn_shard", "rescore_topn", "rescore.cu",
+             "predictionio_tpu/ops/retrieval.py:366"),
+            ("merge_topn", "merge_topn", "merge_topn.cu", "predictionio_tpu/ops/retrieval.py:425")):
+        n_launch = m_counts["ml20m_int8"][counter] + m_counts["ml20m_similar"][counter]
+        if n_launch < 1:
+            raise AssertionError(f"{name} never launched on the mesh deployments")
+        t = lg["k10s"]["int8"]["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"predictionio_tpu_torch/csrc/{source}",
+            "replaces": where, "launches": n_launch, "max_abs_err": m_errs.get(name, 0.0),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+        })
+    t14s = lg["k14s"]
+    if m_counts["host_path"]["cosine_sum"] < 1:
+        raise AssertionError("K14s never launched on the mesh host path")
+    kernels.append({
+        "name": "cosine_sum_sharded", "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/cosine_sum.cu",
+        "replaces": "predictionio_tpu/ops/similarity.py:63",
+        "launches": m_counts["host_path"]["cosine_sum"],
+        "max_abs_err": m_errs["cosine_sum_sharded"], "ms": t14s["ms"],
+        "plain_ms": t14s["plain_ms"], "bound_ms": t14s["bound"][0],
+        "bound_by": t14s["bound"][1], "library_ms": t14s["library_ms"],
     })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

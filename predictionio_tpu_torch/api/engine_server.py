@@ -12,6 +12,10 @@ coalesced for up to ``batch_window_ms`` (at most ``max_batch``) and served
 as ONE batched device predict (``BaseAlgorithm.batch_predict``; for the
 recommendation engine one K3 launch). Malformed queries answer 400 and
 unknown routes 404, as the reference server does.
+``ServerConfig.serving_devices`` names the CUDA devices the prepared
+serving state shards over (``_mesh_from_device_spec``; ``tools/cli.py``
+builds the mesh and prepares the model on it). The port's server has no
+``/reload`` yet, so there is no model swap to reuse the mesh for.
 """
 
 from __future__ import annotations
@@ -27,8 +31,11 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import torch
+
 from predictionio_tpu_torch.api.aio_http import TRANSPORTS, make_http_server
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -53,6 +60,11 @@ class ServerConfig:
     transport: str = "async"
     # bind with SO_REUSEPORT so several server processes share one port
     reuse_port: bool = False
+    # comma-separated CUDA device indices the prepared serving state shards
+    # over (e.g. "0" for one card, "0,1" for a 2-device mesh; an index may
+    # repeat: "0,0,0,0" is four row shards on one card). None = every
+    # visible CUDA device (tools/cli.py deploy)
+    serving_devices: Optional[str] = None
 
     def __post_init__(self):
         if self.transport not in TRANSPORTS:
@@ -62,6 +74,22 @@ class ServerConfig:
             )
         if self.max_batch < 1 or self.pipeline_depth < 1:
             raise ValueError("max_batch and pipeline_depth must be >= 1")
+
+
+def _mesh_from_device_spec(spec: str) -> Mesh:
+    """A 1-D ``data`` mesh over the named CUDA device indices ("0" or
+    "0,2,3"; repeats name logical shards of one card), the reference's
+    :176-192. Raises ``ValueError`` on an empty list or an index that is no
+    visible CUDA device (every index when none is present)."""
+    idxs = [int(p) for p in str(spec).split(",") if p.strip() != ""]
+    count = torch.cuda.device_count()
+    bad = [i for i in idxs if not 0 <= i < count]
+    if not idxs or bad:
+        raise ValueError(
+            f"serving_devices {spec!r} names invalid device indices "
+            f"{bad} (have {count} CUDA devices)"
+        )
+    return make_mesh({DATA_AXIS: len(idxs)}, [torch.device("cuda", i) for i in idxs])
 
 
 class DeployedEngine:

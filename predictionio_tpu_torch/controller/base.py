@@ -17,10 +17,11 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
+from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar, Union
 
 import torch
 
+from predictionio_tpu_torch.parallel.mesh import Mesh
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     Params,
@@ -131,9 +132,14 @@ class BaseAlgorithm(Controller, Generic[M, Q, P]):
         predict (reference P2LAlgorithm.batchPredict default)."""
         return [(i, self.predict(model, q)) for i, q in queries]
 
-    def prepare_serving(self, device: torch.device, model: M) -> M:
-        """Deploy-time hook: bind the model's serving state to ``device``.
-        Default: model unchanged."""
+    # whether ``prepare_serving`` takes a ``Mesh`` (and serves over it);
+    # otherwise ``Engine.prepare_deploy`` hands it the mesh's first device
+    MESH_SERVING: bool = False
+
+    def prepare_serving(self, device: Union[torch.device, Mesh], model: M) -> M:
+        """Deploy-time hook: bind the model's serving state to ``device``,
+        or, where ``MESH_SERVING``, to a ``Mesh``. Default: model
+        unchanged."""
         return model
 
     def warm(self, model: M) -> None:

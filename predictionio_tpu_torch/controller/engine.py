@@ -13,7 +13,7 @@ every variant of a params grid on a thread pool.
 ``make_serializable_models`` turns trained models into what is kept: a
 ``PersistentModel`` saves itself and leaves a manifest
 (``controller/persistent_model.py``); ``prepare_deploy`` loads manifests
-back and prepares every model for serving on one device.
+back and prepares every model for serving on one device or a ``Mesh``.
 ``EngineFactory`` is the user object that returns an engine. Engine
 instances, their stored params and engine.json parsing come with the
 event store (ROADMAP.md queue 1 item 3). ``SimpleEngine`` (one data
@@ -26,7 +26,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import logging
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -42,6 +42,7 @@ from predictionio_tpu_torch.controller.persistent_model import (
     PersistentModelManifest,
     load_persistent_model,
 )
+from predictionio_tpu_torch.parallel.mesh import Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -263,7 +264,7 @@ class Engine:
 
     def prepare_deploy(
         self,
-        device: torch.device,
+        device: Union[torch.device, Mesh],
         engine_params: EngineParams,
         models: Sequence[Any],
         engine_instance_id: Optional[str] = None,
@@ -271,7 +272,12 @@ class Engine:
         """Load each ``PersistentModelManifest`` through its class's loader
         (the model saved under ``engine_instance_id``), then bind each
         model's serving state to ``device`` (reference prepareDeploy
-        :196-265; the port deploys persisted models only)."""
+        :196-265; the port deploys persisted models only). ``device`` may be
+        a ``Mesh``: an algorithm with ``MESH_SERVING`` serves over it, the
+        others (and the loaders) on its first device."""
+        mesh = device if isinstance(device, Mesh) else None
+        if mesh is not None:
+            device = mesh.devices[0]
         _, _, algorithms, _ = self.make_components(engine_params)
         if len(models) != len(algorithms):
             raise ValueError(
@@ -286,7 +292,8 @@ class Engine:
                         "id its model was saved under"
                     )
                 m = load_persistent_model(m, engine_instance_id, algo.params, device)
-            out.append(algo.prepare_serving(device, m))
+            target = mesh if mesh is not None and algo.MESH_SERVING else device
+            out.append(algo.prepare_serving(target, m))
         return out
 
     def make_serializable_models(

@@ -63,6 +63,17 @@
 //   - Query rows of zeros give every item score 0 in every tier (qs = 1,
 //     qi = 0), so the answer is items 0..m-1, as K3 gives.
 // Correct for every 1 <= m <= N, any N, any k, and exact ties.
+//
+// Row shards (the reference's mesh path, :397 _shard_topk_kernel and the
+// stage 1 of :366 _shard_topk_kernel_2s). A shard holds the catalog rows
+// [off, off + N) and sees the query's GLOBAL id lists: candidate_mask
+// takes id_offset = off and keeps an id g only where g - off lies in
+// [0, N) (computed in unsigned arithmetic, so ids of other shards and
+// negative ids wrap out of range), as the reference's `localize` maps every
+// other id to the dropped sentinel rows_l; masked_topn_launch adds its
+// id_offset to the ids it writes, in the merge's last write. The shard's
+// list stays sorted (score descending, id ascending): a constant offset
+// keeps the id order. With id_offset = 0 both are the single-device kernels.
 
 #include "tile_topm.cuh"
 
@@ -76,7 +87,7 @@ __global__ void __launch_bounds__(THREADS)
 candidate_mask(const uint8_t* __restrict__ allow0, const int* __restrict__ excl,
                int We, const int* __restrict__ incl, int Wi,
                const uint8_t* __restrict__ has_incl,
-               unsigned* __restrict__ bits, int N, int W32) {
+               unsigned* __restrict__ bits, int N, int W32, unsigned id_offset) {
   __shared__ unsigned sw[MASK_WORDS];
   const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const int w0 = blockIdx.y * MASK_WORDS;
@@ -93,14 +104,14 @@ candidate_mask(const uint8_t* __restrict__ allow0, const int* __restrict__ excl,
   const unsigned lo = 32u * w0, hi = min((unsigned)N, lo + 32u * nw);
   if (has) {
     for (int j = tid; j < Wi; j += THREADS) {
-      const unsigned id = (unsigned)incl[(long long)row * Wi + j];
+      const unsigned id = (unsigned)incl[(long long)row * Wi + j] - id_offset;
       if (id >= lo && id < hi && allow0[id] != 0)
         atomicOr(&sw[(id - lo) >> 5], 1u << (id & 31));
     }
   }
   __syncthreads();  // includes set before excludes clear
   for (int j = tid; j < We; j += THREADS) {
-    const unsigned id = (unsigned)excl[(long long)row * We + j];
+    const unsigned id = (unsigned)excl[(long long)row * We + j] - id_offset;
     if (id >= lo && id < hi) atomicAnd(&sw[(id - lo) >> 5], ~(1u << (id & 31)));
   }
   __syncthreads();
@@ -118,26 +129,30 @@ long long masked_topn_scratch_floats(int B, int N, int m) {
 
 // Builds bits [B, ceil(N/32)] on `stream`; returns cudaGetLastError().
 // excl [B, We] and incl [B, Wi] are int32 id lists (We, Wi >= 1), has_incl
-// [B] and allow0 [N] bytes (0 or 1).
+// [B] and allow0 [N] bytes (0 or 1); an id g names local row g - id_offset
+// (a row shard's first global row; 0 on one device).
 int candidate_mask_launch(const uint8_t* allow0, const int* excl, int We,
                           const int* incl, int Wi, const uint8_t* has_incl,
-                          unsigned* bits, int B, int N, cudaStream_t stream) {
+                          unsigned* bits, int B, int N, int id_offset,
+                          cudaStream_t stream) {
   const int W32 = (N + 31) / 32;
   dim3 grid(B, (W32 + MASK_WORDS - 1) / MASK_WORDS);
   candidate_mask<<<grid, THREADS, 0, stream>>>(allow0, excl, We, incl, Wi,
-                                               has_incl, bits, N, W32);
+                                               has_incl, bits, N, W32,
+                                               (unsigned)id_offset);
   return (int)cudaGetLastError();
 }
 
 // Launches the tile pass and the merge on `stream`; returns
 // cudaGetLastError(). precision: 0 f32, 1 bf16 (Y as raw bf16 bits), 2
-// int8 (scale [N] read); rn [N] is read only when normalize. The caller
-// checks 1 <= m <= N, B >= 1, k >= 1, dtypes, devices and contiguity.
+// int8 (scale [N] read); rn [N] is read only when normalize; the written
+// ids are local ids plus id_offset. The caller checks 1 <= m <= N, B >= 1,
+// k >= 1, 0 <= id_offset <= 2^31 - 1 - N, dtypes, devices and contiguity.
 int masked_topn_launch(const float* q, const void* Y, const float* scale,
                        const float* rn, const unsigned* bits, float* out,
                        float* scratch, int B, int N, int k, int m,
                        int precision, int normalize, int positive_only,
-                       cudaStream_t stream) {
+                       int id_offset, cudaStream_t stream) {
   const long long stride = list_stride_of(N, m);
   const int mt = m < TILE ? m : TILE;
   const int W32 = (N + 31) / 32;
@@ -161,7 +176,7 @@ int masked_topn_launch(const float* q, const void* Y, const float* scale,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(scratch, out, B, N, m, stream);
+  return (int)launch_merge(scratch, out, B, N, m, stream, id_offset);
 }
 
 const char* masked_topn_error_string(int code) {

@@ -15,7 +15,14 @@
 //      dead whatever their placeholder id rescores to);
 //   5. the top n_out by (score descending, shortlist POSITION ascending):
 //      lax.top_k over the shortlist breaks ties by position, not by id;
-//   6. out [B, 2·n_out]: the scores, then the ids taken from the shortlist.
+//   6. out [B, 2·n_out]: the scores, then the ids taken from the shortlist
+//      plus id_offset.
+//
+// Row shards (the reference's :366 _shard_topk_kernel_2s): a shard's stage 1
+// shortlists LOCAL ids, which index its own rows here, and this kernel adds
+// the shard's first global row (id_offset) as it writes them, keeping the
+// shard's n_local best (n_out = n_local). With id_offset = 0 it is the
+// single-device kernel.
 //
 // Design, simple and correct first: one block per query row. Its warps
 // take shortlist entries in turn, the lanes split the rank (coalesced row
@@ -62,7 +69,7 @@ rescore_topn(const float* __restrict__ q, const void* __restrict__ Yv,
              const float* __restrict__ scale, const float* __restrict__ rn,
              const float* __restrict__ s1, int S, float* __restrict__ out,
              int n_out, int N, int k, int P, int normalize, int positive_only,
-             float* __restrict__ g_key, int* __restrict__ g_pos) {
+             float* __restrict__ g_key, int* __restrict__ g_pos, int id_offset) {
   extern __shared__ __align__(16) float smem[];
   const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const float* srow = s1 + (long long)row * 2 * S;
@@ -139,7 +146,7 @@ rescore_topn(const float* __restrict__ q, const void* __restrict__ Yv,
   float* orow = out + (long long)row * 2 * n_out;
   for (int p = tid; p < n_out; p += THREADS) {
     orow[p] = key[p];
-    orow[n_out + p] = __int_as_float(irow[pos[p]]);
+    orow[n_out + p] = __int_as_float(irow[pos[p]] + id_offset);
   }
 }
 
@@ -166,13 +173,14 @@ long long rescore_scratch_floats(int B, int S, int k) {
 
 // Launches on `stream`; returns cudaGetLastError(). precision: 1 bf16 (Y
 // as raw bf16 bits), 2 int8 (scale [N] read); rn [N] is read only when
-// normalize. The caller checks 1 <= n_out <= S, dtypes, devices,
+// normalize; the written ids are the shortlist's plus id_offset. The caller
+// checks 1 <= n_out <= S, 0 <= id_offset <= 2^31 - 1 - N, dtypes, devices,
 // contiguity, and allocates `scratch` as rescore_scratch_floats says.
 int rescore_topn_launch(const float* q, const void* Y, const float* scale,
                         const float* rn, const float* s1, int S, float* out,
                         int n_out, float* scratch, int B, int N, int k,
                         int precision, int normalize, int positive_only,
-                        cudaStream_t stream) {
+                        int id_offset, cudaStream_t stream) {
   const int P = pow2_at_least(S);
   const long long full = smem_bytes(k, P);
   float* g_key = nullptr;
@@ -192,7 +200,7 @@ int rescore_topn_launch(const float* q, const void* Y, const float* scale,
     if (err != cudaSuccess) return (int)err;
     rescore_topn<PREC_I8><<<B, THREADS, (size_t)smem, stream>>>(
         q, Y, scale, rn, s1, S, out, n_out, N, k, P, normalize,
-        positive_only, g_key, g_pos);
+        positive_only, g_key, g_pos, id_offset);
   } else if (precision == PREC_BF16) {
     err = cudaFuncSetAttribute(rescore_topn<PREC_BF16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -200,7 +208,7 @@ int rescore_topn_launch(const float* q, const void* Y, const float* scale,
     if (err != cudaSuccess) return (int)err;
     rescore_topn<PREC_BF16><<<B, THREADS, (size_t)smem, stream>>>(
         q, Y, scale, rn, s1, S, out, n_out, N, k, P, normalize,
-        positive_only, g_key, g_pos);
+        positive_only, g_key, g_pos, id_offset);
   } else {
     return (int)cudaErrorInvalidValue;
   }

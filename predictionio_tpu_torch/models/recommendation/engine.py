@@ -14,7 +14,9 @@ serves a micro-batch with one K3 launch on the model's device; with
 ``precision="int8"`` or ``"bf16"`` it serves through an ``ItemRetriever``
 (``ops/retrieval.py``) instead: the catalog resident quantized, stage 1
 (kernel A) shortlists, stage 2 (kernel B) rescores the shortlist exactly,
-and the host refines against the original rows.
+and the host refines against the original rows. ``prepare_serving`` takes
+a ``Mesh`` too: K3s (``ServingFactors(mesh)``) or the row-sharded
+retriever (K10s and the K9m merge).
 ``DataSource`` reads the event columns the workflow context supplies for
 its app (the port has no event store yet, ROADMAP.md queue 1 item 3) and
 splits them into k folds for evaluation; ``ALSAlgorithm.train_grid``
@@ -28,7 +30,7 @@ numpy: the port never imports the JAX package).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +56,7 @@ from predictionio_tpu_torch.ops.als import (
 )
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever
 from predictionio_tpu_torch.ops.streaming import train_als_streaming
+from predictionio_tpu_torch.parallel.mesh import Mesh
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
 
 
@@ -325,10 +328,25 @@ class ALSModel:
     _retriever: Optional[ItemRetriever] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    # the deploy-time mesh (prepare_serving): query batches shard over it
+    # and the catalog replicates (K3s); never saved
+    _serving_mesh: Optional[Mesh] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     def attach_device(self, device: DeviceLike) -> None:
         """Serve on ``device`` (drops serving state built elsewhere)."""
         self._device = resolve_device(device)
+        self._serving_mesh = None
+        self._serving = None
+
+    def attach_serving_mesh(self, mesh: Mesh) -> None:
+        """Serve over ``mesh`` (drops serving state built elsewhere, so the
+        next predict uses the sharded factors). The mesh's first device
+        stays the model's device: a straggler after ``release_serving``
+        rebuilds its serving state there."""
+        self._serving_mesh = mesh
+        self._device = mesh.devices[0]
         self._serving = None
 
     @property
@@ -336,7 +354,7 @@ class ALSModel:
         if self._serving is None:
             self._serving = ServingFactors(
                 self.arrays.user_factors, self.arrays.item_factors,
-                device=self._device,
+                device=self._device, mesh=self._serving_mesh,
             )
         return self._serving
 
@@ -423,6 +441,7 @@ class ALSAlgorithm(BaseAlgorithm):
 
     params_class = ALSAlgorithmParams
     query_class = Query
+    MESH_SERVING = True
     # regularizer variants of one configuration train together in an
     # evaluation's grid (ops/als.py train_als_grid)
     GRID_AXES = ("lambda_",)
@@ -515,16 +534,24 @@ class ALSAlgorithm(BaseAlgorithm):
             item_index=td.item_index, params=p, _device=resolve_device(device),
         )
 
-    def prepare_serving(self, device: torch.device, model: ALSModel) -> ALSModel:
-        """Bind the model's serving state to ``device``. With a quantized
+    def prepare_serving(
+        self, device: Union[torch.device, Mesh], model: ALSModel
+    ) -> ALSModel:
+        """Bind the model's serving state to ``device``, or to a ``Mesh``
+        (the reference's :549-566): float32 then serves data-parallel
+        through ``ServingFactors(mesh)`` (K3s). With a quantized
         ``precision``, deploy an ItemRetriever: the catalog resides as
-        int8/bf16 rows and retrieval runs the two-stage shortlist + exact
-        rescore."""
-        model.attach_device(device)
+        int8/bf16 rows (row-sharded over the mesh) and retrieval runs the
+        two-stage shortlist + exact rescore."""
+        if isinstance(device, Mesh):
+            model.attach_serving_mesh(device)
+        else:
+            model.attach_device(device)
         p: ALSAlgorithmParams = self.params
         if p.precision != "float32":
             model._retriever = ItemRetriever(
                 model.arrays.item_factors,
+                mesh=model._serving_mesh,
                 component="recommendation",
                 device=model._device,
                 precision=p.precision,
@@ -546,10 +573,12 @@ class ALSAlgorithm(BaseAlgorithm):
         return model.recommend_many(queries)
 
     def release_serving(self, model: ALSModel) -> None:
-        """Drop the device factors (and free the retriever); they free once
-        the last in-flight batch lets go. A straggler query rebuilds
-        float32 serving state lazily."""
+        """Drop the device factors (and free the retriever, every shard);
+        they free once the last in-flight batch lets go. A straggler query
+        rebuilds float32 serving state lazily, off the mesh, on the model's
+        device (a mesh's first device)."""
         model._serving = None
+        model._serving_mesh = None
         retriever, model._retriever = model._retriever, None
         if retriever is not None:
             retriever.free()

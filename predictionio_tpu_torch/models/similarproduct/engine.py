@@ -20,7 +20,9 @@ on-device masks. Without a prepared retriever (a model just trained, or a
 straggler after ``release_serving``) ``SPModel.similar`` scores on the
 host path: K14 (``ops/similarity.py``) sums the cosines on the model's
 device, and the rules and the selection run in numpy, as the reference's.
-``Serving`` sums each item's scores across algorithms.
+``Serving`` sums each item's scores across algorithms. ``prepare_serving``
+takes a ``Mesh`` too: the retriever and the host path's scorer are then
+row-sharded over it (K9s with the K9m merge, K14s).
 
 Both ALS algorithms train with either solver: ``solver="subspace"`` (with
 ``block_size``) runs the iALS++ loop (K11, ``ops/subspace.py``).
@@ -42,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +63,7 @@ from predictionio_tpu_torch.ops import cooccurrence, retrieval
 from predictionio_tpu_torch.ops.als import ALSConfig, train_als, validate_solver
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever
 from predictionio_tpu_torch.ops.similarity import SimilarityScorer, normalize_rows
+from predictionio_tpu_torch.parallel.mesh import Mesh
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
 
 logger = logging.getLogger(__name__)
@@ -207,10 +210,23 @@ class SPModel:
     _cat_items: Optional[Dict[str, np.ndarray]] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    # the deploy-time mesh (prepare_serving): the retriever's and the host
+    # path's scorer's rows shard over it; never saved
+    _serving_mesh: Optional[Mesh] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     def attach_device(self, device: DeviceLike) -> None:
         """Score on ``device`` (drops a scorer built elsewhere)."""
         self._device = resolve_device(device)
+        self._serving_mesh = None
+        self._scorer = None
+
+    def attach_serving_mesh(self, mesh: Mesh) -> None:
+        """Score over ``mesh`` (drops a scorer built elsewhere); the mesh's
+        first device stays the model's device."""
+        self._serving_mesh = mesh
+        self._device = mesh.devices[0]
         self._scorer = None
 
     @property
@@ -222,9 +238,12 @@ class SPModel:
     @property
     def scorer(self) -> SimilarityScorer:
         """The host path's scorer: the normalized factors resident on the
-        model's device (CUDA when none is attached), built at first use."""
+        model's device (CUDA when none is attached), row-sharded over its
+        serving mesh when it has one (K14s), built at first use."""
         if self._scorer is None:
-            self._scorer = SimilarityScorer(self.item_factors, device=self._device)
+            self._scorer = SimilarityScorer(
+                self.item_factors, device=self._device, mesh=self._serving_mesh
+            )
         return self._scorer
 
     def category_items(self, categories) -> np.ndarray:
@@ -409,6 +428,7 @@ class ALSAlgorithm(BaseAlgorithm):
 
     params_class = ALSAlgorithmParams
     query_class = Query
+    MESH_SERVING = True
 
     def _ratings(self, td: TrainingData) -> Dict[Tuple[str, str], float]:
         """(user, item) -> value. Overridden by LikeAlgorithm."""
@@ -489,13 +509,18 @@ class ALSAlgorithm(BaseAlgorithm):
             return [(i, self.predict(model, q)) for i, q in queries]
         return model.similar_batch(queries)
 
-    def prepare_serving(self, device: torch.device, model: SPModel) -> SPModel:
+    def prepare_serving(self, device: Union[torch.device, Mesh], model: SPModel) -> SPModel:
         """Build the serving state: the item factors resident on
-        ``device`` in the params' precision; candidacy rules apply as
-        on-device masks. The host path scores on ``device`` too."""
-        model.attach_device(device)
+        ``device`` in the params' precision, or row-sharded over a ``Mesh``
+        (the reference's :491-503; K9s and the K9m merge); candidacy rules
+        apply as on-device masks. The host path scores there too."""
+        if isinstance(device, Mesh):
+            model.attach_serving_mesh(device)
+        else:
+            model.attach_device(device)
         model._retriever = ItemRetriever(
-            model.item_factors, component="similarproduct", device=device,
+            model.item_factors, mesh=model._serving_mesh,
+            component="similarproduct", device=model._device,
             precision=self.params.precision,
             shortlist_mult=self.params.shortlist_mult,
         )

@@ -47,13 +47,16 @@ of the same data and config from its latest save (the reference's
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
 :2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
-``ServingFactors`` uploads the factor matrices to its device once. Each
+``ServingFactors`` uploads the item matrix to its device once. Each
 batch then pads its query rows to a power of two (min 8, the reference's
 bucketing), launches K3 (``ops/topn.py``) and makes ONE device→host copy
 of the packed ``[B, 2n]`` result; a batch of more than ``MAX_QUERY_ROWS``
 rows (an evaluation fold's queries) goes in chunks of that many, which
 bounds K3's scratch. ``measure_compute_ms`` times K3 on the device through
-K3c's chained passes (``topn_chain``).
+K3c's chained passes (``topn_chain``). With a ``mesh``
+(``parallel/mesh.py``) ``ServingFactors`` is K3s: the catalog
+replicated per device, the query rows sharded, K3 per shard into its
+block of one result on the mesh's first device, still one copy down.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ from predictionio_tpu_torch.ops.normal_eq import (
     upload_pack,
 )
 from predictionio_tpu_torch.ops.topn import topn_chain, topn_packed
+from predictionio_tpu_torch.parallel.mesh import collapse_mesh, shard_batch
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 from predictionio_tpu_torch.workflow.checkpoint import StepCheckpointer
 
@@ -183,28 +187,46 @@ class ALSModelArrays:
 
 
 class ServingFactors:
-    """Device-resident factors for the serving hot path: the matrices go to
-    ``device`` once; each request ships only its query rows up and one
-    packed result buffer down."""
+    """Device-resident factors for the serving hot path: the item matrix
+    goes to ``device`` once; each request ships only its query rows up and
+    one packed result buffer down.
+
+    With a ``mesh`` (K3s, the reference's :2369 ``_topn_packed_sharded``),
+    serving is data-parallel: the item matrix is replicated (one upload per
+    DISTINCT device of the mesh, shared by the logical shards on it), each
+    batch's padded query rows shard as ``shard_batch`` cuts them, and every
+    shard runs K3 on its rows on its own device, writing its block of one
+    packed result on the mesh's first device (a peer copy, none where the
+    shard shares that device), which is fetched once. K3 reduces each row
+    in one fixed order whatever the batch, so the answers are the
+    single-device answers bit for bit. A mesh of one shard collapses to the
+    single-device path on that shard's device."""
 
     def __init__(
         self,
         user_factors: np.ndarray,
         item_factors: np.ndarray,
         device: DeviceLike = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        mesh, device = collapse_mesh(mesh, device)
+        self.mesh = mesh
         self.user_factors = np.asarray(user_factors)
-        self._uf_dev = _upload(user_factors, self.device)
-        self._if_dev = _upload(item_factors, self.device)
+        # the user rows are gathered on the host (topn_by_user), so only
+        # the catalog goes to the device: once per distinct device
+        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
+        devices = [self.device] if mesh is None else mesh.distinct_devices()
+        self._if_on = {d: _upload(item_factors, d) for d in devices}
+        self._if_dev = self._if_on[self.device]
         self.n_items = self._if_dev.shape[0]
 
     def topn_by_rows(
         self, user_rows: np.ndarray, n: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-N for explicit query factor rows [B, k]: (scores [B, n],
-        item indices [B, n]), one K3 launch per ``MAX_QUERY_ROWS`` rows
-        (rows are independent, so the chunks change no answer)."""
+        item indices [B, n]), one K3 launch (one per shard on a mesh) and
+        one fetch per ``MAX_QUERY_ROWS`` rows (rows are independent, so the
+        chunks change no answer)."""
         b = len(user_rows)
         if b > MAX_QUERY_ROWS:
             parts = [
@@ -215,20 +237,34 @@ class ServingFactors:
                 np.concatenate([p[0] for p in parts]),
                 np.concatenate([p[1] for p in parts]),
             )
-        packed = self.topn_packed_device(user_rows, n).cpu().numpy()[:b]
-        return packed[:, :n], _unpack_indices(packed, n)
+        host = self.topn_packed_device(user_rows, n).cpu().numpy()[:b]
+        return host[:, :n], _unpack_indices(host, n)
 
     def topn_packed_device(self, user_rows: np.ndarray, n: int) -> torch.Tensor:
         """Upload the query rows padded to a power of two (min 8), run K3,
-        and return the packed result still on the device. Callers slice
-        the padding rows off."""
-        q = _upload(pad_rows_pow2(user_rows, 8), self.device)
-        return topn_packed(q, self._if_dev, n)
+        and return the packed ``[b_pad, 2n]`` result still on the device
+        (on a mesh, the first shard's, every shard's rows in row order).
+        Callers slice the padding rows off."""
+        q = pad_rows_pow2(user_rows, 8)
+        if self.mesh is None:
+            return topn_packed(_upload(q, self.device), self._if_dev, n)
+        # shard_batch pads further so the rows divide the shards (a no-op
+        # for power-of-two shard counts), then places one block per shard
+        shards, _ = shard_batch(self.mesh, q)
+        per = shards[0].shape[0]
+        packed = torch.empty((per * len(shards), 2 * n), dtype=torch.float32, device=self.device)
+        for s, qs in enumerate(shards):
+            dst = packed[s * per : (s + 1) * per]
+            if qs.device == self.device:
+                topn_packed(qs, self._if_on[qs.device], n, out=dst)
+            else:
+                dst.copy_(topn_packed(qs, self._if_on[qs.device], n))  # the peer copy
+        return packed
 
     def warm(self, n: int = 16, max_batch: int = 128) -> None:
         """Run every padded batch size the serving path can hit once at
         deploy, so the kernel is built and loaded before traffic."""
-        k = self._uf_dev.shape[1]
+        k = self._if_dev.shape[1]
         n = min(n, self.n_items)
         b = 8
         while True:
@@ -243,18 +279,25 @@ class ServingFactors:
         """Per-pass device time of the top-N, in ms: K3c chains ``iters``
         passes in one call, so the host's share of a call cancels in
         ``(t(iters) - t(1)) / (iters - 1)``; each ``t`` is one call of the
-        chain followed by a synchronize, and the result is the median over
-        ``reps`` pairs (the reference's
-        ``ServingFactors.measure_compute_ms``)."""
+        chain (one per shard on a mesh, the query rows cut as serving cuts
+        them) followed by a synchronize, and the result is the median over
+        ``reps`` pairs (the reference's ``ServingFactors.measure_compute_ms``,
+        :2526-2540 on a mesh)."""
         if iters < 2 or reps < 1:
             raise ValueError(f"iters={iters} must be >= 2 and reps={reps} >= 1")
-        q = _upload(user_rows, self.device)
+        if self.mesh is None:
+            queries = [_upload(user_rows, self.device)]
+        else:
+            queries, _ = shard_batch(self.mesh, np.asarray(user_rows, np.float32))
+        devices = {q.device for q in queries}
 
         def chain(k: int) -> float:
             t0 = time.perf_counter()
-            topn_chain(q, self._if_dev, n, k)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for q in queries:
+                topn_chain(q, self._if_on[q.device], n, k)
+            for d in devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
             return time.perf_counter() - t0
 
         chain(1)  # the kernel's build and load

@@ -17,6 +17,17 @@ Two wrappers, each with its plain PyTorch twin in this module:
   rounded to bf16) or int8 (the query quantized per row, int32 sums, then
   ``(float)acc * qs * scale[j]``).
 
+The row-shard forms (the reference's mesh path, ``:397
+_shard_topk_kernel`` and stage 1 of ``:366 _shard_topk_kernel_2s``): with
+``id_offset=off`` a shard holding the catalog rows ``[off, off + N)`` takes
+the GLOBAL id lists, ``candidate_mask`` keeping an id g only where
+``g - off`` lies in ``[0, N)`` (the reference's ``localize``), and
+``masked_topn_packed`` writes ``local id + off``. The single-device form
+is ``id_offset=0`` (the default) over the whole catalog: the same kernels,
+the same launch counts. ``masked_topn_packed(..., out=t)`` writes into a
+given contiguous ``[B, 2m]`` float32 tensor (a slice of the sharded
+retriever's candidate buffer) instead of a new one.
+
 A CPU tensor goes to the twin; a CUDA tensor to the hand-written kernels in
 ``csrc/masked_topn.cu`` (its header states the bound and the design),
 built with nvcc at first use; on a CUDA tensor a wrapper launches or
@@ -32,7 +43,7 @@ import torch
 
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
-from predictionio_tpu_torch.ops.topn import pack_topn
+from predictionio_tpu_torch.ops.topn import check_out, pack_topn
 
 SOURCE = "masked_topn.cu"
 _MAX_B = 65535 * 8  # the tile kernel's grid holds 8 query rows per y-block
@@ -40,16 +51,15 @@ _PRECISION = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # "<name>": kernel launches; "<name>_plain": CPU calls routed to the twin
 LAUNCHES = LaunchCounts(
-    "candidate_mask", "candidate_mask_plain",
-    "masked_topn", "masked_topn_plain",
+    "candidate_mask", "candidate_mask_plain", "masked_topn", "masked_topn_plain",
 )
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.candidate_mask_launch.argtypes = [p, p, i, p, i, p, p, i, i, p]
+    lib.candidate_mask_launch.argtypes = [p, p, i, p, i, p, p, i, i, i, p]
     lib.candidate_mask_launch.restype = i
-    lib.masked_topn_launch.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.masked_topn_launch.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.masked_topn_launch.restype = i
     lib.masked_topn_scratch_floats.argtypes = [i] * 3
     lib.masked_topn_scratch_floats.restype = ctypes.c_longlong
@@ -89,16 +99,17 @@ def unpack_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
 
 def candidate_mask_plain(
     allow0: torch.Tensor, excl: torch.Tensor, incl: torch.Tensor,
-    has_incl: torch.Tensor,
+    has_incl: torch.Tensor, id_offset: int = 0,
 ) -> torch.Tensor:
     """The plain twin: the reference's mask as a dense ``[B, N]`` bool
-    (allow0 & not excluded & (included | no include list)), packed."""
+    (allow0 & not excluded & (included | no include list)), packed; an id
+    g names local row ``g - id_offset``."""
     B, N = excl.shape[0], allow0.shape[0]
     rows = torch.arange(B, device=allow0.device)[:, None]
 
     def scatter(ids: torch.Tensor) -> torch.Tensor:
         hit = torch.zeros((B, N + 1), dtype=torch.bool, device=allow0.device)
-        ids = ids.to(torch.int64)
+        ids = ids.to(torch.int64) - id_offset
         ids = torch.where((ids >= 0) & (ids < N), ids, N)  # N: dropped
         hit[rows.expand_as(ids), ids] = True
         return hit[:, :N]
@@ -106,6 +117,13 @@ def candidate_mask_plain(
     allow = allow0.to(torch.bool)[None, :] & ~scatter(excl)
     allow = allow & (scatter(incl) | ~has_incl.to(torch.bool)[:, None])
     return pack_bits(allow)
+
+
+def check_offset(id_offset: int, N: int) -> int:
+    """The offset a launch uses; global ids must stay int32."""
+    if not 0 <= int(id_offset) <= 2**31 - 1 - N:
+        raise ValueError(f"id_offset {id_offset} out of range for {N} rows")
+    return int(id_offset)
 
 
 def _check_mask_args(allow0, excl, incl, has_incl) -> None:
@@ -131,14 +149,16 @@ def _check_mask_args(allow0, excl, incl, has_incl) -> None:
 
 def candidate_mask(
     allow0: torch.Tensor, excl: torch.Tensor, incl: torch.Tensor,
-    has_incl: torch.Tensor,
+    has_incl: torch.Tensor, id_offset: int = 0,
 ) -> torch.Tensor:
-    """The candidate bits ``[B, ceil(N/32)]`` int32 (see the module doc).
-    CPU tensors go to the twin; CUDA tensors to the kernel."""
+    """The candidate bits ``[B, ceil(N/32)]`` int32 (see the module doc;
+    a nonzero ``id_offset`` for a row shard). CPU tensors go to the twin;
+    CUDA tensors to the kernel."""
     _check_mask_args(allow0, excl, incl, has_incl)
+    off = check_offset(id_offset, allow0.shape[0])
     if allow0.device.type == "cpu":
         LAUNCHES.add("candidate_mask_plain")
-        return candidate_mask_plain(allow0, excl, incl, has_incl)
+        return candidate_mask_plain(allow0, excl, incl, has_incl, off)
     if allow0.device.type != "cuda":
         raise ValueError(f"unsupported device {allow0.device}")
     if not all(t.is_contiguous() for t in (allow0, excl, incl, has_incl)):
@@ -151,7 +171,7 @@ def candidate_mask(
         err = lib.candidate_mask_launch(
             allow0.data_ptr(), excl.data_ptr(), excl.shape[1],
             incl.data_ptr(), incl.shape[1], has_incl.data_ptr(),
-            bits.data_ptr(), B, N, stream,
+            bits.data_ptr(), B, N, off, stream,
         )
     _LIBRARY.check(err, "candidate_mask")
     LAUNCHES.add("candidate_mask")
@@ -183,11 +203,11 @@ def approx_scores_plain(
 def masked_topn_plain(
     q: torch.Tensor, Y: torch.Tensor, scale: Optional[torch.Tensor],
     rn: Optional[torch.Tensor], bits: torch.Tensor, m: int,
-    positive_only: bool = False, normalize: bool = False,
+    positive_only: bool = False, normalize: bool = False, id_offset: int = 0,
 ) -> torch.Tensor:
     """The plain twin: the scores, ``* rn``, the mask (and ``s > 0``) as
     -inf, a stable descending sort (ties keep ascending ids), the first m,
-    packed."""
+    packed with ``id_offset`` added to the ids."""
     scores = approx_scores_plain(q, Y, scale)
     if normalize:
         scores = scores * rn[None, :]
@@ -196,7 +216,7 @@ def masked_topn_plain(
         allow = allow & (scores > 0)
     scores = torch.where(allow, scores, torch.full_like(scores, float("-inf")))
     s, i = torch.sort(scores, dim=1, descending=True, stable=True)
-    return pack_topn(s[:, :m], i[:, :m])
+    return pack_topn(s[:, :m], i[:, :m] + id_offset)
 
 
 def _check_topn_args(q, Y, scale, rn, bits, m, normalize) -> int:
@@ -234,16 +254,21 @@ def masked_topn_packed(
     q: torch.Tensor, Y: torch.Tensor, scale: Optional[torch.Tensor],
     rn: Optional[torch.Tensor], bits: torch.Tensor, m: int,
     positive_only: bool = False, normalize: bool = False,
+    id_offset: int = 0, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel A on ``q [B,k]`` f32, ``Y [N,k]`` (f32, bf16 or int8 with
     ``scale [N]``), ``rn [N]`` (read when ``normalize``) and the candidate
-    ``bits`` -> ``[B, 2m]`` float32. CPU tensors go to the twin; CUDA
-    tensors to the kernel, which must build and launch or this raises."""
+    ``bits`` -> ``[B, 2m]`` float32 (``out`` when given; a nonzero
+    ``id_offset`` for a row shard). CPU tensors go to the twin; CUDA tensors to
+    the kernel, which must build and launch or this raises."""
     m = int(m)
     precision = _check_topn_args(q, Y, scale, rn, bits, m, normalize)
+    off = check_offset(id_offset, Y.shape[0])
+    check_out(out, q.shape[0], 2 * m, q.device)
     if q.device.type == "cpu":
         LAUNCHES.add("masked_topn_plain")
-        return masked_topn_plain(q, Y, scale, rn, bits, m, positive_only, normalize)
+        res = masked_topn_plain(q, Y, scale, rn, bits, m, positive_only, normalize, off)
+        return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not all(t.is_contiguous() for t in (q, Y, bits, scale, rn) if t is not None):
@@ -251,7 +276,8 @@ def masked_topn_packed(
     lib = load_library()
     B, k = q.shape
     N = Y.shape[0]
-    out = torch.empty((B, 2 * m), dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty((B, 2 * m), dtype=torch.float32, device=q.device)
     scratch = torch.empty(
         int(lib.masked_topn_scratch_floats(B, N, m)),
         dtype=torch.float32, device=q.device,
@@ -263,7 +289,7 @@ def masked_topn_packed(
             scale.data_ptr() if scale is not None else None,
             rn.data_ptr() if rn is not None else None,
             bits.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            B, N, k, m, precision, int(normalize), int(positive_only), stream,
+            B, N, k, m, precision, int(normalize), int(positive_only), off, stream,
         )
     _LIBRARY.check(err, "masked_topn")
     LAUNCHES.add("masked_topn")

@@ -10,6 +10,13 @@ exact score; stage 1's -inf slots stay -inf) and returns ``[B, 2·n_out]``:
 the n_out best by (score descending, shortlist position ascending), then
 their ids from the shortlist as raw int32 bits.
 
+The row-shard form (stage 2 of the reference's ``:366
+_shard_topk_kernel_2s``): a shard's stage 1 shortlists its LOCAL ids, which
+index its own rows, and ``id_offset=off`` (the shard's first global row)
+is added to the ids written; ``n_out`` is the shard's ``n_local``. The
+single-device form is ``id_offset=0`` (the default).
+``out=`` writes into a given contiguous ``[B, 2·n_out]`` float32 tensor.
+
 A CPU tensor goes to the plain twin ``rescore_topn_plain``; a CUDA tensor
 to the hand-written kernel ``csrc/rescore.cu`` (its header states the
 bound and the design), built with nvcc at first use; on a CUDA tensor it
@@ -24,8 +31,9 @@ from typing import Optional
 import torch
 
 from predictionio_tpu_torch.ops import native
+from predictionio_tpu_torch.ops.masked_topn import check_offset
 from predictionio_tpu_torch.ops.native import LaunchCounts
-from predictionio_tpu_torch.ops.topn import pack_topn
+from predictionio_tpu_torch.ops.topn import check_out, pack_topn
 
 SOURCE = "rescore.cu"
 _PRECISION = {torch.bfloat16: 1, torch.int8: 2}
@@ -37,7 +45,7 @@ LAUNCHES = LaunchCounts("rescore_topn", "rescore_topn_plain")
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rescore_topn_launch.argtypes = [p] * 5 + [i, p, i, p] + [i] * 6 + [p]
+    lib.rescore_topn_launch.argtypes = [p] * 5 + [i, p, i, p] + [i] * 7 + [p]
     lib.rescore_topn_launch.restype = i
     lib.rescore_scratch_floats.argtypes = [i] * 3
     lib.rescore_scratch_floats.restype = ctypes.c_longlong
@@ -60,11 +68,12 @@ def split_packed(packed: torch.Tensor):
 def rescore_topn_plain(
     q: torch.Tensor, Y: torch.Tensor, scale: Optional[torch.Tensor],
     rn: Optional[torch.Tensor], stage1: torch.Tensor, n_out: int,
-    positive_only: bool = False, normalize: bool = False,
+    positive_only: bool = False, normalize: bool = False, id_offset: int = 0,
 ) -> torch.Tensor:
     """The plain twin: the gathered rows dequantized, an f32 einsum with the
     query, the same scaling and masks, a stable descending sort over the
-    shortlist positions, the first n_out with their shortlist ids."""
+    shortlist positions, the first n_out with their shortlist ids plus
+    ``id_offset``."""
     s1, i1 = split_packed(stage1)
     idx = i1.to(torch.int64)
     rows = Y[idx].to(torch.float32)
@@ -78,7 +87,7 @@ def rescore_topn_plain(
         rescored = torch.where(rescored > 0, rescored, ninf)
     rescored = torch.where(s1 == float("-inf"), ninf, rescored)
     s, j = torch.sort(rescored, dim=1, descending=True, stable=True)
-    return pack_topn(s[:, :n_out], torch.gather(i1, 1, j[:, :n_out]))
+    return pack_topn(s[:, :n_out], torch.gather(i1, 1, j[:, :n_out]) + id_offset)
 
 
 def _check(q, Y, scale, rn, stage1, n_out, normalize) -> int:
@@ -115,15 +124,20 @@ def rescore_topn(
     q: torch.Tensor, Y: torch.Tensor, scale: Optional[torch.Tensor],
     rn: Optional[torch.Tensor], stage1: torch.Tensor, n_out: int,
     positive_only: bool = False, normalize: bool = False,
+    id_offset: int = 0, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel B (see the module doc) -> ``[B, 2·n_out]`` float32. CPU
-    tensors go to the twin; CUDA tensors to the kernel, which must build
-    and launch or this raises."""
+    """Kernel B (see the module doc) -> ``[B, 2·n_out]`` float32 (``out``
+    when given; a nonzero ``id_offset`` for a row shard). CPU tensors go
+    to the twin; CUDA tensors to the kernel, which must build and launch or
+    this raises."""
     n_out = int(n_out)
     precision = _check(q, Y, scale, rn, stage1, n_out, normalize)
+    off = check_offset(id_offset, Y.shape[0])
+    check_out(out, q.shape[0], 2 * n_out, q.device)
     if q.device.type == "cpu":
         LAUNCHES.add("rescore_topn_plain")
-        return rescore_topn_plain(q, Y, scale, rn, stage1, n_out, positive_only, normalize)
+        res = rescore_topn_plain(q, Y, scale, rn, stage1, n_out, positive_only, normalize, off)
+        return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not all(t.is_contiguous() for t in (q, Y, stage1, scale, rn) if t is not None):
@@ -131,7 +145,8 @@ def rescore_topn(
     lib = load_library()
     B, k = q.shape
     N, S = Y.shape[0], stage1.shape[1] // 2
-    out = torch.empty((B, 2 * n_out), dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty((B, 2 * n_out), dtype=torch.float32, device=q.device)
     scratch = torch.empty(
         max(1, int(lib.rescore_scratch_floats(B, S, k))),
         dtype=torch.float32, device=q.device,
@@ -143,7 +158,7 @@ def rescore_topn(
             scale.data_ptr() if scale is not None else None,
             rn.data_ptr() if rn is not None else None,
             stage1.data_ptr(), S, out.data_ptr(), n_out, scratch.data_ptr(),
-            B, N, k, precision, int(normalize), int(positive_only), stream,
+            B, N, k, precision, int(normalize), int(positive_only), off, stream,
         )
     _LIBRARY.check(err, "rescore_topn")
     LAUNCHES.add("rescore_topn")

@@ -1,6 +1,6 @@
-"""On-device top-N retrieval over one resident item-factor matrix, single
-GPU: the counterpart of ``predictionio_tpu/ops/retrieval.py`` (its
-``mesh is None`` path).
+"""On-device top-N retrieval over one resident item-factor matrix, on one
+GPU or row-sharded over a ``Mesh``: the counterpart of
+``predictionio_tpu/ops/retrieval.py``.
 
 - Host helpers copied as numpy, same behaviour: ``PRECISIONS`` :128,
   ``quantize_rows_int8`` :131, ``dequantize_rows_int8`` :145,
@@ -17,17 +17,25 @@ GPU: the counterpart of ``predictionio_tpu/ops/retrieval.py`` (its
   shortlist) and a host refinement of its candidates against the ORIGINAL
   f32 rows (``_refine_exact``), as the reference does. One device→host copy
   per batch.
+- With a ``mesh`` (the reference's :640-668 residency and :941-996 batch):
+  the catalog row-sharded, per shard the row-shard forms of the mask and
+  kernel A (K9s) or kernels A and B (K10s, ``_shard_topk_kernel_2s``
+  :366), the shards' candidates gathered on the first shard's device and
+  merged exactly by K9m (``ops/merge_topn.py``, ``_merge_candidates``
+  :425), one fetch, the same host refinement. The sampled shard/merge
+  split and skew (``_record_skew`` :1037) are kept as numbers on the
+  instance (``last_split_s``, ``shard_candidates``, ``shard_skew``).
 
-Not ported yet: a ``mesh`` (the row-sharded retriever, ROADMAP queue 1
-item 11) raises ``NotImplementedError``. The retrieval metric families,
-the device ledger registration and the executable-cache accounting wait
-for the device-plane tier (item 10); ``resident_bytes`` reads the
-device tensors.
+Not ported yet: the retrieval metric families, the device ledger
+registration and the executable-cache accounting wait for the
+device-plane tier (item 10); ``resident_bytes`` reads the device tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,7 +43,9 @@ import torch
 
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops.masked_topn import candidate_mask, masked_topn_packed
+from predictionio_tpu_torch.ops.merge_topn import merge_topn
 from predictionio_tpu_torch.ops.rescore import rescore_topn
+from predictionio_tpu_torch.parallel.mesh import collapse_mesh, pad_to_multiple
 from predictionio_tpu_torch.utils.shapes import (
     pad_rows_pow2,
     pow2_at_least,
@@ -46,6 +56,15 @@ logger = logging.getLogger(__name__)
 
 # serving-time residency precisions for the resident item matrix
 PRECISIONS = ("float32", "bf16", "int8")
+# the sharded path records its shard/merge split and skew on the first
+# batch and every this many after (the split needs a host sync)
+SPLIT_SAMPLE_EVERY = 16
+
+
+def _synchronize(devices) -> None:
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def quantize_rows_int8(
@@ -144,9 +163,28 @@ def include_candidates(
     return wl
 
 
+@dataclasses.dataclass(frozen=True)
+class _Part:
+    """The resident tensors of one device's rows: the whole catalog on one
+    device (``off`` 0), or one row shard of a mesh holding global rows
+    ``[off, off + rows)``."""
+
+    device: torch.device
+    off: int
+    y: torch.Tensor
+    scale: Optional[torch.Tensor]
+    rn: torch.Tensor
+    allow: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        ts = [self.y, self.rn, self.allow] + ([self.scale] if self.scale is not None else [])
+        return int(sum(t.numel() * t.element_size() for t in ts))
+
+
 class ItemRetriever:
-    """Device-resident top-N retrieval over one item-factor matrix on one
-    GPU (CUDA unless ``device`` names the CPU, where the kernels' plain
+    """Device-resident top-N retrieval over one item-factor matrix (CUDA
+    unless ``device`` or the mesh names the CPU, where the kernels' plain
     twins run).
 
     Construct once at ``prepare_serving``; each query batch then ships
@@ -158,6 +196,16 @@ class ItemRetriever:
     2 rescores the shortlist in exact f32 over the dequantized rows, and a
     host refinement rescores its candidates against the ORIGINAL f32 rows
     (host RAM): returned scores are exact over the original matrix.
+
+    With a ``mesh`` (``parallel/mesh.py``) the rows, norms, scales and mask
+    are row-sharded: the catalog is zero-padded with invalid
+    rows to a multiple of the shard count S, and shard s holds rows
+    ``[s·R, (s+1)·R)`` on its device. Each shard runs the row-shard forms of
+    kernel A (and B) on the replicated query and global id lists and keeps
+    its ``n_local`` best with global ids (K9s, K10s); the blocks gather on
+    the mesh's first device (a peer copy, none where a shard shares that
+    device) and K9m (``ops/merge_topn.py``) merges them exactly. A mesh of
+    one shard collapses to the single-device path on its device.
     """
 
     def __init__(
@@ -177,18 +225,16 @@ class ItemRetriever:
             raise ValueError(
                 f"shortlist_mult must be >= 1, got {shortlist_mult}"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "a row-sharded ItemRetriever over a mesh is not ported yet "
-                "(ROADMAP.md queue 1 item 11, multi-GPU); pass mesh=None"
-            )
+        mesh, device = collapse_mesh(mesh, device)
+        self.mesh = mesh
         self.component = component
         self.precision = precision
         self.shortlist_mult = int(shortlist_mult)
-        self._device = resolve_device(device)
         factors = np.asarray(item_factors, np.float32)
         self.n_items, self.rank = factors.shape
-        n_pad = max(self.n_items, 1)  # one device: no shard padding
+        n_shards = mesh.size if mesh is not None else 1
+        self._n_shards = n_shards
+        n_pad = pad_to_multiple(max(self.n_items, 1), n_shards)
         self._n_pad = n_pad
         padded = np.zeros((n_pad, self.rank), np.float32)
         padded[: self.n_items] = factors
@@ -219,29 +265,69 @@ class ItemRetriever:
             self._rn_f32_host = None
         rn = np.zeros(n_pad, np.float32)
         rn[: self.n_items] = _reciprocal_norms(deq[: self.n_items])
+        self._rn_host = rn
         self._valid = np.zeros(n_pad, bool)
         self._valid[: self.n_items] = True
         self._excluded_ids: Optional[np.ndarray] = None
-        dev = self._device
-        self._y_dev = y_host.to(dev)
-        self._scale_dev = (
-            torch.from_numpy(scale_host).to(dev) if scale_host is not None else None
-        )
-        self._rn_dev = torch.from_numpy(rn).to(dev)
-        self._allow_dev = torch.from_numpy(self._valid).to(dev)
+        if mesh is None:
+            self._device = resolve_device(device)
+            places = [(self._device, 0, 0, n_pad)]
+        else:
+            rows = n_pad // n_shards
+            self._device = None
+            places = [
+                (dev, s * rows, s * rows, (s + 1) * rows)
+                for s, dev in enumerate(mesh.devices)
+            ]
+        self._parts: List[_Part] = [
+            _Part(
+                device=dev, off=off, y=y_host[lo:hi].to(dev),
+                scale=(torch.from_numpy(scale_host[lo:hi]).to(dev)
+                       if scale_host is not None else None),
+                rn=torch.from_numpy(rn[lo:hi]).to(dev),
+                allow=torch.from_numpy(self._valid[lo:hi]).to(dev),
+            )
+            for dev, off, lo, hi in places
+        ]
         self._freed = False
+        # the sampled shard/merge split and skew (the reference's metric
+        # families, kept as plain numbers until the device-plane tier)
+        self._batches = 0
+        self.last_split_s: Optional[Dict[str, float]] = None
+        self.shard_candidates: Optional[List[int]] = None
+        self.shard_skew: Dict[str, float] = {}
         logger.info(
-            "ItemRetriever[%s]: %d items (rank %d, %s) resident on %s",
-            component, self.n_items, self.rank, precision, dev,
+            "ItemRetriever[%s]: %d items (rank %d, %s) resident %s",
+            component, self.n_items, self.rank, precision,
+            f"row-sharded over {n_shards} shards" if mesh is not None
+            else f"on {self._device}",
         )
+
+    # the single-device tensors (the kernels' operands on one device)
+    @property
+    def _y_dev(self):
+        return self._parts[0].y if self._parts else None
+
+    @property
+    def _scale_dev(self):
+        return self._parts[0].scale if self._parts else None
+
+    @property
+    def _rn_dev(self):
+        return self._parts[0].rn if self._parts else None
+
+    @property
+    def _allow_dev(self):
+        return self._parts[0].allow if self._parts else None
 
     # --- resident global mask ---
 
     def set_excluded_ids(self, idx) -> bool:
         """Replace the resident exclusion set (dense item indices).
-        Rebuilds and re-uploads the mask only when the set changed;
-        returns whether it did. The swap is one reference assignment, so
-        in-flight batches keep the mask they started with."""
+        Rebuilds and re-uploads the mask (each shard's slice on a mesh)
+        only when the set changed; returns whether it did. The swap is one
+        reference assignment, so in-flight batches keep the mask they
+        started with."""
         idx = np.unique(np.asarray(idx, np.int64)) if len(idx) else np.zeros(
             0, np.int64
         )
@@ -252,17 +338,21 @@ class ItemRetriever:
             return False
         allow = self._valid.copy()
         allow[idx] = False
-        self._allow_dev = torch.from_numpy(allow).to(self._device)
+        rows = self._n_pad // self._n_shards
+        self._parts = [
+            dataclasses.replace(
+                p, allow=torch.from_numpy(allow[s * rows:(s + 1) * rows]).to(p.device)
+            )
+            for s, p in enumerate(self._parts)
+        ]
         self._excluded_ids = idx
         return True
 
     @property
     def resident_bytes(self) -> int:
-        """Bytes of the device tensors: rows, norms, mask (and scales)."""
-        tensors = [self._y_dev, self._rn_dev, self._allow_dev]
-        if self._scale_dev is not None:
-            tensors.append(self._scale_dev)
-        return int(sum(t.numel() * t.element_size() for t in tensors))
+        """Bytes of the device tensors, summed over the shards: rows,
+        norms, mask (and scales)."""
+        return sum(p.nbytes for p in self._parts)
 
     def dequantized_factors(self) -> np.ndarray:
         """Host f32 matrix the device path scores against: the original
@@ -280,7 +370,8 @@ class ItemRetriever:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-query id lists -> a sentinel-padded [b_pad, W] int32 block
         (W the next power of two) plus the has-list flag vector. The
-        sentinel is n_pad, which the mask kernel drops."""
+        sentinel is n_pad: out of range on every shard and on the single
+        device, so the mask kernel drops it."""
         has = np.zeros(b_pad, bool)
         width = 1
         rows: List[np.ndarray] = []
@@ -344,32 +435,100 @@ class ItemRetriever:
         incl, has_incl = self._assemble_idx(
             list(include or []) + [None] * (b_pad - b), b_pad
         )
-        dev = self._device
+        if self.mesh is None:
+            host = self._topn_single(qp, excl, incl, has_incl, n_dev,
+                                     positive_only, normalize)[:b]
+        else:
+            host = self._topn_sharded(qp, excl, incl, has_incl, n_dev,
+                                      positive_only, normalize, b)
+        if self.precision != "float32":
+            return self._refine_exact(q, host, n_dev, n, positive_only, normalize)
+        return unpack_topn(host, n)
+
+    def _topn_single(self, qp, excl, incl, has_incl, n_dev, positive_only,
+                     normalize) -> np.ndarray:
+        """One device: mask, kernel A (and B); the packed [b_pad, 2·n_dev]
+        rows on the host."""
+        part = self._parts[0]
+        dev = part.device
         q_dev = torch.from_numpy(qp).to(dev)
         bits = candidate_mask(
-            self._allow_dev,
+            part.allow,
             torch.from_numpy(excl).to(dev),
             torch.from_numpy(incl).to(dev),
             torch.from_numpy(has_incl).to(dev),
         )
-        rn = self._rn_dev if normalize else None
+        rn = part.rn if normalize else None
         if self.precision == "float32":
             packed = masked_topn_packed(
-                q_dev, self._y_dev, None, rn, bits, n,
-                positive_only, normalize,
+                q_dev, part.y, None, rn, bits, n_dev, positive_only, normalize,
             )
-            return unpack_topn(packed.cpu().numpy()[:b], n)
+            return packed.cpu().numpy()
         shortlist = self._shortlist_width(n_dev, self._n_pad)
         stage1 = masked_topn_packed(
-            q_dev, self._y_dev, self._scale_dev, rn, bits, shortlist,
+            q_dev, part.y, part.scale, rn, bits, shortlist,
             positive_only, normalize,
         )
-        packed = rescore_topn(
-            q_dev, self._y_dev, self._scale_dev, rn, stage1, n_dev,
+        return rescore_topn(
+            q_dev, part.y, part.scale, rn, stage1, n_dev,
             positive_only, normalize,
+        ).cpu().numpy()
+
+    def _topn_sharded(self, qp, excl, incl, has_incl, n_dev, positive_only,
+                      normalize, b) -> np.ndarray:
+        """The mesh path (the reference's :941-996): per shard the mask,
+        kernel A (and B) in their row-shard forms, each shard's
+        ``n_local`` candidates with global ids into one ``[S, b_pad,
+        2·n_local]`` buffer on the first shard's device, K9m, one fetch.
+        The first batch and every ``SPLIT_SAMPLE_EVERY``-th record the
+        shard/merge split and the skew (a host sync between the two)."""
+        parts = self._parts
+        S, rows = self._n_shards, self._n_pad // self._n_shards
+        b_pad = qp.shape[0]
+        n_local = min(n_dev, rows)
+        shortlist = (
+            None if self.precision == "float32"
+            else self._shortlist_width(n_local, rows)
         )
+        self._batches += 1
+        split = self._batches % SPLIT_SAMPLE_EVERY == 1
+        t0 = time.perf_counter()
+        # the replicated query block and id lists: one upload per device
+        ops = {}
+        for dev in dict.fromkeys(p.device for p in parts):
+            ops[dev] = tuple(torch.from_numpy(a).to(dev) for a in (qp, excl, incl, has_incl))
+        dev0 = parts[0].device
+        cand = torch.empty((S, b_pad, 2 * n_local), dtype=torch.float32, device=dev0)
+        for s, part in enumerate(parts):
+            q_dev, excl_dev, incl_dev, has_dev = ops[part.device]
+            bits = candidate_mask(part.allow, excl_dev, incl_dev, has_dev, id_offset=part.off)
+            rn = part.rn if normalize else None
+            dst = cand[s] if part.device == dev0 else None
+            if shortlist is None:
+                got = masked_topn_packed(
+                    q_dev, part.y, None, rn, bits, n_local, positive_only, normalize,
+                    id_offset=part.off, out=dst,
+                )
+            else:
+                stage1 = masked_topn_packed(
+                    q_dev, part.y, part.scale, rn, bits, shortlist,
+                    positive_only, normalize,
+                )
+                got = rescore_topn(
+                    q_dev, part.y, part.scale, rn, stage1, n_local,
+                    positive_only, normalize, id_offset=part.off, out=dst,
+                )
+            if dst is None:
+                cand[s].copy_(got)  # the peer copy to the first device
+        if split:
+            _synchronize(dict.fromkeys(p.device for p in parts))
+            t1 = time.perf_counter()
+        packed = merge_topn(cand.permute(1, 0, 2).unflatten(2, (2, n_local)), n_dev)
         host = packed.cpu().numpy()[:b]
-        return self._refine_exact(q, host, n_dev, n, positive_only, normalize)
+        if split:
+            self.last_split_s = {"shards": t1 - t0, "merge": time.perf_counter() - t1}
+            self._record_skew(cand.permute(1, 0, 2).cpu().numpy()[:b], host, n_dev, n_local)
+        return host
 
     def _refine_exact(
         self,
@@ -402,6 +561,26 @@ class ItemRetriever:
             np.take_along_axis(i_d, order, axis=1),
         )
 
+    def _record_skew(
+        self, cand: np.ndarray, host: np.ndarray, n: int, n_local: int
+    ) -> None:
+        """Cross-shard imbalance from one sampled batch (the reference's
+        :1037): live candidates per shard, and which shard each final
+        top-n row came from, as max over mean."""
+        S = self._n_shards
+        if not len(cand):
+            return
+        arr = cand.reshape(cand.shape[0], S, 2, n_local)
+        live = (arr[:, :, 0, :] > -np.inf).sum(axis=(0, 2)).astype(float)
+        self.shard_candidates = [int(v) for v in live]
+        if live.mean() > 0:
+            self.shard_skew["candidates"] = float(live.max() / live.mean())
+        idx = np.ascontiguousarray(host[:, n:]).view(np.int32)
+        owners = idx[host[:, :n] > -np.inf] // (self._n_pad // S)
+        counts = np.bincount(owners, minlength=S).astype(float)
+        if counts.mean() > 0:
+            self.shard_skew["results"] = float(counts.max() / counts.mean())
+
     def _shortlist_width(self, n: int, rows: int) -> int:
         """Stage-1 shortlist width for a final top-``n`` over ``rows``
         candidate rows: ``shortlist_mult``·n on the pow2 ladder, clamped
@@ -409,16 +588,13 @@ class ItemRetriever:
         return pow2_topk_width(min(self.shortlist_mult * n, rows), rows)
 
     def free(self) -> None:
-        """Drop the device-resident tensors. Owner contract: null the
-        model's retriever reference first and call this after the last
-        in-flight batch drained; a later ``topn`` raises. The memory frees
+        """Drop the device-resident tensors (every shard's). Owner contract:
+        null the model's retriever reference first and call this after the
+        last in-flight batch drained; a later ``topn`` raises. The memory frees
         by refcount, so a straggler still holding the tensors keeps them
         alive until it ends."""
         self._freed = True
-        self._y_dev = None
-        self._scale_dev = None
-        self._rn_dev = None
-        self._allow_dev = None
+        self._parts = []
         self._y_f32_host = None
         self._rn_f32_host = None
 

@@ -17,13 +17,21 @@ and scored by K14, ``cosine_sum``:
   tensors to the kernel (launch or raise, no fallback). ``LAUNCHES``
   counts what it ran.
 
-Not ported: the ``mesh`` (a row-sharded catalog, ROADMAP.md queue 1 item
-11) and the device ledger registration (item 10).
+With a ``mesh`` (K14s, the reference's :84-90 and :118-120) the normalized
+matrix is row-sharded (zero-padded to a multiple of the shard count: zero
+rows score 0 and are sliced off), the query rows go to every shard's
+device, and K14 runs per shard, writing its block of one sum vector on the
+mesh's first device (a peer copy, none where the shard shares that
+device), which is fetched once. A mesh of one shard collapses to one
+device.
+
+Not ported: the device ledger registration (item 10).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,6 +39,7 @@ import torch
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
+from predictionio_tpu_torch.parallel.mesh import collapse_mesh, shard_batch
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 
 SOURCE = "cosine_sum.cu"
@@ -70,9 +79,12 @@ def load_library() -> ctypes.CDLL:
     return _LIBRARY.get()
 
 
-def cosine_sum(q: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+def cosine_sum(
+    q: torch.Tensor, Y: torch.Tensor, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """K14: ``Σ_q q·y`` for every row y of Y [N, k] over the query rows
-    q [Q, k] (both float32, on one device): [N] float32. With both
+    q [Q, k] (both float32, on one device): [N] float32 (``out`` when
+    given: a contiguous float32 ``[N]`` on Y's device). With both
     normalized, every product is a cosine.
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
@@ -87,15 +99,20 @@ def cosine_sum(q: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     N = Y.shape[0]
     if not 1 <= k <= _MAX_K or Q < 1 or N < 1:
         raise ValueError(f"Q={Q}, N={N} or k={k} out of range (1 <= k <= {_MAX_K})")
+    if out is not None and (out.dtype != torch.float32 or tuple(out.shape) != (N,)
+                            or out.device != Y.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 [{N}] on {Y.device}")
     if Y.device.type == "cpu":
         LAUNCHES.add("cosine_sum_plain")
-        return cosine_sum_plain(q, Y)
+        res = cosine_sum_plain(q, Y)
+        return res if out is None else out.copy_(res)
     if Y.device.type != "cuda":
         raise ValueError(f"unsupported device {Y.device}")
     if not (q.is_contiguous() and Y.is_contiguous()):
         raise ValueError("q and Y must be contiguous (row-major)")
     lib = load_library()
-    out = torch.empty(N, dtype=torch.float32, device=Y.device)
+    if out is None:
+        out = torch.empty(N, dtype=torch.float32, device=Y.device)
     with torch.cuda.device(Y.device):
         stream = torch.cuda.current_stream(Y.device).cuda_stream
         err = lib.cosine_sum_f32(q.data_ptr(), Q, Y.data_ptr(), N, k, out.data_ptr(), stream)
@@ -106,18 +123,21 @@ def cosine_sum(q: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 
 class SimilarityScorer:
     """Device-resident normalized factors; each call ships only the query
-    rows up and one score vector down. A ``mesh`` raises: the row-sharded
-    catalog is ROADMAP.md queue 1 item 11."""
+    rows up and one score vector down. With a ``mesh`` the rows shard
+    over it (see the module doc)."""
 
     def __init__(self, factors: np.ndarray, device: DeviceLike = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded similarity scorer is not ported yet (ROADMAP.md "
-                "queue 1 item 11)"
-            )
-        self.device = resolve_device(device)
+        mesh, device = collapse_mesh(mesh, device)
+        self.mesh = mesh
         self.normed = normalize_rows(factors)
-        self._dev = torch.from_numpy(np.ascontiguousarray(self.normed, np.float32)).to(self.device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._shards = [torch.from_numpy(
+                np.ascontiguousarray(self.normed, np.float32)).to(self.device)]
+        else:
+            self.device = mesh.devices[0]
+            self._shards, _ = shard_batch(mesh, self.normed.astype(np.float32))
+        self._dev = self._shards[0]
 
     @property
     def n(self) -> int:
@@ -128,9 +148,18 @@ class SimilarityScorer:
         the (already normalized) query rows: [N] scores. The query rows pad
         to a power of two (min 4) with zero rows, which add 0 to every
         sum, as the reference pads them."""
-        q = pad_rows_pow2(np.atleast_2d(query_rows), 4)
-        q_dev = torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(self.device)
-        return cosine_sum(q_dev, self._dev).cpu().numpy()[: self.n]
+        q = torch.from_numpy(np.ascontiguousarray(
+            pad_rows_pow2(np.atleast_2d(query_rows), 4), np.float32))
+        on = {d: q.to(d) for d in dict.fromkeys(y.device for y in self._shards)}
+        rows = self._shards[0].shape[0]
+        sums = torch.empty(rows * len(self._shards), dtype=torch.float32, device=self.device)
+        for s, y in enumerate(self._shards):
+            dst = sums[s * rows : (s + 1) * rows]
+            if y.device == self.device:
+                cosine_sum(on[y.device], y, out=dst)
+            else:
+                dst.copy_(cosine_sum(on[y.device], y))  # the peer copy
+        return sums.cpu().numpy()[: self.n]
 
     def warm(self, max_q: int = 16) -> None:
         """Run every padded query width a query of up to ``max_q`` items

@@ -105,31 +105,51 @@ def _check(q: torch.Tensor, Y: torch.Tensor, n: int) -> None:
         raise ValueError(f"q is on {q.device} but Y is on {Y.device}")
 
 
-def topn_packed(q: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
-    """K3 on ``q [B,k]`` and ``Y [N,k]`` float32 -> ``[B, 2n]`` float32.
+def check_out(out: Optional[torch.Tensor], B: int, width: int, device) -> None:
+    """A caller's output tensor must be a contiguous float32 [B, width]
+    on the inputs' device."""
+    if out is not None and (
+        out.dtype != torch.float32 or tuple(out.shape) != (B, width)
+        or out.device != device or not out.is_contiguous()
+    ):
+        raise ValueError(f"out must be a contiguous float32 [{B}, {width}] on {device}")
+
+
+def topn_packed(
+    q: torch.Tensor, Y: torch.Tensor, n: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K3 on ``q [B,k]`` and ``Y [N,k]`` float32 -> ``[B, 2n]`` float32
+    (``out`` when given: a contiguous float32 ``[B, 2n]``, such as a block
+    of the sharded serving path's result).
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
     n = int(n)
     _check(q, Y, n)
+    check_out(out, q.shape[0], 2 * n, q.device)
     if q.device.type == "cpu":
         LAUNCHES.add("topn_packed_plain")
-        return topn_packed_plain(q, Y, n)
+        res = topn_packed_plain(q, Y, n)
+        return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch("topn_packed", q, Y, n)
+    return _launch("topn_packed", q, Y, n, out=out)
 
 
-def _launch(name: str, q: torch.Tensor, Y: torch.Tensor, n: int, *extra: int) -> torch.Tensor:
+def _launch(
+    name: str, q: torch.Tensor, Y: torch.Tensor, n: int, *extra: int,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """Launch ``lib.<name>_f32`` (K3 or K3c, ``extra`` its trailing int
-    arguments) on CUDA tensors that ``_check`` accepted, into a new
-    ``[B, 2n]`` output with its scratch; count the launch."""
+    arguments) on CUDA tensors that ``_check`` accepted, into ``out`` or a
+    new ``[B, 2n]`` output, with its scratch; count the launch."""
     if not (q.is_contiguous() and Y.is_contiguous()):
         raise ValueError("q and Y must be contiguous (row-major)")
     lib = load_library()
     B, k = q.shape
     N = Y.shape[0]
-    out = torch.empty((B, 2 * n), dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty((B, 2 * n), dtype=torch.float32, device=q.device)
     scratch = torch.empty(
         int(lib.topn_scratch_floats(B, N, n)),
         dtype=torch.float32, device=q.device,

@@ -1,0 +1,26 @@
+"""Device meshes for the port (the counterpart of
+``predictionio_tpu/parallel``): one process drives every device of a
+``Mesh``, whose shards may repeat a device. The multi-process half
+(``distributed.py``) comes with the sharded training programs."""
+
+from predictionio_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    collapse_mesh,
+    default_mesh,
+    device_count,
+    make_mesh,
+    pad_to_multiple,
+    shard_batch,
+)
+
+__all__ = [
+    "DATA_AXIS",
+    "Mesh",
+    "collapse_mesh",
+    "default_mesh",
+    "device_count",
+    "make_mesh",
+    "pad_to_multiple",
+    "shard_batch",
+]

@@ -2,7 +2,8 @@
 (the counterpart of ``predictionio_tpu/tools/cli.py cmd_deploy``).
 
     python -m predictionio_tpu_torch.tools.cli deploy --model model.npz \\
-        [--ip localhost] [--port 8000] [--device cuda|cpu] \\
+        [--ip localhost] [--port 8000] [--device cuda|cuda:N|cpu] \\
+        [--serving-devices 0,1,...] \\
         [--max-batch 128] [--batch-window-ms 2.0] [--pipeline-depth 1] \\
         [--transport async|threaded]
 
@@ -16,6 +17,15 @@ answering ``{"item1": a, "item2": b}`` with the score), prepares it on
 the device (CUDA unless ``--device cpu``), warms the serving kernels and
 serves ``POST /queries.json`` until ``GET /stop``. The served ``modelVersion`` is
 the model file's name without its extension.
+
+Where it serves: over the mesh of the CUDA indices ``--serving-devices``
+names (an index may repeat: logical shards of one card); else on the one
+device ``--device`` names with an index (``cuda:N``) or ``cpu``; else, for
+the default ``--device cuda``, over every visible CUDA device, as the
+reference serves over its default mesh (one card: the single-device
+path). The recommendation and Similar Product templates serve over a mesh
+(K3s; the row-sharded retriever and its merge, K9s/K10s/K9m; K14s); the
+other engines serve on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -23,14 +33,17 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
+
+import torch
 
 from predictionio_tpu_torch.api.engine_server import (
     DeployedEngine,
     EngineServer,
     ServerConfig,
+    _mesh_from_device_spec,
     create_server,
 )
 from predictionio_tpu_torch.controller.engine import EngineParams
@@ -42,15 +55,34 @@ from predictionio_tpu_torch.models.experimental.regression import regression_eng
 from predictionio_tpu_torch.models.experimental.similarproduct_dimsum import dimsum_engine
 from predictionio_tpu_torch.models.recommendation import engine as rec
 from predictionio_tpu_torch.models.similarproduct import engine as sp
+from predictionio_tpu_torch.parallel.mesh import Mesh, default_mesh
 from predictionio_tpu_torch.utils.serialize import load_model
 
 
+def serving_target(
+    config: ServerConfig, device: DeviceLike = None, mesh: Optional[Mesh] = None
+) -> Union[torch.device, Mesh]:
+    """Where a deployment serves (see the module doc): ``mesh``, else the
+    mesh ``config.serving_devices`` names, else ``device`` when it names
+    one device, else every visible CUDA device (``default_mesh``)."""
+    if mesh is not None:
+        return mesh
+    if config.serving_devices:
+        return _mesh_from_device_spec(config.serving_devices)
+    if device is not None and str(device) != "cuda":
+        return resolve_device(device)
+    return default_mesh()
+
+
 def deploy_model_file(
-    model_path: str, config: ServerConfig, device: DeviceLike = None
+    model_path: str, config: ServerConfig, device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ) -> EngineServer:
-    """Load, prepare and warm the model at ``model_path`` on ``device`` and
-    bind a server for it (not yet serving)."""
-    dev = resolve_device(device)
+    """Load, prepare and warm the model at ``model_path`` where
+    ``serving_target`` says (``mesh`` for a library caller, the config's
+    ``serving_devices``, or ``device``) and bind a server for it (not yet
+    serving)."""
+    target = serving_target(config, device, mesh)
     model = load_model(model_path)
     data_source = ""  # the engine's only data source, where it has one
     if isinstance(model, fr.SimRankModel):
@@ -77,7 +109,7 @@ def deploy_model_file(
         data_source_params=(data_source, EmptyParams()),
         algorithm_params_list=((name, params),),
     )
-    models = engine.prepare_deploy(dev, engine_params, [model])
+    models = engine.prepare_deploy(target, engine_params, [model])
     version = os.path.splitext(os.path.basename(model_path))[0]
     deployed = DeployedEngine(engine, engine_params, models, version=version)
     return create_server(deployed, config)
@@ -91,6 +123,7 @@ def cmd_deploy(args) -> int:
         max_batch=args.max_batch,
         pipeline_depth=args.pipeline_depth,
         transport=args.transport,
+        serving_devices=args.serving_devices,
     )
     server = deploy_model_file(args.model, config, device=args.device)
     print(f"Engine server serving on {args.ip}:{server.port}", flush=True)
@@ -111,8 +144,13 @@ def build_parser() -> argparse.ArgumentParser:
     deploy.add_argument("--port", type=int, default=8000)
     deploy.add_argument(
         "--device", default="cuda",
-        help="'cuda' (default; fails when no CUDA device is present), "
-        "'cuda:N' or 'cpu'",
+        help="'cuda' (default: every visible CUDA device; fails when none is "
+        "present), 'cuda:N' or 'cpu'",
+    )
+    deploy.add_argument(
+        "--serving-devices", default=None,
+        help="comma-separated CUDA device indices to shard serving over "
+        "(e.g. '0,1'; an index may repeat); overrides --device",
     )
     deploy.add_argument(
         "--batch-window-ms", type=float, default=2.0,

@@ -2,8 +2,13 @@
 counterpart of ``predictionio_tpu/workflow/context.py``).
 
 It carries the device the workflow runs on (CUDA unless the CPU is asked
-for) and, in place of the event store the port does not have yet
-(ROADMAP.md queue 1 item 3), the data a data source would read from it:
+for), a ``mesh`` (the reference's ``WorkflowContext.mesh`` :55: given, or
+built at first use over every visible CUDA device, or the one CPU device
+when the CPU is asked for; the reference's templates train over it, which
+the port does from the sharded-training slice on, ROADMAP.md queue 1 item
+11: until then training runs on ``device`` alone and a deployment builds
+its serving mesh itself, ``tools/cli.serving_target``) and, in place of
+the event store the port does not have yet (ROADMAP.md queue 1 item 3), the data a data source would read from it:
 the event columns of each app, read where the reference calls
 ``PEventStore.find_columns``, and the aggregated entity properties of each
 (app, entity type), read where it calls ``PEventStore.aggregate_properties``.
@@ -15,6 +20,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.data.store import EventColumns
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
+from predictionio_tpu_torch.parallel.mesh import Mesh, default_mesh
 
 PropertyMaps = Mapping[str, Mapping[str, Any]]  # entity id -> property -> value
 
@@ -25,10 +31,24 @@ class WorkflowContext:
         device: DeviceLike = None,
         event_columns: Optional[Mapping[str, EventColumns]] = None,
         properties: Optional[Mapping[Tuple[str, str], PropertyMaps]] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
+        self._mesh = mesh
         self._columns = dict(event_columns or {})
         self._properties = dict(properties or {})
+
+    @property
+    def mesh(self) -> Mesh:
+        """The workflow's mesh: the one given, else a 1-D ``data`` mesh
+        over every visible CUDA device, or over ``device`` when it is the
+        CPU."""
+        if self._mesh is None:
+            self._mesh = (
+                default_mesh(devices=[self.device]) if self.device.type == "cpu"
+                else default_mesh()
+            )
+        return self._mesh
 
     def find_columns(self, app_name: str) -> EventColumns:
         """The event columns of ``app_name``, as the caller supplied them."""

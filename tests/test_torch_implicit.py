@@ -339,7 +339,8 @@ def test_wrappers_check_their_inputs_and_the_scorer_refuses_a_mesh():
         k14.cosine_sum(q, torch.zeros((5, 4)))
     with pytest.raises(TypeError):
         k14.cosine_sum(q.double(), Y)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a port Mesh is served (tests/test_torch_mesh.py); any other object is refused
+    with pytest.raises(TypeError, match="Mesh"):
         k14.SimilarityScorer(np.zeros((5, 3), np.float32), device="cpu", mesh=object())
     with pytest.raises(ValueError):
         k12.gramian(torch.zeros(5))

@@ -52,6 +52,7 @@ def test_port_modules_load_no_jax_and_no_jax_package():
     )
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "predictionio_tpu_torch.api.engine_server" in loaded
+    assert "predictionio_tpu_torch.parallel.mesh" in loaded
     assert [m for m in loaded if _banned(m)] == []
 
 

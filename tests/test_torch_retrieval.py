@@ -285,7 +285,7 @@ def test_twins_refuse_what_the_kernels_refuse(Y):
     stage1 = torch.zeros((2, 8), dtype=torch.float32)
     with pytest.raises(ValueError, match="n_out"):
         kb.rescore_topn(q, t(Y).to(torch.bfloat16), None, None, stage1, 5)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         pret.ItemRetriever(Y, mesh=object(), device="cpu")
     r = pret.ItemRetriever(Y, precision="int8", device="cpu")
     r.free()

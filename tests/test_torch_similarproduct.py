@@ -133,9 +133,10 @@ def test_similar_batch_through_serving_matches_jax(precision):
 
 
 def test_unported_paths_raise_naming_their_items():
-    """Multi-GPU serving (item 11) still raises, for the retriever and the
-    host path's scorer; training, predict and batch_predict without a
-    retriever answer."""
+    """Training, predict and batch_predict without a retriever answer; the
+    retriever and the host path's scorer take a port ``Mesh``
+    (``tests/test_torch_mesh_serving.py``) and refuse any other mesh
+    object."""
     factors, ids, cats = make_catalog()
     model = psp.sp_model_from_numpy(factors, ids, cats)
     model.attach_device("cpu")
@@ -146,9 +147,9 @@ def test_unported_paths_raise_naming_their_items():
     answer = alg.predict(model, psp.Query(items=["i1"], num=3))
     assert len(answer.item_scores) == 3
     assert dict(alg.batch_predict(model, [(0, psp.Query(items=["i1"], num=3))]))[0] == answer
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         psp.ItemRetriever(factors, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         psp.SimilarityScorer(factors, device="cpu", mesh=object())
 
 
