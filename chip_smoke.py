@@ -535,6 +535,47 @@ Phases; any failure exits non-zero:
    K9m per call with its bytes bound and ``torch.topk`` over the
    concatenated scores as the library call; K14s; launches per served
    batch (``mesh_serving``).
+3t. ALS training on a device mesh (after 3h's grid): a ``parallel.Mesh``
+   of 4 LOGICAL shards of the card (``[cuda:0] * 4``; with several cards
+   also the visible cards, which must give phase 3's model). Logical
+   shards of one card run one after another, so these are not multi-GPU
+   times.
+   a. The row-shard forms on the real ML-20M sides (rank 32), packed as
+      ``train_als``'s mesh route packs them: each shard's K1 systems and
+      K2 rows (``out=``) bit for bit one device's launch on the wire
+      route's packs, at the first half-steps and sweep 4's (also with G);
+      K12a over the replica bit for bit one device's G; the sharded K12b
+      (every shard's partials, one finish) within 1e-6 of one device's
+      objective, of its scale (the same terms summed in another order);
+      K11a and K11b at 3p's rank 64, b = 8, block by block, and K13a and
+      K13b at 3e's fold-0 shape (rank 16, V = 2, ``row0=``/``out=``), bit
+      for bit. Edge cases on small ratings: a user heavier than a shard's
+      share, so that shards are empty and one holds padding rows only, at
+      2, 3 and 4 shards, both modes: bit for bit one device's training.
+   b. The main path, every launch count set to 0 just before:
+      ``Engine.train`` of the recommendation template with
+      ``WorkflowContext(mesh=...)`` on phase 3's ratings (rank 32, 10
+      sweeps, reg 0.05 weighted, float32): K1 = K2 = 2 x 10 x 4 = 80, K4,
+      K5, K12, K3 and every twin 0; every factor bit for bit phase 3's
+      model; telemetry rows within rtol 1e-6 of phase 3's (the padded rows
+      are the same at ML-20M; the cross-shard sums change order).
+   c. The other forms, each counted and bit for bit its single-device
+      phase: implicit (3i: K12a = 40, K12b 4 shard partials and one finish
+      a sweep), bf16 (3h), iALS++ (3p: K11a = K11b = 640), Similar
+      Product's ``ALSAlgorithm.train(mesh)`` (3s's item factors), and a
+      run checkpointed after sweep 5 and resumed to 10 (phase 3's model;
+      a one-device run of the same data does not resume it).
+   d. K13s: ``train_als_grid(mesh=)`` on 3e's fold 0 (rank 16, regs 0.01
+      and 0.1) bit for bit ``train_als_grid(device)``; ``run_evaluation``
+      at ML-100K's shape (3 folds, 4 variants, ``train_grid`` only, K13a
+      = K13b = 4 x 2 x 10 a grid): every model and Precision@10 equal to
+      one device's.
+   e. Times: ms per sweep on the mesh beside phase 3's and 3i's; each
+      shard's K1 and K2 at sweep 4 and the shards' sum beside one
+      device's launch; the K12b, K11 and K13 shard forms the same way
+      (K13s per grid half-step); the mesh route's host pack beside the
+      direct and streaming routes'; the per-shard slot and rating skew;
+      the phase's wall clock (``mesh_training``).
 """
 
 from __future__ import annotations
@@ -1964,7 +2005,7 @@ def implicit_train_phase(rng, device):
         "library_ms": library_ms, "bound": bounds, "errors": errs, "twin_loop_s": twin_loop_s,
     }
     print("implicit_training " + json.dumps(stats), flush=True)
-    return counts, errs, stats
+    return counts, errs, stats, model
 
 
 SP_VIEWS = 2_000_000  # view events of the Similar Product phase (the ML-20M stream's first)
@@ -2189,7 +2230,7 @@ def sp_train_phase(rng, device):
              "host_path": {"queries": len(queries), "seconds": host_s, "launches": host_counts},
              "cosine_sum": timing, "reduced": {"views": SP_VIEWS, "likes": SP_LIKES}}
     print("similarproduct_training " + json.dumps(stats), flush=True)
-    return counts, host_counts, errs, stats, (td, queries)
+    return counts, host_counts, errs, stats, (td, queries, model)
 
 
 def np_bits_equal(a, b) -> bool:
@@ -2685,7 +2726,7 @@ def subspace_train_phase(rng, device):
                   "partials_i": ip.plan.n_partials},
     }
     print("subspace_training " + json.dumps(stats), flush=True)
-    return counts, errs, stats
+    return counts, errs, stats, model
 
 
 def k11a_bound(pack, n_ratings: int, Y_rows: int, k: int, b: int, bf16: bool = False):
@@ -7070,6 +7111,600 @@ def mesh_phase(rng, device, workdir, model, traffic, q_served, sp_deploy):
     return counts, errs, stats
 
 
+TRAIN_SHARDS = 4  # 3t: logical shards of the card that train (every shard on the card)
+OBJ_MESH_RTOL = 1e-6  # 3t: the sharded objective against one device's, of its scale
+TEL_MESH_RTOL = 1e-6  # 3t: mesh telemetry rows against one device's (cross-shard sums regrouped)
+
+
+def train_counters():
+    from predictionio_tpu_torch.ops import (
+        device_pack, gramian, grid, normal_eq, predict_pairs, spd_solve, subspace, topn,
+    )
+
+    return (normal_eq.LAUNCHES, spd_solve.LAUNCHES, device_pack.LAUNCHES, gramian.LAUNCHES,
+            subspace.LAUNCHES, grid.LAUNCHES, topn.LAUNCHES, predict_pairs.LAUNCHES)
+
+
+def check_counts(counts, want, label):
+    """Every named count as wanted, every other kernel and twin 0."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"3t {label}: {name} launched {n} times, not {want.get(name, 0)}"
+                                 f" ({ {k: v for k, v in counts.items() if v} })")
+
+
+def shard_rows(side, R1):
+    """(shard, first row, end row, rows one device has too, pack) of each
+    shard with rows."""
+    for s, _, r0, r1, pack in side.shards():
+        yield s, r0, r1, max(0, min(r1, R1) - r0), pack
+
+
+def check_shard_half_step(Y, one, side, X_prev, lam, obs, G, implicit, label):
+    """K1 and K2 on each shard against one device's launch on the whole
+    side (``one``), bit for bit: the systems of every row both have, then
+    the rows K2 writes into one next array."""
+    import torch
+
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import spd_solve as k2
+
+    R1 = one.n_sys_rows
+    A1, b1 = k1.normal_eq(Y, one, implicit, ALPHA)
+    X1 = k2.spd_solve(A1, b1, lam[:R1], obs[:R1], X_prev[:R1], None, G)
+    X = torch.empty_like(X_prev)
+    for s, r0, r1, n, pack in shard_rows(side, R1):
+        A, b = k1.normal_eq(Y, pack, implicit, ALPHA)
+        if not (bits_equal(A[:n], A1[r0:r0 + n]) and bits_equal(b[:n], b1[r0:r0 + n])):
+            raise AssertionError(f"3t {label}: shard {s}'s K1 systems differ from one device's")
+        k2.spd_solve(A, b, lam[r0:r1], obs[r0:r1], X_prev[r0:r1], None, G, out=X[r0:r1])
+    if not bits_equal(X[:R1], X1):
+        raise AssertionError(f"3t {label}: the shards' K2 rows differ from one device's")
+    print(f"  {label}: K1 systems and K2 rows of {len(list(side.shards()))} shards bit for bit "
+          f"one device's", flush=True)
+    return X1
+
+
+def mesh_edge_cases(device):
+    """Small ratings on the card where a user holds more ratings than the
+    other users together: at 2, 3 and 4 shards the split leaves shards
+    empty and one holding padding rows only, and every row trains as on
+    one device, in both modes."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(23)
+    # users 0-149 light, user 150 heavy, users 151-299 without ratings
+    n_u, n_i = 300, 120
+    u = np.concatenate([rng.integers(0, 150, 1000), np.full(9000, 150)]).astype(np.int32)
+    i = rng.integers(0, n_i, len(u)).astype(np.int32)
+    r = rng.integers(1, 11, len(u)).astype(np.float32) / 2
+    seen = {"empty": False, "unobserved": False}
+    for S in (2, 3, 4):
+        for implicit in (False, True):
+            cfg = als.ALSConfig(rank=RANK, iterations=3, reg=REG, implicit_prefs=implicit,
+                                segment_length=16)
+            t = {}
+            got = als.train_als(u, i, r, n_u, n_i, cfg, mesh=make_mesh({"data": S}, [device] * S),
+                                timings=t)
+            one = als.train_als(u, i, r, n_u, n_i, cfg, device=device)
+            if not (same_bits(got.user_factors, one.user_factors)
+                    and same_bits(got.item_factors, one.item_factors)):
+                raise AssertionError(f"3t edge cases: {S} shards (implicit {implicit}) differ "
+                                     "from one device")
+            rows_, ratings_ = t["shard_rows"]["user"], t["shard_ratings"]["user"]
+            seen["empty"] |= 0 in rows_
+            seen["unobserved"] |= any(n > 0 and m == 0 for n, m in zip(rows_, ratings_))
+    if not all(seen.values()):
+        raise AssertionError(f"3t edge cases: not every case arose ({seen})")
+    print("  edge cases (a user heavier than a shard's share; empty shards and a shard of "
+          "padding rows only; 2, 3 and 4 shards; both modes): bit for bit one device", flush=True)
+
+
+def mesh_train_phase(rng, device, refs):
+    """3t: ALS training on a mesh of TRAIN_SHARDS logical shards of the
+    card (``[cuda:0] * 4``; with several cards also on the visible cards):
+    the row-shard forms of K1, K2, K12, K11 and K13 against one device's
+    launches, bit for bit; the main path (``Engine.train`` of the
+    recommendation template on ``WorkflowContext(mesh=...)``) counted from
+    0 and bit for bit phase 3's model; the implicit, bf16, iALS++, Similar
+    Product and checkpointed forms bit for bit their single-device phases;
+    the grid (K13s) and ``run_evaluation`` on the mesh; times. ``refs``
+    holds the earlier phases' models and stats. Logical shards of one card
+    run one after another, so no time here is a multi-GPU time. Returns
+    (launches, errors, stats)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.controller.engine import EngineParams
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.data.store import EventColumns
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.models.recommendation.evaluation import (
+        ParamsGrid,
+        RecommendationEvaluation,
+    )
+    from predictionio_tpu_torch.models.similarproduct import engine as psp
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import gramian as k12
+    from predictionio_tpu_torch.ops import grid as k13
+    from predictionio_tpu_torch.ops import normal_eq as k1
+    from predictionio_tpu_torch.ops import spd_solve as k2
+    from predictionio_tpu_torch.ops import subspace as k11
+    from predictionio_tpu_torch.parallel.mesh import Mesh
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
+    from predictionio_tpu_torch.workflow.workflow_params import WorkflowParams
+
+    t_phase = time.perf_counter()
+    S = TRAIN_SHARDS
+    mesh = Mesh([device] * S, {"data": S})
+    note = ("logical shards of one card run one after another on its stream: "
+            "these are not multi-GPU times")
+    print(f"  {S} logical shards of {device}: {note}", flush=True)
+    counters = train_counters()
+    errs, stats, launches = {}, {"card": card_line(), "note": note}, {}
+    model, f32_stats = refs["model"], refs["f32_stats"]
+    u, i, r = ml20m_ratings()
+    n_users, n_items, k = ML20M_USERS, ML20M_ITEMS, RANK
+    remap_u = np.array([model.user_index.get(f"u{n}", -1) for n in range(n_users)], np.int32)
+    remap_i = np.array([model.item_index.get(f"i{n}", -1) for n in range(n_items)], np.int32)
+    u_rel, i_rel = remap_u[u], remap_i[i]
+    n_u, n_i = len(model.user_index), len(model.item_index)
+    seed = rec.ALSAlgorithmParams().seed
+    config = als.ALSConfig(rank=k, iterations=SWEEPS, reg=REG, seed=seed)
+    R_u, R_i = als._padded_rows(n_u, S), als._padded_rows(n_i, S)
+    if (R_u, R_i) != (als._padded_rows(n_u, 1), als._padded_rows(n_i, 1)):
+        raise AssertionError("3t: the ML-20M sides pad to other rows on the mesh; the checks "
+                             "below compare one device's state row for row")
+
+    # a. the row-shard forms on the real sides, packed as the mesh route
+    # packs them, against one device's launches on the wire route's packs
+    wire = als.build_host_wire(u_rel, i_rel, r, n_u, n_i, config)
+    up, ip = als.device_pack_from_wire(wire, device)
+    X0, Y0, lam_u, lam_i, obs_u, obs_i = als.init_factor_state_single(
+        wire.counts_u, wire.counts_i, n_u, n_i, config, device=device)
+    order = np.argsort(u_rel, kind="stable")
+    us, is_, rs = u_rel[order], i_rel[order], r[order]
+    t = time.perf_counter()
+    host_u = als.mesh_pack_side(us, is_, rs, n_u, R_u, wire.L_u, config.chunk_slots, S)
+    host_i = als.mesh_pack_side(is_, us, rs, n_i, R_i, wire.L_i, config.chunk_slots, S)
+    mesh_pack_s = time.perf_counter() - t
+    user = als.upload_mesh_side(*host_u[:2], mesh.devices, R_u, R_i, R_u)
+    item = als.upload_mesh_side(*host_i[:2], mesh.devices, R_i, R_u, R_i)
+    for (bounds, _, slots, ratings), name in ((host_u, "user"), (host_i, "item")):
+        print(f"  {name} side: rows per shard {np.diff(bounds).tolist()}, segment slots "
+              f"{slots} (skew {max(slots) / np.mean(slots):.4f}), ratings {ratings} (skew "
+              f"{max(ratings) / np.mean(ratings):.4f})", flush=True)
+    del host_u, host_i
+    X1 = check_shard_half_step(Y0, up, user, X0, lam_u, obs_u, None, False,
+                               "first half-step, users")
+    check_shard_half_step(X1, ip, item, Y0, lam_i, obs_i, None, False, "first half-step, items")
+    X3, Y3, _ = als._run_iterations(X0, Y0, up, ip, lam_u, lam_i, obs_u, obs_i, 3)
+    X4 = check_shard_half_step(Y3, up, user, X3, lam_u, obs_u, None, False, "sweep 4, users")
+    check_shard_half_step(X4, ip, item, Y3, lam_i, obs_i, None, False, "sweep 4, items")
+    # K12a: each device forms G over the replica's first gram_rows rows
+    G = k12.gramian(Y3)
+    if not bits_equal(k12.gramian(Y3[: item.gram_rows]), G):
+        raise AssertionError("3t: K12a over the replica's rows differs from one device's G")
+    check_shard_half_step(Y3, up, user, X3, lam_u, obs_u, G, True, "sweep 4, users, implicit (+G)")
+    # K12b: every shard's partials and one finish against one device's launch
+    out = torch.zeros(1, dtype=torch.float32, device=device)
+    Xr, Yr = {device: X4}, {device: Y3}
+    lr_u, lr_i = {device: lam_u}, {device: lam_i}
+
+    def objective_mesh():
+        als._objective_mesh(Xr, Yr, user, item, lr_u, lr_i, ALPHA, out, "float32")
+        return out
+
+    want = k12.implicit_objective(X4, Y3, up, lam_u, lam_i, ALPHA).item()
+    got = objective_mesh().item()
+    scale = objective_scale(X4, Y3, up, lam_u, lam_i, ALPHA)
+    errs["implicit_objective_shard"] = abs(got - want) / scale
+    if errs["implicit_objective_shard"] > OBJ_MESH_RTOL:
+        raise AssertionError(f"3t: the sharded objective {got} vs one device's {want} "
+                             f"(scale {scale})")
+    print(f"  K12b on {S} shards {got} vs one device {want}: {errs['implicit_objective_shard']:.2e} "
+          f"of its scale (<= {OBJ_MESH_RTOL})", flush=True)
+    # K11a and K11b at 3p's rank and block, block by block
+    kb, bb = SUB_RANK, SUB_BLOCK
+    g = np.random.default_rng(31)
+    Y64 = torch.from_numpy((np.abs(g.standard_normal((R_i, kb))) / np.sqrt(kb)).astype(np.float32)).to(device)
+    Y64[n_i:] = 0
+    X64 = torch.from_numpy((g.standard_normal((R_u, kb)) / np.sqrt(kb)).astype(np.float32)).to(device)
+    X64[n_u:] = 0
+    G64 = k12.gramian(Y64)
+    X_one, X_mesh = X64.clone(), X64.clone()
+    for s0 in range(0, kb, bb):
+        A1, r1_ = k11.subspace_accumulate(Y64, X_one, up, s0, bb, True, ALPHA)
+        k11.subspace_block_solve(A1, r1_, X_one, lam_u, obs_u, s0, G64)
+        for s, r0, r1, n, pack in shard_rows(user, R_u):
+            A, rv = k11.subspace_accumulate(Y64, X_mesh[r0:r1], pack, s0, bb, True, ALPHA)
+            if not (bits_equal(A[:n], A1[r0:r0 + n]) and bits_equal(rv[:n], r1_[r0:r0 + n])):
+                raise AssertionError(f"3t: K11a of shard {s}, block {s0 // bb}, differs")
+            k11.subspace_block_solve(A, rv, X_mesh[r0:r1], lam_u[r0:r1], obs_u[r0:r1], s0, G64)
+        if not bits_equal(X_mesh, X_one):
+            raise AssertionError(f"3t: K11b's rows after block {s0 // bb} differ")
+    print(f"  K11a and K11b at rank {kb}, b = {bb}, every block of a user half-step on {S} "
+          "shards: bit for bit one device's", flush=True)
+    # K13a and K13b at 3e's fold-0 shape (rank 16, V = 2)
+    td0 = refs["td0"]
+    fu, fi, fr = (np.asarray(a) for a in (td0.user_idx, td0.item_idx, td0.ratings))
+    fn_u, fn_i = len(td0.user_index), len(td0.item_index)
+    fR_u, fR_i = als._padded_rows(fn_u, S), als._padded_rows(fn_i, S)
+    if (fR_u, fR_i) != (als._padded_rows(fn_u, 1), als._padded_rows(fn_i, 1)):
+        raise AssertionError("3t: fold 0's sides pad to other rows on the mesh")
+    L0 = als.auto_segment_length(fu, fn_u, config.segment_length)
+    one0 = als.device_pack(als.pack_segments(fu, fi, fr, fn_u, L0, 1, config.chunk_slots),
+                           fR_u, fR_i, device)
+    user0 = als.upload_mesh_side(
+        *als.mesh_pack_side(fu, fi, fr, fn_u, fR_u, L0, config.chunk_slots, S)[:2],
+        mesh.devices, fR_u, fR_i, fR_u)
+    V, k16 = 2, 16
+    Yv = torch.from_numpy((np.abs(g.standard_normal((V, fR_i, k16))) / 4).astype(np.float32)).to(device)
+    Xv = torch.zeros((V, fR_u, k16), dtype=torch.float32, device=device)
+    counts0 = np.bincount(fu, minlength=fn_u)
+    lam_v = torch.from_numpy(np.stack([als._lam_obs_host(counts0, fn_u, fR_u, als.ALSConfig(reg=reg))[0]
+                                       for reg in (0.01, 0.1)])).to(device)
+    obs_v = torch.from_numpy(als._lam_obs_host(counts0, fn_u, fR_u, als.ALSConfig())[1]).to(device)
+    A1, b1 = k13.normal_eq_variants(Yv, one0)
+    Xv1 = k13.spd_solve_variants(A1, b1, lam_v, obs_v, Xv)
+    Xv_mesh = torch.empty_like(Xv)
+    for s, r0, r1, n, pack in shard_rows(user0, fR_u):
+        A, b = k13.normal_eq_variants(Yv, pack)
+        if not (bits_equal(A[:, :n], A1[:, r0:r0 + n]) and bits_equal(b[:, :n], b1[:, r0:r0 + n])):
+            raise AssertionError(f"3t: K13a of shard {s} differs from one device's")
+        k13.spd_solve_variants(A, b, lam_v, obs_v, Xv, out=Xv_mesh, row0=r0)
+    if not bits_equal(Xv_mesh, Xv1):
+        raise AssertionError("3t: the shards' K13b rows differ from one device's")
+    print(f"  K13a and K13b on fold 0's users (rank {k16}, V = {V}) on {S} shards: bit for bit "
+          "one device's", flush=True)
+    for name in ("normal_eq_shard", "spd_solve_shard", "subspace_accumulate_shard",
+                 "subspace_block_solve_shard", "normal_eq_variants_shard",
+                 "spd_solve_variants_shard"):
+        errs[name] = 0.0  # every check above is bit for bit
+    mesh_edge_cases(device)
+
+    # b. the main path: Engine.train of the recommendation template on the
+    # workflow's mesh, every launch count from 0
+    cols = EventColumns(model.user_index, model.item_index, u_rel, i_rel, r)
+    ctx = WorkflowContext(device, {"default": cols}, mesh=mesh)
+    ep = EngineParams(
+        data_source_params=("", rec.DataSourceParams(app_name="default")),
+        algorithm_params_list=(("als", rec.ALSAlgorithmParams(rank=k, num_iterations=SWEEPS,
+                                                              lambda_=REG)),),
+    )
+    t_main = {}
+    train_als = rec.train_als
+    rec.train_als = lambda *a, **kw: train_als(*a, timings=t_main, **kw)
+    try:
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        [mesh_model] = rec.recommendation_engine().train(ctx, ep, WorkflowParams())
+        main_s = time.perf_counter() - t
+        counts = snapshot(counters)
+    finally:
+        rec.train_als = train_als
+    check_counts(counts, {"normal_eq": 2 * SWEEPS * S, "spd_solve": 2 * SWEEPS * S}, "main path")
+    launches["main"] = counts
+    if not (same_bits(mesh_model.arrays.user_factors, model.arrays.user_factors)
+            and same_bits(mesh_model.arrays.item_factors, model.arrays.item_factors)):
+        raise AssertionError("3t: the mesh's model differs from phase 3's")
+    tel_mesh = np.array([[row[c] for c in ("dx", "dy", "x_rms", "y_rms")] for row in t_main["sweep_telemetry"]])
+    tel_one = np.array([[row[c] for c in ("dx", "dy", "x_rms", "y_rms")] for row in f32_stats["telemetry"]])
+    errs["telemetry"] = float(np.max(np.abs(tel_mesh - tel_one) / np.abs(tel_one)))
+    if errs["telemetry"] > TEL_MESH_RTOL:
+        raise AssertionError(f"3t: telemetry rows off by {errs['telemetry']} of one device's")
+    print(f"  main path: Engine.train on the mesh {main_s:.2f} s (host pack {t_main['pack_s']:.2f} s, "
+          f"upload {t_main['device_put_s']:.2f} s, loop {t_main['device_loop_s']:.4f} s, "
+          f"{t_main['device_loop_s'] * 1e3 / SWEEPS:.3f} ms per sweep); factors bit for bit phase "
+          f"3's; telemetry within {errs['telemetry']:.2e}; launches "
+          f"{ {n: v for n, v in counts.items() if v} }", flush=True)
+
+    # c. the other forms, each against its single-device phase
+    def form(label, cfg, want_arrays, want_counts, **kw):
+        for c in counters:
+            c.reset()
+        t_f = {}
+        t = time.perf_counter()
+        got = als.train_als(u_rel, i_rel, r, n_u, n_i, cfg, mesh=mesh, timings=t_f, **kw)
+        wall = time.perf_counter() - t
+        counts = snapshot(counters)
+        check_counts(counts, want_counts, label)
+        if want_arrays is not None and not (
+                same_bits(got.user_factors, want_arrays.user_factors)
+                and same_bits(got.item_factors, want_arrays.item_factors)):
+            raise AssertionError(f"3t {label}: factors differ from the single-device phase's")
+        launches[label] = counts
+        print(f"  {label}: {wall:.2f} s (pack {t_f['pack_s']:.2f} s, loop {t_f['device_loop_s']:.4f} "
+              f"s){' bit for bit its phase' if want_arrays is not None else ''}", flush=True)
+        return got, t_f, wall
+
+    nobj = {"gramian": 4 * SWEEPS, "implicit_objective_shard": S * SWEEPS,
+            "implicit_objective_finish": SWEEPS}
+    _, t_imp, _ = form("implicit (3i)", dataclasses.replace(config, alpha=ALPHA, implicit_prefs=True),
+                       refs["implicit"].arrays,
+                       {"normal_eq": 2 * SWEEPS * S, "spd_solve": 2 * SWEEPS * S, **nobj})
+    form("bf16 (3h)", dataclasses.replace(config, compute_dtype=BF16), refs["bf16"],
+         {"normal_eq_bf16": 2 * SWEEPS * S, "spd_solve": 2 * SWEEPS * S})
+    nb = SUB_RANK // SUB_BLOCK
+    sub_cfg = dataclasses.replace(config, rank=SUB_RANK, alpha=ALPHA, implicit_prefs=True,
+                                  solver="subspace", block_size=SUB_BLOCK)
+    sub_want = {"subspace_accumulate": 2 * SWEEPS * S * nb, "subspace_block_solve": 2 * SWEEPS * S * nb,
+                **nobj}
+    # K11a's combine kernel runs inside its call for shards with multi-group rows
+    for c in counters:
+        c.reset()
+    t_f = {}
+    got = als.train_als(u_rel, i_rel, r, n_u, n_i, sub_cfg, mesh=mesh, timings=t_f)
+    counts = snapshot(counters)
+    sub_want["subspace_combine"] = counts["subspace_combine"]
+    check_counts(counts, sub_want, "iALS++ (3p)")
+    if not (same_bits(got.user_factors, refs["subspace"].arrays.user_factors)
+            and same_bits(got.item_factors, refs["subspace"].arrays.item_factors)):
+        raise AssertionError("3t iALS++: factors differ from 3p's")
+    launches["iALS++ (3p)"] = counts
+    print(f"  iALS++ (3p, rank {SUB_RANK}, b = {SUB_BLOCK}): loop {t_f['device_loop_s']:.4f} s, bit "
+          "for bit 3p's", flush=True)
+    sp_td, sp_model = refs["sp"]
+    sp_params = psp.ALSAlgorithmParams(rank=k, num_iterations=SWEEPS, lambda_=SP_REG, alpha=ALPHA)
+    for c in counters:
+        c.reset()
+    got = psp.ALSAlgorithm(sp_params).train(mesh, psp.Preparator().prepare(device, sp_td))
+    counts = snapshot(counters)
+    check_counts(counts, {"normal_eq": 2 * SWEEPS * S, "spd_solve": 2 * SWEEPS * S, **nobj},
+                 "Similar Product (3s)")
+    if not same_bits(got.item_factors, sp_model.item_factors):
+        raise AssertionError("3t: Similar Product's ALSAlgorithm on the mesh differs from 3s's")
+    launches["Similar Product (3s)"] = counts
+    print("  Similar Product ALSAlgorithm.train(mesh): item factors bit for bit 3s's", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        _, t_c, _ = form("checkpoint, sweeps 1-5", dataclasses.replace(config, iterations=CKPT_EVERY),
+                         None, {"normal_eq": 2 * CKPT_EVERY * S, "spd_solve": 2 * CKPT_EVERY * S},
+                         checkpoint_dir=d, checkpoint_every=CKPT_EVERY)
+        _, t_c, _ = form("checkpoint, resumed to 10", config, model.arrays,
+                         {"normal_eq": 2 * (SWEEPS - CKPT_EVERY) * S,
+                          "spd_solve": 2 * (SWEEPS - CKPT_EVERY) * S},
+                         checkpoint_dir=d, checkpoint_every=CKPT_EVERY)
+        if t_c["checkpoint_resumed_at"] != CKPT_EVERY:
+            raise AssertionError(f"3t: the mesh run resumed at {t_c['checkpoint_resumed_at']}")
+        t_one = {}
+        als.train_als(u_rel, i_rel, r, n_u, n_i, config, device=device, checkpoint_dir=d,
+                      checkpoint_every=CKPT_EVERY, timings=t_one)
+        if t_one["checkpoint_resumed_at"] != 0:
+            raise AssertionError("3t: one device resumed the 4-shard mesh's checkpoint")
+    print("  a one-device run of the same data and config did not resume the mesh's checkpoint",
+          flush=True)
+
+    # d. K13s: the grid on fold 0, then run_evaluation at ML-100K's shape
+    cfg16 = als.ALSConfig(rank=k16, iterations=SWEEPS, reg=0.0, seed=EVAL_SEED)
+    grid_one = als.train_als_grid(fu, fi, fr, fn_u, fn_i, cfg16, [0.01, 0.1], device=device)
+    for c in counters:
+        c.reset()
+    t_g = {}
+    grid_mesh = als.train_als_grid(fu, fi, fr, fn_u, fn_i, cfg16, [0.01, 0.1], mesh=mesh, timings=t_g)
+    counts = snapshot(counters)
+    check_counts(counts, {"normal_eq_variants": 2 * SWEEPS * S, "spd_solve_variants": 2 * SWEEPS * S},
+                 "grid on fold 0")
+    if not all(same_bits(a.user_factors, b.user_factors) and same_bits(a.item_factors, b.item_factors)
+               for a, b in zip(grid_mesh, grid_one)):
+        raise AssertionError("3t: train_als_grid on the mesh differs from one device's")
+    launches["grid fold 0"] = counts
+    print(f"  train_als_grid(mesh) on fold 0 (rank {k16}, regs 0.01 and 0.1): bit for bit one "
+          f"device's (pack {t_g['pack_s']:.2f} s, loop {t_g['device_loop_s']:.4f} s)", flush=True)
+    mu, mi, mr = synth_ml100k()
+    mcols = EventColumns(BiMap({f"u{n}": n for n in range(ML100K_USERS)}),
+                         BiMap({f"i{n}": n for n in range(ML100K_ITEMS)}), mu, mi, mr)
+    grid_eps = ParamsGrid().engine_params_list
+    captured = {}
+    real_grid = rec.ALSAlgorithm.__dict__["train_grid"]
+
+    def train_grid(cls, target, pd, algos):
+        models = real_grid.__func__(cls, target, pd, algos)
+        captured[(type(target).__name__, algos[0].params.rank, len(pd.td.ratings))] = models
+        return models
+
+    def evaluate(ctx_):
+        return run_evaluation(RecommendationEvaluation(k=10), grid_eps, ctx=ctx_,
+                              workflow_params=WorkflowParams(grid_train="always"))
+
+    rec.ALSAlgorithm.train_grid = classmethod(train_grid)
+    try:
+        one_eval = evaluate(WorkflowContext(device, {"default": mcols}))
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        mesh_eval = evaluate(WorkflowContext(device, {"default": mcols}, mesh=mesh))
+        eval_s = time.perf_counter() - t
+        counts = snapshot(counters)
+    finally:
+        rec.ALSAlgorithm.train_grid = real_grid
+    n_grids = EVAL_K * 2  # 3 folds x the grid's 2 ranks
+    grid_counts = {"normal_eq_variants": 2 * SWEEPS * S * n_grids,
+                   "spd_solve_variants": 2 * SWEEPS * S * n_grids,
+                   "topn_packed": counts["topn_packed"]}
+    check_counts(counts, grid_counts, "run_evaluation")
+    launches["run_evaluation"] = counts
+    keys = sorted(key[1:] for key in captured if key[0] == "Mesh")
+    if len(keys) != n_grids or keys != sorted(key[1:] for key in captured if key[0] != "Mesh"):
+        raise AssertionError(f"3t: run_evaluation's grids {sorted(captured)}")
+    for key in keys:
+        for a, b in zip(captured[("Mesh",) + key], captured[("device",) + key]):
+            if not (same_bits(a.arrays.user_factors, b.arrays.user_factors)
+                    and same_bits(a.arrays.item_factors, b.arrays.item_factors)):
+                raise AssertionError(f"3t: run_evaluation's model {key} differs on the mesh")
+    p_mesh = [ms.score for _, ms in mesh_eval.engine_params_scores]
+    p_one = [ms.score for _, ms in one_eval.engine_params_scores]
+    if p_mesh != p_one:
+        raise AssertionError(f"3t: Precision@10 {p_mesh} on the mesh, {p_one} on one device")
+    print(f"  run_evaluation (ML-100K shape, {EVAL_K} folds, 4 variants) on the mesh: {eval_s:.2f} s, "
+          f"every model and Precision@10 {p_mesh} equal to one device's", flush=True)
+
+    # e. times: the shards' K1 and K2 at sweep 4, the K12b and K11 shard
+    # forms, K13s per half-step, each beside one device's launch
+    A_u, b_u = k1.normal_eq(Y3, up)
+    shard_calls = {"normal_eq": {}, "spd_solve": {}}
+    X_out = torch.empty_like(X3)
+    systems = {}
+    for s, r0, r1, n, pack in shard_rows(user, R_u):
+        systems[s] = k1.normal_eq(Y3, pack)
+        shard_calls["normal_eq"][s] = (lambda p=pack: k1.normal_eq(Y3, p))
+        shard_calls["spd_solve"][s] = (
+            lambda s=s, r0=r0, r1=r1: k2.spd_solve(*systems[s], lam_u[r0:r1], obs_u[r0:r1],
+                                                   X3[r0:r1], None, None, out=X_out[r0:r1]))
+
+    def all_shards(name):
+        def run():
+            for f in shard_calls[name].values():
+                f()
+        return run
+
+    times = {}
+    for name, one_call in (("normal_eq", lambda: k1.normal_eq(Y3, up)),
+                           ("spd_solve", lambda: k2.spd_solve(A_u, b_u, lam_u, obs_u, X3))):
+        times[name] = {
+            "per_shard_ms": {s: time_ms(f, iters=20, warmup=2) for s, f in shard_calls[name].items()},
+            "shards_ms": time_ms(all_shards(name), iters=20, warmup=2),
+            "shards_device_ms": device_ms(all_shards(name), calls=5),
+            "one_device_ms": time_ms(one_call, iters=20, warmup=2),
+        }
+    times["normal_eq"]["plain_shards_ms"] = time_ms(lambda: [
+        k1.normal_eq_plain(Y3, p.seg_rows, p.cols, p.vals, p.rem, p.n_sys_rows)
+        for *_, p in shard_rows(user, R_u)], iters=2, warmup=1)
+    times["spd_solve"]["plain_shards_ms"] = time_ms(lambda: [
+        k2.spd_solve_plain(*systems[s], lam_u[r0:r1], obs_u[r0:r1], X3[r0:r1])
+        for s, r0, r1, _, _ in shard_rows(user, R_u)], iters=2, warmup=1)
+    times["implicit_objective_shard"] = {
+        "shards_ms": time_ms(objective_mesh, iters=20, warmup=2),
+        "shards_device_ms": device_ms(objective_mesh, calls=5),
+        "one_device_ms": time_ms(lambda: k12.implicit_objective(X4, Y3, up, lam_u, lam_i, ALPHA),
+                                 iters=20, warmup=2),
+        "plain_shards_ms": time_ms(lambda: sum(
+            k12.observed_plain(X4[r0:r1], Y3, p.seg_rows, p.cols, p.vals, p.rem, ALPHA)
+            for _, r0, r1, _, p in shard_rows(user, R_u)), iters=2, warmup=1),
+    }
+    Xk = X64.clone()
+
+    def k11_shards(fn):
+        def run():
+            for _, r0, r1, _, p in shard_rows(user, R_u):
+                fn(r0, r1, p)
+        return run
+
+    acc = {s: k11.subspace_accumulate(Y64, Xk[r0:r1], p, 0, bb, True, ALPHA)
+           for s, r0, r1, _, p in shard_rows(user, R_u)}
+    k11a = k11_shards(lambda r0, r1, p: k11.subspace_accumulate(Y64, Xk[r0:r1], p, 0, bb, True, ALPHA))
+    times["subspace_accumulate"] = {
+        "shards_ms": time_ms(k11a, iters=20, warmup=2),
+        "shards_device_ms": device_ms(k11a, calls=5),
+        "one_device_ms": time_ms(lambda: k11.subspace_accumulate(Y64, Xk, up, 0, bb, True, ALPHA),
+                                 iters=20, warmup=2),
+        "plain_shards_ms": time_ms(k11_shards(lambda r0, r1, p: k11.subspace_accumulate_plain(
+            Y64, Xk[r0:r1], p.seg_rows, p.cols, p.vals, p.rem, r1 - r0, 0, bb, True, ALPHA)),
+            iters=2, warmup=1),
+    }
+    starts = {r0: s for s, r0, *_ in shard_rows(user, R_u)}
+    k11b = k11_shards(lambda r0, r1, p: k11.subspace_block_solve(
+        *acc[starts[r0]], Xk[r0:r1], lam_u[r0:r1], obs_u[r0:r1], 0, G64))
+    A_one, r_one = k11.subspace_accumulate(Y64, Xk, up, 0, bb, True, ALPHA)
+    times["subspace_block_solve"] = {
+        "shards_ms": time_ms(k11b, iters=20, warmup=2),
+        "shards_device_ms": device_ms(k11b, calls=5),
+        "one_device_ms": time_ms(lambda: k11.subspace_block_solve(A_one, r_one, Xk, lam_u, obs_u,
+                                                                  0, G64), iters=20, warmup=2),
+        "plain_shards_ms": time_ms(k11_shards(lambda r0, r1, p: k11.subspace_block_solve_plain(
+            *acc[starts[r0]], Xk[r0:r1].clone(), lam_u[r0:r1], obs_u[r0:r1], 0, G64)),
+            iters=2, warmup=1),
+    }
+    sys13 = {s: k13.normal_eq_variants(Yv, p) for s, *_, p in shard_rows(user0, fR_u)}
+
+    def k13_shards(fn):
+        def run():
+            for s, r0, r1, _, p in shard_rows(user0, fR_u):
+                fn(s, r0, p)
+        return run
+
+    k13a = k13_shards(lambda s, r0, p: k13.normal_eq_variants(Yv, p))
+    k13b = k13_shards(lambda s, r0, p: k13.spd_solve_variants(*sys13[s], lam_v, obs_v, Xv,
+                                                               out=Xv_mesh, row0=r0))
+    times["normal_eq_variants"] = {
+        "shards_ms": time_ms(k13a, iters=20, warmup=2),
+        "shards_device_ms": device_ms(k13a, calls=5),
+        "one_device_ms": time_ms(lambda: k13.normal_eq_variants(Yv, one0), iters=20, warmup=2),
+        "plain_shards_ms": time_ms(k13_shards(lambda s, r0, p: k13.normal_eq_variants_plain(Yv, p)),
+                                   iters=2, warmup=1),
+    }
+    times["spd_solve_variants"] = {
+        "shards_ms": time_ms(k13b, iters=20, warmup=2),
+        "shards_device_ms": device_ms(k13b, calls=5),
+        "one_device_ms": time_ms(lambda: k13.spd_solve_variants(A1, b1, lam_v, obs_v, Xv),
+                                 iters=20, warmup=2),
+        "plain_shards_ms": time_ms(k13_shards(lambda s, r0, p: k13.spd_solve_variants_plain(
+            *sys13[s], lam_v[:, r0:r0 + p.n_sys_rows], obs_v[r0:r0 + p.n_sys_rows],
+            Xv[:, r0:r0 + p.n_sys_rows])), iters=2, warmup=1),
+    }
+    times["grid_half_step"] = {
+        "shards_ms": time_ms(lambda: (k13a(), k13b()), iters=10, warmup=2),
+        "one_device_ms": time_ms(lambda: k13.spd_solve_variants(*k13.normal_eq_variants(Yv, one0),
+                                                                lam_v, obs_v, Xv), iters=10, warmup=2),
+    }
+    n_obs_u = int(obs_u.sum())
+    n_obs0 = int(obs_v.sum())
+    bounds = {
+        "normal_eq": k1_bound(up, len(r), R_i, k),
+        "spd_solve": k2_bound(R_u, n_obs_u, k),
+        "implicit_objective_shard": objective_bound(up, len(r), R_u, R_i, k),
+        "subspace_accumulate": k11a_bound(up, len(r), R_i, kb, bb),
+        "subspace_block_solve": k11b_bound(R_u, n_obs_u, kb, bb),
+        "normal_eq_variants": k13a_bound(one0, len(fr), fR_i, k16, V),
+        "spd_solve_variants": k13b_bound(fR_u, n_obs0, k16, V),
+    }
+    for name, row in times.items():
+        print(f"  {name}: {json.dumps(row)}; bound {bounds.get(name)}", flush=True)
+    stats.update({
+        "shards": S, "devices": [str(d) for d in mesh.devices],
+        "shard_rows": t_main["shard_rows"], "shard_slots": t_main["shard_slots"],
+        "shard_ratings": t_main["shard_ratings"],
+        "slot_skew": {side: max(v) / float(np.mean(v)) for side, v in t_main["shard_slots"].items()},
+        "rating_skew": {side: max(v) / float(np.mean(v)) for side, v in t_main["shard_ratings"].items()},
+        "ms_per_sweep": {"mesh": t_main["device_loop_s"] * 1e3 / SWEEPS,
+                         "one_device": f32_stats["ms_per_sweep"],
+                         "mesh_implicit": t_imp["device_loop_s"] * 1e3 / SWEEPS,
+                         "one_device_implicit": refs["implicit_stats"]["ms_per_sweep"]},
+        "host": {"mesh_pack_s": t_main["pack_s"], "mesh_device_put_s": t_main["device_put_s"],
+                 "mesh_pack_sides_s": mesh_pack_s,
+                 "direct_pack_s": f32_stats["direct"]["pack_s"],
+                 "streaming": f32_stats["streaming"]},
+        "main_path_s": main_s, "evaluation_s": eval_s,
+        "kernel_ms": times, "bound": bounds,
+        "launches": launches, "errors": errs,
+    })
+    # an N-card mesh, under the same checks, where the machine has cards
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", c) for c in range(min(S, n_cards))]
+        cmesh = Mesh(cards, {"data": len(cards)})
+        got = als.train_als(u_rel, i_rel, r, n_u, n_i, config, mesh=cmesh)
+        if not (same_bits(got.user_factors, model.arrays.user_factors)
+                and same_bits(got.item_factors, model.arrays.item_factors)):
+            raise AssertionError("3t: the mesh of distinct cards differs from phase 3's model")
+        print(f"  a mesh of {len(cards)} cards: bit for bit phase 3's model", flush=True)
+    else:
+        print("  one card: no mesh of distinct cards to run", flush=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print("mesh_training " + json.dumps(stats), flush=True)
+    total = {}
+    for c in launches.values():
+        for name, n in c.items():
+            total[name] = total.get(name, 0) + n
+    return total, errs, stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7142,28 +7777,31 @@ def main() -> int:
     h_counts, h_path_errs, h_stats, bf16_arrays = bf16_train_phase(device, f32_stats)
     print(f"phase checkpoint/resume (3c) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     checkpoint_phase(device, model, bf16_arrays)
-    del bf16_arrays
     print(f"phase delta retraining (3r) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     check_k8_sizes(rng, device)
     r_counts, r_errs, r_stats = delta_phase(device)
     print(f"phase implicit train (at {time.perf_counter() - t0:.1f} s)", flush=True)
-    i_counts, i_errs, i_stats = implicit_train_phase(rng, device)
+    i_counts, i_errs, i_stats, i_model = implicit_train_phase(rng, device)
     print(f"phase subspace train (3p) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     k11_errs = {}
     check_k11_sizes(rng, device, k11_errs)
-    p_counts, p_errs, p_stats = subspace_train_phase(rng, device)
+    p_counts, p_errs, p_stats, p_model = subspace_train_phase(rng, device)
     print(f"phase similar product train (at {time.perf_counter() - t0:.1f} s)", flush=True)
-    sp_counts, host_counts, sp_errs, sp_stats, (sp_td, sp_queries) = sp_train_phase(rng, device)
+    sp_counts, host_counts, sp_errs, sp_stats, (sp_td, sp_queries, sp_model) = sp_train_phase(
+        rng, device)
     print(f"phase dimsum (3d) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     d_counts, d_errs, d_stats = dimsum_phase(device, sp_td, sp_queries)
-    del sp_td
     print(f"phase grid evaluation (3e) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     e_errs = {}
     check_k13_sizes(rng, device, e_errs)
     e_counts, e_path_errs, e_stats, td0 = eval_phase(device)
     print(f"phase bf16 grid (3h) (at {time.perf_counter() - t0:.1f} s)", flush=True)
     g_counts, g_errs, g_stats = bf16_grid_phase(device, td0)
-    del td0
+    print(f"phase training on a mesh (3t) (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    t_counts, t_errs, t_stats = mesh_train_phase(rng, device, {
+        "model": model, "f32_stats": f32_stats, "implicit": i_model, "implicit_stats": i_stats,
+        "bf16": bf16_arrays, "subspace": p_model, "sp": (sp_td, sp_model), "td0": td0})
+    del td0, sp_td, sp_model, bf16_arrays, i_model, p_model
     print(f"phase slice (at {time.perf_counter() - t0:.1f} s)", flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         launches, _, traffic = slice_phase(rng, device, workdir, model)
@@ -7442,6 +8080,38 @@ def main() -> int:
         "plain_ms": t14s["plain_ms"], "bound_ms": t14s["bound"][0],
         "bound_by": t14s["bound"][1], "library_ms": t14s["library_ms"],
     })
+    # training on a mesh (3t): the row-shard forms' launches on their main
+    # paths (K1 and K2 on Engine.train's; K12b on the implicit form's; K11
+    # on the iALS++ form's; K13 on run_evaluation's), times of the shards'
+    # launches of one user half-step together (4 logical shards of the
+    # card, one after another) beside the whole side's bound
+    tl, tk, tb = t_stats["launches"], t_stats["kernel_ms"], t_stats["bound"]
+    for name, counter, form, source, where, kid, lib in (
+            ("normal_eq", "normal_eq", "main", "normal_eq.cu", ":883", "K6s", None),
+            ("spd_solve", "spd_solve", "main", "spd_solve.cu", ":883", "K6s",
+             f32_stats["library_ms"]["spd_solve_user"]),
+            ("implicit_objective_shard", "implicit_objective_shard", "implicit (3i)", "gramian.cu",
+             ":908", "K6s", None),
+            ("subspace_accumulate", "subspace_accumulate", "iALS++ (3p)", "subspace.cu", ":887",
+             "K6s", None),
+            ("subspace_block_solve", "subspace_block_solve", "iALS++ (3p)", "subspace.cu", ":887",
+             "K6s", p_stats["library_ms"].get("subspace_block_solve_user")),
+            ("normal_eq_variants", "normal_eq_variants", "run_evaluation", "grid.cu", ":999",
+             "K13s", None),
+            ("spd_solve_variants", "spd_solve_variants", "run_evaluation", "grid.cu", ":999",
+             "K13s", e_stats["library_ms"]["spd_solve_variants"])):
+        if tl[form][counter] < 1:
+            raise AssertionError(f"{name} never launched on a shard in 3t's {form}")
+        t = tk[name]
+        kernels.append({
+            "name": f"{name}_sharded" if not name.endswith("_shard") else f"{name}ed",
+            "id": kid, "route": "cuda", "source": f"predictionio_tpu_torch/csrc/{source}",
+            "replaces": f"predictionio_tpu/ops/als.py{where}", "launches": tl[form][counter],
+            "max_abs_err": t_errs.get(f"{name}_shard", t_errs.get(name, 0.0)),
+            "ms": t["shards_ms"], "plain_ms": t["plain_shards_ms"],
+            "bound_ms": tb[name][0], "bound_by": tb[name][1], "library_ms": lib,
+            "device_ms": t["shards_device_ms"], "one_device_ms": t["one_device_ms"],
+        })
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -108,7 +108,12 @@ class BaseAlgorithm(Controller, Generic[M, Q, P]):
     # variant on its own
     GRID_AXES: Tuple[str, ...] = ()
 
-    def train(self, device: torch.device, prepared_data) -> M:
+    # whether ``train`` and ``train_grid`` take a ``Mesh`` (and shard the
+    # training over it); otherwise ``Engine`` hands them the context's
+    # device, the mesh's first device when only a mesh was given
+    MESH_TRAINING: bool = False
+
+    def train(self, device: Union[torch.device, Mesh], prepared_data) -> M:
         raise NotImplementedError
 
     @classmethod

@@ -5,7 +5,8 @@ prepareDeploy :196-265; controller/EngineParams.scala:32).
 An engine holds a class map per DASE slot (data source, preparator,
 algorithms, serving) and builds the components from ``EngineParams``.
 ``train`` reads the data source, prepares and trains every algorithm on
-the context's device (reference train :154 -> :621-708, with the data
+the context's device, or on its mesh where the algorithm trains on one
+(``training_target``; reference train :154 -> :621-708, with the data
 checks and the stop-after-read/prepare interruptions :662-686).
 ``eval`` reads a data source's folds and, per fold, prepares, trains and
 serves the held-out queries (``serve_fold``); ``batch_eval`` does that for
@@ -45,6 +46,16 @@ from predictionio_tpu_torch.controller.persistent_model import (
 from predictionio_tpu_torch.parallel.mesh import Mesh
 
 logger = logging.getLogger(__name__)
+
+
+def training_target(ctx, algo) -> Union[torch.device, Mesh]:
+    """What ``algo`` trains on: the workflow's mesh (``ctx.mesh``) for an
+    algorithm that trains on one (``MESH_TRAINING``), where it has several
+    shards, else ``ctx.device`` (one shard's mesh is the device, as the
+    reference's templates collapse a one-device mesh)."""
+    if algo.MESH_TRAINING and ctx.mesh.size > 1:
+        return ctx.mesh
+    return ctx.device
 
 
 class StopAfterReadInterruption(Exception):
@@ -174,7 +185,8 @@ class Engine:
 
     def train(self, ctx, engine_params: EngineParams, workflow_params) -> List[Any]:
         """Read the data source with ``ctx``, prepare, and train every
-        algorithm on ``ctx.device``: one model per algorithm, in order."""
+        algorithm on its ``training_target``: one model per algorithm, in
+        order."""
         self._require_data_source()
         data_source, preparator, algorithms, _ = self.make_components(engine_params)
         return self._train_pipeline(ctx, data_source, preparator, algorithms, workflow_params)
@@ -200,7 +212,7 @@ class Engine:
             raise StopAfterPrepareInterruption()
         models = []
         for i, algo in enumerate(algorithms):
-            model = algo.train(ctx.device, pd)
+            model = algo.train(training_target(ctx, algo), pd)
             self._sanity(model, f"Model of algorithm[{i}]", workflow_params)
             models.append(model)
         return models
@@ -234,8 +246,8 @@ class Engine:
         self, ctx, engine_params: EngineParams, workflow_params
     ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
         """Per fold of the data source's ``read_eval(ctx)``: prepare,
-        train every algorithm on ``ctx.device`` and serve the fold's
-        queries. Returns [(eval_info, [(query, predicted, actual)])]."""
+        train every algorithm on its ``training_target`` and serve the
+        fold's queries. Returns [(eval_info, [(query, predicted, actual)])]."""
         self._require_data_source()
         data_source, preparator, algorithms, serving = self.make_components(
             engine_params
@@ -243,7 +255,7 @@ class Engine:
         out = []
         for td, eval_info, qa_pairs in data_source.read_eval(ctx):
             pd = preparator.prepare(ctx.device, td)
-            models = [algo.train(ctx.device, pd) for algo in algorithms]
+            models = [algo.train(training_target(ctx, algo), pd) for algo in algorithms]
             out.append((eval_info, self.serve_fold(algorithms, models, serving, qa_pairs)))
         return out
 

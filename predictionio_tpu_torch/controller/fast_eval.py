@@ -10,7 +10,8 @@ prepares the data once.
 
 Before that, ``prefill_grid_models`` trains the variants that differ only
 in an algorithm's ``GRID_AXES`` together (``BaseAlgorithm.train_grid``:
-for ALS the regularizer grid, K13). ``grid_train="auto"`` runs it on a
+for ALS the regularizer grid, K13; on the workflow's mesh, K13s, where
+the algorithm trains on one). ``grid_train="auto"`` runs it on a
 CUDA device and not on the CPU, as the reference's ``auto`` skips its CPU
 backend. A failed ``train_grid`` falls back to per-variant training with
 a warning, as the reference's does, except when a kernel did not build or
@@ -26,7 +27,12 @@ import threading
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 from predictionio_tpu_torch.controller.base import doer
-from predictionio_tpu_torch.controller.engine import Engine, EngineParams, _run_grid
+from predictionio_tpu_torch.controller.engine import (
+    Engine,
+    EngineParams,
+    _run_grid,
+    training_target,
+)
 from predictionio_tpu_torch.controller.params import Params, params_to_json
 from predictionio_tpu_torch.ops.native import KernelError
 
@@ -106,7 +112,7 @@ class FastEvalEngineWorkflow:
             ]
             prepared = self.get_prepared(ds_pair, prep_pair)
             return [
-                [algo.train(self.ctx.device, pd) for algo in algos]
+                [algo.train(training_target(self.ctx, algo), pd) for algo in algos]
                 for pd, _, _ in prepared
             ]
 
@@ -199,7 +205,7 @@ class FastEvalEngineWorkflow:
             fold_models = []  # [fold][variant]
             for pd, _, _ in prepared:
                 try:
-                    models = cls.train_grid(self.ctx.device, pd, algos)
+                    models = cls.train_grid(training_target(self.ctx, algos[0]), pd, algos)
                 except KernelError:
                     # a kernel that did not build or launch is a fault
                     # of the port, never hidden behind per-variant trains

@@ -51,6 +51,14 @@
 // reference's order of the three terms. No atomics: a run repeats bit for
 // bit. Slots past a segment's count are never read.
 //
+// K12b on a row-sharded mesh (ops/gramian.implicit_objective_shards): the
+// same two kernels, split. Each shard launches objective_partial over its
+// own user segments, its rows of X and its rows of Y (the item side's row
+// split), writing each kind's partials at the shard's offset in one buffer
+// per kind on the mesh's first device; one objective_finish then sums every
+// shard's partials of a kind in one fixed tree. Only the order of the
+// cross-shard sums differs from one device.
+//
 // K12b-bf16 (implicit_objective_f32 with bf16 = 1): the reference's
 // compute_dtype="bfloat16" objective (:779-780 Xc = bf16(X), Yc = bf16(Y)):
 // the scores s = x·y are formed from x and y rounded to bfloat16 as they
@@ -217,7 +225,9 @@ __device__ __forceinline__ float lane_dot(const float* __restrict__ x,
 }
 
 // Blocks [0, b_obs): segments; [b_obs, b_obs + b_x): rows of X;
-// [b_obs + b_x, b_obs + b_x + b_y): rows of Y. One partial per block.
+// [b_obs + b_x, b_obs + b_x + b_y): rows of Yr (the Y rows whose
+// regularizer this launch sums: all of Y on one device, a row shard's on a
+// mesh). One partial per block, into obs_out, x_out or y_out by kind.
 // A warp takes one segment at a time: its x row goes to shared memory,
 // and UNROLL x 32 / G slots are scored at once, G lanes per slot reading
 // the slot's y row as float4s (coalesced; the UNROLL rows' loads are in
@@ -229,8 +239,10 @@ __global__ void __launch_bounds__(THREADS) objective_partial(
     const int* __restrict__ seg_rows, const int* __restrict__ cols,
     const float* __restrict__ vals, const int* __restrict__ rem, int S,
     int L, int k, float alpha, int segs_per_block, int b_obs,
-    const float* __restrict__ lam_x, int n_x, const float* __restrict__ lam_y,
-    int n_y, int rows_per_block, int b_x, float* __restrict__ partials) {
+    const float* __restrict__ lam_x, int n_x, const float* __restrict__ Yr,
+    const float* __restrict__ lam_y, int n_y, int rows_per_block, int b_x,
+    float* __restrict__ obs_out, float* __restrict__ x_out,
+    float* __restrict__ y_out) {
   extern __shared__ float4 xs4[];  // [OBJ_WARPS][kp]
   __shared__ float sh[THREADS];
   const int tid = threadIdx.x;
@@ -284,7 +296,7 @@ __global__ void __launch_bounds__(THREADS) objective_partial(
   } else {
     const bool on_x = (int)blockIdx.x < b_obs + b_x;
     const int blk = blockIdx.x - b_obs - (on_x ? 0 : b_x);
-    const float* F = on_x ? X : Y;
+    const float* F = on_x ? X : Yr;
     const float* lam = on_x ? lam_x : lam_y;
     const int n = on_x ? n_x : n_y;
     const int r0 = blk * rows_per_block;
@@ -303,7 +315,12 @@ __global__ void __launch_bounds__(THREADS) objective_partial(
     }
   }
   const float total = block_sum(acc, sh);
-  if (tid == 0) partials[blockIdx.x] = total;
+  if (tid == 0) {
+    const int blk = blockIdx.x;
+    if (blk < b_obs) obs_out[blk] = total;
+    else if (blk < b_obs + b_x) x_out[blk - b_obs] = total;
+    else y_out[blk - b_obs - b_x] = total;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) objective_finish(
@@ -340,18 +357,27 @@ inline int objective_segs_per_block(int S) {
   return per < OBJ_WARPS ? OBJ_WARPS : per;
 }
 
+// The blocks of each kind K12b's partial launch runs.
+inline void objective_grid(int S, int n_x, int n_y, int* spb, int* rpb,
+                           int* b_obs, int* b_x, int* b_y) {
+  *spb = objective_segs_per_block(S);
+  *b_obs = ceil_div(S > 0 ? S : 1, *spb);
+  *rpb = gramian_rows_per_block(n_x > n_y ? n_x : n_y);
+  *b_x = ceil_div(n_x > 0 ? n_x : 1, *rpb);
+  *b_y = ceil_div(n_y > 0 ? n_y : 1, *rpb);
+}
+
 template <bool BF16>
-int objective(const float* X, int n_x, const float* Y, int n_y,
-              const int* seg_rows, const int* cols, const float* vals,
-              const int* rem, int S, int L, int k, float alpha,
-              const float* lam_x, const float* lam_y, const float* Gx,
-              const float* Gy, float* partials, float* out,
-              cudaStream_t stream) {
-  const int spb = objective_segs_per_block(S);
-  const int b_obs = ceil_div(S > 0 ? S : 1, spb);
-  const int rpb = gramian_rows_per_block(n_x > n_y ? n_x : n_y);
-  const int b_x = ceil_div(n_x > 0 ? n_x : 1, rpb);
-  const int b_y = ceil_div(n_y > 0 ? n_y : 1, rpb);
+int objective_partials_launch(const float* X, int n_x, const float* Y,
+                              const float* Yr, int n_y, const int* seg_rows,
+                              const int* cols, const float* vals,
+                              const int* rem, int S, int L, int k,
+                              float alpha, const float* lam_x,
+                              const float* lam_y, float* obs_out,
+                              float* x_out, float* y_out,
+                              cudaStream_t stream) {
+  int spb, rpb, b_obs, b_x, b_y;
+  objective_grid(S, n_x, n_y, &spb, &rpb, &b_obs, &b_x, &b_y);
   const size_t smem = (size_t)OBJ_WARPS * ((k + 3) & ~3) * sizeof(float);
   cudaError_t err;
   if (smem > DEFAULT_SMEM) {
@@ -362,11 +388,7 @@ int objective(const float* X, int n_x, const float* Y, int n_y,
   }
   objective_partial<BF16><<<b_obs + b_x + b_y, THREADS, smem, stream>>>(
       X, Y, seg_rows, cols, vals, rem, S, L, k, alpha, spb, b_obs, lam_x, n_x,
-      lam_y, n_y, rpb, b_x, partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  objective_finish<<<1, THREADS, 0, stream>>>(partials, b_obs, b_x, b_y, Gx,
-                                              Gy, k * k, out);
+      Yr, lam_y, n_y, rpb, b_x, obs_out, x_out, y_out);
   return (int)cudaGetLastError();
 }
 
@@ -413,9 +435,49 @@ int gramian_f32(const float* Y, int n, int k, float* partials, float* G,
 // Partials K12b needs: one per block over S segments and the two sides'
 // rows.
 int objective_partials(int S, int n_x, int n_y) {
-  const int rpb = gramian_rows_per_block(n_x > n_y ? n_x : n_y);
-  return ceil_div(S > 0 ? S : 1, objective_segs_per_block(S)) +
-         ceil_div(n_x > 0 ? n_x : 1, rpb) + ceil_div(n_y > 0 ? n_y : 1, rpb);
+  int spb, rpb, b_obs, b_x, b_y;
+  objective_grid(S, n_x, n_y, &spb, &rpb, &b_obs, &b_x, &b_y);
+  return b_obs + b_x + b_y;
+}
+
+// The blocks of each kind K12b's partial launch runs for S segments and
+// n_x, n_y rows, into blocks[0..2] (segments, rows of X, rows of Y).
+void objective_blocks(int S, int n_x, int n_y, int* blocks) {
+  int spb, rpb;
+  objective_grid(S, n_x, n_y, &spb, &rpb, blocks, blocks + 1, blocks + 2);
+}
+
+// K12b's first launch alone, for one row shard of a mesh (K12b on a mesh:
+// each shard's partials, then one implicit_objective_finish_f32 over them
+// all): X [n_x, k] the shard's rows (seg_rows number them from 0), Y the
+// whole counter side (cols are its global ids), Yr [n_y, k] the Y rows
+// whose regularizer the shard sums, with lam_x and lam_y theirs. Writes
+// objective_blocks' three counts of partials to obs_out, x_out and y_out.
+int implicit_objective_partial_f32(const float* X, int n_x, const float* Y,
+                                   const float* Yr, int n_y,
+                                   const int* seg_rows, const int* cols,
+                                   const float* vals, const int* rem, int S,
+                                   int L, int k, float alpha,
+                                   const float* lam_x, const float* lam_y,
+                                   float* obs_out, float* x_out, float* y_out,
+                                   int bf16, cudaStream_t stream) {
+  return bf16 ? objective_partials_launch<true>(
+                    X, n_x, Y, Yr, n_y, seg_rows, cols, vals, rem, S, L, k,
+                    alpha, lam_x, lam_y, obs_out, x_out, y_out, stream)
+              : objective_partials_launch<false>(
+                    X, n_x, Y, Yr, n_y, seg_rows, cols, vals, rem, S, L, k,
+                    alpha, lam_x, lam_y, obs_out, x_out, y_out, stream);
+}
+
+// K12b's finish: partials holds b_obs observed-term partials, then b_x of
+// X's regularizer, then b_y of Y's, each kind summed in a fixed tree; out[0]
+// = (⟨Gx, Gy⟩ + obs) + (reg_x + reg_y).
+int implicit_objective_finish_f32(const float* partials, int b_obs, int b_x,
+                                  int b_y, const float* Gx, const float* Gy,
+                                  int k, float* out, cudaStream_t stream) {
+  objective_finish<<<1, THREADS, 0, stream>>>(partials, b_obs, b_x, b_y, Gx,
+                                              Gy, k * k, out);
+  return (int)cudaGetLastError();
 }
 
 // The implicit objective into out[0]: X [n_x, k], Y [n_y, k], the user
@@ -432,12 +494,14 @@ int implicit_objective_f32(const float* X, int n_x, const float* Y, int n_y,
                            const float* lam_y, const float* Gx,
                            const float* Gy, float* partials, float* out,
                            int bf16, cudaStream_t stream) {
-  return bf16 ? objective<true>(X, n_x, Y, n_y, seg_rows, cols, vals, rem, S,
-                                L, k, alpha, lam_x, lam_y, Gx, Gy, partials,
-                                out, stream)
-              : objective<false>(X, n_x, Y, n_y, seg_rows, cols, vals, rem, S,
-                                 L, k, alpha, lam_x, lam_y, Gx, Gy, partials,
-                                 out, stream);
+  int b[3];
+  objective_blocks(S, n_x, n_y, b);
+  const int err = implicit_objective_partial_f32(
+      X, n_x, Y, Y, n_y, seg_rows, cols, vals, rem, S, L, k, alpha, lam_x,
+      lam_y, partials, partials + b[0], partials + b[0] + b[1], bf16, stream);
+  if (err != 0) return err;
+  return implicit_objective_finish_f32(partials, b[0], b[1], b[2], Gx, Gy, k,
+                                       out, stream);
 }
 
 const char* gramian_error_string(int code) {

@@ -44,6 +44,13 @@
 // reference's compute_dtype="bfloat16" (its :942 with _solve_side's cast
 // weights): the same kernels with K1-bf16's rounding (csrc/normal_eq.cu),
 // so variant v stays bit-equal to K1-bf16 on its factors. K13b is unchanged (float32).
+//
+// K13s (the grid on a row-sharded mesh, ops/als.py train_als_grid(mesh=)):
+// per row shard, K13a on the shard's own pack (its rows numbered from 0,
+// the whole [V, n, k] counter side read by global id) and K13b with ldr,
+// the whole factor arrays' row count, so the shard reads and writes its
+// rows of the [V, R, k] arrays where they lie, with no gather or copy.
+// Every row is summed and solved as on one device, so bit-equal to it.
 
 #include "normal_eq.cuh"
 #include "spd_solve.cuh"
@@ -75,15 +82,18 @@ int normal_eq_variants_f32(const float* Y, const int* cols,
                                               P, stream));
 }
 
-// K13b on `stream`; returns cudaGetLastError(). A [V, R, k, k], b, X_prev
-// and X [V, R, k], lam [V, R], has_obs [R] and G [V, k, k] or null. The
-// caller checks shapes, dtypes, devices, R >= 1 and 1 <= k <= 200.
+// K13b on `stream`; returns cudaGetLastError(). A [V, R, k, k] and b
+// [V, R, k]; X_prev and X [V, ldr, k], lam [V, ldr], has_obs [ldr] and G
+// [V, k, k] or null, where ldr >= R: the R rows solved are the R rows at
+// X_prev, X, lam and has_obs (a row shard passes its first row's
+// pointers; ldr = R solves whole arrays). The caller checks shapes,
+// dtypes, devices, R >= 1 and 1 <= k <= 200.
 int spd_solve_variants_f32(const float* A, const float* G, const float* b,
                            const float* lam, const unsigned char* has_obs,
                            const float* X_prev, float* X, int R, int k, int V,
-                           cudaStream_t stream) {
+                           long long ldr, cudaStream_t stream) {
   return (int)k2::launch(A, G, b, lam, has_obs, X_prev, X, nullptr, nullptr,
-                         R, k, V, stream);
+                         R, k, V, ldr, stream);
 }
 
 const char* grid_error_string(int code) {

@@ -67,7 +67,7 @@ int spd_solve_f32(const float* A, const float* G, const float* b,
                   float* X, float* partials, float* sums, int R, int k,
                   cudaStream_t stream) {
   return (int)k2::launch(A, G, b, lam, has_obs, X_prev, X, partials, sums, R,
-                         k, 1, stream);
+                         k, 1, R, stream);
 }
 
 const char* spd_solve_error_string(int code) {

@@ -61,15 +61,16 @@ __global__ void spd_solve_rows(const float* __restrict__ A,
                                const float* __restrict__ X_prev,
                                float* __restrict__ X,
                                float* __restrict__ partials, int R, int k,
-                               int W) {
+                               int W, long long ldr) {
   extern __shared__ float smem[];
-  // variant blockIdx.y: its systems, λ, G, X_prev and X; has_obs shared
+  // variant blockIdx.y: its systems, λ, G, X_prev and X (λ, X_prev and X
+  // ldr rows apart: a row shard's rows of the whole arrays); has_obs shared
   const long long var = blockIdx.y;
   A += var * R * k * k;
   b += var * R * k;
-  lam += var * R;
-  X_prev += var * R * k;
-  X += var * R * k;
+  lam += var * ldr;
+  X_prev += var * ldr * k;
+  X += var * ldr * k;
   if (G != nullptr) G += var * k * k;
   const int kp = k + 1;
   const int warp = threadIdx.x >> 5;
@@ -148,15 +149,15 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) spd_solve_rows32(
     const float* __restrict__ b,
     const float* __restrict__ lam, const unsigned char* __restrict__ has_obs,
     const float* __restrict__ X_prev, float* __restrict__ X,
-    float* __restrict__ partials, int R, int k) {
+    float* __restrict__ partials, int R, int k, long long ldr) {
   __shared__ __align__(16) float sc[MAX_WARPS][32];
   // variant blockIdx.y, as in spd_solve_rows
   const long long var = blockIdx.y;
   A += var * R * k * k;
   b += var * R * k;
-  lam += var * R;
-  X_prev += var * R * k;
-  X += var * R * k;
+  lam += var * ldr;
+  X_prev += var * ldr * k;
+  X += var * ldr * k;
   if constexpr (HAS_G) G += var * k * k;
   __shared__ float red[2 * MAX_WARPS];
   __shared__ float sG[HAS_G ? 32 : 1][33];
@@ -282,12 +283,14 @@ inline int blocks_for(int R, int k) {
 // The solve of V variants' R systems each on `stream` (and, when `sums` is
 // not null, which needs V = 1, the reduction of the telemetry sums, using
 // `partials` of 2·blocks floats); returns cudaGetLastError(). Variant v
-// reads A + v·R·k², b, X_prev + v·R·k, lam + v·R and G + v·k² (G may be
-// null), writes X + v·R·k, and shares has_obs [R].
+// reads A + v·R·k², b, X_prev + v·ldr·k, lam + v·ldr and G + v·k² (G may
+// be null), writes X + v·ldr·k, and shares has_obs [R]. ldr = R but for a
+// row shard of [V, ldr, ·] arrays, whose pointers then start at the
+// shard's first row.
 inline cudaError_t launch(const float* A, const float* G, const float* b,
                           const float* lam, const unsigned char* has_obs,
                           const float* X_prev, float* X, float* partials,
-                          float* sums, int R, int k, int V,
+                          float* sums, int R, int k, int V, long long ldr,
                           cudaStream_t stream) {
   if (sums != nullptr && V != 1) return cudaErrorInvalidValue;
   const int W = warps_for(k);
@@ -297,10 +300,10 @@ inline cudaError_t launch(const float* A, const float* G, const float* b,
   if (k <= 32) {
     if (G != nullptr) {
       spd_solve_rows32<true><<<grid, 32 * W, 0, stream>>>(
-          A, G, b, lam, has_obs, X_prev, X, part, R, k);
+          A, G, b, lam, has_obs, X_prev, X, part, R, k, ldr);
     } else {
       spd_solve_rows32<false><<<grid, 32 * W, 0, stream>>>(
-          A, G, b, lam, has_obs, X_prev, X, part, R, k);
+          A, G, b, lam, has_obs, X_prev, X, part, R, k, ldr);
     }
   } else {
     const size_t smem =
@@ -313,7 +316,8 @@ inline cudaError_t launch(const float* A, const float* G, const float* b,
       if (err != cudaSuccess) return err;
     }
     spd_solve_rows<<<grid, 32 * W, smem, stream>>>(A, G, b, lam, has_obs,
-                                                   X_prev, X, part, R, k, W);
+                                                   X_prev, X, part, R, k, W,
+                                                   ldr);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || sums == nullptr) return err;

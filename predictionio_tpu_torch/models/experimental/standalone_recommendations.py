@@ -10,7 +10,8 @@ the Workflow APIs, no console and no template scaffold:
   (user, item) -> rating feature/target pairs for evaluation.
 - ``IdentityPreparator`` (the ratings pass through untouched).
 - ``ALSAlgorithm`` trains explicit ALS through ``ops/als.train_als`` (K1,
-  K2) on the device it is given and predicts through ``predict_ratings``
+  K2) on the device it is given, or row-sharded over the workflow's mesh
+  (K6s, the reference's :143), and predicts through ``predict_ratings``
   (K7); its ``PMatrixFactorizationModel`` is a persistent model that saves
   its factor arrays itself when ``params.persist_model`` is set, and is
   kept as it is otherwise (Run.scala:57-82). The port saves them as an
@@ -24,7 +25,7 @@ the Workflow APIs, no console and no template scaffold:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +48,7 @@ from predictionio_tpu_torch.ops.als import (
     predict_ratings,
     train_als,
 )
+from predictionio_tpu_torch.parallel.mesh import Mesh, split_target
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.workflow_params import WorkflowParams
 
@@ -141,10 +143,16 @@ class ALSAlgorithm(BaseAlgorithm):
     and the prediction is the scalar rating."""
 
     params_class = AlgorithmParams
+    MESH_TRAINING = True
 
-    def train(self, device: DeviceLike, data: RatingsData) -> PMatrixFactorizationModel:
-        """Train on ``device`` (CUDA unless the CPU is asked for) through
-        ``train_als``; the model predicts on ``device``."""
+    def train(
+        self, device: Union[DeviceLike, Mesh], data: RatingsData
+    ) -> PMatrixFactorizationModel:
+        """Train on ``device`` (CUDA unless the CPU is asked for), or on a
+        ``Mesh`` (a mesh of one shard is its device), through
+        ``train_als``; the model predicts on ``device`` (a mesh's first
+        device)."""
+        mesh, device = split_target(device)
         n_users = int(data.user_idx.max()) + 1 if len(data.user_idx) else 0
         n_items = int(data.item_idx.max()) + 1 if len(data.item_idx) else 0
         arrays = train_als(
@@ -159,12 +167,13 @@ class ALSAlgorithm(BaseAlgorithm):
                 reg=self.params.lambda_,
             ),
             device=device,
+            mesh=mesh,
         )
         return PMatrixFactorizationModel(
             rank=self.params.rank,
             user_features=arrays.user_factors,
             product_features=arrays.item_factors,
-            _device=resolve_device(device),
+            _device=resolve_device(device) if mesh is None else mesh.devices[0],
         )
 
     def prepare_serving(

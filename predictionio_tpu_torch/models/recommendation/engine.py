@@ -9,7 +9,10 @@ JSON names. ``ALSAlgorithm.train`` trains on a ``torch.device`` through
 ``ops/streaming.train_als_streaming`` when the training data streams
 (``StreamingTrainingData``), else through ``ops/als.train_als``: both take
 the wire route (K4 and K5 pack, then K1 and K2 per half-step, with K12's
-Gramian and objective under ``implicit_prefs=True``). ``ALSModel.recommend_many``
+Gramian and objective under ``implicit_prefs=True``). On a ``Mesh`` of
+several shards (``MESH_TRAINING``) it trains through ``train_als``'s mesh
+route (K6s: row shards), and ``train_grid`` through ``train_als_grid``'s
+(K13s). ``ALSModel.recommend_many``
 serves a micro-batch with one K3 launch on the model's device; with
 ``precision="int8"`` or ``"bf16"`` it serves through an ``ItemRetriever``
 (``ops/retrieval.py``) instead: the catalog resident quantized, stage 1
@@ -56,7 +59,7 @@ from predictionio_tpu_torch.ops.als import (
 )
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever
 from predictionio_tpu_torch.ops.streaming import train_als_streaming
-from predictionio_tpu_torch.parallel.mesh import Mesh
+from predictionio_tpu_torch.parallel.mesh import Mesh, split_target
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
 
 
@@ -442,16 +445,19 @@ class ALSAlgorithm(BaseAlgorithm):
     params_class = ALSAlgorithmParams
     query_class = Query
     MESH_SERVING = True
+    MESH_TRAINING = True
     # regularizer variants of one configuration train together in an
     # evaluation's grid (ops/als.py train_als_grid)
     GRID_AXES = ("lambda_",)
 
     @classmethod
-    def train_grid(cls, device: DeviceLike, pd: PreparedData, algos) -> Optional[List[ALSModel]]:
-        """The variants ``algos`` trained together on ``device``, one
-        model each, in order; None when they differ beyond ``lambda_``,
-        checkpoint, or use the subspace solver (the reference's
-        :457-472)."""
+    def train_grid(
+        cls, device: Union[DeviceLike, Mesh], pd: PreparedData, algos
+    ) -> Optional[List[ALSModel]]:
+        """The variants ``algos`` trained together on ``device``, or on a
+        ``Mesh`` (K13s), one model each, in order; None when they differ
+        beyond ``lambda_``, checkpoint, or use the subspace solver (the
+        reference's :457-488)."""
         base: ALSAlgorithmParams = algos[0].params
         for a in algos:
             p: ALSAlgorithmParams = a.params
@@ -470,25 +476,31 @@ class ALSAlgorithm(BaseAlgorithm):
             implicit_prefs=base.implicit_prefs,
             seed=base.seed if base.seed is not None else 0,
         )
+        mesh, device = split_target(device)
         arrays_list = train_als_grid(
             td.user_idx, td.item_idx, td.ratings,
             n_users=len(td.user_index), n_items=len(td.item_index),
             config=config, regs=[a.params.lambda_ for a in algos], device=device,
+            mesh=mesh,
         )
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh.devices[0]
         return [
             ALSModel(arrays=arrays, user_index=td.user_index, item_index=td.item_index,
                      params=a.params, _device=dev)
             for arrays, a in zip(arrays_list, algos)
         ]
 
-    def train(self, device: DeviceLike, pd: PreparedData) -> ALSModel:
+    def train(self, device: Union[DeviceLike, Mesh], pd: PreparedData) -> ALSModel:
         """Train on ``device`` (CUDA unless the CPU is asked for): training
         data that streams (``StreamingTrainingData``) goes through
         ``ops/streaming.train_als_streaming`` (a round that folds a delta
         into its pack cache trains ``delta_sweeps`` warm sweeps), the rest,
-        and a stream that comes up empty, through ``ops/als.train_als``.
-        The model serves on ``device`` until ``prepare_serving`` moves it."""
+        and a stream that comes up empty, through ``ops/als.train_als``. On
+        a ``Mesh`` of several shards the columns go to ``train_als``'s mesh
+        route (a stream is read whole first, as the reference trains a
+        stream only without a mesh, its :509-515); a mesh of one shard is
+        its device. The model serves on ``device`` (a mesh's first device)
+        until ``prepare_serving`` moves it."""
         td = pd.td
         p: ALSAlgorithmParams = self.params
         config = ALSConfig(
@@ -501,8 +513,10 @@ class ALSAlgorithm(BaseAlgorithm):
             solver=p.solver,
             block_size=p.block_size,
         )
+        mesh, device = split_target(device)
+        dev = resolve_device(device) if mesh is None else mesh.devices[0]
         stream_factory = getattr(td, "stream_factory", None)
-        if stream_factory is not None:
+        if stream_factory is not None and mesh is None:
             result = train_als_streaming(
                 stream_factory(), config, device=device,
                 checkpoint_dir=p.checkpoint_dir,
@@ -512,8 +526,7 @@ class ALSAlgorithm(BaseAlgorithm):
             if result is not None:
                 return ALSModel(
                     arrays=result.arrays, user_index=result.user_index,
-                    item_index=result.item_index, params=p,
-                    _device=resolve_device(device),
+                    item_index=result.item_index, params=p, _device=dev,
                 )
             # empty scan: the materialized path below owns the error
             # reporting (TrainingData.sanity_check)
@@ -526,12 +539,13 @@ class ALSAlgorithm(BaseAlgorithm):
             n_items=len(td.item_index),
             config=config,
             device=device,
+            mesh=mesh,
             checkpoint_dir=p.checkpoint_dir,
             checkpoint_every=p.checkpoint_every,
         )
         return ALSModel(
             arrays=arrays, user_index=td.user_index,
-            item_index=td.item_index, params=p, _device=resolve_device(device),
+            item_index=td.item_index, params=p, _device=dev,
         )
 
     def prepare_serving(

@@ -63,7 +63,7 @@ from predictionio_tpu_torch.ops import cooccurrence, retrieval
 from predictionio_tpu_torch.ops.als import ALSConfig, train_als, validate_solver
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever
 from predictionio_tpu_torch.ops.similarity import SimilarityScorer, normalize_rows
-from predictionio_tpu_torch.parallel.mesh import Mesh
+from predictionio_tpu_torch.parallel.mesh import Mesh, split_target
 from predictionio_tpu_torch.utils.shapes import pow2_topk_width
 
 logger = logging.getLogger(__name__)
@@ -429,6 +429,7 @@ class ALSAlgorithm(BaseAlgorithm):
     params_class = ALSAlgorithmParams
     query_class = Query
     MESH_SERVING = True
+    MESH_TRAINING = True
 
     def _ratings(self, td: TrainingData) -> Dict[Tuple[str, str], float]:
         """(user, item) -> value. Overridden by LikeAlgorithm."""
@@ -476,18 +477,22 @@ class ALSAlgorithm(BaseAlgorithm):
             block_size=p.block_size,
         )
 
-    def train(self, device: DeviceLike, pd: PreparedData) -> SPModel:
-        """Train on ``device`` (CUDA unless the CPU is asked for): implicit
-        ALS through ``ops/als.train_als`` over ``training_arrays``. The
-        model scores on ``device`` until ``prepare_serving`` moves it."""
+    def train(self, device: Union[DeviceLike, Mesh], pd: PreparedData) -> SPModel:
+        """Train on ``device`` (CUDA unless the CPU is asked for), or on a
+        ``Mesh`` (the reference's :472; a mesh of one shard is its device):
+        implicit ALS through ``ops/als.train_als`` over ``training_arrays``.
+        The model scores on ``device`` (a mesh's first device) until
+        ``prepare_serving`` moves it."""
         td = pd.td
         user_index, item_index, u, i, r = self.training_arrays(td)
+        mesh, device = split_target(device)
         arrays = train_als(
             u, i, r,
             n_users=len(user_index),
             n_items=len(item_index),
             config=self.als_config(),
             device=device,
+            mesh=mesh,
         )
         model = SPModel(
             item_factors=arrays.item_factors,
@@ -495,7 +500,7 @@ class ALSAlgorithm(BaseAlgorithm):
             items={item_index[i]: item for i, item in td.items.items()},
             params=self.params,
         )
-        model.attach_device(device)
+        model.attach_device(device if mesh is None else mesh.devices[0])
         return model
 
     def predict(self, model: SPModel, query: Query) -> PredictedResult:

@@ -30,9 +30,10 @@ solves them and updates the block in place, with one telemetry row per
 block. ``predict_ratings`` / ``rmse`` run K7 (``ops/predict_pairs.py``).
 ``train_als_grid`` (:1023) trains the regularizer variants of one
 configuration together, as an evaluation's grid does: both sides packed
-once on the host (``pack_segments``), then ``_run_iterations_grid`` (the
+once on the host (``mesh_pack_side``), then ``_run_iterations_grid`` (the
 reference's :942), per half-step one K13a and one K13b launch
-(``ops/grid.py``) for every variant. ``train_from_wire`` takes the
+(``ops/grid.py``) for every variant (one device is a mesh of one row
+shard). ``train_from_wire`` takes the
 resident pack's geometry and hands back its final factors
 (``ops/streaming.py`` delta rounds). ``compute_dtype="bfloat16"`` (the
 reference's headline training config) runs the bfloat16 forms of the
@@ -43,7 +44,24 @@ summed in float32; the factors, the systems and the solves (K2, K11b,
 K13b, K12a) stay float32. ``checkpoint_dir`` saves the factors every
 ``checkpoint_every`` sweeps (``workflow/checkpoint.py``) and resumes a run
 of the same data and config from its latest save (the reference's
-``_train_packed`` :2130-2235). A mesh raises ``NotImplementedError``.
+``_train_packed`` :2130-2235).
+
+On a 1-D ``data`` mesh (``parallel/mesh.py``; the reference's mesh route,
+:1817-1897, and its sharded loop, K6s and K13s) ``train_als(mesh=)`` and
+``train_als_grid(mesh=)`` pack on the host and shard ROWS, not segments:
+``split_rows`` cuts each side into contiguous row ranges of about equal
+segment slots, and shard s solves its range with its own pack (its rows
+numbered from 0, the same L and per-row observation order as one device's
+pack). Each distinct device holds one replica of both factor arrays; per
+half-step every shard runs the single-device kernels on its rows (K1 then
+K2 into its range of the next array, or K11a/K11b in place; K13a/K13b for
+the grid), then its rows are copied to the other devices' replicas (the
+all-gather; none on one card). Implicit mode forms G per device with K12a
+over the rows one device pads to (the rest are zero), and the objective
+from every shard's K12b partials and one finish. So every real row's
+factors equal one device's bit for bit; only the telemetry's cross-shard
+sums change order, and its RMS divides by the mesh's padded rows
+(``_padded_rows(n, n_shards)``), as the reference's does.
 
 Serving (slice 1): ``ALSModelArrays`` :1233, ``ServingFactors``
 :2402-2558, ``recommend_batch`` :2560, ``_unpack_indices`` :2575.
@@ -61,13 +79,14 @@ block of one result on the mesh's first device, still one copy down.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import logging
 import math
 import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -89,7 +108,7 @@ from predictionio_tpu_torch.ops.normal_eq import (
     upload_pack,
 )
 from predictionio_tpu_torch.ops.topn import topn_chain, topn_packed
-from predictionio_tpu_torch.parallel.mesh import collapse_mesh, shard_batch
+from predictionio_tpu_torch.parallel.mesh import collapse_mesh, shard_batch, split_rows
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 from predictionio_tpu_torch.workflow.checkpoint import StepCheckpointer
 
@@ -735,16 +754,11 @@ TELEMETRY_SLOTS = 64
 TELEMETRY_COLS = 5
 
 
-def _check_ported(config: ALSConfig, mesh=None) -> None:
+def _check_ported(config: ALSConfig) -> None:
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
             f"compute_dtype={config.compute_dtype!r} is not ported; the port "
             f"trains in {' or '.join(COMPUTE_DTYPES)}"
-        )
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a multi-GPU mesh is not ported yet (ROADMAP.md "
-            "queue 1 item 11)"
         )
 
 
@@ -813,14 +827,15 @@ def _solve_side(
     implicit: bool = False,
     alpha: float = 1.0,
     compute_dtype: str = "float32",
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One half-step: K1 forms the systems (with the implicit weights when
     ``implicit``, in ``compute_dtype``), K2 solves them with ``G``
     (implicit mode's Gramian of Y) and the regularizer and keeps
     ``X_prev`` for rows without observations (writing the telemetry sums
-    into ``sums`` when given)."""
+    into ``sums`` when given), into ``out`` when given."""
     A, b = _k1.normal_eq(Y, pack, implicit, alpha, compute_dtype)
-    return _k2.spd_solve(A, b, lam, has_obs, X_prev, sums, G)
+    return _k2.spd_solve(A, b, lam, has_obs, X_prev, sums, G, out=out)
 
 
 def _solve_side_subspace(
@@ -872,50 +887,279 @@ def _run_iterations(
     block_size: int = 0,
     compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The training loop: ``n_iters`` sweeps of (user half-step, item
-    half-step) with no host sync. The exact solver launches K1 and K2 per
-    half-step; ``solver="subspace"`` runs ``_solve_side_subspace`` (K11a
-    and K11b per column block of ``block_size``), updating X and Y in
-    place. K1, K11a and K12b compute in ``compute_dtype``. In ``implicit``
-    mode each half-step first forms G, the Gramian of the counter side's
-    current padded factors (K12a), as the reference's
-    ``half`` does (:883). With ``telemetry``, sweep i writes raw sums into
-    its rows of ``tel`` ([TELEMETRY_SLOTS x rows_per_sweep, TELEMETRY_COLS]:
-    Σ ΔX², Σ X², Σ ΔY², Σ Y², objective; one row per sweep, or per block
-    with the subspace solver, whose Σ X², Σ Y² and objective go into the
-    sweep's last row) and, in implicit mode, K12b writes the objective at
-    the sweep's factors; ``_telemetry_rows`` turns them into the
-    reference's rows."""
+    """The training loop on one device: ``_run_iterations_mesh`` over one
+    shard that holds every row (see there)."""
+    d = X.device
+    X, Y, tel = _run_iterations_mesh(
+        {d: X}, {d: Y}, MeshSide.whole(user_pack, d), MeshSide.whole(item_pack, d),
+        {d: user_lam}, {d: item_lam}, {d: user_has_obs}, {d: item_has_obs}, n_iters,
+        telemetry, implicit, alpha, solver, block_size, compute_dtype,
+    )
+    return X[d], Y[d], tel
+
+
+# --- training on a row-sharded mesh (K6s, K13s) ---
+
+# factors on a mesh: one replica of the whole padded array per distinct
+# device, in the mesh's first-seen order (the first is the mesh's first)
+Replicas = Dict[torch.device, torch.Tensor]
+Factors = Union[torch.Tensor, Replicas]
+
+
+@dataclasses.dataclass
+class MeshSide:
+    """One solve side on a 1-D mesh: shard s solves the rows
+    ``[bounds[s], bounds[s + 1])`` of the side's ``n_rows`` padded rows on
+    ``devices[s]`` with ``packs[s]`` (its rows numbered from 0; None for a
+    shard with no rows). ``gram_rows`` is the row count one device pads
+    the side to (``_padded_rows(n, 1)``): K12a sums over those rows, so G
+    is one device's bit for bit (the mesh's extra rows are zero)."""
+
+    devices: List[torch.device]
+    bounds: np.ndarray  # [S + 1] int64
+    packs: List[Optional[SegmentPack]]
+    n_rows: int
+    gram_rows: int
+
+    @classmethod
+    def whole(cls, pack: SegmentPack, device: torch.device) -> "MeshSide":
+        """One device's pack as a mesh side of one shard holding every row."""
+        R = pack.n_sys_rows
+        return cls([device], np.array([0, R]), [pack], R, R)
+
+    def shards(self):
+        """(s, device, first row, end row, pack) of every shard with rows."""
+        for s, pack in enumerate(self.packs):
+            if pack is not None:
+                yield s, self.devices[s], int(self.bounds[s]), int(self.bounds[s + 1]), pack
+
+
+def mesh_pack_side(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_real: int,
+    n_sys_rows: int,
+    L: int,
+    chunk_slots: int,
+    n_shards: int,
+) -> Tuple[np.ndarray, list, List[int], List[int]]:
+    """The host half of a mesh side: (bounds, per-shard host packs,
+    segment slots per shard, observations per shard). ``pack_segments``
+    packs the whole side (its stable sort keeps each row's observations in
+    the order given), ``split_rows`` cuts the ``n_sys_rows`` rows by
+    segment count, and each shard's pack is its rows' segments, renumbered
+    from 0, in ``ceil(n / (chunk_slots // L))`` equal chunks; the last
+    chunk's padding segments (rem 0, which no kernel reads) name row 0.
+    Each host pack is ``(seg_rows, cols, vals, rem, plan)`` with its
+    ``plan_groups`` plan, or None for a shard with no rows."""
+    side = pack_segments(rows, cols, vals, n_real, L, 1, chunk_slots)
+    segs = np.zeros(n_sys_rows, np.int64)
+    segs[:n_real] = -(-side.counts.astype(np.int64) // L)
+    seg_base = np.zeros(n_sys_rows + 1, np.int64)
+    np.cumsum(segs, out=seg_base[1:])
+    bounds = split_rows(segs, n_shards)
+    flat_rows = side.seg_rows.reshape(-1)
+    flat_cols = side.cols.reshape(-1, L)
+    flat_vals = side.vals.reshape(-1, L)
+    flat_rem = side.rem.reshape(-1)
+    per_chunk = max(1, int(chunk_slots) // L)
+    packs, slots, real = [], [], []
+    for s in range(n_shards):
+        r0, r1 = int(bounds[s]), int(bounds[s + 1])
+        g0, g1 = int(seg_base[r0]), int(seg_base[r1])
+        slots.append((g1 - g0) * L)
+        real.append(int(flat_rem[g0:g1].sum()))
+        if r1 == r0:
+            packs.append(None)
+            continue
+        n = g1 - g0
+        n_chunks = max(1, -(-n // per_chunk))
+        sc = max(1, -(-n // n_chunks))
+        pad = n_chunks * sc - n
+
+        def cut(a, fill=0):
+            part = a[g0:g1]
+            if pad:
+                part = np.concatenate([part, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+            return part.reshape((n_chunks, sc) + a.shape[1:])
+
+        seg_rows = cut(flat_rows - np.int32(r0))
+        rem = cut(flat_rem)
+        packs.append((seg_rows, cut(flat_cols), cut(flat_vals), rem,
+                      plan_groups(seg_rows, rem, r1 - r0)))
+    return bounds, packs, slots, real
+
+
+def mesh_pack_sides(
+    u: np.ndarray, i: np.ndarray, r: np.ndarray, n_users: int, n_items: int,
+    R_u: int, R_i: int, L_u: int, L_i: int, chunk_slots: int, n_shards: int,
+) -> tuple:
+    """Both sides' ``mesh_pack_side`` at once: the user side on a worker
+    thread while this one packs the item side (numpy's sorts and scatters
+    release the interpreter lock)."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        user = pool.submit(mesh_pack_side, u, i, r, n_users, R_u, L_u, chunk_slots, n_shards)
+        item = mesh_pack_side(i, u, r, n_items, R_i, L_i, chunk_slots, n_shards)
+        return user.result(), item
+
+
+def upload_mesh_side(
+    bounds: np.ndarray, host_packs: list, devices: Sequence[torch.device],
+    n_sys_rows: int, n_cols: int, gram_rows: int,
+) -> MeshSide:
+    """``mesh_pack_side``'s bounds and packs, each pack uploaded to its
+    shard's device."""
+    packs = [
+        None if h is None else upload_pack(
+            *h[:4], h[4], int(bounds[s + 1] - bounds[s]), n_cols, devices[s]
+        )
+        for s, h in enumerate(host_packs)
+    ]
+    return MeshSide(list(devices), bounds, packs, n_sys_rows, gram_rows)
+
+
+def _first(F: Factors) -> torch.Tensor:
+    """A factor array, or a mesh's replica on its first device."""
+    return F if isinstance(F, torch.Tensor) else next(iter(F.values()))
+
+
+def _replicate(host: np.ndarray, devices: Sequence[torch.device]) -> Replicas:
+    """An owned copy of ``host`` on each device."""
+    return {d: _upload(host, d).clone() for d in devices}
+
+
+def _share_rows(F: Replicas, side: MeshSide) -> None:
+    """The all-gather: each shard's rows (the second-to-last axis) copied
+    from its device's replica to the other devices' (nothing to copy when
+    the mesh names one device)."""
+    if len(F) == 1:
+        return
+    for _, dev, r0, r1, _ in side.shards():
+        for d, dst in F.items():
+            if d != dev:
+                dst[..., r0:r1, :].copy_(F[dev][..., r0:r1, :])
+
+
+def _half_step_mesh(
+    X: Replicas,
+    Y: Replicas,
+    side: MeshSide,
+    lam: Replicas,
+    has_obs: Replicas,
+    y_gram_rows: int,
+    sums: Optional[torch.Tensor],
+    implicit: bool,
+    alpha: float,
+    solver: str,
+    block_size: int,
+    compute_dtype: str,
+) -> Replicas:
+    """One half-step: G per distinct device (K12a, implicit mode), then
+    each shard's rows as one device solves them, K1 + K2 into the shard's
+    range of a new array or K11a/K11b per column block in place, and the
+    rows shared. ``sums`` ([n_blocks, 2]) receives the telemetry's raw
+    sums: one shard's directly, several shards' summed in shard order."""
     subspace = solver == "subspace"
-    nb = X.shape[1] // block_size if subspace else 1
+    nb = X[next(iter(X))].shape[1] // block_size if subspace else 1
+    G = {d: _k12.gramian(F[:y_gram_rows]) if implicit else None for d, F in Y.items()}
+    X_next = X if subspace else {d: torch.empty_like(F) for d, F in X.items()}
+    one = len(side.packs) == 1
+    parts = []
+    for _, dev, r0, r1, pack in side.shards():
+        part = sums if one or sums is None else torch.zeros((nb, 2), dtype=torch.float32,
+                                                             device=dev)
+        if subspace:
+            _solve_side_subspace(X[dev][r0:r1], Y[dev], G[dev], pack, lam[dev][r0:r1],
+                                 has_obs[dev][r0:r1], alpha, implicit, block_size, part,
+                                 compute_dtype)
+        else:
+            _solve_side(X[dev][r0:r1], Y[dev], pack, lam[dev][r0:r1], has_obs[dev][r0:r1],
+                        None if part is None else part[0], G[dev], implicit, alpha,
+                        compute_dtype, out=X_next[dev][r0:r1])
+        parts.append(part)
+    _share_rows(X_next, side)
+    if sums is not None and not one:
+        sums.copy_(_k12.ordered_sum([p.to(sums.device) for p in parts]))
+    return X_next
+
+
+def _objective_mesh(
+    X: Replicas, Y: Replicas, user: MeshSide, item: MeshSide, user_lam: Replicas,
+    item_lam: Replicas, alpha: float, out: torch.Tensor, compute_dtype: str,
+) -> None:
+    """K12b into ``out``: on one device its two launches; on a mesh, shard
+    s's partials over its user segments, its user rows and its item rows,
+    then one finish on the first device with Gx, Gy from K12a there."""
+    d0 = out.device
+    if len(user.packs) == 1:
+        _k12.implicit_objective(X[d0], Y[d0], user.packs[0], user_lam[d0], item_lam[d0], alpha,
+                                out=out, compute_dtype=compute_dtype)
+        return
+    parts = []
+    for s, dev in enumerate(user.devices):
+        r0, r1 = int(user.bounds[s]), int(user.bounds[s + 1])
+        i0, i1 = int(item.bounds[s]), int(item.bounds[s + 1])
+        if r1 > r0 or i1 > i0:
+            parts.append((X[dev][r0:r1], Y[dev], user.packs[s], user_lam[dev][r0:r1],
+                          Y[dev][i0:i1], item_lam[dev][i0:i1]))
+    Gx = _k12.gramian(X[d0][: user.gram_rows])
+    Gy = _k12.gramian(Y[d0][: item.gram_rows])
+    _k12.implicit_objective_shards(parts, Gx, Gy, alpha, out, compute_dtype)
+
+
+def _run_iterations_mesh(
+    X: Replicas,
+    Y: Replicas,
+    user: MeshSide,
+    item: MeshSide,
+    user_lam: Replicas,
+    item_lam: Replicas,
+    user_has_obs: Replicas,
+    item_has_obs: Replicas,
+    n_iters: int,
+    telemetry: bool = True,
+    implicit: bool = False,
+    alpha: float = 1.0,
+    solver: str = "exact",
+    block_size: int = 0,
+    compute_dtype: str = "float32",
+) -> Tuple[Replicas, Replicas, Optional[torch.Tensor]]:
+    """The training loop (the reference's fused program :837; on a
+    row-sharded mesh, K6s, with its ``rep_sharding``/``row_sharding``):
+    ``n_iters`` sweeps of (user half-step, item half-step,
+    ``_half_step_mesh``) with no host sync. The exact solver launches K1
+    and K2 per shard and half-step; ``solver="subspace"`` runs
+    ``_solve_side_subspace`` (K11a and K11b per column block of
+    ``block_size``), updating X and Y in place. K1, K11a and K12b compute
+    in ``compute_dtype``. In ``implicit`` mode each half-step first forms
+    G, the Gramian of the counter side's current padded factors (K12a), as
+    the reference's ``half`` does (:883). With ``telemetry``, sweep i
+    writes raw sums into its rows of ``tel`` ([TELEMETRY_SLOTS x
+    rows_per_sweep, TELEMETRY_COLS] on the first device: Σ ΔX², Σ X², Σ
+    ΔY², Σ Y², objective; one row per sweep, or per block with the
+    subspace solver, whose Σ X², Σ Y² and objective go into the sweep's
+    last row) and, in implicit mode, K12b (``_objective_mesh``) writes the
+    objective at the sweep's factors; ``_telemetry_rows`` turns them into
+    the reference's rows."""
+    d0 = next(iter(X))
+    subspace = solver == "subspace"
+    nb = X[d0].shape[1] // block_size if subspace else 1
     tel = (
-        torch.zeros((TELEMETRY_SLOTS * nb, TELEMETRY_COLS), dtype=torch.float32, device=X.device)
+        torch.zeros((TELEMETRY_SLOTS * nb, TELEMETRY_COLS), dtype=torch.float32, device=d0)
         if telemetry else None
     )
     for it in range(n_iters):
-        rec = tel is not None and it < TELEMETRY_SLOTS
-        rows = tel[it * nb : (it + 1) * nb] if rec else None
-        G = _k12.gramian(Y) if implicit else None
-        if subspace:
-            X = _solve_side_subspace(X, Y, G, user_pack, user_lam, user_has_obs, alpha,
-                                     implicit, block_size, None if rows is None else rows[:, 0:2],
-                                     compute_dtype)
-        else:
-            X = _solve_side(X, Y, user_pack, user_lam, user_has_obs,
-                            rows[0, 0:2] if rec else None, G, implicit, alpha, compute_dtype)
-        G = _k12.gramian(X) if implicit else None
-        if subspace:
-            Y = _solve_side_subspace(Y, X, G, item_pack, item_lam, item_has_obs, alpha,
-                                     implicit, block_size, None if rows is None else rows[:, 2:4],
-                                     compute_dtype)
-        else:
-            Y = _solve_side(Y, X, item_pack, item_lam, item_has_obs,
-                            rows[0, 2:4] if rec else None, G, implicit, alpha, compute_dtype)
-        if rec and implicit:
-            _k12.implicit_objective(
-                X, Y, user_pack, user_lam, item_lam, alpha, out=rows[nb - 1, 4:5],
-                compute_dtype=compute_dtype,
-            )
+        rows = tel[it * nb : (it + 1) * nb] if tel is not None and it < TELEMETRY_SLOTS else None
+        X = _half_step_mesh(X, Y, user, user_lam, user_has_obs, item.gram_rows,
+                            None if rows is None else rows[:, 0:2], implicit, alpha, solver,
+                            block_size, compute_dtype)
+        Y = _half_step_mesh(Y, X, item, item_lam, item_has_obs, user.gram_rows,
+                            None if rows is None else rows[:, 2:4], implicit, alpha, solver,
+                            block_size, compute_dtype)
+        if rows is not None and implicit:
+            _objective_mesh(X, Y, user, item, user_lam, item_lam, alpha, rows[nb - 1, 4:5],
+                            compute_dtype)
     return X, Y, tel
 
 
@@ -962,15 +1206,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _sync_factors(F: Factors) -> None:
+    for t in ([F] if isinstance(F, torch.Tensor) else F.values()):
+        _sync(t.device)
+
+
 def _train_packed(
-    user_pack: SegmentPack,
-    item_pack: SegmentPack,
-    X: torch.Tensor,
-    Y: torch.Tensor,
-    user_lam: torch.Tensor,
-    item_lam: torch.Tensor,
-    user_has_obs: torch.Tensor,
-    item_has_obs: torch.Tensor,
+    user_pack: Union[SegmentPack, MeshSide],
+    item_pack: Union[SegmentPack, MeshSide],
+    X: Factors,
+    Y: Factors,
+    user_lam: Factors,
+    item_lam: Factors,
+    user_has_obs: Factors,
+    item_has_obs: Factors,
     *,
     config: ALSConfig,
     n_users: int,
@@ -997,8 +1246,16 @@ def _train_packed(
     (``_run_fingerprint`` of ``fp_material()``, the config and the shapes)
     matches the latest save resumes from it, and any other starts fresh.
     Every sum of the loop has a fixed order, so a resumed run equals an
-    uninterrupted one bit for bit."""
-    device = X.device
+    uninterrupted one bit for bit.
+
+    On a mesh the packs are ``MeshSide``s and the factor state holds one
+    replica per distinct device (``Replicas``): the loop is
+    ``_run_iterations_mesh``, a checkpoint saves the first device's
+    replicas and a resumed run places them on every device, and the run's
+    identity hashes the shard count, so one device never resumes a mesh's
+    checkpoint, nor the reverse (the reference's :2145-2150, :2173-2174)."""
+    mesh = isinstance(user_pack, MeshSide)
+    device = _first(X).device
     implicit = config.implicit_prefs
     kernels = _loop_kernels(config)
     if compile_wait is not None:
@@ -1020,7 +1277,8 @@ def _train_packed(
     fingerprint = None
     if ckpt.enabled:
         fingerprint = _run_fingerprint(
-            fp_material, config, n_users, n_items, X.shape[0], Y.shape[0]
+            fp_material, config, n_users, n_items, _first(X).shape[0], _first(Y).shape[0],
+            len(user_pack.devices) if mesh else 1,
         )
         state = ckpt.restore_latest()
         if state is not None:
@@ -1039,14 +1297,18 @@ def _train_packed(
                 )
             else:
                 start = saved
-                X = _upload(state["X"], device).clone()
-                Y = _upload(state["Y"], device).clone()
+                if mesh:
+                    X, Y = _replicate(state["X"], list(X)), _replicate(state["Y"], list(Y))
+                else:
+                    X = _upload(state["X"], device).clone()
+                    Y = _upload(state["Y"], device).clone()
                 logger.info("resuming ALS from iteration %d", start)
         if timings is not None:
             timings["checkpoint_resumed_at"] = start
     # the whole loop in one chunk without checkpoints, else chunks of the
     # cadence with a save at each chunk's end
     step = every if ckpt.enabled else max(1, config.iterations)
+    loop = _run_iterations_mesh if mesh else _run_iterations
     tel_parts = []
     if timings is not None:
         timings["device_loop_s"] = 0.0
@@ -1055,7 +1317,7 @@ def _train_packed(
         while it < config.iterations:
             chunk = min(step, config.iterations - it)
             t = time.perf_counter()
-            X, Y, tel = _run_iterations(
+            X, Y, tel = loop(
                 X, Y, user_pack, item_pack, user_lam, item_lam,
                 user_has_obs, item_has_obs, chunk,
                 telemetry=config.sweep_telemetry, implicit=implicit,
@@ -1064,13 +1326,13 @@ def _train_packed(
             )
             tel_parts.append((tel, chunk))
             if timings is not None:
-                _sync(device)
+                _sync_factors(X)
                 timings["device_loop_s"] += time.perf_counter() - t
             it += chunk
             if ckpt.enabled:
                 t = time.perf_counter()
                 ckpt.maybe_save(it, {
-                    "iteration": it, "X": X.cpu().numpy(), "Y": Y.cpu().numpy(),
+                    "iteration": it, "X": _first(X).cpu().numpy(), "Y": _first(Y).cpu().numpy(),
                     "fingerprint": fingerprint,
                 }, force=True)
                 if timings is not None:
@@ -1082,12 +1344,12 @@ def _train_packed(
     if factor_slots_out is not None:
         factor_slots_out["X"] = X
         factor_slots_out["Y"] = Y
-    X_host = X.cpu().numpy()
-    Y_host = Y.cpu().numpy()
+    X_host = _first(X).cpu().numpy()
+    Y_host = _first(Y).cpu().numpy()
     if tel_parts and config.sweep_telemetry and timings is not None:
         rps = config.telemetry_rows_per_sweep
         rows = np.concatenate([
-            _telemetry_rows(tel, n, X.numel(), Y.numel(), rps) for tel, n in tel_parts
+            _telemetry_rows(tel, n, X_host.size, Y_host.size, rps) for tel, n in tel_parts
         ])
         # the objective only means something in implicit mode; explicit
         # rows keep their four keys, as the reference's (:2276-2299)
@@ -1109,16 +1371,17 @@ def _train_packed(
 
 def _run_fingerprint(
     fp_material, config: ALSConfig, n_users: int, n_items: int, rows_x: int, rows_y: int,
+    n_shards: int = 1,
 ) -> np.ndarray:
     """A run's identity, the reference's (:2167-2180): the SHA-256 of the
     data (``fp_material()``), the config with ``iterations=0`` (so a run
-    in another dtype, reg or solver never resumes this one), the id counts
-    and the padded row counts, as 32 uint8. Equal identities may resume
-    each other's checkpoints."""
+    in another dtype, reg or solver never resumes this one), the id
+    counts, the shard count and the padded row counts, as 32 uint8. Equal
+    identities may resume each other's checkpoints."""
     digest = hashlib.sha256(
         fp_material()
         + repr(dataclasses.replace(config, iterations=0)).encode()
-        + f"{n_users},{n_items},1".encode()
+        + f"{n_users},{n_items},{n_shards}".encode()
         + f";rows={rows_x},{rows_y}".encode()
     ).digest()
     return np.frombuffer(digest, dtype=np.uint8)
@@ -1373,13 +1636,17 @@ def train_als(
     timings: Optional[dict] = None,
 ) -> ALSModelArrays:
     """Train ALS factors from COO ratings on ``device`` (CUDA unless the
-    CPU is asked for): the reference's ``train_als`` with ``mesh=None``,
-    the wire route (``build_host_wire``, then ``train_from_wire``).
+    CPU is asked for): the reference's ``train_als``. Without a ``mesh``
+    (or on a mesh of one shard, on its device) the wire route
+    (``build_host_wire``, then ``train_from_wire``); on a 1-D ``data``
+    ``Mesh`` of several shards the mesh route (``_train_als_mesh``), whose
+    factors equal the wire route's bit for bit. A mesh with other axes
+    raises ``ValueError``.
 
     With ``checkpoint_dir`` the factors are saved every
     ``checkpoint_every`` sweeps, and a run of the same ratings and config
     resumes from the latest save (the run's identity hashes the COO as
-    given, as the reference's :1785).
+    given, as the reference's :1785, and the shard count).
 
     ``timings``, if given, receives the reference's phase breakdown:
     ``pack_s`` (the host wire), ``device_put_s`` (its upload, K4
@@ -1388,9 +1655,14 @@ def train_als(
     (segment-grid slots of both sides) and ``sweep_telemetry`` (per sweep
     ``dx``, ``dy``, ``x_rms``, ``y_rms``, and ``objective`` in implicit
     mode), and with ``checkpoint_dir`` ``checkpoint_resumed_at`` (the
-    sweep the run started from) and ``checkpoint_save_s``."""
-    _check_ported(config, mesh)
-    dev = resolve_device(device)
+    sweep the run started from) and ``checkpoint_save_s``. On a mesh
+    ``pack_s`` is the host packing and the shards' plans, ``device_put_s``
+    their upload with the factor state, and ``shard_rows``,
+    ``shard_slots`` and ``shard_ratings`` give each side's rows, segment
+    slots (what the split balances) and observations per shard."""
+    mesh, device = collapse_mesh(mesh, device)
+    _check_ported(config)
+    dev = resolve_device(device) if mesh is None else None
     t = time.perf_counter()
     user_idx = np.asarray(user_idx, np.int32)
     item_idx = np.asarray(item_idx, np.int32)
@@ -1400,39 +1672,144 @@ def train_als(
         or item_idx.min() < 0 or item_idx.max() >= n_items
     ):
         raise ValueError("user or item ids out of range")
-    wire = build_host_wire(user_idx, item_idx, ratings_f, n_users, n_items, config)
-    if timings is not None:
-        timings["pack_s"] = time.perf_counter() - t
 
     def fp_material() -> bytes:
         return user_idx.tobytes() + item_idx.tobytes() + ratings_f.tobytes()
 
+    if mesh is not None:
+        return _train_als_mesh(
+            user_idx, item_idx, ratings_f, n_users, n_items, config, mesh,
+            checkpoint_dir, checkpoint_every, timings, fp_material, t,
+        )
+    wire = build_host_wire(user_idx, item_idx, ratings_f, n_users, n_items, config)
+    if timings is not None:
+        timings["pack_s"] = time.perf_counter() - t
     return train_from_wire(
         wire, config, device=dev, timings=timings, checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every, _fp_material=fp_material,
     )
 
 
+def _train_als_mesh(
+    user_idx: np.ndarray,
+    item_idx: np.ndarray,
+    ratings: np.ndarray,
+    n_users: int,
+    n_items: int,
+    config: ALSConfig,
+    mesh,
+    checkpoint_dir: Optional[str],
+    checkpoint_every: int,
+    timings: Optional[dict],
+    fp_material,
+    t_start: float,
+) -> ALSModelArrays:
+    """The mesh route (the reference's :1817-1897, K6s): both sides packed
+    on the host from the COO stably sorted by user (the wire's order, so
+    each item row's observations come in the order K5b gives one device),
+    cut into row shards (``mesh_pack_side``), each shard's pack uploaded to
+    its device, the factor state replicated once per distinct device, then
+    ``_train_packed``'s chunks and checkpoints over
+    ``_run_iterations_mesh``, and one fetch of the first replica."""
+    devices = list(mesh.devices)
+    n_shards = len(devices)
+    distinct = mesh.distinct_devices()
+    counts_u = np.bincount(user_idx, minlength=n_users).astype(np.int32)
+    counts_i = np.bincount(item_idx, minlength=n_items).astype(np.int32)
+    L_u = auto_segment_length(user_idx, n_users, config.segment_length, counts=counts_u)
+    L_i = auto_segment_length(item_idx, n_items, config.segment_length, counts=counts_i)
+    order = np.argsort(user_idx, kind="stable")
+    u, i, r = user_idx[order], item_idx[order], ratings[order]
+    R_u, R_i = _padded_rows(n_users, n_shards), _padded_rows(n_items, n_shards)
+    host_u, host_i = mesh_pack_sides(u, i, r, n_users, n_items, R_u, R_i, L_u, L_i,
+                                     config.chunk_slots, n_shards)
+    if timings is not None:
+        timings["pack_s"] = time.perf_counter() - t_start
+    t = time.perf_counter()
+    user = upload_mesh_side(*host_u[:2], devices, R_u, R_i, _padded_rows(n_users, 1))
+    item = upload_mesh_side(*host_i[:2], devices, R_i, R_u, _padded_rows(n_items, 1))
+    X0, Y0 = _factor_init_host(n_users, n_items, config, n_shards)
+    user_lam, user_obs = _lam_obs_host(counts_u, n_users, R_u, config)
+    item_lam, item_obs = _lam_obs_host(counts_i, n_items, R_i, config)
+    state = [_replicate(a, distinct) for a in (X0, Y0, user_lam, item_lam)]
+    state += [{d: torch.from_numpy(a).to(d) for d in distinct} for a in (user_obs, item_obs)]
+    if timings is not None:
+        for d in distinct:
+            _sync(d)
+        timings["device_put_s"] = time.perf_counter() - t
+        timings["padded_slots"] = sum(
+            p.cols.numel() for side in (user, item) for p in side.packs if p is not None
+        )
+        timings["shard_rows"] = {"user": np.diff(user.bounds).tolist(),
+                                 "item": np.diff(item.bounds).tolist()}
+        timings["shard_slots"] = {"user": host_u[2], "item": host_i[2]}
+        timings["shard_ratings"] = {"user": host_u[3], "item": host_i[3]}
+    return _train_packed(
+        user, item, *state,
+        config=config, n_users=n_users, n_items=n_items, timings=timings,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        fp_material=fp_material,
+    )
+
+
 # --- the regularizer grid (evaluation) ---
 
 
-def _solve_side_grid(
-    X_prev: torch.Tensor,
-    Y: torch.Tensor,
-    pack: SegmentPack,
-    lam: torch.Tensor,
-    has_obs: torch.Tensor,
+def _half_step_grid_mesh(
+    X: Replicas,
+    Y: Replicas,
+    side: MeshSide,
+    lam: Replicas,
+    has_obs: Replicas,
+    y_gram_rows: int,
     implicit: bool,
     alpha: float,
-    compute_dtype: str = "float32",
-) -> torch.Tensor:
+    compute_dtype: str,
+) -> Replicas:
     """One half-step of every variant: in implicit mode first each
-    variant's Gramian of its counter-side factors (K12a, one launch per
-    variant, as the reference vmaps ``_gramian``), then K13a (in
-    ``compute_dtype``) and K13b once for all variants."""
-    G = torch.stack([_k12.gramian(Y[v]) for v in range(Y.shape[0])]) if implicit else None
-    A, b = _k13.normal_eq_variants(Y, pack, implicit, alpha, compute_dtype)
-    return _k13.spd_solve_variants(A, b, lam, has_obs, X_prev, G)
+    variant's Gramian of its counter-side factors per distinct device
+    (K12a, one launch per variant, as the reference vmaps ``_gramian``,
+    over the rows one device pads to), then per row shard one K13a (in
+    ``compute_dtype``) and one K13b into the shard's rows of a new
+    [V, R, k] array for all variants, and the rows shared."""
+    G = {
+        d: torch.stack([_k12.gramian(F[v, :y_gram_rows]) for v in range(F.shape[0])])
+        if implicit else None
+        for d, F in Y.items()
+    }
+    X_next = {d: torch.empty_like(F) for d, F in X.items()}
+    for _, dev, r0, _, pack in side.shards():
+        A, b = _k13.normal_eq_variants(Y[dev], pack, implicit, alpha, compute_dtype)
+        _k13.spd_solve_variants(A, b, lam[dev], has_obs[dev], X[dev], G[dev],
+                                out=X_next[dev], row0=r0)
+    _share_rows(X_next, side)
+    return X_next
+
+
+def _run_iterations_grid_mesh(
+    X: Replicas,  # [V, R_u, k] per-variant factors, one replica per device
+    Y: Replicas,  # [V, R_i, k]
+    user: MeshSide,  # shared by the variants: only λ differs
+    item: MeshSide,
+    user_lam: Replicas,  # [V, R_u]
+    item_lam: Replicas,  # [V, R_i]
+    user_has_obs: Replicas,  # [R_u]
+    item_has_obs: Replicas,  # [R_i]
+    alpha: float,
+    n_iters: int,
+    implicit: bool,
+    compute_dtype: str = "float32",
+) -> Tuple[Replicas, Replicas]:
+    """The grid's loop (the reference's :942; on a mesh, K13s, with its
+    shardings, :995-1013): per sweep the user half-step, then the item
+    half-step, every variant in the same launches. Each variant sweeps
+    exactly as a serial run of ``train_als`` with its regularizer does."""
+    for _ in range(n_iters):
+        X = _half_step_grid_mesh(X, Y, user, user_lam, user_has_obs, item.gram_rows,
+                                 implicit, alpha, compute_dtype)
+        Y = _half_step_grid_mesh(Y, X, item, item_lam, item_has_obs, user.gram_rows,
+                                 implicit, alpha, compute_dtype)
+    return X, Y
 
 
 def _run_iterations_grid(
@@ -1449,16 +1826,16 @@ def _run_iterations_grid(
     implicit: bool,
     compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The grid's loop (the reference's :942, its single-device form): per
-    sweep the user half-step, then the item half-step, every variant in
-    the same launches. Each variant sweeps exactly as a serial run of
-    ``train_als`` with its regularizer does."""
-    for _ in range(n_iters):
-        X = _solve_side_grid(X, Y, user_pack, user_lam, user_has_obs, implicit, alpha,
-                             compute_dtype)
-        Y = _solve_side_grid(Y, X, item_pack, item_lam, item_has_obs, implicit, alpha,
-                             compute_dtype)
-    return X, Y
+    """The grid's loop on one device (the reference's :942, its
+    single-device form): ``_run_iterations_grid_mesh`` over one shard that
+    holds every row."""
+    d = X.device
+    X, Y = _run_iterations_grid_mesh(
+        {d: X}, {d: Y}, MeshSide.whole(user_pack, d), MeshSide.whole(item_pack, d),
+        {d: user_lam}, {d: item_lam}, {d: user_has_obs}, {d: item_has_obs},
+        alpha, n_iters, implicit, compute_dtype,
+    )
+    return X[d], Y[d]
 
 
 def train_als_grid(
@@ -1475,23 +1852,31 @@ def train_als_grid(
 ) -> List[ALSModelArrays]:
     """Train ``len(regs)`` regularizer variants of one ALS configuration
     together on ``device`` (CUDA unless the CPU is asked for): the
-    reference's :1023 with ``mesh=None``. Everything but ``config.reg`` is
-    shared: both sides are packed once on the host, every variant starts
-    from the same seeded factors, and the loop launches K13a and K13b once
-    per half-step for all variants. Returns one ``ALSModelArrays`` per
-    regularizer, in order, matching ``train_als`` with ``reg = regs[v]``.
+    reference's :1023. Everything but ``config.reg`` is shared: both sides
+    are packed once on the host, every variant starts from the same seeded
+    factors, and the loop launches K13a and K13b once per half-step for all
+    variants. Returns one ``ALSModelArrays`` per regularizer, in order,
+    matching ``train_als`` with ``reg = regs[v]``. On a 1-D ``data``
+    ``Mesh`` of several shards (K13s) each side is cut into row shards as
+    ``train_als``'s mesh route cuts it and every shard launches K13a and
+    K13b on its rows; the factors equal one device's grid bit for bit. A
+    mesh of one shard is its device; a mesh with other axes raises
+    ``ValueError``.
 
-    ``timings``, if given, receives ``pack_s`` (the host packing),
-    ``device_put_s`` (the packs, plans and factor state to the device) and
-    ``device_loop_s``."""
+    ``timings``, if given, receives ``pack_s`` (the host packing and the
+    K13a plans), ``device_put_s`` (the packs and the factor state to the
+    device) and ``device_loop_s``."""
     if config.solver != "exact":
         raise ValueError(
             "train_als_grid supports solver='exact' only (the grid loop has "
             "no subspace variant); train subspace configs one at a time via "
             "train_als"
         )
-    _check_ported(config, mesh)
-    dev = resolve_device(device)
+    mesh, device = collapse_mesh(mesh, device)
+    _check_ported(config)
+    shard_devices = [resolve_device(device)] if mesh is None else list(mesh.devices)
+    devices = list(dict.fromkeys(shard_devices))
+    n_shards = len(shard_devices)
     k = config.rank
     n_variants = len(regs)
     if n_variants == 0:
@@ -1505,49 +1890,49 @@ def train_als_grid(
         or item_idx.min() < 0 or item_idx.max() >= n_items
     ):
         raise ValueError("user or item ids out of range")
-    user_side = pack_segments(
-        user_idx, item_idx, ratings, n_users,
-        auto_segment_length(user_idx, n_users, config.segment_length),
-        1, config.chunk_slots,
-    )
-    item_side = pack_segments(
-        item_idx, user_idx, ratings, n_items,
-        auto_segment_length(item_idx, n_items, config.segment_length),
-        1, config.chunk_slots,
-    )
-    r_u, r_i = _padded_rows(n_users, 1), _padded_rows(n_items, 1)
+    L_u = auto_segment_length(user_idx, n_users, config.segment_length)
+    L_i = auto_segment_length(item_idx, n_items, config.segment_length)
+    r_u, r_i = _padded_rows(n_users, n_shards), _padded_rows(n_items, n_shards)
+    host_u, host_i = mesh_pack_sides(user_idx, item_idx, ratings, n_users, n_items, r_u, r_i,
+                                     L_u, L_i, config.chunk_slots, n_shards)
     rng = np.random.default_rng(config.seed)
     Y0 = np.zeros((r_i, k), np.float32)
     Y0[:n_items] = np.abs(rng.standard_normal((n_items, k))) / math.sqrt(k)
 
-    def lam_obs(side: PackedSide, n_sys_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def lam_obs(idx: np.ndarray, n_real: int, n_sys_rows: int) -> Tuple[np.ndarray, np.ndarray]:
+        counts = np.bincount(idx, minlength=n_real).astype(np.int32)
         lams, obs = [], None
         for reg in regs:
             lam, obs = _lam_obs_host(
-                side.counts, side.n_rows, n_sys_rows,
-                dataclasses.replace(config, reg=float(reg)),
+                counts, n_real, n_sys_rows, dataclasses.replace(config, reg=float(reg))
             )
             lams.append(lam)
-        return torch.from_numpy(np.stack(lams)).to(dev), torch.from_numpy(obs).to(dev)
+        return np.stack(lams), obs
 
+    host_state = [
+        *lam_obs(user_idx, n_users, r_u), *lam_obs(item_idx, n_items, r_i),
+        np.zeros((n_variants, r_u, k), np.float32),
+        np.repeat(Y0[None], n_variants, axis=0),
+    ]
     if timings is not None:
         timings["pack_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    user_pack = device_pack(user_side, r_u, r_i, dev)
-    item_pack = device_pack(item_side, r_i, r_u, dev)
-    user_lam, user_obs = lam_obs(user_side, r_u)
-    item_lam, item_obs = lam_obs(item_side, r_i)
-    X = torch.zeros((n_variants, r_u, k), dtype=torch.float32, device=dev)
-    Y = _upload(Y0, dev).repeat(n_variants, 1, 1)
+    user = upload_mesh_side(*host_u[:2], shard_devices, r_u, r_i, _padded_rows(n_users, 1))
+    item = upload_mesh_side(*host_i[:2], shard_devices, r_i, r_u, _padded_rows(n_items, 1))
+    # the loop never writes these in place (each half-step makes a new X)
+    user_lam, user_obs, item_lam, item_obs, X, Y = (
+        {d: torch.from_numpy(a).to(d) for d in devices} for a in host_state
+    )
     if timings is not None:
-        _sync(dev)
+        for d in devices:
+            _sync(d)
         timings["device_put_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    X, Y = _run_iterations_grid(
-        X, Y, user_pack, item_pack, user_lam, item_lam, user_obs, item_obs,
-        config.alpha, config.iterations, config.implicit_prefs, config.compute_dtype,
+    X, Y = _run_iterations_grid_mesh(
+        X, Y, user, item, user_lam, item_lam, user_obs, item_obs, config.alpha,
+        config.iterations, config.implicit_prefs, config.compute_dtype,
     )
-    X_host, Y_host = X.cpu().numpy(), Y.cpu().numpy()
+    X_host, Y_host = _first(X).cpu().numpy(), _first(Y).cpu().numpy()
     if timings is not None:
         timings["device_loop_s"] = time.perf_counter() - t
     return [

@@ -15,6 +15,12 @@ _gramian`` (K12a) and ``:752 _implicit_objective`` (K12b), float32.
   never gate on its sign. With ``compute_dtype="bfloat16"`` (K12b-bf16,
   the reference's :779-780) the scores s are formed from x and y rounded
   to bfloat16; the weights, the Gramians and the regularizer stay float32.
+- ``implicit_objective_shards(parts, Gx, Gy, alpha, out)``: the same
+  objective on a row-sharded mesh (``ops/als.py``): each shard's partials
+  over its own user segments, its rows of X and its rows of Y (K12b's
+  first kernel, one launch a shard), then one finish on the first device
+  over every shard's partials. Only the cross-shard sums' order differs
+  from one device.
 
 Three forms of each, one function:
 - the hand-written CUDA kernels for Hopper, ``csrc/gramian.cu`` (its
@@ -47,6 +53,10 @@ _MAX_K = 1024
 LAUNCHES = LaunchCounts(
     "gramian", "gramian_plain", "implicit_objective", "implicit_objective_plain",
     "implicit_objective_bf16", "implicit_objective_bf16_plain",
+    # the mesh form: one partial launch a shard, one finish a call
+    "implicit_objective_shard", "implicit_objective_shard_plain",
+    "implicit_objective_shard_bf16", "implicit_objective_shard_bf16_plain",
+    "implicit_objective_finish", "implicit_objective_finish_plain",
 )
 
 
@@ -74,6 +84,26 @@ def implicit_objective_plain(
     bfloat16 compute) and sum the observed terms; then the two Gramians'
     inner product (``Gx``/``Gy`` when given, else formed here) and the
     regularizer."""
+    obs = observed_plain(X, Y, seg_rows, cols, vals, rem, alpha, compute_dtype)
+    Gx = gramian_plain(X) if Gx is None else Gx
+    Gy = gramian_plain(Y) if Gy is None else Gy
+    all_sq = (Gx * Gy).sum()
+    reg = (user_lam * (X * X).sum(-1)).sum() + (item_lam * (Y * Y).sum(-1)).sum()
+    return all_sq + obs + reg
+
+
+def observed_plain(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    seg_rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    rem: torch.Tensor,
+    alpha: float,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """The objective's observed terms, the twin's chunk loop: every slot
+    of the pack scored against its row's factors, weighed and summed."""
     bf16 = is_bf16(compute_dtype)
     Xc, Yc = in_cdt(X, bf16), in_cdt(Y, bf16)
     L = cols.shape[-1]
@@ -86,11 +116,7 @@ def implicit_objective_plain(
         p = (vals[c] > 0).to(torch.float32) * mask
         term = cw * s * s - 2.0 * (1.0 + cw) * p * s + (1.0 + cw) * p * p
         obs = obs + term.sum()
-    Gx = gramian_plain(X) if Gx is None else Gx
-    Gy = gramian_plain(Y) if Gy is None else Gy
-    all_sq = (Gx * Gy).sum()
-    reg = (user_lam * (X * X).sum(-1)).sum() + (item_lam * (Y * Y).sum(-1)).sum()
-    return all_sq + obs + reg
+    return obs
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -108,6 +134,19 @@ def _declare(lib: ctypes.CDLL) -> None:
         + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.implicit_objective_f32.restype = ctypes.c_int
+    lib.objective_blocks.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.objective_blocks.restype = None
+    lib.implicit_objective_partial_f32.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.implicit_objective_partial_f32.restype = ctypes.c_int
+    lib.implicit_objective_finish_f32.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    )
+    lib.implicit_objective_finish_f32.restype = ctypes.c_int
 
 
 _LIBRARY = native.Library(SOURCE, _declare, "gramian_error_string")
@@ -226,3 +265,123 @@ def implicit_objective(
     _LIBRARY.check(err, name)
     LAUNCHES.add(name)
     return target
+
+
+def implicit_objective_shards(
+    parts,
+    Gx: torch.Tensor,
+    Gy: torch.Tensor,
+    alpha: float,
+    out: torch.Tensor,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """K12b on a row-sharded mesh: the implicit objective into ``out`` (one
+    float32 element on the mesh's first device, where ``Gx`` = XᵀX and
+    ``Gy`` = YᵀY [k, k] lie). ``parts`` holds one ``(X_s, Y, user_pack_s,
+    user_lam_s, Y_s, item_lam_s)`` per shard on its device: the shard's
+    rows of X, the whole counter side Y, the shard's user pack (its rows
+    numbered from 0; None for a shard without user rows), their λ, and the
+    shard's rows of Y with theirs (the item side's row split). Each shard sums its observed terms and both
+    regularizer terms (one partial launch, ``implicit_objective_shard``);
+    one finish (``implicit_objective_finish``) adds every shard's, each
+    kind in one fixed order, to ⟨Gx, Gy⟩, as ``implicit_objective`` does.
+
+    CPU tensors go to the plain twins. CUDA tensors go to the kernels,
+    which must build and launch or this raises."""
+    if not parts:
+        raise ValueError("implicit_objective_shards needs at least one shard")
+    bf16 = is_bf16(compute_dtype)
+    name = "implicit_objective_shard_bf16" if bf16 else "implicit_objective_shard"
+    k = Gx.shape[0]
+    for X_s, Y, pack, lam_x, Y_s, lam_y in parts:
+        for label, F in (("X_s", X_s), ("Y", Y), ("Y_s", Y_s)):
+            _check_factors(label, F)
+            if F.shape[1] != k:
+                raise ValueError(f"{label} has rank {F.shape[1]}, the Gramians {k}")
+        if pack is None and X_s.shape[0]:
+            raise ValueError("a shard with user rows needs their pack")
+        if pack is not None and (pack.n_sys_rows != X_s.shape[0] or Y.shape[0] < pack.n_cols):
+            raise ValueError("a shard's pack does not match its rows of X and Y")
+        if tuple(lam_x.shape) != (X_s.shape[0],) or tuple(lam_y.shape) != (Y_s.shape[0],):
+            raise ValueError("a shard's λ must have one entry per row of X_s / Y_s")
+        tensors = [Y, Y_s, lam_x, lam_y] + (
+            [] if pack is None else [pack.seg_rows, pack.cols, pack.vals, pack.rem]
+        )
+        if any(t.device != X_s.device for t in tensors):
+            raise ValueError("each shard's tensors must be on one device")
+        if X_s.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+            raise ValueError("every tensor must be contiguous")
+    if out.numel() != 1 or out.dtype != torch.float32 or Gy.shape != Gx.shape:
+        raise ValueError("out must be one float32 element and Gx, Gy [k, k]")
+    if any(t.device != out.device for t in (Gx, Gy)):
+        raise ValueError("Gx, Gy and out must be on one device")
+    d0 = out.device
+    if d0.type == "cpu":
+        obs, reg_x, reg_y = [], [], []
+        for X_s, Y, pack, lam_x, Y_s, lam_y in parts:
+            LAUNCHES.add(f"{name}_plain")
+            obs.append(
+                torch.zeros((), dtype=torch.float32, device=d0) if pack is None
+                else observed_plain(X_s, Y, pack.seg_rows, pack.cols, pack.vals, pack.rem,
+                                    alpha, compute_dtype)
+            )
+            reg_x.append((lam_x * (X_s * X_s).sum(-1)).sum())
+            reg_y.append((lam_y * (Y_s * Y_s).sum(-1)).sum())
+        LAUNCHES.add("implicit_objective_finish_plain")
+        total = ((Gx * Gy).sum() + ordered_sum(obs)) + (ordered_sum(reg_x) + ordered_sum(reg_y))
+        out.copy_(total.reshape(out.shape))
+        return out
+    lib = load_library()
+    blocks = []
+    for X_s, _, pack, _, Y_s, _ in parts:
+        b3 = (ctypes.c_int * 3)()
+        S = 0 if pack is None else pack.cols.shape[0] * pack.cols.shape[1]
+        lib.objective_blocks(S, X_s.shape[0], Y_s.shape[0], b3)
+        blocks.append(tuple(b3))
+    totals = [sum(b[j] for b in blocks) for j in range(3)]
+    partials = torch.empty(sum(totals), dtype=torch.float32, device=d0)
+    kinds = [partials[: totals[0]], partials[totals[0] : totals[0] + totals[1]],
+             partials[totals[0] + totals[1] :]]
+    at = [0, 0, 0]
+    for (X_s, Y, pack, lam_x, Y_s, lam_y), b3 in zip(parts, blocks):
+        dst = [kinds[j][at[j] : at[j] + b3[j]] for j in range(3)]
+        dev = X_s.device
+        # a shard on another card writes its partials there, then copies them
+        local = dst if dev == d0 else [torch.empty(n, dtype=torch.float32, device=dev) for n in b3]
+        # a shard without user rows scores no segment (S = 0: the pack's
+        # pointers are never read)
+        seg = (None,) * 4 if pack is None else (
+            pack.seg_rows.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(),
+            pack.rem.data_ptr())
+        S, L = (0, 1) if pack is None else (pack.cols.shape[0] * pack.cols.shape[1],
+                                            pack.cols.shape[2])
+        with torch.cuda.device(dev):
+            err = lib.implicit_objective_partial_f32(
+                X_s.data_ptr(), X_s.shape[0], Y.data_ptr(), Y_s.data_ptr(), Y_s.shape[0],
+                *seg, S, L, k,
+                float(alpha), lam_x.data_ptr(), lam_y.data_ptr(),
+                local[0].data_ptr(), local[1].data_ptr(), local[2].data_ptr(),
+                int(bf16), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _LIBRARY.check(err, name)
+        LAUNCHES.add(name)
+        if dev != d0:
+            for d, l in zip(dst, local):
+                d.copy_(l)
+        at = [a + n for a, n in zip(at, b3)]
+    with torch.cuda.device(d0):
+        err = lib.implicit_objective_finish_f32(
+            partials.data_ptr(), totals[0], totals[1], totals[2], Gx.data_ptr(),
+            Gy.data_ptr(), k, out.data_ptr(), torch.cuda.current_stream(d0).cuda_stream,
+        )
+    _LIBRARY.check(err, "implicit_objective_finish")
+    LAUNCHES.add("implicit_objective_finish")
+    return out
+
+
+def ordered_sum(values) -> torch.Tensor:
+    """The shards' values summed in shard order."""
+    total = values[0]
+    for v in values[1:]:
+        total = total + v
+    return total

@@ -12,7 +12,11 @@ pack.
 - ``spd_solve_variants`` (K13b): X [V, R, k], variant v's systems solved
   with its own λ row ``lam[v]`` and, in implicit mode, its own Gramian
   ``G[v]``; rows without observations (``has_obs``, shared) keep
-  ``X_prev[v]``. No telemetry: the reference's grid keeps none.
+  ``X_prev[v]``. No telemetry: the reference's grid keeps none. On a
+  row-sharded mesh (``ops/als.py train_als_grid(mesh=)``, K13s) a shard
+  passes its own systems [V, R_s, ·], the whole arrays ``lam``,
+  ``has_obs``, ``X_prev`` and ``out``, and its first row ``row0``: the
+  kernel solves rows ``row0 .. row0 + R_s`` of them where they lie.
 
 Three forms, one function each:
 - the hand-written CUDA kernels for Hopper, ``csrc/grid.cu`` (its header
@@ -92,7 +96,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.normal_eq_variants_f32.restype = ctypes.c_int
     lib.spd_solve_variants_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p
+        ctypes.c_longlong, ctypes.c_void_p
     ]
     lib.spd_solve_variants_f32.restype = ctypes.c_int
 
@@ -162,27 +166,44 @@ def spd_solve_variants(
     has_obs: torch.Tensor,
     X_prev: torch.Tensor,
     G: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """K13b on A [V, R, k, k], b [V, R, k], lam [V, R] float32, has_obs [R]
-    bool, X_prev [V, R, k] float32 and an optional G [V, k, k] float32 ->
-    X [V, R, k]; see the module docstring.
+    """K13b on A [V, R, k, k], b [V, R, k], lam [V, N] float32, has_obs [N]
+    bool, X_prev [V, N, k] float32 and an optional G [V, k, k] float32,
+    solving rows ``row0 .. row0 + R`` of the N-row arrays: written into
+    ``out`` [V, N, k] when given (its other rows untouched), else into a
+    new X [V, R, k] (which needs N = R, ``row0`` 0); see the module
+    docstring.
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
     if A.dim() != 4 or A.shape[0] < 1:
         raise ValueError(f"A must be [V, R, k, k] with V >= 1, got {tuple(A.shape)}")
     V, R, k = A.shape[0], A.shape[1], A.shape[2]
-    for name, t, shape in (("b", b, (V, R, k)), ("lam", lam, (V, R)),
-                           ("X_prev", X_prev, (V, R, k))):
+    N = X_prev.shape[1] if X_prev.dim() == 3 else -1
+    r1 = row0 + R
+    if row0 < 0 or r1 > N or (out is None and (row0 != 0 or N != R)):
+        raise ValueError(f"rows [{row0}, {r1}) of {N} need out= unless they are all of them")
+    for name, t, shape in (("b", b, (V, R, k)), ("lam", lam, (V, N)),
+                           ("X_prev", X_prev, (V, N, k))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if G is not None and (tuple(G.shape) != (V, k, k) or G.dtype != torch.float32):
         raise ValueError(f"G must be a [{V}, {k}, {k}] float32 tensor")
     # K2's checks on variant 0 cover the dtypes, has_obs and the devices
-    _k2._check(A[0], b[0], lam[0], has_obs, X_prev[0], None, None if G is None else G[0])
+    _k2._check(A[0], b[0], lam[0, row0:r1], has_obs[row0:r1], X_prev[0, row0:r1], None,
+               None if G is None else G[0])
+    _k2.check_solve_out(out, X_prev)
     if A.device.type == "cpu":
         LAUNCHES.add("spd_solve_variants_plain")
-        return spd_solve_variants_plain(A, b, lam, has_obs, X_prev, G)
+        X = spd_solve_variants_plain(
+            A, b, lam[:, row0:r1], has_obs[row0:r1], X_prev[:, row0:r1], G
+        )
+        if out is None:
+            return X
+        out[:, row0:r1] = X
+        return out
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     if not all(t.is_contiguous() for t in (A, b, lam, has_obs, X_prev)) or (
@@ -190,12 +211,13 @@ def spd_solve_variants(
     ):
         raise ValueError("every tensor must be contiguous")
     lib = load_library()
-    X = torch.empty((V, R, k), dtype=torch.float32, device=A.device)
+    X = out if out is not None else torch.empty((V, R, k), dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):
         err = lib.spd_solve_variants_f32(
             A.data_ptr(), G.data_ptr() if G is not None else None, b.data_ptr(),
-            lam.data_ptr(), has_obs.data_ptr(), X_prev.data_ptr(), X.data_ptr(),
-            R, k, V, _stream(A.device),
+            lam[0, row0:].data_ptr(), has_obs[row0:].data_ptr(),
+            X_prev[0, row0:].data_ptr(), X[0, row0:].data_ptr(),
+            R, k, V, N, _stream(A.device),
         )
     _LIBRARY.check(err, "spd_solve_variants")
     LAUNCHES.add("spd_solve_variants")

@@ -264,7 +264,7 @@ def masked_topn_packed(
     m = int(m)
     precision = _check_topn_args(q, Y, scale, rn, bits, m, normalize)
     off = check_offset(id_offset, Y.shape[0])
-    check_out(out, q.shape[0], 2 * m, q.device)
+    check_out(out, (q.shape[0], 2 * m), q.device)
     if q.device.type == "cpu":
         LAUNCHES.add("masked_topn_plain")
         res = masked_topn_plain(q, Y, scale, rn, bits, m, positive_only, normalize, off)

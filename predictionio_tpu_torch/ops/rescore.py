@@ -133,7 +133,7 @@ def rescore_topn(
     n_out = int(n_out)
     precision = _check(q, Y, scale, rn, stage1, n_out, normalize)
     off = check_offset(id_offset, Y.shape[0])
-    check_out(out, q.shape[0], 2 * n_out, q.device)
+    check_out(out, (q.shape[0], 2 * n_out), q.device)
     if q.device.type == "cpu":
         LAUNCHES.add("rescore_topn_plain")
         res = rescore_topn_plain(q, Y, scale, rn, stage1, n_out, positive_only, normalize, off)

@@ -10,7 +10,9 @@ feedback's shared Gramian YᵀY, the reference's :630-632; none means
 zero). Given a
 2-float ``sums`` tensor it also writes ``[Σ (X − X_prev)², Σ X²]`` there,
 the sweep telemetry's raw sums (the reference's RMS over the padded
-arrays).
+arrays). Given ``out`` ([R, k] float32, not overlapping ``X_prev``), X is
+written there: a row shard of a mesh (``ops/als.py``) solves its rows into
+its range of the next factor array.
 
 Three forms, one function:
 - the hand-written CUDA kernel for Hopper, ``csrc/spd_solve.cu`` (its
@@ -33,6 +35,7 @@ import torch
 
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
+from predictionio_tpu_torch.ops.topn import check_out
 
 SOURCE = "spd_solve.cu"
 _MAX_K = 200  # the largest k whose per-warp matrix fits in shared memory
@@ -107,6 +110,25 @@ def load_library() -> ctypes.CDLL:
     return _LIBRARY.get()
 
 
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors' memory ranges meet."""
+    if a.device != b.device or a.numel() == 0 or b.numel() == 0:
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    a1 = a0 + a.numel() * a.element_size()
+    b1 = b0 + b.numel() * b.element_size()
+    return a0 < b1 and b0 < a1
+
+
+def check_solve_out(out: Optional[torch.Tensor], X_prev: torch.Tensor) -> None:
+    """``out`` must be a contiguous float32 tensor of ``X_prev``'s shape on
+    its device whose memory does not meet ``X_prev``'s (the kernels read
+    X_prev while they write X)."""
+    check_out(out, X_prev.shape, X_prev.device)
+    if out is not None and overlaps(out, X_prev):
+        raise ValueError("out must not overlap X_prev")
+
+
 def _check(A, b, lam, has_obs, X_prev, sums, G) -> None:
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"A must be [R, k, k], got {tuple(A.shape)}")
@@ -141,20 +163,25 @@ def spd_solve(
     X_prev: torch.Tensor,
     sums: Optional[torch.Tensor] = None,
     G: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2 on A [R, k, k], b [R, k], lam [R] float32, has_obs [R] bool,
-    X_prev [R, k] float32 and an optional G [k, k] float32 -> X [R, k]; see
-    the module docstring.
+    X_prev [R, k] float32 and an optional G [k, k] float32 -> X [R, k]
+    (``out`` when given); see the module docstring.
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
     _check(A, b, lam, has_obs, X_prev, sums, G)
+    check_solve_out(out, X_prev)
     if A.device.type == "cpu":
         LAUNCHES.add("spd_solve_plain")
         X, s = spd_solve_plain(A, b, lam, has_obs, X_prev, G)
         if sums is not None:
             sums.copy_(s)
-        return X
+        if out is None:
+            return X
+        out.copy_(X)
+        return out
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     if not all(
@@ -163,7 +190,7 @@ def spd_solve(
         raise ValueError("every tensor must be contiguous")
     lib = load_library()
     R, k = A.shape[0], A.shape[1]
-    X = torch.empty((R, k), dtype=torch.float32, device=A.device)
+    X = out if out is not None else torch.empty((R, k), dtype=torch.float32, device=A.device)
     partials = None
     if sums is not None:
         partials = torch.empty(

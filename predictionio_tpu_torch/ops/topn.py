@@ -105,14 +105,14 @@ def _check(q: torch.Tensor, Y: torch.Tensor, n: int) -> None:
         raise ValueError(f"q is on {q.device} but Y is on {Y.device}")
 
 
-def check_out(out: Optional[torch.Tensor], B: int, width: int, device) -> None:
-    """A caller's output tensor must be a contiguous float32 [B, width]
-    on the inputs' device."""
+def check_out(out: Optional[torch.Tensor], shape, device) -> None:
+    """A caller's output tensor must be a contiguous float32 tensor of
+    ``shape`` on the inputs' device."""
     if out is not None and (
-        out.dtype != torch.float32 or tuple(out.shape) != (B, width)
+        out.dtype != torch.float32 or tuple(out.shape) != tuple(shape)
         or out.device != device or not out.is_contiguous()
     ):
-        raise ValueError(f"out must be a contiguous float32 [{B}, {width}] on {device}")
+        raise ValueError(f"out must be a contiguous float32 {list(shape)} on {device}")
 
 
 def topn_packed(
@@ -126,7 +126,7 @@ def topn_packed(
     must build and launch or this raises."""
     n = int(n)
     _check(q, Y, n)
-    check_out(out, q.shape[0], 2 * n, q.device)
+    check_out(out, (q.shape[0], 2 * n), q.device)
     if q.device.type == "cpu":
         LAUNCHES.add("topn_packed_plain")
         res = topn_packed_plain(q, Y, n)

@@ -1,7 +1,7 @@
 """Device meshes for the port (the counterpart of
 ``predictionio_tpu/parallel``): one process drives every device of a
 ``Mesh``, whose shards may repeat a device. The multi-process half
-(``distributed.py``) comes with the sharded training programs."""
+(``distributed.py``) comes with ``pio train --coordinator``."""
 
 from predictionio_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -12,6 +12,8 @@ from predictionio_tpu_torch.parallel.mesh import (
     make_mesh,
     pad_to_multiple,
     shard_batch,
+    split_rows,
+    split_target,
 )
 
 __all__ = [
@@ -23,4 +25,6 @@ __all__ = [
     "make_mesh",
     "pad_to_multiple",
     "shard_batch",
+    "split_rows",
+    "split_target",
 ]

@@ -1,4 +1,4 @@
-"""Device meshes for serving: the counterpart of
+"""Device meshes for serving and training: the counterpart of
 ``predictionio_tpu/parallel/mesh.py``.
 
 The reference builds a ``jax.sharding.Mesh`` once per workflow run and
@@ -13,8 +13,8 @@ A mesh's shards are LOGICAL: one device may appear several times (``[cuda:0]
 tests use ``["cpu"] * 8`` as the reference's tests use eight virtual CPU
 devices). Answers are the same whatever devices the shards name. Axis
 conventions are the reference's: ``data`` (``DATA_AXIS``) for batch and
-row parallelism, ``model`` for tensor parallelism. Serving shards over a
-1-D ``data`` mesh (``collapse_mesh``).
+row parallelism, ``model`` for tensor parallelism. Serving and ALS
+training shard over a 1-D ``data`` mesh (``collapse_mesh``).
 
 - ``make_mesh(axes, devices)``: named axes, e.g. ``{"data": 4}``; the
   product of the sizes must equal the device count (``ValueError``
@@ -26,9 +26,12 @@ row parallelism, ``model`` for tensor parallelism. Serving shards over a
   batch_dim)``: the batch dimension zero-padded to a multiple of the axis
   size and cut into one tensor per shard, each on its shard's device;
   returns (the list, the original length).
+- ``split_rows(weights, n_shards)``: contiguous row ranges of about equal
+  weight, cut at row boundaries (training's row shards, balanced by each
+  row's segment slots).
 
-Multi-process meshes (``parallel/distributed.py``) come with the sharded
-training programs.
+Multi-process meshes (``parallel/distributed.py``) come with the
+multi-process launcher (``pio train --coordinator``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 
-DATA_AXIS = "data"  # batch and row parallelism: the axis serving shards over
+DATA_AXIS = "data"  # batch and row parallelism: the axis serving and training shard over
 
 
 class Mesh:
@@ -140,11 +143,44 @@ def shard_batch(
     return out, n
 
 
+def split_rows(weights, n_shards: int) -> np.ndarray:
+    """Boundaries [n_shards + 1] cutting rows 0..len(weights)-1 into
+    ``n_shards`` contiguous ranges of about equal total weight: boundary j
+    is the row boundary whose prefix weight lies nearest j/n_shards of the
+    total (the lower one on a tie). They never decrease, so no row
+    straddles two ranges, and a row heavier than a share leaves a range
+    empty rather than being cut."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    w = np.asarray(weights, np.int64)
+    if w.ndim != 1 or (w.size and w.min() < 0):
+        raise ValueError("weights must be a 1-D array of non-negative counts")
+    n = len(w)
+    # compare cum·S with j·total: exact integer arithmetic
+    cum = np.zeros(n + 1, np.int64)
+    np.cumsum(w, out=cum[1:])
+    c = cum * n_shards
+    t = np.arange(1, n_shards, dtype=np.int64) * cum[-1]
+    hi = np.minimum(np.searchsorted(c, t, side="left"), n)
+    lo = np.maximum(hi - 1, 0)
+    cut = np.where(c[hi] - t < t - c[lo], hi, lo)
+    return np.maximum.accumulate(np.concatenate([[0], cut, [n]])).astype(np.int64)
+
+
+def split_target(target) -> Tuple[Optional[Mesh], DeviceLike]:
+    """(mesh, device) of what an algorithm trains or serves on: a ``Mesh``
+    of several shards and None, or None and the device (one shard's mesh
+    is its device; ``collapse_mesh`` checks the mesh)."""
+    if isinstance(target, Mesh):
+        return collapse_mesh(target, None)
+    return None, target
+
+
 def collapse_mesh(
     mesh: Optional[Mesh], device: DeviceLike
 ) -> Tuple[Optional[Mesh], DeviceLike]:
-    """The (mesh, device) a serving structure runs on. A serving mesh is a
-    1-D ``DATA_AXIS`` mesh (``ValueError`` otherwise); one of one shard
+    """The (mesh, device) a serving structure or a training runs on. The
+    mesh is a 1-D ``DATA_AXIS`` mesh (``ValueError`` otherwise); one of one shard
     collapses to the single-device path on that shard's device (unless
     ``device`` names one), as the reference collapses a 1-device mesh and
     keeps its device pin; anything but ``None`` or a ``Mesh`` raises
@@ -154,7 +190,9 @@ def collapse_mesh(
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a predictionio_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
     if mesh.axis_names != (DATA_AXIS,):
-        raise ValueError(f"serving shards over a 1-D {DATA_AXIS!r} mesh, got axes {mesh.shape}")
+        raise ValueError(
+            f"serving and training shard over a 1-D {DATA_AXIS!r} mesh, got axes {mesh.shape}"
+        )
     if mesh.size == 1:
         return None, device if device is not None else mesh.devices[0]
     return mesh, None

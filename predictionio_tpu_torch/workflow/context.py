@@ -2,12 +2,12 @@
 counterpart of ``predictionio_tpu/workflow/context.py``).
 
 It carries the device the workflow runs on (CUDA unless the CPU is asked
-for), a ``mesh`` (the reference's ``WorkflowContext.mesh`` :55: given, or
-built at first use over every visible CUDA device, or the one CPU device
-when the CPU is asked for; the reference's templates train over it, which
-the port does from the sharded-training slice on, ROADMAP.md queue 1 item
-11: until then training runs on ``device`` alone and a deployment builds
-its serving mesh itself, ``tools/cli.serving_target``) and, in place of
+for; a given mesh's first device when no device is given), a ``mesh`` (the
+reference's ``WorkflowContext.mesh`` :55: given, or built at first use over
+every visible CUDA device, or the one CPU device when the CPU is asked for;
+algorithms that train on a mesh train over it when it has several shards,
+``controller/engine.training_target``, and a deployment builds its serving
+mesh itself, ``tools/cli.serving_target``) and, in place of
 the event store the port does not have yet (ROADMAP.md queue 1 item 3), the data a data source would read from it:
 the event columns of each app, read where the reference calls
 ``PEventStore.find_columns``, and the aggregated entity properties of each
@@ -33,6 +33,8 @@ class WorkflowContext:
         properties: Optional[Mapping[Tuple[str, str], PropertyMaps]] = None,
         mesh: Optional[Mesh] = None,
     ):
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self._mesh = mesh
         self._columns = dict(event_columns or {})

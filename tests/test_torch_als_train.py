@@ -192,9 +192,12 @@ def test_predict_ratings_checks_ids_on_the_host(u, i):
     ],
 )
 def test_configurations_not_ported_raise(ratings, config, kwargs, match):
+    """A ``Mesh`` trains since the sharded-training slice
+    (``tests/test_torch_mesh_training.py``); anything else given as a mesh
+    is still refused, now as the wrong type."""
     u, i, r = ratings
     cfg = port_als.ALSConfig(rank=4, iterations=1, **config)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         port_als.train_als(u, i, r, N_USERS, N_ITEMS, cfg, device="cpu", **kwargs)
 
 

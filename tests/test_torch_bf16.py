@@ -52,6 +52,7 @@ from predictionio_tpu_torch.ops import grid as k13
 from predictionio_tpu_torch.ops import normal_eq as k1
 from predictionio_tpu_torch.ops import streaming as port_streaming
 from predictionio_tpu_torch.ops import subspace as k11
+from predictionio_tpu_torch.parallel import Mesh
 from tests.test_torch_delta import scatterable_delta, seeded_store
 
 N_USERS, N_ITEMS, NNZ, RANK = 240, 120, 5000, 8
@@ -407,9 +408,14 @@ def test_other_dtypes_and_a_mesh_still_raise(ratings):
     with pytest.raises(NotImplementedError, match="float16"):
         port_als.train_als(u, i, r, N_USERS, N_ITEMS,
                            port_als.ALSConfig(**dict(CFG, compute_dtype="float16")), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a Mesh trains since the sharded-training slice; a non-Mesh and a
+    # mesh with a model axis are still refused
+    with pytest.raises(TypeError, match="Mesh"):
         port_als.train_als(u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(**CFG), device="cpu",
                            mesh=object())
+    with pytest.raises(ValueError, match="1-D 'data' mesh"):
+        port_als.train_als(u, i, r, N_USERS, N_ITEMS, port_als.ALSConfig(**CFG),
+                           mesh=Mesh(["cpu"] * 4, {"data": 2, "model": 2}))
     side, R, n_y = _side(u, i, r, N_USERS, N_ITEMS)
     pack = port_als.device_pack(side, R, n_y, CPU)
     with pytest.raises(ValueError, match="compute_dtype"):
