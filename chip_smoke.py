@@ -5202,7 +5202,8 @@ def classification_phase(device, workdir):
     and ``batch_predict``, both models deployed through the CLI and sent
     64 queries each from 8 clients, answers equal to ``batch_predict``'s);
     train wall clocks and accuracies beside the twins'; times. Returns
-    (launches, errors, stats)."""
+    (launches, errors, stats, what 3k reuses: the data, the naive Bayes
+    model and its served answers)."""
     import numpy as np
     import torch
 
@@ -5291,6 +5292,8 @@ def classification_phase(device, workdir):
         finally:
             server.stop()
         want = algo.batch_predict(models[name], [(i, clf.Query(**b)) for i, b in enumerate(bodies)])
+        if name == "naive":
+            nb_answers = [res for _, _, res in answers]
         for (i, _, res), (_, p) in zip(answers, want):
             if res.get("label") != p.label or res.get("modelVersion") != f"classification_{name}":
                 raise AssertionError(f"{name} deployment: query {i} answered {res}, "
@@ -5300,9 +5303,9 @@ def classification_phase(device, workdir):
     counts = {**k15.LAUNCHES.snapshot(), **k18.LAUNCHES.snapshot()}
     # K15b: batch_predict of the 2,048 rows, one per served batch, and
     # batch_predict of the served queries
-    want_counts = {"naive_bayes_fit": 1, "naive_bayes_scores": 2 + served["naive"]["batches"],
-                   "softmax_regression": 2 * lr_algo.params.iterations, "naive_bayes_fit_plain": 0,
-                   "naive_bayes_scores_plain": 0, "softmax_regression_plain": 0}
+    want_counts = {name: 0 for name in counts}
+    want_counts.update({"naive_bayes_fit": 1, "naive_bayes_scores": 2 + served["naive"]["batches"],
+                        "softmax_regression": 2 * lr_algo.params.iterations})
     if counts != want_counts:
         raise AssertionError(f"classification launches {counts}, expected {want_counts}")
     print(f"  main path: NaiveBayesAlgorithm.train {train_s['naive']:.4f} s, "
@@ -5374,7 +5377,9 @@ def classification_phase(device, workdir):
              "k15b_bit_equal": bit_equal}
     print("classification " + json.dumps(stats), flush=True)
     launches = {name: counts[name] for name in errs}
-    return launches, errs, stats
+    return launches, errs, stats, {"labels": labels, "features": features,
+                                   "model": models["naive"], "bodies": bodies,
+                                   "answers": nb_answers, "train_s": train_s["naive"]}
 
 
 # phase 3x (after 3n): the e2 library (K16, K17a, K17b) and the
@@ -5465,7 +5470,8 @@ def cnb_phase(device):
     (``CategoricalNaiveBayes.train``, ``predict_batch`` of 2,048 rows, then
     of a batch with unknown values: K17a = 1, K17b = 2, twins 0), K17b
     against its twin on both batches, times. Returns (launches, errors,
-    stats)."""
+    stats, what 3k reuses: the points, the model, both batches and their
+    answers)."""
     import numpy as np
     import torch
 
@@ -5493,8 +5499,8 @@ def cnb_phase(device):
     served_unknown = model.predict_batch(unknown_rows)
     predict_unknown_s = time.perf_counter() - t
     counts = k17.LAUNCHES.snapshot()
-    want_counts = {"cnb_count": 1, "cnb_scores_argmax": 2, "cnb_count_plain": 0,
-                   "cnb_scores_argmax_plain": 0}
+    want_counts = {name: 0 for name in counts}
+    want_counts.update({"cnb_count": 1, "cnb_scores_argmax": 2})
     if counts != want_counts:
         raise AssertionError(f"categorical NB launches {counts}, expected {want_counts}")
     inv = model.label_index.inverse()
@@ -5572,7 +5578,10 @@ def cnb_phase(device):
              "launches": counts, "kernel_ms": t_k, "device_ms": dev_ms, "plain_ms": plain_ms,
              "library_ms": lib_ms, "bound": bounds, "errors": errs}
     print("categorical_nb " + json.dumps(stats), flush=True)
-    return {n: counts[n] for n in errs}, errs, stats
+    refs = {"points": points, "model": model, "rows": rows, "unknown_rows": unknown_rows,
+            "served": served, "served_unknown": served_unknown, "train_s": train_s,
+            "keys": keys}
+    return {n: counts[n] for n in errs}, errs, stats, refs
 
 
 def markov_tally():
@@ -5593,7 +5602,8 @@ def markov_phase(device):
     100,000 states, top 10, then 100 ``predict`` calls counted from 0 (K16 =
     100, twin 0); each answer within MC_RTOL / MC_ATOL of the twin and bit
     for bit against a second launch, the first against float64 numpy;
-    times. Returns (launches, errors, stats)."""
+    times. Returns (launches, errors, stats, what 3k reuses: the model, the
+    state vectors and their answers)."""
     import numpy as np
     import torch
 
@@ -5617,8 +5627,8 @@ def markov_phase(device):
     outs = [model.predict(cur) for cur in curs]
     predict_s = time.perf_counter() - t
     counts = k16.LAUNCHES.snapshot()
-    if counts != {"markov_step": MC_PREDICTS, "markov_step_plain": 0}:
-        raise AssertionError(f"K16 launches {counts}, expected {MC_PREDICTS} and twin 0")
+    if counts != {name: MC_PREDICTS if name == "markov_step" else 0 for name in counts}:
+        raise AssertionError(f"K16 launches {counts}, expected {MC_PREDICTS} and the rest 0")
 
     err = 0.0
     for i, (cur, out) in enumerate(zip(curs, outs)):
@@ -5662,7 +5672,8 @@ def markov_phase(device):
              "bound": roofline(4 * MC_STATES + 8 * E + 4 * MC_STATES, 2 * E),
              "error": err}
     print("markov " + json.dumps(stats), flush=True)
-    return counts["markov_step"], err, stats
+    return counts["markov_step"], err, stats, {"model": model, "curs": curs, "outs": outs,
+                                               "predict_s": predict_s}
 
 
 def lsq_oracle(A, b):
@@ -5952,17 +5963,427 @@ def regression_phase(device, workdir):
 def experimental_phase(device, workdir):
     """Phase 3x: K17 (``cnb_phase``), K16 (``markov_phase``), K21
     (``stock_phase``) and K22 (``regression_phase``), each counted from 0.
-    Returns (launches, errors, stats) keyed by kernel."""
+    Returns (launches, errors, stats) keyed by kernel, and what 3k reuses
+    of K17's and K16's paths."""
     t = time.perf_counter()
-    c_counts, c_errs, c_stats = cnb_phase(device)
-    m_launches, m_err, m_stats = markov_phase(device)
+    c_counts, c_errs, c_stats, c_refs = cnb_phase(device)
+    m_launches, m_err, m_stats, m_refs = markov_phase(device)
     s_launches, s_err, s_stats = stock_phase(device)
     r_launches, r_err, r_stats = regression_phase(device, workdir)
     launches = {**c_counts, "markov_step": m_launches, "lsq": s_launches + r_launches}
     errs = {**c_errs, "markov_step": m_err, "lsq": max(s_err, r_err)}
     print(f"  3x: launches {launches} in {time.perf_counter() - t:.1f} s", flush=True)
     return launches, errs, {"cnb": c_stats, "markov": m_stats, "stock": s_stats,
-                            "regression": r_stats}
+                            "regression": r_stats}, {"cnb": c_refs, "markov": m_refs}
+
+
+# phase 3k (after 3x): classification and the e2 models on a mesh (K15s,
+# K16s, K17s) over 3n's and 3x's data
+E2_SHARDS = 4  # 3k: logical shards of the card (every shard on the card)
+
+
+def e2_counters():
+    from predictionio_tpu_torch.ops import categorical_nb, markov, naive_bayes
+
+    return naive_bayes.LAUNCHES, categorical_nb.LAUNCHES, markov.LAUNCHES
+
+
+def check_e2_counts(counts, want, label):
+    """Every named count as wanted, every other kernel and twin 0."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"3k {label}: {name} launched {n} times, not {want.get(name, 0)}"
+                                 f" ({ {k: v for k, v in counts.items() if v} })")
+
+
+def float_steps(a, b):
+    """(the largest distance in float32 steps, the entries that differ) of
+    two non-negative float32 vectors."""
+    import numpy as np
+
+    d = np.abs(np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+               - np.asarray(b, np.float32).view(np.int32).astype(np.int64))
+    return int(d.max()) if d.size else 0, int(np.count_nonzero(d))
+
+
+def mesh_e2_edges(device, mesh):
+    """Each program's edge cases on the card against one device: fewer rows
+    than shards, a row count that does not divide the shards, a mesh of one
+    shard (no shard launch), a 2-D mesh (``ValueError``)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.e2 import CategoricalNaiveBayes, LabeledPoint, MarkovChain
+    from predictionio_tpu_torch.ops import naive_bayes as k15
+    from predictionio_tpu_torch.parallel.mesh import Mesh
+
+    S = mesh.size
+    one = Mesh([device], {"data": 1})
+    two_d = Mesh([device] * S, {"data": S // 2, "model": 2})
+    counters = e2_counters()
+    rng = np.random.default_rng(CLS_SEED + 7)
+    for n, F, C in ((3, 3, 2), (1_283, 3, 4), (50_001, 3, 4)):
+        X = rng.poisson(3.0, size=(n, F)).astype(np.float32)
+        y = rng.integers(0, C, n).astype(np.float32)
+        want = k15.train_naive_bayes(X, y, device=device)
+        for m in (mesh, one):
+            got = k15.train_naive_bayes(X, y, mesh=m)
+            if not (same_bits(got.pi, want.pi) and same_bits(got.theta, want.theta)):
+                raise AssertionError(f"3k edges: K15s's fit of {n} rows on {m.size} shards differs")
+        Q = X[: min(n, 7)]
+        for m in (mesh, one):
+            if not np.array_equal(k15.predict_naive_bayes(want, Q, mesh=m),
+                                  k15.predict_naive_bayes(want, Q)):
+                raise AssertionError(f"3k edges: K15s's labels of {len(Q)} rows differ")
+    pts = [LabeledPoint(str(rng.integers(0, 2)), (str(rng.integers(0, 5)), str(rng.integers(0, 3))))
+           for _ in range(12_345)]
+    for few in (pts[:2], pts):
+        want = CategoricalNaiveBayes.train(few, device=device)
+        for m in (mesh, one):
+            got = CategoricalNaiveBayes.train(few, mesh=m)
+            if not same_bits(got.log_likelihoods, want.log_likelihoods):
+                raise AssertionError(f"3k edges: K17s on {len(few)} points differs")
+    for n_states in (3, 21):
+        chain = MarkovChain.train([(int(a), int(b), 1.0) for a, b in rng.integers(0, n_states, (60, 2))],
+                                  n_states, 2, device=device)
+        cur = rng.dirichlet(np.ones(n_states)).astype(np.float32)
+        want = chain.predict(cur)
+        if float_steps(chain.predict(cur, mesh=mesh), want)[0] > 1:
+            raise AssertionError(f"3k edges: K16s on {n_states} states is a step off")
+        if not same_bits(np.asarray(chain.predict(cur, mesh=one), np.float32),
+                         np.asarray(want, np.float32)):
+            raise AssertionError("3k edges: K16s on a mesh of one shard differs")
+    for c in counters:
+        c.reset()
+    X = rng.poisson(3.0, size=(700, 3)).astype(np.float32)
+    y = rng.integers(0, 3, 700).astype(np.float32)
+    m1 = k15.train_naive_bayes(X, y, mesh=one)
+    k15.predict_naive_bayes(m1, X, mesh=one)
+    CategoricalNaiveBayes.train(pts[:50], mesh=one)
+    chain.predict(cur, mesh=one)
+    counts = snapshot(counters)
+    check_e2_counts(counts, {"naive_bayes_fit": 1, "naive_bayes_scores": 1, "cnb_count": 1,
+                             "markov_step": 1}, "a mesh of one shard")
+    for call in (lambda: k15.train_naive_bayes(X, y, mesh=two_d),
+                 lambda: k15.predict_naive_bayes(m1, X, mesh=two_d),
+                 lambda: CategoricalNaiveBayes.train(pts[:50], mesh=two_d),
+                 lambda: chain.predict(cur, mesh=two_d)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("3k edges: a 2-D mesh did not raise")
+    print(f"  edge cases (fewer rows than shards, counts that do not divide {S}, a mesh of one "
+          "shard on the single-device kernels, a 2-D mesh raising) on every program ok", flush=True)
+
+
+def mesh_e2_phase(device, workdir, cls_refs, x_refs):
+    """3k: classification and the e2 models on a mesh of E2_SHARDS logical
+    shards of the card (``[cuda:0] * 4``; with several cards also on the
+    visible cards), over 3n's and 3x's data. The main path
+    (``Engine.train`` of the classification template on
+    ``WorkflowContext(mesh=...)`` at config 2's shape) counted from 0 and
+    bit for bit 3n's model, then deployed by ``tools.cli deploy`` and its
+    HTTP answers equal to 3n's; K15s's scores at B = 2,048 and on the NaN
+    and tie models, every label one device's; K17s
+    (``CategoricalNaiveBayes.train(mesh=)`` on 3x's 1M Adult rows) bit for
+    bit 3x's model, its answers 3x's; K16s (100 ``predict(mesh=)`` on 3x's
+    chain) within one float32 step of 3x's answers, with the count of
+    entries that differ, and the first against float64 numpy; the edge
+    cases; times of each shard form beside one device's launch and the
+    library call. Returns (launches, errors, stats)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.controller.engine import EngineParams
+    from predictionio_tpu_torch.e2 import CategoricalNaiveBayes
+    from predictionio_tpu_torch.models.classification import engine as clf
+    from predictionio_tpu_torch.ops import categorical_nb as k17
+    from predictionio_tpu_torch.ops import markov as k16
+    from predictionio_tpu_torch.ops import naive_bayes as k15
+    from predictionio_tpu_torch.parallel.mesh import Mesh, cut_rows
+    from predictionio_tpu_torch.utils.serialize import save_model
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.workflow_params import WorkflowParams
+
+    t_phase = time.perf_counter()
+    S = E2_SHARDS
+    mesh = Mesh([device] * S, {"data": S})
+    note = ("logical shards of one card run one after another on its stream: "
+            "these are not multi-GPU times")
+    print(f"  {S} logical shards of {device}: {note}", flush=True)
+    counters = e2_counters()
+    errs, launches = {}, {}
+    stats = {"card": card_line(), "note": note, "shards": S}
+
+    # a. the main path: Engine.train of the classification template on the
+    # workflow's mesh, then its model deployed
+    labels, features, nb_one = cls_refs["labels"], cls_refs["features"], cls_refs["model"]
+    props = {f"u{j}": {"plan": float(labels[j]), "attr0": float(features[j, 0]),
+                       "attr1": float(features[j, 1]), "attr2": float(features[j, 2])}
+             for j in range(CLS_N)}
+    ctx = WorkflowContext(device, properties={("default", "user"): props}, mesh=mesh)
+    ep = EngineParams(
+        data_source_params=("", clf.DataSourceParams(app_name="default")),
+        algorithm_params_list=(("naive", clf.NaiveBayesAlgorithmParams(lambda_=1.0)),),
+    )
+    fit_bounds = k15.fit_shard_bounds(CLS_N, CLS_C, CLS_F, S)
+    filled = int(np.count_nonzero(np.diff(fit_bounds)))
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    [nb_mesh] = clf.classification_engine().train(ctx, ep, WorkflowParams())
+    train_s = time.perf_counter() - t
+    counts = snapshot(counters)
+    check_e2_counts(counts, {"naive_bayes_fit_shard": filled, "naive_bayes_fit_finish": 1},
+                    "Engine.train")
+    launches["Engine.train"] = {k: v for k, v in counts.items() if v}
+    if not (same_bits(nb_mesh.pi, nb_one.pi) and same_bits(nb_mesh.theta, nb_one.theta)
+            and np.array_equal(nb_mesh.labels, nb_one.labels) and nb_mesh.device == device):
+        raise AssertionError("3k: the mesh's naive Bayes model differs from 3n's")
+    errs["naive_bayes_fit_sharded"] = float(max(np.abs(nb_mesh.pi - nb_one.pi).max(),
+                                                np.abs(nb_mesh.theta - nb_one.theta).max()))
+    path = os.path.join(workdir, "classification_naive_mesh.npz")
+    save_model(path, nb_mesh)
+    server = Deployment(path, device)
+    try:
+        answers, wall = server.send(cls_refs["bodies"], CLS_CLIENTS)
+    finally:
+        server.stop()
+    for (i, _, res), want in zip(answers, cls_refs["answers"]):
+        if res.get("label") != want.get("label"):
+            raise AssertionError(f"3k deployment: query {i} answered {res}, 3n's {want}")
+    print(f"  main path: Engine.train on the mesh {train_s:.4f} s (3n's NaiveBayesAlgorithm.train "
+          f"on one device {cls_refs['train_s']:.4f} s), rows per shard "
+          f"{np.diff(fit_bounds).tolist()}, "
+          f"launches { {k: v for k, v in counts.items() if v} }; pi and theta bit for bit 3n's; "
+          f"deployed, {len(answers)} HTTP answers from {CLS_CLIENTS} clients equal to 3n's ok",
+          flush=True)
+    stats["classification"] = {"train_s": train_s, "one_device_train_s": cls_refs["train_s"],
+                               "shard_rows": np.diff(fit_bounds).tolist(),
+                               "served": {"queries": len(answers), "deploy_s": server.deploy_s,
+                                          **latency_stats(answers, wall)}}
+
+    # b. K15s's scores at B = 2,048 and on the NaN and tie models
+    Qn = features[:CLS_QUERIES]
+    for c in counters:
+        c.reset()
+    got = k15.predict_naive_bayes(nb_mesh, Qn, mesh=mesh)
+    counts = snapshot(counters)
+    check_e2_counts(counts, {"naive_bayes_scores": S}, "predict_naive_bayes")
+    launches["predict_naive_bayes"] = {k: v for k, v in counts.items() if v}
+    if not np.array_equal(got, k15.predict_naive_bayes(nb_one, Qn)):
+        raise AssertionError("3k: K15s's labels differ from one device's")
+    for m, Q in nan_and_tie_models(device):
+        if not np.array_equal(k15.predict_naive_bayes(m, Q, mesh=mesh),
+                              k15.predict_naive_bayes(m, Q)):
+            raise AssertionError("3k: K15s's labels on the NaN or tie model differ")
+    errs["naive_bayes_scores_sharded"] = 0.0
+    print(f"  K15s scores: {CLS_QUERIES} rows on {S} shards and the NaN (lam = 0) and tie models' "
+          "rows: every label one device's ok", flush=True)
+
+    # c. K17s: CategoricalNaiveBayes.train on 3x's 1M Adult rows
+    cr = x_refs["cnb"]
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cnb_mesh = CategoricalNaiveBayes.train(cr["points"], mesh=mesh)
+    cnb_train_s = time.perf_counter() - t
+    counts = snapshot(counters)
+    L, S_slots, V = cnb_mesh.log_likelihoods.shape
+    n_keys, M = S_slots * L * V, CNB_N * S_slots
+    key_bounds = k17.count_shard_bounds(M, n_keys, S)
+    check_e2_counts(counts, {"cnb_count_shard": int(np.count_nonzero(np.diff(key_bounds))),
+                             "cnb_count_finish": 1}, "CategoricalNaiveBayes.train")
+    launches["CategoricalNaiveBayes.train"] = {k: v for k, v in counts.items() if v}
+    cnb_one = cr["model"]
+    if not (same_bits(cnb_mesh.log_likelihoods, cnb_one.log_likelihoods)
+            and same_bits(cnb_mesh.log_priors, cnb_one.log_priors)):
+        raise AssertionError("3k: K17s's model differs from 3x's")
+    if (cnb_mesh.predict_batch(cr["rows"]) != cr["served"]
+            or cnb_mesh.predict_batch(cr["unknown_rows"]) != cr["served_unknown"]):
+        raise AssertionError("3k: the mesh model's answers differ from 3x's")
+    errs["cnb_count_sharded"] = 0.0
+    print(f"  K17s: CategoricalNaiveBayes.train(mesh) on {CNB_N:,} rows {cnb_train_s:.3f} s "
+          f"(3x on one device {cr['train_s']:.3f} s), keys per shard "
+          f"{np.diff(key_bounds).tolist()}; counts and log-likelihoods bit for bit 3x's, "
+          "predict_batch's answers 3x's ok", flush=True)
+
+    # d. K16s: 100 predicts on 3x's chain
+    mr = x_refs["markov"]
+    chain, curs, outs = mr["model"], mr["curs"], mr["outs"]
+    t = time.perf_counter()
+    placed = chain._mesh_transitions(mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t
+    for c in counters:
+        c.reset()
+    t = time.perf_counter()
+    mesh_outs = [chain.predict(cur, mesh=mesh) for cur in curs]
+    predict_s = time.perf_counter() - t
+    counts = snapshot(counters)
+    n_work = sum(sh is not None for sh in placed.shards)
+    check_e2_counts(counts, {"markov_step_shard": n_work * MC_PREDICTS,
+                             "markov_step_finish": MC_PREDICTS}, "MarkovChainModel.predict")
+    launches["MarkovChainModel.predict"] = {k: v for k, v in counts.items() if v}
+    steps, differ, err = 0, 0, 0.0
+    for got, want in zip(mesh_outs, outs):
+        st, nd = float_steps(got, want)
+        steps, differ = max(steps, st), differ + nd
+        err = max(err, float(np.abs(np.asarray(got, np.float64) - np.asarray(want)).max()))
+    if steps > 1:
+        raise AssertionError(f"3k: K16s lies {steps} float32 steps from one device's answers")
+    contrib = (chain.probs * curs[0][:, None]).astype(np.float32).ravel().astype(np.float64)
+    n64 = np.bincount(chain.targets.ravel(), weights=contrib, minlength=MC_STATES)
+    d64 = np.abs(np.asarray(mesh_outs[0], np.float64) - n64).max() / np.abs(n64).max()
+    if not d64 <= MC_RTOL:
+        raise AssertionError(f"3k: K16s {d64:.3g} of the largest entry off float64 numpy")
+    errs["markov_step_sharded"] = err
+    print(f"  K16s: {MC_PREDICTS} predicts on {S} shards ({predict_s:.4f} s; 3x on one device "
+          f"{mr['predict_s']:.4f} s; placement {place_s:.3f} s), sources per shard "
+          f"{np.diff(placed.bounds).tolist()}: at most {steps} float32 step from one device's "
+          f"answers, {differ} of {MC_PREDICTS * MC_STATES:,} entries differ; the first "
+          f"{d64:.3g} of the largest entry off float64 numpy ok", flush=True)
+
+    mesh_e2_edges(device, mesh)
+
+    # e. times: each shard's launch, the shards with the finish together, one
+    # device's launch, the twins on the shards, the library call per shard
+    X, y = torch.from_numpy(features).to(device), torch.from_numpy(labels.astype(np.int32)).to(device)
+    rows = k15.fit_plan(CLS_N, CLS_C, CLS_F)[1]
+    nblk = k15.fit_plan(CLS_N, CLS_C, CLS_F)[0]
+    part = torch.empty((nblk, CLS_C, CLS_F), dtype=torch.float32, device=device)
+    cpart = torch.empty((nblk, CLS_C), dtype=torch.int32, device=device)
+    Xs = cut_rows(mesh, features, fit_bounds)
+    ys = cut_rows(mesh, labels.astype(np.int32), fit_bounds)
+    fit_shards = [(int(a) // rows, -(-int(b - a) // rows), Xi, yi)
+                  for a, b, Xi, yi in zip(fit_bounds[:-1], fit_bounds[1:], Xs, ys) if b > a]
+    pi1, th1 = torch.from_numpy(nb_one.pi).to(device), torch.from_numpy(nb_one.theta).to(device)
+    q_bounds = np.linspace(0, CLS_QUERIES, S + 1).astype(np.int64)
+    Qs = cut_rows(mesh, Qn, q_bounds)
+    Qd = torch.from_numpy(np.ascontiguousarray(Qn)).to(device)
+    out_idx = torch.empty(CLS_QUERIES, dtype=torch.int32, device=device)
+    keys = cr["keys"]  # 3x's keys of the same points: the mesh model's indexes are 3x's
+    keys_d = torch.from_numpy(keys).to(device)
+    per_block = k17.count_plan(M, n_keys)[1]
+    key_shards = cut_rows(mesh, keys, key_bounds)
+    kparts = [(int(a) // per_block, Ki) for a, b, Ki in zip(key_bounds[:-1], key_bounds[1:],
+                                                            key_shards) if b > a]
+    kpartial = torch.empty((k17.count_plan(M, n_keys)[0], n_keys), dtype=torch.int32, device=device)
+    one_placed = k16.place_transitions(chain.targets, chain.probs, MC_STATES, device)
+    cur0 = curs[0]
+    cur_d = torch.from_numpy(cur0).to(device)
+    cur_s = cut_rows(mesh, cur0, placed.bounds)
+    mparts = torch.empty((n_work, MC_STATES), dtype=torch.float64, device=device)
+    mwork = [(c_, sh) for c_, sh in zip(cur_s, placed.shards) if sh is not None]
+    contrib_s = [(k16.entry_targets(sh), (sh.prob * c_[sh.src.long()]).double()) for c_, sh in mwork]
+
+    def each(calls):
+        def run():
+            for f in calls:
+                f()
+        return run
+
+    forms = {
+        "naive_bayes_fit_sharded": {
+            "shards": [lambda b0=b0, nb=nb, Xi=Xi, yi=yi: k15.naive_bayes_fit_partial(
+                Xi, yi, CLS_C, rows, part[b0:b0 + nb], cpart[b0:b0 + nb])
+                for b0, nb, Xi, yi in fit_shards],
+            "all": lambda: k15.naive_bayes_fit_shards(Xs, ys, CLS_C, 1.0, device),
+            "one": lambda: k15.naive_bayes_fit(X, y, CLS_C, 1.0),
+            "plain": lambda: k15.fit_finish_plain(*(torch.cat(t) for t in zip(*(
+                k15.fit_partial_plain(Xi, yi, CLS_C, rows) for _, _, Xi, yi in fit_shards))), 1.0),
+            "library": [lambda Xi=Xi, yi=yi: torch.zeros((CLS_C, CLS_F), device=device).index_add_(
+                0, yi.long(), Xi) for _, _, Xi, yi in fit_shards],
+            "bound": roofline(4 * (CLS_N * CLS_F + CLS_N + 2 * CLS_C + 2 * CLS_C * CLS_F),
+                              CLS_N * CLS_F),
+        },
+        "naive_bayes_scores_sharded": {
+            "shards": [lambda a=a, b=b, Qi=Qi: k15.naive_bayes_scores(Qi, pi1, th1, out=out_idx[a:b])
+                       for a, b, Qi in zip(q_bounds[:-1], q_bounds[1:], Qs)],
+            "one": lambda: k15.naive_bayes_scores(Qd, pi1, th1),
+            "plain": lambda: [k15.argmax_first_nan(k15.scores_plain(Qi, pi1, th1)) for Qi in Qs],
+            "library": [lambda Qi=Qi: torch.addmm(pi1, Qi, th1.T).argmax(1) for Qi in Qs],
+            "bound": roofline(4 * (CLS_QUERIES * CLS_F + CLS_C + CLS_C * CLS_F + CLS_QUERIES),
+                              2 * CLS_QUERIES * CLS_C * CLS_F + CLS_QUERIES * CLS_C),
+        },
+        "cnb_count_sharded": {
+            "shards": [lambda b0=b0, Ki=Ki: k17.cnb_count_partial(
+                Ki, n_keys, per_block, out=kpartial[b0:b0 + -(-Ki.shape[0] // per_block)])
+                for b0, Ki in kparts],
+            "all": lambda: k17.cnb_count_shards(key_shards, n_keys, device),
+            "one": lambda: k17.cnb_count(keys_d, n_keys),
+            "plain": lambda: torch.cat([k17.count_partial_plain(Ki, n_keys, per_block)
+                                        for _, Ki in kparts]).sum(0, dtype=torch.int64),
+            "library": [lambda Ki=Ki: torch.bincount(Ki, minlength=n_keys) for _, Ki in kparts],
+            "bound": roofline(4 * M + 4 * n_keys, M),
+        },
+        "markov_step_sharded": {
+            "shards": [lambda k=k, c_=c_, sh=sh: k16.markov_step_partial(c_, sh, out=mparts[k])
+                       for k, (c_, sh) in enumerate(mwork)],
+            "all": lambda: k16.markov_step_shards(cur_s, placed),
+            "one": lambda: k16.markov_step(cur_d, one_placed),
+            "plain": lambda: k16.sum_shards_plain(torch.stack(
+                [k16.markov_partial_plain(c_, sh) for c_, sh in mwork])),
+            "library": [lambda te=te, ce=ce: torch.zeros(MC_STATES, dtype=torch.float64,
+                                                        device=device).index_add_(0, te, ce)
+                        for te, ce in contrib_s],
+            "bound": roofline(8 * MC_STATES + 8 * placed_entries(placed), 2 * placed_entries(placed)),
+        },
+    }
+    times = {}
+    for name, f in forms.items():
+        whole = f.get("all", each(f["shards"]))
+        times[name] = {
+            "per_shard_ms": [time_ms(c, iters=100, warmup=3) for c in f["shards"]],
+            "shards_ms": time_ms(whole, iters=100, warmup=3),
+            "shards_device_ms": device_ms(whole),
+            "one_device_ms": time_ms(f["one"], iters=100, warmup=3),
+            "plain_shards_ms": time_ms(f["plain"], iters=5, warmup=1),
+            "library_shards_ms": time_ms(each(f["library"]), iters=100, warmup=3),
+            "library_per_shard_ms": [time_ms(c, iters=100, warmup=3) for c in f["library"]],
+            "bound": f["bound"],
+        }
+        print(f"  {name}: {json.dumps(times[name])}", flush=True)
+    stats.update({
+        "cnb": {"train_s": cnb_train_s, "one_device_train_s": cr["train_s"],
+                "shard_keys": np.diff(key_bounds).tolist()},
+        "markov": {"predict_s": predict_s, "one_device_predict_s": mr["predict_s"],
+                   "place_s": place_s, "shard_sources": np.diff(placed.bounds).tolist(),
+                   "max_steps": steps, "entries_differing": differ, "vs_float64": d64},
+        "kernel_ms": times, "launches": launches, "errors": errs,
+    })
+    # an N-card mesh, under the same checks, where the machine has cards
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", c) for c in range(min(S, n_cards))]
+        cmesh = Mesh(cards, {"data": len(cards)})
+        got = clf.NaiveBayesAlgorithm(clf.NaiveBayesAlgorithmParams(lambda_=1.0)).train(
+            cmesh, clf.Preparator().prepare(device, clf.TrainingData(
+                labels=labels.astype(np.float32), features=features)))
+        if not (same_bits(got.pi, nb_one.pi) and same_bits(got.theta, nb_one.theta)):
+            raise AssertionError("3k: K15s on distinct cards differs from 3n's model")
+        if not np.array_equal(k15.predict_naive_bayes(nb_one, Qn, mesh=cmesh),
+                              k15.predict_naive_bayes(nb_one, Qn)):
+            raise AssertionError("3k: K15s's labels on distinct cards differ")
+        if not same_bits(CategoricalNaiveBayes.train(cr["points"], mesh=cmesh).log_likelihoods,
+                         cnb_one.log_likelihoods):
+            raise AssertionError("3k: K17s on distinct cards differs from 3x's model")
+        if float_steps(chain.predict(curs[0], mesh=cmesh), outs[0])[0] > 1:
+            raise AssertionError("3k: K16s on distinct cards is a step off")
+        print(f"  a mesh of {len(cards)} cards: K15s, K17s bit for bit, K16s within a step",
+              flush=True)
+    else:
+        print("  one card: no mesh of distinct cards to run", flush=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print("mesh_e2 " + json.dumps(stats), flush=True)
+    return launches, errs, stats
+
+
+def placed_entries(placed) -> int:
+    """The kept transitions of a ``MeshTransitions`` over every shard."""
+    return sum(int(sh.src.numel()) for sh in placed.shards if sh is not None)
 
 
 # phase 3y (after 3x): SimRank friend recommendation (K20a, K20b), K3c
@@ -7203,7 +7624,51 @@ def mesh_edge_cases(device):
           "padding rows only; 2, 3 and 4 shards; both modes): bit for bit one device", flush=True)
 
 
+class PackCache:
+    """3t's host packs, once for each distinct input: while installed,
+    ``ops/als.py``'s ``mesh_pack_sides`` (the mesh route's host pack of both
+    sides) returns the pack it made before for the same COO (by a digest of
+    its bytes) and the same geometry, so the trainings on phase 3's ratings
+    share one pack. A training's own ``pack_s`` then times a hit."""
+
+    def __init__(self, als):
+        self.als, self.real = als, als.mesh_pack_sides
+        self.entries, self.hits, self.misses = {}, 0, 0
+
+    def __enter__(self):
+        self.als.mesh_pack_sides = self.packed
+        return self
+
+    def __exit__(self, *exc):
+        self.als.mesh_pack_sides = self.real
+        self.entries.clear()
+
+    def packed(self, u, i, r, *geometry):
+        import hashlib
+
+        import numpy as np
+
+        h = hashlib.blake2b(digest_size=16)
+        for a in (u, i, r):
+            h.update(np.ascontiguousarray(a).view(np.uint8))
+        key = (h.hexdigest(),) + tuple(int(g) for g in geometry)
+        if key in self.entries:
+            self.hits += 1
+        else:
+            self.misses += 1
+            self.entries[key] = self.real(u, i, r, *geometry)
+        return self.entries[key]
+
+
 def mesh_train_phase(rng, device, refs):
+    """3t with its host packs shared (``PackCache``)."""
+    from predictionio_tpu_torch.ops import als
+
+    with PackCache(als) as packs:
+        return _mesh_train_phase(rng, device, refs, packs)
+
+
+def _mesh_train_phase(rng, device, refs, packs):
     """3t: ALS training on a mesh of TRAIN_SHARDS logical shards of the
     card (``[cuda:0] * 4``; with several cards also on the visible cards):
     the row-shard forms of K1, K2, K12, K11 and K13 against one device's
@@ -7212,9 +7677,10 @@ def mesh_train_phase(rng, device, refs):
     0 and bit for bit phase 3's model; the implicit, bf16, iALS++, Similar
     Product and checkpointed forms bit for bit their single-device phases;
     the grid (K13s) and ``run_evaluation`` on the mesh; times. ``refs``
-    holds the earlier phases' models and stats. Logical shards of one card
-    run one after another, so no time here is a multi-GPU time. Returns
-    (launches, errors, stats)."""
+    holds the earlier phases' models and stats. The main path packs phase
+    3's ratings; the shard forms and the other trainings on them reuse that
+    pack (``packs``). Logical shards of one card run one after another, so
+    no time here is a multi-GPU time. Returns (launches, errors, stats)."""
     import dataclasses
 
     import numpy as np
@@ -7262,18 +7728,59 @@ def mesh_train_phase(rng, device, refs):
         raise AssertionError("3t: the ML-20M sides pad to other rows on the mesh; the checks "
                              "below compare one device's state row for row")
 
-    # a. the row-shard forms on the real sides, packed as the mesh route
-    # packs them, against one device's launches on the wire route's packs
+    # a. the main path: Engine.train of the recommendation template on the
+    # workflow's mesh, every launch count from 0; its host pack is the one
+    # the shard forms and the other trainings on these ratings reuse
+    cols = EventColumns(model.user_index, model.item_index, u_rel, i_rel, r)
+    ctx = WorkflowContext(device, {"default": cols}, mesh=mesh)
+    ep = EngineParams(
+        data_source_params=("", rec.DataSourceParams(app_name="default")),
+        algorithm_params_list=(("als", rec.ALSAlgorithmParams(rank=k, num_iterations=SWEEPS,
+                                                              lambda_=REG)),),
+    )
+    t_main = {}
+    train_als = rec.train_als
+    rec.train_als = lambda *a, **kw: train_als(*a, timings=t_main, **kw)
+    try:
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        [mesh_model] = rec.recommendation_engine().train(ctx, ep, WorkflowParams())
+        main_s = time.perf_counter() - t
+        counts = snapshot(counters)
+    finally:
+        rec.train_als = train_als
+    check_counts(counts, {"normal_eq": 2 * SWEEPS * S, "spd_solve": 2 * SWEEPS * S}, "main path")
+    if (packs.misses, packs.hits) != (1, 0):
+        raise AssertionError(f"3t: the main path packed {packs.misses} times, hit {packs.hits}")
+    launches["main"] = counts
+    if not (same_bits(mesh_model.arrays.user_factors, model.arrays.user_factors)
+            and same_bits(mesh_model.arrays.item_factors, model.arrays.item_factors)):
+        raise AssertionError("3t: the mesh's model differs from phase 3's")
+    tel_mesh = np.array([[row[c] for c in ("dx", "dy", "x_rms", "y_rms")] for row in t_main["sweep_telemetry"]])
+    tel_one = np.array([[row[c] for c in ("dx", "dy", "x_rms", "y_rms")] for row in f32_stats["telemetry"]])
+    errs["telemetry"] = float(np.max(np.abs(tel_mesh - tel_one) / np.abs(tel_one)))
+    if errs["telemetry"] > TEL_MESH_RTOL:
+        raise AssertionError(f"3t: telemetry rows off by {errs['telemetry']} of one device's")
+    print(f"  main path: Engine.train on the mesh {main_s:.2f} s (host pack {t_main['pack_s']:.2f} s, "
+          f"upload {t_main['device_put_s']:.2f} s, loop {t_main['device_loop_s']:.4f} s, "
+          f"{t_main['device_loop_s'] * 1e3 / SWEEPS:.3f} ms per sweep); factors bit for bit phase "
+          f"3's; telemetry within {errs['telemetry']:.2e}; launches "
+          f"{ {n: v for n, v in counts.items() if v} }", flush=True)
+
+    # b. the row-shard forms on the real sides, the main path's packs,
+    # against one device's launches on the wire route's packs
     wire = als.build_host_wire(u_rel, i_rel, r, n_u, n_i, config)
     up, ip = als.device_pack_from_wire(wire, device)
     X0, Y0, lam_u, lam_i, obs_u, obs_i = als.init_factor_state_single(
         wire.counts_u, wire.counts_i, n_u, n_i, config, device=device)
     order = np.argsort(u_rel, kind="stable")
     us, is_, rs = u_rel[order], i_rel[order], r[order]
-    t = time.perf_counter()
-    host_u = als.mesh_pack_side(us, is_, rs, n_u, R_u, wire.L_u, config.chunk_slots, S)
-    host_i = als.mesh_pack_side(is_, us, rs, n_i, R_i, wire.L_i, config.chunk_slots, S)
-    mesh_pack_s = time.perf_counter() - t
+    hits = packs.hits
+    host_u, host_i = als.mesh_pack_sides(us, is_, rs, n_u, n_i, R_u, R_i, wire.L_u, wire.L_i,
+                                         config.chunk_slots, S)
+    if packs.hits != hits + 1:
+        raise AssertionError("3t: the shard forms' packs are not the main path's")
     user = als.upload_mesh_side(*host_u[:2], mesh.devices, R_u, R_i, R_u)
     item = als.upload_mesh_side(*host_i[:2], mesh.devices, R_i, R_u, R_i)
     for (bounds, _, slots, ratings), name in ((host_u, "user"), (host_i, "item")):
@@ -7368,43 +7875,6 @@ def mesh_train_phase(rng, device, refs):
                  "spd_solve_variants_shard"):
         errs[name] = 0.0  # every check above is bit for bit
     mesh_edge_cases(device)
-
-    # b. the main path: Engine.train of the recommendation template on the
-    # workflow's mesh, every launch count from 0
-    cols = EventColumns(model.user_index, model.item_index, u_rel, i_rel, r)
-    ctx = WorkflowContext(device, {"default": cols}, mesh=mesh)
-    ep = EngineParams(
-        data_source_params=("", rec.DataSourceParams(app_name="default")),
-        algorithm_params_list=(("als", rec.ALSAlgorithmParams(rank=k, num_iterations=SWEEPS,
-                                                              lambda_=REG)),),
-    )
-    t_main = {}
-    train_als = rec.train_als
-    rec.train_als = lambda *a, **kw: train_als(*a, timings=t_main, **kw)
-    try:
-        for c in counters:
-            c.reset()
-        t = time.perf_counter()
-        [mesh_model] = rec.recommendation_engine().train(ctx, ep, WorkflowParams())
-        main_s = time.perf_counter() - t
-        counts = snapshot(counters)
-    finally:
-        rec.train_als = train_als
-    check_counts(counts, {"normal_eq": 2 * SWEEPS * S, "spd_solve": 2 * SWEEPS * S}, "main path")
-    launches["main"] = counts
-    if not (same_bits(mesh_model.arrays.user_factors, model.arrays.user_factors)
-            and same_bits(mesh_model.arrays.item_factors, model.arrays.item_factors)):
-        raise AssertionError("3t: the mesh's model differs from phase 3's")
-    tel_mesh = np.array([[row[c] for c in ("dx", "dy", "x_rms", "y_rms")] for row in t_main["sweep_telemetry"]])
-    tel_one = np.array([[row[c] for c in ("dx", "dy", "x_rms", "y_rms")] for row in f32_stats["telemetry"]])
-    errs["telemetry"] = float(np.max(np.abs(tel_mesh - tel_one) / np.abs(tel_one)))
-    if errs["telemetry"] > TEL_MESH_RTOL:
-        raise AssertionError(f"3t: telemetry rows off by {errs['telemetry']} of one device's")
-    print(f"  main path: Engine.train on the mesh {main_s:.2f} s (host pack {t_main['pack_s']:.2f} s, "
-          f"upload {t_main['device_put_s']:.2f} s, loop {t_main['device_loop_s']:.4f} s, "
-          f"{t_main['device_loop_s'] * 1e3 / SWEEPS:.3f} ms per sweep); factors bit for bit phase "
-          f"3's; telemetry within {errs['telemetry']:.2e}; launches "
-          f"{ {n: v for n, v in counts.items() if v} }", flush=True)
 
     # c. the other forms, each against its single-device phase
     def form(label, cfg, want_arrays, want_counts, **kw):
@@ -7677,7 +8147,7 @@ def mesh_train_phase(rng, device, refs):
                          "mesh_implicit": t_imp["device_loop_s"] * 1e3 / SWEEPS,
                          "one_device_implicit": refs["implicit_stats"]["ms_per_sweep"]},
         "host": {"mesh_pack_s": t_main["pack_s"], "mesh_device_put_s": t_main["device_put_s"],
-                 "mesh_pack_sides_s": mesh_pack_s,
+                 "pack_cache": {"misses": packs.misses, "hits": packs.hits},
                  "direct_pack_s": f32_stats["direct"]["pack_s"],
                  "streaming": f32_stats["streaming"]},
         "main_path_s": main_s, "evaluation_s": eval_s,
@@ -7815,10 +8285,14 @@ def main() -> int:
         m_counts, m_errs, m_stats = mesh_phase(rng, device, workdir, model, traffic,
                                                q_served, sp_deploy)
         print(f"phase classification (3n) (at {time.perf_counter() - t0:.1f} s)", flush=True)
-        n_counts, n_errs, n_stats = classification_phase(device, workdir)
+        n_counts, n_errs, n_stats, n_refs = classification_phase(device, workdir)
         print(f"phase e2 and least squares (3x) (at {time.perf_counter() - t0:.1f} s)",
               flush=True)
-        x_counts, x_errs, x_stats = experimental_phase(device, workdir)
+        x_counts, x_errs, x_stats, x_refs = experimental_phase(device, workdir)
+        print(f"phase classification and e2 on a mesh (3k) (at {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        k_counts, k_errs, k_stats = mesh_e2_phase(device, workdir, n_refs, x_refs)
+        del n_refs, x_refs
         print(f"phase SimRank, K3c and the templates (3y) (at {time.perf_counter() - t0:.1f} s)",
               flush=True)
         y_counts, y_errs, y_stats = phase_3y(device, workdir, model, rows)
@@ -8112,6 +8586,37 @@ def main() -> int:
             "bound_ms": tb[name][0], "bound_by": tb[name][1], "library_ms": lib,
             "device_ms": t["shards_device_ms"], "one_device_ms": t["one_device_ms"],
         })
+    # classification and the e2 models on a mesh (3k): the shard forms'
+    # launches on their main paths (K15s's fit on Engine.train's, its scores
+    # on predict_naive_bayes(mesh=)'s, K17s on CategoricalNaiveBayes.train's,
+    # K16s over the 100 predicts), times of the shards' launches together
+    # with the finish (4 logical shards of the card, one after another)
+    # beside the whole work's bound and the library call on every shard
+    for name, kid, path, counter, finish, source, where in (
+            ("naive_bayes_fit_sharded", "K15s", "Engine.train", "naive_bayes_fit_shard",
+             "naive_bayes_fit_finish", "naive_bayes.cu", "predictionio_tpu/ops/naive_bayes.py:103"),
+            ("naive_bayes_scores_sharded", "K15s", "predict_naive_bayes", "naive_bayes_scores",
+             None, "naive_bayes.cu", "predictionio_tpu/ops/naive_bayes.py:144"),
+            ("cnb_count_sharded", "K17s", "CategoricalNaiveBayes.train", "cnb_count_shard",
+             "cnb_count_finish", "categorical_nb.cu", "predictionio_tpu/e2/naive_bayes.py:208"),
+            ("markov_step_sharded", "K16s", "MarkovChainModel.predict", "markov_step_shard",
+             "markov_step_finish", "markov.cu", "predictionio_tpu/e2/markov_chain.py:83")):
+        counted = k_counts[path]
+        if counted.get(counter, 0) < 1:
+            raise AssertionError(f"{name} never launched on 3k's {path}")
+        t = k_stats["kernel_ms"][name]
+        row = {
+            "name": name, "id": kid,
+            "route": "cuda", "source": f"predictionio_tpu_torch/csrc/{source}",
+            "replaces": where, "launches": counted[counter], "max_abs_err": k_errs[name],
+            "ms": t["shards_ms"], "plain_ms": t["plain_shards_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_shards_ms"],
+            "device_ms": t["shards_device_ms"], "one_device_ms": t["one_device_ms"],
+            "per_shard_ms": t["per_shard_ms"],
+        }
+        if finish is not None:
+            row["finish_launches"] = counted[finish]
+        kernels.append(row)
     print(f"phases done (at {time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

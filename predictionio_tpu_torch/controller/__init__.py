@@ -2,18 +2,28 @@
 counterpart of ``predictionio_tpu/controller``): params from JSON, the
 data check, the data source, preparator, algorithm and serving bases, an
 engine that builds them, trains, evaluates a params grid and prepares a
-deploy (and ``SimpleEngine``, its one-algorithm form), and models that
-persist themselves (``PersistentModel``).
+deploy (and ``SimpleEngine``, its one-algorithm form), models that
+persist themselves (``PersistentModel``), ``PAlgorithm`` (a model re-trained
+on deploy) and the reference's P/P2L/L aliases.
 The metrics and the evaluator are in ``metrics`` and ``evaluation``;
 engine instances come with the event store."""
 
 from predictionio_tpu_torch.controller.base import (
+    AverageServing,
     BaseAlgorithm,
     BaseDataSource,
     BasePreparator,
     BaseServing,
     FirstServing,
     IdentityPreparator,
+    LAlgorithm,
+    LDataSource,
+    LPreparator,
+    LServing,
+    P2LAlgorithm,
+    PAlgorithm,
+    PDataSource,
+    PPreparator,
     SanityCheck,
 )
 from predictionio_tpu_torch.controller.engine import (
@@ -38,6 +48,7 @@ from predictionio_tpu_torch.controller.params import (
 )
 
 __all__ = [
+    "AverageServing",
     "BaseAlgorithm",
     "BaseDataSource",
     "BasePreparator",
@@ -48,7 +59,15 @@ __all__ = [
     "EngineParams",
     "FirstServing",
     "IdentityPreparator",
+    "LAlgorithm",
+    "LDataSource",
+    "LPreparator",
+    "LServing",
     "LocalFileSystemPersistentModel",
+    "P2LAlgorithm",
+    "PAlgorithm",
+    "PDataSource",
+    "PPreparator",
     "Params",
     "ParamsError",
     "PersistentModel",

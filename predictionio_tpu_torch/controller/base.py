@@ -11,6 +11,12 @@ Where the reference hands a workflow context to ``prepare``, ``train``,
 ``torch.device`` they run on; a data source gets the context
 (``workflow/context.py``), which carries the device and the event columns
 it reads.
+
+``PAlgorithm`` declares a model that is not persisted (``sharded_model``):
+``Engine.make_serializable_models`` keeps None for it and
+``Engine.prepare_deploy`` re-trains it. The reference's P/P2L/L names are
+aliases of the bases, as in the JAX package (reference
+controller/PAlgorithm.scala:44, LServing.scala, LAverageServing.scala).
 """
 
 from __future__ import annotations
@@ -101,7 +107,14 @@ class IdentityPreparator(BasePreparator[TD, TD]):
 
 class BaseAlgorithm(Controller, Generic[M, Q, P]):
     """Trains a model and predicts from it (reference
-    core/BaseAlgorithm.scala)."""
+    core/BaseAlgorithm.scala).
+
+    ``sharded_model=True`` declares a model that lives sharded over the
+    devices it trained on (the reference's ``PAlgorithm`` role): unless it
+    is a ``PersistentModel``, it is persisted as None and re-trained at
+    deploy."""
+
+    sharded_model: bool = False
 
     # param fields that may differ between variants trained together by
     # ``train_grid``; empty: no grid path, the evaluation trains each
@@ -195,3 +208,33 @@ class FirstServing(BaseServing[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         return predictions[0]
+
+
+class LServing(BaseServing[Q, P]):
+    """The reference's name for a serving base (LServing.scala:31-52)."""
+
+
+class AverageServing(BaseServing[Q, float]):
+    """Averages numeric predictions (reference
+    controller/LAverageServing.scala:24-41)."""
+
+    def serve(self, query: Q, predictions: Sequence[float]) -> float:
+        return sum(predictions) / len(predictions)
+
+
+# the reference's names: the P/P2L/L split collapses in one process that
+# drives every device
+PDataSource = BaseDataSource
+LDataSource = BaseDataSource
+PPreparator = BasePreparator
+LPreparator = BasePreparator
+P2LAlgorithm = BaseAlgorithm
+LAlgorithm = BaseAlgorithm
+
+
+class PAlgorithm(BaseAlgorithm[M, Q, P]):
+    """An algorithm whose model stays sharded over its devices (reference
+    controller/PAlgorithm.scala:44): persisted as None, re-trained on
+    deploy."""
+
+    sharded_model = True

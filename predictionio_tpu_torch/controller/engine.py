@@ -13,8 +13,10 @@ serves the held-out queries (``serve_fold``); ``batch_eval`` does that for
 every variant of a params grid on a thread pool.
 ``make_serializable_models`` turns trained models into what is kept: a
 ``PersistentModel`` saves itself and leaves a manifest
-(``controller/persistent_model.py``); ``prepare_deploy`` loads manifests
-back and prepares every model for serving on one device or a ``Mesh``.
+(``controller/persistent_model.py``), a ``sharded_model`` algorithm's other
+models are kept as None; ``prepare_deploy`` loads manifests back,
+re-trains the None models from a ``WorkflowContext`` and prepares every
+model for serving on one device or a ``Mesh``.
 ``EngineFactory`` is the user object that returns an engine. Engine
 instances, their stored params and engine.json parsing come with the
 event store (ROADMAP.md queue 1 item 3). ``SimpleEngine`` (one data
@@ -280,24 +282,41 @@ class Engine:
         engine_params: EngineParams,
         models: Sequence[Any],
         engine_instance_id: Optional[str] = None,
+        ctx=None,
     ) -> List[Any]:
         """Load each ``PersistentModelManifest`` through its class's loader
-        (the model saved under ``engine_instance_id``), then bind each
+        (the model saved under ``engine_instance_id``), re-train each model
+        persisted as None (a ``sharded_model`` algorithm's), then bind each
         model's serving state to ``device`` (reference prepareDeploy
-        :196-265; the port deploys persisted models only). ``device`` may be
-        a ``Mesh``: an algorithm with ``MESH_SERVING`` serves over it, the
-        others (and the loaders) on its first device."""
+        :196-265). The re-train reads the data source with ``ctx``, the
+        ``WorkflowContext`` it needs (``read_training`` → ``prepare`` →
+        ``train`` on its ``training_target``, as the reference's :330-340);
+        a None model without ``ctx`` raises ``ValueError``. ``device`` may
+        be a ``Mesh``: an algorithm with ``MESH_SERVING`` serves over it,
+        the others (and the loaders) on its first device."""
         mesh = device if isinstance(device, Mesh) else None
         if mesh is not None:
             device = mesh.devices[0]
-        _, _, algorithms, _ = self.make_components(engine_params)
+        data_source, preparator, algorithms, _ = self.make_components(engine_params)
         if len(models) != len(algorithms):
             raise ValueError(
                 f"{len(models)} models for {len(algorithms)} algorithms"
             )
+        pd = None
         out = []
         for algo, m in zip(algorithms, models):
-            if isinstance(m, PersistentModelManifest):
+            if m is None:
+                if ctx is None:
+                    raise ValueError(
+                        f"the model of {type(algo).__name__} was not persisted (a sharded "
+                        "model): prepare_deploy needs the WorkflowContext to re-train it"
+                    )
+                if pd is None:
+                    logger.info("some persisted models are absent; re-training for deploy")
+                    self._require_data_source()
+                    pd = preparator.prepare(ctx.device, data_source.read_training(ctx))
+                m = algo.train(training_target(ctx, algo), pd)
+            elif isinstance(m, PersistentModelManifest):
                 if engine_instance_id is None:
                     raise ValueError(
                         f"a manifest of {m.class_name} needs the engine instance "
@@ -318,15 +337,20 @@ class Engine:
         """The persisted form of trained models (reference
         makeSerializableModels :282-300): a ``PersistentModel`` saves itself
         under ``engine_instance_id`` and is kept as its manifest, unless its
-        ``save`` returns False; every other model is kept as it is."""
+        ``save`` returns False; a ``sharded_model`` algorithm's other models
+        are kept as None (re-trained on deploy); every other model is kept
+        as it is."""
         _, _, algorithms, _ = self.make_components(engine_params)
         out = []
         for algo, model in zip(algorithms, models):
-            if isinstance(model, PersistentModel) and model.save(
-                engine_instance_id, algo.params, device
-            ):
-                cls = type(model)
-                out.append(PersistentModelManifest(f"{cls.__module__}.{cls.__qualname__}"))
+            if isinstance(model, PersistentModel):
+                if model.save(engine_instance_id, algo.params, device):
+                    cls = type(model)
+                    out.append(PersistentModelManifest(f"{cls.__module__}.{cls.__qualname__}"))
+                else:
+                    out.append(model)
+            elif algo.sharded_model:
+                out.append(None)
             else:
                 out.append(model)
         return out

@@ -30,6 +30,14 @@
 //     pairs are reduced over the warp by a total order (NaN first, then the
 //     larger score, then the lower label: jnp.argmax's rule), so the label
 //     does not depend on the reduction's shape.
+//
+// K17s, K17a on a 1-D `data` mesh (the reference's :208-221, whose key
+// vector is padded with the sentinel n_keys), needs no other kernel: the
+// flat keys are cut at the whole-M plan's block boundaries into the mesh's
+// shards, each shard runs pass 1 (cnb_count_partial_i32) on its keys into
+// its blocks' slice of one partials array on the first device, and one
+// pass 2 (cnb_count_finish_i32) adds them there. The counts are integers,
+// so they are one device's bit for bit, with no padding.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -122,25 +130,48 @@ __global__ void __launch_bounds__(SCORE_WARPS * 32) cnb_scores_argmax(
 
 extern "C" {
 
-// K17a on `stream`: counts [n_keys] int32, the histogram of keys [M] int32
-// (a key outside [0, n_keys) counts nowhere). The plan (nblk key ranges of
-// per_block keys, key tiles of `tile` keys) comes from the caller, as does
-// the partials' scratch partial [nblk, n_keys] int32. Returns
+// K17a's pass 1 on `stream`: the partial histograms partial [nblk, n_keys]
+// int32 of keys [M] int32 (a key outside [0, n_keys) counts nowhere), block
+// b counting keys b·per_block..; key tiles of `tile` keys. A shard of K17s
+// passes its keys (whole blocks of the whole-M plan, the last shard's last
+// block may be short) and its blocks' slice of the partials. Returns
 // cudaGetLastError().
-int cnb_count_i32(const int* keys, long long M, int n_keys, int nblk,
-                  long long per_block, int tile, int* partial, int* counts,
-                  cudaStream_t stream) {
+int cnb_count_partial_i32(const int* keys, long long M, int n_keys, int nblk,
+                          long long per_block, int tile, int* partial,
+                          cudaStream_t stream) {
   if (M < 1 || n_keys < 1 || nblk < 1 || per_block < 1 || tile < 1 ||
-      (long long)tile * sizeof(int) > 48 * 1024)
+      (long long)tile * sizeof(int) > 48 * 1024 ||
+      (long long)(nblk - 1) * per_block >= M)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(nblk, (n_keys + tile - 1) / tile);
   cnb_count_partial<<<grid, COUNT_THREADS, tile * sizeof(int), stream>>>(
       keys, M, n_keys, tile, per_block, partial);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K17a's pass 2 on `stream`: counts [n_keys] int32, the nblk partials added
+// in block order (integers: exact in any order). Returns
+// cudaGetLastError().
+int cnb_count_finish_i32(const int* partial, int nblk, int n_keys, int* counts,
+                         cudaStream_t stream) {
+  if (nblk < 1 || n_keys < 1) return (int)cudaErrorInvalidValue;
   cnb_count_finish<<<(n_keys + FINISH_THREADS - 1) / FINISH_THREADS,
                      FINISH_THREADS, 0, stream>>>(partial, nblk, n_keys, counts);
   return (int)cudaGetLastError();
+}
+
+// K17a on `stream`: counts [n_keys] int32, the histogram of keys [M] int32
+// (a key outside [0, n_keys) counts nowhere): both passes. The plan (nblk
+// key ranges of per_block keys, key tiles of `tile` keys) comes from the
+// caller, as does the partials' scratch partial [nblk, n_keys] int32.
+// Returns cudaGetLastError().
+int cnb_count_i32(const int* keys, long long M, int n_keys, int nblk,
+                  long long per_block, int tile, int* partial, int* counts,
+                  cudaStream_t stream) {
+  const int err = cnb_count_partial_i32(keys, M, n_keys, nblk, per_block, tile,
+                                        partial, stream);
+  if (err != (int)cudaSuccess) return err;
+  return cnb_count_finish_i32(partial, nblk, n_keys, counts, stream);
 }
 
 // K17b on `stream`: scores [N, L] float32 and out [N] int32 (the first

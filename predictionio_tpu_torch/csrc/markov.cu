@@ -30,6 +30,19 @@
 // padding) and targets outside [-n, n) are left out of the CSR: they add
 // nothing in the reference (a negative target counts from the end there,
 // and in the CSR).
+//
+// K16s, the step on a 1-D `data` mesh (the reference's predict :70-91 with
+// _step :126-135: source states and the state vector sharded, each
+// device's partial next-state vector all-reduced). Each shard holds the
+// CSR of its own sources' kept transitions (sources local to the shard)
+// and its slice of the state vector. markov_step_partial_f64 runs
+// markov_chunks on it and markov_gather64, which is markov_gather with the
+// float64 sum left unrounded, into the shard's row of one [S, n] float64
+// array on the first device; markov_sum_shards then adds the S rows in
+// shard order and rounds once to float32. A shard's chunks hold other
+// entries than one device's, so the float64 sums run in another order and
+// the float32 answer may differ from one device's by one step where the
+// exact sum lies on a rounding boundary.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +76,29 @@ __global__ void __launch_bounds__(GATHER_THREADS) markov_gather(
   out[t] = __double2float_rn(s);
 }
 
+// markov_gather's float64 form: the target's chunk sums in chunk order,
+// unrounded (a shard's partial next-state vector)
+__global__ void __launch_bounds__(GATHER_THREADS) markov_gather64(
+    const double* __restrict__ partial, const int* __restrict__ target_chunk,
+    int n, double* __restrict__ out) {
+  const int t = blockIdx.x * GATHER_THREADS + threadIdx.x;
+  if (t >= n) return;
+  double s = 0.0;
+  for (int c = target_chunk[t]; c < target_chunk[t + 1]; ++c) s += partial[c];
+  out[t] = s;
+}
+
+// a thread per target adds the shards' partials [S, n] in shard order, in
+// float64, and rounds once
+__global__ void __launch_bounds__(GATHER_THREADS) markov_sum_shards(
+    const double* __restrict__ parts, int S, int n, float* __restrict__ out) {
+  const int t = blockIdx.x * GATHER_THREADS + threadIdx.x;
+  if (t >= n) return;
+  double s = 0.0;
+  for (int k = 0; k < S; ++k) s += parts[(long long)k * n + t];
+  out[t] = __double2float_rn(s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -88,6 +124,40 @@ int markov_step_f32(const float* cur, const int* src, const float* prob,
   }
   markov_gather<<<(n + GATHER_THREADS - 1) / GATHER_THREADS, GATHER_THREADS, 0,
                   stream>>>(partial, target_chunk, n, out);
+  return (int)cudaGetLastError();
+}
+
+// K16s, a shard's step on `stream`: out [n] float64, the unrounded partial
+// next-state vector of the shard's state slice cur [rows] float32 under its
+// CSR (src local to the shard; the rest as for markov_step_f32). Returns
+// cudaGetLastError(); no launch when n is 0.
+int markov_step_partial_f64(const float* cur, const int* src, const float* prob,
+                            const int* chunk_start, const int* target_chunk,
+                            int n, int n_chunks, double* partial, double* out,
+                            cudaStream_t stream) {
+  if (n == 0) return (int)cudaSuccess;
+  if (n < 0 || n_chunks < 0) return (int)cudaErrorInvalidValue;
+  if (n_chunks > 0) {
+    const int blocks = (n_chunks + CHUNK_WARPS - 1) / CHUNK_WARPS;
+    markov_chunks<<<blocks, CHUNK_WARPS * 32, 0, stream>>>(
+        cur, src, prob, chunk_start, n_chunks, partial);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  markov_gather64<<<(n + GATHER_THREADS - 1) / GATHER_THREADS, GATHER_THREADS,
+                    0, stream>>>(partial, target_chunk, n, out);
+  return (int)cudaGetLastError();
+}
+
+// K16s's sum on `stream`: out [n] float32, the S shards' partials parts
+// [S, n] float64 added in shard order and rounded once. Returns
+// cudaGetLastError(); no launch when n is 0.
+int markov_sum_shards_f32(const double* parts, int S, int n, float* out,
+                          cudaStream_t stream) {
+  if (n == 0) return (int)cudaSuccess;
+  if (n < 0 || S < 1) return (int)cudaErrorInvalidValue;
+  markov_sum_shards<<<(n + GATHER_THREADS - 1) / GATHER_THREADS, GATHER_THREADS,
+                      0, stream>>>(parts, S, n, out);
   return (int)cudaGetLastError();
 }
 

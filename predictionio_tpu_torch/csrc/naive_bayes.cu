@@ -37,6 +37,17 @@
 //     The (score, class) pairs are reduced over the warp by a total order
 //     (NaN first, then the larger score, then the lower class), so the
 //     result does not depend on the reduction's shape.
+//
+// K15s, the reference's two programs on a 1-D `data` mesh (:103-121 fit,
+// :144-151 scores), needs no other kernel. The fit cuts the rows of the
+// whole-n plan at block boundaries into the mesh's shards: each shard runs
+// pass 1 on its rows alone (naive_bayes_fit_partial_f32) into its blocks'
+// slice of one partials array on the first device, and one pass 2 there
+// (naive_bayes_fit_finish_f32) sums them in block order, so the model is
+// one device's bit for bit whatever the shard count (no padding rows are
+// needed: the cut is at whole blocks). The scores cut the query batch into
+// row shards, each scored by nb_scores_argmax into its block of one [B]
+// result; every row is one device's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -197,31 +208,58 @@ __global__ void __launch_bounds__(SCORE_WARPS * 32) nb_scores_argmax(
 
 extern "C" {
 
-// K15a on `stream`: the class counts [C] int32, sums [C, F], pi [C] and
-// theta [C, F] float32 of features X [n, F] float32 under label indices
-// y [n] int32 (a row whose index is outside [0, C) counts nowhere). The
-// plan (nblk blocks of rows_per_block rows, F tiles of Ft, class tiles of
-// Ct, L lanes with L·Ft <= 256) comes from the caller, as do the partials
-// part [nblk, C, F] float32 and cpart [nblk, C] int32. Returns
-// cudaGetLastError().
-int naive_bayes_fit_f32(const float* X, const int* y, long long n, int F,
-                        int C, float lam, int nblk, long long rows_per_block,
-                        int Ft, int L, int Ct, float* part, int* cpart,
-                        int* counts, float* sums, float* pi, float* theta,
-                        cudaStream_t stream) {
+// K15a's pass 1 on `stream`: the block partials part [nblk, C, F] float32
+// and cpart [nblk, C] int32 of the rows X [n, F] float32 under label
+// indices y [n] int32 (a row whose index is outside [0, C) counts nowhere),
+// block b holding rows b·rows_per_block.. of X. A shard of K15s passes its
+// rows (a whole number of the whole-n plan's blocks, the last shard's last
+// block may be short) and its slice of the partials: the partials are then
+// the single-device launch's, bit for bit. Returns cudaGetLastError().
+int naive_bayes_fit_partial_f32(const float* X, const int* y, long long n,
+                                int F, int C, int nblk,
+                                long long rows_per_block, int Ft, int L,
+                                int Ct, float* part, int* cpart,
+                                cudaStream_t stream) {
   if (n < 1 || F < 1 || C < 1 || nblk < 1 || Ft < 1 || L < 1 || Ct < 1 ||
-      L * Ft > FIT_THREADS)
+      L * Ft > FIT_THREADS || (long long)(nblk - 1) * rows_per_block >= n)
     return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)L * Ct * Ft + Ct) * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const dim3 grid(nblk, (F + Ft - 1) / Ft, (C + Ct - 1) / Ct);
   nb_fit_partial<<<grid, L * Ft, smem, stream>>>(X, y, n, F, C, rows_per_block,
                                                  Ft, L, Ct, part, cpart);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K15a's pass 2 on `stream`: the class counts [C] int32, sums [C, F], pi
+// [C] and theta [C, F] float32 from the partials of nblk blocks, summed in
+// block order. Returns cudaGetLastError().
+int naive_bayes_fit_finish_f32(const float* part, const int* cpart, int nblk,
+                               int C, int F, float lam, int* counts,
+                               float* sums, float* pi, float* theta,
+                               cudaStream_t stream) {
+  if (nblk < 1 || C < 1 || F < 1) return (int)cudaErrorInvalidValue;
   nb_fit_finish<<<C, FINISH_THREADS, 0, stream>>>(part, cpart, nblk, C, F, lam,
                                                   counts, sums, pi, theta);
   return (int)cudaGetLastError();
+}
+
+// K15a on `stream`: both passes over X [n, F] (see above). The plan (nblk
+// blocks of rows_per_block rows, F tiles of Ft, class tiles of Ct, L lanes
+// with L·Ft <= 256) comes from the caller, as do the partials part
+// [nblk, C, F] float32 and cpart [nblk, C] int32. Returns
+// cudaGetLastError().
+int naive_bayes_fit_f32(const float* X, const int* y, long long n, int F,
+                        int C, float lam, int nblk, long long rows_per_block,
+                        int Ft, int L, int Ct, float* part, int* cpart,
+                        int* counts, float* sums, float* pi, float* theta,
+                        cudaStream_t stream) {
+  const int err = naive_bayes_fit_partial_f32(X, y, n, F, C, nblk,
+                                              rows_per_block, Ft, L, Ct, part,
+                                              cpart, stream);
+  if (err != (int)cudaSuccess) return err;
+  return naive_bayes_fit_finish_f32(part, cpart, nblk, C, F, lam, counts,
+                                    sums, pi, theta, stream);
 }
 
 // K15b on `stream`: out [B] int32, the jnp.argmax of X·θᵀ + π per row of

@@ -12,22 +12,26 @@ The kept transitions stay the dense [n_states, top_n] (target, probability)
 arrays of the reference. ``predict`` places them once per device, as a
 target-major CSR (``ops/markov.place_transitions``), and reuses them; that
 device state is never pickled. The model carries the device it predicts on
-(None: CUDA). ``markov_model_from_numpy`` builds a model from a trained
-model's arrays (a JAX-trained one included). A ``mesh`` raises (ROADMAP.md
-queue 1 item 11).
+(None: CUDA). On a 1-D ``data`` mesh of several shards ``predict`` shards
+the source states and the state vector (K16s,
+``ops/markov.markov_step_shards``), its placement cached per mesh, which
+the cache holds by weakref and compares by identity, as the reference's
+does. ``markov_model_from_numpy`` builds a model from a trained model's
+arrays (a JAX-trained one included).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
-from predictionio_tpu_torch.e2.naive_bayes import _no_mesh
 from predictionio_tpu_torch.ops import markov
+from predictionio_tpu_torch.parallel.mesh import Mesh, check_data_axis, collapse_mesh, cut_rows
 
 
 @dataclasses.dataclass
@@ -39,7 +43,8 @@ class MarkovChainModel:
     targets: np.ndarray  # [n_states, n] int32 (padding: target 0 with 0 prob)
     probs: np.ndarray  # [n_states, n] float32
     device: Optional[torch.device] = None  # where predict runs (None: CUDA)
-    # (device, ops.markov.PlacedTransitions) placed once; device state, never pickled
+    # (weakref of the mesh or None, device or None, ops.markov.PlacedTransitions
+    # or MeshTransitions) placed once; device state, never pickled
     _placed: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
 
     def __getstate__(self):
@@ -65,26 +70,53 @@ class MarkovChainModel:
         self, current_state: Sequence[float], mesh=None, axis: str = "data"
     ) -> List[float]:
         """Probabilities of the next state (reference predict :68-88): one
-        K16 launch on the model's device (None: CUDA). Raises
-        ``ValueError`` on a state vector whose length is not n_states."""
-        _no_mesh(mesh)
-        dev = resolve_device(self.device)
+        K16 launch on the model's device (None: CUDA), or, on a 1-D
+        ``data`` ``mesh`` of several shards, K16s over its shards (a mesh of
+        one shard is its device). Raises ``ValueError`` on a state vector
+        whose length is not n_states."""
+        check_data_axis(axis)
+        mesh, device = collapse_mesh(mesh, None)
         cur = np.asarray(current_state, np.float32)
         if cur.shape != (self.n_states,):
             raise ValueError(
                 f"the current state has shape {cur.shape}; the chain has "
                 f"{self.n_states} states"
             )
+        if mesh is not None:
+            placed = self._mesh_transitions(mesh)
+            curs = cut_rows(mesh, cur, placed.bounds)
+            return markov.markov_step_shards(curs, placed).cpu().numpy().tolist()
+        dev = resolve_device(device if device is not None else self.device)
         out = markov.markov_step(torch.from_numpy(cur).to(dev), self._device_transitions(dev))
         return out.cpu().numpy().tolist()
+
+    def _cached(self, mesh: Optional[Mesh], dev: Optional[torch.device]):
+        """The placement cached for ``mesh`` (compared by identity, through
+        a weakref: a dead mesh's entry serves no mesh) or, with no mesh, for
+        ``dev`` (a mesh's entry never serves it); else None."""
+        if self._placed is None:
+            return None
+        ref, cached_dev, placed = self._placed
+        if mesh is None:
+            return placed if ref is None and cached_dev == dev else None
+        return placed if ref is not None and ref() is mesh else None
 
     def _device_transitions(self, dev: torch.device) -> markov.PlacedTransitions:
         """The kept transitions on ``dev``, placed once and reused: repeat
         predicts ship only the [n_states] state vector."""
-        if self._placed is not None and self._placed[0] == dev:
-            return self._placed[1]
-        placed = markov.place_transitions(self.targets, self.probs, self.n_states, dev)
-        self._placed = (dev, placed)
+        placed = self._cached(None, dev)
+        if placed is None:
+            placed = markov.place_transitions(self.targets, self.probs, self.n_states, dev)
+            self._placed = (None, dev, placed)
+        return placed
+
+    def _mesh_transitions(self, mesh: Mesh) -> markov.MeshTransitions:
+        """The kept transitions on ``mesh``'s shards, placed once per mesh."""
+        placed = self._cached(mesh, None)
+        if placed is None:
+            placed = markov.place_transitions_mesh(
+                self.targets, self.probs, self.n_states, mesh.shard_devices())
+            self._placed = (weakref.ref(mesh), None, placed)
         return placed
 
 

@@ -14,8 +14,10 @@ reference's pluggable default for unseen values.
 The model carries the device it predicts on (None: CUDA) and keeps one
 device copy of its likelihoods per device, never pickled.
 ``categorical_nb_model_from_numpy`` builds a model from a trained model's
-arrays (a JAX-trained one included). A ``mesh`` raises (ROADMAP.md queue 1
-item 11).
+arrays (a JAX-trained one included). On a 1-D ``data`` mesh of several
+shards ``train`` shards the count only (K17s, ``cnb_count_mesh``): the
+encoding stays on the host, as in the reference, and the model, one
+device's bit for bit, predicts on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops import categorical_nb
+from predictionio_tpu_torch.parallel.mesh import check_data_axis, collapse_mesh
 
 NEG_INF = float("-inf")
 
@@ -42,14 +45,6 @@ class LabeledPoint:
 
     def __post_init__(self):
         object.__setattr__(self, "features", tuple(self.features))
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh is not supported: the port runs the e2 models on one device "
-            "(multi-GPU is ROADMAP.md queue 1 item 11)"
-        )
 
 
 @dataclasses.dataclass
@@ -173,10 +168,12 @@ class CategoricalNaiveBayes:
     ) -> CategoricalNaiveBayesModel:
         """Train on ``device`` (CUDA unless the CPU is asked for): the
         reference's host checks and encoding, one K17a launch over the flat
-        keys, then the reference's logs. The model predicts on the same
-        device."""
-        _no_mesh(mesh)
-        dev = resolve_device(device)
+        keys (K17s over a 1-D ``data`` ``mesh`` of several shards), then the
+        reference's logs. The model predicts on the same device (the mesh's
+        first)."""
+        check_data_axis(axis)
+        mesh, device = collapse_mesh(mesh, device)
+        dev = resolve_device(device) if mesh is None else mesh.devices[0]
         if not points:
             raise ValueError("cannot train on an empty dataset")
         S = len(points[0].features)
@@ -200,9 +197,12 @@ class CategoricalNaiveBayes:
             values = np.fromiter((vi[p.features[s]] for p in points), np.int64, count=n)
             flat_keys[s * n:(s + 1) * n] = (s * L + labels) * V + values
         n_keys = S * L * V
-        counts = categorical_nb.cnb_count(
-            torch.from_numpy(flat_keys.astype(np.int32)).to(dev), n_keys
-        ).cpu().numpy().reshape(S, L, V)
+        keys = flat_keys.astype(np.int32)
+        if mesh is None:
+            counts = categorical_nb.cnb_count(torch.from_numpy(keys).to(dev), n_keys)
+        else:
+            counts = categorical_nb.cnb_count_mesh(keys, n_keys, mesh)
+        counts = counts.cpu().numpy().reshape(S, L, V)
 
         label_counts = np.bincount(labels, minlength=L).astype(np.float64)
         log_priors = np.log(label_counts / n).astype(np.float32)

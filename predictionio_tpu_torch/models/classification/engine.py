@@ -18,7 +18,10 @@ src/main/scala/):
 Where the reference reads ``PEventStore.aggregate_properties``, the
 ``DataSource`` reads ``WorkflowContext.aggregate_properties``: the port has
 no event store yet (ROADMAP.md queue 1 item 3), so the caller supplies the
-aggregated maps. ``train`` takes the ``torch.device`` it runs on.
+aggregated maps. ``train`` takes the ``torch.device`` it runs on;
+``NaiveBayesAlgorithm`` (``MESH_TRAINING``) also takes a ``Mesh``, whose
+rows it shards (K15s, as the reference trains on the workflow's mesh), and
+serves on one device, as the reference does.
 ``nb_model_from_numpy`` and ``lr_model_from_numpy`` carry a model's arrays
 across (a JAX-trained one included).
 """
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +53,7 @@ from predictionio_tpu_torch.ops.naive_bayes import (
     train_naive_bayes,
 )
 from predictionio_tpu_torch.ops.softmax_regression import softmax_regression
+from predictionio_tpu_torch.parallel.mesh import Mesh, split_target
 
 logger = logging.getLogger(__name__)
 
@@ -170,14 +174,19 @@ class NaiveBayesAlgorithmParams(Params):
 
 class NaiveBayesAlgorithm(BaseAlgorithm):
     """Multinomial NB (reference NaiveBayesAlgorithm.scala:24-44): K15a to
-    train, one K15b launch per predicted batch."""
+    train (K15s over the rows of a mesh), one K15b launch per predicted
+    batch."""
 
     params_class = NaiveBayesAlgorithmParams
     query_class = Query
+    MESH_TRAINING = True
 
-    def train(self, device: torch.device, pd: PreparedData) -> NaiveBayesModelArrays:
+    def train(self, device: Union[torch.device, Mesh], pd: PreparedData) -> NaiveBayesModelArrays:
+        """On a device, or on a ``Mesh`` of several shards, whose first
+        device the model then predicts on."""
+        mesh, device = split_target(device)
         return train_naive_bayes(
-            pd.td.features, pd.td.labels, lam=self.params.lambda_, device=device
+            pd.td.features, pd.td.labels, lam=self.params.lambda_, mesh=mesh, device=device
         )
 
     def prepare_serving(self, device: torch.device, model: NaiveBayesModelArrays):

@@ -23,22 +23,38 @@ Three forms of the step, one function:
 Entries of zero probability (the reference's padding) and targets outside
 [-n, n) add nothing, and a negative target counts from the end, as in the
 reference's ``.at[targets].add(..., mode="drop")``.
+
+K16s, the step on a 1-D ``data`` mesh (the reference's ``predict`` :70-91):
+``place_transitions_mesh`` cuts the source states into contiguous shards
+and places each shard's kept transitions, a target-major CSR of its own
+sources, on its device once; ``markov_step_shards`` runs each shard's
+partial next-state vector in float64, unrounded (``markov_step_partial``,
+twin ``markov_partial_plain``), into its row of one [S, n] array on the
+first device (a peer copy, none where the shard shares that device) and
+adds the rows there in shard order, rounding once (``markov_sum_shards``,
+twin ``sum_shards_plain``). Its
+sums run in another order than one device's, so an entry may lie one
+float32 step from one device's (``csrc/markov.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
+from predictionio_tpu_torch.parallel.mesh import split_rows
 
 SOURCE = "markov.cu"
 
-LAUNCHES = LaunchCounts("markov_step", "markov_step_plain")
+# K16s counts as "markov_step_shard" (a shard's partial) and "markov_step_finish"
+LAUNCHES = LaunchCounts("markov_step", "markov_step_plain", "markov_step_shard",
+                        "markov_step_finish", "markov_step_shard_plain",
+                        "markov_step_finish_plain")
 
 CHUNK = 256  # entries of one target a warp sums at most
 
@@ -106,6 +122,33 @@ def place_transitions(
     )
 
 
+class MeshTransitions(NamedTuple):
+    """The kept transitions of an ``n_states`` chain on a mesh: shard s holds
+    sources ``bounds[s]:bounds[s + 1]`` as a target-major CSR on its device
+    (sources numbered from the shard's first; None where it has none)."""
+
+    n_states: int
+    bounds: np.ndarray  # [S + 1] source-state boundaries
+    shards: Tuple[Optional[PlacedTransitions], ...]
+    device: torch.device  # where the partials are added: the mesh's first
+
+
+def place_transitions_mesh(
+    targets: np.ndarray, probs: np.ndarray, n_states: int, devices: Sequence[torch.device]
+) -> MeshTransitions:
+    """The kept transitions [n_states, top_n] on the shards' ``devices``: the
+    source states cut into contiguous ranges of about equal size, each
+    range's transitions placed on its shard's device once."""
+    targets = np.asarray(targets).reshape(n_states, -1)
+    probs = np.asarray(probs, np.float32).reshape(n_states, -1)
+    bounds = split_rows(np.ones(n_states, np.int64), len(devices))
+    shards = tuple(
+        place_transitions(targets[i0:i1], probs[i0:i1], n_states, d) if i1 > i0 else None
+        for d, i0, i1 in zip(devices, bounds[:-1], bounds[1:])
+    )
+    return MeshTransitions(n_states, bounds, shards, devices[0])
+
+
 def entry_targets(placed: PlacedTransitions) -> torch.Tensor:
     """[E] int64: the target of each kept transition, read off the CSR's
     chunk offsets."""
@@ -116,20 +159,39 @@ def entry_targets(placed: PlacedTransitions) -> torch.Tensor:
     return torch.repeat_interleave(chunk_target, torch.diff(placed.chunk_start).long())
 
 
+def markov_partial_plain(cur: torch.Tensor, placed: PlacedTransitions) -> torch.Tensor:
+    """The plain twin of a K16s shard: the float32 products of its kept
+    transitions (``cur`` the shard's slice) added by ``index_add_`` into
+    each entry's target in float64, unrounded."""
+    out = torch.zeros(placed.n_states, dtype=torch.float64, device=cur.device)
+    contrib = placed.prob * cur[placed.src.long()]
+    return out.index_add_(0, entry_targets(placed), contrib.double())
+
+
 def markov_step_plain(cur: torch.Tensor, placed: PlacedTransitions) -> torch.Tensor:
     """The plain twin of K16: the float32 products ``prob·cur[src]`` added
     by ``index_add_`` into each entry's target in float64, then rounded to
     float32."""
-    out = torch.zeros(placed.n_states, dtype=torch.float64, device=cur.device)
-    contrib = placed.prob * cur[placed.src.long()]
-    out.index_add_(0, entry_targets(placed), contrib.double())
-    return out.float()
+    return markov_partial_plain(cur, placed).float()
+
+
+def sum_shards_plain(parts: torch.Tensor) -> torch.Tensor:
+    """The plain twin of K16s's sum: the shards' float64 partials [S, n]
+    added in shard order, rounded once to float32."""
+    acc = torch.zeros_like(parts[0])
+    for part in parts:
+        acc = acc + part
+    return acc.float()
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.markov_step_f32.argtypes = [p, p, p, p, p, i, i, p, p, p]
     lib.markov_step_f32.restype = ctypes.c_int
+    lib.markov_step_partial_f64.argtypes = [p, p, p, p, p, i, i, p, p, p]
+    lib.markov_step_partial_f64.restype = ctypes.c_int
+    lib.markov_sum_shards_f32.argtypes = [p, i, i, p, p]
+    lib.markov_sum_shards_f32.restype = ctypes.c_int
 
 
 _LIBRARY = native.Library(SOURCE, _declare, "markov_error_string")
@@ -176,3 +238,109 @@ def markov_step(cur: torch.Tensor, placed: PlacedTransitions) -> torch.Tensor:
     _LIBRARY.check(err, "markov_step")
     LAUNCHES.add("markov_step")
     return out
+
+
+def markov_step_partial(
+    cur: torch.Tensor, placed: PlacedTransitions, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """A K16s shard's launch: the unrounded partial next-state vector [n]
+    float64 of its state slice ``cur`` [rows] float32 under its CSR
+    ``placed`` (sources numbered from the shard's first), written into
+    ``out`` where given.
+
+    CPU tensors go to the plain twin (``markov_partial_plain``). CUDA
+    tensors go to the kernel, which must build and launch or this raises."""
+    n, dev = placed.n_states, cur.device
+    if cur.dim() != 1 or cur.dtype != torch.float32:
+        raise ValueError(f"a shard's state slice must be [rows] float32, got "
+                         f"{tuple(cur.shape)} {cur.dtype}")
+    if dev != placed.src.device:
+        raise ValueError(f"the state slice is on {dev}, the transitions on {placed.src.device}")
+    if out is not None and (tuple(out.shape) != (n,) or out.dtype != torch.float64
+                            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [{n}] float64 tensor on {dev}")
+    if dev.type == "cpu":
+        LAUNCHES.add("markov_step_shard_plain")
+        got = markov_partial_plain(cur, placed)
+        return got if out is None else out.copy_(got)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not cur.is_contiguous():
+        raise ValueError("the state slice must be contiguous")
+    out = out if out is not None else torch.empty(n, dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    scratch = torch.empty(max(placed.n_chunks, 1), dtype=torch.float64, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.markov_step_partial_f64(
+            cur.data_ptr(), placed.src.data_ptr(), placed.prob.data_ptr(),
+            placed.chunk_start.data_ptr(), placed.target_chunk.data_ptr(), n, placed.n_chunks,
+            scratch.data_ptr(), out.data_ptr(), stream,
+        )
+    _LIBRARY.check(err, "markov_step_partial")
+    LAUNCHES.add("markov_step_shard")
+    return out
+
+
+def markov_sum_shards(parts: torch.Tensor) -> torch.Tensor:
+    """K16s's last launch: the next-state vector [n] float32, the shards'
+    partials ``parts`` [S, n] float64 added in shard order and rounded
+    once.
+
+    CPU tensors go to the plain twin (``sum_shards_plain``). CUDA tensors
+    go to the kernel, which must build and launch or this raises."""
+    if parts.dim() != 2 or parts.dtype != torch.float64 or parts.shape[0] < 1:
+        raise ValueError(f"parts must be [S, n] float64, got {tuple(parts.shape)} {parts.dtype}")
+    S, n = parts.shape
+    dev = parts.device
+    if dev.type == "cpu":
+        LAUNCHES.add("markov_step_finish_plain")
+        return sum_shards_plain(parts)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not parts.is_contiguous():
+        raise ValueError("parts must be contiguous")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.markov_sum_shards_f32(parts.data_ptr(), S, n, out.data_ptr(), stream)
+    _LIBRARY.check(err, "markov_sum_shards")
+    LAUNCHES.add("markov_step_finish")
+    return out
+
+
+def markov_step_shards(curs: Sequence[Optional[torch.Tensor]], placed: MeshTransitions) -> torch.Tensor:
+    """K16s: the next-state vector [n] float32, on ``placed.device``, of the
+    state vector given as its shards' slices ``curs[s]`` [rows_s] float32
+    (each on its shard's device; None or 0 rows where the shard has no
+    sources). Each shard writes its float64 partial
+    (``markov_step_partial``) into its row of one [S, n] array on
+    ``placed.device`` (a peer copy where it lies elsewhere), and
+    ``markov_sum_shards`` adds the rows in shard order there."""
+    n, dev0 = placed.n_states, placed.device
+    if len(curs) != len(placed.shards):
+        raise ValueError(f"{len(curs)} state slices for {len(placed.shards)} shards")
+    work = []
+    for cur, sh, i0, i1 in zip(curs, placed.shards, placed.bounds[:-1], placed.bounds[1:]):
+        if sh is None:
+            if cur is not None and cur.numel():
+                raise ValueError("a shard without sources got a state slice")
+            continue
+        if cur is None or tuple(cur.shape) != (int(i1 - i0),) or cur.device.type != dev0.type:
+            raise ValueError(f"shard {len(work)}'s state slice must be [{int(i1 - i0)}] on a "
+                             f"{dev0.type} device")
+        work.append((cur, sh))
+    if not work:
+        return torch.zeros(n, dtype=torch.float32, device=dev0)
+    parts = torch.empty((len(work), n), dtype=torch.float64, device=dev0)
+    for k, (cur, sh) in enumerate(work):
+        if cur.device == dev0:
+            markov_step_partial(cur, sh, out=parts[k])
+        else:  # the peer copy of the shard's partial
+            parts[k].copy_(markov_step_partial(cur, sh))
+    return markov_sum_shards(parts)

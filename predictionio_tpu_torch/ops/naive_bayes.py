@@ -21,7 +21,9 @@ Three forms of each kernel, one function:
 - the hand-written CUDA kernels for Hopper, ``csrc/naive_bayes.cu`` (its
   header states the bound and the design: fixed summation orders, no float
   atomics, so a rerun gives the same bits);
-- the plain PyTorch twins ``fit_plain`` (``bincount``, ``index_add_`` and
+- the plain PyTorch twins ``fit_plain`` (K15a's two passes:
+  ``fit_partial_plain``, each block's per-class sums by ``index_add_`` in
+  row order, and ``fit_finish_plain``, the blocks added in block order, then
   the logs) and ``scores_plain`` with ``argmax_first_nan`` (the kernel's
   product and add order, so the scores match it bit for bit);
 - the wrappers, which route CPU tensors to the twins and CUDA tensors to
@@ -30,14 +32,24 @@ Three forms of each kernel, one function:
 
 ``train_naive_bayes`` and ``predict_naive_bayes`` keep the reference's host
 checks and signatures, plus an explicit ``device`` (CUDA unless the CPU is
-asked for); a ``mesh`` raises (ROADMAP.md queue 1 item 11).
+asked for).
+
+K15s, the two programs on a 1-D ``data`` mesh (the reference's :103-121 and
+:144-151; ``parallel/mesh.py``): ``naive_bayes_fit_shards`` runs K15a's
+pass 1 on each shard's rows (a whole number of the whole-n plan's blocks,
+``fit_shard_bounds``) into its blocks' slice of one partials array on the
+first device (a peer copy, none where the shard shares that device), then
+one pass 2 there, so the model is one device's bit for bit whatever the
+shard count; ``predict_naive_bayes(mesh=)`` scores each row shard of the
+batch into its block of one [B] result on the first device, fetched once.
+A mesh of one shard collapses to its device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,12 +57,22 @@ import torch
 from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.ops import native
 from predictionio_tpu_torch.ops.native import LaunchCounts
+from predictionio_tpu_torch.parallel.mesh import (
+    check_data_axis,
+    collapse_mesh,
+    cut_rows,
+    split_rows,
+)
 
 SOURCE = "naive_bayes.cu"
 
+# K15s's shards count as "naive_bayes_fit_shard" (pass 1 on a shard) and
+# "naive_bayes_fit_finish"; its score shards as "naive_bayes_scores"
 LAUNCHES = LaunchCounts(
     "naive_bayes_fit", "naive_bayes_scores",
     "naive_bayes_fit_plain", "naive_bayes_scores_plain",
+    "naive_bayes_fit_shard", "naive_bayes_fit_finish",
+    "naive_bayes_fit_shard_plain", "naive_bayes_fit_finish_plain",
 )
 
 # K15a's plan: rows per block at least, blocks at most, the partials'
@@ -84,22 +106,47 @@ class NaiveBayesFit(NamedTuple):
     theta: torch.Tensor  # [C, F] float32
 
 
-def fit_plain(
-    features: torch.Tensor, label_idx: torch.Tensor, n_classes: int, lam: float
-) -> NaiveBayesFit:
-    """The plain twin of K15a: counts by ``bincount``, sums by
-    ``index_add_``, then the reference's logs in float32."""
-    C, F = n_classes, features.shape[1]
+def fit_partial_plain(
+    features: torch.Tensor, label_idx: torch.Tensor, n_classes: int, rows_per_block: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of K15a's pass 1: for each block of ``rows_per_block``
+    rows (block b holds rows b·rows_per_block..), the per-class sums
+    [nblk, C, F] float32, each added by ``index_add_`` in row order, and the
+    class counts [nblk, C] int32. A label outside [0, C) counts nowhere."""
+    n, F = features.shape
+    C, dev = n_classes, features.device
+    nblk = -(-n // rows_per_block)
     valid = (label_idx >= 0) & (label_idx < C)
-    y = label_idx[valid].long()
-    counts = torch.bincount(y, minlength=C).to(torch.int32)
-    sums = torch.zeros((C, F), dtype=torch.float32, device=features.device)
-    sums.index_add_(0, y, features[valid])
-    lam_t = torch.tensor(lam, dtype=torch.float32, device=features.device)
+    block = torch.arange(n, device=dev) // rows_per_block
+    key = (block * C + label_idx.long())[valid]
+    part = torch.zeros((nblk * C, F), dtype=torch.float32, device=dev)
+    part.index_add_(0, key, features[valid])
+    cpart = torch.bincount(key, minlength=nblk * C).to(torch.int32)
+    return part.view(nblk, C, F), cpart.view(nblk, C)
+
+
+def fit_finish_plain(part: torch.Tensor, cpart: torch.Tensor, lam: float) -> NaiveBayesFit:
+    """The plain twin of K15a's pass 2: the blocks' partials added in block
+    order, the counts, then the reference's logs in float32."""
+    _, C, F = part.shape
+    sums = torch.zeros((C, F), dtype=torch.float32, device=part.device)
+    for b in range(part.shape[0]):
+        sums = sums + part[b]
+    counts = cpart.sum(0, dtype=torch.int64).to(torch.int32)
+    lam_t = torch.tensor(lam, dtype=torch.float32, device=part.device)
     n = counts.sum().to(torch.float32)
     pi = torch.log(counts.to(torch.float32) + lam_t) - torch.log(n + lam_t * C)
     theta = torch.log(sums + lam_t) - torch.log(sums.sum(1, keepdim=True) + lam_t * F)
     return NaiveBayesFit(counts, sums, pi, theta)
+
+
+def fit_plain(
+    features: torch.Tensor, label_idx: torch.Tensor, n_classes: int, lam: float
+) -> NaiveBayesFit:
+    """The plain twin of K15a: both passes over the blocks of K15a's plan
+    (``fit_plan``)."""
+    rows = fit_plan(features.shape[0], n_classes, features.shape[1])[1]
+    return fit_finish_plain(*fit_partial_plain(features, label_idx, n_classes, rows), lam)
 
 
 def argmax_first_nan(scores: torch.Tensor) -> torch.Tensor:
@@ -132,6 +179,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.naive_bayes_fit_f32.argtypes = [p, p, i64, i, i, f32, i, i64, i, i, i] + [p] * 7
     lib.naive_bayes_fit_f32.restype = ctypes.c_int
+    lib.naive_bayes_fit_partial_f32.argtypes = [p, p, i64, i, i, i, i64, i, i, i, p, p, p]
+    lib.naive_bayes_fit_partial_f32.restype = ctypes.c_int
+    lib.naive_bayes_fit_finish_f32.argtypes = [p, p, i, i, i, f32, p, p, p, p, p]
+    lib.naive_bayes_fit_finish_f32.restype = ctypes.c_int
     lib.naive_bayes_scores_f32.argtypes = [p, p, p, i, i, i, p, p, p]
     lib.naive_bayes_scores_f32.restype = ctypes.c_int
 
@@ -144,21 +195,25 @@ def load_library() -> ctypes.CDLL:
     return _LIBRARY.get()
 
 
+def fit_tiles(n_classes: int, n_features: int) -> Tuple[int, int, int]:
+    """K15a pass 1's tiles (Ft, L, Ct): F tiles of at most 32 columns, L
+    lanes of Ft threads, and class tiles whose lane partials fit the
+    block's shared memory."""
+    Ft = min(n_features, 32)
+    L = _FIT_THREADS // Ft
+    return Ft, L, min(n_classes, _FIT_SHARED_FLOATS // (L * Ft))
+
+
 def fit_plan(n: int, n_classes: int, n_features: int) -> Tuple[int, int, int, int, int]:
     """K15a's launch plan (nblk, rows_per_block, Ft, L, Ct): blocks of at
     least ``_FIT_ROWS`` rows (fewer blocks where the partials would pass
-    ``_FIT_PARTIAL_FLOATS``), F tiles of at most 32 columns, L lanes of Ft
-    threads, and class tiles whose lane partials fit the block's shared
-    memory. A function of the shape alone, so the sums' order (and bits)
-    does not depend on the card."""
+    ``_FIT_PARTIAL_FLOATS``) and ``fit_tiles``. A function of the shape
+    alone, so the sums' order (and bits) does not depend on the card."""
     C, F = n_classes, n_features
     nblk = max(1, min(-(-n // _FIT_ROWS), _FIT_BLOCKS, _FIT_PARTIAL_FLOATS // (C * F)))
     rows = -(-n // nblk)
     nblk = -(-n // rows)
-    Ft = min(F, 32)
-    L = _FIT_THREADS // Ft
-    Ct = min(C, _FIT_SHARED_FLOATS // (L * Ft))
-    return nblk, rows, Ft, L, Ct
+    return (nblk, rows) + fit_tiles(C, F)
 
 
 def naive_bayes_fit(
@@ -210,12 +265,166 @@ def naive_bayes_fit(
     return out
 
 
+def fit_shard_bounds(n: int, n_classes: int, n_features: int, n_shards: int) -> np.ndarray:
+    """Row boundaries [n_shards + 1] of K15s's fit: the whole-n plan's
+    blocks (``fit_plan``) cut by ``split_rows`` over each block's rows, so
+    every shard holds whole blocks (none where there are fewer blocks than
+    shards)."""
+    nblk, rows = fit_plan(n, n_classes, n_features)[:2]
+    weights = np.full(nblk, rows, np.int64)
+    weights[-1] = n - rows * (nblk - 1)
+    return np.minimum(split_rows(weights, n_shards) * rows, n)
+
+
+def naive_bayes_fit_partial(
+    features: torch.Tensor,
+    label_idx: torch.Tensor,
+    n_classes: int,
+    rows_per_block: int,
+    part: Optional[torch.Tensor] = None,
+    cpart: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15a's pass 1 alone, a K15s shard's launch: the block partials
+    (part [nblk, C, F] float32, cpart [nblk, C] int32; block b holds rows
+    b·rows_per_block.. of ``features`` [n, F] float32 under ``label_idx``
+    [n] int32), written into ``part``/``cpart`` where given.
+
+    CPU tensors go to the plain twin (``fit_partial_plain``). CUDA tensors
+    go to the kernel, which must build and launch or this raises."""
+    if features.dim() != 2 or features.dtype != torch.float32:
+        raise ValueError(f"features must be [n, F] float32, got {tuple(features.shape)} "
+                         f"{features.dtype}")
+    n, F = features.shape
+    C, dev = n_classes, features.device
+    if label_idx.dtype != torch.int32 or tuple(label_idx.shape) != (n,) or label_idx.device != dev:
+        raise ValueError(f"label_idx must be [{n}] int32 on {dev}")
+    if n < 1 or F < 1 or C < 1 or rows_per_block < 1:
+        raise ValueError("naive_bayes_fit_partial needs n, F, n_classes and rows_per_block >= 1")
+    nblk = -(-n // rows_per_block)
+    for t, shape, dtype in ((part, (nblk, C, F), torch.float32), (cpart, (nblk, C), torch.int32)):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"the partials must be contiguous {shape} {dtype} on {dev}")
+    if dev.type == "cpu":
+        LAUNCHES.add("naive_bayes_fit_shard_plain")
+        got = fit_partial_plain(features, label_idx, C, rows_per_block)
+        if part is None:
+            return got
+        part.copy_(got[0])
+        cpart.copy_(got[1])
+        return part, cpart
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (features.is_contiguous() and label_idx.is_contiguous()):
+        raise ValueError("features and label_idx must be contiguous")
+    part = part if part is not None else torch.empty((nblk, C, F), dtype=torch.float32, device=dev)
+    cpart = cpart if cpart is not None else torch.empty((nblk, C), dtype=torch.int32, device=dev)
+    Ft, L, Ct = fit_tiles(C, F)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.naive_bayes_fit_partial_f32(
+            features.data_ptr(), label_idx.data_ptr(), n, F, C, nblk, rows_per_block, Ft, L, Ct,
+            part.data_ptr(), cpart.data_ptr(), stream,
+        )
+    _LIBRARY.check(err, "naive_bayes_fit_partial")
+    LAUNCHES.add("naive_bayes_fit_shard")
+    return part, cpart
+
+
+def naive_bayes_fit_finish(part: torch.Tensor, cpart: torch.Tensor, lam: float) -> NaiveBayesFit:
+    """K15a's pass 2 alone, K15s's last launch: the counts, sums, ``pi``
+    and ``theta`` from the block partials (part [nblk, C, F] float32, cpart
+    [nblk, C] int32), the blocks added in block order.
+
+    CPU tensors go to the plain twin (``fit_finish_plain``). CUDA tensors go
+    to the kernel, which must build and launch or this raises."""
+    if part.dim() != 3 or part.dtype != torch.float32 or part.shape[0] < 1:
+        raise ValueError(f"part must be [nblk, C, F] float32, got {tuple(part.shape)}")
+    nblk, C, F = part.shape
+    if cpart.dtype != torch.int32 or tuple(cpart.shape) != (nblk, C) or cpart.device != part.device:
+        raise ValueError(f"cpart must be [{nblk}, {C}] int32 on {part.device}")
+    dev = part.device
+    if dev.type == "cpu":
+        LAUNCHES.add("naive_bayes_fit_finish_plain")
+        return fit_finish_plain(part, cpart, lam)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (part.is_contiguous() and cpart.is_contiguous()):
+        raise ValueError("part and cpart must be contiguous")
+    out = NaiveBayesFit(
+        torch.empty(C, dtype=torch.int32, device=dev),
+        torch.empty((C, F), dtype=torch.float32, device=dev),
+        torch.empty(C, dtype=torch.float32, device=dev),
+        torch.empty((C, F), dtype=torch.float32, device=dev),
+    )
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.naive_bayes_fit_finish_f32(
+            part.data_ptr(), cpart.data_ptr(), nblk, C, F, float(lam), out.counts.data_ptr(),
+            out.sums.data_ptr(), out.pi.data_ptr(), out.theta.data_ptr(), stream,
+        )
+    _LIBRARY.check(err, "naive_bayes_fit_finish")
+    LAUNCHES.add("naive_bayes_fit_finish")
+    return out
+
+
+def naive_bayes_fit_shards(
+    features: Sequence[torch.Tensor],
+    label_idx: Sequence[torch.Tensor],
+    n_classes: int,
+    lam: float,
+    device: torch.device,
+) -> NaiveBayesFit:
+    """K15s's fit: K15a over the rows of every shard together, the result
+    on ``device``. Shard s gives its rows ``features[s]`` [n_s, F] float32
+    and ``label_idx[s]`` [n_s] int32 on its device, the shards in row order,
+    each a whole number of the whole-n plan's blocks (``fit_shard_bounds``;
+    an empty shard has 0 rows). Each shard runs pass 1
+    (``naive_bayes_fit_partial``) into its blocks of the partials on
+    ``device`` (a peer copy where it lies elsewhere), and one pass 2
+    (``naive_bayes_fit_finish``) runs there: the result is one device's
+    ``naive_bayes_fit`` of the rows, bit for bit, on the CPU's twins and
+    on the card's kernels alike."""
+    if len(features) != len(label_idx) or not features:
+        raise ValueError("one features and one label_idx tensor per shard")
+    if any(X.device.type != device.type for X in features):
+        raise ValueError(f"the shards must lie on {device.type} devices, as the result")
+    F = features[0].shape[1] if features[0].dim() == 2 else 0
+    sizes = [int(X.shape[0]) for X in features]
+    n = sum(sizes)
+    if n < 1 or F < 1 or n_classes < 1:
+        raise ValueError("naive_bayes_fit_shards needs n, F and n_classes >= 1")
+    nblk, rows = fit_plan(n, n_classes, F)[:2]
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    if any(n_s and (r0 % rows or (n_s % rows and r0 + n_s != n))
+           for r0, n_s in zip(starts, sizes)):
+        raise ValueError(f"every shard must hold whole blocks of {rows} rows (fit_shard_bounds)")
+    part = torch.empty((nblk, n_classes, F), dtype=torch.float32, device=device)
+    cpart = torch.empty((nblk, n_classes), dtype=torch.int32, device=device)
+    for r0, X, y in zip(starts, features, label_idx):
+        if not X.shape[0]:
+            continue
+        b0 = int(r0) // rows
+        b1 = b0 + -(-X.shape[0] // rows)
+        if X.device == device:
+            naive_bayes_fit_partial(X, y, n_classes, rows, part[b0:b1], cpart[b0:b1])
+        else:  # the peer copy of the shard's blocks
+            p, c = naive_bayes_fit_partial(X, y, n_classes, rows)
+            part[b0:b1].copy_(p)
+            cpart[b0:b1].copy_(c)
+    return naive_bayes_fit_finish(part, cpart, lam)
+
+
 def naive_bayes_scores(
-    features: torch.Tensor, pi: torch.Tensor, theta: torch.Tensor, with_scores: bool = False
+    features: torch.Tensor, pi: torch.Tensor, theta: torch.Tensor, with_scores: bool = False,
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K15b: (the int32 class index of each row of ``features`` [B, F]
-    float32 under ``pi`` [C] and ``theta`` [C, F], and, if
-    ``with_scores``, the scores [B, C], else None).
+    float32 under ``pi`` [C] and ``theta`` [C, F], written into ``out``
+    [B] int32 where given, and, if ``with_scores``, the scores [B, C], else
+    None).
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
@@ -230,16 +439,22 @@ def naive_bayes_scores(
         raise ValueError("features, pi and theta must be float32")
     if not (features.device == pi.device == theta.device):
         raise ValueError("features, pi and theta must be on one device")
+    if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != (B,)
+                            or out.device != features.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [{B}] int32 tensor on {features.device}")
     if features.device.type == "cpu":
         LAUNCHES.add("naive_bayes_scores_plain")
         scores = scores_plain(features, pi, theta)
-        return argmax_first_nan(scores), (scores if with_scores else None)
+        idx = argmax_first_nan(scores)
+        if out is not None:
+            idx = out.copy_(idx)
+        return idx, (scores if with_scores else None)
     if features.device.type != "cuda":
         raise ValueError(f"unsupported device {features.device}")
     if not (features.is_contiguous() and pi.is_contiguous() and theta.is_contiguous()):
         raise ValueError("features, pi and theta must be contiguous")
     dev = features.device
-    idx = torch.empty(B, dtype=torch.int32, device=dev)
+    idx = out if out is not None else torch.empty(B, dtype=torch.int32, device=dev)
     scores = torch.empty((B, C), dtype=torch.float32, device=dev) if with_scores else None
     if B == 0:
         return idx, scores
@@ -255,14 +470,6 @@ def naive_bayes_scores(
     return idx, scores
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh is not supported: the port runs naive Bayes on one device "
-            "(multi-GPU is ROADMAP.md queue 1 item 11)"
-        )
-
-
 def train_naive_bayes(
     features: np.ndarray,
     labels: np.ndarray,
@@ -273,9 +480,13 @@ def train_naive_bayes(
 ) -> NaiveBayesModelArrays:
     """Train on [n, F] nonnegative features with arbitrary scalar labels,
     on ``device`` (CUDA unless the CPU is asked for): the reference's host
-    checks, ``np.unique`` over the labels, then K15a."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    checks, ``np.unique`` over the labels, then K15a. On a 1-D ``data``
+    ``mesh`` of several shards the rows shard at K15a's block boundaries
+    (K15s, ``naive_bayes_fit_shards``) and the model, one device's bit for
+    bit, predicts on the mesh's first device."""
+    check_data_axis(axis)
+    mesh, device = collapse_mesh(mesh, device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     features = np.asarray(features, np.float32)
     labels = np.asarray(labels)
     if features.ndim != 2 or len(features) != len(labels):
@@ -285,11 +496,18 @@ def train_naive_bayes(
     if (features < 0).any():
         raise ValueError("multinomial NB requires nonnegative features")
     classes, label_idx = np.unique(labels, return_inverse=True)
-    fit = naive_bayes_fit(
-        torch.tensor(features, device=dev),
-        torch.tensor(label_idx.astype(np.int32).reshape(-1), device=dev),
-        len(classes), lam,
-    )
+    label_idx = label_idx.astype(np.int32).reshape(-1)
+    if mesh is None:
+        fit = naive_bayes_fit(
+            torch.tensor(features, device=dev), torch.tensor(label_idx, device=dev),
+            len(classes), lam,
+        )
+    else:
+        bounds = fit_shard_bounds(len(labels), len(classes), features.shape[1], mesh.size)
+        fit = naive_bayes_fit_shards(
+            cut_rows(mesh, features, bounds), cut_rows(mesh, label_idx, bounds),
+            len(classes), lam, dev,
+        )
     return NaiveBayesModelArrays(
         pi=fit.pi.cpu().numpy(), theta=fit.theta.cpu().numpy(), labels=classes, device=dev
     )
@@ -303,13 +521,32 @@ def predict_naive_bayes(
     device: DeviceLike = None,
 ) -> np.ndarray:
     """Predicted label for each row of [B, F] (one K15b launch), on
-    ``device``, else the model's device, else CUDA."""
-    _no_mesh(mesh)
-    dev = resolve_device(device if device is not None else model.device)
+    ``device``, else the model's device, else CUDA. On a 1-D ``data``
+    ``mesh`` of several shards (K15s) the batch is cut into row shards, each
+    scored on its device into its block of one [B] result on the mesh's
+    first device, which is fetched once."""
+    check_data_axis(axis)
+    mesh, device = collapse_mesh(mesh, device)
     features = np.atleast_2d(np.asarray(features, np.float32))
-    idx, _ = naive_bayes_scores(
-        torch.tensor(features, device=dev),
-        torch.tensor(np.asarray(model.pi, np.float32), device=dev),
-        torch.tensor(np.asarray(model.theta, np.float32), device=dev),
-    )
-    return model.labels[idx.cpu().numpy()]
+    pi = np.asarray(model.pi, np.float32)
+    theta = np.asarray(model.theta, np.float32)
+    if mesh is None:
+        dev = resolve_device(device if device is not None else model.device)
+        idx, _ = naive_bayes_scores(
+            torch.tensor(features, device=dev), torch.tensor(pi, device=dev),
+            torch.tensor(theta, device=dev),
+        )
+        return model.labels[idx.cpu().numpy()]
+    first = mesh.devices[0]
+    on = {d: (torch.tensor(pi, device=d), torch.tensor(theta, device=d))
+          for d in mesh.distinct_devices()}
+    bounds = split_rows(np.ones(len(features), np.int64), mesh.size)
+    out = torch.empty(len(features), dtype=torch.int32, device=first)
+    for r0, r1, X in zip(bounds[:-1], bounds[1:], cut_rows(mesh, features, bounds)):
+        if r1 == r0:
+            continue
+        if X.device == first:
+            naive_bayes_scores(X, *on[X.device], out=out[r0:r1])
+        else:
+            out[r0:r1].copy_(naive_bayes_scores(X, *on[X.device])[0])  # the peer copy
+    return model.labels[out.cpu().numpy()]

@@ -6,7 +6,9 @@
 from predictionio_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     Mesh,
+    check_data_axis,
     collapse_mesh,
+    cut_rows,
     default_mesh,
     device_count,
     make_mesh,
@@ -19,7 +21,9 @@ from predictionio_tpu_torch.parallel.mesh import (
 __all__ = [
     "DATA_AXIS",
     "Mesh",
+    "check_data_axis",
     "collapse_mesh",
+    "cut_rows",
     "default_mesh",
     "device_count",
     "make_mesh",

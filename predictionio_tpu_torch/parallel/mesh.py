@@ -28,7 +28,8 @@ training shard over a 1-D ``data`` mesh (``collapse_mesh``).
   returns (the list, the original length).
 - ``split_rows(weights, n_shards)``: contiguous row ranges of about equal
   weight, cut at row boundaries (training's row shards, balanced by each
-  row's segment slots).
+  row's segment slots); ``cut_rows(mesh, array, bounds)``: those ranges of
+  an array, each on its shard's device.
 
 Multi-process meshes (``parallel/distributed.py``) come with the
 multi-process launcher (``pio train --coordinator``).
@@ -167,6 +168,18 @@ def split_rows(weights, n_shards: int) -> np.ndarray:
     return np.maximum.accumulate(np.concatenate([[0], cut, [n]])).astype(np.int64)
 
 
+def cut_rows(mesh: Mesh, array, bounds) -> List[torch.Tensor]:
+    """Rows ``bounds[s]:bounds[s + 1]`` of ``array`` as one contiguous
+    tensor per shard of the ``DATA_AXIS``, each on its shard's device
+    (``Mesh.shard_devices``); no padding, so a shard may get 0 rows."""
+    arr = np.asarray(array)
+    devs = mesh.shard_devices(DATA_AXIS)
+    if len(bounds) != len(devs) + 1:
+        raise ValueError(f"{len(bounds)} boundaries for {len(devs)} shards")
+    return [torch.from_numpy(np.ascontiguousarray(arr[int(r0):int(r1)])).to(d)
+            for d, r0, r1 in zip(devs, bounds[:-1], bounds[1:])]
+
+
 def split_target(target) -> Tuple[Optional[Mesh], DeviceLike]:
     """(mesh, device) of what an algorithm trains or serves on: a ``Mesh``
     of several shards and None, or None and the device (one shard's mesh
@@ -174,6 +187,13 @@ def split_target(target) -> Tuple[Optional[Mesh], DeviceLike]:
     if isinstance(target, Mesh):
         return collapse_mesh(target, None)
     return None, target
+
+
+def check_data_axis(axis: str) -> None:
+    """The programs that take the reference's ``axis`` argument shard over
+    ``DATA_AXIS`` only (``ValueError`` otherwise)."""
+    if axis != DATA_AXIS:
+        raise ValueError(f"the port shards over the {DATA_AXIS!r} axis, not {axis!r}")
 
 
 def collapse_mesh(

@@ -301,9 +301,10 @@ def test_markov_model_from_jax_arrays_and_its_checks():
 def test_a_mesh_raises_and_no_device_means_cuda(monkeypatch):
     entries, n = seeded_tally(seed=3)
     pm = pmc.MarkovChain.train(entries, n, 2, device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh that is not a port Mesh raises (the mesh forms are K16s, K17s)
+    with pytest.raises(TypeError, match="Mesh"):
         pm.predict(np.ones(n, np.float32), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         pnb.CategoricalNaiveBayes.train([pnb.LabeledPoint("a", ("x",))], mesh=object(),
                                         device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

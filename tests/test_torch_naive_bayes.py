@@ -187,12 +187,17 @@ def test_host_checks_raise_as_the_reference(features, labels):
 
 
 def test_a_mesh_raises_and_names_item_11():
+    """Since the mesh forms (K15s, ROADMAP.md queue 1 item 11) a mesh that is
+    not a port ``Mesh`` raises ``TypeError``, and another axis
+    ``ValueError``."""
     X, y = poisson_data(20, 3, 2, 0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         pnb.train_naive_bayes(X, y, mesh=object(), device="cpu")
     m = pnb.train_naive_bayes(X, y, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         pnb.predict_naive_bayes(m, X, mesh=object())
+    with pytest.raises(ValueError, match="axis"):
+        pnb.train_naive_bayes(X, y, axis="model", device="cpu")
 
 
 def test_cpu_tensors_run_the_twins_and_are_counted():
@@ -203,6 +208,8 @@ def test_cpu_tensors_run_the_twins_and_are_counted():
     assert pnb.LAUNCHES.snapshot() == {
         "naive_bayes_fit": 0, "naive_bayes_scores": 0,
         "naive_bayes_fit_plain": 1, "naive_bayes_scores_plain": 1,
+        "naive_bayes_fit_shard": 0, "naive_bayes_fit_finish": 0,
+        "naive_bayes_fit_shard_plain": 0, "naive_bayes_fit_finish_plain": 0,
     }
 
 
