@@ -1,0 +1,131 @@
+"""Host time of the K14 and K15a wrappers of two checkouts of the port, part by part.
+
+    python3 compare_wrappers.py OLD_ROOT NEW_ROOT [--out FILE]
+
+Each root is a checkout of this repository (for example one unpacked by
+``git archive``). The measurement of a checkout runs in a process of its
+own that imports ``predictionio_tpu_torch`` from that root, in the order
+old, new, new, old, so a drift of the card's clocks or of the host's load
+shows as a gap between the two runs of one checkout. Each run times four
+calls on one card with ``chip_smoke.py``'s ``host_breakdown`` (the host
+side of 100 calls queued behind a spin kernel, the whole call and then
+each part: allocation, device switch, stream lookup, library lookup, the
+ctypes call, the error check and launch counter, the plan) and its CUDA
+event times (``time_ms``, ``device_ms``):
+
+- K14 at R3's shape (the 26,744 x 32 catalog, Q = 16) through the Similar
+  Product host path's launch (``SimilarityScorer.sums``; a checkout without
+  shard tables: the free ``cosine_sum`` the scorer called);
+- K14s on a 4-shard mesh of the card at Q = 8 (``SimilarityScorer.sums``;
+  without shard tables: ``cosine_sum`` once per shard into its block);
+- K15a at 3n's shape (50,000 x 3, C = 4, ``naive_bayes_fit``);
+- K15s's fit of the same rows on that mesh (``naive_bayes_fit_shards``).
+
+Needs one CUDA card. Prints one JSON line a run and the card's name and
+power limit; ``--out`` also writes every run to a JSON file.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def load_chip_smoke():
+    """This checkout's chip_smoke.py (the measuring code), whatever root
+    the port is imported from."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def measure(root: str) -> dict:
+    """The four calls' host breakdowns and times on the port at ``root``."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import naive_bayes as k15
+    from predictionio_tpu_torch.ops import similarity as k14
+    from predictionio_tpu_torch.parallel.mesh import Mesh, cut_rows
+
+    cs = load_chip_smoke()
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    factors = rng.standard_normal((cs.ML20M_ITEMS, cs.RANK)).astype(np.float32)
+    mesh = Mesh([device] * 4, {"data": 4})
+    sc1 = k14.SimilarityScorer(factors, device=device)
+    scS = k14.SimilarityScorer(factors, mesh=mesh)
+    q16 = torch.from_numpy(sc1.normed[rng.integers(0, cs.ML20M_ITEMS, 16)]).to(device)
+    q8 = q16[:8].contiguous()
+    if hasattr(scS, "sums"):  # shard tables: the scorer's device part
+        k14_one, k14_mesh = (lambda: sc1.sums(q16)), (lambda: scS.sums(q8))
+    else:  # before shard tables: one cosine_sum a shard
+        rows = scS._shards[0].shape[0]
+
+        def k14_one():
+            return k14.cosine_sum(q16, sc1._shards[0])
+
+        def k14_mesh():
+            sums = torch.empty(rows * 4, dtype=torch.float32, device=device)
+            for s, y in enumerate(scS._shards):
+                k14.cosine_sum(q8, y, out=sums[s * rows:(s + 1) * rows])
+    labels, features = cs.bench_classification_data()
+    X = torch.from_numpy(features).to(device)
+    y = torch.from_numpy(labels.astype(np.int32)).to(device)
+    bounds = k15.fit_shard_bounds(cs.CLS_N, cs.CLS_C, cs.CLS_F, 4)
+    Xs, ys = cut_rows(mesh, features, bounds), cut_rows(mesh, labels.astype(np.int32), bounds)
+    calls = {
+        "K14, the host path's launch, Q = 16": (k14, k14_one),
+        "K14s device part, 4 shards, Q = 8": (k14, k14_mesh),
+        "K15a naive_bayes_fit": (k15, lambda: k15.naive_bayes_fit(X, y, cs.CLS_C, 1.0)),
+        "K15s naive_bayes_fit_shards, 4 shards": (
+            k15, lambda: k15.naive_bayes_fit_shards(Xs, ys, cs.CLS_C, 1.0, device)),
+    }
+    out = {}
+    for name, (module, fn) in calls.items():
+        # the parts this checkout has (an older one may lack a helper)
+        parts = [p for p in cs.wrapper_parts(module) if hasattr(p[1], p[2])]
+        out[name] = {"host_us": cs.host_breakdown(fn, parts), "ms": cs.time_ms(fn),
+                     "device_ms": cs.device_ms(fn, calls=50)}
+    return {"root": os.path.abspath(root), "package": k14.__file__, "card": cs.card_line(),
+            "calls": out}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("roots", nargs="*", help="OLD_ROOT NEW_ROOT")
+    parser.add_argument("--out", help="write every run to this JSON file")
+    parser.add_argument("--measure", help=argparse.SUPPRESS)  # one run, in its own process
+    args = parser.parse_args()
+    if args.measure:
+        print(json.dumps(measure(args.measure)), flush=True)
+        return 0
+    if len(args.roots) != 2:
+        parser.error("give OLD_ROOT and NEW_ROOT")
+    old, new = args.roots
+    runs = []
+    for label, root in (("old", old), ("new", new), ("new", new), ("old", old)):
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root],
+                              capture_output=True, text=True, timeout=900)
+        if done.returncode != 0:
+            sys.stderr.write(done.stdout + done.stderr)
+            raise SystemExit(f"compare_wrappers: the run of {root} failed ({done.returncode})")
+        run = json.loads(done.stdout.strip().splitlines()[-1])
+        run["label"] = label
+        runs.append(run)
+        print(f"{label} " + json.dumps(run), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(runs, f, indent=1)
+    print(runs[-1]["card"], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

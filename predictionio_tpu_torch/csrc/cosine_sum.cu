@@ -1,6 +1,7 @@
 // K14: the sum of cosines of Similar Product's host scoring path — the
 // hand-written Hopper kernel that replaces the reference's jitted
-// predictionio_tpu/ops/similarity.py:63 _cosine_sum.
+// predictionio_tpu/ops/similarity.py:63 _cosine_sum, and, over a shard
+// table, its row-sharded form K14s (:84-90, :118-120).
 //
 // What it computes. out[n] = Σ_q q_q · y_n over Q query rows q [Q, k] and
 // the N catalog rows Y [N, k], both L2-normalized by the caller, so each
@@ -11,10 +12,23 @@
 // difference from the twin is the order of the sums. Zero query rows (the
 // pow2 padding) add exact zeros.
 //
+// The shard table. One launch covers every shard of one device: shard s
+// gives its rows Y_s [rows_s, k] and the offset out0_s of its block of the
+// result, out[out0_s + r] = Σ_q q_q · Y_s[r]. blockIdx.x walks the
+// shards' row blocks one after another (shard s starts at block block0_s,
+// the prefix of the earlier shards' blocks), and each row's arithmetic
+// does not depend on its shard or its block, so a row's sum is the same
+// bits in every table it is part of: K14s equals K14 bit for bit. The
+// single-device K14 is a table of one shard. A table holds at most
+// MAX_SHARDS shards; it is passed by value in the kernel's parameters, in
+// three sizes (1, 8, 64) so a small table costs the launch little.
+//
 // Bound on an H100 SXM. At the Similar Product path's shape (N=26,744,
 // k=32, Q=4..16) Y is 3.4 MB, ≈1.0 µs at 3.35 TB/s; 2·Q·N·k operations
 // (≈27 MFLOP at Q=16, ≈0.4 µs at 67 TFLOP/s): bound by bytes, and at this
-// size by the launch.
+// size by the launch and the host's call, which is why a device's shards
+// share one launch and the entry point switches to the table's device
+// itself (a no-op where it is current) and takes the table as one pointer.
 //
 // Design: G lanes per catalog row (G = 8 at k = 32, the smallest power of
 // two with 4·G >= k), 256 / G rows a block. Each lane reads its float4s of
@@ -32,20 +46,42 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int SMEM_FLOATS = 48 * 1024 / 4;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_SHARDS = 64;
 
+struct Shard {
+  const float* Y;
+  long long rows;
+  long long out0;
+  long long block0;  // the shard's first block of the grid
+};
+
+template <int M>
+struct Shards {
+  Shard s[M];
+  int n;
+};
+
+template <int M>
 __global__ void __launch_bounds__(THREADS) cosine_sum_rows(
-    const float* __restrict__ q, int Q, const float* __restrict__ Y, int N,
-    int k, int qt, float* __restrict__ out) {
+    const float* __restrict__ q, int Q, int k, int qt, const Shards<M> t,
+    float* __restrict__ out) {
   extern __shared__ float4 qs4[];  // [qt][kp]
   float* qs = reinterpret_cast<float*>(qs4);
+  // the block's shard: the last whose first block is at most this one (an
+  // empty shard shares its first block with the next, which wins)
+  const long long bid = blockIdx.x;
+  Shard sh = t.s[0];
+#pragma unroll
+  for (int i = 1; i < M; ++i)
+    if (i < t.n && bid >= t.s[i].block0) sh = t.s[i];
   const int G = row_lanes(k);
   const int kp = (k + 3) & ~3;
   const int k4 = k >> 2;
   const int grp = threadIdx.x / G;
   const int sub = threadIdx.x % G;
-  const int n = blockIdx.x * (THREADS / G) + grp;
-  const bool valid = n < N;
-  const float* y = Y + (long long)(valid ? n : 0) * k;
+  const long long n = (bid - sh.block0) * (THREADS / G) + grp;
+  const bool valid = n < sh.rows;
+  const float* y = sh.Y + (valid ? n : 0) * k;
   const bool vec = (k & 3) == 0;
   const bool one = vec && k4 <= G;  // at most one float4 of the row a lane
   float4 y1 = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -86,26 +122,66 @@ __global__ void __launch_bounds__(THREADS) cosine_sum_rows(
     }
   }
   for (int o = G >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
-  if (valid && sub == 0) out[n] = acc;
+  if (valid && sub == 0) out[sh.out0 + n] = acc;
+}
+
+template <int M>
+cudaError_t launch(const long long* table, int n_shards, const float* q, int Q,
+                   int k, float* out, cudaStream_t stream) {
+  Shards<M> t;
+  t.n = n_shards;
+  const int rows_per_block = THREADS / row_lanes(k);
+  long long blocks = 0;
+  for (int s = 0; s < n_shards; ++s) {
+    const long long* e = table + 3 + 3 * s;
+    if (e[1] < 0 || e[2] < 0) return cudaErrorInvalidValue;
+    t.s[s].Y = reinterpret_cast<const float*>(e[0]);
+    t.s[s].rows = e[1];
+    t.s[s].out0 = e[2];
+    t.s[s].block0 = blocks;
+    blocks += (e[1] + rows_per_block - 1) / rows_per_block;
+  }
+  if (blocks == 0) return cudaSuccess;  // every shard empty: nothing to write
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int kp = (k + 3) & ~3;
+  int qt = SMEM_FLOATS / kp;
+  if (qt > Q) qt = Q;
+  const size_t smem = (size_t)qt * kp * sizeof(float);
+  cosine_sum_rows<M><<<(unsigned)blocks, THREADS, smem, stream>>>(q, Q, k, qt, t, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// out [N] = (q @ Yᵀ).sum(0) for q [Q, k] and Y [N, k] row-major; launches
-// on `stream` and returns cudaGetLastError(). The caller checks shapes,
-// dtypes, devices, Q >= 1, N >= 1 and 1 <= k <= SMEM_FLOATS.
-int cosine_sum_f32(const float* q, int Q, const float* Y, int N, int k,
-                   float* out, cudaStream_t stream) {
-  const int kp = (k + 3) & ~3;
-  int qt = SMEM_FLOATS / kp;
-  if (qt > Q) qt = Q;
-  const int rows = THREADS / row_lanes(k);
-  const size_t smem = (size_t)qt * kp * sizeof(float);
-  cosine_sum_rows<<<(N + rows - 1) / rows, THREADS, smem, stream>>>(
-      q, Q, Y, N, k, qt, out);
-  return (int)cudaGetLastError();
+// K14 over a shard table on `stream`: table = {device, k, n_shards, then
+// per shard (Y, rows, out0)} as 64-bit integers (Y a row-major [rows, k]
+// float32 pointer), q [Q, k] row-major; writes out[out0 + r] for every row
+// r of every shard, in one launch on `device` (made current for the launch
+// and restored after). Returns a cudaError_t: cudaErrorInvalidValue for a
+// table it does not take. The caller checks dtypes, devices and that the
+// shards' blocks of `out` lie inside it.
+int cosine_sum_f32(const long long* table, const float* q, int Q, float* out,
+                   cudaStream_t stream) {
+  const int device = (int)table[0], k = (int)table[1], n = (int)table[2];
+  if (n < 1 || n > MAX_SHARDS || k < 1 || k > SMEM_FLOATS || Q < 1)
+    return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  if (n == 1)
+    err = launch<1>(table, n, q, Q, k, out, stream);
+  else if (n <= 8)
+    err = launch<8>(table, n, q, Q, k, out, stream);
+  else
+    err = launch<MAX_SHARDS>(table, n, q, Q, k, out, stream);
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }
 
 const char* cosine_sum_error_string(int code) {

@@ -34,22 +34,34 @@ Three forms of each kernel, one function:
 checks and signatures, plus an explicit ``device`` (CUDA unless the CPU is
 asked for).
 
+K15a's kernel takes a shard table (per shard its rows and the index of its
+first block in the partials) and runs both passes in one cooperative launch
+of at most as many blocks as the card holds at once (``fit_capacity``, the
+occupancy query); a fit with more work items than that (a wide feature
+set) walks several a block, in the same order, so every shape is one
+launch with the same bits. ``LAUNCHES`` counts a fit as one
+``naive_bayes_fit``, a pass 1 alone (a device other than the result's) as
+one ``naive_bayes_fit_shard``.
+
 K15s, the two programs on a 1-D ``data`` mesh (the reference's :103-121 and
-:144-151; ``parallel/mesh.py``): ``naive_bayes_fit_shards`` runs K15a's
-pass 1 on each shard's rows (a whole number of the whole-n plan's blocks,
-``fit_shard_bounds``) into its blocks' slice of one partials array on the
-first device (a peer copy, none where the shard shares that device), then
-one pass 2 there, so the model is one device's bit for bit whatever the
-shard count; ``predict_naive_bayes(mesh=)`` scores each row shard of the
-batch into its block of one [B] result on the first device, fetched once.
-A mesh of one shard collapses to its device.
+:144-151; ``parallel/mesh.py``): ``naive_bayes_fit_shards`` cuts the rows
+at the whole-n plan's blocks (``fit_shard_bounds``) and runs one launch on
+the first device over all of that device's shards; a shard on another
+device runs pass 1 (one launch per distinct device) into partials there,
+copied into the first device's before its launch. So the model is one
+device's bit for bit whatever the shard count; ``predict_naive_bayes(mesh=)``
+scores each row shard of the batch into its block of one [B] result on the
+first device, fetched once. A mesh of one shard collapses to its device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+import functools
+import itertools
+from array import array
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,13 +78,13 @@ from predictionio_tpu_torch.parallel.mesh import (
 
 SOURCE = "naive_bayes.cu"
 
-# K15s's shards count as "naive_bayes_fit_shard" (pass 1 on a shard) and
-# "naive_bayes_fit_finish"; its score shards as "naive_bayes_scores"
+# K15a: "naive_bayes_fit" a fit (both passes, one launch),
+# "naive_bayes_fit_shard" a launch of pass 1 alone (a device's other than
+# the result's); K15s's score shards count as "naive_bayes_scores"
 LAUNCHES = LaunchCounts(
     "naive_bayes_fit", "naive_bayes_scores",
     "naive_bayes_fit_plain", "naive_bayes_scores_plain",
-    "naive_bayes_fit_shard", "naive_bayes_fit_finish",
-    "naive_bayes_fit_shard_plain", "naive_bayes_fit_finish_plain",
+    "naive_bayes_fit_shard",
 )
 
 # K15a's plan: rows per block at least, blocks at most, the partials'
@@ -82,6 +94,7 @@ _FIT_BLOCKS = 528
 _FIT_PARTIAL_FLOATS = 1 << 24
 _FIT_THREADS = 256
 _FIT_SHARED_FLOATS = 11_264
+MAX_SHARDS = 64  # a fit's shard table's most shards (the kernel's parameter table)
 
 
 @dataclasses.dataclass
@@ -176,15 +189,13 @@ def scores_plain(features: torch.Tensor, pi: torch.Tensor, theta: torch.Tensor) 
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.naive_bayes_fit_f32.argtypes = [p, p, i64, i, i, f32, i, i64, i, i, i] + [p] * 7
-    lib.naive_bayes_fit_f32.restype = ctypes.c_int
-    lib.naive_bayes_fit_partial_f32.argtypes = [p, p, i64, i, i, i, i64, i, i, i, p, p, p]
-    lib.naive_bayes_fit_partial_f32.restype = ctypes.c_int
-    lib.naive_bayes_fit_finish_f32.argtypes = [p, p, i, i, i, f32, p, p, p, p, p]
-    lib.naive_bayes_fit_finish_f32.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.naive_bayes_fit_f32.argtypes = [p, ctypes.c_float, p]
+    lib.naive_bayes_fit_f32.restype = i
+    lib.naive_bayes_fit_capacity.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.naive_bayes_fit_capacity.restype = i
     lib.naive_bayes_scores_f32.argtypes = [p, p, p, i, i, i, p, p, p]
-    lib.naive_bayes_scores_f32.restype = ctypes.c_int
+    lib.naive_bayes_scores_f32.restype = i
 
 
 _LIBRARY = native.Library(SOURCE, _declare, "naive_bayes_error_string")
@@ -204,16 +215,48 @@ def fit_tiles(n_classes: int, n_features: int) -> Tuple[int, int, int]:
     return Ft, L, min(n_classes, _FIT_SHARED_FLOATS // (L * Ft))
 
 
+@functools.lru_cache(maxsize=1024)
 def fit_plan(n: int, n_classes: int, n_features: int) -> Tuple[int, int, int, int, int]:
     """K15a's launch plan (nblk, rows_per_block, Ft, L, Ct): blocks of at
     least ``_FIT_ROWS`` rows (fewer blocks where the partials would pass
     ``_FIT_PARTIAL_FLOATS``) and ``fit_tiles``. A function of the shape
-    alone, so the sums' order (and bits) does not depend on the card."""
+    alone, so the sums' order (and bits) does not depend on the card;
+    memoised by shape."""
     C, F = n_classes, n_features
     nblk = max(1, min(-(-n // _FIT_ROWS), _FIT_BLOCKS, _FIT_PARTIAL_FLOATS // (C * F)))
     rows = -(-n // nblk)
     nblk = -(-n // rows)
     return (nblk, rows) + fit_tiles(C, F)
+
+
+def fit_smem(n_classes: int, n_features: int) -> int:
+    """K15a's dynamic shared bytes a block: the lanes' partials and a class
+    tile's counts."""
+    Ft, L, Ct = fit_tiles(n_classes, n_features)
+    return 4 * (L * Ct * Ft + Ct)
+
+
+def _table_size(n_shards: int) -> int:
+    """The kernel's parameter table for ``n_shards`` shards (1, 8 or 64)."""
+    return 1 if n_shards <= 1 else 8 if n_shards <= 8 else MAX_SHARDS
+
+
+_CAPACITY: Dict[Tuple[int, int, int], int] = {}
+
+
+def fit_capacity(device: torch.device, n_shards: int, smem: int) -> int:
+    """Blocks of the fused fit that CUDA ``device`` holds at once (the
+    occupancy query times the SM count; 0 without cooperative launch),
+    memoised by device, table size and shared bytes."""
+    key = (device.index, _table_size(n_shards), smem)
+    cap = _CAPACITY.get(key)
+    if cap is None:
+        got = ctypes.c_int()
+        err = _LIBRARY.get().naive_bayes_fit_capacity(device.index, n_shards, smem,
+                                                      ctypes.byref(got))
+        _LIBRARY.check(err, "naive_bayes_fit_capacity")
+        cap = _CAPACITY[key] = got.value
+    return cap
 
 
 def naive_bayes_fit(
@@ -229,40 +272,104 @@ def naive_bayes_fit(
         raise ValueError(f"features must be [n, F] float32, got {tuple(features.shape)} "
                          f"{features.dtype}")
     n, F = features.shape
-    if label_idx.dtype != torch.int32 or tuple(label_idx.shape) != (n,):
+    if label_idx.dtype != torch.int32 or label_idx.shape != (n,):
         raise ValueError(f"label_idx must be [{n}] int32")
     if n < 1 or F < 1 or n_classes < 1:
         raise ValueError("naive_bayes_fit needs n, F and n_classes >= 1")
-    if label_idx.device != features.device:
+    dev = features.device
+    if label_idx.device != dev:
         raise ValueError("features and label_idx must be on one device")
-    if features.device.type == "cpu":
-        LAUNCHES.add("naive_bayes_fit_plain")
-        return fit_plain(features, label_idx, n_classes, lam)
-    if features.device.type != "cuda":
-        raise ValueError(f"unsupported device {features.device}")
-    if not (features.is_contiguous() and label_idx.is_contiguous()):
+    if dev.type == "cuda" and not (features.is_contiguous() and label_idx.is_contiguous()):
         raise ValueError("features and label_idx must be contiguous")
-    C, dev = n_classes, features.device
+    return _fit(dev, [(features, label_idx, 0, n, dev)], n, n_classes, F, lam)
+
+
+def _fit(
+    device: torch.device,
+    shards: List[Tuple[torch.Tensor, torch.Tensor, int, int, torch.device]],
+    n: int, C: int, F: int, lam: float,
+) -> NaiveBayesFit:
+    """K15a over the checked shards (rows, labels, first block, row count,
+    device), every one holding whole blocks of the plan, in row order; the
+    result on ``device``."""
     nblk, rows, Ft, L, Ct = fit_plan(n, C, F)
-    lib = load_library()
-    part = torch.empty((nblk, C, F), dtype=torch.float32, device=dev)
-    cpart = torch.empty((nblk, C), dtype=torch.int32, device=dev)
-    out = NaiveBayesFit(
-        torch.empty(C, dtype=torch.int32, device=dev),
-        torch.empty((C, F), dtype=torch.float32, device=dev),
-        torch.empty(C, dtype=torch.float32, device=dev),
-        torch.empty((C, F), dtype=torch.float32, device=dev),
-    )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.naive_bayes_fit_f32(
-            features.data_ptr(), label_idx.data_ptr(), n, F, C, float(lam), nblk, rows,
-            Ft, L, Ct, part.data_ptr(), cpart.data_ptr(), out.counts.data_ptr(),
-            out.sums.data_ptr(), out.pi.data_ptr(), out.theta.data_ptr(), stream,
-        )
-    _LIBRARY.check(err, "naive_bayes_fit")
-    LAUNCHES.add("naive_bayes_fit")
+    if device.type == "cpu":
+        LAUNCHES.add("naive_bayes_fit_plain")
+        parts = [fit_partial_plain(X, y, C, rows) for X, y, _, n_s, _ in shards if n_s]
+        if len(parts) > 1:
+            parts = [tuple(torch.cat(t) for t in zip(*parts))]
+        return fit_finish_plain(*parts[0], lam)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    # one allocation: counts, pi, theta, sums, then cpart and part; the
+    # outputs are strided views of it at these offsets (in 32-bit words)
+    CF = C * F
+    head = 2 * C + 2 * CF
+    o_counts, o_sums, o_pi, o_theta = 0, 2 * C + CF, C, 2 * C
+    buf = torch.empty(head + nblk * (C + CF), dtype=torch.float32, device=device)
+    out = NaiveBayesFit(buf.view(torch.int32).as_strided((C,), (1,), o_counts),
+                        buf.as_strided((C, F), (F, 1), o_sums), buf.as_strided((C,), (1,), o_pi),
+                        buf.as_strided((C, F), (F, 1), o_theta))
+    base = buf.data_ptr()
+    ptrs = (base + 4 * (head + nblk * C), base + 4 * head, base + 4 * o_counts,
+            base + 4 * o_sums, base + 4 * o_pi, base + 4 * o_theta)
+    if len(shards) == 1 and shards[0][4] == device:  # one device's fit
+        mine = shards
+    else:
+        mine, others = [], {}
+        for shard in shards:
+            if shard[3]:
+                if shard[4] == device:
+                    mine.append(shard)
+                else:
+                    others.setdefault(shard[4], []).append(shard)
+        if others:
+            _pass1_elsewhere(others, buf[head:], nblk, rows, C, F, lam)
+    cap = fit_capacity(device, len(mine), fit_smem(C, F))
+    if cap < 1:
+        raise native.KernelError(f"naive_bayes_fit: {device} holds no block of the cooperative "
+                                 f"launch (occupancy 0 or no cooperative launch)")
+    _launch_fit(device, mine, (n, F, C, nblk, rows, Ft, L, Ct), cap, ptrs, lam)
     return out
+
+
+def _launch_fit(device, shards, plan, cap, ptrs, lam) -> None:
+    """One call of ``naive_bayes_fit_f32`` on ``device``: the plan (n, F,
+    C, nblk, rows, Ft, L, Ct), the fused launch's most blocks ``cap`` (0:
+    pass 1 alone), the pointers (part, cpart, counts, sums, pi, theta) and
+    the shard table (rows, labels, first block)."""
+    cells = [device.index, *plan, cap, *ptrs, len(shards)]
+    for X, y, b0, n_s, _ in shards:
+        cells += (X.data_ptr(), y.data_ptr(), n_s, b0)
+    args = array("q", cells)
+    err = _LIBRARY.get().naive_bayes_fit_f32(
+        args.buffer_info()[0], lam, native.current_stream(device.index))
+    if err:
+        _LIBRARY.check(err, "naive_bayes_fit" if cap else "naive_bayes_fit (pass 1)")
+    LAUNCHES.add("naive_bayes_fit" if cap else "naive_bayes_fit_shard")
+
+
+def _pass1_elsewhere(others, tail: torch.Tensor, nblk, rows, C, F, lam) -> None:
+    """Pass 1 of the shards on devices other than the result's: one launch
+    per device into partials there (its shards' blocks one after another),
+    then each shard's blocks copied into ``tail`` (cpart [nblk, C] then part
+    [nblk, C, F], as 32-bit words, on the result's device)."""
+    cpart = tail[:nblk * C].view(torch.int32).view(nblk, C)
+    part = tail[nblk * C:].view(nblk, C, F)
+    Ft, L, Ct = fit_tiles(C, F)
+    for dev, shards in others.items():
+        nb = [-(-n_s // rows) for _, _, _, n_s, _ in shards]
+        starts = list(itertools.accumulate(nb, initial=0))
+        local = torch.empty(starts[-1] * (C + C * F), dtype=torch.float32, device=dev)
+        lc = local[:starts[-1] * C].view(torch.int32).view(-1, C)
+        lp = local[starts[-1] * C:].view(-1, C, F)
+        table = [(X, y, j, n_s, d) for (X, y, _, n_s, d), j in zip(shards, starts)]
+        base = local.data_ptr()
+        _launch_fit(dev, table, (sum(s[3] for s in shards), F, C, starts[-1], rows, Ft, L, Ct),
+                    0, [base + 4 * starts[-1] * C, base, 0, 0, 0, 0], lam)
+        for (_, _, b0, _, _), j, k in zip(shards, starts, nb):  # the peer copies
+            cpart[b0:b0 + k].copy_(lc[j:j + k])
+            part[b0:b0 + k].copy_(lp[j:j + k])
 
 
 def fit_shard_bounds(n: int, n_classes: int, n_features: int, n_shards: int) -> np.ndarray:
@@ -276,100 +383,6 @@ def fit_shard_bounds(n: int, n_classes: int, n_features: int, n_shards: int) -> 
     return np.minimum(split_rows(weights, n_shards) * rows, n)
 
 
-def naive_bayes_fit_partial(
-    features: torch.Tensor,
-    label_idx: torch.Tensor,
-    n_classes: int,
-    rows_per_block: int,
-    part: Optional[torch.Tensor] = None,
-    cpart: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K15a's pass 1 alone, a K15s shard's launch: the block partials
-    (part [nblk, C, F] float32, cpart [nblk, C] int32; block b holds rows
-    b·rows_per_block.. of ``features`` [n, F] float32 under ``label_idx``
-    [n] int32), written into ``part``/``cpart`` where given.
-
-    CPU tensors go to the plain twin (``fit_partial_plain``). CUDA tensors
-    go to the kernel, which must build and launch or this raises."""
-    if features.dim() != 2 or features.dtype != torch.float32:
-        raise ValueError(f"features must be [n, F] float32, got {tuple(features.shape)} "
-                         f"{features.dtype}")
-    n, F = features.shape
-    C, dev = n_classes, features.device
-    if label_idx.dtype != torch.int32 or tuple(label_idx.shape) != (n,) or label_idx.device != dev:
-        raise ValueError(f"label_idx must be [{n}] int32 on {dev}")
-    if n < 1 or F < 1 or C < 1 or rows_per_block < 1:
-        raise ValueError("naive_bayes_fit_partial needs n, F, n_classes and rows_per_block >= 1")
-    nblk = -(-n // rows_per_block)
-    for t, shape, dtype in ((part, (nblk, C, F), torch.float32), (cpart, (nblk, C), torch.int32)):
-        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
-                              or not t.is_contiguous()):
-            raise ValueError(f"the partials must be contiguous {shape} {dtype} on {dev}")
-    if dev.type == "cpu":
-        LAUNCHES.add("naive_bayes_fit_shard_plain")
-        got = fit_partial_plain(features, label_idx, C, rows_per_block)
-        if part is None:
-            return got
-        part.copy_(got[0])
-        cpart.copy_(got[1])
-        return part, cpart
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not (features.is_contiguous() and label_idx.is_contiguous()):
-        raise ValueError("features and label_idx must be contiguous")
-    part = part if part is not None else torch.empty((nblk, C, F), dtype=torch.float32, device=dev)
-    cpart = cpart if cpart is not None else torch.empty((nblk, C), dtype=torch.int32, device=dev)
-    Ft, L, Ct = fit_tiles(C, F)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.naive_bayes_fit_partial_f32(
-            features.data_ptr(), label_idx.data_ptr(), n, F, C, nblk, rows_per_block, Ft, L, Ct,
-            part.data_ptr(), cpart.data_ptr(), stream,
-        )
-    _LIBRARY.check(err, "naive_bayes_fit_partial")
-    LAUNCHES.add("naive_bayes_fit_shard")
-    return part, cpart
-
-
-def naive_bayes_fit_finish(part: torch.Tensor, cpart: torch.Tensor, lam: float) -> NaiveBayesFit:
-    """K15a's pass 2 alone, K15s's last launch: the counts, sums, ``pi``
-    and ``theta`` from the block partials (part [nblk, C, F] float32, cpart
-    [nblk, C] int32), the blocks added in block order.
-
-    CPU tensors go to the plain twin (``fit_finish_plain``). CUDA tensors go
-    to the kernel, which must build and launch or this raises."""
-    if part.dim() != 3 or part.dtype != torch.float32 or part.shape[0] < 1:
-        raise ValueError(f"part must be [nblk, C, F] float32, got {tuple(part.shape)}")
-    nblk, C, F = part.shape
-    if cpart.dtype != torch.int32 or tuple(cpart.shape) != (nblk, C) or cpart.device != part.device:
-        raise ValueError(f"cpart must be [{nblk}, {C}] int32 on {part.device}")
-    dev = part.device
-    if dev.type == "cpu":
-        LAUNCHES.add("naive_bayes_fit_finish_plain")
-        return fit_finish_plain(part, cpart, lam)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not (part.is_contiguous() and cpart.is_contiguous()):
-        raise ValueError("part and cpart must be contiguous")
-    out = NaiveBayesFit(
-        torch.empty(C, dtype=torch.int32, device=dev),
-        torch.empty((C, F), dtype=torch.float32, device=dev),
-        torch.empty(C, dtype=torch.float32, device=dev),
-        torch.empty((C, F), dtype=torch.float32, device=dev),
-    )
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.naive_bayes_fit_finish_f32(
-            part.data_ptr(), cpart.data_ptr(), nblk, C, F, float(lam), out.counts.data_ptr(),
-            out.sums.data_ptr(), out.pi.data_ptr(), out.theta.data_ptr(), stream,
-        )
-    _LIBRARY.check(err, "naive_bayes_fit_finish")
-    LAUNCHES.add("naive_bayes_fit_finish")
-    return out
-
-
 def naive_bayes_fit_shards(
     features: Sequence[torch.Tensor],
     label_idx: Sequence[torch.Tensor],
@@ -381,40 +394,43 @@ def naive_bayes_fit_shards(
     on ``device``. Shard s gives its rows ``features[s]`` [n_s, F] float32
     and ``label_idx[s]`` [n_s] int32 on its device, the shards in row order,
     each a whole number of the whole-n plan's blocks (``fit_shard_bounds``;
-    an empty shard has 0 rows). Each shard runs pass 1
-    (``naive_bayes_fit_partial``) into its blocks of the partials on
-    ``device`` (a peer copy where it lies elsewhere), and one pass 2
-    (``naive_bayes_fit_finish``) runs there: the result is one device's
-    ``naive_bayes_fit`` of the rows, bit for bit, on the CPU's twins and
-    on the card's kernels alike."""
+    an empty shard has 0 rows). The shards on ``device`` run in one launch
+    of both passes, as ``naive_bayes_fit``; those on another device run
+    pass 1 there, one launch per device, into partials copied to ``device``
+    first. The result is one device's
+    ``naive_bayes_fit`` of the rows, bit for bit, on the CPU's twins and on
+    the card's kernels alike."""
     if len(features) != len(label_idx) or not features:
         raise ValueError("one features and one label_idx tensor per shard")
-    if any(X.device.type != device.type for X in features):
-        raise ValueError(f"the shards must lie on {device.type} devices, as the result")
-    F = features[0].shape[1] if features[0].dim() == 2 else 0
-    sizes = [int(X.shape[0]) for X in features]
-    n = sum(sizes)
+    if device.type == "cuda" and device.index is None:
+        device = resolve_device(device)
+    if len(features) > MAX_SHARDS:
+        raise ValueError(f"at most {MAX_SHARDS} shards, got {len(features)}")
+    shape = features[0].shape
+    F = shape[1] if len(shape) == 2 else 0
+    cuda = device.type == "cuda"
+    n, checked = 0, []
+    for X, y in zip(features, label_idx):
+        dev, shape = X.device, X.shape
+        if dev != device and dev.type != device.type:
+            raise ValueError(f"the shards must lie on {device.type} devices, as the result")
+        if len(shape) != 2 or shape[1] != F or X.dtype != torch.float32:
+            raise ValueError(f"every shard's features must be [n_s, {F}] float32")
+        n_s = shape[0]
+        if y.dtype != torch.int32 or y.shape != (n_s,) or y.device != dev:
+            raise ValueError(f"label_idx must be [{n_s}] int32 on {dev}")
+        if cuda and not (X.is_contiguous() and y.is_contiguous()):
+            raise ValueError("features and label_idx must be contiguous")
+        checked.append((X, y, n, n_s, dev))
+        n += n_s
     if n < 1 or F < 1 or n_classes < 1:
         raise ValueError("naive_bayes_fit_shards needs n, F and n_classes >= 1")
-    nblk, rows = fit_plan(n, n_classes, F)[:2]
-    starts = np.concatenate([[0], np.cumsum(sizes)])
+    rows = fit_plan(n, n_classes, F)[1]
     if any(n_s and (r0 % rows or (n_s % rows and r0 + n_s != n))
-           for r0, n_s in zip(starts, sizes)):
+           for _, _, r0, n_s, _ in checked):
         raise ValueError(f"every shard must hold whole blocks of {rows} rows (fit_shard_bounds)")
-    part = torch.empty((nblk, n_classes, F), dtype=torch.float32, device=device)
-    cpart = torch.empty((nblk, n_classes), dtype=torch.int32, device=device)
-    for r0, X, y in zip(starts, features, label_idx):
-        if not X.shape[0]:
-            continue
-        b0 = int(r0) // rows
-        b1 = b0 + -(-X.shape[0] // rows)
-        if X.device == device:
-            naive_bayes_fit_partial(X, y, n_classes, rows, part[b0:b1], cpart[b0:b1])
-        else:  # the peer copy of the shard's blocks
-            p, c = naive_bayes_fit_partial(X, y, n_classes, rows)
-            part[b0:b1].copy_(p)
-            cpart[b0:b1].copy_(c)
-    return naive_bayes_fit_finish(part, cpart, lam)
+    shards = [(X, y, r0 // rows, n_s, dev) for X, y, r0, n_s, dev in checked]
+    return _fit(device, shards, n, n_classes, F, lam)
 
 
 def naive_bayes_scores(

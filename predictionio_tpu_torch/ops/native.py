@@ -150,6 +150,9 @@ class Library:
         self._lib: Optional[ctypes.CDLL] = None
 
     def get(self) -> ctypes.CDLL:
+        lib = self._lib  # loaded: no lock (the lock guards the first load only)
+        if lib is not None:
+            return lib
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(build_sources([self.source])[self.source]))
@@ -167,6 +170,23 @@ class Library:
             raise KernelError(
                 f"{what} kernel launch failed: {text} (cudaError {err})"
             )
+
+
+_raw_stream: Optional[Callable[[int], int]] = None
+
+
+def current_stream(index: int) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on CUDA device
+    ``index``, as an int for a kernel's C entry point: torch's raw lookup,
+    which builds no ``torch.cuda.Stream`` (the public one where a build of
+    torch lacks it)."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
 
 
 class LaunchCounts:

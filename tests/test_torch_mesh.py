@@ -22,7 +22,11 @@ CPU devices (S in {4, 8}).
   matrix product picks its blocking by the shard's row count; on the card
   K3 is position-independent and chip_smoke.py holds K3s bit for bit);
   K14s (``SimilarityScorer(mesh)``) against JAX's at rtol 1e-5 and the
-  port's single device at rtol 1e-6, for the same reason.
+  port's single device at rtol 1e-6, for the same reason; K14's shard
+  tables (``CosineTable``: the scorer on ``["cpu"] * S``, uneven and empty
+  cuts, offsets into a longer result) bit for bit the single-device twin,
+  since the twin runs once over the table's rows in order, and tables past
+  64 shards refused.
 - ``_mesh_from_device_spec`` and the CLI's serving target.
 """
 
@@ -42,6 +46,7 @@ from predictionio_tpu_torch.ops import merge_topn as k9m
 from predictionio_tpu_torch.ops import rescore as kb
 from predictionio_tpu_torch.ops.als import ServingFactors
 from predictionio_tpu_torch.ops.retrieval import ItemRetriever, quantize_rows_int8
+from predictionio_tpu_torch.ops import similarity as k14
 from predictionio_tpu_torch.ops.similarity import SimilarityScorer
 from predictionio_tpu_torch.ops.topn import pack_topn
 from predictionio_tpu_torch.parallel import mesh as pmesh
@@ -330,6 +335,57 @@ def test_similarity_scorer_on_a_mesh_matches_jax(meshes, S):
         np.testing.assert_allclose(got, j_sc.cosine_sum(q), rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(got, single.cosine_sum(q), rtol=1e-6, atol=1e-7)
     p_sc.warm(max_q=8)
+
+
+@pytest.mark.parametrize("S", [3, 4])
+@pytest.mark.parametrize("Q", [4, 8, 16])
+def test_k14_shard_tables_are_the_single_device_twin_bit_for_bit(S, Q):
+    """K14s's shard table on ``["cpu"] * S``: the scorer runs one twin call
+    a query (one table: every shard on one device) and its sums are the
+    single-device scorer's bit for bit; tables over uneven and empty cuts
+    of the catalog, each shard in its block of a longer result, are the
+    single-device twin bit for bit and leave the other entries alone."""
+    rng = np.random.default_rng(40 + 3 * S + Q)
+    factors = rng.standard_normal((53, 6)).astype(np.float32)
+    factors[7] = 0.0
+    single = SimilarityScorer(factors, device="cpu")
+    sc = SimilarityScorer(factors, mesh=pmesh.make_mesh({"data": S}, ["cpu"] * S))
+    idx = rng.integers(0, 53, Q)
+    k14.LAUNCHES.reset()
+    got = sc.cosine_sum(sc.normed[idx])
+    assert k14.LAUNCHES.snapshot() == {"cosine_sum": 0, "cosine_sum_plain": 1}
+    assert got.shape == (53,) and np.array_equal(got.view(np.uint32),
+                                                 single.cosine_sum(single.normed[idx]).view(np.uint32))
+    Y = torch.from_numpy(single.normed.astype(np.float32))
+    q = Y[idx]
+    want = k14.cosine_sum_plain(q, Y)
+    cuts = {3: ([0, 0, 30, 53], [0, 17, 17, 53], [0, 53, 53, 53]),
+            4: ([0, 5, 5, 41, 53], [0, 0, 0, 0, 53], [0, 1, 2, 52, 53])}[S]
+    for cut in cuts:
+        table = k14.CosineTable([Y[a:b] for a, b in zip(cut[:-1], cut[1:])],
+                                [2 + a for a in cut[:-1]], 57)
+        out = torch.full((57,), float("nan"))
+        k14.cosine_sum_table(q, table, out=out)
+        assert torch.equal(out[2:55].view(torch.int32), want.view(torch.int32)), cut
+        assert torch.isnan(out[:2]).all() and torch.isnan(out[55:]).all()
+
+
+def test_k14_tables_refuse_what_the_kernel_does_not_take():
+    Y = torch.zeros((70, 4))
+    ok = k14.CosineTable([Y[i:i + 1] for i in range(k14.MAX_SHARDS)],
+                         list(range(k14.MAX_SHARDS)), 70)
+    assert len(ok.ys) == 64 and ok.rows == 64
+    with pytest.raises(ValueError, match="1 to 64 shards"):
+        k14.CosineTable([Y[i:i + 1] for i in range(k14.MAX_SHARDS + 1)], list(range(65)), 70)
+    with pytest.raises(ValueError, match="leaves the result"):
+        k14.CosineTable([Y[:10]], [65], 70)
+    with pytest.raises(ValueError, match="float32"):
+        k14.CosineTable([Y[:10], torch.zeros((3, 5))], [0, 10], 70)
+    table = k14.CosineTable([Y[:10], Y[10:20]], [0, 10], 20)
+    with pytest.raises(ValueError, match="Q >= 1"):
+        k14.cosine_sum_table(torch.zeros((2, 5)), table)
+    with pytest.raises(ValueError, match="out must be"):
+        k14.cosine_sum_table(torch.zeros((2, 4)), table, out=torch.zeros(19))
 
 
 def test_device_spec_and_serving_target(monkeypatch):

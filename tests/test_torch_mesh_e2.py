@@ -17,7 +17,9 @@ Tolerances, stated beforehand:
 - against the port's own single device: the K15s fit, every K15s label and
   the K17s counts bit for bit (the shards cut at K15a's and K17a's block
   boundaries, so every sum keeps its order); K16s within one float32 step
-  of each entry (its float64 sums run in another order).
+  of each entry (its float64 sums run in another order). K15a's shard
+  tables (uneven and empty shards, 32-column tiles) keep the twin's bits,
+  and a table past 64 shards is refused.
 """
 
 import gc
@@ -74,6 +76,16 @@ def steps_apart(a, b):
 # --- K15s: multinomial naive Bayes ---
 
 
+def spy_fit_shards(monkeypatch):
+    """The shard count of every ``naive_bayes_fit_shards`` call from here
+    on: the evidence that a fit went through the mesh's shard table (the
+    CPU counts one ``naive_bayes_fit_plain`` a fit either way)."""
+    calls, real = [], k15.naive_bayes_fit_shards
+    monkeypatch.setattr(k15, "naive_bayes_fit_shards",
+                        lambda X, *a, **kw: calls.append(len(X)) or real(X, *a, **kw))
+    return calls
+
+
 def nb_data(n, F, C, seed, high=3.0):
     rng = np.random.default_rng(seed)
     return rng.uniform(0, high, (n, F)).astype(np.float32), rng.integers(0, C, n).astype(np.float64)
@@ -83,14 +95,16 @@ def nb_data(n, F, C, seed, high=3.0):
 @pytest.mark.parametrize("n,F,C,lam,seed,high", [
     (67, 12, 3, 0.7, 0, 3.0), (64, 5, 2, 1.0, 1, 1.0), (3_000, 12, 3, 0.7, 2, 3.0),
 ], ids=["67-rows", "64-rows", "3000-rows"])
-def test_nb_fit_on_a_mesh_matches_jax_and_one_device(S, n, F, C, lam, seed, high):
+def test_nb_fit_on_a_mesh_matches_jax_and_one_device(S, n, F, C, lam, seed, high, monkeypatch):
     """The reference's two fit cases (67 rows, which do not divide the
     shards, and 64), and 3,000 rows, whose 6 blocks of 500 give several
     shards rows."""
     X, y = nb_data(n, F, C, seed, high)
+    fits = spy_fit_shards(monkeypatch)
     k15.LAUNCHES.reset()
     got = k15.train_naive_bayes(X, y, lam=lam, mesh=port_mesh(S))
     counts = k15.LAUNCHES.snapshot()
+    assert fits == [S]  # one fit over the S shards' table
     want = jnb.train_naive_bayes(X, y, lam=lam, mesh=jax_mesh(S))
     np.testing.assert_allclose(got.pi, want.pi, rtol=NB_RTOL)
     np.testing.assert_allclose(got.theta, want.theta, rtol=NB_RTOL)
@@ -100,8 +114,9 @@ def test_nb_fit_on_a_mesh_matches_jax_and_one_device(S, n, F, C, lam, seed, high
     assert got.device == CPU
     bounds = k15.fit_shard_bounds(n, C, F, S)
     filled = int(np.count_nonzero(np.diff(bounds)))
-    assert counts["naive_bayes_fit_shard_plain"] == filled
-    assert counts["naive_bayes_fit_finish_plain"] == 1 and counts["naive_bayes_fit_plain"] == 0
+    # every shard lies on the CPU: one fit over the shard table, as the card
+    # runs one launch for the shards of a device
+    assert counts["naive_bayes_fit_plain"] == 1 and counts["naive_bayes_fit_shard"] == 0
     if n == 3_000:
         assert filled > 1
 
@@ -131,6 +146,48 @@ def test_the_fit_shard_twins_are_the_one_device_twin_bit_for_bit(n, F, C):
             assert same_bits(g.numpy(), w.numpy())
     with pytest.raises(ValueError, match="whole blocks"):
         k15.naive_bayes_fit_shards([Xt[:7], Xt[7:]], [yt[:7], yt[7:]], C, 0.7, CPU)
+
+
+@pytest.mark.parametrize("S", [3, 4])
+@pytest.mark.parametrize("cut", ["plan", "uneven", "all-in-one"])
+@pytest.mark.parametrize("n,F,C", [(5_000, 40, 3), (2_049, 3, 4)], ids=["F40", "F3"])
+def test_the_fit_on_shard_tables_keeps_the_twins_bits(S, cut, n, F, C):
+    """``naive_bayes_fit_shards`` on a ``["cpu"] * S`` shard table (the
+    plan's cut; an uneven cut with an empty shard; every row in the last
+    shard; F = 40 spans two 32-column tiles) is the single-device twin bit
+    for bit, counted as one fit, as is ``naive_bayes_fit``."""
+    X, y = nb_data(n, F, C, 6)
+    Xt, yt = torch.from_numpy(X), torch.from_numpy(y.astype(np.int32))
+    one = k15.fit_plain(Xt, yt, C, 0.7)
+    rows = k15.fit_plan(n, C, F)[1]
+    bounds = {"plan": k15.fit_shard_bounds(n, C, F, S).tolist(),
+              "uneven": {3: [0, 0, 3 * rows, n], 4: [0, rows, rows, 3 * rows, n]}[S],
+              "all-in-one": [0] * S + [n]}[cut]
+    k15.LAUNCHES.reset()
+    got = k15.naive_bayes_fit_shards([Xt[a:b] for a, b in zip(bounds[:-1], bounds[1:])],
+                                     [yt[a:b] for a, b in zip(bounds[:-1], bounds[1:])], C, 0.7,
+                                     CPU)
+    assert all(same_bits(g.numpy(), w.numpy()) for g, w in zip(got, one)), bounds
+    assert {k: v for k, v in k15.LAUNCHES.snapshot().items() if v} == {"naive_bayes_fit_plain": 1}
+    got = k15.naive_bayes_fit(Xt, yt, C, 0.7)
+    assert all(same_bits(g.numpy(), w.numpy()) for g, w in zip(got, one))
+
+
+def test_the_fit_plan_and_its_shard_table_limits():
+    """K15a's plan at 3n's shape (50,000 x 3, C = 4: 98 row blocks, one tile
+    of each, 4,096 shared bytes a block) and a wide one (200,000 x 64,
+    C = 10: 391 row blocks, 2 F tiles); a shard table holds at most 64
+    shards, empty ones included."""
+    assert k15.fit_plan(50_000, 4, 3) == (98, 511, 3, 85, 4)
+    assert k15.fit_smem(4, 3) == 4 * (85 * 4 * 3 + 4) <= 48 * 1024
+    assert k15.fit_plan(200_000, 10, 64)[:3] == (391, 512, 32)
+    assert k15.fit_smem(10, 64) <= 48 * 1024
+    X, y = nb_data(100, 3, 2, 1)
+    Xt, yt = torch.from_numpy(X), torch.from_numpy(y.astype(np.int32))
+    with pytest.raises(ValueError, match="at most 64 shards"):
+        k15.naive_bayes_fit_shards([Xt[:0]] * 64 + [Xt], [yt[:0]] * 64 + [yt], 2, 1.0, CPU)
+    got = k15.naive_bayes_fit_shards([Xt[:0]] * 63 + [Xt], [yt[:0]] * 63 + [yt], 2, 1.0, CPU)
+    assert all(same_bits(g.numpy(), w.numpy()) for g, w in zip(got, k15.fit_plain(Xt, yt, 2, 1.0)))
 
 
 @pytest.mark.parametrize("S", SHARDS)
@@ -306,8 +363,9 @@ def test_markov_placement_cache_keys_the_mesh_by_identity():
 # --- the edges every program shares ---
 
 
-def test_a_one_shard_mesh_collapses_and_other_meshes_raise():
+def test_a_one_shard_mesh_collapses_and_other_meshes_raise(monkeypatch):
     X, y = nb_data(300, 3, 2, 0)
+    fits = spy_fit_shards(monkeypatch)
     one_mesh = make_mesh({"data": 1}, ["cpu"])
     two_d = Mesh(["cpu"] * 4, {"data": 2, "model": 2})
     model = MarkovChain.train(markov_entries(9, 40, 3), 9, 2, device="cpu")
@@ -319,8 +377,7 @@ def test_a_one_shard_mesh_collapses_and_other_meshes_raise():
     CategoricalNaiveBayes.train(pts, mesh=one_mesh)
     assert model.predict(np.full(9, 1 / 9), mesh=one_mesh) == model.predict(np.full(9, 1 / 9))
     # one shard runs the single-device wrappers, never a shard form
-    assert k15.LAUNCHES.snapshot()["naive_bayes_fit_plain"] == 1
-    assert k15.LAUNCHES.snapshot()["naive_bayes_fit_shard_plain"] == 0
+    assert k15.LAUNCHES.snapshot()["naive_bayes_fit_plain"] == 1 and fits == []
     assert k17.LAUNCHES.snapshot()["cnb_count_plain"] == 1
     assert k16.LAUNCHES.snapshot()["markov_step_shard_plain"] == 0
     assert m.device == CPU
@@ -364,15 +421,18 @@ def nb_engine_params():
     )
 
 
-def test_the_classification_engine_trains_naive_bayes_on_the_mesh():
+def test_the_classification_engine_trains_naive_bayes_on_the_mesh(monkeypatch):
     assert pcls.NaiveBayesAlgorithm.MESH_TRAINING
     assert not pcls.LogisticRegressionAlgorithm.MESH_TRAINING
     engine = pcls.classification_engine()
+    fits = spy_fit_shards(monkeypatch)
     k15.LAUNCHES.reset()
     [got] = engine.train(classification_context(4), nb_engine_params(), WorkflowParams())
     counts = k15.LAUNCHES.snapshot()
-    assert counts["naive_bayes_fit_shard_plain"] == 4 and counts["naive_bayes_fit_plain"] == 0
+    # trained on the 4-shard mesh: one fit over its shard table
+    assert fits == [4] and counts["naive_bayes_fit_plain"] == 1
     [one] = engine.train(classification_context(1), nb_engine_params(), WorkflowParams())
+    assert fits == [4]  # one device: no shard table
     assert same_bits(got.pi, one.pi) and same_bits(got.theta, one.theta)
     np.testing.assert_array_equal(got.labels, one.labels)
     assert got.device == CPU
@@ -385,7 +445,7 @@ class ShardedNaiveBayes(pcls.NaiveBayesAlgorithm, pctl.PAlgorithm):
     """A naive Bayes whose model is declared sharded: not persisted."""
 
 
-def test_a_sharded_model_persists_as_none_and_is_retrained_on_deploy():
+def test_a_sharded_model_persists_as_none_and_is_retrained_on_deploy(monkeypatch):
     engine = Engine(pcls.DataSource, pcls.Preparator,
                     {"sharded": ShardedNaiveBayes, "naive": pcls.NaiveBayesAlgorithm})
     ep = EngineParams(
@@ -401,8 +461,10 @@ def test_a_sharded_model_persists_as_none_and_is_retrained_on_deploy():
     with pytest.raises(ValueError, match="ShardedNaiveBayes"):
         engine.prepare_deploy(CPU, ep, kept)
     k15.LAUNCHES.reset()
+    fits = spy_fit_shards(monkeypatch)
     deployed = engine.prepare_deploy(CPU, ep, kept, ctx=ctx)
-    assert k15.LAUNCHES.snapshot()["naive_bayes_fit_shard_plain"] == 4  # re-trained on the mesh
+    # re-trained on the 4-shard mesh: one fit over its shard table
+    assert fits == [4] and k15.LAUNCHES.snapshot()["naive_bayes_fit_plain"] == 1
     assert same_bits(deployed[0].theta, models[0].theta) and deployed[1] is not None
     assert same_bits(deployed[1].theta, models[1].theta)
 

@@ -208,8 +208,7 @@ def test_cpu_tensors_run_the_twins_and_are_counted():
     assert pnb.LAUNCHES.snapshot() == {
         "naive_bayes_fit": 0, "naive_bayes_scores": 0,
         "naive_bayes_fit_plain": 1, "naive_bayes_scores_plain": 1,
-        "naive_bayes_fit_shard": 0, "naive_bayes_fit_finish": 0,
-        "naive_bayes_fit_shard_plain": 0, "naive_bayes_fit_finish_plain": 0,
+        "naive_bayes_fit_shard": 0,
     }
 
 
