@@ -369,7 +369,8 @@ Phases; any failure exits non-zero:
    K3c: launches over 3y's two ``measure_compute_ms`` calls, its ms the
    bench call's time a pass, its bound and library call K3's at that
    shape; 3m's: K3s (``topn_packed_sharded``) launches on the float32 mesh
-   deployment, times per batch of its shards' K3 launches at B = 128; the
+   deployment, times per batch of its launch over the shard table at B =
+   128; the
    row-shard forms and K9m launches over the int8 and Similar Product mesh
    deployments, times at K10s's int8 shape, one shard; K14s
    (``cosine_sum_sharded``) launches on the mesh host path), the card
@@ -473,8 +474,8 @@ Phases; any failure exits non-zero:
       2·nnz·n operations) and the library calls (the dense product, TF32
       off, and ``torch.sparse.mm`` with a CSR P where it runs; the port
       calls neither) (``simrank``).
-   c. K3c (``ops/topn.py`` ``topn_chain``, ``csrc/topn.cu``
-      ``topn_chain_f32``): ``ServingFactors.measure_compute_ms`` at the
+   c. K3c (``ops/topn.py`` ``topn_chain``, ``csrc/topn.cu`` ``topn_f32``
+      with ``n_iters`` passes): ``ServingFactors.measure_compute_ms`` at the
       bench's call (phase 3's model, its first 32 users, n = 10,
       ``iters=4096``) and at phase 2's shape (a seeded catalog of 26,744 x
       32, B = 128, n = 16): 1 + 2 x 5 chain launches each, K3 and twins 0;
@@ -504,16 +505,22 @@ Phases; any failure exits non-zero:
    distinct cards, the same gates); phase 3's model and R1's catalog, no
    training. Logical shards of one card run one after another, so these
    are not multi-GPU times.
-   a. K3s (``ServingFactors(mesh)``): phase 4's 320 served queries' user
-      rows in batches of 1 to 128, bit for bit the single-device K3's
-      answers.
+   a. K3s (``ServingFactors(mesh)``, one K3 launch per distinct device
+      over its shards' table): phase 4's 320 served queries' user rows in
+      batches of 1 to 128, bit for bit the single-device K3's answers; K3
+      over a table whose blocks are out of order and over the first
+      device's table of an interleaved mesh (``0,1,0,1``), each placed row
+      bit for bit K3 on the whole batch; K3c's mesh form
+      (``measure_compute_ms``'s chain over the tables) bit for bit one
+      device's chain.
    b. K9s + K9m (``ItemRetriever(mesh)``, float32): the ML-20M item factors
       under R3's Similar Product traffic (cosine, positive_only, its
       exclude and include lists), bit for bit the single-device
       retriever's; on one batch each shard's mask (``id_offset``) bit for
       bit its twin, kernel A within RTOL/ATOL of its twin and bit for bit
-      the single-device form with ids plus the offset, K9m bit for bit its
-      twin and equal to the answer.
+      the single-device form with ids plus the offset, K9m on the
+      ``[S, B, 2L]`` buffer bit for bit its twin (into a caller's ``out``
+      too) and equal to the answer.
    c. K10s: the quantized catalog in int8 and bf16, B = 8 and 128, n = 10:
       each row bit for bit the single-device retriever's, or (a shard's
       own shortlist brought other candidates to the host refinement) its
@@ -527,7 +534,8 @@ Phases; any failure exits non-zero:
       and R3's Similar Product model deployed through ``tools.cli deploy
       --serving-devices 0,0,0,0``, each sent its single-device deployment's
       320 queries from 32 clients: every answer equal to that
-      deployment's (int8: equal, or no lower as in c); K3 = 4 per batch,
+      deployment's (int8: equal, or no lower as in c); K3 = 1 per batch
+      (one per distinct device),
       the mask, kernel A and kernel B (their row-shard forms count under
       their own names) 4 per merge and none on the float32 deployment, K9m
       one per batch with a known query, K14 and every twin 0; p50, p99,
@@ -535,13 +543,15 @@ Phases; any failure exits non-zero:
       64 of R3's queries through the Similar Product host path on the mesh
       (K14s = 1 per query with a known item and distinct device), against
       the single device's.
-   Times: K3s per batch beside K3 (B = 8, 32, 128), and with its fetch:
-   the gathered result fetched once against one fetch per shard; K14s's
-   launch with its fetch and its host side part by part; one shard's mask,
-   kernel A and kernel B at B = 128 (K9s's f32 cosine and K10s's tiers);
-   K9m per call with its bytes bound and ``torch.topk`` over the
-   concatenated scores as the library call; K14s; launches per served
-   batch (``mesh_serving``).
+   Times: K3s per batch through serving's launch over the shard table
+   beside K3 (B = 8, 32, 128), both with their device times, K3s with its
+   one fetch, and at B = 128 both host sides part by part
+   (``host_breakdown``); K14s's launch with its fetch and its host side
+   part by part; one shard's mask, kernel A and kernel B at B = 128 (K9s's
+   f32 cosine and K10s's tiers); K9m per call on the retriever's buffer
+   into its ``out``, with its bytes bound, ``torch.topk`` over the
+   concatenated scores as the library call and its host side part by part;
+   K14s; launches per served batch (``mesh_serving``).
 3t. ALS training on a device mesh (after 3h's grid): a ``parallel.Mesh``
    of 4 LOGICAL shards of the card (``[cuda:0] * 4``; with several cards
    also the visible cards, which must give phase 3's model). Logical
@@ -7320,12 +7330,61 @@ def shard_kernel_checks(r, q_np, n, exclude, include, positive_only, normalize, 
                               f"rescore_topn_shard {label} off={p.off}")
             a = c
         cands.append(a)
-    cand = torch.stack(cands, dim=1).unflatten(2, (2, n_local))  # [B, S, 2, L]
+    cand = torch.stack(cands)  # [S, B, 2L], as the retriever lays it out
     merged = k9m.merge_topn(cand, n_dev)
-    if not bits_equal(merged, k9m.merge_topn_plain(cand, n_dev)):
+    twin = k9m.merge_topn_plain(cand, n_dev)
+    if not bits_equal(merged, twin):
         raise AssertionError(f"merge_topn {label}: differs from its twin")
+    out = torch.full_like(merged, float("nan"))
+    if k9m.merge_topn(cand, n_dev, out=out) is not out or not bits_equal(out, twin):
+        raise AssertionError(f"merge_topn {label}: into a caller's out, not its twin")
     errs.setdefault("merge_topn", 0.0)
     return unpack_topn(merged.cpu().numpy(), n_dev)
+
+
+def k3s_table_gates(rng, device, uf, sharded):
+    """On the card, at B = 128: K3 over a shard table whose blocks are out of
+    order (n = 16, and n = 1,000, whose merge runs in levels) and over the
+    first device's table of an interleaved mesh (``0,1,0,1``: shards 0 and
+    2, gaps between their blocks; n = 16), each placed row bit for bit K3 on
+    the whole batch and every other row left as it was; then K3c's mesh form
+    (``ServingFactors(mesh)``'s chain over its tables, as
+    ``measure_compute_ms`` times it) bit for bit one device's chain at 16
+    passes. Returns what was checked."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import topn as k3
+
+    B, per = 128, 32
+    q = uf[rng.integers(0, len(uf), B)].astype(np.float32)
+    Yd = sharded._if_dev
+    qd = torch.from_numpy(q).to(device)
+    checked = {}
+    for name, shards, blocks, n in (("out of order", [0, 1, 2, 3], [2, 0, 3, 1], 16),
+                                    ("out of order, in levels", [0, 1, 2, 3], [2, 0, 3, 1], 1000),
+                                    ("interleaved", [0, 2], [0, 2], 16)):
+        whole = k3.topn_packed(qd, Yd, n).cpu().numpy()
+        upload = torch.from_numpy(np.concatenate([q[s * per:(s + 1) * per] for s in shards]))
+        table = k3.TopnTable(device, [per] * len(shards), [b * per for b in blocks], B)
+        res = torch.full((B, 2 * n), float("nan"), device=device)
+        k3.topn_packed(upload.to(device), Yd, n, out=res, table=table)
+        got = res.cpu().numpy()
+        for s, b in zip(shards, blocks):
+            if not same_bits(got[b * per:(b + 1) * per], whole[s * per:(s + 1) * per]):
+                raise AssertionError(f"K3 over the {name} table: shard {s}'s rows are not "
+                                     "K3's on the whole batch")
+        rest = sorted(set(range(B // per)) - set(blocks))
+        if rest and not all(np.isnan(got[b * per:(b + 1) * per]).all() for b in rest):
+            raise AssertionError(f"K3 over the {name} table wrote outside its blocks")
+        checked[name] = {"shards": shards, "blocks": blocks, "n": n}
+    chained = sharded._launch(sharded._place(q), 16, 16).cpu().numpy()[:B]
+    if not same_bits(chained, k3.topn_chain(qd, Yd, 16, 16).cpu().numpy()):
+        raise AssertionError("K3c on the mesh: not one device's chain bit for bit")
+    checked["k3c_mesh_passes"] = 16
+    print("  K3 over out-of-order (n = 16, 1,000) and interleaved tables and K3c's mesh "
+          "form: bit for bit one device's", flush=True)
+    return checked
 
 
 def shard_times(rng, r, Y, positive_only, normalize, device):
@@ -7402,15 +7461,17 @@ def shard_times(rng, r, Y, positive_only, normalize, device):
             got = kb.rescore_topn(q, part.y, part.scale, prn, got, n_local, positive_only,
                                   normalize, id_offset=part.off)
         cand[s].copy_(got)
-    view = cand.permute(1, 0, 2).unflatten(2, (2, n_local))
-    merge_call = lambda: k9m.merge_topn(view, n_dev)
-    flat = view[:, :, 0, :].reshape(B, S * n_local).contiguous()
+    # as the retriever merges: the buffer as it lies, into its own out
+    merged = torch.empty((B, 2 * n_dev), dtype=torch.float32, device=device)
+    merge_call = lambda: k9m.merge_topn(cand, n_dev, out=merged)
+    flat = cand[:, :, :n_local].permute(1, 0, 2).reshape(B, S * n_local).contiguous()
     row["merge_topn"] = {
         "S": S, "L": n_local, "n": n_dev,
         "ms": time_ms(merge_call), "device_ms": device_ms(merge_call, calls=200),
-        "plain_ms": time_ms(lambda: k9m.merge_topn_plain(view, n_dev), iters=20),
+        "plain_ms": time_ms(lambda: k9m.merge_topn_plain(cand, n_dev), iters=20),
         "bound": roofline(4 * B * S * 2 * n_local + 4 * B * 2 * n_dev, 0),
         "library_ms": time_ms(lambda: torch.topk(flat, n_dev)),
+        "host_us": host_breakdown(merge_call, wrapper_parts(k9m)),
     }
     row["card"] = card_line()
     return row
@@ -7428,7 +7489,6 @@ def mesh_serving_checks(rng, device, mesh, model, traffic, sp_deploy, errs, time
     from predictionio_tpu_torch.ops.als import ServingFactors
     from predictionio_tpu_torch.ops.retrieval import ItemRetriever
     from predictionio_tpu_torch.ops.similarity import SimilarityScorer
-    from predictionio_tpu_torch.parallel.mesh import shard_batch
     from predictionio_tpu_torch.utils.shapes import pad_rows_pow2, pow2_topk_width
 
     S = mesh.shape["data"]
@@ -7452,31 +7512,36 @@ def mesh_serving_checks(rng, device, mesh, model, traffic, sp_deploy, errs, time
     out["k3s_batches"] = batches
     print(f"  K3s on {S} shards: {len(rows)} user rows in {batches} batches of 1-128, "
           "bit for bit K3's", flush=True)
+    out["k3s_tables"] = k3s_table_gates(rng, device, uf, sharded)
     if timed:
         out["k3s"] = []
         Yd = sharded._if_dev
         for B in (8, 32, 128):
             q = pad_rows_pow2(uf[rng.integers(0, len(uf), B)], 8)
             qd = torch.from_numpy(q).to(device)
-            shards, _ = shard_batch(mesh, q)
-            per = shards[0].shape[0]
-            packed = torch.empty((per * S, 32), dtype=torch.float32, device=device)
-            # as ServingFactors serves: each shard's block of one result
-            k3s = lambda: [k3.topn_packed(qs, Yd, 16, out=packed[s * per:(s + 1) * per])
-                           for s, qs in enumerate(shards)]
-            out["k3s"].append({
-                "B": B, "n": 16, "k3_ms": time_ms(lambda: k3.topn_packed(qd, Yd, 16)),
+            one = lambda: k3.topn_packed(qd, Yd, 16)
+            # as ServingFactors serves: one launch per distinct device over
+            # its shards' table, the uploads made once (one here: every
+            # shard on the card)
+            placed = sharded._place(q)
+            k3s = lambda: sharded._launch(placed, 16)
+            q0, table0, _ = placed[0]
+            row = {
+                "B": B, "n": 16, "launches_per_batch": len(placed),
+                "k3_ms": time_ms(one), "k3_device_ms": device_ms(one, calls=100),
                 "k3s_ms": time_ms(k3s), "k3s_device_ms": device_ms(k3s, calls=100),
-                # the launches and their fetch: one fetch of the gathered
-                # result, against one fetch per shard
-                "k3s_fetch_once_ms": time_ms(lambda: (k3s(), packed.cpu()), iters=50),
-                "k3s_fetch_per_shard_ms": time_ms(
-                    lambda: [k3.topn_packed(qs, Yd, 16).cpu() for qs in shards], iters=50),
-                "plain_ms": time_ms(lambda: [k3.topn_packed_plain(qs, Yd, 16) for qs in shards],
-                                    iters=20),
+                # the launch and its one fetch
+                "k3s_fetch_once_ms": time_ms(lambda: k3s().cpu(), iters=50),
+                "plain_ms": time_ms(lambda: k3.topn_table_plain(
+                    k3.topn_packed_plain(q0, Yd, 16), table0), iters=20),
                 "bound": bound(B, N, k, 16),
                 "library_ms": time_ms(lambda: torch.topk(qd @ Yd.T, 16)),
-            })
+            }
+            if B == 128:
+                row["k3_host_us"] = host_breakdown(one, wrapper_parts(k3))
+                row["k3s_host_us"] = host_breakdown(k3s, wrapper_parts(k3))
+            out["k3s"].append(row)
+        print(f"  K3s times: {json.dumps(out['k3s'])}", flush=True)
     del single, sharded
 
     # K9s + K9m: the ML-20M item factors (float32, cosine, positive_only)
@@ -7578,12 +7643,13 @@ def mesh_deployments(device, spec, traffic, q_served, sp_deploy, workdir):
     sent its single-device deployment's queries from 32 clients, counted
     from 0: every answer equal to the single-device deployment's (float32
     and Similar Product exactly; int8 exactly or ``no_lower``), every launch
-    a row-shard form (K3 one per shard per batch). Returns (launches per
-    deployment, stats)."""
+    a row-shard form (K3 one per distinct device per batch, over its
+    shards' table). Returns (launches per deployment, stats)."""
     import numpy as np
 
     counters = mesh_counters()
     S = len(spec.split(","))
+    n_dev = len(set(spec.split(",")))
     runs = (("ml20m_trained", traffic["bodies"], traffic["answers"]),
             ("ml20m_int8", traffic["bodies"], q_served["int8"]),
             ("ml20m_similar", sp_deploy["bodies"], sp_deploy["answers"]))
@@ -7606,7 +7672,8 @@ def mesh_deployments(device, spec, traffic, q_served, sp_deploy, workdir):
         # each per merged batch (the single-device retriever merges none)
         merges = counts["merge_topn"]
         if name == "ml20m_trained":
-            ok = counts["topn_packed"] % S == 0 and 1 <= counts["topn_packed"] // S <= batches \
+            ok = counts["topn_packed"] % n_dev == 0 \
+                and 1 <= counts["topn_packed"] // n_dev <= batches \
                 and merges == counts["masked_topn"] == 0
         else:
             quant = name == "ml20m_int8"
@@ -8710,6 +8777,7 @@ def main() -> int:
         "launches": m_counts["ml20m_trained"]["topn_packed"], "max_abs_err": 0.0,
         "ms": k3s["k3s_ms"], "plain_ms": k3s["plain_ms"], "bound_ms": k3s["bound"][0],
         "bound_by": k3s["bound"][1], "library_ms": k3s["library_ms"],
+        "device_ms": k3s["k3s_device_ms"], "one_device_ms": k3s["k3_ms"],
     })
     # the row-shard forms count under their kernels' names: on these
     # deployments every launch of them is one shard's
@@ -8729,7 +8797,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"predictionio_tpu_torch/csrc/{source}",
             "replaces": where, "launches": n_launch, "max_abs_err": m_errs.get(name, 0.0),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"], "device_ms": t["device_ms"],
         })
     t14s = lg["k14s"]
     if m_counts["host_path"]["cosine_sum"] < 1:

@@ -1,4 +1,4 @@
-"""Host time of the K14 and K15a wrappers of two checkouts of the port, part by part.
+"""Host time of the K14, K15a, K3 and K9m wrappers of two checkouts of the port, part by part.
 
     python3 compare_wrappers.py OLD_ROOT NEW_ROOT [--out FILE]
 
@@ -6,7 +6,7 @@ Each root is a checkout of this repository (for example one unpacked by
 ``git archive``). The measurement of a checkout runs in a process of its
 own that imports ``predictionio_tpu_torch`` from that root, in the order
 old, new, new, old, so a drift of the card's clocks or of the host's load
-shows as a gap between the two runs of one checkout. Each run times four
+shows as a gap between the two runs of one checkout. Each run times seven
 calls on one card with ``chip_smoke.py``'s ``host_breakdown`` (the host
 side of 100 calls queued behind a spin kernel, the whole call and then
 each part: allocation, device switch, stream lookup, library lookup, the
@@ -19,7 +19,17 @@ event times (``time_ms``, ``device_ms``):
 - K14s on a 4-shard mesh of the card at Q = 8 (``SimilarityScorer.sums``;
   without shard tables: ``cosine_sum`` once per shard into its block);
 - K15a at 3n's shape (50,000 x 3, C = 4, ``naive_bayes_fit``);
-- K15s's fit of the same rows on that mesh (``naive_bayes_fit_shards``).
+- K15s's fit of the same rows on that mesh (``naive_bayes_fit_shards``);
+- K3 at the serving shape (B = 128, n = 16, the 26,744 x 32 catalog,
+  ``topn_packed``);
+- K3s at that shape on the 4-shard mesh, the query rows uploaded before:
+  the launch ``ServingFactors(mesh)`` makes per batch (a checkout without
+  shard tables: ``topn_packed`` once per shard into its block of one
+  result, as its ``topn_packed_device`` did);
+- K9m at S = 4, L = n = 64 (the int8 mesh deployment's shape), B = 128, on
+  the retriever's ``[S, B, 2L]`` buffer as the retriever calls it (into
+  its ``out``; a checkout without ``out``: through the ``[B, S, 2, L]``
+  view the retriever built a batch).
 
 Needs one CUDA card. Prints one JSON line a run and the card's name and
 power limit; ``--out`` also writes every run to a JSON file.
@@ -50,8 +60,11 @@ def measure(root: str) -> dict:
     import numpy as np
     import torch
 
+    from predictionio_tpu_torch.ops import merge_topn as k9m
     from predictionio_tpu_torch.ops import naive_bayes as k15
     from predictionio_tpu_torch.ops import similarity as k14
+    from predictionio_tpu_torch.ops import topn as k3
+    from predictionio_tpu_torch.ops.als import ServingFactors
     from predictionio_tpu_torch.parallel.mesh import Mesh, cut_rows
 
     cs = load_chip_smoke()
@@ -80,12 +93,17 @@ def measure(root: str) -> dict:
     y = torch.from_numpy(labels.astype(np.int32)).to(device)
     bounds = k15.fit_shard_bounds(cs.CLS_N, cs.CLS_C, cs.CLS_F, 4)
     Xs, ys = cut_rows(mesh, features, bounds), cut_rows(mesh, labels.astype(np.int32), bounds)
+    k3_one, k3_mesh = k3_calls(cs, rng, device, mesh, factors, k3, ServingFactors)
+    k9m_call = k9m_of(rng, device, k9m)
     calls = {
         "K14, the host path's launch, Q = 16": (k14, k14_one),
         "K14s device part, 4 shards, Q = 8": (k14, k14_mesh),
         "K15a naive_bayes_fit": (k15, lambda: k15.naive_bayes_fit(X, y, cs.CLS_C, 1.0)),
         "K15s naive_bayes_fit_shards, 4 shards": (
             k15, lambda: k15.naive_bayes_fit_shards(Xs, ys, cs.CLS_C, 1.0, device)),
+        "K3 topn_packed, B = 128": (k3, k3_one),
+        "K3s device part, 4 shards, B = 128": (k3, k3_mesh),
+        "K9m merge_topn, S = 4, L = n = 64, B = 128": (k9m, k9m_call),
     }
     out = {}
     for name, (module, fn) in calls.items():
@@ -95,6 +113,47 @@ def measure(root: str) -> dict:
                      "device_ms": cs.device_ms(fn, calls=50)}
     return {"root": os.path.abspath(root), "package": k14.__file__, "card": cs.card_line(),
             "calls": out}
+
+
+def k3_calls(cs, rng, device, mesh, factors, k3, ServingFactors):
+    """K3's and K3s's calls at B = 128, n = 16, the query rows uploaded."""
+    import numpy as np
+    import torch
+
+    users = rng.standard_normal((128, cs.RANK)).astype(np.float32)
+    one = ServingFactors(users, factors, device=device)
+    sharded = ServingFactors(users, factors, mesh=mesh)
+    qd = torch.from_numpy(users).to(device)
+    if hasattr(sharded, "_place"):  # shard tables: one launch per device
+        placed = sharded._place(users)
+        return (lambda: k3.topn_packed(qd, one._if_dev, 16)), (lambda: sharded._launch(placed, 16))
+    shards = [qd[s * 32:(s + 1) * 32].contiguous() for s in range(4)]
+
+    def per_shard():
+        packed = torch.empty((128, 32), dtype=torch.float32, device=device)
+        for s, qs in enumerate(shards):
+            k3.topn_packed(qs, sharded._if_dev, 16, out=packed[s * 32:(s + 1) * 32])
+        return packed
+
+    return (lambda: k3.topn_packed(qd, one._if_dev, 16)), per_shard
+
+
+def k9m_of(rng, device, k9m):
+    """K9m's call at S = 4, L = n = 64, B = 128 on a [S, B, 2L] buffer of
+    sorted candidate lists, as the retriever makes it."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    S, B, L = 4, 128, 64
+    scores = -np.sort(-rng.standard_normal((S, B, L)).astype(np.float32), axis=2)
+    ids = (np.arange(S)[:, None, None] * 10_000 + rng.integers(0, 10_000, (S, B, L))).astype(np.int32)
+    cand = torch.from_numpy(np.concatenate([scores, ids.view(np.float32)], axis=2)).to(device)
+    if "out" in inspect.signature(k9m.merge_topn).parameters:
+        out = torch.empty((B, 2 * L), dtype=torch.float32, device=device)
+        return lambda: k9m.merge_topn(cand, L, out=out)
+    return lambda: k9m.merge_topn(cand.permute(1, 0, 2).unflatten(2, (2, L)), L)
 
 
 def main() -> int:

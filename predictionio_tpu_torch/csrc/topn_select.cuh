@@ -158,20 +158,28 @@ __device__ __forceinline__ void warp_take_topm(
   }
 }
 
+// The row of the packed result a merge block writes: its own query row
+// (every kernel but K3 over a shard table, csrc/topn.cu).
+struct SameRows {
+  __device__ __forceinline__ long long operator()(long long row) const { return row; }
+};
+
 // One block per query row merges the row's sorted candidate lists
 // pairwise, round by round (merge path: each output position finds its
 // split by binary search), keeping the first min(n, 2·len) of every merged
 // pair, until one list is left, and writes it: with out_i == nullptr as
-// the packed row (n scores, then the n ids plus id_offset as raw int32
-// bits: a row shard's local ids made global), else as n scores at out and
-// n ids at out_i. `in_smem`: the row's lists, twice over
-// (ping and pong), fit in the block's dynamic shared memory, so they are
-// copied in once and every merge round runs on chip; otherwise the rounds
-// ping-pong in the scratch buffers in device memory.
+// the packed row rows(row) of `out` (n scores, then the n ids plus
+// id_offset as raw int32 bits: a row shard's local ids made global), else
+// as n scores at out and n ids at out_i, at the block's own row. `in_smem`:
+// the row's lists, twice over (ping and pong), fit in the block's dynamic
+// shared memory, so they are copied in once and every merge round runs on
+// chip; otherwise the rounds ping-pong in the scratch buffers in device
+// memory.
+template <class Rows>
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_lists(float* s0, int* i0, float* s1, int* i1, float* out, int* out_i,
             int n, int num_lists, int m, long long list_stride, int in_smem,
-            int id_offset) {
+            int id_offset, const Rows rows) {
   extern __shared__ __align__(16) unsigned char merge_smem[];
   const long long base = (long long)blockIdx.x * list_stride;
   float* src_s = s0 + base;
@@ -239,7 +247,7 @@ merge_lists(float* s0, int* i0, float* s1, int* i1, float* out, int* out_i,
     len = out_len;
   }
   if (out_i == nullptr) {
-    float* row_out = out + (long long)blockIdx.x * 2 * n;
+    float* row_out = out + rows((long long)blockIdx.x) * 2 * n;
     for (int p = threadIdx.x; p < n; p += blockDim.x) {
       row_out[p] = src_s[p];
       row_out[n + p] = __int_as_float(src_i[p] + id_offset);
@@ -310,15 +318,18 @@ __device__ __forceinline__ bool sentinel_tile(
 }
 
 // The merge pass over the tile pass's lists in `scratch`, on `stream`, into
-// the packed rows at `out`; returns the launches' cudaError_t. When a row's
-// lists fit in one block's shared memory, one block per row merges them
-// there; the packed ids get id_offset added (0 but on a row shard's
-// retriever). Otherwise the merge runs in levels: each level merges groups of G
-// lists on chip, one block per group, into one list of n, until one block
-// can merge a row's remaining lists on chip (or, where even a group cannot
-// fit, in device memory).
+// the packed rows at `out` (query row b into row rows(b)); returns the
+// launches' cudaError_t. When a row's lists fit in one block's shared
+// memory, one block per row merges them there; the packed ids get
+// id_offset added (0 but on a row shard's retriever). Otherwise the merge
+// runs in levels: each level merges groups of G lists on chip, one block
+// per group, into one list of n, until one block can merge a row's
+// remaining lists on chip (or, where even a group cannot fit, in device
+// memory).
+template <class Rows = SameRows>
 inline cudaError_t launch_merge(float* scratch, float* out, int B, int N,
-                                int n, cudaStream_t stream, int id_offset = 0) {
+                                int n, cudaStream_t stream, int id_offset = 0,
+                                const Rows& rows = Rows()) {
   const long long stride = list_stride_of(N, n);
   int len = n < TILE ? n : TILE;
   long long lists = stride / len;  // pow2(tiles)
@@ -337,12 +348,12 @@ inline cudaError_t launch_merge(float* scratch, float* out, int B, int N,
       while (2 * G < lists && merge_bytes(2 * G, len) <= MAX_MERGE_SMEM) G *= 2;
       const long long groups = lists / G;
       const long long smem = merge_bytes(G, len);
-      err = cudaFuncSetAttribute(
-          merge_lists, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      err = cudaFuncSetAttribute(merge_lists<SameRows>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
       merge_lists<<<(unsigned)(B * groups), MERGE_THREADS, (size_t)smem,
                     stream>>>(src_s, src_i, oth_s, oth_i, oth_s, oth_i, n,
-                              (int)G, len, G * len, 1, 0);
+                              (int)G, len, G * len, 1, 0, SameRows());
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
       float* ts = src_s; src_s = oth_s; oth_s = ts;
@@ -354,13 +365,13 @@ inline cudaError_t launch_merge(float* scratch, float* out, int B, int N,
   const long long smem = merge_bytes(lists, len);
   const int in_smem = smem <= MAX_MERGE_SMEM;
   if (in_smem) {
-    err = cudaFuncSetAttribute(
-        merge_lists, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(merge_lists<Rows>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   merge_lists<<<B, MERGE_THREADS, in_smem ? (size_t)smem : 0, stream>>>(
       src_s, src_i, oth_s, oth_i, out, nullptr, n, num_lists, len,
-      lists * len, in_smem, id_offset);
+      lists * len, in_smem, id_offset, rows);
   return cudaGetLastError();
 }
 

@@ -73,7 +73,8 @@ rows (an evaluation fold's queries) goes in chunks of that many, which
 bounds K3's scratch. ``measure_compute_ms`` times K3 on the device through
 K3c's chained passes (``topn_chain``). With a ``mesh``
 (``parallel/mesh.py``) ``ServingFactors`` is K3s: the catalog
-replicated per device, the query rows sharded, K3 per shard into its
+replicated per device, the query rows sharded, one K3 launch per
+distinct device over its shards' table, each shard's rows into their
 block of one result on the mesh's first device, still one copy down.
 """
 
@@ -107,8 +108,8 @@ from predictionio_tpu_torch.ops.normal_eq import (
     plan_groups,
     upload_pack,
 )
-from predictionio_tpu_torch.ops.topn import topn_chain, topn_packed
-from predictionio_tpu_torch.parallel.mesh import collapse_mesh, shard_batch, split_rows
+from predictionio_tpu_torch.ops.topn import TopnTable, topn_chain, topn_packed
+from predictionio_tpu_torch.parallel.mesh import collapse_mesh, pad_to_multiple, split_rows
 from predictionio_tpu_torch.utils.shapes import pad_rows_pow2
 from predictionio_tpu_torch.workflow.checkpoint import StepCheckpointer
 
@@ -212,12 +213,16 @@ class ServingFactors:
 
     With a ``mesh`` (K3s, the reference's :2369 ``_topn_packed_sharded``),
     serving is data-parallel: the item matrix is replicated (one upload per
-    DISTINCT device of the mesh, shared by the logical shards on it), each
-    batch's padded query rows shard as ``shard_batch`` cuts them, and every
-    shard runs K3 on its rows on its own device, writing its block of one
-    packed result on the mesh's first device (a peer copy, none where the
-    shard shares that device), which is fetched once. K3 reduces each row
-    in one fixed order whatever the batch, so the answers are the
+    DISTINCT device of the mesh, shared by the logical shards on it), and
+    each batch's padded query rows cut into one block per shard, as
+    ``shard_batch`` cuts them. Each distinct device gets its shards' blocks
+    as one upload, in shard order, and runs ONE K3 launch over them through
+    a shard table (``ops/topn.TopnTable``, built once per padded batch
+    size): the first device's launch writes each shard's rows into their
+    block of one packed result there, in any order and with gaps (an
+    interleaved mesh); another device's writes a local result, sent to the
+    first device by one peer copy. The result is fetched once. K3 reduces
+    each row in one fixed order whatever the batch, so the answers are the
     single-device answers bit for bit. A mesh of one shard collapses to the
     single-device path on that shard's device."""
 
@@ -238,14 +243,20 @@ class ServingFactors:
         self._if_on = {d: _upload(item_factors, d) for d in devices}
         self._if_dev = self._if_on[self.device]
         self.n_items = self._if_dev.shape[0]
+        # each distinct device's shards, in shard order, the first device's
+        # first; their tables by rows per shard
+        self._groups: Dict[torch.device, List[int]] = {}
+        for s, d in enumerate(mesh.devices if mesh is not None else ()):
+            self._groups.setdefault(d, []).append(s)
+        self._tables: Dict[int, list] = {}
 
     def topn_by_rows(
         self, user_rows: np.ndarray, n: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-N for explicit query factor rows [B, k]: (scores [B, n],
-        item indices [B, n]), one K3 launch (one per shard on a mesh) and
-        one fetch per ``MAX_QUERY_ROWS`` rows (rows are independent, so the
-        chunks change no answer)."""
+        item indices [B, n]), one K3 launch (one per distinct device on a
+        mesh) and one fetch per ``MAX_QUERY_ROWS`` rows (rows are
+        independent, so the chunks change no answer)."""
         b = len(user_rows)
         if b > MAX_QUERY_ROWS:
             parts = [
@@ -267,22 +278,73 @@ class ServingFactors:
         q = pad_rows_pow2(user_rows, 8)
         if self.mesh is None:
             return topn_packed(_upload(q, self.device), self._if_dev, n)
-        # shard_batch pads further so the rows divide the shards (a no-op
-        # for power-of-two shard counts), then places one block per shard
-        shards, _ = shard_batch(self.mesh, q)
-        per = shards[0].shape[0]
-        packed = torch.empty((per * len(shards), 2 * n), dtype=torch.float32, device=self.device)
-        for s, qs in enumerate(shards):
-            dst = packed[s * per : (s + 1) * per]
-            if qs.device == self.device:
-                topn_packed(qs, self._if_on[qs.device], n, out=dst)
+        return self._launch(self._place(q), n)
+
+    def _shard_tables(self, per: int) -> list:
+        """For ``per`` query rows a shard: per distinct device (the first
+        first), (its shards, its ``TopnTable``, where its result goes on the
+        first device: None for the first device's own, whose table writes
+        the result; the first row of its block where its shards lie back to
+        back; else its shards' indices there, for ``index_copy_``). Built
+        once per padded batch size."""
+        got = self._tables.get(per)
+        if got is None:
+            S = self.mesh.size
+            got = []
+            for dev, idx in self._groups.items():
+                rows = [per] * len(idx)
+                if dev == self.device:
+                    got.append((idx, TopnTable(dev, rows, [s * per for s in idx], S * per), None))
+                    continue
+                table = TopnTable(dev, rows, [j * per for j in range(len(idx))], len(idx) * per)
+                if idx == list(range(idx[0], idx[0] + len(idx))):
+                    place = idx[0] * per
+                else:
+                    place = torch.tensor(idx, dtype=torch.int64, device=self.device)
+                got.append((idx, table, place))
+            self._tables[per] = got
+        return got
+
+    def _place(self, q: np.ndarray) -> list:
+        """The query rows zero-padded to a multiple of the shards, cut into
+        one block per shard (``shard_batch``'s cut), as one upload per
+        distinct device of its shards' blocks in shard order: (upload,
+        table, place) per device (``_shard_tables``)."""
+        S = self.mesh.size
+        rows = pad_to_multiple(max(len(q), 1), S)
+        if rows != len(q):
+            q = np.pad(q, ((0, rows - len(q)), (0, 0)))
+        per = rows // S
+        placed = []
+        for idx, table, place in self._shard_tables(per):
+            mine = q if len(idx) == S else q.reshape(S, per, -1)[idx].reshape(-1, q.shape[1])
+            placed.append((_upload(mine, table.device), table, place))
+        return placed
+
+    def _launch(self, placed: list, n: int, n_iters: int = 0) -> torch.Tensor:
+        """K3 (``n_iters`` 0) or K3c over ``_place``'s uploads, one launch
+        per distinct device: the packed result on the first device."""
+        packed = None
+        for q, table, place in placed:
+            Y = self._if_on[table.device]
+            if n_iters:
+                got = topn_chain(q, Y, n, n_iters, table=table)
             else:
-                dst.copy_(topn_packed(qs, self._if_on[qs.device], n))  # the peer copy
+                got = topn_packed(q, Y, n, table=table)
+            if place is None:
+                packed = got
+            elif isinstance(place, int):  # the peer copy of shards back to back
+                packed[place:place + got.shape[0]].copy_(got)
+            else:  # one peer copy, then each shard's block into place
+                per = table.rows[0]
+                packed.view(-1, per, got.shape[1]).index_copy_(
+                    0, place, got.to(self.device).view(-1, per, got.shape[1]))
         return packed
 
     def warm(self, n: int = 16, max_batch: int = 128) -> None:
         """Run every padded batch size the serving path can hit once at
-        deploy, so the kernel is built and loaded before traffic."""
+        deploy, so the kernel is built and loaded (and a mesh's tables
+        built) before traffic."""
         k = self._if_dev.shape[1]
         n = min(n, self.n_items)
         b = 8
@@ -298,22 +360,24 @@ class ServingFactors:
         """Per-pass device time of the top-N, in ms: K3c chains ``iters``
         passes in one call, so the host's share of a call cancels in
         ``(t(iters) - t(1)) / (iters - 1)``; each ``t`` is one call of the
-        chain (one per shard on a mesh, the query rows cut as serving cuts
-        them) followed by a synchronize, and the result is the median over
-        ``reps`` pairs (the reference's ``ServingFactors.measure_compute_ms``,
-        :2526-2540 on a mesh)."""
+        chain (on a mesh, one per distinct device over its shard table, the
+        query rows cut as serving cuts them) followed by a synchronize, and
+        the result is the median over ``reps`` pairs (the reference's
+        ``ServingFactors.measure_compute_ms``, :2526-2540 on a mesh)."""
         if iters < 2 or reps < 1:
             raise ValueError(f"iters={iters} must be >= 2 and reps={reps} >= 1")
         if self.mesh is None:
-            queries = [_upload(user_rows, self.device)]
+            q = _upload(user_rows, self.device)
+            devices = [self.device]
+            run = lambda k: topn_chain(q, self._if_dev, n, k)  # noqa: E731
         else:
-            queries, _ = shard_batch(self.mesh, np.asarray(user_rows, np.float32))
-        devices = {q.device for q in queries}
+            placed = self._place(np.asarray(user_rows, np.float32))
+            devices = list(self._groups)
+            run = lambda k: self._launch(placed, n, k)  # noqa: E731
 
         def chain(k: int) -> float:
             t0 = time.perf_counter()
-            for q in queries:
-                topn_chain(q, self._if_on[q.device], n, k)
+            run(k)
             for d in devices:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)

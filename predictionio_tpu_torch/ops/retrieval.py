@@ -20,9 +20,12 @@ GPU or row-sharded over a ``Mesh``: the counterpart of
 - With a ``mesh`` (the reference's :640-668 residency and :941-996 batch):
   the catalog row-sharded, per shard the row-shard forms of the mask and
   kernel A (K9s) or kernels A and B (K10s, ``_shard_topk_kernel_2s``
-  :366), the shards' candidates gathered on the first shard's device and
-  merged exactly by K9m (``ops/merge_topn.py``, ``_merge_candidates``
-  :425), one fetch, the same host refinement. The sampled shard/merge
+  :366), each shard's candidates written (or, from another device, peer
+  copied) into its block of one ``[S, b_pad, 2·n_local]`` buffer on the
+  first shard's device, allocated with the merged rows behind it, and
+  merged exactly by K9m on that buffer as it lies (``ops/merge_topn.py``,
+  ``_merge_candidates`` :425) into those rows, one fetch, the same host
+  refinement. The sampled shard/merge
   split and skew (``_record_skew`` :1037) are kept as numbers on the
   instance (``last_split_s``, ``shard_candidates``, ``shard_skew``).
 
@@ -479,9 +482,11 @@ class ItemRetriever:
         """The mesh path (the reference's :941-996): per shard the mask,
         kernel A (and B) in their row-shard forms, each shard's
         ``n_local`` candidates with global ids into one ``[S, b_pad,
-        2·n_local]`` buffer on the first shard's device, K9m, one fetch.
-        The first batch and every ``SPLIT_SAMPLE_EVERY``-th record the
-        shard/merge split and the skew (a host sync between the two)."""
+        2·n_local]`` buffer on the first shard's device (allocated with
+        the merged rows behind it), K9m on that buffer as it lies into
+        those rows, one fetch. The first batch and every
+        ``SPLIT_SAMPLE_EVERY``-th record the shard/merge split and the skew
+        (a host sync between the two)."""
         parts = self._parts
         S, rows = self._n_shards, self._n_pad // self._n_shards
         b_pad = qp.shape[0]
@@ -498,7 +503,10 @@ class ItemRetriever:
         for dev in dict.fromkeys(p.device for p in parts):
             ops[dev] = tuple(torch.from_numpy(a).to(dev) for a in (qp, excl, incl, has_incl))
         dev0 = parts[0].device
-        cand = torch.empty((S, b_pad, 2 * n_local), dtype=torch.float32, device=dev0)
+        # the shards' candidates and the merged rows: one allocation
+        size = S * b_pad * 2 * n_local
+        buf = torch.empty(size + b_pad * 2 * n_dev, dtype=torch.float32, device=dev0)
+        cand = buf[:size].view(S, b_pad, 2 * n_local)
         for s, part in enumerate(parts):
             q_dev, excl_dev, incl_dev, has_dev = ops[part.device]
             bits = candidate_mask(part.allow, excl_dev, incl_dev, has_dev, id_offset=part.off)
@@ -523,11 +531,11 @@ class ItemRetriever:
         if split:
             _synchronize(dict.fromkeys(p.device for p in parts))
             t1 = time.perf_counter()
-        packed = merge_topn(cand.permute(1, 0, 2).unflatten(2, (2, n_local)), n_dev)
+        packed = merge_topn(cand, n_dev, out=buf[size:].view(b_pad, 2 * n_dev))
         host = packed.cpu().numpy()[:b]
         if split:
             self.last_split_s = {"shards": t1 - t0, "merge": time.perf_counter() - t1}
-            self._record_skew(cand.permute(1, 0, 2).cpu().numpy()[:b], host, n_dev, n_local)
+            self._record_skew(cand.cpu().numpy()[:, :b], host, n_dev, n_local)
         return host
 
     def _refine_exact(
@@ -566,12 +574,12 @@ class ItemRetriever:
     ) -> None:
         """Cross-shard imbalance from one sampled batch (the reference's
         :1037): live candidates per shard, and which shard each final
-        top-n row came from, as max over mean."""
+        top-n row came from, as max over mean. ``cand`` is the batch's
+        ``[S, b, 2·n_local]`` candidates."""
         S = self._n_shards
-        if not len(cand):
+        if not cand.shape[1]:
             return
-        arr = cand.reshape(cand.shape[0], S, 2, n_local)
-        live = (arr[:, :, 0, :] > -np.inf).sum(axis=(0, 2)).astype(float)
+        live = (cand[:, :, :n_local] > -np.inf).sum(axis=(1, 2)).astype(float)
         self.shard_candidates = [int(v) for v in live]
         if live.mean() > 0:
             self.shard_skew["candidates"] = float(live.max() / live.mean())

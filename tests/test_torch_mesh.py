@@ -7,9 +7,11 @@ CPU devices (S in {4, 8}).
   against ``predictionio_tpu/parallel/mesh.py``: the same shapes, the same
   padded rows per shard, the same size-mismatch error; a mesh of one shard
   collapses to one device and keeps it.
-- K9m's twin ``merge_topn_plain`` against ``_merge_candidates``: equal
-  scores, ties across shards and ``-inf`` slots, ``n_local < n``; ids equal
-  everywhere (both keep the lowest position of a tie).
+- K9m's twin ``merge_topn_plain`` on the retriever's ``[S, B, 2L]``
+  buffer against ``_merge_candidates``: equal scores, ties across shards
+  and ``-inf`` slots, ``n_local < n``; ids equal everywhere (both keep the
+  lowest position of a tie); the same into a caller's ``out``
+  (``tests/test_torch_merge_topn.py`` has the wider cases).
 - The row-shard forms of kernels A and B (``id_offset``): offset 0 over a
   whole catalog is the single-device twin bit for bit (a copy of the twins
   as they were before the forms existed); offset ``off`` is that twin on
@@ -18,9 +20,9 @@ CPU devices (S in {4, 8}).
   (ids equal, scores rtol 1e-5 / atol 1e-6: JAX's tolerance against its
   single device in ``tests/test_mesh_kernels.py``, with the port's atol for
   scores near 0, as ``tests/test_torch_retrieval.py`` uses) and against the
-  port's single device (ids equal, scores rtol 1e-6 / atol 1e-7: the CPU's
-  matrix product picks its blocking by the shard's row count; on the card
-  K3 is position-independent and chip_smoke.py holds K3s bit for bit);
+  port's single device bit for bit (the shards of one device are one twin
+  call over the whole padded batch, as one device's is; on the card K3 is
+  position-independent and chip_smoke.py holds K3s bit for bit);
   K14s (``SimilarityScorer(mesh)``) against JAX's at rtol 1e-5 and the
   port's single device at rtol 1e-6, for the same reason; K14's shard
   tables (``CosineTable``: the scorer on ``["cpu"] * S``, uneven and empty
@@ -157,24 +159,32 @@ def test_merge_twin_matches_jax(meshes, S, L, n):
     cand = sorted_shard_lists(rng, B, S, L, 50)
     rep = NamedSharding(jm, P(None, None))
     want = np.asarray(jret._merge_candidates(jax.device_put(cand.reshape(B, -1), rep), n, L, rep))
+    # the retriever's layout: the [S, B, 2L] buffer as it lies
+    buf = torch.from_numpy(np.ascontiguousarray(cand.transpose(1, 0, 2, 3).reshape(S, B, 2 * L)))
     k9m.LAUNCHES.reset()
-    got = k9m.merge_topn(torch.from_numpy(cand), n).numpy()
+    got = k9m.merge_topn(buf, n).numpy()
     assert k9m.LAUNCHES.snapshot()["merge_topn_plain"] == 1
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
-    # the retriever's layout: a [S, B, 2L] buffer viewed as [B, S, 2, L]
-    buf = torch.from_numpy(np.ascontiguousarray(cand.transpose(1, 0, 2, 3).reshape(S, B, 2 * L)))
-    strided = k9m.merge_topn(buf.permute(1, 0, 2).unflatten(2, (2, L)), n).numpy()
-    np.testing.assert_array_equal(strided.view(np.uint32), want.view(np.uint32))
+    # into a caller's result
+    out = torch.full((B, 2 * n), float("nan"))
+    assert k9m.merge_topn(buf, n, out=out) is out
+    np.testing.assert_array_equal(out.numpy().view(np.uint32), want.view(np.uint32))
 
 
 def test_merge_refuses_what_the_kernel_refuses():
-    cand = torch.zeros((2, 3, 2, 4))
+    cand = torch.zeros((3, 2, 8))  # S = 3, B = 2, L = 4
     with pytest.raises(ValueError, match="n="):
         k9m.merge_topn(cand, 13)
     with pytest.raises(ValueError, match="contiguous"):
-        k9m.merge_topn(torch.zeros((2, 3, 4, 2)).transpose(2, 3), 2)
-    with pytest.raises(ValueError, match=r"\[B, S, 2, L\]"):
-        k9m.merge_topn(torch.zeros((2, 3, 8)), 2)
+        k9m.merge_topn(torch.zeros((2, 3, 8)).transpose(0, 1), 2)
+    with pytest.raises(ValueError, match=r"\[S, B, 2L\]"):
+        k9m.merge_topn(torch.zeros((2, 3, 2, 4)), 2)
+    with pytest.raises(ValueError, match=r"\[S, B, 2L\]"):
+        k9m.merge_topn(torch.zeros((2, 3, 7)), 2)
+    with pytest.raises(TypeError, match="float32"):
+        k9m.merge_topn(cand.double(), 2)
+    with pytest.raises(ValueError, match="out must be"):
+        k9m.merge_topn(cand, 2, out=torch.zeros((2, 5)))
 
 
 # --- the twins as they were before the row-shard forms (the guard that
@@ -306,7 +316,7 @@ def test_serving_factors_on_a_mesh_match_jax_and_the_single_device(meshes, S):
         np.testing.assert_array_equal(i1, ij)
         np.testing.assert_allclose(s1, sj, rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(i1, i0)
-        np.testing.assert_allclose(s1, s0, rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(s1.view(np.uint32), s0.view(np.uint32))
     users = [0, 7, 29, 66]
     s1, i1 = sharded.topn_by_user(users, 5)
     sj, ij = j_sharded.topn_by_user(users, 5)

@@ -188,7 +188,9 @@ def test_recommendation_on_a_mesh_matches_jax(precision):
             assert pi[0].tolist() == list(range(n))
         check_topn_agreement(ps, pi, js, ji, RTOL, ATOL)
     if precision == "float32":
-        assert k3.LAUNCHES.snapshot()["topn_packed_plain"] == 4  # one per shard
+        # one K3 launch per distinct device over its shards' table: the
+        # four shards of one device are one launch
+        assert k3.LAUNCHES.snapshot()["topn_packed_plain"] == 1
         assert k9m.LAUNCHES.snapshot()["merge_topn_plain"] == 0
     else:
         assert k9m.LAUNCHES.snapshot()["merge_topn_plain"] == 1
