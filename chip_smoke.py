@@ -187,8 +187,8 @@ Phases; any failure exits non-zero:
 3e. Grid evaluation (after 3d): first K13a (``ops/grid.py``,
    ``csrc/grid.cu``: ``normal_eq_variants``) and K13b
    (``spd_solve_variants``) on random packs (a row of many segments, an
-   empty row, dislikes) at k in {1, 8, 16, 33}, V in {1, 2, 3}, explicit
-   and implicit: variant v bit for bit against K1 and K2 run on it alone,
+   empty row, dislikes) at k in {1, 8, 16, 24, 33}, V in {1, 2, 3, 4, 5},
+   explicit and implicit: variant v bit for bit against K1 and K2 run on it alone,
    and against the twins at K1's and K2's tolerances. Then the main path,
    counted from 0: ``run_evaluation(RecommendationEvaluation(k=10),
    ParamsGrid().engine_params_list)`` with ``grid_train="auto"`` on the
@@ -206,7 +206,9 @@ Phases; any failure exits non-zero:
    and 16). Times at fold 0's user side, rank 16: each kernel, its device
    time, twin and bound, K13b's library call (batched
    ``torch.linalg.cholesky`` + ``cholesky_solve`` over V x R rows), K1
-   and K2 per variant; the evaluation's wall clock, each stage's wall and
+   and K2 per variant; K13a at ranks 8 and 16 on both sides beside its
+   bound, and K1 on one variant at k = 8, 16 and 32 on the user side; the
+   evaluation's wall clock, each stage's wall and
    thread-summed seconds (``read_eval``, host pack, upload, device loop,
    serving, metric), serving chunks, the process's RSS through the run
    and Precision@10 per variant (``evaluation``).
@@ -400,7 +402,9 @@ Phases; any failure exits non-zero:
    deploy --device cuda`` and sent 64 ``POST /queries.json`` from 8
    clients, every answer equal to ``batch_predict``'s: K15a = 1, K15b = 2 +
    the naive deployment's served batches, K18 = 400 (two launches a step),
-   twins 0. Train wall clocks and accuracies, the twins' accuracies equal;
+   twins 0, and one placement of pi and theta (the deployment's; the
+   trained model keeps its fit's). Train wall clocks and accuracies, the
+   twins' accuracies equal; K15a's and K15b's host µs by part;
    times of each kernel (K18 as one 200-step training), device times,
    twins, library calls (K15a: ``index_add_`` of the sums alone; K15b:
    ``addmm`` + ``argmax``, two calls; K18 none) and bounds
@@ -1135,8 +1139,8 @@ def check_half_step(X_prev, Y, pack, lam, has_obs, label, errs, implicit=False,
 
 
 def check_k1_sizes(rng, device, errs):
-    """K1 on random packs at edge ranks (both of its forms: k <= 32 and
-    above), with a row of many segments and an empty row, against its
+    """K1 on random packs at edge ranks (its three forms: k <= 16, k <= 32
+    and above), with a row of many segments and an empty row, against its
     twin."""
     import numpy as np
     import torch
@@ -1144,7 +1148,7 @@ def check_k1_sizes(rng, device, errs):
     from predictionio_tpu_torch.ops import als
     from predictionio_tpu_torch.ops import normal_eq as k1
 
-    for k in (1, 7, 32, 33, 70):
+    for k in (1, 7, 8, 16, 17, 32, 33, 70):
         n_rows, n_cols, nnz = 300, 200, 60_000
         u = rng.integers(0, n_rows, nnz).astype(np.int32)
         u[: nnz // 3] = 2  # many segments: partials and a combine
@@ -1243,8 +1247,10 @@ def check_k13(Y, pack, lam, has_obs, X_prev, implicit, label, errs, alpha=1.0,
 
 def check_k13_sizes(rng, device, errs):
     """K13a and K13b on random packs (a row of many segments, an empty row,
-    dislikes in implicit mode) at k in {1, 8, 16, 33} (both of K1's forms),
-    V in {1, 2, 3}, explicit and implicit, through ``check_k13``."""
+    dislikes in implicit mode) at k in {1, 8, 16, 24, 33} (K1's three
+    forms), V in {1, 2, 3, 4, 5} (at k = 16 with V = 4 and at k = 8 with
+    V = 5 a group's variants take two warps), explicit and implicit, through
+    ``check_k13``."""
     import numpy as np
     import torch
 
@@ -1261,7 +1267,8 @@ def check_k13_sizes(rng, device, errs):
     pack = als.device_pack(side, R, n_y, device)
     has_obs = torch.from_numpy(np.r_[side.counts, np.zeros(R - n_rows, np.int32)] > 0).to(device)
     for k, V, implicit in ((1, 2, False), (8, 1, False), (8, 2, True), (16, 3, False),
-                           (16, 2, True), (33, 2, False), (33, 3, True)):
+                           (16, 2, True), (16, 4, True), (8, 5, False), (24, 2, False),
+                           (33, 2, False), (33, 3, True)):
         Y = torch.from_numpy(rng.normal(size=(V, n_y, k)).astype(np.float32) * 0.3).to(device)
         X_prev = torch.from_numpy(rng.normal(size=(V, R, k)).astype(np.float32)).to(device)
         lam = torch.from_numpy(rng.uniform(0.5, 2.5, (V, R)).astype(np.float32)).to(device)
@@ -3365,14 +3372,16 @@ def eval_phase(device):
     lam_i, obs_i = lam_obs(item_side, R_i)
     print(f"  fold 0 packs ({time.perf_counter() - t:.2f} s): users {tuple(up.cols.shape)}, items "
           f"{tuple(ip.cols.shape)}, {len(td0.ratings)} ratings", flush=True)
+    swept = {}  # rank: (users, items) after the first sweep
     for k in (8, 16):
         _, Y0 = als._factor_init_host(n_u, n_i, als.ALSConfig(rank=k, seed=EVAL_SEED), 1)
         Y = torch.from_numpy(np.broadcast_to(Y0, (V, R_i, k)).copy()).to(device)
         X0 = torch.zeros((V, R_u, k), dtype=torch.float32, device=device)
         X = check_k13(Y, up, lam_u, obs_u, X0, False, f"fold 0 users, rank {k}", errs)
-        Y1 = check_k13(X, ip, lam_i, obs_i, Y, False, f"fold 0 items, rank {k}", errs)
+        swept[k] = (X, check_k13(X, ip, lam_i, obs_i, Y, False, f"fold 0 items, rank {k}", errs))
     # timed at rank 16's user side of sweep 2: Y the items solved in sweep 1
-    k, Yt = 16, Y1
+    k, Yt = 16, swept[16][1]
+    X0 = torch.zeros((V, R_u, k), dtype=torch.float32, device=device)
     A, b = k13.normal_eq_variants(Yt, up)
     A_reg = A + lam_u[..., None, None] * torch.eye(k, device=device)
     calls = {
@@ -3404,6 +3413,26 @@ def eval_phase(device):
         print(f"  {n} (fold 0 users, rank {k}, V={V}): kernel {kernel_ms[n]:.4f} ms, device "
               f"{dev_ms[n]:.4f}, plain {plain_ms[n]:.3f}, library {library_ms[n]}, bound "
               f"{bounds[n][0]:.4f} ({bounds[n][1]})", flush=True)
+    # K13a at both ranks on both sides of sweep 2 (the counter side solved in
+    # sweep 1), and K1 on one variant at k = 8, 16 and 32 on the user side
+    by_rank = {}
+    for kk, (Xs, Ys) in swept.items():
+        for side, fac, pack, n_ratings, n_y in (("users", Ys, up, len(td0.ratings), R_i),
+                                                 ("items", Xs, ip, len(td0.ratings), R_u)):
+            f = (lambda fac=fac, pack=pack: k13.normal_eq_variants(fac, pack))
+            by_rank[f"rank{kk}_{side}"] = {
+                "ms": time_ms(f, iters=20, warmup=2), "device_ms": device_ms(f, calls=10),
+                "bound": k13a_bound(pack, n_ratings, n_y, kk, V)}
+    k1_ms = {}
+    for kk in (8, 16, 32):
+        _, Yk = als._factor_init_host(n_u, n_i, als.ALSConfig(rank=kk, seed=EVAL_SEED), 1)
+        Yk = torch.from_numpy(Yk).to(device)
+        f = (lambda Yk=Yk: k1.normal_eq(Yk, up))
+        k1_ms[f"k{kk}"] = {"ms": time_ms(f, iters=20, warmup=2),
+                           "device_ms": device_ms(f, calls=10),
+                           "bound": k1_bound(up, len(td0.ratings), R_i, kk)}
+    print(f"  K13a (V={V}) by rank and side: {json.dumps(by_rank)}; K1 on one variant, user side: "
+          f"{json.dumps(k1_ms)}", flush=True)
     stats = {
         "card": card_line(),
         "eval_s": eval_s,
@@ -3421,6 +3450,7 @@ def eval_phase(device):
         "launches": got,
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound": bounds,
+        "normal_eq_variants_by_rank": by_rank, "normal_eq_fold0_users": k1_ms,
     }
     print("evaluation " + json.dumps(stats), flush=True)
     return got, errs, stats, td0
@@ -3438,8 +3468,8 @@ def check_bf16_sizes(rng, device, errs):
     """The four bfloat16 forms on random packs (a row of many segments, an
     empty row; ratings off the bfloat16 grid, half steps plus 0.2, and in
     implicit mode a tenth dislikes), against their twins' bfloat16 forms
-    and against a second launch, bit for bit: K1-bf16 at k in {1, 7, 32,
-    33, 70} (both of K1's forms) at K1_RTOL of each row's scale; K13a-bf16
+    and against a second launch, bit for bit: K1-bf16 at k in {1, 7, 8,
+    16, 32, 33, 70} (K1's three forms) at K1_RTOL of each row's scale; K13a-bf16
     bit for bit against K1-bf16 per variant (V = 2, 3); K11a-bf16 at k in
     {8, 32, 64} x b in {1, 2, 8, k} (both forms) at K1_RTOL plus the
     rounding-flip allowance; K12b-bf16 at k in {8, 32} at OBJ_RTOL. Each
@@ -3467,7 +3497,7 @@ def check_bf16_sizes(rng, device, errs):
     def normal(*shape, scale=1.0):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
 
-    for k in (1, 7, 32, 33, 70):
+    for k in (1, 7, 8, 16, 32, 33, 70):
         Y = normal(n_y, k)
         for implicit in (False, True):
             pack = packs[implicit]
@@ -5458,6 +5488,7 @@ def classification_phase(device, workdir):
     queries = [(j, clf.Query(features=tuple(features[j]))) for j in range(CLS_QUERIES)]
     bodies = [{"features": [float(v) for v in features[j]]} for j in range(CLS_SERVED)]
     k15.LAUNCHES.reset()
+    k15.PLACEMENTS.reset()
     k18.LAUNCHES.reset()
     train_s, accuracy, answers_s, served = {}, {}, {}, {}
     models = {}
@@ -5495,6 +5526,12 @@ def classification_phase(device, workdir):
                         "softmax_regression": 2 * lr_algo.params.iterations})
     if counts != want_counts:
         raise AssertionError(f"classification launches {counts}, expected {want_counts}")
+    # pi and theta placed once on the path: the trained model keeps its
+    # fit's, the deployment places its loaded model's; a batch uploads its
+    # rows only
+    placements = k15.PLACEMENTS.snapshot()["naive_bayes_place"]
+    if placements != 1:
+        raise AssertionError(f"classification: {placements} placements of pi and theta, not 1")
     print(f"  main path: NaiveBayesAlgorithm.train {train_s['naive']:.4f} s, "
           f"LogisticRegressionAlgorithm.train {train_s['logisticregression']:.4f} s; launches "
           f"{counts}; both deployments answered {CLS_SERVED} queries from {CLS_CLIENTS} clients "
@@ -5557,9 +5594,12 @@ def classification_phase(device, workdir):
     }
     host_us = host_breakdown(calls["naive_bayes_fit"][0], wrapper_parts(k15))
     print(f"  K15a host µs a call: {json.dumps(host_us)}", flush=True)
+    scores_host_us = host_breakdown(calls["naive_bayes_scores"][0], wrapper_parts(k15))
+    print(f"  K15b host µs a call (B = {B}): {json.dumps(scores_host_us)}", flush=True)
     stats = {"card": card_line(), "shape": {"n": n, "features": F, "classes": C,
                                             "queries": B, "lr_steps": LR_STEPS},
-             "naive_bayes_fit_host_us": host_us,
+             "naive_bayes_fit_host_us": host_us, "naive_bayes_scores_host_us": scores_host_us,
+             "placements": placements,
              "train_s": train_s, "batch_predict_s": answers_s, "train_accuracy": accuracy,
              "twin_accuracy": twin_acc, "served": served, "launches": counts,
              "kernel_ms": t_k, "device_ms": dev_ms, "plain_ms": plain_ms,
@@ -6369,7 +6409,8 @@ def mesh_e2_phase(device, workdir, cls_refs, x_refs):
         c.reset()
     got = k15.predict_naive_bayes(nb_mesh, Qn, mesh=mesh)
     counts = snapshot(counters)
-    check_e2_counts(counts, {"naive_bayes_scores": S}, "predict_naive_bayes")
+    # every shard on the card: one launch over their table
+    check_e2_counts(counts, {"naive_bayes_scores": 1}, "predict_naive_bayes")
     launches["predict_naive_bayes"] = {k: v for k, v in counts.items() if v}
     if not np.array_equal(got, k15.predict_naive_bayes(nb_one, Qn)):
         raise AssertionError("3k: K15s's labels differ from one device's")
@@ -6378,8 +6419,8 @@ def mesh_e2_phase(device, workdir, cls_refs, x_refs):
                               k15.predict_naive_bayes(m, Q)):
             raise AssertionError("3k: K15s's labels on the NaN or tie model differ")
     errs["naive_bayes_scores_sharded"] = 0.0
-    print(f"  K15s scores: {CLS_QUERIES} rows on {S} shards and the NaN (lam = 0) and tie models' "
-          "rows: every label one device's ok", flush=True)
+    print(f"  K15s scores: {CLS_QUERIES} rows on {S} shards (one launch over their table) and "
+          "the NaN (lam = 0) and tie models' rows: every label one device's ok", flush=True)
 
     # c. K17s: CategoricalNaiveBayes.train on 3x's 1M Adult rows
     cr = x_refs["cnb"]
@@ -6461,6 +6502,9 @@ def mesh_e2_phase(device, workdir, cls_refs, x_refs):
     Qs = cut_rows(mesh, Qn, q_bounds)
     Qd = torch.from_numpy(np.ascontiguousarray(Qn)).to(device)
     out_idx = torch.empty(CLS_QUERIES, dtype=torch.int32, device=device)
+    # the device part of predict_naive_bayes(mesh=) on the card: one upload,
+    # every shard's rows and block in one table
+    score_table = [k15.ScoresShard(Qd[a:b], out_idx[a:b]) for a, b in zip(q_bounds[:-1], q_bounds[1:])]
     keys = cr["keys"]  # 3x's keys of the same points: the mesh model's indexes are 3x's
     keys_d = torch.from_numpy(keys).to(device)
     per_block = k17.count_plan(M, n_keys)[1]
@@ -6495,8 +6539,8 @@ def mesh_e2_phase(device, workdir, cls_refs, x_refs):
                               CLS_N * CLS_F),
         },
         "naive_bayes_scores_sharded": {
-            "shards": [lambda a=a, b=b, Qi=Qi: k15.naive_bayes_scores(Qi, pi1, th1, out=out_idx[a:b])
-                       for a, b, Qi in zip(q_bounds[:-1], q_bounds[1:], Qs)],
+            "shards": [],  # one launch over the shard table: no call a shard
+            "all": lambda: k15.naive_bayes_scores_table(score_table, pi1, th1),
             "one": lambda: k15.naive_bayes_scores(Qd, pi1, th1),
             "plain": lambda: [k15.argmax_first_nan(k15.scores_plain(Qi, pi1, th1)) for Qi in Qs],
             "library": [lambda Qi=Qi: torch.addmm(pi1, Qi, th1.T).argmax(1) for Qi in Qs],
@@ -6545,6 +6589,10 @@ def mesh_e2_phase(device, workdir, cls_refs, x_refs):
         forms["naive_bayes_fit_sharded"]["all"], wrapper_parts(k15))
     print(f"  K15s fit host µs a call: {json.dumps(times['naive_bayes_fit_sharded']['host_us'])}",
           flush=True)
+    times["naive_bayes_scores_sharded"]["host_us"] = host_breakdown(
+        forms["naive_bayes_scores_sharded"]["all"], wrapper_parts(k15))
+    print(f"  K15s scores host µs a call: "
+          f"{json.dumps(times['naive_bayes_scores_sharded']['host_us'])}", flush=True)
     stats.update({
         "cnb": {"train_s": cnb_train_s, "one_device_train_s": cr["train_s"],
                 "shard_keys": np.diff(key_bounds).tolist()},

@@ -1,4 +1,4 @@
-"""Host time of the K14, K15a, K3 and K9m wrappers of two checkouts of the port, part by part.
+"""Host time of the K14, K15, K3 and K9m wrappers of two checkouts of the port, part by part, and K13a's time and bits.
 
     python3 compare_wrappers.py OLD_ROOT NEW_ROOT [--out FILE]
 
@@ -29,18 +29,36 @@ event times (``time_ms``, ``device_ms``):
 - K9m at S = 4, L = n = 64 (the int8 mesh deployment's shape), B = 128, on
   the retriever's ``[S, B, 2L]`` buffer as the retriever calls it (into
   its ``out``; a checkout without ``out``: through the ``[B, S, 2, L]``
-  view the retriever built a batch).
+  view the retriever built a batch);
+- K15b at 3n's model (50,000 x 3, C = 4) on B = 2,048 and B = 64 rows
+  already on the card (``naive_bayes_scores``);
+- K15s's scores of the 2,048 rows on the 4-shard mesh, the rows uploaded
+  before: the launch ``predict_naive_bayes(mesh=)`` makes per batch (a
+  checkout without shard tables: ``naive_bayes_scores`` once per shard
+  into its block of one result, as its ``predict_naive_bayes`` did).
+
+Then K13a (``normal_eq_variants``, V = 2) at ranks 8 and 16 and K1
+(``normal_eq``) at k = 8, 16 and 32 on the user side of 3e's fold 0
+itself: ``chip_smoke.py``'s ML-20M-shaped ratings as its ``EventColumns``,
+fold 0's training ratings drawn as ``DataSource.read_eval`` draws them
+(made once by this process, in a scratch directory, and packed by each
+checkout), the counter side the seeded initial factors of that rank. Each
+gives its CUDA event time and device time and a digest of A's lower
+triangle and of b; the comparison fails where the two checkouts' digests
+differ.
 
 Needs one CUDA card. Prints one JSON line a run and the card's name and
 power limit; ``--out`` also writes every run to a JSON file.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -54,8 +72,10 @@ def load_chip_smoke():
     return module
 
 
-def measure(root: str) -> dict:
-    """The four calls' host breakdowns and times on the port at ``root``."""
+def measure(root: str, fold0: str) -> dict:
+    """The wrappers' host breakdowns and times, and K13a's and K1's times
+    and digests on ``fold0`` (an ``.npz`` of fold 0's training ratings), on
+    the port at ``root``."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -95,6 +115,7 @@ def measure(root: str) -> dict:
     Xs, ys = cut_rows(mesh, features, bounds), cut_rows(mesh, labels.astype(np.int32), bounds)
     k3_one, k3_mesh = k3_calls(cs, rng, device, mesh, factors, k3, ServingFactors)
     k9m_call = k9m_of(rng, device, k9m)
+    k15b_2048, k15b_64, k15s_scores = k15b_calls(cs, device, X, y, k15)
     calls = {
         "K14, the host path's launch, Q = 16": (k14, k14_one),
         "K14s device part, 4 shards, Q = 8": (k14, k14_mesh),
@@ -104,6 +125,9 @@ def measure(root: str) -> dict:
         "K3 topn_packed, B = 128": (k3, k3_one),
         "K3s device part, 4 shards, B = 128": (k3, k3_mesh),
         "K9m merge_topn, S = 4, L = n = 64, B = 128": (k9m, k9m_call),
+        "K15b naive_bayes_scores, B = 2,048": (k15, k15b_2048),
+        "K15b naive_bayes_scores, B = 64": (k15, k15b_64),
+        "K15s scores device part, 4 shards, B = 2,048": (k15, k15s_scores),
     }
     out = {}
     for name, (module, fn) in calls.items():
@@ -112,7 +136,91 @@ def measure(root: str) -> dict:
         out[name] = {"host_us": cs.host_breakdown(fn, parts), "ms": cs.time_ms(fn),
                      "device_ms": cs.device_ms(fn, calls=50)}
     return {"root": os.path.abspath(root), "package": k14.__file__, "card": cs.card_line(),
-            "calls": out}
+            "calls": out, "fold0_users": k13a_fold0(cs, device, fold0)}
+
+
+def k15b_calls(cs, device, X, y, k15):
+    """K15b at B = 2,048 and 64 under 3n's model, and the device part of
+    K15s's scores of the 2,048 rows on 4 shards of the card."""
+    import numpy as np
+    import torch
+
+    fit = k15.naive_bayes_fit(X, y, cs.CLS_C, 1.0)
+    pi, theta = fit.pi.contiguous(), fit.theta.contiguous()
+    Q = X[:cs.CLS_QUERIES].contiguous()
+    Q64 = X[:64].contiguous()
+    bounds = np.linspace(0, cs.CLS_QUERIES, 5).astype(int)
+    out = torch.empty(cs.CLS_QUERIES, dtype=torch.int32, device=device)
+    if hasattr(k15, "naive_bayes_scores_table"):  # one launch over the shard table
+        table = [k15.ScoresShard(Q[a:b], out[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+        def shards():
+            k15.naive_bayes_scores_table(table, pi, theta)
+    else:  # before shard tables: one launch a shard
+        parts = [(Q[a:b], out[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+        def shards():
+            for Qi, oi in parts:
+                k15.naive_bayes_scores(Qi, pi, theta, out=oi)
+    return (lambda: k15.naive_bayes_scores(Q, pi, theta)), \
+        (lambda: k15.naive_bayes_scores(Q64, pi, theta)), shards
+
+
+def fold0_ratings(cs, path: str) -> None:
+    """Fold 0's training ratings of 3e (``chip_smoke.ml20m_event_columns``,
+    split as ``DataSource.read_eval`` splits them) into ``path``."""
+    import numpy as np
+
+    cols = cs.ml20m_event_columns()
+    fold_of = np.random.default_rng(cs.EVAL_SEED).integers(0, cs.EVAL_K, size=cols.n)
+    train = fold_of != 0
+    np.savez(path, user_idx=cols.entity_idx[train], item_idx=cols.target_idx[train],
+             ratings=cols.values[train], n_users=len(cols.entity_index),
+             n_items=len(cols.target_index))
+
+
+def digest(*tensors) -> str:
+    """A digest of the tensors' bytes, in order."""
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k13a_fold0(cs, device, fold0: str) -> dict:
+    """K13a (V = 2) at ranks 8 and 16 and K1 at k = 8, 16 and 32 on fold 0's
+    user side: times and digests of A's lower triangle and b."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import grid as k13
+    from predictionio_tpu_torch.ops import normal_eq as k1
+
+    with np.load(fold0) as z:
+        u, i, r = z["user_idx"], z["item_idx"], z["ratings"]
+        n_u, n_i = int(z["n_users"]), int(z["n_items"])
+    side = als.pack_segments(u, i, r, n_u, als.auto_segment_length(u, n_u, 128))
+    R_u, R_i = als._padded_rows(n_u, 1), als._padded_rows(n_i, 1)
+    up = als.device_pack(side, R_u, R_i, device)
+    out = {"ratings": int(len(r)), "segment_length": int(up.cols.shape[-1])}
+    for k in (8, 16, 32):
+        _, Y0 = als._factor_init_host(n_u, n_i, als.ALSConfig(rank=k, seed=cs.EVAL_SEED), 1)
+        low = torch.tril_indices(k, k, device=device)
+        Y1 = torch.from_numpy(Y0).to(device)
+        calls = {f"K1 normal_eq, k = {k}": lambda Y1=Y1: k1.normal_eq(Y1, up)}
+        if k < 32:
+            Y = torch.from_numpy(np.stack([Y0, Y0 * np.float32(0.5)])).to(device)
+            calls[f"K13a normal_eq_variants, rank {k}, V = 2"] = lambda Y=Y: k13.normal_eq_variants(
+                Y, up)
+        for name, fn in calls.items():
+            A, b = fn()
+            torch.cuda.synchronize()
+            out[name] = {"ms": cs.time_ms(fn, iters=20, warmup=2),
+                         "device_ms": cs.device_ms(fn, calls=10),
+                         "digest": digest(A[..., low[0], low[1]], b)}
+            del A, b
+    return out
 
 
 def k3_calls(cs, rng, device, mesh, factors, k3, ServingFactors):
@@ -161,28 +269,39 @@ def main() -> int:
     parser.add_argument("roots", nargs="*", help="OLD_ROOT NEW_ROOT")
     parser.add_argument("--out", help="write every run to this JSON file")
     parser.add_argument("--measure", help=argparse.SUPPRESS)  # one run, in its own process
+    parser.add_argument("--fold0", help=argparse.SUPPRESS)  # the runs' fold 0 ratings
     args = parser.parse_args()
     if args.measure:
-        print(json.dumps(measure(args.measure)), flush=True)
+        print(json.dumps(measure(args.measure, args.fold0)), flush=True)
         return 0
     if len(args.roots) != 2:
         parser.error("give OLD_ROOT and NEW_ROOT")
     old, new = args.roots
     runs = []
-    for label, root in (("old", old), ("new", new), ("new", new), ("old", old)):
-        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root],
-                              capture_output=True, text=True, timeout=900)
-        if done.returncode != 0:
-            sys.stderr.write(done.stdout + done.stderr)
-            raise SystemExit(f"compare_wrappers: the run of {root} failed ({done.returncode})")
-        run = json.loads(done.stdout.strip().splitlines()[-1])
-        run["label"] = label
-        runs.append(run)
-        print(f"{label} " + json.dumps(run), flush=True)
+    with tempfile.TemporaryDirectory() as scratch:
+        fold0 = os.path.join(scratch, "fold0.npz")
+        fold0_ratings(load_chip_smoke(), fold0)
+        for label, root in (("old", old), ("new", new), ("new", new), ("old", old)):
+            done = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root,
+                                   "--fold0", fold0], capture_output=True, text=True, timeout=900)
+            if done.returncode != 0:
+                sys.stderr.write(done.stdout + done.stderr)
+                raise SystemExit(f"compare_wrappers: the run of {root} failed ({done.returncode})")
+            run = json.loads(done.stdout.strip().splitlines()[-1])
+            run["label"] = label
+            runs.append(run)
+            print(f"{label} " + json.dumps(run), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(runs, f, indent=1)
     print(runs[-1]["card"], flush=True)
+    # K13a's and K1's bits: every run's digests must be the same
+    differ = [name for name, got in runs[0]["fold0_users"].items() if isinstance(got, dict) and
+              len({run["fold0_users"][name]["digest"] for run in runs}) != 1]
+    if differ:
+        raise SystemExit(f"compare_wrappers: A's lower triangle or b differ between the runs: {differ}")
+    print("K13a and K1 on fold 0's user side: A's lower triangle and b bit for bit in every run",
+          flush=True)
     return 0
 
 

@@ -28,16 +28,20 @@
 // Design. Both are K1's and K2's own kernels (normal_eq.cuh,
 // spd_solve.cuh) with a variant axis, so variant v is summed and solved
 // in exactly K1's and K2's order: bit-equal to K1 and K2 run on variant
-// v's factors. K13a walks K1's group plan unchanged and puts a group's V
-// variants in neighbouring blocks (block = group block · V + v), so the
-// group's column ids, ratings and plan entries come from device memory
-// once and from L2 for the other variants; each variant gathers its own
-// factor rows. The multi-group rows' partials and their ordered combine
-// are per variant (blockIdx.z). K13b runs K2's warp-per-system kernels
-// with the variant on blockIdx.y; each block stages its variant's G.
-// Later work: the k <= 32 form pads every system to 32 x 32, so at k = 8
-// three quarters of its FMAs multiply zeros; a form sized to k, and the
-// variants of one slot in one warp, are the next steps.
+// v's factors. K13a walks K1's group plan unchanged. At the grid's ranks
+// (k <= 16) it runs the form sized to the rank (normal_eq.cu's header):
+// one warp takes a group and its variants (two at k = 16, four at k = 8;
+// more variants take more warps a group), loads the group's column ids and
+// ratings once for all of them and gathers each variant's rows into tiles
+// k wide; its lanes own the lower triangle and b of every variant, each
+// entry summed in K1's order. Above k = 16 a group's V variants run in
+// neighbouring blocks (block = group block · V + v), so the group's column
+// ids, ratings and plan entries come from device memory once and from L2
+// for the other variants; each variant gathers its own factor rows. The
+// multi-group rows' partials and their ordered combine are per variant
+// (blockIdx.z). K13b runs K2's warp-per-system kernels with the variant on
+// blockIdx.y; each block stages its variant's G. Later work: the sized
+// form's row gather, which bounds it at rank 16 with V = 2.
 
 //
 // K13a-bf16 (normal_eq_variants_f32 with bf16 = 1): the grid in the
@@ -62,24 +66,25 @@ extern "C" {
 // [V, R, k] and partials [V, max(P, 1), k·k + k] are allocated by the
 // caller, which checks shapes, dtypes, devices, id ranges and
 // 1 <= k <= 1024, and builds the plan as for K1 (normal_eq_f32). bf16 != 0
-// runs K13a-bf16.
+// runs K13a-bf16. small is the k <= 16 form's lane plan for V variants
+// (ops/normal_eq.py small_form_plan), read only at k <= 16.
 int normal_eq_variants_f32(const float* Y, const int* cols,
                            const float* vals, const int* rem,
                            const int* groups, int n_groups, const int* c_rows,
                            const int* c_start, int n_combine, float* partials,
                            float* A, float* b, int k, int L, int implicit,
                            float alpha, int V, long long y_stride, int R,
-                           int P, int bf16, cudaStream_t stream) {
+                           int P, int bf16, const int* small, cudaStream_t stream) {
   return (int)(bf16 ? k1::launch<true, true>(Y, cols, vals, rem, groups,
                                              n_groups, c_rows, c_start,
                                              n_combine, partials, A, b, k, L,
                                              implicit, alpha, V, y_stride, R,
-                                             P, stream)
+                                             P, small, stream)
                     : k1::launch<true, false>(Y, cols, vals, rem, groups,
                                               n_groups, c_rows, c_start,
                                               n_combine, partials, A, b, k, L,
                                               implicit, alpha, V, y_stride, R,
-                                              P, stream));
+                                              P, small, stream));
 }
 
 // K13b on `stream`; returns cudaGetLastError(). A [V, R, k, k] and b

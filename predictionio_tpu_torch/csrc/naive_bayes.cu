@@ -53,17 +53,26 @@
 //     launch (the grid sync is the hardware's barrier), so concurrent fits
 //     on any streams never meet. Pass 1 alone (the shards on a device
 //     other than the result's) is an ordinary launch of one block an item.
-//   nb_scores_argmax (K15b): a warp per query row, lanes over classes;
-//     each lane forms its classes' dots in feature order with separate
+//   nb_scores_argmax (K15b): G lanes per query row (G the smallest power
+//     of two >= C, at most 32), so a warp takes 32 / G rows (8 at the
+//     bench's C = 4; one row and lanes looping over the classes past 32).
+//     Each lane forms its classes' dots in feature order with separate
 //     rounded products and adds (__fmul_rn, __fadd_rn: no FMA), so the
 //     plain twin, which does the same in torch ops, matches bit for bit.
-//     The (score, class) pairs are reduced over the warp by a total order
-//     (NaN first, then the larger score, then the lower class), so the
-//     result does not depend on the reduction's shape.
-//
-// K15s's scores cut the query batch into row shards, each scored by
-// nb_scores_argmax into its block of one [B] result; every row is one
-// device's.
+//     The (score, class) pairs are reduced over the row's G lanes by a total
+//     order (NaN first, then the larger score, then the lower class), so the
+//     result does not depend on the reduction's shape or on G.
+//   K15b's shard table. One launch covers every shard of one device: shard
+//     s gives its rows X_s (a row range of the device's upload of the
+//     batch), their count, and its blocks of one [B] int32 result and, when
+//     asked, of one [B, C] scores array. blockIdx.x walks the shards' row
+//     blocks one after another, and a row's arithmetic does not depend on
+//     its shard or block, so every label is one device's bit for bit. The
+//     single-device call is a table of one; K15s's scores (the reference's
+//     :144-151) are a table of the shards on each distinct device. At the
+//     bench's shape the kernel is at an H100's launch floor (≈3 µs); what
+//     the table saves is host time: one launch, one ctypes call with two
+//     arguments, and the device switch in C, a no-op where current.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -362,28 +371,55 @@ __device__ __forceinline__ bool precedes(float v2, int i2, float v1, int i1) {
   return v2 > v1 || (v2 == v1 && i2 < i1);
 }
 
+struct ScoreShard {
+  const float* X;  // [rows, F] row-major
+  int* out;        // the shard's block of the [B] labels
+  float* scores;   // its block of the [B, C] scores, or null
+  long long rows;
+  long long block0;  // its first block of the grid
+};
+
+template <int M>
+struct ScoreShards {
+  ScoreShard s[M];
+  int n;
+};
+
+// G lanes (a power of two, at most 32) per query row, 32 / G rows a warp
+template <int M>
 __global__ void __launch_bounds__(SCORE_WARPS * 32) nb_scores_argmax(
-    const float* __restrict__ X, const float* __restrict__ pi,
-    const float* __restrict__ theta, int B, int C, int F,
-    float* __restrict__ scores, int* __restrict__ out) {
+    const ScoreShards<M> t, const float* __restrict__ pi, const float* __restrict__ theta,
+    int C, int F, int G) {
+  // the block's shard: the last whose first block is at most this one (an
+  // empty shard shares its first block with the next, which wins)
+  const long long bid = blockIdx.x;
+  ScoreShard sh = t.s[0];
+#pragma unroll
+  for (int i = 1; i < M; ++i)
+    if (i < t.n && bid >= t.s[i].block0) sh = t.s[i];
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * SCORE_WARPS + (threadIdx.x >> 5);
-  if (row >= B) return;
-  const float* x = X + row * F;
+  const int sub = lane & (G - 1);
+  const int per_warp = 32 / G;
+  const long long row = (bid - sh.block0) * (SCORE_WARPS * per_warp) +
+                        (threadIdx.x >> 5) * per_warp + lane / G;
+  const bool valid = row < sh.rows;
   float best = 0.f;
-  int arg = -1;
-  for (int c = lane; c < C; c += 32) {
-    const float* t = theta + (long long)c * F;
-    float acc = 0.f;
-    for (int f = 0; f < F; ++f) acc = __fadd_rn(acc, __fmul_rn(x[f], t[f]));
-    const float s = __fadd_rn(acc, pi[c]);
-    if (scores != nullptr) scores[row * C + c] = s;
-    if (precedes(s, c, best, arg)) {
-      best = s;
-      arg = c;
+  int arg = -1;  // no candidate: an invalid row's lanes take part in the shuffles only
+  if (valid) {
+    const float* x = sh.X + row * F;
+    for (int c = sub; c < C; c += G) {
+      const float* tc = theta + (long long)c * F;
+      float acc = 0.f;
+      for (int f = 0; f < F; ++f) acc = __fadd_rn(acc, __fmul_rn(x[f], tc[f]));
+      const float s = __fadd_rn(acc, pi[c]);
+      if (sh.scores != nullptr) sh.scores[row * C + c] = s;
+      if (precedes(s, c, best, arg)) {
+        best = s;
+        arg = c;
+      }
     }
   }
-  for (int o = 16; o > 0; o >>= 1) {
+  for (int o = G >> 1; o > 0; o >>= 1) {  // within the row's aligned G lanes
     const float v = __shfl_xor_sync(0xffffffffu, best, o);
     const int i = __shfl_xor_sync(0xffffffffu, arg, o);
     if (precedes(v, i, best, arg)) {
@@ -391,7 +427,33 @@ __global__ void __launch_bounds__(SCORE_WARPS * 32) nb_scores_argmax(
       arg = i;
     }
   }
-  if (lane == 0) out[row] = arg;
+  if (valid && sub == 0) sh.out[row] = arg;
+}
+
+template <int M>
+cudaError_t scores_launch(const long long* a, int n_shards, cudaStream_t stream) {
+  const int C = (int)a[1], F = (int)a[2];
+  int G = 1;
+  while (G < C && G < 32) G <<= 1;
+  const long long per_block = SCORE_WARPS * (32 / G);
+  ScoreShards<M> t;
+  t.n = n_shards;
+  long long blocks = 0;
+  for (int s = 0; s < n_shards; ++s) {
+    const long long* e = a + 6 + 4 * s;
+    if (e[3] < 0) return cudaErrorInvalidValue;
+    t.s[s].X = reinterpret_cast<const float*>(e[0]);
+    t.s[s].out = reinterpret_cast<int*>(e[1]);
+    t.s[s].scores = reinterpret_cast<float*>(e[2]);
+    t.s[s].rows = e[3];
+    t.s[s].block0 = blocks;
+    blocks += (e[3] + per_block - 1) / per_block;
+  }
+  if (blocks == 0) return cudaSuccess;  // every shard empty: nothing to write
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  nb_scores_argmax<M><<<(unsigned)blocks, SCORE_WARPS * 32, 0, stream>>>(
+      t, reinterpret_cast<const float*>(a[3]), reinterpret_cast<const float*>(a[4]), C, F, G);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -471,18 +533,33 @@ int naive_bayes_fit_capacity(int device, int n_shards, int smem, int* capacity) 
   return (int)err;
 }
 
-// K15b on `stream`: out [B] int32, the jnp.argmax of X·θᵀ + π per row of
-// X [B, F] (θ [C, F], π [C], float32), and, when `scores` is not null,
-// the scores [B, C]. Returns cudaGetLastError(); no launch when B is 0.
-int naive_bayes_scores_f32(const float* X, const float* pi,
-                           const float* theta, int B, int C, int F,
-                           float* scores, int* out, cudaStream_t stream) {
-  if (B == 0) return (int)cudaSuccess;
-  if (B < 0 || C < 1 || F < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (B + SCORE_WARPS - 1) / SCORE_WARPS;
-  nb_scores_argmax<<<blocks, SCORE_WARPS * 32, 0, stream>>>(X, pi, theta, B, C,
-                                                            F, scores, out);
-  return (int)cudaGetLastError();
+// K15b over a shard table on `stream`, on device a[0] (made current for
+// the launch and restored after). a holds 64-bit integers: {device, C, F,
+// pi, theta, n_shards (1 to 64), then per shard (X, out, scores, rows)}:
+// pi [C] and theta [C, F] float32, and per shard its rows X [rows, F]
+// float32 row-major, its block out [rows] int32 of the labels (the
+// jnp.argmax of X·θᵀ + π per row) and, where scores is not 0, its block
+// [rows, C] float32 of the scores, all on the device. One launch covers
+// every shard; none where every shard is empty. Returns a cudaError_t:
+// cudaErrorInvalidValue for a table it does not take. The caller checks
+// dtypes, devices, shapes and that the blocks do not overlap.
+int naive_bayes_scores_f32(const long long* a, cudaStream_t stream) {
+  const int device = (int)a[0], n_shards = (int)a[5];
+  if (a[1] < 1 || a[2] < 1 || a[1] > 0x7fffffffLL || a[2] > 0x7fffffffLL || n_shards < 1 ||
+      n_shards > MAX_SHARDS)
+    return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  err = by_table_size(n_shards, [&](auto m) {
+    return scores_launch<decltype(m)::value>(a, n_shards, stream);
+  });
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }
 
 const char* naive_bayes_error_string(int code) {

@@ -49,6 +49,7 @@ from predictionio_tpu_torch.device import DeviceLike, resolve_device
 from predictionio_tpu_torch.e2 import split_data
 from predictionio_tpu_torch.ops.naive_bayes import (
     NaiveBayesModelArrays,
+    placed,
     predict_naive_bayes,
     train_naive_bayes,
 )
@@ -175,7 +176,7 @@ class NaiveBayesAlgorithmParams(Params):
 class NaiveBayesAlgorithm(BaseAlgorithm):
     """Multinomial NB (reference NaiveBayesAlgorithm.scala:24-44): K15a to
     train (K15s over the rows of a mesh), one K15b launch per predicted
-    batch."""
+    batch under pi and theta placed once on the serving device."""
 
     params_class = NaiveBayesAlgorithmParams
     query_class = Query
@@ -190,7 +191,10 @@ class NaiveBayesAlgorithm(BaseAlgorithm):
         )
 
     def prepare_serving(self, device: torch.device, model: NaiveBayesModelArrays):
-        return dataclasses.replace(model, device=device)
+        """The model on ``device``, its pi and theta placed there once."""
+        model = dataclasses.replace(model, device=device)
+        placed(model, resolve_device(device))
+        return model
 
     def predict(self, model: NaiveBayesModelArrays, query: Query) -> PredictedResult:
         [(_, p)] = self.batch_predict(model, [(0, query)])

@@ -22,7 +22,9 @@ Three forms, one function each:
 - the hand-written CUDA kernels for Hopper, ``csrc/grid.cu`` (its header
   states the bound and the design): K1's and K2's own kernels
   (``csrc/normal_eq.cuh``, ``csrc/spd_solve.cuh``) with a variant axis,
-  so variant v is bit-equal to K1 and K2 run on that variant alone;
+  so variant v is bit-equal to K1 and K2 run on that variant alone; at
+  k <= 16 one warp sums a group for all its variants
+  (``normal_eq.small_form_plan(k, V)``);
 - the plain PyTorch twins ``normal_eq_variants_plain`` and
   ``spd_solve_variants_plain``: a loop over the variants of K1's and K2's
   twins;
@@ -92,7 +94,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p
     ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.normal_eq_variants_f32.restype = ctypes.c_int
     lib.spd_solve_variants_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
@@ -152,7 +154,7 @@ def normal_eq_variants(
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(),
             plan.combine_rows.shape[0], partials.data_ptr(), A.data_ptr(),
             b.data_ptr(), k, L, int(bool(implicit)), float(alpha), V, n_y * k, R, P,
-            int(bf16), _stream(Y.device),
+            int(bf16), _k1.small_plan_address(k, V), _stream(Y.device),
         )
     _LIBRARY.check(err, name)
     LAUNCHES.add(name)

@@ -15,7 +15,9 @@ label is the class of the largest ``x·theta[c] + pi[c]``.
 - ``naive_bayes_scores(features, pi, theta)`` (K15b, ``_scores`` fused with
   ``predict_naive_bayes``'s ``jnp.argmax``): each row's class index, the
   first NaN if the row's scores hold one, else the first maximum, and,
-  when asked, the scores.
+  when asked, the scores; ``naive_bayes_scores_table`` the same over a
+  shard table (``ScoresShard``: a row range of a device's upload and its
+  blocks of one result), one launch per table.
 
 Three forms of each kernel, one function:
 - the hand-written CUDA kernels for Hopper, ``csrc/naive_bayes.cu`` (its
@@ -50,8 +52,16 @@ the first device over all of that device's shards; a shard on another
 device runs pass 1 (one launch per distinct device) into partials there,
 copied into the first device's before its launch. So the model is one
 device's bit for bit whatever the shard count; ``predict_naive_bayes(mesh=)``
-scores each row shard of the batch into its block of one [B] result on the
-first device, fetched once. A mesh of one shard collapses to its device.
+uploads each distinct device's shards' rows once and scores them in one
+launch over that device's shard table, into their blocks of one [B] result
+on the first device, fetched once. A mesh of one shard collapses to its
+device.
+
+Serving places a model's ``pi`` and ``theta`` once per device (``placed``:
+``train_naive_bayes`` keeps its fit's, ``NaiveBayesAlgorithm.prepare_serving``
+places them on the serving device) in the model's ``_placed``, serving
+state that ``save_model`` and the persistent models never write; a batch
+then uploads only its rows. ``PLACEMENTS`` counts the placements.
 """
 
 from __future__ import annotations
@@ -94,7 +104,7 @@ _FIT_BLOCKS = 528
 _FIT_PARTIAL_FLOATS = 1 << 24
 _FIT_THREADS = 256
 _FIT_SHARED_FLOATS = 11_264
-MAX_SHARDS = 64  # a fit's shard table's most shards (the kernel's parameter table)
+MAX_SHARDS = 64  # a shard table's most shards (the kernels' parameter tables)
 
 
 @dataclasses.dataclass
@@ -106,6 +116,14 @@ class NaiveBayesModelArrays:
     theta: np.ndarray
     labels: np.ndarray  # [C] the class label values (e.g. 0.0, 1.0, 2.0)
     device: Optional[torch.device] = None
+    # serving state, never saved: {device: (pi, theta) placed there}
+    _placed: Optional[Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_placed"] = None
+        return state
 
     @property
     def n_classes(self) -> int:
@@ -194,7 +212,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.naive_bayes_fit_f32.restype = i
     lib.naive_bayes_fit_capacity.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.naive_bayes_fit_capacity.restype = i
-    lib.naive_bayes_scores_f32.argtypes = [p, p, p, i, i, i, p, p, p]
+    lib.naive_bayes_scores_f32.argtypes = [p, p]
     lib.naive_bayes_scores_f32.restype = i
 
 
@@ -433,6 +451,89 @@ def naive_bayes_fit_shards(
     return _fit(device, shards, n, n_classes, F, lam)
 
 
+class ScoresShard(NamedTuple):
+    """One shard of K15b's table: the rows ``X`` [rows, F] float32 (a row
+    range of its device's upload of the batch), its block ``out`` [rows]
+    int32 of the labels and, where given, its block ``scores`` [rows, C]
+    float32 of the scores, all contiguous on the table's device."""
+
+    X: torch.Tensor
+    out: torch.Tensor
+    scores: Optional[torch.Tensor] = None
+
+
+def _checked_model(pi: torch.Tensor, theta: torch.Tensor) -> Tuple[int, int, torch.device]:
+    """(C, F, device) of ``pi`` [C] and ``theta`` [C, F], float32 on one
+    device; raises otherwise."""
+    shape = theta.shape
+    if len(shape) != 2 or pi.shape != shape[:1] or not shape[0] or not shape[1]:
+        raise ValueError(f"pi [C] and theta [C, F] with C, F >= 1 expected, got "
+                         f"{tuple(pi.shape)} and {tuple(shape)}")
+    dev = theta.device
+    if pi.dtype is not torch.float32 or theta.dtype is not torch.float32 or pi.device != dev:
+        raise ValueError("pi and theta must be float32 on one device")
+    return shape[0], shape[1], dev
+
+
+def naive_bayes_scores_table(
+    shards: Sequence[ScoresShard], pi: torch.Tensor, theta: torch.Tensor
+) -> None:
+    """K15b over a shard table: every shard's rows scored under ``pi`` [C]
+    and ``theta`` [C, F] (float32, contiguous) into its blocks, in one
+    launch on their device (the table's shards and the model lie on one
+    device). The blocks must not overlap.
+
+    On the CPU the twin runs once, over the shards' rows one after
+    another. On CUDA the kernel must launch or this raises."""
+    C, F, dev = _checked_model(pi, theta)
+    if not 1 <= len(shards) <= MAX_SHARDS:
+        raise ValueError(f"a table holds 1 to {MAX_SHARDS} shards, got {len(shards)}")
+    for X, out, scores in shards:
+        rows = X.shape[0]
+        if X.dtype is not torch.float32 or X.dim() != 2 or X.shape[1] != F or X.device != dev:
+            raise ValueError(f"every shard's rows must be [rows, {F}] float32 on {dev}")
+        if out.dtype is not torch.int32 or out.shape != (rows,) or out.device != dev:
+            raise ValueError(f"every shard's labels block must be [{rows}] int32 on {dev}")
+        if scores is not None and (scores.dtype is not torch.float32
+                                   or scores.shape != (rows, C) or scores.device != dev):
+            raise ValueError(f"a shard's scores block must be [{rows}, {C}] float32 on {dev}")
+    _score(dev, C, F, pi, theta, shards)
+
+
+def _score(dev, C, F, pi, theta, shards) -> None:
+    """K15b over checked shards: the twin on the CPU, else one launch."""
+    if dev.type == "cpu":
+        LAUNCHES.add("naive_bayes_scores_plain")
+        Xs = [sh.X for sh in shards]
+        scores = scores_plain(Xs[0] if len(Xs) == 1 else torch.cat(Xs), pi, theta)
+        idx = argmax_first_nan(scores)
+        r = 0
+        for X, out, block in shards:
+            n_s = X.shape[0]
+            out.copy_(idx[r:r + n_s])
+            if block is not None:
+                block.copy_(scores[r:r + n_s])
+            r += n_s
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (pi.is_contiguous() and theta.is_contiguous()):
+        raise ValueError("pi and theta must be contiguous")
+    cells = [dev.index, C, F, pi.data_ptr(), theta.data_ptr(), len(shards)]
+    for X, out, scores in shards:
+        if not (X.is_contiguous() and out.is_contiguous()
+                and (scores is None or scores.is_contiguous())):
+            raise ValueError("every shard's rows and blocks must be contiguous")
+        cells += (X.data_ptr(), out.data_ptr(), 0 if scores is None else scores.data_ptr(),
+                  X.shape[0])
+    table = array("q", cells)
+    err = _LIBRARY.get().naive_bayes_scores_f32(table.buffer_info()[0],
+                                                native.current_stream(dev.index))
+    if err:
+        _LIBRARY.check(err, "naive_bayes_scores")
+    LAUNCHES.add("naive_bayes_scores")
+
+
 def naive_bayes_scores(
     features: torch.Tensor, pi: torch.Tensor, theta: torch.Tensor, with_scores: bool = False,
     out: Optional[torch.Tensor] = None,
@@ -440,50 +541,64 @@ def naive_bayes_scores(
     """K15b: (the int32 class index of each row of ``features`` [B, F]
     float32 under ``pi`` [C] and ``theta`` [C, F], written into ``out``
     [B] int32 where given, and, if ``with_scores``, the scores [B, C], else
-    None).
+    None). A table of one shard; the labels and the scores come from one
+    allocation (none with ``out`` and no scores).
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
-    if features.dim() != 2 or theta.dim() != 2 or pi.dim() != 1:
-        raise ValueError("features must be [B, F], theta [C, F] and pi [C]")
-    B, F = features.shape
-    C = theta.shape[0]
-    if theta.shape[1] != F or pi.shape[0] != C or C < 1 or F < 1:
-        raise ValueError(f"shapes disagree: features {tuple(features.shape)}, "
-                         f"theta {tuple(theta.shape)}, pi {tuple(pi.shape)}")
-    if any(t.dtype != torch.float32 for t in (features, pi, theta)):
-        raise ValueError("features, pi and theta must be float32")
-    if not (features.device == pi.device == theta.device):
+    C, F, dev = _checked_model(pi, theta)
+    shape = features.shape
+    if len(shape) != 2 or shape[1] != F or features.dtype is not torch.float32:
+        raise ValueError(f"features must be [B, {F}] float32, got {tuple(shape)} {features.dtype}")
+    if features.device != dev:
         raise ValueError("features, pi and theta must be on one device")
-    if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != (B,)
-                            or out.device != features.device or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous [{B}] int32 tensor on {features.device}")
-    if features.device.type == "cpu":
-        LAUNCHES.add("naive_bayes_scores_plain")
-        scores = scores_plain(features, pi, theta)
-        idx = argmax_first_nan(scores)
-        if out is not None:
-            idx = out.copy_(idx)
-        return idx, (scores if with_scores else None)
-    if features.device.type != "cuda":
-        raise ValueError(f"unsupported device {features.device}")
-    if not (features.is_contiguous() and pi.is_contiguous() and theta.is_contiguous()):
-        raise ValueError("features, pi and theta must be contiguous")
-    dev = features.device
-    idx = out if out is not None else torch.empty(B, dtype=torch.int32, device=dev)
-    scores = torch.empty((B, C), dtype=torch.float32, device=dev) if with_scores else None
-    if B == 0:
-        return idx, scores
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.naive_bayes_scores_f32(
-            features.data_ptr(), pi.data_ptr(), theta.data_ptr(), B, C, F,
-            None if scores is None else scores.data_ptr(), idx.data_ptr(), stream,
-        )
-    _LIBRARY.check(err, "naive_bayes_scores")
+    B = shape[0]
+    if out is not None and (out.dtype is not torch.int32 or out.shape != (B,)
+                            or out.device != dev):
+        raise ValueError(f"out must be a [{B}] int32 tensor on {dev}")
+    scores = None
+    if with_scores:  # one allocation: the scores, then the labels where not given
+        buf = torch.empty(B * C + (B if out is None else 0), dtype=torch.float32, device=dev)
+        scores = buf[:B * C].view(B, C)
+        if out is None:
+            out = buf[B * C:].view(torch.int32)
+    elif out is None:
+        out = torch.empty(B, dtype=torch.int32, device=dev)
+    if not B:
+        return out, scores
+    if dev.type != "cuda" or not (features.is_contiguous() and out.is_contiguous()):
+        _score(dev, C, F, pi, theta, (ScoresShard(features, out, scores),))
+        return out, scores
+    # the table of one, built in place (the lean path a served batch takes)
+    if not (pi.is_contiguous() and theta.is_contiguous()):
+        raise ValueError("pi and theta must be contiguous")
+    table = array("q", (dev.index, C, F, pi.data_ptr(), theta.data_ptr(), 1, features.data_ptr(),
+                        out.data_ptr(), 0 if scores is None else scores.data_ptr(), B))
+    err = _LIBRARY.get().naive_bayes_scores_f32(table.buffer_info()[0],
+                                                native.current_stream(dev.index))
+    if err:
+        _LIBRARY.check(err, "naive_bayes_scores")
     LAUNCHES.add("naive_bayes_scores")
-    return idx, scores
+    return out, scores
+
+
+# pi and theta placed on a device for serving ("naive_bayes_place": one per
+# device a model is placed on)
+PLACEMENTS = LaunchCounts("naive_bayes_place")
+
+
+def placed(model: "NaiveBayesModelArrays", dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``model``'s pi and theta on ``dev``, placed at the first call for
+    that device and kept in the model's serving state (``_placed``, which
+    is never saved), so later batches upload only their rows."""
+    if model._placed is None:
+        model._placed = {}
+    got = model._placed.get(dev)
+    if got is None:
+        got = model._placed[dev] = (torch.tensor(np.asarray(model.pi, np.float32), device=dev),
+                                    torch.tensor(np.asarray(model.theta, np.float32), device=dev))
+        PLACEMENTS.add("naive_bayes_place")
+    return got
 
 
 def train_naive_bayes(
@@ -524,8 +639,10 @@ def train_naive_bayes(
             cut_rows(mesh, features, bounds), cut_rows(mesh, label_idx, bounds),
             len(classes), lam, dev,
         )
+    # the fit's pi and theta stay placed on its device for serving
     return NaiveBayesModelArrays(
-        pi=fit.pi.cpu().numpy(), theta=fit.theta.cpu().numpy(), labels=classes, device=dev
+        pi=fit.pi.cpu().numpy(), theta=fit.theta.cpu().numpy(), labels=classes, device=dev,
+        _placed={dev: (fit.pi, fit.theta)},
     )
 
 
@@ -536,33 +653,44 @@ def predict_naive_bayes(
     axis: str = "data",
     device: DeviceLike = None,
 ) -> np.ndarray:
-    """Predicted label for each row of [B, F] (one K15b launch), on
-    ``device``, else the model's device, else CUDA. On a 1-D ``data``
-    ``mesh`` of several shards (K15s) the batch is cut into row shards, each
-    scored on its device into its block of one [B] result on the mesh's
-    first device, which is fetched once."""
+    """Predicted label for each row of [B, F], on ``device``, else the
+    model's device, else CUDA: one upload of the rows and one K15b launch
+    under the model's placed pi and theta (``placed``), one fetch. On a 1-D
+    ``data`` ``mesh`` of several shards (K15s) the batch is cut into row
+    shards; each distinct device uploads its shards' rows once and runs one
+    launch over its shard table (the first device's shards into their
+    blocks of one [B] result there, another device's into a buffer of its
+    own, copied into their blocks), and the result is fetched once."""
     check_data_axis(axis)
     mesh, device = collapse_mesh(mesh, device)
     features = np.atleast_2d(np.asarray(features, np.float32))
-    pi = np.asarray(model.pi, np.float32)
-    theta = np.asarray(model.theta, np.float32)
     if mesh is None:
         dev = resolve_device(device if device is not None else model.device)
-        idx, _ = naive_bayes_scores(
-            torch.tensor(features, device=dev), torch.tensor(pi, device=dev),
-            torch.tensor(theta, device=dev),
-        )
+        idx, _ = naive_bayes_scores(torch.from_numpy(np.ascontiguousarray(features)).to(dev),
+                                    *placed(model, dev))
         return model.labels[idx.cpu().numpy()]
     first = mesh.devices[0]
-    on = {d: (torch.tensor(pi, device=d), torch.tensor(theta, device=d))
-          for d in mesh.distinct_devices()}
     bounds = split_rows(np.ones(len(features), np.int64), mesh.size)
+    by_dev: Dict[torch.device, List[int]] = {}
+    for s, d in enumerate(mesh.devices):
+        if bounds[s + 1] > bounds[s]:
+            by_dev.setdefault(d, []).append(s)
     out = torch.empty(len(features), dtype=torch.int32, device=first)
-    for r0, r1, X in zip(bounds[:-1], bounds[1:], cut_rows(mesh, features, bounds)):
-        if r1 == r0:
-            continue
-        if X.device == first:
-            naive_bayes_scores(X, *on[X.device], out=out[r0:r1])
-        else:
-            out[r0:r1].copy_(naive_bayes_scores(X, *on[X.device])[0])  # the peer copy
+    for d, idx in by_dev.items():
+        spans = [(int(bounds[s]), int(bounds[s + 1])) for s in idx]
+        rows = features if len(by_dev) == 1 else np.concatenate(
+            [features[a:b] for a, b in spans])
+        up = torch.from_numpy(np.ascontiguousarray(rows)).to(d)
+        dest = out if d == first else torch.empty(len(rows), dtype=torch.int32, device=d)
+        shards, j = [], 0
+        for a, b in spans:
+            block = dest[a:b] if d == first else dest[j:j + b - a]
+            shards.append(ScoresShard(up[j:j + b - a], block))
+            j += b - a
+        naive_bayes_scores_table(shards, *placed(model, d))
+        if d != first:  # the peer copies, one per shard
+            j = 0
+            for a, b in spans:
+                out[a:b].copy_(dest[j:j + b - a])
+                j += b - a
     return model.labels[out.cpu().numpy()]

@@ -24,7 +24,10 @@ Three forms, one function:
   states the bound and the design). It walks a host-built ``GroupPlan``:
   groups of up to ``GROUP_SEGMENTS`` consecutive segments of one row, so a
   heavy row (8,531 segments for the most rated ML-20M item) is spread over
-  many blocks and combined in a fixed order, never with atomics;
+  many blocks and combined in a fixed order, never with atomics. At
+  k <= 16 it runs a form sized to the rank, whose lanes own the lower
+  triangle and b by the plan ``small_form_plan(k, V)`` builds (the kernel
+  reads that plan as it is: ``SmallFormPlan.cells``);
 - the plain PyTorch twin ``normal_eq_plain``, the reference's chunked
   gather + einsum + scatter-add, which takes the segments as they are;
 - the wrapper ``normal_eq``, which routes CPU tensors to the twin and CUDA
@@ -36,7 +39,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+import functools
+from array import array
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -254,11 +259,70 @@ def normal_eq_plain(
     return A, b
 
 
+SMALL_MAX_K = 16  # the largest rank the sized form takes
+SMALL_UNITS = (1, 2, 3, 4, 8)  # the units a lane may own (the kernel's instantiations)
+
+
+class SmallFormPlan(NamedTuple):
+    """The k <= 16 form's lane plan for rank ``k`` and ``V`` variants.
+
+    A warp takes one group and ``VW`` of its variants (``batches`` warps a
+    group). Lane l owns ``lanes[l] = (v, ti, j0, n)``: units j0..j0+n-1 of
+    variant v's row group ti (rows 4·ti..4·ti+3), where unit j below
+    ``min(k, 4·ti + 4)`` sums column j of those rows of A (its entries on
+    or below the diagonal are kept) and unit ``min(k, 4·ti + 4)`` sums their
+    entries of b; n = 0 is an idle lane. ``U`` is the most units a lane
+    owns. ``cells`` is the plan as the kernel takes it: U, VW, then each
+    lane packed as v | ti << 8 | j0 << 16 | n << 24 (int32)."""
+
+    k: int
+    V: int
+    U: int
+    VW: int
+    batches: int
+    lanes: Tuple[Tuple[int, int, int, int], ...]
+    cells: "array"
+
+
+def _lanes_needed(k: int, VW: int, U: int) -> int:
+    T = -(-k // 4)
+    return VW * sum(-(-(min(k, 4 * t + 4) + 1) // U) for t in range(T))
+
+
+@functools.lru_cache(maxsize=None)
+def small_form_plan(k: int, V: int) -> SmallFormPlan:
+    """The sized form's plan (see ``SmallFormPlan``): as many variants a
+    warp as fit 32 floats of gathered rows a slot (VW·kp <= 32, kp = k
+    rounded up to 4) and 32 lanes, then the fewest units a lane, U, from
+    ``SMALL_UNITS``. A pure function of (k, V), memoised."""
+    if not 1 <= k <= SMALL_MAX_K or V < 1:
+        raise ValueError(f"the sized form takes 1 <= k <= {SMALL_MAX_K} and V >= 1, got k={k}, V={V}")
+    kp = -(-k // 4) * 4
+    for VW in range(min(V, 32 // kp), 0, -1):
+        U = next((u for u in SMALL_UNITS if _lanes_needed(k, VW, u) <= 32), None)
+        if U is not None:
+            break
+    lanes = []
+    for v in range(VW):
+        for t in range(-(-k // 4)):
+            m = min(k, 4 * t + 4) + 1
+            lanes += [(v, t, j0, min(U, m - j0)) for j0 in range(0, m, U)]
+    lanes += [(0, 0, 0, 0)] * (32 - len(lanes))
+    cells = array("i", [U, VW] + [v | t << 8 | j0 << 16 | n << 24 for v, t, j0, n in lanes])
+    return SmallFormPlan(k, V, U, VW, -(-V // VW), tuple(lanes), cells)
+
+
+def small_plan_address(k: int, V: int) -> Optional[int]:
+    """The address of ``small_form_plan(k, V).cells`` for a kernel call
+    (None above ``SMALL_MAX_K``, where the kernels do not read it)."""
+    return small_form_plan(k, V).cells.buffer_info()[0] if k <= SMALL_MAX_K else None
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     lib.normal_eq_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
         ctypes.c_void_p
     ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p
     ]
     lib.normal_eq_f32.restype = ctypes.c_int
 
@@ -325,7 +389,8 @@ def normal_eq(
             pack.rem.data_ptr(), plan.groups.data_ptr(), plan.groups.shape[1],
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(),
             plan.combine_rows.shape[0], partials.data_ptr(), A.data_ptr(),
-            b.data_ptr(), k, L, int(bool(implicit)), float(alpha), int(bf16), stream,
+            b.data_ptr(), k, L, int(bool(implicit)), float(alpha), int(bf16),
+            small_plan_address(k, 1), stream,
         )
     _LIBRARY.check(err, name)
     LAUNCHES.add(name)

@@ -201,7 +201,8 @@ def test_nb_predict_on_a_mesh_matches_jax_and_one_device(S, B):
     q = rng.uniform(0, 3, (B, 8)).astype(np.float32)
     k15.LAUNCHES.reset()
     got = k15.predict_naive_bayes(model, q, mesh=port_mesh(S))
-    assert k15.LAUNCHES.snapshot()["naive_bayes_scores_plain"] == min(B, S)
+    # every shard on the one CPU device: one shard table, one twin call
+    assert k15.LAUNCHES.snapshot()["naive_bayes_scores_plain"] == 1
     np.testing.assert_array_equal(got, jnb.predict_naive_bayes(j, q, mesh=jax_mesh(S)))
     np.testing.assert_array_equal(got, k15.predict_naive_bayes(model, q))
 
