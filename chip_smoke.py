@@ -126,8 +126,13 @@ Phases; any failure exits non-zero:
    of many segments, an empty row, dislikes) at k in {8, 32, 64} and b in
    {1, 2, 4, 8, k}, explicit and implicit (K11a within 1e-4 of each row's
    scale as K1, K11b's rows within 1e-4 of their largest entry as K2, both
-   bit for bit against a second launch); with b = k one subspace
-   half-step against K1 and K2's exact half-step at K2's tolerance. Then
+   bit for bit against a second launch): with b < k a whole half-step with
+   each slot's score carried across the blocks (``check_subspace_block``
+   at blocks 0, 1 and the last: the scores within 1e-4 of each slot's
+   Σ|y_c x_c| of the twin's, K11b's Δ bit for bit the kernel's own change
+   of X; then the half-step against the twins', within 2e-3 of the
+   largest entry); with b = k one subspace half-step against K1 and K2's
+   exact half-step at K2's tolerance. Then
    the main path, counted from 0: ``ALSAlgorithm.train`` with
    ``implicit_prefs=True``, ``solver="subspace"``, rank 64, block 8 (the
    reference's bench setting), 10 sweeps, on the same stream: K11a = K11b
@@ -136,14 +141,18 @@ Phases; any failure exits non-zero:
    twin 0. A second streaming training and the direct route: factors,
    per-sweep and per-block telemetry bit-identical; the objective printed
    per sweep, never gated on its sign. K11a and K11b against their twins
-   on the path's packs (blocks 0 and 7 of sweep 1's user half-step and of
-   sweep 4's item half-step); two sweeps driven by the twins against the
+   on the path's packs (blocks 0, 1 and 7 of sweep 4's user and item
+   half-steps, the score carried, each half-step whole against the
+   twins'; the checked user half-step bit for bit ``_solve_side_subspace``'s);
+   two sweeps driven by the twins (carrying the score too) against the
    kernels' loop (within 2e-3 of the largest entry). The same stream
    trained with ``solver="exact"`` at rank 64: the two loops'
    ``device_loop_s`` and hit-rate@10 of both models over the ratings >=
    4.0 of 2,000 seeded users (``bench.py:2573``, in matrix), recorded, not
-   gated. Times of K11a and K11b at the path's shapes (block 0), their
-   twins, the library call for K11b (batched ``torch.linalg.cholesky`` +
+   gated. Times at the path's shapes: K11a at blocks 0, 1 and 7 of both
+   half-steps and the mean a launch over a half-step (its row's time), a
+   whole half-step of K11a and K11b, K11b at block 0; the twins at block
+   0, the library call for K11b (batched ``torch.linalg.cholesky`` +
    ``cholesky_solve`` of the block systems; K11a has none), bounds and the
    loop's busy share (``subspace_training``).
 3s. Similar Product training, reduced to the stream's first 2,000,000
@@ -207,7 +216,9 @@ Phases; any failure exits non-zero:
    time, twin and bound, K13b's library call (batched
    ``torch.linalg.cholesky`` + ``cholesky_solve`` over V x R rows), K1
    and K2 per variant; K13a at ranks 8 and 16 on both sides beside its
-   bound, and K1 on one variant at k = 8, 16 and 32 on the user side; the
+   bound, K1 on one variant at k = 8, 16 and 32 on the user side, and
+   K13b and K2 (one variant) at ranks 8 and 16 on the user side (the
+   solve sized to the rank) beside their bounds; the
    evaluation's wall clock, each stage's wall and
    thread-summed seconds (``read_eval``, host pack, upload, device loop,
    serving, metric), serving chunks, the process's RSS through the run
@@ -262,9 +273,10 @@ Phases; any failure exits non-zero:
       other forms' margins are printed).
    d. iALS++ (3p's config: implicit, rank 64, block 8) in bf16, counted:
       K11a-bf16 = K11b = 160, K12a = 40, K12b-bf16 = 10, K1 = 0; routes
-      bit for bit; K11a-bf16 and K11b against their twins at block 0 of
-      sweep 4's user and item half-steps, K11a-bf16's skipped-rounding
-      forms gated as in a.
+      bit for bit; K11a-bf16 and K11b against their twins at blocks 0, 1
+      and 7 of sweep 4's user and item half-steps (the score carried), each
+      half-step whole against the twins', K11a-bf16's skipped-rounding
+      forms gated as in a at block 0; K11a-bf16's times by block.
    e. The grid: ``train_als_grid`` in bf16 over the template's grid (ranks
       8 and 16 x regs 0.01 and 0.1) on 3e's fold-0 training ratings in the
       wire's order, each variant bit for bit equal to ``train_als`` in bf16
@@ -568,7 +580,8 @@ Phases; any failure exits non-zero:
       K12a over the replica bit for bit one device's G; the sharded K12b
       (every shard's partials, one finish) within 1e-6 of one device's
       objective, of its scale (the same terms summed in another order);
-      K11a and K11b at 3p's rank 64, b = 8, block by block, and K13a and
+      K11a (its score carried, a buffer a shard) and K11b (its Δ) at 3p's
+      rank 64, b = 8, block by block, and K13a and
       K13b at 3e's fold-0 shape (rank 16, V = 2, ``row0=``/``out=``), bit
       for bit. Edge cases on small ratings: a user heavier than a shard's
       share, so that shards are empty and one holds padding rows only, at
@@ -2499,25 +2512,70 @@ def check_k11a_rounds(Y, X, pack, s0, b, implicit, A2, r2, la, lr, label, gate=T
           f"{'; '.join(out)} ok", flush=True)
 
 
+def score_scale(Y, X, pack, compute_dtype="float32"):
+    """Per slot Σ_c |y_c x_c| over all k columns (shaped like ``pack.vals``),
+    which bounds the rounding of the slot's score d = y·x, formed or
+    carried."""
+    import torch
+
+    from predictionio_tpu_torch.ops.precision import round_bf16
+
+    bf16 = compute_dtype == BF16
+    Yc, Xc = (round_bf16(Y), round_bf16(X)) if bf16 else (Y, X)
+    out = torch.empty(pack.vals.shape, dtype=torch.float32, device=X.device)
+    for c in range(pack.seg_rows.shape[0]):
+        out[c] = torch.einsum("slk,sk->sl", Yc[pack.cols[c].long()].abs(),
+                              Xc[pack.seg_rows[c].long()].abs())
+    return out
+
+
 def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, errs, last,
-                         compute_dtype="float32", rounds=None):
+                         compute_dtype="float32", rounds=None, carry=None):
     """K11a (K11a-bf16 in bfloat16 compute) and K11b on one block against
     their twins (K11a at K1_RTOL of each row's scale, plus in bfloat16 the
     row's rounding-flip allowance of ``k11_scales``; K11b's updated rows at
     K2_RTOL of each row's largest entry, both given the kernel's A and r)
     and against a second launch, bit for bit. In bfloat16 with ``rounds``
     ("gate" or "print"), also ``check_k11a_rounds`` at the same limits.
-    Leaves the kernel's update in X."""
+    With ``carry`` (the half-step's score and Δ buffers), K11a writes the
+    slots' scores (block 0) or carries them (later blocks; the last block
+    writes none), each against the twin's at K1_RTOL of the slot's
+    Σ|y_c x_c|, and K11b writes Δ (not in the last block): bit for bit the
+    kernel's own change of X (in the compute type), and at K2_RTOL of the
+    twin's rows against the twin's. Both launches and the twin get the
+    same score and Δ. Leaves the kernel's update, score and Δ in X and
+    ``carry``."""
     import torch
 
     from predictionio_tpu_torch.ops import subspace as k11
+    from predictionio_tpu_torch.ops.precision import in_cdt
 
     R = pack.n_sys_rows
     cdt = compute_dtype
-    A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, cdt)
-    A_again, r_again = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, cdt)
+    score, delta = carry if carry is not None else (None, None)
+    dl = delta if carry is not None and s0 > 0 else None
+    write = not last  # the last block's score is read by no block: not written
+    score_in = score.clone() if score is not None else None
+    A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, cdt, score, dl)
+    score_out = score.clone() if score is not None else None
+    if score is not None:
+        score.copy_(score_in)
+    A_again, r_again = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, cdt, score, dl)
+    if score is not None and not bits_equal(score, score_out):
+        raise AssertionError(f"K11a {label}: a second launch writes other scores")
+    score_twin = score_in.clone() if score is not None else None
     A2, r2 = k11.subspace_accumulate_plain(Y, X, pack.seg_rows, pack.cols, pack.vals, pack.rem,
-                                           R, s0, b, implicit, ALPHA, cdt)
+                                           R, s0, b, implicit, ALPHA, cdt, score_twin, dl)
+    es = 0.0
+    if score is not None and write:
+        valid = (torch.arange(pack.cols.shape[-1], device=X.device)[None, None, :]
+                 < pack.rem[..., None])
+        gap = (score - score_twin).abs()[valid]
+        lim = 1e-6 + K1_RTOL * score_scale(Y, X, pack, cdt)[valid]
+        if not bool((gap <= lim).all()):
+            raise AssertionError(f"K11a {label}: scores differ from the twin's (max "
+                                 f"{gap.max().item()})")
+        es = gap.max().item()
     diag, rscale, flips = k11_scales(Y, X, pack, s0, b, implicit, ALPHA, A2, cdt)
     la, lr = 1e-6 + K1_RTOL * diag, 1e-6 + K1_RTOL * rscale + flips
     ea = (A - A2).abs().amax(dim=(1, 2))
@@ -2533,17 +2591,34 @@ def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, er
         check_k11a_rounds(Y, X, pack, s0, b, implicit, A2, r2, la, lr, label, rounds == "gate")
     X_twin = X.clone()
     X_again = X.clone()
+    X_before = X.clone()
     s1 = torch.zeros(2, dtype=torch.float32, device=X.device)
     s_again = torch.zeros(2, dtype=torch.float32, device=X.device)
     Gb = G if implicit else None
-    k11.subspace_block_solve(A, r, X, lam, has_obs, s0, Gb, s1, last)
-    k11.subspace_block_solve(A, r, X_again, lam, has_obs, s0, Gb, s_again, last)
-    _, s2 = k11.subspace_block_solve_plain(A, r, X_twin, lam, has_obs, s0, Gb)
+    d_out = delta if delta is not None and not last else None
+    d_again = torch.empty_like(d_out) if d_out is not None else None
+    d_twin = torch.empty_like(d_out) if d_out is not None else None
+    k11.subspace_block_solve(A, r, X, lam, has_obs, s0, Gb, s1, last, d_out, cdt)
+    k11.subspace_block_solve(A, r, X_again, lam, has_obs, s0, Gb, s_again, last, d_again, cdt)
+    _, s2 = k11.subspace_block_solve_plain(A, r, X_twin, lam, has_obs, s0, Gb, d_twin, cdt)
+    row_lim = 1e-6 + K2_RTOL * X_twin.abs().amax(dim=1)
     ex = (X - X_twin).abs().amax(dim=1)
-    if not bool((ex <= 1e-6 + K2_RTOL * X_twin.abs().amax(dim=1)).all()):
+    if not bool((ex <= row_lim).all()):
         raise AssertionError(f"K11b {label}: differs from its twin (max |dx| {ex.max().item()})")
     if not (bits_equal(X, X_again) and bits_equal(s1, s_again)):
         raise AssertionError(f"K11b {label}: a second launch differs")
+    if d_out is not None:
+        bf = cdt == BF16
+        change = in_cdt(X[:, s0:s0 + b], bf) - in_cdt(X_before[:, s0:s0 + b], bf)
+        if not (bits_equal(d_out, change) and bits_equal(d_out, d_again)):
+            raise AssertionError(f"K11b {label}: Δ is not the kernel's own change of X, or a "
+                                 "second launch's")
+        # Δ's entries lie within two of X's limits of the twin's; in
+        # bfloat16 compute plus one bfloat16 step of x (at most 2^-7 of |x|:
+        # 7 stored bits), where the two x's round to neighbouring values
+        lim_d = 2 * row_lim[:, None] + (2.0 ** -7 * X_twin[:, s0:s0 + b].abs() if bf else 0.0)
+        if not bool(((d_out - d_twin).abs() <= lim_d).all()):
+            raise AssertionError(f"K11b {label}: Δ differs from its twin's")
     # each sum against its own twin value: the block's Σδ² is a small
     # share of ΣX², so one tolerance off ΣX² would not hold it
     got_d2, want_d2 = s1[0].item(), s2[0].item()
@@ -2558,7 +2633,9 @@ def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, er
     name = "subspace_accumulate_bf16" if cdt == BF16 else "subspace_accumulate"
     errs[name] = max(errs.get(name, 0.0), ea.max().item(), er.max().item())
     errs["subspace_block_solve"] = max(errs.get("subspace_block_solve", 0.0), ex.max().item())
-    print(f"  {label}: K11a ({cdt}) max |dA| {ea.max().item():.3g} |dr| {er.max().item():.3g}"
+    print(f"  {label}: K11a ({cdt}{', carried' if dl is not None else ''}) max |dA| "
+          f"{ea.max().item():.3g} |dr| {er.max().item():.3g}"
+          f"{f', |d score| {es:.3g}' if score is not None and write else ''}"
           f"{f' ({flipped} rows by a bf16 rounding flip)' if cdt == BF16 else ''}, "
           f"K11b max |dx| {ex.max().item():.3g}, Σδ² {got_d2:.6g} vs twin {want_d2:.6g} "
           f"(rel {abs(got_d2 - want_d2) / max(want_d2, 1e-30):.3g}; Σδ²/ΣX² "
@@ -2566,31 +2643,74 @@ def check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit, label, er
     return X
 
 
+def twin_half_step(X, Y, pack, lam, has_obs, G, b, implicit, compute_dtype="float32"):
+    """One subspace half-step by the plain twins, in place on ``X``, with
+    the score carried across the blocks as ``ops/als._solve_side_subspace``
+    carries it."""
+    from predictionio_tpu_torch.ops import subspace as k11
+
+    k = X.shape[1]
+    nb = k // b
+    score = delta = None
+    if k11.carries(k, b):
+        score, delta = k11.CarryBuffers([pack], b).views(pack)
+    for j in range(nb):
+        s0, last = j * b, j == nb - 1
+        A, r = k11.subspace_accumulate_plain(
+            Y, X, pack.seg_rows, pack.cols, pack.vals, pack.rem, pack.n_sys_rows, s0, b, implicit,
+            ALPHA, compute_dtype, score, None if j == 0 else delta)
+        k11.subspace_block_solve_plain(A, r, X, lam, has_obs, s0, G if implicit else None,
+                                       None if last else delta, compute_dtype)
+    return X
+
+
 def check_subspace_half_step(X, Y, pack, lam, has_obs, G, b, implicit, label, errs, blocks,
                              compute_dtype="float32", rounds=None):
     """A whole subspace half-step by the kernels, block by block, in place
-    on ``X``; the blocks in ``blocks`` checked against their twins (and in
-    bfloat16 against the forms that skip a rounding, ``rounds``)."""
+    on ``X``, with the score carried across the blocks where the kernels
+    carry it (``ops/subspace.carries``); the blocks in ``blocks`` checked
+    against their twins (and in bfloat16 against the forms that skip a
+    rounding, ``rounds``); then the whole half-step against the twins'
+    half-step from the same X, at TRAIN_RTOL of the largest entry."""
     from predictionio_tpu_torch.ops import subspace as k11
 
-    nb = X.shape[1] // b
+    k = X.shape[1]
+    nb = k // b
+    X0 = X.clone()
+    carry = k11.CarryBuffers([pack], b).views(pack) if k11.carries(k, b) else None
+    score, delta = carry if carry is not None else (None, None)
     for j in range(nb):
-        s0 = j * b
-        if j in blocks:
+        s0, last = j * b, j == nb - 1
+        if j in blocks:  # the forms that skip a rounding: at block 0, which forms d
             check_subspace_block(X, Y, pack, lam, has_obs, G, s0, b, implicit,
-                                 f"{label}, block {j}", errs, j == nb - 1, compute_dtype, rounds)
+                                 f"{label}, block {j}", errs, last, compute_dtype,
+                                 rounds if j == 0 else None, carry)
         else:
-            A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, compute_dtype)
+            A, r = k11.subspace_accumulate(Y, X, pack, s0, b, implicit, ALPHA, compute_dtype,
+                                           score, None if j == 0 else delta)
             k11.subspace_block_solve(A, r, X, lam, has_obs, s0, G if implicit else None,
-                                     last=j == nb - 1)
+                                     last=last, delta=None if last else delta,
+                                     compute_dtype=compute_dtype)
+    Xt = twin_half_step(X0, Y, pack, lam, has_obs, G, b, implicit, compute_dtype)
+    dx = (X - Xt).abs().max().item()
+    if dx > TRAIN_RTOL * Xt.abs().max().item():
+        raise AssertionError(f"{label}: the kernels' half-step differs from the twins' "
+                             f"(max |dx| {dx})")
+    name = "subspace_accumulate_bf16" if compute_dtype == BF16 else "subspace_accumulate"
+    errs[f"{name}_half_step"] = max(errs.get(f"{name}_half_step", 0.0), dx)
+    print(f"  {label}: the kernels' whole half-step against the twins' ({compute_dtype}"
+          f"{', score carried' if carry is not None else ''}), max |dx| {dx:.3g} of "
+          f"{Xt.abs().max().item():.3g} ok", flush=True)
     return X
 
 
 def check_k11_sizes(rng, device, errs):
     """K11a and K11b on random packs (a row of many segments, an empty
     row) at k in {8, 32, 64} and b in {1, 2, 4, 8, k}, explicit and implicit,
-    against their twins; with b = k one subspace half-step against K1 and
-    K2's exact half-step, at K2's tolerance."""
+    against their twins: with b < k a whole half-step with the score
+    carried (blocks 0, 1 and the last checked, then the half-step against
+    the twins'); with b = k one subspace half-step against K1 and K2's
+    exact half-step, at K2's tolerance."""
     import numpy as np
     import torch
 
@@ -2620,8 +2740,12 @@ def check_k11_sizes(rng, device, errs):
             for b in sorted({1, 2, 4, 8, k}):
                 X = X0.clone()
                 mode = "implicit" if implicit else "explicit"
+                if b < k:
+                    check_subspace_half_step(X, Y, pack, lam, obs, G, b, implicit,
+                                             f"K11 k={k} b={b} {mode}", errs, {0, 1, k // b - 1})
+                    continue
                 check_subspace_block(X, Y, pack, lam, obs, G, 0, b, implicit,
-                                     f"K11 k={k} b={b} {mode}, block 0", errs, b == k)
+                                     f"K11 k={k} b={b} {mode}, block 0", errs, True)
                 if b == k:  # one block: the exact half-step
                     A, bb = k1.normal_eq(Y, pack, implicit, ALPHA)
                     Xe = k2.spd_solve(A, bb, lam, obs, X0, None, G if implicit else None)
@@ -2752,34 +2876,32 @@ def subspace_train_phase(rng, device):
     print("  objective per sweep (never gated on its sign): "
           + ", ".join(f"{row['objective']:.7g}" for row in tel), flush=True)
 
-    # K11a and K11b against their twins on the path's packs: blocks 0 and
-    # nb-1 of sweep 1's user half-step and of sweep 4's item half-step
+    # K11a and K11b against their twins on the path's packs: blocks 0, 1
+    # and nb-1 of sweep 4's user and item half-steps (the score carried
+    # from block 0 on), each whole half-step against the twins'
     errs = {}
     state = als.init_factor_state_single(wire.counts_u, wire.counts_i, n_u, n_i, config, device=device)
     X0, Y0, lam_u, lam_i, obs_u, obs_i = state
-    Gy = k12.gramian(Y0)
-    check_subspace_half_step(X0.clone(), Y0, up, lam_u, obs_u, Gy, b, True,
-                             "sweep 1, user side", errs, (0, nb - 1))
     X3, Y3, tel3 = als._run_iterations(X0.clone(), Y0.clone(), up, ip, lam_u, lam_i, obs_u, obs_i,
                                        3, implicit=True, alpha=ALPHA, solver="subspace",
                                        block_size=b)
     X4 = als._solve_side_subspace(X3.clone(), Y3, k12.gramian(Y3), up, lam_u, obs_u, ALPHA, True, b)
+    checked = check_subspace_half_step(X3.clone(), Y3, up, lam_u, obs_u, k12.gramian(Y3), b, True,
+                                       "sweep 4, user side", errs, (0, 1, nb - 1))
+    if not bits_equal(checked, X4):
+        raise AssertionError("3p: the checked user half-step differs from _solve_side_subspace's")
     check_subspace_half_step(Y3.clone(), X4, ip, lam_i, obs_i, k12.gramian(X4), b, True,
-                             "sweep 4, item side", errs, (0, nb - 1))
+                             "sweep 4, item side", errs, (0, 1, nb - 1))
 
-    # two sweeps driven by the twins against the kernels' loop
+    # two sweeps driven by the twins (the score carried, as the kernels'
+    # loop carries it) against the kernels' loop
     X2, Y2, _ = als._run_iterations(X0.clone(), Y0.clone(), up, ip, lam_u, lam_i, obs_u, obs_i,
                                     2, implicit=True, alpha=ALPHA, solver="subspace", block_size=b)
     X, Y = X0.clone(), Y0.clone()
     t = time.perf_counter()
     for _ in range(2):
         for F, H, pack, lam, obs in ((X, Y, up, lam_u, obs_u), (Y, X, ip, lam_i, obs_i)):
-            G = k12.gramian_plain(H)
-            for j in range(nb):
-                A, rr = k11.subspace_accumulate_plain(H, F, pack.seg_rows, pack.cols, pack.vals,
-                                                      pack.rem, pack.n_sys_rows, j * b, b, True,
-                                                      ALPHA)
-                k11.subspace_block_solve_plain(A, rr, F, lam, obs, j * b, G)
+            twin_half_step(F, H, pack, lam, obs, k12.gramian_plain(H), b, True)
     torch.cuda.synchronize()
     twin_loop_s = time.perf_counter() - t
     dX = (X - X2).abs().max().item()
@@ -2808,15 +2930,19 @@ def subspace_train_phase(rng, device):
           f"hit-rate@10 over {HIT_USERS} users: subspace {hit['subspace']:.4f}, exact "
           f"{hit['exact']:.4f}", flush=True)
 
-    # times at the path's shapes: block 0 of the user and item half-steps
+    # times at the path's shapes, sweep 4 of the user and item half-steps:
+    # K11a at block 0 (d over all k columns, written to the score buffer),
+    # block 1 (d carried and written back) and the last block (carried, not
+    # written), the mean a launch over the half-step's nb blocks (blocks 1
+    # to nb-2 do block 1's work), and a whole half-step of K11a and K11b
     A_u, r_u = k11.subspace_accumulate(Y3, X3, up, 0, b, True, ALPHA)
     A_i, r_i = k11.subspace_accumulate(X4, Y3, ip, 0, b, True, ALPHA)
     Gy3, Gx4 = k12.gramian(Y3), k12.gramian(X4)
     Xs, Ys = X3.clone(), Y3.clone()
     sums = torch.zeros(2, dtype=torch.float32, device=device)
+    sides = {"user": (Y3, X3, up, lam_u, obs_u, Gy3), "item": (X4, Y3, ip, lam_i, obs_i, Gx4)}
+    block_ms, block_dev, half_step_ms = k11a_block_times(sides, k, b)
     calls = {
-        "subspace_accumulate": {"user": lambda: k11.subspace_accumulate(Y3, X3, up, 0, b, True, ALPHA),
-                                "item": lambda: k11.subspace_accumulate(X4, Y3, ip, 0, b, True, ALPHA)},
         # in place on scratch copies: each call adds its δ again, which
         # changes no instruction it runs
         "subspace_block_solve": {
@@ -2825,6 +2951,11 @@ def subspace_train_phase(rng, device):
     }
     t_k = {n: {side: time_ms(f, iters=20, warmup=2) for side, f in c.items()} for n, c in calls.items()}
     dev = {n: {side: device_ms(f, calls=10) for side, f in c.items()} for n, c in calls.items()}
+    # K11a's row: the mean a launch over the half-step's blocks
+    t_k["subspace_accumulate"] = {side: t["mean"] for side, t in block_ms.items()}
+    dev["subspace_accumulate"] = {side: t["mean"] for side, t in block_dev.items()}
+    print(f"  K11a by block (ms): {json.dumps(block_ms)}; device ms {json.dumps(block_dev)}; a "
+          f"whole half-step of K11a and K11b: {json.dumps(half_step_ms)}", flush=True)
     Xp = X3.clone()
     plain_ms = {
         "subspace_accumulate_user": time_ms(lambda: k11.subspace_accumulate_plain(
@@ -2868,6 +2999,8 @@ def subspace_train_phase(rng, device):
             "device_pack_dispatch_s", "device_loop_s", "stream_wall_s")},
         "exact_streaming": {key: t_exact[key] for key in ("device_loop_s", "stream_wall_s")},
         "exact_over_subspace_loop": loop_ratio, "hit_rate_at_10": hit, "hit_users": HIT_USERS,
+        "k11a_blocks_ms": block_ms, "k11a_blocks_device_ms": block_dev,
+        "half_step_ms": half_step_ms,
         "ms_per_sweep": t_stream["device_loop_s"] * 1e3 / SWEEPS,
         "loop_wall_ms": loop_wall_ms, "loop_device_ms": loop_device_ms,
         "device_busy_share": loop_device_ms / loop_wall_ms,
@@ -2880,6 +3013,47 @@ def subspace_train_phase(rng, device):
     }
     print("subspace_training " + json.dumps(stats), flush=True)
     return counts, errs, stats, model
+
+
+def k11a_block_times(sides, k, b, compute_dtype="float32", half_step=True):
+    """K11a's times (ms, and device ms) at a half-step's blocks on each side
+    of ``sides`` (side: (H, F, pack, lam, has_obs, G): the counter side's
+    factors, the side's, its pack and K11b's inputs): block 0 (d over all k
+    columns, written to the score buffer), block 1 (d carried and written
+    back) and the last block (carried, not written), with ``mean`` the
+    mean a launch over the nb blocks (blocks 1 to nb-2 do block 1's work);
+    with ``half_step``, a whole half-step of K11a and K11b
+    (``_solve_side_subspace``) a side. The carried blocks read a Δ that
+    block 0's K11b wrote."""
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import subspace as k11
+
+    nb = k // b
+    carry = k11.CarryBuffers([side[2] for side in sides.values()], b)
+    block_ms, block_dev, half_ms = {}, {}, {}
+    for side, (H, F, pack, lam, obs, G) in sides.items():
+        score, delta = carry.views(pack)
+        Fs = F.clone()
+        k11.subspace_block_solve(*k11.subspace_accumulate(H, Fs, pack, 0, b, True, ALPHA,
+                                                          compute_dtype, score),
+                                 Fs, lam, obs, 0, G, delta=delta, compute_dtype=compute_dtype)
+        calls = {
+            "block0": lambda: k11.subspace_accumulate(H, F, pack, 0, b, True, ALPHA,
+                                                      compute_dtype, score),
+            "block1": lambda: k11.subspace_accumulate(H, Fs, pack, b, b, True, ALPHA,
+                                                      compute_dtype, score, delta),
+            "last": lambda: k11.subspace_accumulate(H, Fs, pack, k - b, b, True, ALPHA,
+                                                    compute_dtype, score, delta),
+        }
+        block_ms[side] = {n: time_ms(f, iters=20, warmup=2) for n, f in calls.items()}
+        block_dev[side] = {n: device_ms(f, calls=10) for n, f in calls.items()}
+        for t_side in (block_ms[side], block_dev[side]):
+            t_side["mean"] = (t_side["block0"] + (nb - 2) * t_side["block1"] + t_side["last"]) / nb
+        if half_step:
+            half_ms[side] = time_ms(lambda: als._solve_side_subspace(
+                F.clone(), H, G, pack, lam, obs, ALPHA, True, b, None, compute_dtype, carry),
+                iters=5, warmup=1)
+    return block_ms, block_dev, half_ms
 
 
 def k11a_bound(pack, n_ratings: int, Y_rows: int, k: int, b: int, bf16: bool = False):
@@ -3433,6 +3607,25 @@ def eval_phase(device):
                            "bound": k1_bound(up, len(td0.ratings), R_i, kk)}
     print(f"  K13a (V={V}) by rank and side: {json.dumps(by_rank)}; K1 on one variant, user side: "
           f"{json.dumps(k1_ms)}", flush=True)
+    # K13b (V variants) and K2 (one variant) at both grid ranks on the user
+    # side of sweep 2: the solve sized to the rank (ops/spd_solve.solve_form)
+    solve_by_rank = {}
+    n_obs_u = int(obs_u.sum())
+    for kk, (_, Ys) in swept.items():
+        Ak, bk = k13.normal_eq_variants(Ys, up)
+        Xk0 = torch.zeros((V, R_u, kk), dtype=torch.float32, device=device)
+        f13 = (lambda Ak=Ak, bk=bk, Xk0=Xk0: k13.spd_solve_variants(Ak, bk, lam_u, obs_u, Xk0))
+        f2 = (lambda Ak=Ak, bk=bk, Xk0=Xk0: k2.spd_solve(Ak[0], bk[0], lam_u[0], obs_u, Xk0[0]))
+        solve_by_rank[f"rank{kk}"] = {
+            "form": list(k2.solve_form(kk)),
+            "spd_solve_variants": {"ms": time_ms(f13, iters=20, warmup=2),
+                                   "device_ms": device_ms(f13, calls=10),
+                                   "bound": k13b_bound(R_u, n_obs_u, kk, V)},
+            "spd_solve": {"ms": time_ms(f2, iters=20, warmup=2), "device_ms": device_ms(f2, calls=10),
+                          "bound": k2_bound(R_u, n_obs_u, kk)}}
+        del Ak, bk
+    print(f"  K13b (V={V}) and K2 (one variant) by rank, fold 0 users: {json.dumps(solve_by_rank)}",
+          flush=True)
     stats = {
         "card": card_line(),
         "eval_s": eval_s,
@@ -3451,6 +3644,7 @@ def eval_phase(device):
         "kernel_ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound": bounds,
         "normal_eq_variants_by_rank": by_rank, "normal_eq_fold0_users": k1_ms,
+        "solve_by_rank": solve_by_rank,
     }
     print("evaluation " + json.dumps(stats), flush=True)
     return got, errs, stats, td0
@@ -3766,22 +3960,24 @@ def bf16_train_phase(device, f32_stats):
                                     compute_dtype=BF16)
     Xp3, Yp3 = Xp.clone(), Yp.clone()
     Gy = k12.gramian(Yp)
+    last_p = kp // bp - 1
     check_subspace_half_step(Xp, Yp, up, lam_pu, obs_u, Gy, bp, True, "bf16 subspace user side of "
-                             "sweep 4", errs, {0}, BF16, "gate")
+                             "sweep 4", errs, {0, 1, last_p}, BF16, "gate")
     Gx = k12.gramian(Xp)
     check_subspace_half_step(Yp, Xp, ip, lam_pi, obs_i, Gx, bp, True, "bf16 subspace item side of "
-                             "sweep 4", errs, {0}, BF16, "gate")
-    kernel_ms["subspace_accumulate_bf16"] = {
-        "user": time_ms(lambda: k11.subspace_accumulate(Yp3, Xp3, up, 0, bp, True, ALPHA, BF16),
-                        iters=20, warmup=2),
-        "item": time_ms(lambda: k11.subspace_accumulate(Xp, Yp3, ip, 0, bp, True, ALPHA, BF16),
-                        iters=20, warmup=2)}
-    kernel_ms["subspace_accumulate"] = {
-        "user": time_ms(lambda: k11.subspace_accumulate(Yp3, Xp3, up, 0, bp, True, ALPHA),
-                        iters=20, warmup=2)}
-    dev_ms["subspace_accumulate_bf16"] = {
-        "user": device_ms(lambda: k11.subspace_accumulate(Yp3, Xp3, up, 0, bp, True, ALPHA, BF16),
-                          calls=10)}
+                             "sweep 4", errs, {0, 1, last_p}, BF16, "gate")
+    # K11a-bf16 by block (the mean a launch over the half-step is its row's
+    # time), and the float32 K11a on the user side in the same run
+    sides_p = {"user": (Yp3, Xp3, up, lam_pu, obs_u, k12.gramian(Yp3)),
+               "item": (Xp, Yp3, ip, lam_pi, obs_i, k12.gramian(Xp))}
+    blocks_bf16, blocks_bf16_dev, _ = k11a_block_times(sides_p, kp, bp, BF16, half_step=False)
+    blocks_f32, _, _ = k11a_block_times({"user": sides_p["user"]}, kp, bp, half_step=False)
+    kernel_ms["subspace_accumulate_bf16"] = {side: t["mean"] for side, t in blocks_bf16.items()}
+    kernel_ms["subspace_accumulate"] = {"user": blocks_f32["user"]["mean"]}
+    dev_ms["subspace_accumulate_bf16"] = {"user": blocks_bf16_dev["user"]["mean"]}
+    stats["k11a_bf16_blocks_ms"] = blocks_bf16
+    stats["k11a_bf16_blocks_device_ms"] = blocks_bf16_dev
+    stats["k11a_f32_blocks_ms"] = blocks_f32
     plain_ms["subspace_accumulate_bf16"] = time_ms(lambda: k11.subspace_accumulate_plain(
         Yp3, Xp3, up.seg_rows, up.cols, up.vals, up.rem, R_u, 0, bp, True, ALPHA, BF16),
         iters=3, warmup=1)
@@ -8130,18 +8326,31 @@ def _mesh_train_phase(rng, device, refs, packs):
     X64[n_u:] = 0
     G64 = k12.gramian(Y64)
     X_one, X_mesh = X64.clone(), X64.clone()
+    # the score carried across the blocks: one device's buffers, and a pair
+    # a shard (here block by block, the shards take turns within a block)
+    sc_one, dl_one = k11.CarryBuffers([up], bb).views(up)
+    shard_carry = {s: k11.CarryBuffers([pack], bb).views(pack)
+                   for s, *_, pack in shard_rows(user, R_u)}
     for s0 in range(0, kb, bb):
-        A1, r1_ = k11.subspace_accumulate(Y64, X_one, up, s0, bb, True, ALPHA)
-        k11.subspace_block_solve(A1, r1_, X_one, lam_u, obs_u, s0, G64)
+        first, last = s0 == 0, s0 == kb - bb
+        A1, r1_ = k11.subspace_accumulate(Y64, X_one, up, s0, bb, True, ALPHA, "float32", sc_one,
+                                          None if first else dl_one)
+        k11.subspace_block_solve(A1, r1_, X_one, lam_u, obs_u, s0, G64,
+                                 delta=None if last else dl_one)
         for s, r0, r1, n, pack in shard_rows(user, R_u):
-            A, rv = k11.subspace_accumulate(Y64, X_mesh[r0:r1], pack, s0, bb, True, ALPHA)
+            sc, dl = shard_carry[s]
+            A, rv = k11.subspace_accumulate(Y64, X_mesh[r0:r1], pack, s0, bb, True, ALPHA,
+                                            "float32", sc, None if first else dl)
             if not (bits_equal(A[:n], A1[r0:r0 + n]) and bits_equal(rv[:n], r1_[r0:r0 + n])):
                 raise AssertionError(f"3t: K11a of shard {s}, block {s0 // bb}, differs")
-            k11.subspace_block_solve(A, rv, X_mesh[r0:r1], lam_u[r0:r1], obs_u[r0:r1], s0, G64)
+            k11.subspace_block_solve(A, rv, X_mesh[r0:r1], lam_u[r0:r1], obs_u[r0:r1], s0, G64,
+                                     delta=None if last else dl)
+            if not last and not bits_equal(dl[:n], dl_one[r0:r0 + n]):
+                raise AssertionError(f"3t: K11b's Δ of shard {s}, block {s0 // bb}, differs")
         if not bits_equal(X_mesh, X_one):
             raise AssertionError(f"3t: K11b's rows after block {s0 // bb} differ")
-    print(f"  K11a and K11b at rank {kb}, b = {bb}, every block of a user half-step on {S} "
-          "shards: bit for bit one device's", flush=True)
+    print(f"  K11a (score carried) and K11b at rank {kb}, b = {bb}, every block of a user "
+          f"half-step on {S} shards: bit for bit one device's, Δ too", flush=True)
     # K13a and K13b at 3e's fold-0 shape (rank 16, V = 2)
     td0 = refs["td0"]
     fu, fi, fr = (np.asarray(a) for a in (td0.user_idx, td0.item_idx, td0.ratings))
@@ -8372,16 +8581,35 @@ def _mesh_train_phase(rng, device, refs, packs):
 
     acc = {s: k11.subspace_accumulate(Y64, Xk[r0:r1], p, 0, bb, True, ALPHA)
            for s, r0, r1, _, p in shard_rows(user, R_u)}
-    k11a = k11_shards(lambda r0, r1, p: k11.subspace_accumulate(Y64, Xk[r0:r1], p, 0, bb, True, ALPHA))
+    # K11a by block, the score carried (the Δ the check above left), and the
+    # mean a launch over the half-step, as 3p's row
+    by_start = {r0: s for s, r0, *_ in shard_rows(user, R_u)}
+
+    nbk = kb // bb
+
+    def k11a_at(j, r0, r1, p):
+        sc, dl = shard_carry[by_start[r0]]
+        return k11.subspace_accumulate(Y64, Xk[r0:r1], p, j * bb, bb, True, ALPHA, "float32", sc,
+                                       None if j == 0 else dl)
+
+    k11a_blocks = {}
+    for name, j in (("block0", 0), ("block1", 1), ("last", nbk - 1)):
+        fn = k11_shards(lambda r0, r1, p, j=j: k11a_at(j, r0, r1, p))
+        k11a_blocks[name] = {
+            "shards_ms": time_ms(fn, iters=20, warmup=2),
+            "shards_device_ms": device_ms(fn, calls=5),
+            "one_device_ms": time_ms(lambda j=j: k11.subspace_accumulate(
+                Y64, Xk, up, j * bb, bb, True, ALPHA, "float32", sc_one, None if j == 0 else dl_one),
+                iters=20, warmup=2)}
     times["subspace_accumulate"] = {
-        "shards_ms": time_ms(k11a, iters=20, warmup=2),
-        "shards_device_ms": device_ms(k11a, calls=5),
-        "one_device_ms": time_ms(lambda: k11.subspace_accumulate(Y64, Xk, up, 0, bb, True, ALPHA),
-                                 iters=20, warmup=2),
-        "plain_shards_ms": time_ms(k11_shards(lambda r0, r1, p: k11.subspace_accumulate_plain(
+        key: (k11a_blocks["block0"][key] + (nbk - 2) * k11a_blocks["block1"][key]
+              + k11a_blocks["last"][key]) / nbk
+        for key in ("shards_ms", "shards_device_ms", "one_device_ms")}
+    times["subspace_accumulate"].update(
+        blocks=k11a_blocks,
+        plain_shards_ms=time_ms(k11_shards(lambda r0, r1, p: k11.subspace_accumulate_plain(
             Y64, Xk[r0:r1], p.seg_rows, p.cols, p.vals, p.rem, r1 - r0, 0, bb, True, ALPHA)),
-            iters=2, warmup=1),
-    }
+            iters=2, warmup=1))
     starts = {r0: s for s, r0, *_ in shard_rows(user, R_u)}
     k11b = k11_shards(lambda r0, r1, p: k11.subspace_block_solve(
         *acc[starts[r0]], Xk[r0:r1], lam_u[r0:r1], obs_u[r0:r1], 0, G64))

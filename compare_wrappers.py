@@ -1,4 +1,4 @@
-"""Host time of the K14, K15, K3 and K9m wrappers of two checkouts of the port, part by part, and K13a's time and bits.
+"""Host time of the K14, K15, K3 and K9m wrappers of two checkouts of the port, part by part; K13a's, K13b's and K2's times and bits; K11a's times by block.
 
     python3 compare_wrappers.py OLD_ROOT NEW_ROOT [--out FILE]
 
@@ -44,8 +44,21 @@ fold 0's training ratings drawn as ``DataSource.read_eval`` draws them
 (made once by this process, in a scratch directory, and packed by each
 checkout), the counter side the seeded initial factors of that rank. Each
 gives its CUDA event time and device time and a digest of A's lower
-triangle and of b; the comparison fails where the two checkouts' digests
-differ.
+triangle and of b. On those systems (V = 2 at k = 8, 16 and 32), K13b
+(``spd_solve_variants``) and K2 (``spd_solve`` on variant 0, with the
+telemetry sums), each explicit and with a Gramian G: times and a digest
+of X (and of K2's sums). The comparison fails where the two checkouts'
+digests differ.
+
+Last, K11a (``subspace_accumulate``) at 3p's shape: the user side of
+``chip_smoke.py``'s ML-20M-shaped ratings (made once by this process),
+rank 64, b = 8, implicit, seeded factors. Its time at block 0, block 1 and
+the last block (a checkout that carries the score forms d over all k
+columns at block 0 and carries it after; one that does not forms it in
+every block), the mean a launch over the half-step, and one whole
+half-step of K11a and K11b (``_solve_side_subspace``), whose factors every
+run saves; the comparison fails where a run's factors are not within the
+CPU tests' tolerance (rtol 1e-5, atol 1e-6) of the first run's.
 
 Needs one CUDA card. Prints one JSON line a run and the card's name and
 power limit; ``--out`` also writes every run to a JSON file.
@@ -136,7 +149,8 @@ def measure(root: str, fold0: str) -> dict:
         out[name] = {"host_us": cs.host_breakdown(fn, parts), "ms": cs.time_ms(fn),
                      "device_ms": cs.device_ms(fn, calls=50)}
     return {"root": os.path.abspath(root), "package": k14.__file__, "card": cs.card_line(),
-            "calls": out, "fold0_users": k13a_fold0(cs, device, fold0)}
+            "calls": out, "fold0_users": k13a_fold0(cs, device, fold0),
+            "k11a_3p_users": k11a_3p(cs, device, os.path.dirname(fold0))}
 
 
 def k15b_calls(cs, device, X, y, k15):
@@ -220,6 +234,113 @@ def k13a_fold0(cs, device, fold0: str) -> dict:
                          "device_ms": cs.device_ms(fn, calls=10),
                          "digest": digest(A[..., low[0], low[1]], b)}
             del A, b
+        out.update(solve_fold0(cs, device, k, Y0, up, side, n_u, R_u))
+    return out
+
+
+def solve_fold0(cs, device, k, Y0, up, side, n_u, R_u):
+    """K13b (V = 2) and K2 (variant 0, with its telemetry sums) on fold 0's
+    user systems at rank k, explicit and with each variant's Gramian:
+    times and digests of X."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import grid as k13
+    from predictionio_tpu_torch.ops import spd_solve as k2
+
+    Yv = np.stack([Y0, Y0 * np.float32(0.5)])
+    A, b = k13.normal_eq_variants(torch.from_numpy(Yv).to(device), up)
+    lam = torch.from_numpy(np.stack([
+        als._lam_obs_host(side.counts, n_u, R_u, als.ALSConfig(reg=reg))[0] for reg in (0.05, 0.5)
+    ])).to(device)
+    obs = torch.from_numpy(als._lam_obs_host(side.counts, n_u, R_u, als.ALSConfig())[1]).to(device)
+    X0 = torch.from_numpy(np.random.default_rng(k).standard_normal((2, R_u, k)).astype(np.float32)
+                          * np.float32(0.1)).to(device)
+    G = torch.from_numpy(np.einsum("vnk,vnj->vkj", Yv.astype(np.float64), Yv)
+                         .astype(np.float32)).to(device)
+    sums = torch.zeros(2, dtype=torch.float32, device=device)
+    out = {}
+    for form, Gv in (("", None), (", with G", G)):
+        calls = {
+            f"K13b spd_solve_variants, k = {k}, V = 2{form}": (
+                lambda Gv=Gv: k13.spd_solve_variants(A, b, lam, obs, X0, Gv)),
+            f"K2 spd_solve, k = {k}{form}": (
+                lambda Gv=Gv: k2.spd_solve(A[0], b[0], lam[0], obs, X0[0], sums,
+                                           None if Gv is None else Gv[0])),
+        }
+        for name, fn in calls.items():
+            X = fn()
+            torch.cuda.synchronize()
+            parts = (X, sums) if name.startswith("K2") else (X,)
+            out[name] = {"ms": cs.time_ms(fn, iters=20, warmup=2),
+                         "device_ms": cs.device_ms(fn, calls=10), "digest": digest(*parts)}
+    return out
+
+
+def ml20m_user_ratings(cs, path: str) -> None:
+    """``chip_smoke.py``'s ML-20M-shaped ratings into ``path``."""
+    import numpy as np
+
+    u, i, r = cs.ml20m_ratings()
+    np.savez(path, u=u, i=i, r=r)
+
+
+def k11a_3p(cs, device, data_dir: str) -> dict:
+    """K11a at 3p's shape (the user side, rank 64, b = 8, implicit) by block,
+    the mean a launch over the half-step, and one half-step of K11a and
+    K11b, whose factors go to a file in ``data_dir`` (named in the result)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import subspace as k11
+
+    with np.load(os.path.join(data_dir, "ml20m.npz")) as z:
+        u, i, r = z["u"], z["i"], z["r"]
+    k, b = cs.SUB_RANK, cs.SUB_BLOCK
+    nb = k // b
+    side = als.pack_segments(u, i, r, cs.ML20M_USERS, als.auto_segment_length(u, cs.ML20M_USERS, 128))
+    R_u, R_i = als._padded_rows(cs.ML20M_USERS, 1), als._padded_rows(cs.ML20M_ITEMS, 1)
+    up = als.device_pack(side, R_u, R_i, device)
+    g = np.random.default_rng(64)
+    Y = torch.from_numpy((np.abs(g.standard_normal((R_i, k))) / np.sqrt(k)).astype(np.float32)).to(device)
+    X = torch.from_numpy((g.standard_normal((R_u, k)) / np.sqrt(k)).astype(np.float32)).to(device)
+    cfg = als.ALSConfig(rank=k, reg=cs.REG, implicit_prefs=True, solver="subspace", block_size=b)
+    lam, obs = (torch.from_numpy(a).to(device) for a in als._lam_obs_host(
+        side.counts, cs.ML20M_USERS, R_u, cfg))
+    Yh = Y.cpu().numpy().astype(np.float64)
+    G = torch.from_numpy((Yh.T @ Yh).astype(np.float32)).to(device)
+    if hasattr(k11, "CarryBuffers"):  # block 0 forms the score, later blocks carry it
+        score, delta = k11.CarryBuffers([up], b).views(up)
+        Xs = X.clone()
+        k11.subspace_block_solve(*k11.subspace_accumulate(Y, Xs, up, 0, b, True, cs.ALPHA,
+                                                          "float32", score),
+                                 Xs, lam, obs, 0, G, delta=delta)
+        calls = {
+            "block0": lambda: k11.subspace_accumulate(Y, X, up, 0, b, True, cs.ALPHA, "float32",
+                                                      score),
+            "block1": lambda: k11.subspace_accumulate(Y, Xs, up, b, b, True, cs.ALPHA, "float32",
+                                                      score, delta),
+            "last": lambda: k11.subspace_accumulate(Y, Xs, up, k - b, b, True, cs.ALPHA, "float32",
+                                                    score, delta),
+        }
+    else:  # every block forms d over all k columns
+        calls = {name: (lambda s0=s0: k11.subspace_accumulate(Y, X, up, s0, b, True, cs.ALPHA))
+                 for name, s0 in (("block0", 0), ("block1", b), ("last", k - b))}
+    out = {name: {"ms": cs.time_ms(fn, iters=20, warmup=2), "device_ms": cs.device_ms(fn, calls=10)}
+           for name, fn in calls.items()}
+    out["mean"] = {key: (out["block0"][key] + (nb - 2) * out["block1"][key] + out["last"][key]) / nb
+                   for key in ("ms", "device_ms")}
+
+    def half_step():
+        return als._solve_side_subspace(X.clone(), Y, G, up, lam, obs, cs.ALPHA, True, b)
+
+    factors = half_step().cpu().numpy()
+    out["half_step"] = {"ms": cs.time_ms(half_step, iters=5, warmup=1)}
+    path = os.path.join(data_dir, f"half_step_{os.getpid()}.npy")
+    np.save(path, factors)
+    out["factors"] = path
     return out
 
 
@@ -280,7 +401,9 @@ def main() -> int:
     runs = []
     with tempfile.TemporaryDirectory() as scratch:
         fold0 = os.path.join(scratch, "fold0.npz")
-        fold0_ratings(load_chip_smoke(), fold0)
+        cs = load_chip_smoke()
+        fold0_ratings(cs, fold0)
+        ml20m_user_ratings(cs, os.path.join(scratch, "ml20m.npz"))
         for label, root in (("old", old), ("new", new), ("new", new), ("old", old)):
             done = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root,
                                    "--fold0", fold0], capture_output=True, text=True, timeout=900)
@@ -291,6 +414,21 @@ def main() -> int:
             run["label"] = label
             runs.append(run)
             print(f"{label} " + json.dumps(run), flush=True)
+        # the half-step's factors of every run against the first run's, at
+        # the CPU tests' tolerance (tests/test_torch_subspace.py)
+        import numpy as np
+
+        first = np.load(runs[0]["k11a_3p_users"]["factors"])
+        for run in runs:
+            got = np.load(run["k11a_3p_users"]["factors"])
+            ratio = float(np.max(np.abs(got - first) / (1e-6 + 1e-5 * np.abs(first))))
+            run["k11a_3p_users"]["factors_vs_first_run"] = ratio
+            if ratio > 1.0:
+                raise SystemExit(f"compare_wrappers: the {run['label']} run's half-step factors are "
+                                 f"{ratio:.3g}x the tolerance from the first run's")
+        print("K11a's half-step at 3p's shape: every run's factors within rtol 1e-5, atol 1e-6 of "
+              "the first run's (largest share of the tolerance "
+              f"{max(run['k11a_3p_users']['factors_vs_first_run'] for run in runs):.3g})", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(runs, f, indent=1)
@@ -299,9 +437,10 @@ def main() -> int:
     differ = [name for name, got in runs[0]["fold0_users"].items() if isinstance(got, dict) and
               len({run["fold0_users"][name]["digest"] for run in runs}) != 1]
     if differ:
-        raise SystemExit(f"compare_wrappers: A's lower triangle or b differ between the runs: {differ}")
-    print("K13a and K1 on fold 0's user side: A's lower triangle and b bit for bit in every run",
-          flush=True)
+        raise SystemExit(f"compare_wrappers: A's lower triangle, b or X differ between the runs: "
+                         f"{differ}")
+    print("K13a and K1 on fold 0's user side: A's lower triangle and b bit for bit in every run; "
+          "K13b's and K2's X (and K2's sums) too", flush=True)
     return 0
 
 

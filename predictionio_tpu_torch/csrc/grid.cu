@@ -39,9 +39,13 @@
 // ids, ratings and plan entries come from device memory once and from L2
 // for the other variants; each variant gathers its own factor rows. The
 // multi-group rows' partials and their ordered combine are per variant
-// (blockIdx.z). K13b runs K2's warp-per-system kernels with the variant on
-// blockIdx.y; each block stages its variant's G. Later work: the sized
-// form's row gather, which bounds it at rank 16 with V = 2.
+// (blockIdx.z). K13b runs K2's kernels with the variant on blockIdx.y; each
+// block stages its variant's G. At the grid's ranks that is K2's form sized
+// to the rank (spd_solve.cuh spd_solve_small: a system to a group of 8 or
+// 16 lanes, 4 or 2 systems a warp, 8 a block), every bit the k <= 32
+// form's; its floor is the bytes, ≈0.08 ms at rank 16 and ≈0.03 at rank 8
+// on fold 0's user side with V = 2. Later work: the sized K13a form's row
+// gather, which bounds it at rank 16 with V = 2.
 
 //
 // K13a-bf16 (normal_eq_variants_f32 with bf16 = 1): the grid in the

@@ -20,7 +20,18 @@
 // (R=28,672) ≈0.08 GB, ≈0.024 ms. The k³/3 + 2k² flops per row are ≈1.8
 // GFLOP, ≈0.03 ms at 67 TFLOP/s: it is bound by bytes.
 //
-// Design: one warp per system, in one of two kernels.
+// At the grid's ranks (3e's fold 0 user side, R = 147,456 with V = 2) the
+// bytes are smaller still: k = 16 ≈ 0.08 ms, k = 8 ≈ 0.03 ms.
+//
+// Design: one warp per system (below k = 16: a group of lanes), in one of
+// three kernels.
+//   spd_solve_small (k <= 16: KS = 8 for k <= 8, KS = 16 above; the
+//     evaluation grid's ranks and K2 at those ranks): rows32 below sized to
+//     KS. A group of KS lanes holds a system, 32 / KS systems a warp, 8 a
+//     block; KS pivot steps, shuffles of width KS, identity padding only up
+//     to KS. Every bit of X and of the telemetry sums is rows32's (the
+//     kernel's comment in spd_solve.cuh shows why), with 1/4 (k = 8) or
+//     1/2 (k = 16) of rows32's lanes and about 1/8 or 1/4 of its FMAs.
 //   spd_solve_rows32 (k <= 32, the main path's rank): G, when given, is
 //     staged once per block in shared memory (one 4 KB tile, row stride 33
 //     so a warp's reads of a column hit 32 banks) and added to A as each

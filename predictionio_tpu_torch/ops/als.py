@@ -914,6 +914,7 @@ def _solve_side_subspace(
     block_size: int,
     sums: Optional[torch.Tensor] = None,
     compute_dtype: str = "float32",
+    carry: Optional[_k11.CarryBuffers] = None,
 ) -> torch.Tensor:
     """One iALS++ half-step (the reference's :640): for each column block
     in order, K11a forms the block systems and residuals against the
@@ -921,15 +922,25 @@ def _solve_side_subspace(
     Y, None in explicit mode) and adds the deltas into X in place, so each
     block sees the blocks before it. Rows without observations keep their
     factors. ``sums`` ([n_blocks, 2], one row per block) receives each
-    block's ``Σ δ²`` and, in its last row, ``Σ X²`` of the updated array."""
-    nb = X.shape[1] // block_size
+    block's ``Σ δ²`` and, in its last row, ``Σ X²`` of the updated array.
+    Where the kernels carry each slot's score across the blocks
+    (``subspace.carries``), block 0 writes it to ``carry``'s score buffer,
+    each K11b but the last writes its Δ, and each later K11a carries the
+    score (``ops/subspace.py``); without ``carry`` the buffers are
+    allocated for this half-step."""
+    k, b = X.shape[1], block_size
+    nb = k // b
+    score = delta = None
+    if _k11.carries(k, b):
+        score, delta = (carry or _k11.CarryBuffers([pack], b)).views(pack)
     for j in range(nb):
-        s0 = j * block_size
-        A, r = _k11.subspace_accumulate(Y, X, pack, s0, block_size, implicit, alpha,
-                                        compute_dtype)
+        s0 = j * b
+        A, r = _k11.subspace_accumulate(Y, X, pack, s0, b, implicit, alpha, compute_dtype,
+                                        score, None if j == 0 else delta)
         _k11.subspace_block_solve(
             A, r, X, lam, has_obs, s0, G, None if sums is None else sums[j],
-            last=j == nb - 1,
+            last=j == nb - 1, delta=None if j == nb - 1 else delta,
+            compute_dtype=compute_dtype,
         )
     return X
 
@@ -1118,12 +1129,14 @@ def _half_step_mesh(
     solver: str,
     block_size: int,
     compute_dtype: str,
+    carry: Optional[_k11.CarryBuffers] = None,
 ) -> Replicas:
     """One half-step: G per distinct device (K12a, implicit mode), then
     each shard's rows as one device solves them, K1 + K2 into the shard's
-    range of a new array or K11a/K11b per column block in place, and the
-    rows shared. ``sums`` ([n_blocks, 2]) receives the telemetry's raw
-    sums: one shard's directly, several shards' summed in shard order."""
+    range of a new array or K11a/K11b per column block in place (with
+    ``carry``'s buffers on the shard's device), and the rows shared.
+    ``sums`` ([n_blocks, 2]) receives the telemetry's raw sums: one shard's
+    directly, several shards' summed in shard order."""
     subspace = solver == "subspace"
     nb = X[next(iter(X))].shape[1] // block_size if subspace else 1
     G = {d: _k12.gramian(F[:y_gram_rows]) if implicit else None for d, F in Y.items()}
@@ -1136,7 +1149,7 @@ def _half_step_mesh(
         if subspace:
             _solve_side_subspace(X[dev][r0:r1], Y[dev], G[dev], pack, lam[dev][r0:r1],
                                  has_obs[dev][r0:r1], alpha, implicit, block_size, part,
-                                 compute_dtype)
+                                 compute_dtype, carry)
         else:
             _solve_side(X[dev][r0:r1], Y[dev], pack, lam[dev][r0:r1], has_obs[dev][r0:r1],
                         None if part is None else part[0], G[dev], implicit, alpha,
@@ -1209,6 +1222,10 @@ def _run_iterations_mesh(
     d0 = next(iter(X))
     subspace = solver == "subspace"
     nb = X[d0].shape[1] // block_size if subspace else 1
+    # the carried score's buffers, once for the loop: both sides, every shard
+    carry = (_k11.CarryBuffers([p for side in (user, item) for *_, p in side.shards()],
+                               block_size)
+             if subspace and _k11.carries(X[d0].shape[1], block_size) else None)
     tel = (
         torch.zeros((TELEMETRY_SLOTS * nb, TELEMETRY_COLS), dtype=torch.float32, device=d0)
         if telemetry else None
@@ -1217,10 +1234,10 @@ def _run_iterations_mesh(
         rows = tel[it * nb : (it + 1) * nb] if tel is not None and it < TELEMETRY_SLOTS else None
         X = _half_step_mesh(X, Y, user, user_lam, user_has_obs, item.gram_rows,
                             None if rows is None else rows[:, 0:2], implicit, alpha, solver,
-                            block_size, compute_dtype)
+                            block_size, compute_dtype, carry)
         Y = _half_step_mesh(Y, X, item, item_lam, item_has_obs, user.gram_rows,
                             None if rows is None else rows[:, 2:4], implicit, alpha, solver,
-                            block_size, compute_dtype)
+                            block_size, compute_dtype, carry)
         if rows is not None and implicit:
             _objective_mesh(X, Y, user, item, user_lam, item_lam, alpha, rows[nb - 1, 4:5],
                             compute_dtype)

@@ -16,8 +16,9 @@ its range of the next factor array.
 
 Three forms, one function:
 - the hand-written CUDA kernel for Hopper, ``csrc/spd_solve.cu`` (its
-  header states the bound and the design): one warp per system, in
-  registers for k <= 32 and in shared memory above;
+  header states the bound and the design): in registers for k <= 32, a
+  group of 8 lanes a system for k <= 8 and of 16 for k <= 16, one warp a
+  system to 32, and in shared memory above (``solve_form``);
 - the plain PyTorch twin ``spd_solve_plain``: the reference's vectorized
   in-place Cholesky with fused forward substitution, step by step over
   the whole batch, then back substitution and the select;
@@ -43,6 +44,21 @@ _MAX_K = 200  # the largest k whose per-warp matrix fits in shared memory
 # "spd_solve": kernel launches; "spd_solve_plain": CPU calls the wrapper
 # routed to the plain twin
 LAUNCHES = LaunchCounts("spd_solve", "spd_solve_plain")
+
+
+def solve_form(k: int) -> Tuple[str, int]:
+    """The kernel ``csrc/spd_solve.cuh``'s ``k2::launch`` takes for systems
+    of size k, and the systems a warp holds: ``("small8", 4)`` for k <= 8,
+    ``("small16", 2)`` for k <= 16 (``spd_solve_small``), ``("rows32", 1)``
+    for k <= 32, ``("rows", 1)`` above. K2 and K13b (every variant and row
+    shard) run the same choice."""
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"k={k} out of range [1, {_MAX_K}]")
+    if k <= 8:
+        return "small8", 4
+    if k <= 16:
+        return "small16", 2
+    return ("rows32", 1) if k <= 32 else ("rows", 1)
 
 
 def cholesky_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

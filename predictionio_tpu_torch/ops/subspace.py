@@ -25,6 +25,26 @@ written (Gauss–Seidel). Per block:
   second only after the sweep's ``last`` block (0 otherwise): the raw sums
   of the block's delta RMS and the factor RMS.
 
+The carried score. Between two blocks of a half-step only the previous
+block's columns of X change, so K11a need not form d over all k columns in
+every block. ``_solve_side_subspace`` (``ops/als.py``) holds a score
+buffer (one float32 a slot, shaped like ``pack.vals``) and a Δ buffer
+[R, b], allocated once per training (``CarryBuffers``). Block 0's K11a
+forms d over all k columns and writes it to the score buffer
+(``score=``); K11b writes ``Δ = x_new − x_old`` over its block's columns
+(``delta=``; in bfloat16 compute ``bf16(x_new) − bf16(x_old)``, zeros for
+rows without observations); block j ≥ 1's K11a reads
+``d = score + y[s0−b:s0]·Δ[row]`` (``score=`` and ``delta=``) and writes it
+back, but in the half-step's last block (s0 + b = k), whose score nothing
+reads. In
+exact arithmetic d is unchanged; in float32 it drifts from a full
+recompute by a few roundings a block, which the half-step's factors carry
+within the tolerance the tests hold the port to against the reference
+(rtol 1e-5, atol 1e-6), and the score within 1e-6 of its row's scale. The
+lanes form carries (``carries(k, b)``: k ≤ 64 and b ∈ {1, 2, 4, 8}); the
+groups form (any other k and b) forms d anew in every block and takes no
+buffer. The twins carry the same way, so the CPU runs the same host logic.
+
 Three forms of each, one function:
 - the hand-written CUDA kernels for Hopper, ``csrc/subspace.cu`` (its
   header states the bounds and the design: K1's group plan, fixed-order
@@ -41,7 +61,7 @@ Three forms of each, one function:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -53,6 +73,47 @@ from predictionio_tpu_torch.ops.spd_solve import cholesky_solve_plain
 
 SOURCE = "subspace.cu"
 _MAX_K = 200  # the largest rank the kernels take (a row's x in registers)
+
+# the blocks the lanes form takes; the carried score runs only there
+_LANES_BLOCKS = (1, 2, 4, 8)
+_LANES_MAX_K = 64
+
+
+def carries(k: int, b: int) -> bool:
+    """Whether a half-step of rank ``k`` in blocks of ``b`` carries each
+    slot's score across its blocks (the kernels' lanes form, and more than
+    one block)."""
+    return k <= _LANES_MAX_K and b in _LANES_BLOCKS and k // b > 1
+
+
+class CarryBuffers:
+    """The carried score's buffers of a training: per device one flat
+    float32 score buffer and one flat Δ buffer, each sized for the largest
+    pack (slots) and side (rows) that device solves, and handed out as
+    views shaped for each pack (``views``). Every half-step on a device
+    runs in its stream's order, so one pair serves both sides and every row
+    shard there. Zeros at first: the twins read a padded slot's score
+    (its weights are 0), and never a value that is not a number."""
+
+    def __init__(self, packs: Sequence[SegmentPack], b: int):
+        self.b = b
+        sizes = {}
+        for p in packs:
+            slots, rows = sizes.get(p.vals.device, (0, 0))
+            sizes[p.vals.device] = (max(slots, p.vals.numel()), max(rows, p.n_sys_rows))
+        self._bufs = {
+            d: (torch.zeros(slots, dtype=torch.float32, device=d),
+                torch.zeros(rows * b, dtype=torch.float32, device=d))
+            for d, (slots, rows) in sizes.items()
+        }
+
+    def views(self, pack: SegmentPack) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(score shaped like ``pack.vals``, Δ [R, b]) on the pack's device."""
+        score, delta = self._bufs[pack.vals.device]
+        R = pack.n_sys_rows
+        return (score[: pack.vals.numel()].view(pack.vals.shape),
+                delta[: R * self.b].view(R, self.b))
+
 
 LAUNCHES = LaunchCounts(
     "subspace_accumulate", "subspace_combine", "subspace_block_solve",
@@ -74,12 +135,17 @@ def subspace_accumulate_plain(
     implicit: bool = False,
     alpha: float = 1.0,
     compute_dtype: str = "float32",
+    score: Optional[torch.Tensor] = None,
+    delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin, the reference's block loop (:704-724): per chunk,
     gather ``Y[cols]``, score every slot against its row's current factors,
     weigh, two einsums over the block's columns, and a scatter-add of the
     segments into A [R, b, b] and r [R, b]. In bfloat16 compute y, x and
-    the two weights are rounded where the reference casts them."""
+    the two weights are rounded where the reference casts them. With
+    ``score`` and ``delta`` the score is carried (the module docstring):
+    ``d = score + y[s0−b:s0]·Δ[row]``, written back but in the last block;
+    with ``score`` alone it is formed and written there."""
     bf16 = is_bf16(compute_dtype)
     Y = in_cdt(Y, bf16)
     L = cols.shape[-1]
@@ -91,7 +157,12 @@ def subspace_accumulate_plain(
         mask = (iota[None, :] < rem[c][:, None]).to(torch.float32)
         Yg = Y[cols[c].long()]  # [Sc, L, k]
         Yb = Yg[:, :, s0 : s0 + b]
-        d = torch.einsum("slk,sk->sl", Yg, in_cdt(X[rows_c], bf16))
+        if delta is None:
+            d = torch.einsum("slk,sk->sl", Yg, in_cdt(X[rows_c], bf16))
+        else:
+            d = score[c] + torch.einsum("slb,sb->sl", Yg[:, :, s0 - b : s0], delta[rows_c])
+        if score is not None and s0 + b < Y.shape[1]:
+            score[c] = d
         if implicit:
             aw = alpha * vals[c].abs() * mask
             bw = (vals[c] > 0).to(torch.float32) * mask * (1.0 + alpha * vals[c].abs())
@@ -110,11 +181,15 @@ def subspace_block_solve_plain(
     has_obs: torch.Tensor,
     s0: int,
     G: Optional[torch.Tensor] = None,
+    delta: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain twin, the reference's block epilogue (:725-737): X with
-    the block updated in place, and ``[Σ δ², Σ X²]``."""
+    the block updated in place, and ``[Σ δ², Σ X²]``; given ``delta``
+    ([R, b]), the block's change of X written there (the module
+    docstring)."""
     b = A.shape[-1]
-    xB = X[:, s0 : s0 + b]
+    xB = X[:, s0 : s0 + b].clone()
     rs = r
     if G is not None:
         GB = G[s0 : s0 + b]  # [b, k]
@@ -122,22 +197,26 @@ def subspace_block_solve_plain(
         rs = rs - X @ GB.T  # (G x)_B: G is symmetric
     A = A + lam[:, None, None] * torch.eye(b, dtype=torch.float32, device=A.device)
     rs = rs - lam[:, None] * xB
-    delta = cholesky_solve_plain(A, rs)
-    delta = torch.where(has_obs[:, None], delta, torch.zeros_like(delta))
-    X[:, s0 : s0 + b] = xB + delta
-    return X, torch.stack([torch.sum(delta * delta), torch.sum(X * X)])
+    step = torch.where(has_obs[:, None], cholesky_solve_plain(A, rs), torch.zeros_like(xB))
+    x_new = xB + step
+    X[:, s0 : s0 + b] = x_new
+    if delta is not None:
+        bf16 = is_bf16(compute_dtype)
+        delta.copy_(in_cdt(x_new, bf16) - in_cdt(xB, bf16))
+    return X, torch.stack([torch.sum(step * step), torch.sum(X * X)])
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.subspace_accumulate_f32.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
         + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.subspace_accumulate_f32.restype = ctypes.c_int
     lib.subspace_solve_blocks.argtypes = [ctypes.c_int] * 2
     lib.subspace_solve_blocks.restype = ctypes.c_int
-    lib.subspace_block_solve_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    lib.subspace_block_solve_f32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     lib.subspace_block_solve_f32.restype = ctypes.c_int
@@ -167,11 +246,19 @@ def subspace_accumulate(
     implicit: bool = False,
     alpha: float = 1.0,
     compute_dtype: str = "float32",
+    score: Optional[torch.Tensor] = None,
+    delta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11a: A [R, b, b] and r [R, b] float32 of the column block
     [s0, s0 + b) for the side ``pack`` (R = ``pack.n_sys_rows``) against
     the counter-side factors ``Y`` [n, k] and the side's current factors
-    ``X`` [R, k], in ``compute_dtype`` (``"bfloat16"``: K11a-bf16).
+    ``X`` [R, k], in ``compute_dtype`` (``"bfloat16"``: K11a-bf16). With
+    ``score`` (float32 shaped like ``pack.vals``) each slot's score is
+    written there (block 0); with ``score`` and ``delta`` ([R, b], the
+    previous block's change of X as K11b writes it; s0 ≥ b) it is carried
+    instead, and written back but in the half-step's last block (the module
+    docstring).
+    Only where ``carries(k, b)``.
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
@@ -185,7 +272,17 @@ def subspace_accumulate(
             f"X {tuple(X.shape)} / Y {tuple(Y.shape)} do not match the pack "
             f"({R} rows, ids below {pack.n_cols})"
         )
-    tensors = (X, pack.seg_rows, pack.cols, pack.vals, pack.rem)
+    tensors = [X, pack.seg_rows, pack.cols, pack.vals, pack.rem]
+    if score is not None or delta is not None:
+        if not carries(k, b):
+            raise ValueError(f"rank {k} in blocks of {b} carries no score")
+        if score is None or tuple(score.shape) != tuple(pack.vals.shape) or (
+                score.dtype != torch.float32):
+            raise ValueError(f"score must be a float32 tensor of {tuple(pack.vals.shape)}")
+        if delta is not None and (tuple(delta.shape) != (R, b) or delta.dtype != torch.float32
+                                  or s0 < b):
+            raise ValueError(f"delta must be a float32 [{R}, {b}] tensor, after block 0")
+        tensors += [t for t in (score, delta) if t is not None]
     if any(t.device != Y.device for t in tensors):
         raise ValueError("all tensors must be on one device")
     bf16 = is_bf16(compute_dtype)
@@ -194,12 +291,12 @@ def subspace_accumulate(
         LAUNCHES.add(f"{name}_plain")
         return subspace_accumulate_plain(
             Y, X, pack.seg_rows, pack.cols, pack.vals, pack.rem, R, s0, b, implicit, alpha,
-            compute_dtype,
+            compute_dtype, score, delta,
         )
     if Y.device.type != "cuda":
         raise ValueError(f"unsupported device {Y.device}")
-    if not (Y.is_contiguous() and X.is_contiguous()):
-        raise ValueError("X and Y must be contiguous (row-major)")
+    if not all(t.is_contiguous() for t in [Y, X] + [t for t in (score, delta) if t is not None]):
+        raise ValueError("X, Y, score and delta must be contiguous (row-major)")
     lib = load_library()
     plan = pack.plan
     A = torch.empty((R, b, b), dtype=torch.float32, device=Y.device)
@@ -215,7 +312,9 @@ def subspace_accumulate(
             pack.rem.data_ptr(), plan.groups.data_ptr(), plan.groups.shape[1],
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(), n_combine,
             partials.data_ptr(), A.data_ptr(), r.data_ptr(), k, pack.cols.shape[-1],
-            s0, b, int(bool(implicit)), float(alpha), int(bf16), stream,
+            s0, b, int(bool(implicit)), float(alpha), int(bf16),
+            score.data_ptr() if score is not None else None,
+            delta.data_ptr() if delta is not None else None, int(s0 + b < k), stream,
         )
     _LIBRARY.check(err, name)
     LAUNCHES.add(name)
@@ -234,10 +333,14 @@ def subspace_block_solve(
     G: Optional[torch.Tensor] = None,
     sums: Optional[torch.Tensor] = None,
     last: bool = False,
+    delta: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """K11b on A [R, b, b], r [R, b], X [R, k] (updated in place and
     returned), lam [R] float32, has_obs [R] bool and an optional G [k, k];
-    see the module docstring.
+    see the module docstring. Given ``delta`` ([R, b] float32) it writes
+    the block's change of X there, in ``compute_dtype`` (the carried
+    score's Δ).
 
     CPU tensors go to the plain twin. CUDA tensors go to the kernel, which
     must build and launch or this raises."""
@@ -258,12 +361,15 @@ def subspace_block_solve(
         raise ValueError(f"G must be a [{k}, {k}] float32 tensor")
     if sums is not None and (sums.shape != (2,) or sums.dtype != torch.float32):
         raise ValueError("sums must be a float32 tensor of 2 elements")
-    tensors = [r, X, lam, has_obs] + [t for t in (G, sums) if t is not None]
+    if delta is not None and (tuple(delta.shape) != (R, b) or delta.dtype != torch.float32):
+        raise ValueError(f"delta must be a float32 [{R}, {b}] tensor")
+    bf16 = is_bf16(compute_dtype)
+    tensors = [r, X, lam, has_obs] + [t for t in (G, sums, delta) if t is not None]
     if any(t.device != A.device for t in tensors):
         raise ValueError("all tensors must be on one device")
     if A.device.type == "cpu":
         LAUNCHES.add("subspace_block_solve_plain")
-        _, s = subspace_block_solve_plain(A, r, X, lam, has_obs, s0, G)
+        _, s = subspace_block_solve_plain(A, r, X, lam, has_obs, s0, G, delta, compute_dtype)
         if sums is not None:
             sums[0] = s[0]
             sums[1] = s[1] if last else 0.0
@@ -285,7 +391,8 @@ def subspace_block_solve(
             lam.data_ptr(), has_obs.data_ptr(), X.data_ptr(),
             partials.data_ptr() if partials is not None else None,
             sums.data_ptr() if sums is not None else None,
-            R, k, s0, b, int(bool(last)), stream,
+            delta.data_ptr() if delta is not None else None,
+            R, k, s0, b, int(bool(last)), int(bf16), stream,
         )
     _LIBRARY.check(err, "subspace_block_solve")
     LAUNCHES.add("subspace_block_solve")
