@@ -1151,17 +1151,23 @@ def check_half_step(X_prev, Y, pack, lam, has_obs, label, errs, implicit=False,
     return X1
 
 
+MMA_RANKS = (17, 20, 24, 31, 32)  # K1's warp-MMA form (17 <= k <= 32), both modes
+
+
 def check_k1_sizes(rng, device, errs):
-    """K1 on random packs at edge ranks (its three forms: k <= 16, k <= 32
-    and above), with a row of many segments and an empty row, against its
-    twin."""
+    """K1 on random packs at edge ranks (its three forms: k <= 16, the
+    warp-MMA form at 17 <= k <= 32 and the block form above), with a row of
+    many segments and an empty row, against its twin; at MMA_RANKS in
+    implicit mode too, and against a second launch, bit for bit. (b's bits
+    against the CUDA-core form the MMA form replaced: compare_wrappers.py,
+    which builds the parent checkout.)"""
     import numpy as np
     import torch
 
     from predictionio_tpu_torch.ops import als
     from predictionio_tpu_torch.ops import normal_eq as k1
 
-    for k in (1, 7, 8, 16, 17, 32, 33, 70):
+    for k in (1, 7, 8, 16, 17, 20, 24, 31, 32, 33, 70):
         n_rows, n_cols, nnz = 300, 200, 60_000
         u = rng.integers(0, n_rows, nnz).astype(np.int32)
         u[: nnz // 3] = 2  # many segments: partials and a combine
@@ -1172,13 +1178,22 @@ def check_k1_sizes(rng, device, errs):
         R, n_y = als._padded_rows(n_rows, 1), als._padded_rows(n_cols, 1)
         pack = als.device_pack(side, R, n_y, device)
         Y = torch.from_numpy(rng.normal(size=(n_y, k)).astype(np.float32)).to(device)
-        A, b = k1.normal_eq(Y, pack)
-        A2, b2 = k1.normal_eq_plain(Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R)
-        ea, eb = check_k1(A, b, A2, b2, pack, f"k={k}", errs)
-        if A[5].any() or b[5].any():
-            raise AssertionError(f"K1 k={k}: an empty row is not zero")
-        print(f"  K1 k={k}: {pack.plan.n_partials} partials, max |dA| {ea:.3g} "
-              f"|db| {eb:.3g} ok", flush=True)
+        for implicit in (False, True) if k in MMA_RANKS else (False,):
+            label = f"k={k}{' implicit' if implicit else ''}"
+            A, b = k1.normal_eq(Y, pack, implicit, ALPHA)
+            A2, b2 = k1.normal_eq_plain(Y, pack.seg_rows, pack.cols, pack.vals, pack.rem, R,
+                                        implicit, ALPHA)
+            ea, eb = check_k1(A, b, A2, b2, pack, label, errs, implicit, ALPHA)
+            if A[5].any() or b[5].any():
+                raise AssertionError(f"K1 {label}: an empty row is not zero")
+            again = ""
+            if k in MMA_RANKS:
+                A_again, b_again = k1.normal_eq(Y, pack, implicit, ALPHA)
+                if not (bits_equal(A, A_again) and bits_equal(b, b_again)):
+                    raise AssertionError(f"K1 {label}: a second launch differs")
+                again = ", a second launch bit for bit"
+            print(f"  K1 {label}: {pack.plan.n_partials} partials, max |dA| {ea:.3g} "
+                  f"|db| {eb:.3g}{again} ok", flush=True)
 
 
 def check_k2_sizes(rng, device, errs):
@@ -1260,7 +1275,7 @@ def check_k13(Y, pack, lam, has_obs, X_prev, implicit, label, errs, alpha=1.0,
 
 def check_k13_sizes(rng, device, errs):
     """K13a and K13b on random packs (a row of many segments, an empty row,
-    dislikes in implicit mode) at k in {1, 8, 16, 24, 33} (K1's three
+    dislikes in implicit mode) at k in {1, 8, 16, 24, 32, 33} (K1's three
     forms), V in {1, 2, 3, 4, 5} (at k = 16 with V = 4 and at k = 8 with
     V = 5 a group's variants take two warps), explicit and implicit, through
     ``check_k13``."""
@@ -1281,6 +1296,7 @@ def check_k13_sizes(rng, device, errs):
     has_obs = torch.from_numpy(np.r_[side.counts, np.zeros(R - n_rows, np.int32)] > 0).to(device)
     for k, V, implicit in ((1, 2, False), (8, 1, False), (8, 2, True), (16, 3, False),
                            (16, 2, True), (16, 4, True), (8, 5, False), (24, 2, False),
+                           (24, 3, False), (24, 3, True), (32, 2, False), (32, 2, True),
                            (33, 2, False), (33, 3, True)):
         Y = torch.from_numpy(rng.normal(size=(V, n_y, k)).astype(np.float32) * 0.3).to(device)
         X_prev = torch.from_numpy(rng.normal(size=(V, R, k)).astype(np.float32)).to(device)
@@ -3663,8 +3679,9 @@ def check_bf16_sizes(rng, device, errs):
     empty row; ratings off the bfloat16 grid, half steps plus 0.2, and in
     implicit mode a tenth dislikes), against their twins' bfloat16 forms
     and against a second launch, bit for bit: K1-bf16 at k in {1, 7, 8,
-    16, 32, 33, 70} (K1's three forms) at K1_RTOL of each row's scale; K13a-bf16
-    bit for bit against K1-bf16 per variant (V = 2, 3); K11a-bf16 at k in
+    16, 17, 20, 24, 31, 32, 33, 70} (K1's three forms) at K1_RTOL of each
+    row's scale; K13a-bf16 bit for bit against K1-bf16 per variant (V = 2,
+    3; the warp-MMA form at (24, 3) and (32, 2), both modes); K11a-bf16 at k in
     {8, 32, 64} x b in {1, 2, 8, k} (both forms) at K1_RTOL plus the
     rounding-flip allowance; K12b-bf16 at k in {8, 32} at OBJ_RTOL. Each
     also differs from its float32 form: the rounding happens."""
@@ -3691,7 +3708,7 @@ def check_bf16_sizes(rng, device, errs):
     def normal(*shape, scale=1.0):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
 
-    for k in (1, 7, 8, 16, 32, 33, 70):
+    for k in (1, 7, 8, 16, *MMA_RANKS, 33, 70):
         Y = normal(n_y, k)
         for implicit in (False, True):
             pack = packs[implicit]
@@ -3710,7 +3727,8 @@ def check_bf16_sizes(rng, device, errs):
                 raise AssertionError(f"{label}: equal to the float32 form")
             print(f"  {label}: max |dA| {ea:.3g} |db| {eb:.3g} against the twin; float32 form "
                   f"{gap:.3g} away ok", flush=True)
-    for k, V, implicit in ((8, 2, False), (16, 2, True), (33, 3, False)):
+    for k, V, implicit in ((8, 2, False), (16, 2, True), (24, 3, False), (24, 3, True),
+                           (32, 2, False), (32, 2, True), (33, 3, False)):
         Y = normal(V, n_y, k, scale=0.3)
         X_prev = normal(V, R, k)
         lam = torch.from_numpy(rng.uniform(0.5, 2.5, (V, R)).astype(np.float32)).to(device)

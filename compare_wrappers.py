@@ -1,4 +1,4 @@
-"""Host time of the K14, K15, K3 and K9m wrappers of two checkouts of the port, part by part; K13a's, K13b's and K2's times and bits; K11a's times by block.
+"""Host time of the K14, K15, K3 and K9m wrappers of two checkouts of the port, part by part; K13a's, K13b's and K2's times and bits; K11a's times by block; K1's and K1-bf16's times, A and b at rank 32.
 
     python3 compare_wrappers.py OLD_ROOT NEW_ROOT [--out FILE]
 
@@ -44,11 +44,24 @@ fold 0's training ratings drawn as ``DataSource.read_eval`` draws them
 (made once by this process, in a scratch directory, and packed by each
 checkout), the counter side the seeded initial factors of that rank. Each
 gives its CUDA event time and device time and a digest of A's lower
-triangle and of b. On those systems (V = 2 at k = 8, 16 and 32), K13b
-(``spd_solve_variants``) and K2 (``spd_solve`` on variant 0, with the
-telemetry sums), each explicit and with a Gramian G: times and a digest
-of X (and of K2's sums). The comparison fails where the two checkouts'
-digests differ.
+triangle and of b, and a digest of b alone. On the first run's systems
+(V = 2 at k = 8, 16 and 32, saved by that run and read by the others, so
+every run solves the same systems), K13b (``spd_solve_variants``) and K2
+(``spd_solve`` on variant 0, with the telemetry sums), each explicit and
+with a Gramian G: times and a digest of X (and of K2's sums). The
+comparison fails where the two checkouts' digests differ, except A at
+k = 32 (K1's warp-MMA form), where b's digest is compared and A's distance
+is measured on phase 3's sides (below).
+
+Then K1 and K1-bf16 (``normal_eq``) on phase 3's user and item sides
+(``chip_smoke.py``'s ML-20M-shaped ratings through ``build_host_wire`` and
+``device_pack_from_wire``, made once by this process and packed by each
+checkout) at rank 32, explicit and implicit (alpha 1), against seeded
+standard-normal factors over sqrt(32): device time, a digest of b, and A's
+largest distance from the first run's A over the row's scale (its largest
+diagonal entry). The comparison fails where b's digest differs from the
+first run's, or where A lies outside chip_smoke.py's K1_RTOL (1e-4 of the
+row's scale, plus 1e-6) of the first run's in any row.
 
 Last, K11a (``subspace_accumulate``) at 3p's shape: the user side of
 ``chip_smoke.py``'s ML-20M-shaped ratings (made once by this process),
@@ -148,9 +161,11 @@ def measure(root: str, fold0: str) -> dict:
         parts = [p for p in cs.wrapper_parts(module) if hasattr(p[1], p[2])]
         out[name] = {"host_us": cs.host_breakdown(fn, parts), "ms": cs.time_ms(fn),
                      "device_ms": cs.device_ms(fn, calls=50)}
+    data_dir = os.path.dirname(fold0)
     return {"root": os.path.abspath(root), "package": k14.__file__, "card": cs.card_line(),
             "calls": out, "fold0_users": k13a_fold0(cs, device, fold0),
-            "k11a_3p_users": k11a_3p(cs, device, os.path.dirname(fold0))}
+            "k11a_3p_users": k11a_3p(cs, device, data_dir),
+            "k1_phase3_rank32": k1_phase3(cs, device, data_dir)}
 
 
 def k15b_calls(cs, device, X, y, k15):
@@ -203,7 +218,7 @@ def digest(*tensors) -> str:
 
 def k13a_fold0(cs, device, fold0: str) -> dict:
     """K13a (V = 2) at ranks 8 and 16 and K1 at k = 8, 16 and 32 on fold 0's
-    user side: times and digests of A's lower triangle and b."""
+    user side: times, digests of A's lower triangle and b, and of b."""
     import numpy as np
     import torch
 
@@ -232,16 +247,17 @@ def k13a_fold0(cs, device, fold0: str) -> dict:
             torch.cuda.synchronize()
             out[name] = {"ms": cs.time_ms(fn, iters=20, warmup=2),
                          "device_ms": cs.device_ms(fn, calls=10),
-                         "digest": digest(A[..., low[0], low[1]], b)}
+                         "digest": digest(A[..., low[0], low[1]], b), "b_digest": digest(b)}
             del A, b
-        out.update(solve_fold0(cs, device, k, Y0, up, side, n_u, R_u))
+        out.update(solve_fold0(cs, device, k, Y0, up, side, n_u, R_u, os.path.dirname(fold0)))
     return out
 
 
-def solve_fold0(cs, device, k, Y0, up, side, n_u, R_u):
+def solve_fold0(cs, device, k, Y0, up, side, n_u, R_u, data_dir):
     """K13b (V = 2) and K2 (variant 0, with its telemetry sums) on fold 0's
     user systems at rank k, explicit and with each variant's Gramian:
-    times and digests of X."""
+    times and digests of X. The systems are the first run's K13a systems
+    (saved in ``data_dir``), so every run solves the same ones."""
     import numpy as np
     import torch
 
@@ -250,7 +266,12 @@ def solve_fold0(cs, device, k, Y0, up, side, n_u, R_u):
     from predictionio_tpu_torch.ops import spd_solve as k2
 
     Yv = np.stack([Y0, Y0 * np.float32(0.5)])
-    A, b = k13.normal_eq_variants(torch.from_numpy(Yv).to(device), up)
+    systems = os.path.join(data_dir, f"fold0_systems_k{k}.npz")
+    if not os.path.exists(systems):
+        A, b = k13.normal_eq_variants(torch.from_numpy(Yv).to(device), up)
+        np.savez(systems, A=A.cpu().numpy(), b=b.cpu().numpy())
+    with np.load(systems) as z:
+        A, b = torch.from_numpy(z["A"]).to(device), torch.from_numpy(z["b"]).to(device)
     lam = torch.from_numpy(np.stack([
         als._lam_obs_host(side.counts, n_u, R_u, als.ALSConfig(reg=reg))[0] for reg in (0.05, 0.5)
     ])).to(device)
@@ -344,6 +365,53 @@ def k11a_3p(cs, device, data_dir: str) -> dict:
     return out
 
 
+def k1_phase3(cs, device, data_dir: str) -> dict:
+    """K1 and K1-bf16 at rank 32 on phase 3's user and item sides (the
+    ratings of ``ml20m.npz`` in ``data_dir``), explicit and implicit: device
+    ms, b's digest, and A's distance from the first run's A (saved in
+    ``data_dir`` by that run)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops import normal_eq as k1
+
+    with np.load(os.path.join(data_dir, "ml20m.npz")) as z:
+        u, i, r = z["u"], z["i"], z["r"]
+    k = cs.RANK
+    config = als.ALSConfig(rank=k, iterations=cs.SWEEPS, reg=cs.REG)
+    wire = als.build_host_wire(u, i, r, cs.ML20M_USERS, cs.ML20M_ITEMS, config)
+    up, ip = als.device_pack_from_wire(wire, device)
+    g = np.random.default_rng(32)
+    X = torch.from_numpy((g.standard_normal((up.n_sys_rows, k)) / np.sqrt(k)).astype(np.float32)).to(device)
+    Y = torch.from_numpy((g.standard_normal((ip.n_sys_rows, k)) / np.sqrt(k)).astype(np.float32)).to(device)
+    low = torch.tril_indices(k, k, device=device)
+    out = {"segment_length": {"user": int(up.cols.shape[-1]), "item": int(ip.cols.shape[-1])}}
+    for side, factors, pack in (("user", Y, up), ("item", X, ip)):
+        for compute_dtype in ("float32", "bfloat16"):
+            for implicit in (False, True):
+                name = f"{side} {compute_dtype} {'implicit' if implicit else 'explicit'}"
+
+                def fn(factors=factors, pack=pack, implicit=implicit, compute_dtype=compute_dtype):
+                    return k1.normal_eq(factors, pack, implicit, cs.ALPHA, compute_dtype)
+
+                A, b = fn()
+                torch.cuda.synchronize()
+                entry = {"device_ms": cs.device_ms(fn, calls=10), "b_digest": digest(b)}
+                lower = A[:, low[0], low[1]]
+                first = os.path.join(data_dir, f"phase3_A_{name.replace(' ', '_')}.npy")
+                if not os.path.exists(first):
+                    np.save(first, lower.cpu().numpy())
+                A0 = torch.from_numpy(np.load(first)).to(device)
+                diag = A0[:, (low[0] == low[1]).nonzero()[:, 0]].amax(dim=1)
+                dA = (lower - A0).abs().amax(dim=1)
+                entry["max_dA_over_row_scale"] = (dA / diag.clamp_min(1e-30)).max().item()
+                entry["max_dA_over_limit"] = (dA / (1e-6 + cs.K1_RTOL * diag)).max().item()
+                out[name] = entry
+                del A, b, lower, A0
+    return out
+
+
 def k3_calls(cs, rng, device, mesh, factors, k3, ServingFactors):
     """K3's and K3s's calls at B = 128, n = 16, the query rows uploaded."""
     import numpy as np
@@ -433,14 +501,32 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(runs, f, indent=1)
     print(runs[-1]["card"], flush=True)
-    # K13a's and K1's bits: every run's digests must be the same
+    # K13a's and K1's bits: every run's digests must be the same, but for A
+    # at rank 32 (K1's warp-MMA form), held to K1_RTOL of the first run's
+    rank32 = [name for name in runs[0]["fold0_users"] if name.startswith("K1 normal_eq, k = 32")]
     differ = [name for name, got in runs[0]["fold0_users"].items() if isinstance(got, dict) and
+              name not in rank32 and
               len({run["fold0_users"][name]["digest"] for run in runs}) != 1]
+    differ += [name for name in rank32
+               if len({run["fold0_users"][name]["b_digest"] for run in runs}) != 1]
     if differ:
         raise SystemExit(f"compare_wrappers: A's lower triangle, b or X differ between the runs: "
                          f"{differ}")
-    print("K13a and K1 on fold 0's user side: A's lower triangle and b bit for bit in every run; "
-          "K13b's and K2's X (and K2's sums) too", flush=True)
+    print("K13a and K1 on fold 0's user side: A's lower triangle and b bit for bit in every run "
+          "(K1 at k = 32: b); K13b's and K2's X (and K2's sums) too", flush=True)
+    phase3 = [name for name in runs[0]["k1_phase3_rank32"] if name != "segment_length"]
+    b_differ = [name for name in phase3
+                if len({run["k1_phase3_rank32"][name]["b_digest"] for run in runs}) != 1]
+    outside = [(run["label"], name, run["k1_phase3_rank32"][name]["max_dA_over_limit"])
+               for run in runs for name in phase3
+               if run["k1_phase3_rank32"][name]["max_dA_over_limit"] > 1.0]
+    if b_differ or outside:
+        raise SystemExit(f"compare_wrappers: K1 at rank 32 on phase 3's sides: b differs in "
+                         f"{b_differ}; A outside K1_RTOL of the first run's: {outside}")
+    print("K1 and K1-bf16 at rank 32 on phase 3's sides: b bit for bit in every run; A within "
+          "K1_RTOL of the first run's (largest share of the limit "
+          f"{max(run['k1_phase3_rank32'][n]['max_dA_over_limit'] for run in runs for n in phase3):.3g})",
+          flush=True)
     return 0
 
 

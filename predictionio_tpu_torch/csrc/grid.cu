@@ -34,8 +34,9 @@
 // more variants take more warps a group), loads the group's column ids and
 // ratings once for all of them and gathers each variant's rows into tiles
 // k wide; its lanes own the lower triangle and b of every variant, each
-// entry summed in K1's order. Above k = 16 a group's V variants run in
-// neighbouring blocks (block = group block · V + v), so the group's column
+// entry summed in K1's order. Above k = 16 (K1's warp-MMA form to k = 32,
+// its block form above) a group's V variants run in neighbouring blocks
+// (block = group block · V + v), so the group's column
 // ids, ratings and plan entries come from device memory once and from L2
 // for the other variants; each variant gathers its own factor rows. The
 // multi-group rows' partials and their ordered combine are per variant
@@ -70,21 +71,23 @@ extern "C" {
 // [V, R, k] and partials [V, max(P, 1), k·k + k] are allocated by the
 // caller, which checks shapes, dtypes, devices, id ranges and
 // 1 <= k <= 1024, and builds the plan as for K1 (normal_eq_f32). bf16 != 0
-// runs K13a-bf16. small is the k <= 16 form's lane plan for V variants
+// runs K13a-bf16, with Yh the [V, y_rows, kh] bfloat16 copy of Y as
+// normal_eq_f32 takes it (kh = k rounded up to 8), read at 17 <= k <= 32
+// only. small is the k <= 16 form's lane plan for V variants
 // (ops/normal_eq.py small_form_plan), read only at k <= 16.
-int normal_eq_variants_f32(const float* Y, const int* cols,
+int normal_eq_variants_f32(const float* Y, const void* Yh, const int* cols,
                            const float* vals, const int* rem,
                            const int* groups, int n_groups, const int* c_rows,
                            const int* c_start, int n_combine, float* partials,
                            float* A, float* b, int k, int L, int implicit,
                            float alpha, int V, long long y_stride, int R,
                            int P, int bf16, const int* small, cudaStream_t stream) {
-  return (int)(bf16 ? k1::launch<true, true>(Y, cols, vals, rem, groups,
+  return (int)(bf16 ? k1::launch<true, true>(Y, Yh, cols, vals, rem, groups,
                                              n_groups, c_rows, c_start,
                                              n_combine, partials, A, b, k, L,
                                              implicit, alpha, V, y_stride, R,
                                              P, small, stream)
-                    : k1::launch<true, false>(Y, cols, vals, rem, groups,
+                    : k1::launch<true, false>(Y, Yh, cols, vals, rem, groups,
                                               n_groups, c_rows, c_start,
                                               n_combine, partials, A, b, k, L,
                                               implicit, alpha, V, y_stride, R,

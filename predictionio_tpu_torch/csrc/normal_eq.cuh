@@ -4,11 +4,13 @@
 // exactly K1's order. normal_eq.cu launches them with V = 1; grid.cu's
 // K13a (the regularizer grid) with V variants. Three forms by rank:
 // normal_eq_small (k <= 16: sized to the rank, a group's variants in one
-// warp, lanes on the lower triangle and b only), normal_eq_groups32
-// (k <= 32: padded to 32 x 32, a variant's group a warp) and
-// normal_eq_groups (k > 32: a block a group). BF16 is the reference's
-// bfloat16 compute (bf16.cuh): each gathered row is rounded as it lands in
-// shared memory, and the weights where the reference casts them.
+// warp, lanes on the lower triangle and b only), normal_eq_mma
+// (17 <= k <= 32: A from warp MMAs on bfloat16-split operands, a variant's
+// group a warp) and normal_eq_groups (k > 32: a block a group). BF16 is
+// the reference's bfloat16 compute (bf16.cuh): the weights are rounded
+// where the reference casts them, and the rows once: normal_eq_mma
+// gathers the caller's bfloat16 copy of Y, the other forms round each
+// gathered row as it lands in shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,7 +24,6 @@ constexpr int THREADS = 256;
 constexpr int CH = 64;  // gathered slots staged per round
 constexpr int COMBINE_THREADS = 256;
 constexpr int RED = 20;  // floats a thread hands over in the slot-group sum
-constexpr int WARPS32 = 4;  // warps (= groups) per block of the k <= 32 form
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
 
@@ -178,7 +179,7 @@ __global__ void __launch_bounds__(THREADS) normal_eq_groups(
   }
 }
 
-// A chunk of up to 32 slots of one segment, as the k <= 32 form walks a
+// A chunk of up to 32 slots of one segment, as the k <= 16 form walks a
 // group: lane l holds slot l's column id and b's weight (explicit: the
 // rating), and in implicit mode A's weight, both in the compute type.
 struct Chunk {
@@ -224,109 +225,354 @@ __device__ __forceinline__ void next_of(const Chunk& ch,
   }
 }
 
-// Gather a chunk's Y rows into a shared tile without staging them in
-// registers (cp.async, 4 bytes a lane, zero-filled past k).
-__device__ __forceinline__ void gather_async(float (*tile)[32],
-                                             const float* __restrict__ Y,
-                                             const Chunk& ch, int k,
-                                             int lane) {
-  for (int q = 0; q < ch.c; ++q) {
-    const int col = __shfl_sync(FULL, ch.col, q);
-    const float* src = Y + (long long)col * k + (lane < k ? lane : 0);
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(&tile[q][lane]);
-    const int bytes = lane < k ? 4 : 0;
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(bytes));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+// 17 <= k <= 32: the warp-MMA form (normal_eq.cu's header gives its design
+// and its exactness argument). A block of one warp per group, so a block
+// ends with its group; rows staged in two shared tiles, one multiplied
+// while the next lands.
+constexpr int MMA_STAGES = 2;
+constexpr int LDF = 36;  // floats between staged float32 rows (16-byte rows, conflict-free reads)
+constexpr int LDH = 40;  // entries between staged bfloat16 rows (80 bytes)
+
+// (x0, x1) rounded to bfloat16 (nearest, ties to even), packed x0 low: an
+// MMA operand register holding two consecutive slots
+__device__ __forceinline__ unsigned pack_bf16(float x0, float x1) {
+  unsigned p;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(p) : "f"(x1), "f"(x0));
+  return p;
+}
+__device__ __forceinline__ float bf16_lo(unsigned p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned p) { return __uint_as_float(p & 0xffff0000u); }
+
+// x = h + m + l exactly, each a packed bfloat16 pair (both subtractions are
+// exact; normal_eq.cu states the range)
+__device__ __forceinline__ void split3(float x0, float x1, unsigned& h, unsigned& m,
+                                       unsigned& l) {
+  h = pack_bf16(x0, x1);
+  const float r0 = x0 - bf16_lo(h), r1 = x1 - bf16_hi(h);
+  m = pack_bf16(r0, r1);
+  l = pack_bf16(r0 - bf16_lo(m), r1 - bf16_hi(m));
 }
 
-// k <= 32: one warp per group, no block barrier. Rows are padded to 32
-// with zeros; lane l owns the 4x8 tile (rows 4·(l/4).., columns 8·(l%4)..)
-// of the 32x32 square and row l of b. Two shared tiles per warp: while the
-// warp multiplies one chunk, the next one's rows are in flight, and the
-// column ids of the one after are loading.
+// x = h + l exactly where x has at most 16 significant bits (the product
+// of two bfloat16 values)
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& h, unsigned& l) {
+  h = pack_bf16(x0, x1);
+  l = pack_bf16(x0 - bf16_lo(h), x1 - bf16_hi(h));
+}
+
+// d += a·b over one m16n8k16 tile: a 16 x 16 and b 16 x 8 bfloat16, d float32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The products of a chunk's sums, (part of w_a·y, part of y), small first.
+// float32: y = h + m + l and w_a·y the same (explicit: the same parts),
+// all but the three smallest products; bfloat16 explicit: y alone;
+// implicit: w_a·y = hi + lo exactly.
+template <bool IMPLICIT, bool BF16>
+struct MmaParts {
+  static constexpr int NB = BF16 ? 1 : 3;           // parts of y
+  static constexpr int NA = BF16 ? (IMPLICIT ? 2 : 1) : 3;  // parts of w_a·y
+  static constexpr int NP = BF16 ? NA : 6;          // products
+  // one-warp blocks resident an SM, a register cap: the bfloat16 forms
+  // run faster at 21 (<= 96 registers), float32 explicit at 18, float32
+  // implicit uncapped (more blocks spill it)
+  static constexpr int MIN_BLOCKS = BF16 ? 21 : IMPLICIT ? 1 : 18;
+  __device__ static constexpr int a(int p) {
+    return BF16 ? NA - 1 - p : (p == 0 ? 2 : p == 1 ? 0 : p == 2 ? 1 : p == 3 ? 1 : 0);
+  }
+  __device__ static constexpr int b(int p) {
+    return BF16 ? 0 : (p == 0 ? 0 : p == 1 ? 2 : p == 2 ? 1 : p == 3 ? 0 : p == 4 ? 1 : 0);
+  }
+};
+
+// A chunk of up to 32 slots of one segment as the warp-MMA form walks a
+// group: s is the segment's index in the group; lane l holds slot l's
+// column id and rating as loaded.
+struct MmaChunk {
+  int s, l0, c;  // segment, first slot, slot count (0: past the group)
+  int col;
+  float v;
+};
+
+// The m16n8 tiles that touch A's lower triangle in a 32 x 32 square: m-tile
+// 0 against n-tiles 0-1, m-tile 1 against n-tiles 0-3 (tile 5 only past
+// k = 24).
+constexpr int MMA_TILES = 6;
+__device__ __forceinline__ constexpr int tile_m(int t) { return t < 2 ? 0 : 1; }
+__device__ __forceinline__ constexpr int tile_n(int t) { return t < 2 ? t : t - 2; }
+
 template <bool IMPLICIT, bool VARIANTS, bool BF16>
-__global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
-    const float* __restrict__ Y, const int* __restrict__ cols,
-    const float* __restrict__ vals, const int* __restrict__ rem,
-    const int* __restrict__ groups, int n_groups,
-    float* __restrict__ partials, float* __restrict__ A,
-    float* __restrict__ b, int k, int L, float alpha, int V,
-    long long y_stride, int R, int P) {
-  __shared__ __align__(16) float ys[WARPS32][2][32][32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(32, MmaParts<IMPLICIT, BF16>::MIN_BLOCKS) normal_eq_mma(
+    const float* __restrict__ Y, const unsigned short* __restrict__ Yh, int kh,
+    long long yh_stride, const int* __restrict__ cols, const float* __restrict__ vals,
+    const int* __restrict__ rem, const int* __restrict__ groups, int n_groups,
+    float* __restrict__ partials, float* __restrict__ A, float* __restrict__ b, int k, int L,
+    float alpha, int V, long long y_stride, int R, int P, int vec) {
+  using Parts = MmaParts<IMPLICIT, BF16>;
+  constexpr int S = MMA_STAGES;
+  // a staged chunk: 32 rows of Y (float32) or of its bfloat16 copy
+  constexpr int TILE = BF16 ? 32 * LDH * 2 : 32 * LDF * 4;
+  static_assert(S * TILE >= 32 * LDF * 4, "the output square fits the staged tiles");
+  __shared__ __align__(16) unsigned char tiles[S * TILE];
+  __shared__ __align__(16) float wts[2][32];  // the chunk's w_b and w_a, read as broadcasts
+  const int lane = threadIdx.x;
   // variants side by side, as in normal_eq_groups
-  const int g = (VARIANTS ? blockIdx.x / V : blockIdx.x) * WARPS32 + warp;
-  if (g >= n_groups) return;
+  const int g = VARIANTS ? blockIdx.x / V : blockIdx.x;
   if constexpr (VARIANTS) {
     const int var = blockIdx.x % V;
     Y += var * y_stride;
+    Yh += var * yh_stride;
     partials += (long long)var * P * (k * k + k);
     A += (long long)var * R * k * k;
     b += (long long)var * R * k;
   }
   const int row = groups[g];
   const int seg0 = groups[n_groups + g];
-  const int s_end = seg0 + groups[2 * n_groups + g];
+  const int nseg = groups[2 * n_groups + g];
   const int slot = groups[3 * n_groups + g];
-  const int ti = lane >> 2;
-  const int tj = lane & 3;
+  const int fr = lane >> 2;  // the lane's fragment row (an MMA "group")
+  const int fc = lane & 3;   // and column pair
 
-  float acc[4][8];
+  // zeros past k: a row gather writes only its own entries
+  {
+    float4* z = reinterpret_cast<float4*>(tiles);
+    for (int e = lane; e < S * TILE / 16; e += 32) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncwarp();
+  }
+
+  // the group's segment lengths, segment q's in lane q (a plan group has
+  // GROUP_SEGMENTS = 8; past 32 the walk reads rem itself)
+  const int my_rem = lane < nseg ? rem[seg0 + lane] : 0;
+  auto rem_of = [&](int si) { return si < 32 ? __shfl_sync(FULL, my_rem, si) : rem[seg0 + si]; };
+  // the chunk at (segment si of the group, slot l0): its slot count, and
+  // lane l's slot's column id and rating as loaded (the weights are formed
+  // where they are used, so nothing waits on these loads until then)
+  auto load = [&](int si, int l0) {
+    MmaChunk ch{si, l0, 0, 0, 0.f};
+    if (si < nseg) {
+      ch.c = min(32, rem_of(si) - l0);
+      if (lane < ch.c) {
+        const long long at = (long long)(seg0 + si) * L + l0 + lane;
+        ch.col = cols[at];
+        ch.v = vals[at];
+      }
+    }
+    return ch;
+  };
+  // the position after a chunk with slots
+  auto advance = [&](const MmaChunk& ch, int& si, int& l0) {
+    si = ch.s;
+    l0 = ch.l0 + 32;
+    if (l0 >= rem_of(si)) {
+      ++si;
+      l0 = 0;
+    }
+  };
+
+  // Y's entry (slot q, feature f) of a staged chunk, widened to float
+  auto at = [&](const unsigned char* tile, int q, int f) -> float {
+    if constexpr (BF16) {
+      return __uint_as_float((unsigned)reinterpret_cast<const unsigned short*>(tile)[q * LDH + f]
+                             << 16);
+    } else {
+      return reinterpret_cast<const float*>(tile)[q * LDF + f];
+    }
+  };
+
+  // a chunk's rows into a tile with cp.async, as one commit group (empty
+  // past the group's last chunk); the rows past the chunk's slots are
+  // zero-filled, so a chunk's 32 rows are summed whole. 16 bytes a lane
+  // (bfloat16 rows always, kh a multiple of 8; float32 rows where k is a
+  // multiple of 4), else 4 bytes a lane, zero-filled past k.
+  auto gather = [&](unsigned char* tile, const MmaChunk& ch) {
+    if (ch.c) {
+      if (BF16 || vec) {
+        constexpr int LPR = BF16 ? 4 : 8;  // lanes a row, 16 bytes each
+        constexpr int PER = BF16 ? 8 : 4;  // entries a piece
+        const int piece = lane & (LPR - 1);
+        const bool copier = piece * PER < (BF16 ? kh : k);
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
+        for (int q0 = 0; q0 < 32; q0 += 32 / LPR) {
+          const int q = q0 + lane / LPR;
+          const int col = __shfl_sync(FULL, ch.col, q);
+          if (copier) {
+            const bool real = q < ch.c;
+            const unsigned dst = (unsigned)__cvta_generic_to_shared(
+                tile + (BF16 ? (q * LDH + piece * PER) * 2 : (q * LDF + piece * PER) * 4));
+            const long long row = real ? col : 0;
+            const void* src = BF16 ? (const void*)(Yh + row * kh + piece * PER)
+                                   : (const void*)(Y + row * k + piece * PER);
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                         "r"(real ? 16 : 0));
+          }
+        }
+      } else {
+        for (int q = 0; q < 32; ++q) {
+          const int col = __shfl_sync(FULL, ch.col, q);
+          const bool real = q < ch.c && lane < k;
+          const float* src = Y + (real ? (long long)col * k + lane : 0);
+          const unsigned dst = (unsigned)__cvta_generic_to_shared(tile + (q * LDF + lane) * 4);
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                       "r"(real ? 4 : 0));
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[MMA_TILES][4];
 #pragma unroll
-    for (int z = 0; z < 8; ++z) acc[x][z] = 0.f;
+  for (int t = 0; t < MMA_TILES; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
   }
   float bl = 0.f;
+  const int n_tiles = k > 24 ? MMA_TILES : MMA_TILES - 1;
 
-  int s = 0, l0 = 0;
-  Chunk cur = load_chunk<IMPLICIT, BF16>(cols, vals, rem, seg0, 0, s_end, L, lane, alpha);
-  if (cur.c) gather_async(ys[warp][0], Y, cur, k, lane);
-  Chunk nxt{s_end, 0, 0, 0, 0.f, 0.f};
-  if (cur.c) {
-    next_of(cur, rem, s, l0);
-    nxt = load_chunk<IMPLICIT, BF16>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
+  // q[0] is multiplied while the rows of q[1..S-1] land (q[S-1]'s asked for
+  // at the top of the loop) and the ids and ratings of q[S] load
+  MmaChunk q[S + 1];
+  int si = 0, l0 = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    q[j] = load(si, l0);
+    if (q[j].c) advance(q[j], si, l0);
   }
-  for (int n = 0; cur.c; ++n) {
-    Chunk after{s_end, 0, 0, 0, 0.f, 0.f};
-    if (nxt.c) {
-      gather_async(ys[warp][(n + 1) & 1], Y, nxt, k, lane);
-      next_of(nxt, rem, s, l0);
-      after = load_chunk<IMPLICIT, BF16>(cols, vals, rem, s, l0, s_end, L, lane, alpha);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    float(*sy)[32] = ys[warp][n & 1];
-    if constexpr (BF16) {  // each lane rounds the column its own copies wrote
-      for (int q = 0; q < cur.c; ++q) sy[q][lane] = round_bf16(sy[q][lane]);
-    }
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) gather(tiles + j * TILE, q[j]);
+  int put = S - 1, take = 0;  // the tiles the next gather fills and this chunk reads
+  while (q[0].c) {
+    gather(tiles + put * TILE, q[S - 1]);
+    q[S] = load(si, l0);
+    if (q[S].c) advance(q[S], si, l0);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 1));
     __syncwarp();
-    for (int q = 0; q < cur.c; ++q) {
-      const float4 a = *reinterpret_cast<const float4*>(&sy[q][ti * 4]);
-      const float4 y0 = *reinterpret_cast<const float4*>(&sy[q][tj * 8]);
-      const float4 y1 = *reinterpret_cast<const float4*>(&sy[q][tj * 8 + 4]);
-      float av[4] = {a.x, a.y, a.z, a.w};  // w_a·y (explicit: y)
-      if constexpr (IMPLICIT) {
-        const float w = __shfl_sync(FULL, cur.w, q);
-#pragma unroll
-        for (int x = 0; x < 4; ++x) av[x] *= w;
+    const unsigned char* tile = tiles + take * TILE;
+    const MmaChunk& cur = q[0];
+    // the slots' weights in the compute type (0 past the chunk)
+    {
+      float wa = 0.f, wb = 0.f;
+      if (lane < cur.c) {
+        if constexpr (IMPLICIT) {
+          const float cv = alpha * fabsf(cur.v);
+          wa = in_cdt<BF16>(cv);
+          wb = in_cdt<BF16>(cur.v > 0.f ? 1.f + cv : 0.f);
+        } else {
+          wb = in_cdt<BF16>(cur.v);
+        }
       }
-      const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+      wts[0][lane] = wb;
+      wts[1][lane] = wa;
+      __syncwarp();
+    }
+
+    // b on the CUDA cores: lane i sums w_b·y_i over the slots in order; a
+    // zero-filled slot past the chunk adds fmaf(0, 0, b) = b, so the loop
+    // has no branch and its loads run ahead of the chain
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
+    for (int qq = 0; qq < 32; ++qq) bl = fmaf(wts[0][qq], at(tile, qq, lane), bl);
+
+    // A: this chunk's products into fresh fragments (M = i, N = j, K = the
+    // slots), then added to the running sums
+    float d[MMA_TILES][4];
 #pragma unroll
-        for (int z = 0; z < 8; ++z) acc[x][z] = fmaf(av[x], yv[z], acc[x][z]);
+    for (int t = 0; t < MMA_TILES; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[t][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      if (16 * ks >= cur.c) break;
+      // the lane's slots 16ks + 2fc + {0, 1} (r = 0) and + {8, 9} (r = 1),
+      // at features fr + 8·nt (slots past the chunk are zero rows)
+      unsigned yb[Parts::NB][4][2];  // y's parts, packed slot pairs
+      unsigned wy[Parts::NA][4][2];  // w_a·y's parts (implicit)
+      if constexpr (BF16) {
+        // the staged bits are the operand's: each ldmatrix.trans hands the
+        // warp four 8 x 8 blocks (slots x features) as packed slot pairs
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int m = lane >> 3;  // the block whose row this lane addresses
+          const unsigned addr = (unsigned)__cvta_generic_to_shared(
+              tile + ((16 * ks + 8 * (m & 1) + (lane & 7)) * LDH + 8 * (2 * p + (m >> 1))) * 2);
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(yb[0][2 * p][0]), "=r"(yb[0][2 * p][1]), "=r"(yb[0][2 * p + 1][0]),
+                         "=r"(yb[0][2 * p + 1][1])
+                       : "r"(addr));
+        }
+        if constexpr (IMPLICIT) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int qs = 16 * ks + 2 * fc + 8 * r;
+            const float w0 = wts[1][qs], w1 = wts[1][qs + 1];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              split2(__fmul_rn(w0, bf16_lo(yb[0][nt][r])), __fmul_rn(w1, bf16_hi(yb[0][nt][r])),
+                     wy[0][nt][r], wy[1][nt][r]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qs = 16 * ks + 2 * fc + 8 * r;
+          float w0 = 1.f, w1 = 1.f;
+          if constexpr (IMPLICIT) {
+            w0 = wts[1][qs];
+            w1 = wts[1][qs + 1];
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int f = fr + 8 * nt;
+            const float y0 = at(tile, qs, f);
+            const float y1 = at(tile, qs + 1, f);
+            split3(y0, y1, yb[0][nt][r], yb[1][nt][r], yb[2][nt][r]);
+            if constexpr (IMPLICIT) split3(__fmul_rn(w0, y0), __fmul_rn(w1, y1), wy[0][nt][r],
+                                           wy[1][nt][r], wy[2][nt][r]);
+          }
+        }
       }
-      bl = fmaf(__shfl_sync(FULL, cur.v, q), sy[q][lane], bl);
+      // operand A's parts: w_a·y's, or y's own where w_a = 1
+      auto a_part = [&](int pa) -> const unsigned(&)[4][2] {
+        if constexpr (IMPLICIT) {
+          return wy[pa];
+        } else {
+          return yb[pa];
+        }
+      };
+      // product after product, each over the tiles: neighbouring MMAs
+      // into different fragments
+#pragma unroll
+      for (int p = 0; p < Parts::NP; ++p) {
+        const unsigned(&op)[4][2] = a_part(Parts::a(p));
+        const int pb = Parts::b(p);
+#pragma unroll
+        for (int t = 0; t < MMA_TILES; ++t) {
+          if (t < n_tiles) {
+            // operand A's rows 16mt + fr (+ 8), its columns the slot pairs
+            const int mt = tile_m(t), nt = tile_n(t);
+            mma_bf16(d[t], op[2 * mt][0], op[2 * mt + 1][0], op[2 * mt][1], op[2 * mt + 1][1],
+                     yb[pb][nt][0], yb[pb][nt][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < MMA_TILES; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] += d[t][e];
     }
     __syncwarp();  // this tile's readers are done before it is refilled
-    cur = nxt;
-    nxt = after;
+#pragma unroll
+    for (int j = 0; j < S; ++j) q[j] = q[j + 1];
+    put = put + 1 == S ? 0 : put + 1;
+    take = take + 1 == S ? 0 : take + 1;
   }
+  asm volatile("cp.async.wait_group 0;\n" ::);  // the empty groups past the last chunk
 
   float* dA;
   float* db;
@@ -337,22 +583,32 @@ __global__ void __launch_bounds__(32 * WARPS32) normal_eq_groups32(
     dA = partials + (long long)slot * (k * k + k);
     db = dA + k * k;
   }
-  // through a shared tile, so the stores to A are coalesced
-  float(*sy)[32] = ys[warp][0];
+  // the lower triangle and its mirror through a shared square over the
+  // tiles (every copy has landed), so the stores to A are coalesced
+  __syncwarp();
+  float* sq = reinterpret_cast<float*>(tiles);  // [32][LDF]
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    float4* dst = reinterpret_cast<float4*>(&sy[ti * 4 + x][tj * 8]);
-    dst[0] = make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
-    dst[1] = make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
+  for (int t = 0; t < MMA_TILES; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 16 * tile_m(t) + fr + 8 * (e >> 1);
+      const int j = 8 * tile_n(t) + 2 * fc + (e & 1);
+      if (i >= j) {
+        sq[i * LDF + j] = acc[t][e];
+        sq[j * LDF + i] = acc[t][e];
+      }
+    }
   }
   __syncwarp();
-  if (k == 32) {  // A's rows are the tile's rows: 256 float4, 8 a lane
-    const float4* src = reinterpret_cast<const float4*>(&sy[0][0]);
+  if (k == 32) {  // A's rows are the square's rows: 256 float4, 8 a lane
     float4* out = reinterpret_cast<float4*>(dA);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) out[q * 32 + lane] = src[q * 32 + lane];
+    for (int e8 = 0; e8 < 8; ++e8) {
+      const int e = e8 * 32 + lane;
+      out[e] = *reinterpret_cast<const float4*>(sq + (e >> 3) * LDF + 4 * (e & 7));
+    }
   } else {
-    for (int e = lane; e < k * k; e += 32) dA[e] = sy[e / k][e % k];
+    for (int e = lane; e < k * k; e += 32) dA[e] = sq[(e / k) * LDF + e % k];
   }
   if (lane < k) db[lane] = bl;
 }
@@ -615,7 +871,7 @@ __global__ void __launch_bounds__(COMBINE_THREADS) normal_eq_combine(
 }
 
 template <bool IMPLICIT, bool VARIANTS, bool BF16>
-cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
+cudaError_t launch_groups(const float* Y, const void* Yh, const int* cols, const float* vals,
                           const int* rem, const int* groups, int n_groups,
                           float* partials, float* A, float* b, int k, int L,
                           float alpha, int V, long long y_stride, int R, int P,
@@ -625,10 +881,21 @@ cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
                                         k, L, alpha, V, y_stride, R, P, small, stream);
   }
   if (k <= 32) {
-    normal_eq_groups32<IMPLICIT, VARIANTS, BF16>
-        <<<((n_groups + WARPS32 - 1) / WARPS32) * V, 32 * WARPS32, 0, stream>>>(
-            Y, cols, vals, rem, groups, n_groups, partials, A, b, k, L, alpha,
-            V, y_stride, R, P);
+    // the bfloat16 rows: [V, n, kh], kh = k rounded up to 8, 16-byte aligned
+    const int kh = (k + 7) & ~7;
+    long long yh_stride = 0;
+    if constexpr (BF16) {
+      if (Yh == nullptr || reinterpret_cast<unsigned long long>(Yh) % 16 != 0 || y_stride % k != 0)
+        return cudaErrorInvalidValue;
+      yh_stride = y_stride / k * kh;
+    }
+    const int vec = (k % 4 == 0) && (reinterpret_cast<unsigned long long>(Y) % 16 == 0) &&
+                    (y_stride % 4 == 0);
+    const long long blocks = (long long)n_groups * V;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    normal_eq_mma<IMPLICIT, VARIANTS, BF16><<<(unsigned)blocks, 32, 0, stream>>>(
+        Y, static_cast<const unsigned short*>(Yh), kh, yh_stride, cols, vals, rem, groups,
+        n_groups, partials, A, b, k, L, alpha, V, y_stride, R, P, vec);
     return cudaGetLastError();
   }
   const int T = (k + 3) / 4;
@@ -654,11 +921,14 @@ cudaError_t launch_groups(const float* Y, const int* cols, const float* vals,
 // Variant v reads Y + v·y_stride and writes A + v·R·k², b + v·R·k and
 // its P partial slots at partials + v·P·(k²+k). The plan is shared;
 // `small` is the k <= 16 form's lane plan ({U, VW, lane[32]}; unread
-// above k = 16). VARIANTS = false (K1: V = 1) compiles the larger forms'
+// above k = 16). Yh is Y rounded to bfloat16 with rows padded with zeros
+// to kh = k rounded up to 8 entries, variant v at Yh + v·(y_stride/k)·kh,
+// 16-byte aligned: read (and required) only where BF16 and
+// 17 <= k <= 32. VARIANTS = false (K1: V = 1) compiles the larger forms'
 // group kernels without the variant arithmetic; BF16 computes in the
 // reference's bfloat16.
 template <bool VARIANTS, bool BF16>
-cudaError_t launch(const float* Y, const int* cols, const float* vals,
+cudaError_t launch(const float* Y, const void* Yh, const int* cols, const float* vals,
                    const int* rem, const int* groups, int n_groups,
                    const int* c_rows, const int* c_start, int n_combine,
                    float* partials, float* A, float* b, int k, int L,
@@ -666,11 +936,11 @@ cudaError_t launch(const float* Y, const int* cols, const float* vals,
                    int P, const int* small, cudaStream_t stream) {
   cudaError_t err =
       implicit
-          ? launch_groups<true, VARIANTS, BF16>(Y, cols, vals, rem, groups,
+          ? launch_groups<true, VARIANTS, BF16>(Y, Yh, cols, vals, rem, groups,
                                                 n_groups, partials, A, b, k,
                                                 L, alpha, V, y_stride, R, P,
                                                 small, stream)
-          : launch_groups<false, VARIANTS, BF16>(Y, cols, vals, rem, groups,
+          : launch_groups<false, VARIANTS, BF16>(Y, Yh, cols, vals, rem, groups,
                                                  n_groups, partials, A, b, k,
                                                  L, alpha, V, y_stride, R, P,
                                                  small, stream);

@@ -90,7 +90,7 @@ def spd_solve_variants_plain(
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.normal_eq_variants_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
+    lib.normal_eq_variants_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [
         ctypes.c_void_p
     ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -147,9 +147,11 @@ def normal_eq_variants(
     A = torch.empty((V, R, k, k), dtype=torch.float32, device=Y.device)
     b = torch.empty((V, R, k), dtype=torch.float32, device=Y.device)
     partials = torch.empty((V, P, k * k + k), dtype=torch.float32, device=Y.device)
+    Yh = _k1.bf16_rows(Y) if bf16 else None
     with torch.cuda.device(Y.device):
         err = lib.normal_eq_variants_f32(
-            Y.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(),
+            Y.data_ptr(), None if Yh is None else Yh.data_ptr(),
+            pack.cols.data_ptr(), pack.vals.data_ptr(),
             pack.rem.data_ptr(), plan.groups.data_ptr(), plan.groups.shape[1],
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(),
             plan.combine_rows.shape[0], partials.data_ptr(), A.data_ptr(),

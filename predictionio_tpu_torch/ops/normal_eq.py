@@ -27,7 +27,11 @@ Three forms, one function:
   many blocks and combined in a fixed order, never with atomics. At
   k <= 16 it runs a form sized to the rank, whose lanes own the lower
   triangle and b by the plan ``small_form_plan(k, V)`` builds (the kernel
-  reads that plan as it is: ``SmallFormPlan.cells``);
+  reads that plan as it is: ``SmallFormPlan.cells``); at 17 <= k <= 32 it
+  forms A with warp MMAs on bfloat16 parts of the rows (float32: three
+  parts a value, exact, six products; K1-bf16: the rows of
+  ``bf16_rows(Y)``, one product, two in implicit mode), b on the CUDA
+  cores;
 - the plain PyTorch twin ``normal_eq_plain``, the reference's chunked
   gather + einsum + scatter-add, which takes the segments as they are;
 - the wrapper ``normal_eq``, which routes CPU tensors to the twin and CUDA
@@ -318,8 +322,25 @@ def small_plan_address(k: int, V: int) -> Optional[int]:
     return small_form_plan(k, V).cells.buffer_info()[0] if k <= SMALL_MAX_K else None
 
 
+MMA_MIN_K, MMA_MAX_K = 17, 32  # the ranks of the warp-MMA form
+
+
+def bf16_rows(Y: torch.Tensor) -> Optional[torch.Tensor]:
+    """K1-bf16's rows for the warp-MMA form: ``Y`` ([n, k] or [V, n, k])
+    rounded to bfloat16 once, as the reference's :506 casts Y before its
+    einsum, with each row padded with zeros to a multiple of 8 entries
+    (16 bytes). None outside ``MMA_MIN_K <= k <= MMA_MAX_K``, where the
+    kernels round each gathered row themselves."""
+    k = Y.shape[-1]
+    if not MMA_MIN_K <= k <= MMA_MAX_K:
+        return None
+    Yh = Y.to(torch.bfloat16)
+    pad = -k % 8
+    return torch.nn.functional.pad(Yh, (0, pad)) if pad else Yh
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.normal_eq_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
+    lib.normal_eq_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [
         ctypes.c_void_p
     ] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p
@@ -382,10 +403,12 @@ def normal_eq(
     partials = torch.empty(
         (max(plan.n_partials, 1), k * k + k), dtype=torch.float32, device=Y.device
     )
+    Yh = bf16_rows(Y) if bf16 else None
     with torch.cuda.device(Y.device):
         stream = torch.cuda.current_stream(Y.device).cuda_stream
         err = lib.normal_eq_f32(
-            Y.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(),
+            Y.data_ptr(), None if Yh is None else Yh.data_ptr(),
+            pack.cols.data_ptr(), pack.vals.data_ptr(),
             pack.rem.data_ptr(), plan.groups.data_ptr(), plan.groups.shape[1],
             plan.combine_rows.data_ptr(), plan.combine_start.data_ptr(),
             plan.combine_rows.shape[0], partials.data_ptr(), A.data_ptr(),
